@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (no phase catches and carries on):
+
+1. device: the card's name and power limit;
+2. build: every CUDA kernel of the port from ``kernels/csrc/`` (one
+   ``nvcc`` per source, in parallel), with ptxas' resource report;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   over a shape grid, and timed at the shapes the service gives it
+   beside its plain version, a library call where one exists, and its
+   bound (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, whichever
+   is larger: the H100 SXM data-sheet peaks at its 700 W power limit);
+4. main path: the buffered-async service at the full width of
+   ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
+   learned priors, L=5 clients, the ``buffered_async`` preset) — a few
+   sweeps of ``run_traffic`` with inference, ``shutdown`` and
+   ``evaluate`` — with every kernel's launch count zeroed before and
+   read after; each kernel must have launched once per aggregation /
+   held-out batch, and params and the held-out ELBO must be finite;
+5. profile: a second service on the same corpus under
+   ``torch.profiler`` — the device's busy share and its top kernels;
+6. agreement: a small service run on the card and on the CPU (the plain
+   path the CPU tests hold against the JAX reference) from the same
+   weights, within the repo's 1e-5 bound.
+
+The line before the last is the ``{"kernels": [...]}`` JSON; the last is
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
+when no CUDA device is visible or the port's sources are not beside it.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM data-sheet peaks at the 700 W power limit
+H100_BYTES_PER_S = 3.35e12        # HBM3
+H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+
+# the paper's corpus depth (10 000 train + 1 000 validation docs per
+# node); training depth is cut to a few traffic sweeps; widths never are
+DOCS_PER_NODE, VAL_DOCS_PER_NODE, SWEEPS = 10_000, 1_000, 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of one call by CUDA events around ``iters`` back-to-back
+    calls: device time plus any gap the host leaves between launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call: the durations of every kernel, copy
+    and fill it ran, from a ``torch.profiler`` trace of ``iters`` calls.
+    A trace with no device time is a failure, not a zero."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        smi = f"nvidia-smi unavailable ({e})"
+    log(f"device: {name} x{torch.cuda.device_count()}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    # IEEE fp32 everywhere: the 1e-5 anchors assume no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return name
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{', '.join(_build.SOURCES)} (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name, entry in logs.items():
+        for line in str(entry["log"]).splitlines():
+            if "registers" in line or "bytes stack" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def phase_kernels():
+    """Kernel vs plain on the card over the grid; timings at the service's
+    shapes.  Returns the per-kernel records (launches filled in later)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_aggregate import fed_weighted_sum_cuda
+    from repro_torch.kernels.topic_decoder import topic_decoder_cuda
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+
+    # -- B2: Eq. (2) numerator -------------------------------------------
+    err_b2 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 2, 5, 16):
+            for d in (1, 129, 4097, 775_500):
+                x = torch.randn(k, d, generator=g)
+                w = torch.rand(k, generator=g) * 2.0
+                w[torch.rand(k, generator=g) < 0.4] = 0.0
+                x[w == 0.0] = float("nan")     # masked rows may hold NaN
+                x, w = x.to(dev, dtype), w.to(dev)
+                total = torch.clamp(w.sum(), min=1e-12)
+                got = fed_weighted_sum_cuda(x, w) / total
+                want = ref.fed_weighted_sum_ref(x, w) / total
+                torch.cuda.synchronize()
+                e = float(torch.max(torch.abs(got - want)))
+                if not e <= 2e-6:
+                    raise AssertionError(f"B2 K={k} D={d} {dtype}: "
+                                         f"|kernel - plain| {e} > 2e-6")
+                err_b2 = max(err_b2, e)
+    zero = fed_weighted_sum_cuda(torch.full((4, 17), float("nan"),
+                                            device=dev),
+                                 torch.zeros(4, device=dev))
+    empty = fed_weighted_sum_cuda(torch.zeros(0, 9, device=dev),
+                                  torch.zeros(0, device=dev))
+    if not (bool((zero == 0).all()) and empty.shape == (9,)
+            and bool((empty == 0).all())):
+        raise AssertionError("B2: all-zero weights / K=0 must give zeros")
+    log(f"B2 fed_weighted_sum: 32 shapes (K in 1,2,5,16 x D in 1,129,4097,"
+        f"775500 x fp32,bf16; NaN in zero-weight rows) + all-zero + K=0: "
+        f"max |kernel - plain| of the combine {err_b2:.3e} (bound 2e-6)")
+
+    # -- B1: fused decoder forward ---------------------------------------
+    err_b1 = 0.0
+    for b in (1, 256, 300):
+        for k in (1, 50, 512):
+            for v in (4999, 5000):
+                theta = torch.softmax(torch.randn(b, k, generator=g), -1)
+                beta = torch.randn(k, v, generator=g)
+                bow = torch.poisson(torch.full((b, v), 0.04), generator=g)
+                bow[0] = 0.0                   # zero-bow rows
+                bow[-1] = 0.0
+                sc = 0.5 + torch.rand(v, generator=g)
+                theta, beta, bow, sc = (t.to(dev) for t in
+                                        (theta, beta, bow, sc))
+                got = topic_decoder_cuda(theta, beta, bow, sc)
+                want = ref.topic_decoder_ref(theta, beta, bow, sc)
+                torch.cuda.synchronize()
+                scale = max(float(torch.max(torch.abs(want))), 1.0)
+                e = float(torch.max(torch.abs(got - want))) / scale
+                if not e <= 1e-5 or float(got[0]) != 0.0:
+                    raise AssertionError(f"B1 B={b} K={k} V={v}: scaled "
+                                         f"|kernel - plain| {e} > 1e-5 or "
+                                         f"zero-bow row {float(got[0])}")
+                err_b1 = max(err_b1, e)
+    log(f"B1 topic_decoder: 18 shapes (B in 1,256,300 x K in 1,50,512 x V "
+        f"in 4999,5000; zero-bow rows): max |kernel - plain| / max|plain| "
+        f"{err_b1:.3e} (bound 1e-5)")
+
+    # -- timings at the service's shapes -----------------------------------
+    d_model = 775_500                  # ProdLDA 5000-100-100 / K=50 params
+    x = torch.randn(2, d_model, generator=g).to(dev)
+    w = torch.tensor([2000.0, 2000.0], device=dev)
+    bb, kk, vv = 256, 50, 5000
+    theta = torch.softmax(torch.randn(bb, kk, generator=g), -1).to(dev)
+    beta = torch.randn(kk, vv, generator=g).to(dev)
+    bow = torch.poisson(torch.full((bb, vv), 0.04), generator=g).to(dev)
+    sc = 0.5 + torch.rand(vv, generator=g).to(dev)
+    calls = {
+        "fed_weighted_sum": (lambda: fed_weighted_sum_cuda(x, w),
+                             lambda: ref.fed_weighted_sum_ref(x, w),
+                             lambda: torch.matmul(w, x)),
+        "topic_decoder": (lambda: topic_decoder_cuda(theta, beta, bow, sc),
+                          lambda: ref.topic_decoder_ref(theta, beta, bow,
+                                                        sc),
+                          None)}
+    b2 = {"name": "fed_weighted_sum", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/fed_aggregate.cu",
+          "replaces": "src/repro/kernels/fed_aggregate.py:97",
+          "max_abs_err": err_b2}
+    b2["bound_ms"], b2["bound_by"] = bound_ms(
+        (2 * d_model + 2 + d_model) * 4, 2 * 2 * d_model)
+    b1 = {"name": "topic_decoder", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/topic_decoder.cu",
+          "replaces": "src/repro/kernels/topic_decoder.py:75",
+          "max_abs_err": err_b1}
+    # per (doc, word): the K-term dot (2K flops) + scale, max, exp,
+    # sum-exp, bow*logit, bow sum (about 8 more)
+    b1["bound_ms"], b1["bound_by"] = bound_ms(
+        (bb * kk + kk * vv + bb * vv + vv + bb) * 4,
+        bb * vv * (2 * kk + 8))
+    for r in (b2, b1):
+        kern, plain, lib = calls[r["name"]]
+        r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain)
+        r["library_ms"] = None if lib is None else device_ms(lib)
+        per_call = ", ".join(f"{event_ms(f) * 1e3:.2f}"
+                             for f in (kern, plain, lib) if f)
+        lib_us = "none" if lib is None else f"{r['library_ms'] * 1e3:.2f} us"
+        log(f"{r['name']}: device {r['ms'] * 1e3:.2f} us/launch, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {lib_us}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); back-to-back "
+            f"calls incl. host gaps (events, kernel/plain/library) "
+            f"{per_call} us")
+    return [b2, b1]
+
+
+def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
+    from repro_torch.api import (DataSpec, ExecutionSpec, FederationSpec,
+                                 ModelSpec, scenario_spec)
+    base = FederationSpec(
+        model=ModelSpec(vocab=vocab, topics=topics, hidden=hidden),
+        data=DataSpec(num_clients=clients, docs_per_node=docs,
+                      val_docs_per_node=val_docs),
+        execution=ExecutionSpec(**execution))
+    return scenario_spec("buffered_async", base)
+
+
+def phase_main_path(records):
+    """The service at full ProdLDA-synthetic width, through its entry
+    points; every kernel of the path must launch."""
+    from repro_torch.kernels import fed_aggregate, topic_decoder
+    from repro_torch.serve import FederationService, run_traffic
+    spec = _async_spec(5000, 50, 100, 5, DOCS_PER_NODE, VAL_DOCS_PER_NODE)
+    log(f"main path: buffered_async (M={spec.resolved_buffer_size}, "
+        f"max_staleness={spec.schedule.max_staleness}, "
+        f"{spec.resolved_staleness_policy}), V=5000 K=50 hidden 100-100, "
+        f"L=5, batch {spec.execution.batch_size}, {DOCS_PER_NODE} train + "
+        f"{VAL_DOCS_PER_NODE} val docs per node (the paper's depth); cut: "
+        f"training to {SWEEPS} traffic sweeps")
+    t0 = time.perf_counter()
+    svc = FederationService.from_spec(spec, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    fed_aggregate.launches = 0
+    topic_decoder.launches = 0
+    t0 = time.perf_counter()
+    stats = run_traffic(svc, sweeps=SWEEPS, order_seed=0, hold_prob=0.2,
+                        duplicate_prob=0.1, infer_every=3, infer_batch=8)
+    summary = svc.shutdown()
+    torch.cuda.synchronize()
+    t_traffic = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = svc.evaluate()
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    launches = {"fed_weighted_sum": fed_aggregate.launches,
+                "topic_decoder": topic_decoder.launches}
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    log(f"  set-up (corpus + clients on the card) {t_build:.1f} s; "
+        f"traffic + drain {t_traffic:.2f} s; evaluate {t_eval:.2f} s")
+    log(f"  aggregations {stats['aggregations']} -> version {svc.version}, "
+        f"uploads {stats['accepted']}/{stats['uploads']} accepted, "
+        f"rejections {stats['rejections']}, flushed {summary['flushed']}, "
+        f"infer calls {stats['infer_calls']} (p50 "
+        f"{stats.get('infer_latency_p50_s', float('nan')) * 1e3:.2f} ms)")
+    log(f"  evaluate {json.dumps(metrics)}")
+    log(f"  launches on the path: {json.dumps(launches)}")
+    n_val = 5 * VAL_DOCS_PER_NODE
+    want = {"fed_weighted_sum": svc.agg_index,
+            "topic_decoder": math.ceil(n_val / 256)}
+    if stats["aggregations"] < 1 or stats["infer_calls"] < 1:
+        raise AssertionError("main path ran no aggregation or no inference")
+    if launches != want:
+        raise AssertionError(f"kernel launches on the main path {launches} "
+                             f"!= one per aggregation / eval batch {want}")
+    params = svc.fetch_model()[1]
+    bad = [k for k, v in params.items() if not bool(torch.isfinite(v).all())]
+    if bad or not math.isfinite(metrics["heldout_elbo_per_token"]):
+        raise AssertionError(f"non-finite params {bad} or held-out ELBO "
+                             f"{metrics['heldout_elbo_per_token']}")
+    return spec, svc._fed.corpus
+
+
+def phase_profile(spec, corpus):
+    """Where the time goes: a fresh service on the same corpus, two
+    sweeps of traffic + evaluate under ``torch.profiler``; the device's
+    busy share of the wall time and the kernels that fill it."""
+    from torch.autograd import DeviceType
+    from repro_torch.serve import FederationService, run_traffic
+    svc = FederationService.from_spec(spec, device="cuda", corpus=corpus)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_traffic(svc, sweeps=2, order_seed=5, hold_prob=0.2,
+                    infer_every=3)
+        svc.shutdown()
+        t_traffic = time.perf_counter() - t0
+        svc.evaluate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    log(f"profile (2 sweeps + drain + evaluate, traced): wall {wall:.3f} s "
+        f"(traffic {t_traffic:.3f} s), device busy {busy:.4f} s = "
+        f"{100 * busy / wall:.1f}% of wall; {svc.agg_index} aggregations")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+
+
+def phase_agreement():
+    """A small service on the card and on the CPU from the same weights:
+    the kernels' path against the plain path, end to end."""
+    from repro_torch.api import max_param_dev
+    from repro_torch.serve import FederationService, run_traffic
+    spec = _async_spec(64, 4, 16, 3, 40, 8, batch_size=64,
+                       learning_rate=2e-4)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        svc = FederationService.from_spec(spec, device=dev)
+        stats = run_traffic(svc, sweeps=4, order_seed=1, hold_prob=0.3,
+                            duplicate_prob=0.3, infer_every=2)
+        svc.shutdown()
+        stats = {k: v for k, v in stats.items() if "latency" not in k
+                 and "throughput" not in k}
+        runs[dev] = (svc, stats, svc.evaluate())
+    (s_cpu, st_cpu, m_cpu), (s_gpu, st_gpu, m_gpu) = runs["cpu"], \
+        runs["cuda"]
+    dev_p = max_param_dev(s_cpu.fetch_model()[1], s_gpu.fetch_model()[1])
+    rel = abs(m_gpu["heldout_elbo_per_token"]
+              - m_cpu["heldout_elbo_per_token"]) \
+        / abs(m_cpu["heldout_elbo_per_token"])
+    log(f"agreement (V=64 K=4, 3 clients, M=2): card vs CPU plain path "
+        f"max_param_dev {dev_p:.3e}, held-out ELBO rel {rel:.3e} "
+        f"(bounds 1e-5), {st_gpu['aggregations']} aggregations")
+    if st_cpu != st_gpu or s_cpu.rejections != s_gpu.rejections:
+        raise AssertionError(f"event ledgers differ: {st_cpu} vs {st_gpu}")
+    if not (dev_p <= 1e-5 and rel <= 1e-5):
+        raise AssertionError("card and CPU paths disagree beyond 1e-5")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script runs the "
+              "port on the card", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(here, "src"))
+    t_start = time.perf_counter()
+    name = phase_device()
+    phase_build()
+    records = phase_kernels()
+    spec, corpus = phase_main_path(records)
+    phase_profile(spec, corpus)
+    phase_agreement()
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

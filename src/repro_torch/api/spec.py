@@ -1,0 +1,546 @@
+"""`FederationSpec` — the declarative, serializable scenario tree.
+
+Port of ``repro/api/spec.py`` with the same sections, field names,
+defaults, validation messages and dict form, so a spec this slice
+accepts round-trips to the identical dict in both packages:
+
+    FederationSpec
+      ├── model        ProdLDA sizing (family, vocab, topics, hidden ...)
+      ├── data         synthetic federation + partition sub-spec
+      ├── schedule     rounds, participation, staleness, buffered-async
+      ├── transforms   message transform stage
+      ├── server_opt   server-side update rule on the combined delta
+      ├── execution    exec mode, batch, client lr, seeds
+      └── serving      optional wire front-end
+
+Specs validate at construction.  What this slice of the port does not
+run yet raises ``NotImplementedError`` naming its ROADMAP.md item:
+transforms (A9), ``exec_mode="vmap"`` (A10), a mesh (A17),
+``model.family="lm"`` (A16), the ``serving`` section (A14), the
+stochastic loss (A4) and non-``topic`` partitions (A2).
+``execution.kernel_backend`` is kept so dicts round-trip; it selects
+nothing in the port, where the tensor's device picks kernel or plain.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+from repro_torch.configs.base import (NTM, FederatedConfig, ModelConfig,
+                                      RoundConfig)
+from repro_torch.core.aggregation import SERVER_OPTIMIZERS
+from repro_torch.core.engine import EXEC_MODES, KERNEL_BACKENDS, \
+    SAMPLING_MODES
+from repro_torch.data.federated_split import parse_partition_spec
+
+SPEC_VERSION = 1
+SCHEDULE_MODES = ("sync", "buffered_async")
+STALENESS_POLICIES = ("exponential", "polynomial")
+# the reference's transform registry names (core/transforms.py)
+TRANSFORM_NAMES = ("dp", "topk", "secure", "precision")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"invalid FederationSpec: {msg}")
+
+
+def _not_ported(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
+        "run it on the JAX reference package")
+
+
+def _check_int(v, where: str, minimum: int, *,
+               allow_none: bool = False) -> None:
+    if v is None and allow_none:
+        return
+    _require(isinstance(v, int) and not isinstance(v, bool),
+             f"{where} must be an int, got {v!r}")
+    _require(v >= minimum, f"{where} must be >= {minimum}, got {v}")
+
+
+def _check_float(v, where: str, minimum: Optional[float] = None,
+                 maximum: Optional[float] = None, *,
+                 exclusive_min: bool = False) -> None:
+    _require(isinstance(v, (int, float)) and not isinstance(v, bool),
+             f"{where} must be a number, got {v!r}")
+    if minimum is not None:
+        if exclusive_min:
+            _require(v > minimum, f"{where} must be > {minimum}, got {v}")
+        else:
+            _require(v >= minimum,
+                     f"{where} must be >= {minimum}, got {v}")
+    if maximum is not None:
+        _require(v <= maximum, f"{where} must be <= {maximum}, got {v}")
+
+
+def _check_bool(v, where: str) -> None:
+    _require(isinstance(v, bool), f"{where} must be true/false, got "
+                                  f"{v!r}")
+
+
+def _check_int_tuple(v, where: str, minimum: int = 0) -> None:
+    _require(isinstance(v, tuple),
+             f"{where} must be a tuple/list of ints, got "
+             f"{type(v).__name__}")
+    for i, x in enumerate(v):
+        _require(isinstance(x, int) and not isinstance(x, bool),
+                 f"{where}[{i}] must be an int, got {x!r}")
+        _require(x >= minimum,
+                 f"{where}[{i}] must be >= {minimum}, got {x}")
+
+
+# ---------------------------------------------------------------------------
+# sections
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ModelSpec:
+    """``model`` section (``family="ntm"``: ProdLDA)."""
+    family: str = "ntm"
+    vocab: int = 400
+    topics: int = 10
+    hidden: int = 64            # both encoder MLP widths
+    arch: str = ""              # LM-only fields (family="lm")
+    layers: int = 0
+    width: int = 0
+    seq_len: int = 0
+
+    def _validate(self) -> None:
+        _require(self.family in ("ntm", "lm"),
+                 f"model.family {self.family!r} is not one of "
+                 "('ntm', 'lm')")
+        if self.family == "lm":
+            _not_ported("model.family='lm' (the LM model zoo)", "A16")
+        _check_int(self.vocab, "model.vocab", 2)
+        _check_int(self.topics, "model.topics", 1)
+        _check_int(self.hidden, "model.hidden", 1)
+        _require(self.arch == "" and self.layers == 0
+                 and self.width == 0 and self.seq_len == 0,
+                 "model.arch/layers/width/seq_len are LM-only "
+                 "fields — set model.family='lm' to use them; "
+                 "fields are never silently dropped")
+
+
+@dataclass(frozen=True)
+class PartitionSpec:
+    """``data.partition``: registry partitioner + alpha (or the CLI's
+    string form, ``"dirichlet(0.3)"``)."""
+    kind: str = "topic"
+    alpha: Optional[float] = None
+
+    @classmethod
+    def from_value(cls, v, where: str = "data.partition") -> "PartitionSpec":
+        if isinstance(v, cls):
+            return v
+        if isinstance(v, str):
+            name, kw = parse_partition_spec(v)
+            return cls(kind=name, alpha=kw.get("alpha"))
+        if isinstance(v, Mapping):
+            unknown = sorted(set(v) - {"kind", "alpha"})
+            if unknown:
+                raise ValueError(f"unknown key(s) {unknown} in {where}; "
+                                 "known: ['alpha', 'kind']")
+            return cls(kind=v.get("kind", "topic"), alpha=v.get("alpha"))
+        raise ValueError(
+            f"{where} must be a partition spec string (e.g. "
+            f"'dirichlet(0.3)') or a {{kind, alpha}} mapping, got "
+            f"{type(v).__name__}")
+
+    def to_string(self) -> str:
+        if self.alpha is None:
+            return self.kind
+        return f"{self.kind}({self.alpha!r})"
+
+    def _validate(self) -> None:
+        name, _ = parse_partition_spec(self.to_string())
+        if name not in ("topic", "by_label"):
+            _not_ported(f"data.partition {self.to_string()!r} (only the "
+                        "paper's per-node 'topic' split is)", "A2")
+
+
+@dataclass(frozen=True)
+class DataSpec:
+    """``data`` section: the synthetic LDA federation + its partition."""
+    num_clients: int = 5
+    docs_per_node: int = 400
+    val_docs_per_node: int = 80
+    shared_topics: Optional[int] = None     # None -> max(topics // 5, 1)
+    seed: Optional[int] = None              # None -> execution.seed
+    partition: PartitionSpec = field(default_factory=PartitionSpec)
+
+    def _validate(self) -> None:
+        _check_int(self.num_clients, "data.num_clients", 1)
+        _check_int(self.docs_per_node, "data.docs_per_node", 1)
+        _check_int(self.val_docs_per_node, "data.val_docs_per_node", 0)
+        _check_int(self.shared_topics, "data.shared_topics", 0,
+                   allow_none=True)
+        _check_int(self.seed, "data.seed", 0, allow_none=True)
+        _require(isinstance(self.partition, PartitionSpec),
+                 "data.partition must be a PartitionSpec (or the string/"
+                 "mapping forms accepted by from_dict)")
+        self.partition._validate()
+
+
+@dataclass(frozen=True)
+class ScheduleSpec:
+    """``schedule`` section: rounds, participation, staleness and the
+    buffered-async service knobs."""
+    rounds: int = 100
+    clients_per_round: int = 0          # 0 = all clients
+    sampling: str = "uniform"
+    sampling_seed: Optional[int] = None
+    local_epochs: int = 1
+    local_epochs_by_client: Tuple[int, ...] = ()
+    client_join_round: Tuple[int, ...] = ()
+    client_leave_round: Tuple[int, ...] = ()
+    straggler_prob: float = 0.0
+    max_staleness: int = 0
+    staleness_decay: float = 0.5
+    mode: str = "sync"
+    buffer_size: int = 0                # M; 0 = the cohort width K
+    staleness_policy: str = ""          # "" -> "exponential" under async
+
+    def _validate(self) -> None:
+        _check_int(self.rounds, "schedule.rounds", 1)
+        _check_int(self.clients_per_round, "schedule.clients_per_round",
+                   0)
+        _check_int(self.sampling_seed, "schedule.sampling_seed", 0,
+                   allow_none=True)
+        _require(self.sampling in SAMPLING_MODES,
+                 f"schedule.sampling {self.sampling!r} is not one of "
+                 f"{SAMPLING_MODES}")
+        _check_int(self.local_epochs, "schedule.local_epochs", 1)
+        _check_int_tuple(self.local_epochs_by_client,
+                         "schedule.local_epochs_by_client", minimum=1)
+        _check_int_tuple(self.client_join_round,
+                         "schedule.client_join_round")
+        _check_int_tuple(self.client_leave_round,
+                         "schedule.client_leave_round")
+        _check_float(self.straggler_prob, "schedule.straggler_prob",
+                     0.0, 1.0)
+        _check_int(self.max_staleness, "schedule.max_staleness", 0)
+        _check_float(self.staleness_decay, "schedule.staleness_decay",
+                     0.0, 1.0)
+        _require(self.mode in SCHEDULE_MODES,
+                 f"schedule.mode {self.mode!r} is not one of "
+                 f"{SCHEDULE_MODES}")
+        _check_int(self.buffer_size, "schedule.buffer_size", 0)
+        _require(self.staleness_policy in ("",) + STALENESS_POLICIES,
+                 f"schedule.staleness_policy {self.staleness_policy!r} "
+                 f"is not one of {STALENESS_POLICIES} (or '' for the "
+                 "mode default)")
+        if self.mode == "sync":
+            _require(self.buffer_size == 0,
+                     "schedule.buffer_size is a buffered-async knob but "
+                     "schedule.mode is 'sync' — set "
+                     "schedule.mode='buffered_async' (docs/serving.md); "
+                     "async knobs are never silently dropped")
+            _require(self.staleness_policy == "",
+                     "schedule.staleness_policy is a buffered-async "
+                     "knob but schedule.mode is 'sync' — set "
+                     "schedule.mode='buffered_async' (docs/serving.md); "
+                     "async knobs are never silently dropped")
+        else:
+            _require(self.straggler_prob == 0.0,
+                     "schedule.straggler_prob simulates in-round delays "
+                     "and needs a round barrier; under "
+                     "schedule.mode='buffered_async' staleness is REAL "
+                     "version lag (bounded by schedule.max_staleness) — "
+                     "drop the straggler knob")
+
+
+@dataclass(frozen=True)
+class TransformsSpec:
+    """``transforms`` section (refused by the port until ROADMAP A9)."""
+    names: Tuple[str, ...] = ()
+    dp_noise_multiplier: float = 0.0
+    dp_clip_norm: float = 1.0
+    compression_topk: float = 0.0
+    precision: str = ""
+
+    def _validate(self) -> None:
+        _require(isinstance(self.names, tuple),
+                 "transforms.names must be a tuple/list of transform "
+                 "names")
+        for n in self.names:
+            _require(n in TRANSFORM_NAMES,
+                     f"transforms.names entry {n!r} is not a registered "
+                     f"transform; known: {sorted(TRANSFORM_NAMES)}")
+        _check_float(self.dp_noise_multiplier,
+                     "transforms.dp_noise_multiplier", 0.0)
+        _check_float(self.dp_clip_norm, "transforms.dp_clip_norm", 0.0,
+                     exclusive_min=True)
+        _check_float(self.compression_topk, "transforms.compression_topk",
+                     0.0, 1.0)
+        _require(self.precision in ("", "bf16"),
+                 f"transforms.precision {self.precision!r} is not a "
+                 "supported wire format; one of ('', 'bf16')")
+        if (self.names or self.dp_noise_multiplier > 0
+                or self.compression_topk > 0 or self.precision):
+            _not_ported("the message-transform stage (transforms.*)", "A9")
+
+
+@dataclass(frozen=True)
+class ServerOptSpec:
+    """``server_opt`` section: the rule applied to the combined delta."""
+    name: str = "fedavg"
+    lr: float = 1.0
+    momentum: float = 0.9       # FedAvgM beta / FedAdam b1
+    beta2: float = 0.999        # FedAdam b2
+    eps: float = 1e-3           # FedAdam tau
+
+    def _validate(self) -> None:
+        _require(self.name in SERVER_OPTIMIZERS,
+                 f"server_opt.name {self.name!r} is not a registered "
+                 f"server optimizer; known: {sorted(SERVER_OPTIMIZERS)}")
+        _check_float(self.lr, "server_opt.lr", 0.0, exclusive_min=True)
+        _check_float(self.momentum, "server_opt.momentum", 0.0)
+        _require(self.momentum < 1.0,
+                 f"server_opt.momentum must be in [0, 1), got "
+                 f"{self.momentum}")
+        _check_float(self.beta2, "server_opt.beta2", 0.0,
+                     exclusive_min=True)
+        _require(self.beta2 < 1.0,
+                 f"server_opt.beta2 must be in (0, 1), got {self.beta2}")
+        _check_float(self.eps, "server_opt.eps", 0.0, exclusive_min=True)
+
+
+@dataclass(frozen=True)
+class ExecutionSpec:
+    """``execution`` section: how the spec runs.  ``mesh`` must stay
+    None in the port (ROADMAP A17)."""
+    exec_mode: str = "loop"
+    batch_size: int = 64
+    pad_cohorts: bool = True
+    learning_rate: float = 2e-3     # client-side lambda of Eq. (3)
+    rel_tol: float = 0.0
+    stochastic_loss: bool = False
+    seed: int = 0
+    kernel_backend: str = "xla"     # round-trips; the device picks
+    mesh: Optional[Any] = None
+
+    def _validate(self) -> None:
+        _require(self.exec_mode in EXEC_MODES,
+                 f"execution.exec_mode {self.exec_mode!r} is not one of "
+                 f"{EXEC_MODES}")
+        _require(self.kernel_backend in KERNEL_BACKENDS,
+                 f"execution.kernel_backend {self.kernel_backend!r} is "
+                 f"not one of {KERNEL_BACKENDS}")
+        _check_int(self.batch_size, "execution.batch_size", 1)
+        _check_bool(self.pad_cohorts, "execution.pad_cohorts")
+        _check_bool(self.stochastic_loss, "execution.stochastic_loss")
+        _check_float(self.learning_rate, "execution.learning_rate", 0.0,
+                     exclusive_min=True)
+        _check_float(self.rel_tol, "execution.rel_tol", 0.0)
+        _check_int(self.seed, "execution.seed", 0)
+        if self.mesh is not None:
+            _not_ported("execution.mesh (the sharded cohort path)", "A17")
+        if self.exec_mode == "vmap":
+            _not_ported("execution.exec_mode='vmap' (the batched cohort "
+                        "path)", "A10")
+        if self.stochastic_loss:
+            _not_ported("execution.stochastic_loss (the train-mode ELBO's "
+                        "dropout and reparametrization draws)", "A4")
+
+
+_SECTIONS = {
+    "model": ModelSpec,
+    "data": DataSpec,
+    "schedule": ScheduleSpec,
+    "transforms": TransformsSpec,
+    "server_opt": ServerOptSpec,
+    "execution": ExecutionSpec,
+}
+
+
+# ---------------------------------------------------------------------------
+# the spec tree
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class FederationSpec:
+    """One serializable federated scenario (module docstring); the
+    all-defaults spec is the paper's Algorithm-1 regime."""
+    version: int = SPEC_VERSION
+    name: str = ""
+    model: ModelSpec = field(default_factory=ModelSpec)
+    data: DataSpec = field(default_factory=DataSpec)
+    schedule: ScheduleSpec = field(default_factory=ScheduleSpec)
+    transforms: TransformsSpec = field(default_factory=TransformsSpec)
+    server_opt: ServerOptSpec = field(default_factory=ServerOptSpec)
+    execution: ExecutionSpec = field(default_factory=ExecutionSpec)
+    serving: Optional[Any] = None
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        """Range-check every section + refuse cross-section incoherence
+        (``ValueError``), and what the port does not run yet
+        (``NotImplementedError``)."""
+        _require(isinstance(self.version, int)
+                 and not isinstance(self.version, bool)
+                 and self.version == SPEC_VERSION,
+                 f"version {self.version!r} is not supported by this "
+                 f"build (expected {SPEC_VERSION}); migrate the spec or "
+                 "update the repo")
+        _require(isinstance(self.name, str), "name must be a string")
+        for sect, cls in _SECTIONS.items():
+            v = getattr(self, sect)
+            _require(isinstance(v, cls),
+                     f"section {sect!r} must be a {cls.__name__}, got "
+                     f"{type(v).__name__}")
+            v._validate()
+        if self.serving is not None:
+            _not_ported("the serving section (the wire front-end)", "A14")
+        if self.schedule.mode == "buffered_async":
+            m, L = self.resolved_buffer_size, self.data.num_clients
+            _require(m <= L,
+                     f"schedule.buffer_size M={m} exceeds "
+                     f"data.num_clients L={L} — the service holds at "
+                     "most ONE in-flight delta per client (the newest "
+                     "upload supersedes), so a buffer wider than the "
+                     "population can never fill and aggregation would "
+                     "never fire")
+
+    # -- resolved (cross-section) defaults --------------------------------
+    @property
+    def resolved_data_seed(self) -> int:
+        return self.data.seed if self.data.seed is not None \
+            else self.execution.seed
+
+    @property
+    def resolved_shared_topics(self) -> int:
+        return self.data.shared_topics if self.data.shared_topics is not None \
+            else max(self.model.topics // 5, 1)
+
+    @property
+    def resolved_buffer_size(self) -> int:
+        """Buffered-async aggregation threshold M (0 = the cohort width
+        K — the M=K default is the sync-equivalence anchor)."""
+        L = self.data.num_clients
+        k = min(self.schedule.clients_per_round or L, L)
+        return self.schedule.buffer_size or k
+
+    @property
+    def resolved_staleness_policy(self) -> str:
+        return self.schedule.staleness_policy or "exponential"
+
+    # -- compilation to the engine's config objects -----------------------
+    def to_model_config(self) -> ModelConfig:
+        return ModelConfig(name=self.name or "federation-spec", kind=NTM,
+                           vocab_size=self.model.vocab,
+                           num_topics=self.model.topics,
+                           ntm_hidden=(self.model.hidden, self.model.hidden))
+
+    def to_federated_config(self) -> FederatedConfig:
+        return FederatedConfig(
+            num_clients=self.data.num_clients,
+            learning_rate=self.execution.learning_rate)
+
+    def to_round_config(self) -> RoundConfig:
+        s = self.schedule
+        return RoundConfig(
+            local_epochs=s.local_epochs,
+            local_epochs_by_client=s.local_epochs_by_client,
+            server_optimizer=self.server_opt.name,
+            server_lr=self.server_opt.lr,
+            server_momentum=self.server_opt.momentum,
+            server_beta2=self.server_opt.beta2,
+            server_eps=self.server_opt.eps)
+
+    # -- dict round trip ----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        """Plain-JSON-types dict (tuples become lists); the inverse of
+        :meth:`from_dict`, and the reference's dict for the same spec."""
+        return _jsonify(dataclasses.asdict(self))
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "FederationSpec":
+        """STRICT inverse of :meth:`to_dict`: unknown sections/keys and
+        unsupported versions raise; omitted ones take their defaults."""
+        if not isinstance(d, Mapping):
+            raise ValueError("FederationSpec.from_dict needs a mapping, "
+                             f"got {type(d).__name__}")
+        known = set(_SECTIONS) | {"version", "name", "serving"}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(f"unknown top-level spec key(s) {unknown}; "
+                             f"known: {sorted(known)}")
+        version = d.get("version", SPEC_VERSION)
+        if version != SPEC_VERSION:
+            raise ValueError(
+                f"FederationSpec version {version!r} is not supported by "
+                f"this build (expected {SPEC_VERSION}); migrate the spec "
+                "or update the repo")
+        kw: Dict[str, Any] = {"version": version, "name": d.get("name", ""),
+                              "serving": d.get("serving")}
+        for sect, sect_cls in _SECTIONS.items():
+            if sect in d:
+                kw[sect] = _section_from_dict(sect_cls, d[sect], sect)
+        return cls(**kw)
+
+
+def _jsonify(v):
+    if isinstance(v, dict):
+        return {k: _jsonify(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonify(x) for x in v]
+    return v
+
+
+def _coerce(cls, fname: str, v):
+    if cls is DataSpec and fname == "partition":
+        return PartitionSpec.from_value(v)
+    return tuple(v) if isinstance(v, list) else v
+
+
+def _section_from_dict(cls, d, where: str):
+    if isinstance(d, cls):
+        return d
+    if not isinstance(d, Mapping):
+        raise ValueError(f"spec section {where!r} must be a mapping, got "
+                         f"{type(d).__name__}")
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise ValueError(f"unknown key(s) {unknown} in spec section "
+                         f"{where!r}; known: {sorted(fields)}")
+    return cls(**{k: _coerce(cls, k, v) for k, v in d.items()})
+
+
+def spec_replace(spec: FederationSpec,
+                 overrides: Mapping[str, Any]) -> FederationSpec:
+    """Dotted-path functional update over the spec tree
+    (``{"schedule.buffer_size": 2, "name": "x"}``); the result
+    re-validates, and unknown paths raise ``ValueError``."""
+    top: Dict[str, Any] = {}
+    by_section: Dict[str, Dict[str, Any]] = {}
+    for key, v in overrides.items():
+        if "." in key:
+            sect, _, fname = key.partition(".")
+            if sect == "serving" or key.startswith("execution.mesh."):
+                _not_ported(f"override {key!r}",
+                            "A14" if sect == "serving" else "A17")
+            if sect not in _SECTIONS:
+                raise ValueError(f"unknown spec section {sect!r} in "
+                                 f"override {key!r}; known: "
+                                 f"{sorted(set(_SECTIONS) | {'serving'})}")
+            cls = _SECTIONS[sect]
+            if fname not in {f.name for f in dataclasses.fields(cls)}:
+                raise ValueError(
+                    f"unknown key {fname!r} in spec section {sect!r}; "
+                    f"known: {sorted(f.name for f in dataclasses.fields(cls))}")
+            by_section.setdefault(sect, {})[fname] = _coerce(cls, fname, v)
+        elif key in _SECTIONS or key in ("name", "version", "serving"):
+            top[key] = v
+        else:
+            raise ValueError(f"unknown spec override {key!r}; use "
+                             "'section.field' dotted paths or one of "
+                             f"{sorted(set(_SECTIONS) | {'name', 'version', 'serving'})}")
+    kw = dict(top)
+    for sect, updates in by_section.items():
+        kw[sect] = dataclasses.replace(kw.get(sect, getattr(spec, sect)),
+                                       **updates)
+    return dataclasses.replace(spec, **kw)

@@ -1,0 +1,111 @@
+"""Eq. (2) aggregation and the server optimizers, over ``dict[str, Tensor]``.
+
+Port of the service-path part of ``repro/core/aggregation.py``: the
+stacked weighted average and the fedavg / fedavgm / fedadam server rules
+(Reddi et al. 2021).  Server-optimizer state is kept in fp32.  Secure
+masks, top-k and local DP wait for the transforms slice (ROADMAP A9).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Mapping, Tuple
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def aggregate_stacked(tree: Mapping[str, torch.Tensor], weights) -> Params:
+    """Eq. (2) over a stacked leading client axis (plain PyTorch).
+
+    Every leaf is ``(K, ...)`` and ``weights`` is ``(K,)``.  Zero-weight
+    rows are ABSENT: ``where``-masked before the multiply, so a padded or
+    free row holding non-finite values cannot poison the sum; an all-zero
+    weight vector gives a zero combine (guarded denominator), never 0/0.
+    """
+    out = {}
+    for name, leaf in tree.items():
+        w = torch.as_tensor(weights, dtype=torch.float32,
+                            device=leaf.device)
+        total = torch.clamp(torch.sum(w), min=1e-12)
+        wb = w.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        contrib = torch.where(wb > 0.0, leaf.to(torch.float32),
+                              torch.zeros((), device=leaf.device))
+        out[name] = torch.sum(wb * contrib, dim=0) / total
+    return out
+
+
+@dataclass(frozen=True)
+class ServerOptimizer:
+    """``apply(params, delta_bar, state, round_idx) -> (params, state)``;
+    deltas point in the descent direction already, so every rule ADDS
+    its step."""
+    name: str
+    init: Callable[[Mapping[str, torch.Tensor]], Any]
+    apply: Callable[..., Tuple[Params, Any]]
+
+
+def _zeros32(params):
+    return {k: torch.zeros_like(p, dtype=torch.float32)
+            for k, p in params.items()}
+
+
+def fedavg_server(server_lr: float = 1.0) -> ServerOptimizer:
+    """W <- W + eta_s * delta_bar (Eq. (3) server SGD at eta_s = 1)."""
+    def init(params):
+        return {}
+
+    def apply(params, delta, state, round_idx=0):
+        return {k: p + server_lr * delta[k].to(p.dtype)
+                for k, p in params.items()}, state
+
+    return ServerOptimizer("fedavg", init, apply)
+
+
+def fedavgm_server(server_lr: float = 1.0,
+                   momentum: float = 0.9) -> ServerOptimizer:
+    """Server momentum: m <- beta m + delta_bar; W <- W + eta_s m."""
+    def init(params):
+        return {"m": _zeros32(params)}
+
+    def apply(params, delta, state, round_idx=0):
+        m = {k: momentum * state["m"][k] + delta[k].to(torch.float32)
+             for k in params}
+        return {k: p + server_lr * m[k].to(p.dtype)
+                for k, p in params.items()}, {"m": m}
+
+    return ServerOptimizer("fedavgm", init, apply)
+
+
+def fedadam_server(server_lr: float = 1e-2, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-3) -> ServerOptimizer:
+    """FedAdam: Adam on the server pseudo-gradient, no bias correction
+    (the paper's Algorithm 2; ``eps`` = tau)."""
+    def init(params):
+        return {"m": _zeros32(params), "v": _zeros32(params)}
+
+    def apply(params, delta, state, round_idx=0):
+        d32 = {k: delta[k].to(torch.float32) for k in params}
+        m = {k: b1 * state["m"][k] + (1 - b1) * d32[k] for k in params}
+        v = {k: b2 * state["v"][k] + (1 - b2) * torch.square(d32[k])
+             for k in params}
+        new = {k: p + (server_lr * m[k] / (torch.sqrt(v[k]) + eps))
+               .to(p.dtype) for k, p in params.items()}
+        return new, {"m": m, "v": v}
+
+    return ServerOptimizer("fedadam", init, apply)
+
+
+SERVER_OPTIMIZERS: Dict[str, Callable[..., ServerOptimizer]] = {
+    "fedavg": fedavg_server,
+    "fedavgm": fedavgm_server,
+    "fedadam": fedadam_server,
+}
+
+
+def get_server_optimizer(name: str, **kw) -> ServerOptimizer:
+    """Registry lookup; kwargs are forwarded to the factory."""
+    if name not in SERVER_OPTIMIZERS:
+        raise KeyError(f"unknown server optimizer {name!r}; "
+                       f"available: {sorted(SERVER_OPTIMIZERS)}")
+    return SERVER_OPTIMIZERS[name](**kw)

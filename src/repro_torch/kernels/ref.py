@@ -1,0 +1,38 @@
+"""Plain PyTorch versions of the port's kernels — the ground truth.
+
+Each is the mathematically direct expression, fp32 math, no tiling, so
+it can be audited against the equations.  The CPU path of ``ops.py``
+runs them; ``chip_smoke.py`` holds each CUDA kernel against its plain
+version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fed_weighted_sum_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Eq. (2) numerator ``sum_k where(w_k > 0, w_k * x_k, 0)`` over a
+    stacked ``(K, ...)`` leaf -> ``(...)`` fp32.
+
+    Zero-weight rows are masked OUT before the multiply — a free or
+    padded slot may hold stale or non-finite payload and ``0 * nan`` is
+    nan — and bf16 rows are upcast and summed in fp32.  Dividing by
+    ``max(sum w, 1e-12)`` gives the reference's ``fed_combine_ref``.
+    """
+    wb = w.to(torch.float32).reshape((-1,) + (1,) * (x.dim() - 1))
+    contrib = torch.where(wb > 0.0, x.to(torch.float32),
+                          torch.zeros((), dtype=torch.float32,
+                                      device=x.device))
+    return torch.sum(wb * contrib, dim=0)
+
+
+def topic_decoder_ref(theta, beta, bow, dec_scale=None) -> torch.Tensor:
+    """ProdLDA reconstruction term, materialized:
+        recon_d = -sum_v bow_dv * log softmax_v(theta_d . beta_v * scale_v)
+    theta (B,K), beta (K,V), bow (B,V) -> (B,) fp32.
+    """
+    logits = theta.to(torch.float32) @ beta.to(torch.float32)
+    if dec_scale is not None:
+        logits = logits * dec_scale.to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(bow.to(torch.float32) * logp, dim=-1)
