@@ -9,22 +9,31 @@ Phases, each fatal on failure (no phase catches and carries on):
 2. build: every CUDA kernel of the port from ``kernels/csrc/`` (one
    ``nvcc`` per source, in parallel), with ptxas' resource report;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   over a shape grid, and timed at the shapes the service gives it
-   beside its plain version, a library call where one exists, and its
-   bound (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, whichever
-   is larger: the H100 SXM data-sheet peaks at its 700 W power limit);
-4. main path: the buffered-async service at the full width of
+   over a shape grid (B3 and B4 bitwise), and timed at the shapes its
+   path gives it beside its plain version, a library call (or, for B4,
+   a yardstick) where one exists, and its bound (bytes over 3.35 TB/s or
+   fp32 flops over 67 TFLOP/s, whichever is larger: the H100 SXM
+   data-sheet peaks at its 700 W power limit);
+4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
    sweeps of ``run_traffic`` with inference, ``shutdown`` and
-   ``evaluate`` — with every kernel's launch count zeroed before and
-   read after; each kernel must have launched once per aggregation /
-   held-out batch, and params and the held-out ELBO must be finite;
-5. profile: a second service on the same corpus under
-   ``torch.profiler`` — the device's busy share and its top kernels;
-6. agreement: a small service run on the card and on the CPU (the plain
-   path the CPU tests hold against the JAX reference) from the same
-   weights, within the repo's 1e-5 bound.
+   ``evaluate``;
+5. training path: synchronous training on the batched cohort path at the
+   same width, ``Federation.from_spec(...).run()`` then ``evaluate`` for
+   the ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs, a
+   few rounds each; the last secure round's masks must sum to exactly
+   +0.0 on the card;
+   on both paths every kernel's launch count is zeroed just before each
+   run and read just after; each kernel must have launched once per
+   aggregation / round / held-out batch, and params and the held-out ELBO
+   must be finite;
+6. profiles: a second service, and one round of each training spec,
+   under ``torch.profiler`` — the device's busy share and its top
+   kernels;
+7. agreement: small service and training runs on the card and on the
+   CPU (the plain path the CPU tests hold against the JAX reference)
+   from the same weights, within the repo's 1e-5 bound.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -48,6 +57,15 @@ H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 # the paper's corpus depth (10 000 train + 1 000 validation docs per
 # node); training depth is cut to a few traffic sweeps; widths never are
 DOCS_PER_NODE, VAL_DOCS_PER_NODE, SWEEPS = 10_000, 1_000, 8
+# the training path: three registry specs on the batched cohort path,
+# cut in depth to a few synchronous rounds each
+TRAIN_SPECS, TRAIN_ROUNDS = ("pallas-topk", "pallas-secure",
+                             "dp-transform"), 5
+# ProdLDA at prodlda_synthetic width (V=5000, K=50, encoder 100-100,
+# learned priors): the 14 leaf sizes, in the port's parameter order
+PRODLDA_SEGMENTS = [500_000, 100, 10_000, 100, 5_000, 50, 5_000, 50,
+                    250_000, 50, 50, 5_000, 50, 50]
+D_MODEL = sum(PRODLDA_SEGMENTS)         # 775 500 parameters
 
 
 def log(msg: str) -> None:
@@ -192,7 +210,7 @@ def phase_kernels():
         f"{err_b1:.3e} (bound 1e-5)")
 
     # -- timings at the service's shapes -----------------------------------
-    d_model = 775_500                  # ProdLDA 5000-100-100 / K=50 params
+    d_model = D_MODEL
     x = torch.randn(2, d_model, generator=g).to(dev)
     w = torch.tensor([2000.0, 2000.0], device=dev)
     bb, kk, vv = 256, 50, 5000
@@ -225,17 +243,209 @@ def phase_kernels():
         bb * vv * (2 * kk + 8))
     for r in (b2, b1):
         kern, plain, lib = calls[r["name"]]
-        r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain)
-        r["library_ms"] = None if lib is None else device_ms(lib)
-        per_call = ", ".join(f"{event_ms(f) * 1e3:.2f}"
-                             for f in (kern, plain, lib) if f)
-        lib_us = "none" if lib is None else f"{r['library_ms'] * 1e3:.2f} us"
-        log(f"{r['name']}: device {r['ms'] * 1e3:.2f} us/launch, plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, library {lib_us}, bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); back-to-back "
-            f"calls incl. host gaps (events, kernel/plain/library) "
-            f"{per_call} us")
-    return [b2, b1]
+        _time_record(r, kern, plain, lib)
+    # B2 also combines the training path's (K=5, D) message slab
+    x5 = torch.randn(5, d_model, generator=g).to(dev)
+    w5 = torch.full((5,), 10_000.0, device=dev)
+    b2k5 = {"name": "fed_weighted_sum (K=5 training slab)"}
+    b2k5["bound_ms"], b2k5["bound_by"] = bound_ms(
+        (5 * d_model + 5 + d_model) * 4, 2 * 5 * d_model)
+    _time_record(b2k5, lambda: fed_weighted_sum_cuda(x5, w5),
+                 lambda: ref.fed_weighted_sum_ref(x5, w5),
+                 lambda: torch.matmul(w5, x5))
+    b2["k5"] = {k: b2k5[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms")}
+    return [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev)]
+
+
+def _time_record(r, kern, plain, lib, lib_label="library"):
+    """Device time of kernel, plain version and library call (or
+    yardstick) at the path's shapes, into the record ``r``."""
+    r["ms"], r["plain_ms"] = device_ms(kern), device_ms(plain)
+    lib_ms = None if lib is None else device_ms(lib)
+    r["library_ms" if lib_label == "library" else "yardstick_ms"] = lib_ms
+    r.setdefault("library_ms", None)
+    per_call = ", ".join(f"{event_ms(f) * 1e3:.2f}"
+                         for f in (kern, plain, lib) if f)
+    lib_us = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+    log(f"{r['name']}: device {r['ms'] * 1e3:.2f} us/call, plain "
+        f"{r['plain_ms'] * 1e3:.2f} us, {lib_label} {lib_us}, bound "
+        f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); back-to-back "
+        f"calls incl. host gaps (events, kernel/plain/{lib_label}) "
+        f"{per_call} us")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two fp32 tensors (every NaN equal to every
+    NaN; +0.0 and -0.0 told apart)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    zero = torch.zeros((), dtype=torch.int32, device=a.device)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, zero, a.view(torch.int32)),
+        torch.where(nb, zero, b.view(torch.int32))))
+
+
+def _kernel_b3(g, dev):
+    """B3 (dp / secure apply): bitwise against the plain version over the
+    grid; timed at the training path's shape (K=5 clients, D=775 500)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fed_aggregate import fed_dp_secure_apply_cuda
+    scale = 0.3 * 0.05                  # the dp-transform preset's knobs
+    n = 0
+    for k in (1, 2, 5, 16):
+        for d in (1, 129, 4097, D_MODEL):
+            x = torch.randn(k, d, generator=g)
+            noise = torch.randn(k, d, generator=g)
+            masks = torch.randint(-4096, 4097, (k, d), generator=g) \
+                .to(torch.float32) * 2.0 ** -10      # the dyadic grid
+            coef = torch.rand(k, generator=g) + 1e-3
+            w = torch.randint(1, 5000, (k,), generator=g).to(torch.float32)
+            w[-1] = 0.0                 # max(w, 1e-9) guards a zero weight
+            x, noise, masks, coef, w = (t.to(dev) for t in
+                                        (x, noise, masks, coef, w))
+            for name, kw in (("dp", dict(noise=noise, clip_coef=coef)),
+                             ("secure", dict(masks=masks, weights=w)),
+                             ("all", dict(noise=noise, masks=masks,
+                                          clip_coef=coef, weights=w))):
+                got = fed_dp_secure_apply_cuda(x, noise_scale=scale, **kw)
+                want = ref.fed_dp_secure_apply_ref(x, noise_scale=scale,
+                                                   **kw)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    e = float(torch.nan_to_num(got - want).abs().max())
+                    raise AssertionError(f"B3 {name} K={k} D={d}: kernel "
+                                         f"!= plain bitwise (max {e})")
+                n += 1
+    log(f"B3 fed_dp_secure_apply: {n} cases (K in 1,2,5,16 x D in 1,129,"
+        f"4097,{D_MODEL} x dp,secure,all terms; a zero weight among them): "
+        f"bitwise equal to the plain version")
+    k, d = 5, D_MODEL
+    x, noise = torch.randn(k, d, generator=g), torch.randn(k, d, generator=g)
+    masks = torch.randint(-4096, 4097, (k, d), generator=g) \
+        .to(torch.float32) * 2.0 ** -10
+    coef, w = torch.rand(k, generator=g), torch.full((k,), 2000.0)
+    x, noise, masks, coef, w = (t.to(dev) for t in (x, noise, masks, coef,
+                                                    w))
+    rec = {"name": "fed_dp_secure_apply", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fed_dp_secure.cu",
+           "replaces": "src/repro/kernels/fed_aggregate.py:199",
+           "max_abs_err": 0.0, "variant": "secure (masks, weights)"}
+    # x and masks read, out written; the (K,) weights; add + divide
+    rec["bound_ms"], rec["bound_by"] = bound_ms((3 * k * d + k) * 4,
+                                                2 * k * d)
+    _time_record(rec,
+                 lambda: fed_dp_secure_apply_cuda(x, masks=masks, weights=w),
+                 lambda: ref.fed_dp_secure_apply_ref(x, masks=masks,
+                                                     weights=w),
+                 lambda: torch.addcdiv(x, masks, w.clamp_min(1e-9)[:, None]))
+    dp = {"name": "fed_dp_secure_apply (dp variant)"}
+    dp["bound_ms"], dp["bound_by"] = bound_ms((3 * k * d + k) * 4, 3 * k * d)
+    _time_record(dp,
+                 lambda: fed_dp_secure_apply_cuda(x, noise=noise,
+                                                  clip_coef=coef,
+                                                  noise_scale=scale),
+                 lambda: ref.fed_dp_secure_apply_ref(x, noise=noise,
+                                                     clip_coef=coef,
+                                                     noise_scale=scale),
+                 None)
+    rec.update(dp_ms=dp["ms"], dp_plain_ms=dp["plain_ms"],
+               dp_bound_ms=dp["bound_ms"], dp_library_ms=None)
+    return rec
+
+
+def topk_plain(msgs, err_state, ids, table):
+    """The plain B4 on whatever device the tensors are on, segment by
+    segment (``ops.fed_topk_ef`` takes it only for CPU tensors)."""
+    from repro_torch.kernels import ref
+    rows = err_state[ids.to(torch.int64)]
+    sent, new = torch.empty_like(msgs), torch.empty_like(msgs)
+    for off, n, k_keep in table:
+        s, e = ref.fed_topk_ef_ref(msgs[:, off:off + n],
+                                   rows[:, off:off + n], k_keep)
+        sent[:, off:off + n], new[:, off:off + n] = s, e
+    return sent, new
+
+
+def _segments(sizes):
+    """``(offset, size)`` of consecutive segments of the given sizes."""
+    out, off = [], 0
+    for n in sizes:
+        out.append((off, n))
+        off += n
+    return out
+
+
+def _topk_rows(g, k, d):
+    """Message rows for B4: Gaussian, tie-heavy (a few exact values),
+    bf16 near-ties (values inside one bf16 step), tiny, and a NaN
+    (padded) row, cycled over ``k`` rows."""
+    kinds = [torch.randn(d, generator=g),
+             torch.randint(-3, 4, (d,), generator=g).to(torch.float32) * 0.25,
+             (1.0 + torch.randint(0, 8, (d,), generator=g) * 2.0 ** -12)
+             * torch.sign(torch.randn(d, generator=g)),
+             torch.randn(d, generator=g) * 1e-3,
+             torch.full((d,), float("nan"))]
+    return torch.stack([kinds[i % len(kinds)] for i in range(k)])
+
+
+def _kernel_b4(g, dev):
+    """B4 (top-k with error feedback per leaf segment): bitwise against
+    the plain version over the grid; timed at the training path's shape
+    (K=5 rows, the ProdLDA segment table, frac 0.25)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fed_aggregate import fed_topk_ef_cuda
+    sizes = PRODLDA_SEGMENTS + [1, 2, 129, 4097]
+    segs, d = _segments(sizes), sum(sizes)
+    cases = 0
+    for k in (1, 5, 16):
+        msgs = _topk_rows(g, k, d).to(dev)
+        err = torch.cat([torch.randn(1, d, generator=g) * 0.1,
+                         torch.zeros(3, d),
+                         torch.randn(1, d, generator=g) * 1e-4]).to(dev)
+        ids = torch.tensor([(0, 1, 1, 4, 2)[i % 5] for i in range(k)],
+                           dtype=torch.int32, device=dev)
+        for frac in (0.01, 0.25, 0.5, 1.0):
+            table = ops.topk_segments(segs, frac)
+            got = fed_topk_ef_cuda(msgs, err, ids, table)
+            want = topk_plain(msgs, err, ids, table)
+            torch.cuda.synchronize()
+            for a, b, what in zip(got, want, ("sent", "new_err")):
+                if not same_bits(a, b):
+                    raise AssertionError(f"B4 K={k} frac={frac}: {what} "
+                                         "kernel != plain bitwise")
+            kept = [int((got[0][:, o:o + n] != 0).sum(1).max())
+                    for o, n, _ in table]
+            if any(c > kk for c, (_, _, kk) in zip(kept, table)):
+                raise AssertionError(f"B4 K={k} frac={frac}: kept more "
+                                     f"than k_keep in a segment")
+            cases += 1
+    log(f"B4 fed_topk_ef: {cases} cases (K in 1,5,16 rows over L=5 with "
+        f"repeated ids; {len(sizes)} segments = the ProdLDA table + 1,2,129,"
+        f"4097; frac in 0.01,0.25,0.5,1.0; Gaussian, tie-heavy, bf16 "
+        f"near-tie, tiny and NaN rows): sent and new_err bitwise equal to "
+        f"the plain version")
+    k = 5
+    table = ops.topk_segments(_segments(PRODLDA_SEGMENTS), 0.25)
+    msgs = torch.randn(k, D_MODEL, generator=g).to(dev) * 1e-3
+    err = torch.randn(k, D_MODEL, generator=g).to(dev) * 1e-4
+    ids = torch.arange(k, dtype=torch.int32, device=dev)
+    magq = (msgs + err).abs().to(torch.bfloat16).to(torch.float32)
+    rec = {"name": "fed_topk_ef", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fed_topk_ef.cu",
+           "replaces": "src/repro/kernels/fed_aggregate.py:141",
+           "max_abs_err": 0.0,
+           "yardstick": "torch.topk on the bf16 keys, per segment "
+                        "(selection only; keeps an arbitrary tie)"}
+    # msgs, the (L, D) error memory and the ids read; sent, new_err written
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (4 * k * D_MODEL + k) * 4, 2 * k * D_MODEL)
+    _time_record(rec, lambda: fed_topk_ef_cuda(msgs, err, ids, table),
+                 lambda: topk_plain(msgs, err, ids, table),
+                 lambda: [torch.topk(magq[:, o:o + n], kk, dim=1)
+                          for o, n, kk in table], lib_label="yardstick")
+    return rec
 
 
 def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
@@ -249,10 +459,23 @@ def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
     return scenario_spec("buffered_async", base)
 
 
+def zero_counts() -> None:
+    from repro_torch.kernels import fed_aggregate, topic_decoder
+    fed_aggregate.launches = fed_aggregate.dp_secure_launches = 0
+    fed_aggregate.topk_ef_launches = topic_decoder.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import fed_aggregate, topic_decoder
+    return {"fed_weighted_sum": fed_aggregate.launches,
+            "topic_decoder": topic_decoder.launches,
+            "fed_dp_secure_apply": fed_aggregate.dp_secure_launches,
+            "fed_topk_ef": fed_aggregate.topk_ef_launches}
+
+
 def phase_main_path(records):
     """The service at full ProdLDA-synthetic width, through its entry
     points; every kernel of the path must launch."""
-    from repro_torch.kernels import fed_aggregate, topic_decoder
     from repro_torch.serve import FederationService, run_traffic
     spec = _async_spec(5000, 50, 100, 5, DOCS_PER_NODE, VAL_DOCS_PER_NODE)
     log(f"main path: buffered_async (M={spec.resolved_buffer_size}, "
@@ -265,8 +488,7 @@ def phase_main_path(records):
     svc = FederationService.from_spec(spec, device="cuda")
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    fed_aggregate.launches = 0
-    topic_decoder.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     stats = run_traffic(svc, sweeps=SWEEPS, order_seed=0, hold_prob=0.2,
                         duplicate_prob=0.1, infer_every=3, infer_batch=8)
@@ -277,10 +499,9 @@ def phase_main_path(records):
     metrics = svc.evaluate()
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    launches = {"fed_weighted_sum": fed_aggregate.launches,
-                "topic_decoder": topic_decoder.launches}
+    launches = read_counts()
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {"service": launches[r["name"]]}
     log(f"  set-up (corpus + clients on the card) {t_build:.1f} s; "
         f"traffic + drain {t_traffic:.2f} s; evaluate {t_eval:.2f} s")
     log(f"  aggregations {stats['aggregations']} -> version {svc.version}, "
@@ -292,7 +513,8 @@ def phase_main_path(records):
     log(f"  launches on the path: {json.dumps(launches)}")
     n_val = 5 * VAL_DOCS_PER_NODE
     want = {"fed_weighted_sum": svc.agg_index,
-            "topic_decoder": math.ceil(n_val / 256)}
+            "topic_decoder": math.ceil(n_val / 256),
+            "fed_dp_secure_apply": 0, "fed_topk_ef": 0}
     if stats["aggregations"] < 1 or stats["infer_calls"] < 1:
         raise AssertionError("main path ran no aggregation or no inference")
     if launches != want:
@@ -304,6 +526,128 @@ def phase_main_path(records):
         raise AssertionError(f"non-finite params {bad} or held-out ELBO "
                              f"{metrics['heldout_elbo_per_token']}")
     return spec, svc._fed.corpus
+
+
+def _train_spec(name, vocab, topics, hidden, clients, docs, val_docs,
+                rounds, **execution):
+    """A registry scenario over a synchronous base on the batched cohort
+    path (``execution.exec_mode="vmap"``)."""
+    from repro_torch.api import (DataSpec, ExecutionSpec, FederationSpec,
+                                 ModelSpec, ScheduleSpec, scenario_spec)
+    base = FederationSpec(
+        model=ModelSpec(vocab=vocab, topics=topics, hidden=hidden),
+        data=DataSpec(num_clients=clients, docs_per_node=docs,
+                      val_docs_per_node=val_docs),
+        schedule=ScheduleSpec(rounds=rounds),
+        execution=ExecutionSpec(exec_mode="vmap", **execution))
+    return scenario_spec(name, base)
+
+
+def phase_training(records, corpus):
+    """Synchronous federated training at full ProdLDA-synthetic width on
+    the batched cohort path, one run per spec through
+    ``Federation.from_spec(...).run()`` and ``evaluate``; each run's
+    kernel counts are zeroed before it and read after it."""
+    from repro_torch.api import Federation
+    from repro_torch.core.transforms import pairwise_mask_stack
+    n_eval = math.ceil(5 * VAL_DOCS_PER_NODE / 256)
+    expect = {"pallas-topk": {"fed_weighted_sum": TRAIN_ROUNDS,
+                              "fed_topk_ef": TRAIN_ROUNDS},
+              "pallas-secure": {"fed_weighted_sum": TRAIN_ROUNDS,
+                                "fed_dp_secure_apply": TRAIN_ROUNDS},
+              "dp-transform": {"fed_weighted_sum": TRAIN_ROUNDS,
+                               "fed_dp_secure_apply": TRAIN_ROUNDS}}
+    log(f"training path: V=5000 K=50 hidden 100-100, L=5 clients (K=L), "
+        f"batch 64, lr 2e-3, {DOCS_PER_NODE} train + {VAL_DOCS_PER_NODE} "
+        f"val docs per node; specs {', '.join(TRAIN_SPECS)} (dp-transform "
+        f"over the vmap base); cut: training to {TRAIN_ROUNDS} rounds")
+    for name in TRAIN_SPECS:
+        spec = _train_spec(name, 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, TRAIN_ROUNDS)
+        t0 = time.perf_counter()
+        fed = Federation.from_spec(spec, device="cuda", corpus=corpus)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ends = []
+        fed.on_round_end(lambda rec: ends.append(time.perf_counter()))
+        zero_counts()
+        t0 = time.perf_counter()
+        fed.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        metrics = fed.evaluate()
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t1
+        counts = read_counts()
+        per_round = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+        log(f"  {name}: set-up {t_build:.2f} s; {len(fed.history)} rounds "
+            f"in {t_run:.3f} s, per round "
+            + ", ".join(f"{x * 1e3:.1f}" for x in per_round)
+            + f" ms; evaluate {t_eval:.2f} s; losses "
+            + ", ".join(f"{h['loss']:.3f}" for h in fed.history))
+        log(f"    evaluate {json.dumps(metrics)}")
+        log(f"    launches: {json.dumps(counts)}")
+        want = {k: 0 for k in counts}
+        want.update(expect[name], topic_decoder=n_eval)
+        if counts != want:
+            raise AssertionError(f"{name}: kernel launches {counts} != "
+                                 f"{want}")
+        for r in records:
+            r["launches_by_path"][name] = counts[r["name"]]
+        bad = [k for k, v in fed.params.items()
+               if not bool(torch.isfinite(v).all())]
+        if bad or len(fed.history) != TRAIN_ROUNDS \
+                or not math.isfinite(metrics["heldout_elbo_per_token"]):
+            raise AssertionError(f"{name}: non-finite params {bad}, "
+                                 f"{len(fed.history)} rounds or held-out "
+                                 f"ELBO {metrics['heldout_elbo_per_token']}")
+        if name == "pallas-secure":
+            last = spec.execution.seed * 100003 + TRAIN_ROUNDS - 1
+            stack = pairwise_mask_stack(
+                last, [(o, n) for _, _, o, n in fed.engine.layout],
+                5).to("cuda")
+            total = torch.sum(stack, dim=0)
+            if not same_bits(total, torch.zeros_like(total)):
+                raise AssertionError("secure masks of the last round do not "
+                                     "sum to exactly +0.0 on the card")
+            log(f"    last round's mask stack ({tuple(stack.shape)}, max "
+                f"|mask| {float(stack.abs().max()):.3f}) sums to exactly "
+                f"+0.0 on the card")
+    for r in records:
+        r["launches"] = sum(r["launches_by_path"].values())
+
+
+def phase_training_profile(corpus):
+    """Where the training time goes: two rounds of each spec on a fresh
+    federation under ``torch.profiler``; the device's busy share of the
+    wall time and the kernels that fill it."""
+    from torch.autograd import DeviceType
+    from repro_torch.api import Federation
+    for name in TRAIN_SPECS:
+        spec = _train_spec(name, 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, 2)
+        fed = Federation.from_spec(spec, device="cuda", corpus=corpus)
+        fed.step()                       # warm: first-call allocations
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fed.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us()
+        busy = sum(by_name.values()) / 1e6
+        log(f"profile {name} (one round, traced): wall {wall * 1e3:.1f} ms, "
+            f"device busy {busy * 1e3:.2f} ms = {100 * busy / wall:.1f}% "
+            f"of wall")
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
 
 
 def phase_profile(spec, corpus):
@@ -367,6 +711,23 @@ def phase_agreement():
         raise AssertionError(f"event ledgers differ: {st_cpu} vs {st_gpu}")
     if not (dev_p <= 1e-5 and rel <= 1e-5):
         raise AssertionError("card and CPU paths disagree beyond 1e-5")
+    from repro_torch.api import Federation
+    # the spec's default widths (V=400, K=10, hidden 64): at V=64 some
+    # random inits start at a loss 300x the usual and diverge in a round
+    for name in TRAIN_SPECS:
+        spec = _train_spec(name, 400, 10, 64, 3, 40, 8, 3, batch_size=64,
+                           learning_rate=2e-4)
+        cpu = Federation.from_spec(spec, device="cpu")
+        gpu = Federation.from_spec(spec, device="cuda",
+                                   init_params=cpu.params)
+        cpu.run()
+        gpu.run()
+        dev_t = max_param_dev(cpu.params, gpu.params)
+        log(f"agreement {name} (V=400 K=10, 3 clients, 3 rounds): card vs CPU "
+            f"max_param_dev {dev_t:.3e} (bound 1e-5)")
+        if not dev_t <= 1e-5 or [h["participants"] for h in gpu.history] \
+                != [h["participants"] for h in cpu.history]:
+            raise AssertionError(f"{name}: card and CPU training disagree")
 
 
 def main() -> int:
@@ -385,13 +746,18 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     spec, corpus = phase_main_path(records)
+    phase_training(records, corpus)
     phase_profile(spec, corpus)
+    phase_training_profile(corpus)
     phase_agreement()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    extra = ("launches_by_path", "k5", "variant", "dp_ms", "dp_plain_ms",
+             "dp_bound_ms", "dp_library_ms", "yardstick", "yardstick_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
+                                for r in records]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

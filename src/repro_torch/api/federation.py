@@ -1,14 +1,16 @@
-"""`Federation` — spec -> wired loop-mode engine + held-out evaluation.
+"""`Federation` — spec -> wired engine, stepping and held-out evaluation.
 
-Port of the pieces of ``repro/api/federation.py`` the buffered-async
-service builds on: the synthetic corpus, the per-node client corpora
-(put on the device once), the ProdLDA objective and init, and
-``evaluate``.  Stepping a synchronous simulation (``step``/``run``) and
-snapshots wait for their slices (ROADMAP A8, A11).
+Port of ``repro/api/federation.py`` for ProdLDA: the synthetic corpus,
+the per-node client corpora (put on the device once), the objective and
+init, ``step``/``run`` with the reference's per-round seed schedule
+``seed * 100003 + round`` and ``on_round_end`` hooks, and ``evaluate``.
+Rounds run on the batched cohort path (``exec_mode="vmap"``); a
+loop-mode spec builds (the buffered-async service's sync twin) but
+raises when stepped (ROADMAP A6/A8).  Snapshots wait for A11.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -103,9 +105,9 @@ def heldout_elbo_per_token(params: Mapping[str, torch.Tensor],
 
 
 class Federation:
-    """A spec wired into a loop-mode engine (construct via
-    :meth:`from_spec`); ``.engine`` holds params, clients and the server
-    optimizer."""
+    """A spec wired into an engine (construct via :meth:`from_spec`);
+    ``.engine`` holds params, clients, the scheduler, the transform stage
+    and the server optimizer."""
 
     def __init__(self, spec: FederationSpec, engine: FederationEngine, *,
                  model_cfg: ModelConfig, corpus: SyntheticLDA,
@@ -116,6 +118,7 @@ class Federation:
         self.corpus = corpus
         self.device = device
         self._val: Optional[torch.Tensor] = None
+        self._hooks: List[Callable[[Dict[str, float]], None]] = []
 
     @classmethod
     def from_spec(cls, spec: Union[FederationSpec, Mapping, str], *,
@@ -160,8 +163,54 @@ class Federation:
             lambda p, b: prodlda.elbo_loss(p, cfg, b),
             {k: v.to(dev) for k, v in init_params.items()},
             clients, spec.to_federated_config(), spec.to_round_config(),
-            batch_size=spec.execution.batch_size)
+            batch_size=spec.execution.batch_size,
+            # mask-aware (sum, count): padded cohort rows stay out of the
+            # stacked objective
+            loss_sum_fn=lambda p, b: prodlda.elbo_loss_sum(p, cfg, b))
         return cls(spec, engine, model_cfg=cfg, corpus=corpus, device=dev)
+
+    # -- state --------------------------------------------------------------
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self.engine.params
+
+    @property
+    def history(self) -> List[Dict[str, float]]:
+        return self.engine.history
+
+    @property
+    def round_index(self) -> int:
+        """Rounds completed so far (== the next round's index)."""
+        return self.engine._round
+
+    # -- stepping -------------------------------------------------------------
+    def _round_seed(self, round_idx: int) -> int:
+        return self.spec.execution.seed * 100003 + round_idx
+
+    def on_round_end(self, fn: Callable[[Dict[str, float]], None]):
+        """Register a hook called with every completed round's record;
+        returns ``fn`` (decorator-friendly)."""
+        self._hooks.append(fn)
+        return fn
+
+    def step(self) -> Dict[str, float]:
+        """Run exactly one round; fire hooks; return the round record."""
+        rec = self.engine.round(seed=self._round_seed(self.engine._round))
+        for fn in self._hooks:
+            fn(rec)
+        return rec
+
+    def run(self, rounds: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Step until ``schedule.rounds`` total rounds have run (``rounds=N``:
+        at most N more), honoring the rel-tol stopping criterion; on a
+        fresh federation this is step-for-step ``FederationEngine.fit``."""
+        total = self.spec.schedule.rounds if rounds is None \
+            else self.engine._round + rounds
+        while self.engine._round < total:
+            rec = self.step()
+            if self.engine.stop_criterion(rec, self.engine.fed.rel_tol):
+                break
+        return self.engine.params
 
     def evaluate(self, *, batch: int = 256) -> Dict[str, float]:
         """Held-out ELBO/perplexity, NPMI and TSS of ``engine.params``

@@ -1,9 +1,12 @@
 """Named scenario registry: one name -> one `FederationSpec`.
 
-The port's entries of ``repro/api/registry.py``: the paper regime and the
-two buffered-async service presets, with the reference's overrides.  The
-other reference scenarios need transforms, stragglers, the vmap path or
-the mesh, and join as their slices land (ROADMAP.md §A).
+The port's entries of ``repro/api/registry.py``, with the reference's
+override dicts: the paper regime, the synchronous scenario cells the
+batched cohort path runs (the transform cells build on a base spec with
+``execution.exec_mode="vmap"``; under loop mode they raise, ROADMAP.md
+A8/A9), the kernel cells, and the two buffered-async service presets.
+The other reference scenarios need stragglers, non-``topic`` partitions,
+the mesh or the LM zoo, and join as their slices land (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -12,10 +15,34 @@ from typing import Any, Dict, Mapping, Optional
 
 from repro_torch.api.spec import FederationSpec, spec_replace
 
+# dp clip/noise sized for DELTA messages (magnitude ~ lr * |G|)
+_DP_KNOBS = {"transforms.dp_noise_multiplier": 0.3,
+             "transforms.dp_clip_norm": 0.05}
+
 SCENARIOS: Dict[str, Mapping[str, Any]] = {
     # the paper regime: all defaults (topic partition, K = L, E = 1,
     # synchronous, FedAvg(server_lr=1) == Eq. (3) server SGD)
     "paper": {},
+    # ---- the reference's scenario-bench cells the port runs ------------
+    "sync": {},
+    "hetero-epochs": {"schedule.local_epochs_by_client": (1, 2, 4)},
+    "dp-transform": {"transforms.names": ("dp",), **_DP_KNOBS},
+    "topk-transform": {"transforms.names": ("topk",),
+                       "transforms.compression_topk": 0.25},
+    "secure-transform": {"transforms.names": ("secure",)},
+    # bf16 wire format (never composes with 'secure' — the spec refuses)
+    "precision-transform": {"transforms.names": ("precision",),
+                            "transforms.precision": "bf16"},
+    # ---- kernel cells: the batched cohort path through B2, B4, B3 -------
+    "pallas-aggregate": {"execution.exec_mode": "vmap",
+                         "execution.kernel_backend": "pallas"},
+    "pallas-topk": {"transforms.names": ("topk",),
+                    "transforms.compression_topk": 0.25,
+                    "execution.exec_mode": "vmap",
+                    "execution.kernel_backend": "pallas"},
+    "pallas-secure": {"transforms.names": ("secure",),
+                      "execution.exec_mode": "vmap",
+                      "execution.kernel_backend": "pallas"},
     # FedBuff-style: aggregate every M=2 arrivals, staleness window 2,
     # polynomial delta discount
     "buffered_async": {"schedule.mode": "buffered_async",

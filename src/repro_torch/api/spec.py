@@ -13,11 +13,14 @@ accepts round-trips to the identical dict in both packages:
       ├── execution    exec mode, batch, client lr, seeds
       └── serving      optional wire front-end
 
-Specs validate at construction.  What this slice of the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP.md item:
-transforms (A9), ``exec_mode="vmap"`` (A10), a mesh (A17),
+Specs validate at construction, with the reference's messages.  What
+the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item: transforms outside the batched cohort path (A8/A9),
+stragglers on it (the fused ring, A10), a mesh (A17),
 ``model.family="lm"`` (A16), the ``serving`` section (A14), the
-stochastic loss (A4) and non-``topic`` partitions (A2).
+stochastic loss (A4) and non-``topic`` partitions (A2).  Synchronous
+rounds under ``exec_mode="loop"`` validate (the buffered-async service
+builds on that twin) and raise when stepped (A6/A8).
 ``execution.kernel_backend`` is kept so dicts round-trip; it selects
 nothing in the port, where the tensor's device picks kernel or plain.
 """
@@ -253,7 +256,7 @@ class ScheduleSpec:
 
 @dataclass(frozen=True)
 class TransformsSpec:
-    """``transforms`` section (refused by the port until ROADMAP A9)."""
+    """``transforms`` section: the ordered message-transform stage."""
     names: Tuple[str, ...] = ()
     dp_noise_multiplier: float = 0.0
     dp_clip_norm: float = 1.0
@@ -274,12 +277,44 @@ class TransformsSpec:
                      exclusive_min=True)
         _check_float(self.compression_topk, "transforms.compression_topk",
                      0.0, 1.0)
+        # the never-silently-dropped contract, both directions
+        if "dp" in self.names:
+            _require(self.dp_noise_multiplier > 0,
+                     "the 'dp' transform needs "
+                     "transforms.dp_noise_multiplier > 0 — with zero "
+                     "noise it would silently degrade to clip-only "
+                     "while claiming local DP")
+        elif self.dp_noise_multiplier > 0:
+            _require(False,
+                     "transforms.dp_noise_multiplier > 0 but 'dp' is "
+                     "not in transforms.names — declare the stage "
+                     "explicitly (names=('dp', ...)); privacy knobs are "
+                     "never silently dropped")
+        if "topk" in self.names:
+            _require(self.compression_topk > 0,
+                     "the 'topk' transform needs "
+                     "transforms.compression_topk > 0")
+        elif self.compression_topk > 0:
+            _require(False,
+                     "transforms.compression_topk > 0 but 'topk' is "
+                     "not in transforms.names — declare the stage "
+                     "explicitly (names=('topk', ...)); compression "
+                     "knobs are never silently dropped")
         _require(self.precision in ("", "bf16"),
                  f"transforms.precision {self.precision!r} is not a "
                  "supported wire format; one of ('', 'bf16')")
-        if (self.names or self.dp_noise_multiplier > 0
-                or self.compression_topk > 0 or self.precision):
-            _not_ported("the message-transform stage (transforms.*)", "A9")
+        if "precision" in self.names:
+            _require(self.precision == "bf16",
+                     "the 'precision' transform needs "
+                     "transforms.precision = 'bf16' (the only wire "
+                     "format implemented) — an empty precision with the "
+                     "stage enabled would silently be a no-op cast")
+        elif self.precision:
+            _require(False,
+                     "transforms.precision is set but 'precision' is "
+                     "not in transforms.names — declare the stage "
+                     "explicitly (names=('precision', ...)); wire-format "
+                     "knobs are never silently dropped")
 
 
 @dataclass(frozen=True)
@@ -337,9 +372,6 @@ class ExecutionSpec:
         _check_int(self.seed, "execution.seed", 0)
         if self.mesh is not None:
             _not_ported("execution.mesh (the sharded cohort path)", "A17")
-        if self.exec_mode == "vmap":
-            _not_ported("execution.exec_mode='vmap' (the batched cohort "
-                        "path)", "A10")
         if self.stochastic_loss:
             _not_ported("execution.stochastic_loss (the train-mode ELBO's "
                         "dropout and reparametrization draws)", "A4")
@@ -394,6 +426,30 @@ class FederationSpec:
             v._validate()
         if self.serving is not None:
             _not_ported("the serving section (the wire front-end)", "A14")
+        if "secure" in self.transforms.names:
+            _require("precision" not in self.transforms.names,
+                     "the 'secure' transform is incompatible with "
+                     "'precision' (bf16 messages): pairwise masks cancel "
+                     "BITWISE only on the fp32 dyadic grid — rounding "
+                     "masked messages to bfloat16 destroys the "
+                     "cancellation, a silent privacy downgrade, never a "
+                     "tolerable approximation")
+            sch, L = self.schedule, self.data.num_clients
+            _require(not (sch.straggler_prob > 0 and sch.max_staleness > 0),
+                     "the 'secure' transform is incompatible with the "
+                     "straggler buffer (schedule.straggler_prob/"
+                     "max_staleness): a stale masked message arrives in "
+                     "a later combine than its pair partners, so the "
+                     "pairwise masks no longer cancel")
+            k = sch.clients_per_round or L
+            _require(min(k, L) >= L
+                     and not any(j > 0 for j in sch.client_join_round)
+                     and not any(x > 0 for x in sch.client_leave_round),
+                     "the 'secure' transform needs synchronous full "
+                     "participation (clients_per_round = 0 or "
+                     "num_clients, no client join/leave): pairwise "
+                     "masks only cancel when every client's message "
+                     "joins the same combine")
         if self.schedule.mode == "buffered_async":
             m, L = self.resolved_buffer_size, self.data.num_clients
             _require(m <= L,
@@ -403,11 +459,44 @@ class FederationSpec:
                      "upload supersedes), so a buffer wider than the "
                      "population can never fill and aggregation would "
                      "never fire")
+            _require("secure" not in self.transforms.names,
+                     "the 'secure' transform is incompatible with "
+                     "schedule.mode='buffered_async': pairwise masks "
+                     "cancel only when a FIXED cohort's messages join "
+                     "one combine — a buffered-async aggregation fires "
+                     "on whichever M deltas arrive first, so mask "
+                     "partners can land in different aggregations and "
+                     "the dyadic-grid cancellation breaks (DESIGN.md §6)")
+            _require(self.execution.exec_mode == "loop",
+                     "execution.exec_mode='vmap' has no meaning under "
+                     "schedule.mode='buffered_async': the fused graphs "
+                     "stack a round's cohort, but the service has no "
+                     "round barrier — each upload is an independent "
+                     "per-client local update (the loop/reference "
+                     "path); set exec_mode='loop'")
+        # what the port runs: transforms on the batched cohort path only,
+        # and that path without the straggler ring
+        vmap = self.execution.exec_mode == "vmap"
+        if self.transforms.names and (
+                not vmap or self.schedule.mode == "buffered_async"):
+            _not_ported("message transforms under exec_mode='loop' or the "
+                        "buffered-async service (the per-client "
+                        "application)", "A8/A9")
+        if vmap and self.schedule.straggler_prob > 0 \
+                and self.schedule.max_staleness > 0:
+            _not_ported("stragglers on the batched cohort path (the fused "
+                        "straggler ring)", "A10")
 
     # -- resolved (cross-section) defaults --------------------------------
     @property
     def resolved_data_seed(self) -> int:
         return self.data.seed if self.data.seed is not None \
+            else self.execution.seed
+
+    @property
+    def resolved_sampling_seed(self) -> int:
+        return self.schedule.sampling_seed \
+            if self.schedule.sampling_seed is not None \
             else self.execution.seed
 
     @property
@@ -435,20 +524,39 @@ class FederationSpec:
                            ntm_hidden=(self.model.hidden, self.model.hidden))
 
     def to_federated_config(self) -> FederatedConfig:
+        t = self.transforms
         return FederatedConfig(
             num_clients=self.data.num_clients,
-            learning_rate=self.execution.learning_rate)
+            learning_rate=self.execution.learning_rate,
+            max_rounds=self.schedule.rounds,
+            rel_tol=self.execution.rel_tol,
+            dp_noise_multiplier=t.dp_noise_multiplier,
+            dp_clip_norm=t.dp_clip_norm,
+            message_precision=t.precision,
+            compression_topk=t.compression_topk)
 
     def to_round_config(self) -> RoundConfig:
         s = self.schedule
         return RoundConfig(
+            exec_mode=self.execution.exec_mode,
+            clients_per_round=s.clients_per_round,
+            sampling=s.sampling,
+            sampling_seed=self.resolved_sampling_seed,
             local_epochs=s.local_epochs,
-            local_epochs_by_client=s.local_epochs_by_client,
             server_optimizer=self.server_opt.name,
             server_lr=self.server_opt.lr,
             server_momentum=self.server_opt.momentum,
             server_beta2=self.server_opt.beta2,
-            server_eps=self.server_opt.eps)
+            server_eps=self.server_opt.eps,
+            straggler_prob=s.straggler_prob,
+            max_staleness=s.max_staleness,
+            staleness_decay=s.staleness_decay,
+            transforms=self.transforms.names,
+            pad_cohorts=self.execution.pad_cohorts,
+            local_epochs_by_client=s.local_epochs_by_client,
+            client_join_round=s.client_join_round,
+            client_leave_round=s.client_leave_round,
+            kernel_backend=self.execution.kernel_backend)
 
     # -- dict round trip ----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

@@ -1,16 +1,19 @@
-"""Eq. (2) aggregation and the server optimizers, over ``dict[str, Tensor]``.
+"""Eq. (2) aggregation, the server optimizers, top-k with error feedback
+and local DP, over ``dict[str, Tensor]``.
 
-Port of the service-path part of ``repro/core/aggregation.py``: the
-stacked weighted average and the fedavg / fedavgm / fedadam server rules
-(Reddi et al. 2021).  Server-optimizer state is kept in fp32.  Secure
-masks, top-k and local DP wait for the transforms slice (ROADMAP A9).
+Port of ``repro/core/aggregation.py``: the stacked weighted average, the
+fedavg / fedavgm / fedadam server rules (Reddi et al. 2021), the exact
+top-k selection rule and local DP.  Server-optimizer state is kept in
+fp32.  The secure masks live in ``core/transforms.py``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.optim.optimizers import clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -109,3 +112,69 @@ def get_server_optimizer(name: str, **kw) -> ServerOptimizer:
         raise KeyError(f"unknown server optimizer {name!r}; "
                        f"available: {sorted(SERVER_OPTIMIZERS)}")
     return SERVER_OPTIMIZERS[name](**kw)
+
+
+# ---------------------------------------------------------------------------
+# top-k sparsification + error feedback
+# ---------------------------------------------------------------------------
+def topk_keep_mask(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask keeping EXACTLY the ``k`` largest entries of the last
+    axis, ranked on the bf16 round trip of ``mag`` (round to nearest
+    even), ties broken toward the LOWER index — the reference's rule bit
+    for bit.  Near-ties within the bf16 grid collapse into exact ties,
+    which the index rule resolves the same way on every path; kept
+    values go out at full precision."""
+    magq = mag.to(torch.bfloat16).to(torch.float32)
+    thresh = torch.topk(magq, k, dim=-1).values[..., -1:]
+    greater = magq > thresh
+    n_greater = torch.sum(greater, dim=-1, keepdim=True)
+    tie = magq == thresh
+    tie_rank = torch.cumsum(tie.to(torch.int32), dim=-1) - 1
+    return greater | (tie & (tie_rank < k - n_greater))
+
+
+def topk_sparsify(tree: Mapping[str, torch.Tensor], frac: float) -> Params:
+    """Keep exactly ``max(int(frac * size), 1)`` entries of each leaf, by
+    magnitude (:func:`topk_keep_mask`)."""
+    out = {}
+    for name, leaf in tree.items():
+        flat = leaf.reshape(-1)
+        k = max(int(frac * flat.numel()), 1)
+        mask = topk_keep_mask(torch.abs(flat), k).reshape(leaf.shape)
+        out[name] = torch.where(mask, leaf, torch.zeros((), dtype=leaf.dtype,
+                                                        device=leaf.device))
+    return out
+
+
+def compress_with_error_feedback(grads: Mapping[str, torch.Tensor],
+                                 error: Optional[Mapping[str, torch.Tensor]],
+                                 frac: float) -> Tuple[Params, Params]:
+    """``(sent, new error memory)``; ``error`` may be None (round 0)."""
+    if error is None:
+        error = {k: torch.zeros_like(g, dtype=torch.float32)
+                 for k, g in grads.items()}
+    corrected = {k: g.to(torch.float32) + error[k] for k, g in grads.items()}
+    sent = topk_sparsify(corrected, frac)
+    return sent, {k: corrected[k] - sent[k] for k in corrected}
+
+
+# ---------------------------------------------------------------------------
+# local differential privacy
+# ---------------------------------------------------------------------------
+def dp_privatize(grads: Mapping[str, torch.Tensor],
+                 noise: Union[Mapping[str, torch.Tensor], torch.Generator],
+                 *, clip_norm: float, noise_multiplier: float) -> Params:
+    """Per-client clip to ``clip_norm`` + Gaussian noise (local DP).
+
+    ``noise`` is either the standard-normal draws themselves, one tensor
+    per leaf (a test hands in the reference's), or a CPU
+    ``torch.Generator`` they are drawn from, leaf by leaf in dict order."""
+    clipped, _ = clip_by_global_norm(grads, clip_norm)
+    if noise_multiplier <= 0:
+        return clipped
+    if isinstance(noise, torch.Generator):
+        noise = {k: torch.randn(v.shape, generator=noise).to(v.device)
+                 for k, v in clipped.items()}
+    scale = noise_multiplier * clip_norm
+    return {k: v + scale * noise[k].to(torch.float32)
+            for k, v in clipped.items()}

@@ -1,23 +1,40 @@
-"""The loop-mode federation engine: what the buffered-async service calls.
+"""`FederationEngine` — sampler -> local update -> transforms -> combine ->
+server optimizer.
 
-Port of the part of ``repro/core/engine.py`` the service runs: the
-client state, the delta message, one client's E-epoch local update, the
-fixed-capacity delta-slot layout, and an engine holding params, clients
-and the server optimizer that exposes ``_local_message``.  Rounds,
-sampling, stragglers and the vmap path wait for their slices (ROADMAP
-A8, A10); the message transforms for A9.
+Port of ``repro/core/engine.py`` for two paths:
+
+* the batched cohort path (``exec_mode="vmap"``), one synchronous round
+  at a time: the ``RoundScheduler`` cohort, its stacked ``(K, E, P, V)``
+  minibatches with ``doc_mask``, all K clients' E-epoch local updates in
+  one ``torch.func.vmap(grad)`` over ``functional_call``, the stacked
+  transform stage (``core/transforms.py``) on ONE flat ``(K, D)`` message
+  slab, padded rows re-zeroed, the Eq. (2) combine through kernel B2 and
+  the server-optimizer step, gated on any positive weight.  Each kernel
+  is one call per round: B2 for the combine, B3 for ``dp`` or
+  ``secure``, B4 for ``topk``;
+* one client's loop-mode local update (``_local_message``), which the
+  buffered-async service runs per upload.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: loop-mode synchronous rounds and Algorithm 1's gradient messages
+(A6/A8), transforms under loop mode (A9), the fused straggler ring (A10).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
-from repro_torch.data.federated_split import round_minibatches
+from repro_torch.core.transforms import StackedTransformCtx, \
+    build_transforms
+from repro_torch.data.federated_split import (round_minibatches,
+                                              stacked_round_batches)
+from repro_torch.kernels import ops
+from repro_torch.optim.optimizers import global_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -101,30 +118,259 @@ def init_delta_buffer(params: Mapping[str, torch.Tensor], capacity: int, *,
     return buf
 
 
+def masked_mean_loss(loss_fn, loss_sum_fn=None):
+    """Client objective of the stacked path: with a mask-aware
+    ``loss_sum_fn(params, batch) -> (sum, count)`` (``prodlda.
+    elbo_loss_sum``) padded rows stay out of the objective and its
+    gradient, and ``sum / max(count, 1)`` equals the plain mean over the
+    unpadded batch; without one, the plain mean with the mask stripped
+    (valid only when no client pads, which the engine checks)."""
+    if loss_sum_fn is not None:
+        def mean_loss(params, batch):
+            s, n = loss_sum_fn(params, batch)
+            return s / torch.clamp(n, min=1.0)
+        return mean_loss
+
+    def mean_loss(params, batch):
+        return loss_fn(params, {k: v for k, v in batch.items()
+                                if k != "doc_mask"})
+    return mean_loss
+
+
+def _check_vmap_preconditions(clients, batch_size: int, loss_sum_fn, *,
+                              what: str) -> None:
+    if loss_sum_fn is None and any(c.num_docs < batch_size for c in clients):
+        raise ValueError(
+            f"{what} exec_mode='vmap' with ragged clients (num_docs < "
+            f"batch_size={batch_size}) needs a mask-aware loss_sum_fn "
+            "(e.g. prodlda.elbo_loss_sum) so padded rows stay out of the "
+            "objective; pass loss_sum_fn= or use exec_mode='loop'")
+
+
+def _rel_change(old: Mapping[str, torch.Tensor],
+                new: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    num = global_norm({k: old[k] - new[k] for k in old})
+    return num / torch.clamp(global_norm(old), min=1e-12)
+
+
+def _cycle_per_client(values: Optional[Sequence[int]], num_clients: int,
+                      default: int) -> np.ndarray:
+    """Per-client int schedule: cycle a (possibly shorter) tuple over L."""
+    if not values:
+        return np.full(num_clients, default, np.int64)
+    v = np.asarray(values, np.int64)
+    return v[np.arange(num_clients) % len(v)]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
+        "run it on the JAX reference package")
+
+
+class RoundScheduler:
+    """Samples the K-of-L client cohort for each round (numpy only, so the
+    cohorts are the reference's bit for bit).
+
+    Modes: ``uniform`` (K without replacement), ``weighted`` (probability
+    proportional to corpus size), ``deterministic`` (a fixed seeded
+    permutation walked K at a time).  Client l is active at round r iff
+    ``join[l] <= r < leave[l]`` (0 in leave = never leaves); every mode
+    samples among the active set.  Cohorts are deterministic functions of
+    ``(seed, round_idx)``.
+    """
+
+    MODES = SAMPLING_MODES
+
+    def __init__(self, num_clients: int, clients_per_round: int = 0, *,
+                 mode: str = "uniform",
+                 weights: Optional[Sequence[float]] = None, seed: int = 0,
+                 join_rounds: Optional[Sequence[int]] = None,
+                 leave_rounds: Optional[Sequence[int]] = None):
+        if mode not in self.MODES:
+            raise ValueError(f"unknown sampling mode {mode!r}; "
+                             f"one of {self.MODES}")
+        self.num_clients = num_clients
+        k = clients_per_round or num_clients
+        self.clients_per_round = min(k, num_clients)
+        self.mode = mode
+        self.seed = seed
+        if mode == "weighted":
+            if weights is None:
+                raise ValueError("weighted sampling needs per-client weights")
+            w = np.asarray(weights, np.float64)
+            self.probs = w / w.sum()
+        else:
+            self.probs = None
+        self.join = _cycle_per_client(join_rounds, num_clients, 0)
+        leave = _cycle_per_client(leave_rounds, num_clients, 0)
+        self.leave = np.where(leave <= 0, np.iinfo(np.int64).max, leave)
+        self._has_availability = bool(
+            (self.join > 0).any()
+            or (self.leave < np.iinfo(np.int64).max).any())
+        self._perm = np.random.default_rng(seed).permutation(num_clients)
+
+    def active(self, round_idx: int) -> np.ndarray:
+        """Client ids present in the federation at round ``round_idx``."""
+        return np.where((self.join <= round_idx)
+                        & (round_idx < self.leave))[0]
+
+    def select(self, round_idx: int) -> np.ndarray:
+        """Sorted client ids of the round-``round_idx`` cohort."""
+        act = self.active(round_idx) if self._has_availability \
+            else np.arange(self.num_clients)
+        a, k = len(act), min(self.clients_per_round, len(act))
+        if k >= a:
+            return act.copy()
+        if self.mode == "deterministic":
+            walk = self._perm[np.isin(self._perm, act)]
+            start = (round_idx * k) % a
+            idx = walk[np.arange(start, start + k) % a]
+            return np.sort(idx)
+        rng = np.random.default_rng([self.seed, round_idx])
+        if self.probs is None:
+            p = None
+        elif a == self.num_clients:
+            p = self.probs
+        else:
+            p = self.probs[act] / self.probs[act].sum()
+        idx = act[rng.choice(a, k, replace=False, p=p)]
+        return np.sort(idx)
+
+
 class FederationEngine:
-    """Loop-mode engine state: params, clients, server optimizer.
+    """Engine state: params, clients, cohort scheduler, transform stage
+    and server optimizer (module docstring).
 
     ``loss_fn(params, batch) -> scalar mean loss`` is the client's local
-    objective; a client message is the E-epoch delta ``W_l - W``.
+    objective, ``loss_sum_fn`` its mask-aware ``(sum, count)`` form for
+    the stacked path; a client message is the E-epoch delta ``W_l - W``.
     """
 
     def __init__(self, loss_fn, init_params: Mapping[str, torch.Tensor],
                  clients: Sequence[ClientState], fed: FederatedConfig,
                  rounds: Optional[RoundConfig] = None, *,
-                 batch_size: int = 64):
+                 batch_size: int = 64, loss_sum_fn=None):
         self.loss_fn = loss_fn
         self.params: Params = dict(init_params)
         self.clients = list(clients)
         self.fed = fed
         self.rc = rounds or RoundConfig()
         self.batch_size = batch_size
-        by_client = self.rc.local_epochs_by_client
-        self._epochs = (np.asarray(by_client, np.int64)[
-            np.arange(len(self.clients)) % len(by_client)] if by_client
-            else np.full(len(self.clients), self.rc.local_epochs, np.int64))
+        self.exec_mode = self.rc.exec_mode
+        if self.exec_mode not in EXEC_MODES:
+            raise ValueError(f"unknown exec_mode {self.exec_mode!r}; "
+                             f"one of {EXEC_MODES}")
+        if self.rc.kernel_backend not in KERNEL_BACKENDS:
+            raise ValueError(
+                f"unknown kernel_backend {self.rc.kernel_backend!r}; "
+                f"one of {KERNEL_BACKENDS}")
+        if not 0.0 <= self.rc.staleness_decay <= 1.0:
+            raise ValueError(
+                f"staleness_decay must be in [0, 1], got "
+                f"{self.rc.staleness_decay!r} — both the loop-mode "
+                "combine_arrivals and the fused ring buffer would "
+                "amplify or sign-flip stale deltas outside that range")
+
+        # -- transform stage ---------------------------------------------
+        names = tuple(self.rc.transforms)
+        if not names and (fed.dp_noise_multiplier > 0
+                          or fed.compression_topk > 0
+                          or fed.secure_aggregation
+                          or bool(fed.message_precision)):
+            raise NotImplementedError(
+                "FederatedConfig requests message-level "
+                "privacy/compression/precision but no transform stage is "
+                "configured for this engine; declare the intent explicitly "
+                "via RoundConfig.transforms="
+                "('dp'|'topk'|'secure'|'precision', ...) — the knobs are "
+                "never silently dropped")
+        vmap = self.exec_mode == "vmap"
+        if vmap:
+            _check_vmap_preconditions(self.clients, batch_size, loss_sum_fn,
+                                      what=type(self).__name__)
+        self._transforms = build_transforms(names, fed)
+        # the flat (K, D) message slab's columns, one segment per leaf
+        self.layout = flat_layout(self.params)
+        # stacked transform state (the topk error memory, one row per
+        # GLOBAL client), kept on the params' device
+        self._tstate: Dict[str, Any] = {}
+        if vmap:
+            dev = next(iter(self.params.values())).device
+            for name, t in self._transforms:
+                st = t.init_state(self.layout, len(self.clients), dev)
+                if st is not None:
+                    self._tstate[name] = st
+
+        # -- local-update stage ------------------------------------------
+        self._epochs = _cycle_per_client(self.rc.local_epochs_by_client,
+                                         len(self.clients),
+                                         self.rc.local_epochs)
+        if len(self.clients) and (self._epochs < 1).any():
+            raise ValueError(
+                "every client needs >= 1 local epoch (got "
+                f"local_epochs={self.rc.local_epochs}, "
+                f"local_epochs_by_client={self.rc.local_epochs_by_client}) "
+                "— a zero-epoch client has no round message and would "
+                "divide the Eq. (2) combine by zero")
+        self._e_max = int(self._epochs.max()) if len(self.clients) else 1
+        self._hetero = bool((self._epochs != self._epochs[0]).any()) \
+            if len(self.clients) else False
         self._grad_fn = torch.func.grad_and_value(loss_fn)
+        self._stacked_grad = torch.func.vmap(torch.func.grad_and_value(
+            masked_mean_loss(loss_fn, loss_sum_fn)))
+
+        # -- sampler stage -----------------------------------------------
+        self.scheduler = RoundScheduler(
+            len(self.clients), self.rc.clients_per_round,
+            mode=self.rc.sampling,
+            weights=[c.num_docs for c in self.clients]
+            if self.rc.sampling == "weighted" else None,
+            seed=self.rc.sampling_seed,
+            join_rounds=self.rc.client_join_round,
+            leave_rounds=self.rc.client_leave_round)
+        self._check_secure_compat()
+        if names and not vmap:
+            raise _not_ported("message transforms under exec_mode='loop' "
+                              "(the per-client application)", "A8/A9")
+        if vmap and self.rc.straggler_prob > 0 and self.rc.max_staleness > 0:
+            raise _not_ported("stragglers on the batched cohort path (the "
+                              "fused straggler ring)", "A10")
+        # fixed-K stacking: shrunken cohorts padded with zero-weight rows
+        self._pad = vmap and self.rc.pad_cohorts and len(self.clients) > 0
+
+        # -- server stage ------------------------------------------------
         self.server_opt = self._make_server_opt(self.rc)
         self.server_state = self.server_opt.init(self.params)
+        self.history: List[Dict[str, float]] = []
+        self._round = 0
+
+    def _check_secure_compat(self) -> None:
+        """Pairwise masks only cancel when every mask-holder's message
+        lands in the SAME Eq. (2) combine, unscaled — refuse configs
+        that would silently break the cancellation."""
+        if not any(n == "secure" for n, _ in self._transforms):
+            return
+        if any(n == "precision" for n, _ in self._transforms):
+            raise ValueError(
+                "the 'secure' transform is incompatible with 'precision' "
+                "(bf16 messages): the pairwise masks cancel BITWISE only "
+                "on the fp32 dyadic grid — rounding the masked messages "
+                "to bfloat16 destroys the cancellation, which would be a "
+                "silent privacy downgrade, not an approximation")
+        if self.rc.straggler_prob > 0 and self.rc.max_staleness > 0:
+            raise ValueError(
+                "the 'secure' transform is incompatible with the straggler "
+                "buffer: a stale masked message arrives in a later combine "
+                "than its pair partners (and is decay-scaled), so the "
+                "pairwise masks no longer cancel")
+        if (self.scheduler.clients_per_round < len(self.clients)
+                or self.scheduler._has_availability):
+            raise ValueError(
+                "the 'secure' transform needs synchronous full "
+                "participation (K = L, no client dropout/join): pairwise "
+                "masks over the full population only cancel when every "
+                "client's message joins the same combine")
 
     @staticmethod
     def _make_server_opt(rc: RoundConfig) -> agg.ServerOptimizer:
@@ -144,3 +390,125 @@ class FederationEngine:
             self._grad_fn, self.params, self.clients[l], round_seed, l,
             learning_rate=self.fed.learning_rate,
             local_epochs=int(self._epochs[l]), batch_size=self.batch_size)
+
+    # -- the batched cohort path --------------------------------------------
+    def _stacked_messages(self, stacked: Mapping[str, torch.Tensor],
+                          e_counts: np.ndarray
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All K clients' E-epoch local updates at once: returns the flat
+        ``(K, D)`` delta slab and the ``(K, E)`` per-epoch mean losses.
+        Under heterogeneous E, epochs beyond a client's count leave its
+        parameters as they are (the loop client never runs them)."""
+        k = len(e_counts)
+        lr = self.fed.learning_rate
+        local = {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
+                 for n, p in self.params.items()}
+        losses = []
+        for s in range(self._e_max):
+            grads, loss = self._stacked_grad(
+                local, {n: v[:, s] for n, v in stacked.items()})
+            stepped = {n: p - lr * grads[n].to(p.dtype)
+                       for n, p in local.items()}
+            if self._hetero:
+                keep = torch.from_numpy(s < e_counts).to(loss.device)
+                stepped = {n: torch.where(
+                    keep.reshape((-1,) + (1,) * (v.dim() - 1)), v, local[n])
+                    for n, v in stepped.items()}
+                loss = torch.where(keep, loss, torch.zeros_like(loss))
+            local = stepped
+            losses.append(loss)
+        msgs = torch.cat([(local[n] - p).reshape(k, -1)
+                          for n, p in self.params.items()], dim=1)
+        return msgs, torch.stack(losses, dim=1)
+
+    def _unflatten(self, vec: torch.Tensor) -> Params:
+        return {name: vec[off:off + n].view(shape)
+                for name, shape, off, n in self.layout}
+
+    def _round_vmap(self, r: int, round_seed: int, cohort) -> Dict[str, float]:
+        cohort = [int(l) for l in cohort]
+        if not cohort:
+            # an all-padded round: no message, so params, server state
+            # and transform state stay bitwise as they are (the
+            # reference's has-weight gate)
+            return {"round": r, "loss": float("nan"), "rel_change": 0.0,
+                    "participants": 0, "arrived": 0, "superseded": 0,
+                    "in_flight": 0}
+        k_fix = self.scheduler.clients_per_round if self._pad \
+            else len(cohort)
+        stacked, counts = stacked_round_batches(
+            [self.clients[l].data for l in cohort],
+            [self.clients[l].num_docs for l in cohort], round_seed, cohort,
+            batch_size=self.batch_size, local_epochs=self._e_max,
+            pad_to=k_fix)
+        e_counts = np.zeros((k_fix,), np.int64)
+        e_counts[:len(cohort)] = self._epochs[cohort]
+        ids = np.zeros((k_fix,), np.int64)
+        ids[:len(cohort)] = cohort
+        # epochs beyond a client's count (and padded rows) weigh nothing
+        counts = counts * (np.arange(self._e_max)[None, :]
+                           < e_counts[:, None])
+        weights = counts.sum(axis=1).astype(np.float32)
+        valid = weights > 0
+
+        msgs, losses = self._stacked_messages(stacked, e_counts)
+        w = torch.from_numpy(weights).to(msgs.device)
+        if self._transforms:
+            ctx = StackedTransformCtx(round_seed, ids, valid, w,
+                                      len(self.clients), self.layout)
+            for name, t in self._transforms:
+                msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
+                if name in self._tstate:
+                    self._tstate[name] = st
+        # padded rows are absent: re-zeroed after the transform stage
+        keep = torch.from_numpy(valid).to(msgs.device)[:, None]
+        msgs = torch.where(keep, msgs, torch.zeros((), device=msgs.device))
+        bar = ops.fed_weighted_combine(msgs, w)
+        rel = 0.0
+        if weights.sum() > 0:
+            old = self.params
+            self.params, self.server_state = self.server_opt.apply(
+                self.params, self._unflatten(bar), self.server_state, r)
+            rel = float(_rel_change(old, self.params))
+
+        losses = np.where(counts > 0, losses.detach().cpu().numpy(), 0.0)
+        client_loss = (losses * counts).sum(axis=1) \
+            / np.maximum(counts.sum(axis=1), 1.0)
+        return {"round": r,
+                "loss": float(np.average(client_loss, weights=weights)),
+                "rel_change": rel,
+                "participants": len(cohort),
+                "arrived": len(cohort),
+                "superseded": 0,
+                "in_flight": 0}
+
+    # -- stopping, rounds ---------------------------------------------------
+    @staticmethod
+    def stop_criterion(rec: Mapping[str, Any], rel_tol: float) -> bool:
+        """The Alg.-1 stopping rule, applied only to rounds where an update
+        landed; shared by :meth:`fit` and ``api.Federation``."""
+        return bool(rec["arrived"]) and rec["rel_change"] < rel_tol
+
+    def round(self, seed: Optional[int] = None) -> Dict[str, float]:
+        """Sample cohort -> local updates -> transforms -> Eq. (2) combine
+        -> server-optimizer update; ``seed`` is the round's draw seed
+        (default: the round index)."""
+        if self.exec_mode != "vmap":
+            raise _not_ported("synchronous rounds under exec_mode='loop' "
+                              "(Algorithm 1's host loop; the batched "
+                              "cohort path is exec_mode='vmap')", "A6/A8")
+        r = self._round
+        rec = self._round_vmap(r, r if seed is None else int(seed),
+                               self.scheduler.select(r))
+        self.history.append(rec)
+        self._round += 1
+        return rec
+
+    def fit(self, *, seed: int = 0) -> Params:
+        """``fed.max_rounds`` rounds with the fixed per-round seed schedule
+        ``seed * 100003 + round`` and the Alg.-1 stopping criterion."""
+        for e in range(self.fed.max_rounds):
+            rec = self.round(seed=seed * 100003 + e)
+            if self.stop_criterion(rec, self.fed.rel_tol):
+                break
+        return self.params

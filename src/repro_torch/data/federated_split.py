@@ -12,12 +12,14 @@ port draws ``torch.randperm`` from a CPU ``torch.Generator`` seeded from
 the same schedule ``(seed * 100003 + t, client, epoch)`` — the same
 documents when the draw is the whole corpus (``batch_size >= num_docs``,
 the parity setting), the same distribution otherwise, and the same
-indices on a CPU and a GPU run.
+indices on a CPU and a GPU run.  :func:`stacked_round_batches` stacks
+a round's cohort draws for the batched path, with the same draws as the
+per-client iterator.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,22 +61,38 @@ def parse_partition_spec(spec: str) -> Tuple[str, Dict[str, float]]:
     return name, {"alpha": alpha}
 
 
+def seeded_generator(*words: int) -> torch.Generator:
+    """A CPU generator seeded from a tuple of non-negative ints through
+    numpy's ``SeedSequence`` (tuples of different lengths never share a
+    stream).  Draws are made on the CPU and copied to the device, so a
+    CPU run and a card run see the same numbers."""
+    state = np.random.SeedSequence([int(w) for w in words]) \
+        .generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
 def draw_generator(round_seed: int, client: int,
                    epoch: int) -> torch.Generator:
     """The CPU generator of one (round, client, epoch) draw."""
-    state = np.random.SeedSequence(
-        [int(round_seed), int(client), int(epoch)]).generate_state(1,
-                                                                  np.uint64)
-    return torch.Generator().manual_seed(int(state[0]))
+    return seeded_generator(round_seed, client, epoch)
+
+
+def _draw_indices(num_docs: int, gen: torch.Generator,
+                  batch_size: int) -> Tuple[torch.Tensor, int]:
+    """The one place a client draw is made: ``min(batch_size, num_docs)``
+    document indices without replacement, on the CPU.  The per-client
+    iterator and :func:`stacked_round_batches` both call it, so the two
+    execution paths see the same documents."""
+    n = min(batch_size, int(num_docs))
+    return torch.randperm(int(num_docs), generator=gen)[:n], n
 
 
 def sample_minibatch(data: Dict[str, torch.Tensor], num_docs: int,
                      gen: torch.Generator,
                      batch_size: int) -> Tuple[Dict[str, torch.Tensor], int]:
-    """One client draw: ``min(batch_size, num_docs)`` docs without
-    replacement, gathered on the device the client corpus lives on."""
-    n = min(batch_size, num_docs)
-    idx = torch.randperm(num_docs, generator=gen)[:n]
+    """One client draw, gathered on the device the client corpus lives
+    on."""
+    idx, n = _draw_indices(num_docs, gen, batch_size)
     return {k: v[idx.to(v.device)] for k, v in data.items()}, n
 
 
@@ -87,3 +105,58 @@ def round_minibatches(data: Dict[str, torch.Tensor], num_docs: int,
         yield sample_minibatch(data, num_docs,
                                draw_generator(round_seed, client, s),
                                batch_size)
+
+
+def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
+                          num_docs: Sequence[int], round_seed: int,
+                          client_ids: Sequence[int], *, batch_size: int,
+                          local_epochs: int = 1,
+                          pad_to: Optional[int] = None
+                          ) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
+    """One round's cohort minibatches on a leading client axis.
+
+    For cohort member ``i`` (global id ``client_ids[i]``) and epoch ``s``
+    the draw is exactly the one :func:`round_minibatches` makes (same
+    generator, same ``randperm``), gathered on the device the client
+    corpus lives on and stacked into fixed shapes:
+
+      * every data key -> ``(K, E, P, ...)``, ``P = batch_size``, rows
+        beyond a client's draw size zero;
+      * ``"doc_mask"`` -> ``(K, E, P)`` float32, 1 for real rows — the
+        mask-aware loss keeps padded rows out of the objective and its
+        gradient.
+
+    Returns ``(stacked, counts)``, ``counts`` the ``(K, E)`` float32 draw
+    sizes on the host (the Eq. (2) weights are ``counts.sum(axis=1)``).
+    ``pad_to`` (>= the cohort) widens the client axis to a fixed K with
+    all-zero rows (data, mask, counts): zero-weight padding, the real
+    rows unchanged.  The reference's in-batch ``rng`` keys have no
+    counterpart: the port's loss is deterministic (ROADMAP.md A4).
+    """
+    k_clients = len(datas)
+    k_stack = k_clients if pad_to is None else int(pad_to)
+    if k_stack < k_clients:
+        raise ValueError(f"pad_to={pad_to} is smaller than the cohort "
+                         f"({k_clients} clients); the stacked axis cannot "
+                         "drop cohort members")
+    if k_clients == 0:
+        raise ValueError("stacked_round_batches needs at least one cohort "
+                         "member (an empty round runs no local update)")
+    e, p = local_epochs, batch_size
+    stacked = {key: torch.zeros((k_stack, e, p) + tuple(v.shape[1:]),
+                                dtype=v.dtype, device=v.device)
+               for key, v in datas[0].items()}
+    mask = np.zeros((k_stack, e, p), np.float32)
+    counts = np.zeros((k_stack, e), np.float32)
+    for i, (data, nd, cid) in enumerate(zip(datas, num_docs, client_ids)):
+        draws = [_draw_indices(nd, draw_generator(round_seed, cid, s),
+                               batch_size) for s in range(e)]
+        n = draws[0][1]
+        idx = torch.stack([d for d, _ in draws])        # (E, n)
+        for key, v in data.items():
+            stacked[key][i, :, :n] = v[idx.to(v.device)]
+        mask[i, :, :n] = 1.0
+        counts[i, :] = n
+    dev = next(iter(stacked.values())).device
+    stacked["doc_mask"] = torch.from_numpy(mask).to(dev)
+    return stacked, counts

@@ -7,12 +7,14 @@ failure raises), a CPU tensor runs the plain version in ``ref.py``.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fed_aggregate import fed_weighted_sum_cuda
+from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
+                                               fed_topk_ef_cuda,
+                                               fed_weighted_sum_cuda)
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
 
 Stacked = Union[torch.Tensor, Mapping[str, torch.Tensor]]
@@ -65,3 +67,56 @@ def topic_decoder_loss(theta, beta, bow,
     return topic_decoder_cuda(
         theta.contiguous(), beta.contiguous(), bow.contiguous(),
         None if dec_scale is None else dec_scale.contiguous())
+
+
+def fed_dp_secure_apply(x: torch.Tensor, *, noise=None, masks=None,
+                        clip_coef=None, weights=None,
+                        noise_scale: float = 0.0) -> torch.Tensor:
+    """``x * clip_coef + noise_scale * noise + masks / max(weights, 1e-9)``
+    over a flat ``(K, D)`` message slab, terms present only when given:
+    ``dp`` passes (noise, clip_coef), ``secure`` passes (masks, weights).
+    Kernel B3 on a CUDA tensor; bitwise the plain version either way."""
+    if not _on_cuda(x):
+        return ref.fed_dp_secure_apply_ref(x, noise, masks, clip_coef,
+                                           weights, noise_scale)
+    def on(t):
+        return None if t is None else \
+            t.to(x.device, torch.float32).contiguous()
+    return fed_dp_secure_apply_cuda(on(x), on(noise), on(masks),
+                                    on(clip_coef), on(weights), noise_scale)
+
+
+def topk_segments(segments: Sequence[Tuple[int, int]], frac: float
+                  ) -> List[Tuple[int, int, int]]:
+    """``(offset, size, k_keep)`` per leaf segment, ``k_keep = max(int(frac
+    * size), 1)`` — the reference's per-leaf count."""
+    return [(int(off), int(n), max(int(frac * n), 1)) for off, n in segments]
+
+
+def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
+                ids: torch.Tensor, *, frac: float,
+                segments: Sequence[Tuple[int, int]]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k with error feedback over a flat ``(K, D)`` message slab whose
+    columns are the ``(offset, size)`` leaf segments: per row and
+    segment, ``corrected = msg + err_state[ids]`` keeps exactly
+    ``k_keep`` entries (``aggregation.topk_keep_mask``).  ``ids`` are
+    ``(K,)`` rows of the ``(L, D)`` error memory, pre-clipped to
+    ``[0, L)``.  Returns ``(sent, new_err)``; scattering ``new_err`` back
+    (padded rows dropped) stays with the caller.  Kernel B4 on a CUDA
+    tensor, one call for every segment; bitwise the plain version."""
+    table = topk_segments(segments, frac)
+    if not _on_cuda(msgs):
+        err_rows = err_state[ids.to(torch.int64)]
+        sent = torch.empty(msgs.shape, dtype=torch.float32)
+        new_err = torch.empty(msgs.shape, dtype=torch.float32)
+        for off, n, k_keep in table:
+            s, e = ref.fed_topk_ef_ref(msgs[:, off:off + n],
+                                       err_rows[:, off:off + n], k_keep)
+            sent[:, off:off + n] = s
+            new_err[:, off:off + n] = e
+        return sent, new_err
+    return fed_topk_ef_cuda(msgs.to(torch.float32).contiguous(),
+                            err_state.contiguous(),
+                            ids.to(msgs.device, torch.int32).contiguous(),
+                            table)

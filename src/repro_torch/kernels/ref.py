@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.aggregation import topk_keep_mask
+
 
 def fed_weighted_sum_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Eq. (2) numerator ``sum_k where(w_k > 0, w_k * x_k, 0)`` over a
@@ -36,3 +38,41 @@ def topic_decoder_ref(theta, beta, bow, dec_scale=None) -> torch.Tensor:
         logits = logits * dec_scale.to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.sum(bow.to(torch.float32) * logp, dim=-1)
+
+
+def fed_topk_ef_ref(msgs: torch.Tensor, err_rows: torch.Tensor,
+                    k_keep: int):
+    """Top-k with error feedback over a ``(K, D)`` cohort, per row:
+    ``corrected = msg + err``; ``sent`` keeps EXACTLY ``k_keep`` entries
+    of ``|corrected|`` (bf16-rounded ranking, lower-index ties:
+    ``aggregation.topk_keep_mask``); ``new_err = corrected - sent``.
+    ``err_rows`` are the cohort's rows of the error memory, already
+    gathered.  Returns ``(sent, new_err)``, both ``(K, D)`` fp32."""
+    corrected = msgs.to(torch.float32) + err_rows.to(torch.float32)
+    mask = topk_keep_mask(torch.abs(corrected), k_keep)
+    sent = torch.where(mask, corrected,
+                       torch.zeros((), dtype=torch.float32,
+                                   device=corrected.device))
+    return sent, corrected - sent
+
+
+def fed_dp_secure_apply_ref(msgs: torch.Tensor, noise=None, masks=None,
+                            clip_coef=None, weights=None,
+                            noise_scale: float = 0.0) -> torch.Tensor:
+    """dp-noise + secure-mask application over a ``(K, D)`` cohort:
+
+        out = msg * clip_coef + noise_scale * noise + mask / max(w, 1e-9)
+
+    each term present only when its operand is given, evaluated as
+    separate roundings in this order (``dp`` passes noise and clip_coef,
+    ``secure`` passes masks and weights)."""
+    out = msgs.to(torch.float32)
+    rows = (-1,) + (1,) * (out.dim() - 1)
+    if clip_coef is not None:
+        out = out * clip_coef.to(torch.float32).reshape(rows)
+    if noise is not None:
+        out = out + noise_scale * noise.to(torch.float32)
+    if masks is not None:
+        w = torch.clamp(weights.to(torch.float32), min=1e-9)
+        out = out + masks.to(torch.float32) / w.reshape(rows)
+    return out

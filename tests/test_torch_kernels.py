@@ -1,4 +1,4 @@
-"""Port kernels B1/B2: the plain PyTorch versions against the JAX package.
+"""Port kernels B1-B4: the plain PyTorch versions against the JAX package.
 
 The JAX side runs its Pallas kernels in interpret mode, as
 tests/test_kernels.py does; the port's ``ops`` wrappers take their plain
@@ -15,11 +15,15 @@ import torch
 from repro.core import aggregation as jagg
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.fed_aggregate import fed_weighted_sum_pallas
+from repro.kernels.fed_aggregate import (fed_dp_secure_apply_pallas,
+                                         fed_topk_ef_pallas,
+                                         fed_weighted_sum_pallas)
 from repro_torch.core import aggregation as tagg
 from repro_torch.kernels import _build, fed_aggregate, ops, ref, \
     topic_decoder
-from repro_torch.kernels.fed_aggregate import fed_weighted_sum_cuda
+from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
+                                               fed_topk_ef_cuda,
+                                               fed_weighted_sum_cuda)
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
 
 # the reference's grids (tests/test_kernels.py)
@@ -150,28 +154,165 @@ def test_topic_decoder_plain_matches_reference_oracle(rng):
 
 
 # ---------------------------------------------------------------------------
+# B3: dp-noise + secure-mask application
+# ---------------------------------------------------------------------------
+DP_SCALE = 0.3 * 0.05          # the dp-transform preset's mult * clip
+
+
+def _dp_inputs(k, d, rng):
+    x = rng.standard_normal((k, d)).astype(np.float32)
+    noise = rng.standard_normal((k, d)).astype(np.float32)
+    masks = (rng.integers(-4096, 4097, (k, d)) * 2.0 ** -10
+             ).astype(np.float32)                  # the dyadic grid
+    coef = rng.uniform(0.01, 1.0, k).astype(np.float32)
+    w = rng.integers(1, 100, k).astype(np.float32)
+    w[-1] = 0.0                                    # max(w, 1e-9) guard
+    return x, noise, masks, coef, w
+
+
+def _ulps(a, b, *terms):
+    """Distance in units in the last place of the largest magnitude among
+    the results and the summed terms (an fma skips the rounding of a
+    product term, so the drift scales with the terms, not the sum)."""
+    mag = np.maximum(np.abs(a), np.abs(b))
+    for t in terms:
+        mag = np.maximum(mag, np.abs(t))
+    return np.max(np.abs(a.astype(np.float64) - b)
+                  / np.spacing(mag.astype(np.float32)))
+
+
+@pytest.mark.parametrize("variant", ["clip", "mask", "noise"])
+@pytest.mark.parametrize("k,d", [(k, d) for k in (1, 3, 8)
+                                 for d in (1, 129, 300)])
+def test_dp_secure_plain_matches_pallas(k, d, variant, rng):
+    """Clip-only and mask-only bitwise; the noise term (dp: clip + noise)
+    within 2 ulp — the reference's own fma caveat."""
+    x, noise, masks, coef, w = _dp_inputs(k, d, rng)
+    kw = {"clip": dict(clip_coef=coef), "mask": dict(masks=masks, weights=w),
+          "noise": dict(noise=noise, clip_coef=coef)}[variant]
+    want = np.asarray(fed_dp_secure_apply_pallas(
+        jnp.asarray(x), noise_scale=DP_SCALE, interpret=True,
+        **{n: jnp.asarray(v) for n, v in kw.items()}))
+    got = ops.fed_dp_secure_apply(
+        torch.from_numpy(x), noise_scale=DP_SCALE,
+        **{n: torch.from_numpy(v) for n, v in kw.items()}).numpy()
+    assert got.dtype == np.float32 and got.shape == (k, d)
+    if variant == "noise":
+        ulps = _ulps(got, want, x * coef[:, None],
+                     np.float32(DP_SCALE) * noise)
+        print(f"B3 plain vs pallas K={k} D={d} noise: {ulps:.2f} ulp")
+        assert ulps <= 2.0
+    else:
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# B4: top-k with error feedback
+# ---------------------------------------------------------------------------
+def _topk_rows(kind, shape, rng):
+    if kind == "gauss":
+        return rng.standard_normal(shape).astype(np.float32)
+    if kind == "ties":                 # a few exact values, many ties
+        return (rng.integers(-3, 4, shape) * 0.25).astype(np.float32)
+    # bf16 near-ties: values within one bf16 step collapse to one key
+    return ((1.0 + rng.integers(0, 8, shape) * 2.0 ** -12)
+            * np.sign(rng.standard_normal(shape))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties", "near_ties"])
+@pytest.mark.parametrize("frac", [0.01, 0.25, 1.0])
+def test_topk_ef_plain_matches_pallas(kind, frac, rng):
+    """(L=5) error memory, repeated ids: sent and new_err bitwise."""
+    k, d = 6, 300
+    msgs = _topk_rows(kind, (k, d), rng)
+    err = np.zeros((5, d), np.float32)
+    if kind == "gauss":
+        err = (0.1 * rng.standard_normal((5, d))).astype(np.float32)
+    ids = np.asarray([0, 2, 2, 4, 1, 2], np.int32)
+    k_keep = max(int(frac * d), 1)
+    want = fed_topk_ef_pallas(jnp.asarray(msgs), jnp.asarray(err),
+                              jnp.asarray(ids), k_keep=k_keep,
+                              interpret=True)
+    got = ref.fed_topk_ef_ref(torch.from_numpy(msgs),
+                              torch.from_numpy(err)[torch.from_numpy(ids)
+                                                    .long()], k_keep)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().view(np.int32),
+                              np.asarray(w).view(np.int32))
+    assert int((got[0] != 0).sum(1).max()) <= k_keep
+
+
+def test_topk_ef_segments_match_reference_per_leaf(rng):
+    """The port's one call over a flat slab, segment per leaf, against the
+    reference's per-leaf ``ops.fed_topk_ef(backend="pallas")`` on the same
+    dict tree: bitwise."""
+    shapes = {"b": (5,), "c": (40,), "w": (6, 5)}
+    k, l_rows, frac = 4, 3, 0.25
+    msgs = {n: _topk_rows("ties" if n == "c" else "gauss", (k,) + s, rng)
+            for n, s in shapes.items()}
+    err = {n: (0.1 * rng.standard_normal((l_rows,) + s)).astype(np.float32)
+           for n, s in shapes.items()}
+    ids = np.asarray([2, 0, 2, 1], np.int32)
+    sent_j, new_j = jops.fed_topk_ef(
+        {n: jnp.asarray(v) for n, v in msgs.items()},
+        {n: jnp.asarray(v) for n, v in err.items()}, jnp.asarray(ids),
+        frac=frac, backend="pallas", interpret=True)
+    names = list(shapes)
+    segs, off = [], 0
+    for n in names:
+        size = int(np.prod(shapes[n]))
+        segs.append((off, size))
+        off += size
+    flat = lambda tree, rows: torch.from_numpy(np.concatenate(  # noqa: E731
+        [tree[n].reshape(rows, -1) for n in names], axis=1))
+    sent, new = ops.fed_topk_ef(flat(msgs, k), flat(err, l_rows),
+                                torch.from_numpy(ids), frac=frac,
+                                segments=segs)
+    for (off, size), n in zip(segs, names):
+        for got, want in ((sent, sent_j), (new, new_j)):
+            g = got[:, off:off + size].numpy()
+            assert np.array_equal(
+                g.view(np.int32),
+                np.asarray(want[n]).reshape(k, -1).view(np.int32)), n
+
+
+# ---------------------------------------------------------------------------
 # dispatch and the wrappers' checks
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_path_and_build_nothing(rng):
-    before = (fed_aggregate.launches, topic_decoder.launches,
-              dict(_build._LIBS))
+    def counts():
+        return (fed_aggregate.launches, fed_aggregate.dp_secure_launches,
+                fed_aggregate.topk_ef_launches, topic_decoder.launches,
+                dict(_build._LIBS))
+    before = counts()
     x, w = _combine_inputs(3, 40, rng)
     ops.fed_weighted_combine(torch.from_numpy(x), torch.from_numpy(w))
     theta, beta, bow, sc = _decoder_inputs(3, 4, 50, rng)
     ops.topic_decoder_loss(_t(theta), _t(beta), _t(bow), _t(sc))
-    assert (fed_aggregate.launches, topic_decoder.launches,
-            dict(_build._LIBS)) == before
+    xt = torch.from_numpy(np.nan_to_num(x))
+    ops.fed_dp_secure_apply(xt, masks=torch.ones(3, 40),
+                            weights=torch.ones(3))
+    ops.fed_topk_ef(xt, torch.zeros(2, 40), torch.tensor([0, 1, 1]),
+                    frac=0.5, segments=[(0, 10), (10, 30)])
+    assert counts() == before
 
 
-@pytest.mark.parametrize("call", ["weighted_sum", "decoder"])
+@pytest.mark.parametrize("call", ["weighted_sum", "decoder", "dp_secure",
+                                  "topk"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers never run a CPU tensor (no quiet fallback)."""
     with pytest.raises(ValueError, match="CUDA"):
         if call == "weighted_sum":
             fed_weighted_sum_cuda(torch.zeros(2, 3), torch.ones(2))
-        else:
+        elif call == "decoder":
             topic_decoder_cuda(torch.ones(2, 3), torch.ones(3, 5),
                                torch.ones(2, 5))
+        elif call == "dp_secure":
+            fed_dp_secure_apply_cuda(torch.zeros(2, 3),
+                                     clip_coef=torch.ones(2))
+        else:
+            fed_topk_ef_cuda(torch.zeros(2, 3), torch.zeros(2, 3),
+                             torch.zeros(2, dtype=torch.int32), [(0, 3, 1)])
 
 
 def test_kernel_sources_and_build_key():
