@@ -9,11 +9,13 @@ Phases, each fatal on failure (no phase catches and carries on):
 2. build: every CUDA kernel of the port from ``kernels/csrc/`` (one
    ``nvcc`` per source, in parallel), with ptxas' resource report;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   over a shape grid (B3 and B4 bitwise), and timed at the shapes its
-   path gives it beside its plain version, a library call (or, for B4,
-   a yardstick) where one exists, and its bound (bytes over 3.35 TB/s or
-   fp32 flops over 67 TFLOP/s, whichever is larger: the H100 SXM
-   data-sheet peaks at its 700 W power limit);
+   over a shape grid (B3 and B4 bitwise; B5 and B6 at the hymba-1.5b
+   prefill's shapes in bf16 and fp32), and timed at the shapes its path
+   gives it beside its plain version, a library call (or, for B4, a
+   yardstick) where one exists, and its bound (bytes over 3.35 TB/s, or
+   flops over 67 TFLOP/s fp32 for B1-B4 and 989 TFLOP/s bf16 for B5-B6,
+   whichever is larger: the H100 SXM data-sheet peaks at its 700 W power
+   limit);
 4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
@@ -24,16 +26,23 @@ Phases, each fatal on failure (no phase catches and carries on):
    the ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs, a
    few rounds each; the last secure round's masks must sum to exactly
    +0.0 on the card;
-   on both paths every kernel's launch count is zeroed just before each
+6. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
+   width (bf16 activations, the port's seeded init), batch 4 x 2048-token
+   prompts and 32 greedy tokens, after one warm-up call: prefill time,
+   decode tokens/s, peak memory; B5 and B6 must launch 32 times each
+   (once per layer of the prefill); then one traced prefill (busy share,
+   finite logits), 8 timed decode steps and one traced;
+   on every path each kernel's launch count is zeroed just before each
    run and read just after; each kernel must have launched once per
-   aggregation / round / held-out batch, and params and the held-out ELBO
-   must be finite;
-6. profiles: a second service, and one round of each training spec,
+   aggregation / round / held-out batch / layer, and params, the
+   held-out ELBO and the logits must be finite;
+7. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
-7. agreement: small service and training runs on the card and on the
+8. agreement: small service and training runs on the card and on the
    CPU (the plain path the CPU tests hold against the JAX reference)
-   from the same weights, within the repo's 1e-5 bound.
+   from the same weights, within the repo's 1e-5 bound; reduced
+   hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -53,6 +62,7 @@ import torch
 # H100 SXM data-sheet peaks at the 700 W power limit
 H100_BYTES_PER_S = 3.35e12        # HBM3
 H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 
 # the paper's corpus depth (10 000 train + 1 000 validation docs per
 # node); training depth is cut to a few traffic sweeps; widths never are
@@ -107,8 +117,8 @@ def device_ms(fn, iters: int = 20) -> float:
     return us / iters / 1e3
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_f = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
+    t_b, t_f = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
@@ -255,7 +265,8 @@ def phase_kernels():
                  lambda: torch.matmul(w5, x5))
     b2["k5"] = {k: b2k5[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms")}
-    return [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev)]
+    return [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev),
+            _kernel_b5(g, dev), _kernel_b6(g, dev)]
 
 
 def _time_record(r, kern, plain, lib, lib_label="library"):
@@ -448,6 +459,158 @@ def _kernel_b4(g, dev):
     return rec
 
 
+# hymba-1.5b prefill at the serve phase's shape: batch 4 x 2048 tokens,
+# 25 query / 5 kv heads of 64, window 1024; 50 SSD heads of P=64, N=16,
+# chunk 256
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+B5_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
+    (LM_BATCH, 25, 5, LM_PROMPT, 64, True, 1024, torch.bfloat16),  # path
+    (1, 25, 5, LM_PROMPT, 64, True, 1024, torch.float32),
+    (2, 4, 2, 96, 64, True, 64, torch.float32),     # reduced hymba
+    (1, 8, 2, 100, 32, True, 0, torch.bfloat16),    # ragged, no window
+    (1, 4, 4, 193, 96, False, 0, torch.float32),    # bidirectional
+]
+B6_CASES = [  # (b, s, h, p, n, chunk, dtype)
+    (LM_BATCH, LM_PROMPT, 50, 64, 16, 256, torch.bfloat16),       # path
+    (2, LM_PROMPT, 50, 64, 16, 256, torch.float32),
+    (2, 96, 16, 32, 16, 64, torch.float32),         # reduced hymba
+    (1, 100, 2, 16, 8, 32, torch.float32),          # ragged tail
+    (1, 64, 1, 64, 128, 64, torch.bfloat16),        # N > 16
+]
+
+
+def _window_pairs(s: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask allows over one (batch, head)."""
+    q = torch.arange(s, dtype=torch.int64)
+    hi = q if causal else torch.full_like(q, s - 1)
+    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def _kernel_b5(g, dev):
+    """B5 (flash attention): against the plain version on the card over
+    the grid (q, k, v as slices of one fused projection, read in place);
+    timed at the hymba prefill's shape in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.layers.attention import make_mask
+    errs = {}
+    for b, hq, hkv, s, d, causal, window, dtype in B5_CASES:
+        fused = torch.randn(b, s, hq + 2 * hkv, d, generator=g).to(dev,
+                                                                   dtype)
+        q, k, v = fused.split([hq, hkv, hkv], dim=2)
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   scale=d ** -0.5).float()
+        want = ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2).float()
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        e = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"B5 {(b, hq, hkv, s, d, causal, window)} "
+                                 f"{dtype}: |kernel - plain| {e} beyond "
+                                 f"{tol} + {tol}|plain|")
+        key = str(dtype).replace("torch.", "")
+        errs[key] = max(errs.get(key, 0.0), e)
+        del fused, q, k, v, got, want
+    log(f"B5 flash_attention: {len(B5_CASES)} shapes (the hymba prefill's "
+        f"(4, 2048, 25/5 heads, 64, window 1024) in bf16 and fp32, reduced "
+        f"hymba, ragged, bidirectional D=96): max |kernel - plain| {errs} "
+        f"(bounds 2e-5 fp32, 2e-2 bf16, abs + rel)")
+    b, hq, hkv, s, d, causal, window, dtype = B5_CASES[0]
+    q = torch.randn(b, s, hq, d, generator=g).to(dev, dtype)
+    k = torch.randn(b, s, hkv, d, generator=g).to(dev, dtype)
+    v = torch.randn(b, s, hkv, d, generator=g).to(dev, dtype)
+    # the library call takes (B, H, S, D) and a boolean mask
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    mask = make_mask(pos, pos, causal=causal, window=window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = b * hq * _window_pairs(s, causal, window)
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:79",
+           "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "pairs": pairs,
+           "library": "F.scaled_dot_product_attention(boolean window mask, "
+                      "enable_gqa=True) on (B,H,S,D) copies"}
+    # q, k, v read once, out written once (bf16); QK^T and PV over the
+    # (q, k) pairs the window reaches, at the bf16 tensor-core peak
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        2 * (2 * b * s * hq * d + 2 * b * s * hkv * d), 4 * d * pairs,
+        H100_BF16_FLOPS)
+    _time_record(rec,
+                 lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window,
+                                              scale=d ** -0.5),
+                 lambda: ref.flash_attention_ref(
+                     q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), causal=causal, window=window),
+                 lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    return rec
+
+
+def _ssd_inputs(g, dev, b, s, h, p, n, dtype):
+    """x, B, C as column slices of one conv output (strided, as the
+    model path gives them), dt and a as mamba2_apply makes them."""
+    conv = torch.randn(b, s, h * p + 2 * n, generator=g).to(dev, dtype)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    dt = (0.001 + 0.099 * torch.rand(b, s, h, generator=g)).to(dev)
+    a = -torch.arange(1, h + 1, dtype=torch.float32).to(dev)
+    return xs.reshape(b, s, h, p), dt, a, bb, cc
+
+
+def _kernel_b6(g, dev):
+    """B6 (SSD scan): against the plain version on the card over the
+    grid; timed at the hymba prefill's shape in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    errs = {}
+    for b, s, h, p, n, chunk, dtype in B6_CASES:
+        x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+        y, hl = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+        y_w, hl_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        key = str(dtype).replace("torch.", "")
+        for got, want, what in ((y, y_w, "y"), (hl, hl_w, "h_last")):
+            scale = max(float(want.float().abs().max()), 1.0)
+            e = float((got.float() - want.float()).abs().max())
+            if not e <= tol * scale:
+                raise AssertionError(f"B6 {(b, s, h, p, n, chunk)} {dtype} "
+                                     f"{what}: |kernel - plain| {e} > "
+                                     f"{tol} x {scale:.3g}")
+            errs[key] = max(errs.get(key, 0.0), e)
+        del x, dt, a, bb, cc, y, hl, y_w, hl_w
+    log(f"B6 ssd_scan: {len(B6_CASES)} shapes (the hymba prefill's (4, 2048, "
+        f"50 heads, P=64, N=16, chunk 256) in bf16 and fp32, reduced hymba, "
+        f"ragged, N=128; x/B/C strided): max |kernel - plain| {errs} "
+        f"(bounds 1e-4 fp32, 2e-2 bf16, of max|plain|)")
+    b, s, h, p, n, chunk, dtype = B6_CASES[0]
+    x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+    rec = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:80",
+           "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "library": "none: no single PyTorch call computes the SSD scan"}
+    # x, B, C (bf16) and dt, a (fp32) read once, y (bf16) and h_last (fp32)
+    # written once; per (batch, head, chunk) the lower triangle of C B^T
+    # (2N) and of the weighted X product (2P) plus the decay and dt
+    # products (2), the carried-state term and the state update (2 x 2PN
+    # per step), at the bf16 tensor-core peak
+    tri = chunk * (chunk + 1) // 2
+    flops = b * h * (s // chunk) * (tri * (2 * n + 2 * p + 2)
+                                    + chunk * 4 * p * n)
+    nbytes = 2 * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
+        + 4 * b * h * p * n
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops,
+                                                H100_BF16_FLOPS)
+    _time_record(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk),
+                 lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
+    return rec
+
+
 def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
     from repro_torch.api import (DataSpec, ExecutionSpec, FederationSpec,
                                  ModelSpec, scenario_spec)
@@ -460,17 +623,22 @@ def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import fed_aggregate, topic_decoder
+    from repro_torch.kernels import (fed_aggregate, flash_attention,
+                                     ssd_scan, topic_decoder)
     fed_aggregate.launches = fed_aggregate.dp_secure_launches = 0
     fed_aggregate.topk_ef_launches = topic_decoder.launches = 0
+    flash_attention.launches = ssd_scan.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import fed_aggregate, topic_decoder
+    from repro_torch.kernels import (fed_aggregate, flash_attention,
+                                     ssd_scan, topic_decoder)
     return {"fed_weighted_sum": fed_aggregate.launches,
             "topic_decoder": topic_decoder.launches,
             "fed_dp_secure_apply": fed_aggregate.dp_secure_launches,
-            "fed_topk_ef": fed_aggregate.topk_ef_launches}
+            "fed_topk_ef": fed_aggregate.topk_ef_launches,
+            "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}
 
 
 def phase_main_path(records):
@@ -514,7 +682,8 @@ def phase_main_path(records):
     n_val = 5 * VAL_DOCS_PER_NODE
     want = {"fed_weighted_sum": svc.agg_index,
             "topic_decoder": math.ceil(n_val / 256),
-            "fed_dp_secure_apply": 0, "fed_topk_ef": 0}
+            "fed_dp_secure_apply": 0, "fed_topk_ef": 0,
+            "flash_attention": 0, "ssd_scan": 0}
     if stats["aggregations"] < 1 or stats["infer_calls"] < 1:
         raise AssertionError("main path ran no aggregation or no inference")
     if launches != want:
@@ -614,8 +783,6 @@ def phase_training(records, corpus):
             log(f"    last round's mask stack ({tuple(stack.shape)}, max "
                 f"|mask| {float(stack.abs().max()):.3f}) sums to exactly "
                 f"+0.0 on the card")
-    for r in records:
-        r["launches"] = sum(r["launches_by_path"].values())
 
 
 def phase_training_profile(corpus):
@@ -730,6 +897,192 @@ def phase_agreement():
             raise AssertionError(f"{name}: card and CPU training disagree")
 
 
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_lm_serve(records):
+    """hymba-1.5b at full width through ``repro_torch.launch.serve``:
+    batch 4 x 2048-token prompts (past the window of 1024, so the ring
+    buffer's roll and the window mask both run; 8 SSD chunks), 32 greedy
+    tokens, after one warm-up call of the same entry point; B5 and B6 must
+    launch once per layer of the one prefill and nothing else may launch.
+    Then one traced prefill of the same prompts for the device's busy
+    share, with finite logits, 8 timed decode steps and one traced."""
+    import argparse
+    import numpy as np
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers.mamba2 import mamba2_dims
+    cfg = get_config("hymba-1.5b")
+    _, nh, _ = mamba2_dims(cfg)
+    log(f"LM serve path: hymba-1.5b at full width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, window {cfg.sliding_window}, {nh} SSD heads of "
+        f"P={cfg.ssm.head_dim} N={cfg.ssm.state_dim} chunk "
+        f"{cfg.ssm.chunk_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_params()} parameters), bf16 activations over fp32 "
+        f"masters, the port's seeded init; batch {LM_BATCH} x prompt "
+        f"{LM_PROMPT}, {LM_NEW} new tokens; cut: none (serving has no depth "
+        f"to cut)")
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    args = argparse.Namespace(arch="hymba-1.5b", reduced=False,
+                              batch=LM_BATCH, prompt_len=LM_PROMPT,
+                              max_new=LM_NEW, seed=0, device="cuda")
+    # warm-up through the same entry point, 2 new tokens: cuBLAS handles
+    # and the first (lazily loaded) launch of every kernel and shape
+    t0 = time.perf_counter()
+    lm_serve.serve(argparse.Namespace(**{**vars(args), "max_new": 2}),
+                   params=params)
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = lm_serve.serve(args, params=params)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gen = out["generated"]
+    log(f"  init (CPU draws of {cfg.num_params()} weights, to the card) "
+        f"{t_init:.1f} s; cold warm-up serve (2 new tokens) {t_warm:.2f} s")
+    log(f"  serve (warm): prefill {out['prefill_s']:.4f} s; decode "
+        f"{LM_NEW - 1} steps in {out['decode_s']:.4f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  launches on the path: {json.dumps(counts)}")
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=cfg.num_layers, ssd_scan=cfg.num_layers)
+    if counts != want:
+        raise AssertionError(f"LM serve: kernel launches {counts} != one "
+                             f"B5 and one B6 per layer of the prefill "
+                             f"{want}")
+    if gen.shape != (LM_BATCH, LM_NEW) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"LM serve: generated {gen.shape} tokens in "
+                             f"[{gen.min()}, {gen.max()}], vocabulary "
+                             f"{cfg.vocab_size}")
+    log(f"  first generations: {gen[:, :8].tolist()}")
+    for r in records:
+        r["launches_by_path"]["lm_serve"] = counts[r["name"]]
+
+    act = tfm.activation_copy(params, cfg, torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to("cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill(act, cfg, {"tokens": prompts},
+                                    max_len=LM_PROMPT + LM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time in "
+                             "the LM prefill")
+    log(f"profile LM prefill (traced, warm): wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of "
+        f"wall")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
+    if logits.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"LM prefill logits {tuple(logits.shape)} not "
+                             f"finite")
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    del logits
+    # decode: 8 timed steps, then one traced step
+    steps = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        step, cache = tfm.decode_step(act, cfg, cache, tok)
+        tok = torch.argmax(step[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step, cache = tfm.decode_step(act, cfg, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    n_launch = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not bool(torch.isfinite(step).all()):
+        raise AssertionError("LM decode logits not finite")
+    med = sorted(steps)[len(steps) // 2]
+    log(f"  decode steps (warm, batch {LM_BATCH}): "
+        + ", ".join(f"{x * 1e3:.1f}" for x in steps)
+        + f" ms (median {med * 1e3:.1f} ms = {LM_BATCH / med:.1f} "
+        f"tokens/s); one traced step: wall {wall * 1e3:.1f} ms, device busy "
+        f"{dev_us / 1e3:.2f} ms = {100 * dev_us / 1e3 / (wall * 1e3):.1f}% "
+        f"in {n_launch} device operations; prefill and decode logits finite")
+    del params, act, cache, step
+    torch.cuda.empty_cache()
+
+
+def phase_lm_agreement():
+    """Reduced hymba-1.5b in fp32 from the same weights on the card
+    (kernels B5 and B6) and on the CPU (their plain versions): prefill
+    over 96 tokens, past the window of 64 and over two SSD chunks of 64,
+    then 4 teacher-forced decode steps; logits within 2e-4, the repo's
+    bound for this path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 100)))
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, "cuda"))):
+        before = (flash_attention.launches, ssd_scan.launches)
+        logits, cache = tfm.prefill(params, cfg,
+                                    {"tokens": toks[:, :96].to(dev)},
+                                    dtype=torch.float32, max_len=100)
+        outs = [logits]
+        for i in range(4):
+            step, cache = tfm.decode_step(params, cfg, cache,
+                                          toks[:, 96 + i:97 + i].to(dev),
+                                          dtype=torch.float32)
+            outs.append(step)
+        launched = (flash_attention.launches - before[0],
+                    ssd_scan.launches - before[1])
+        runs[dev] = ([o.cpu() for o in outs], launched)
+    devs = [float((g - c).abs().max()) / max(float(c.abs().max()), 1.0)
+            for c, g in zip(runs["cpu"][0], runs["cuda"][0])]
+    log(f"agreement LM (reduced hymba-1.5b, fp32, 2 x 96 + 4 decode "
+        f"steps): card vs CPU logits, max |diff| / max(|cpu|, 1): prefill "
+        f"{devs[0]:.3e}, decode " + ", ".join(f"{d:.3e}" for d in devs[1:])
+        + " (bound 2e-4)")
+    if runs["cpu"][1] != (0, 0) \
+            or runs["cuda"][1] != (cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"LM agreement: B5/B6 launches CPU "
+                             f"{runs['cpu'][1]}, card {runs['cuda'][1]}; "
+                             f"want none and one per layer")
+    if not max(devs) <= 2e-4:
+        raise AssertionError("card and CPU LM paths disagree beyond 2e-4")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs the "
@@ -747,14 +1100,19 @@ def main() -> int:
     records = phase_kernels()
     spec, corpus = phase_main_path(records)
     phase_training(records, corpus)
+    phase_lm_serve(records)
+    for r in records:
+        r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)
     phase_training_profile(corpus)
     phase_agreement()
+    phase_lm_agreement()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("launches_by_path", "k5", "variant", "dp_ms", "dp_plain_ms",
-             "dp_bound_ms", "dp_library_ms", "yardstick", "yardstick_ms")
+             "dp_bound_ms", "dp_library_ms", "yardstick", "yardstick_ms",
+             "max_abs_err_by_dtype", "pairs", "library")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

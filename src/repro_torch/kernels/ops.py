@@ -15,6 +15,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
 
 Stacked = Union[torch.Tensor, Mapping[str, torch.Tensor]]
@@ -120,3 +122,36 @@ def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
                             err_state.contiguous(),
                             ids.to(msgs.device, torch.int32).contiguous(),
                             table)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D) in q's dtype: softmax
+    attention with a causal, sliding-window (``window`` > 0) or full
+    mask, GQA by index, fp32 accumulation.  Kernel B5 on a CUDA tensor
+    (read in place through its strides)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not _on_cuda(q):
+        out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=causal,
+                                      window=window, scale=scale)
+        return out.transpose(1, 2)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD scan from a zero state: x (B,S,H,P), dt (B,S,H), a
+    (H,), b/c (B,S,N) -> (y (B,S,H,P) in x's dtype, h_last (B,H,P,N)
+    fp32), over chunks of ``min(chunk, S)`` steps (a ragged tail is
+    padded with dt = 0 steps, which leave the state unchanged).  Kernel
+    B6 on a CUDA tensor."""
+    q = min(chunk, x.shape[1])
+    if not _on_cuda(x):
+        return ref.ssd_scan_ref(x, dt, a, b, c, q)
+    return ssd_scan_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
+                         chunk=q)

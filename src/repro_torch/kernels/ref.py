@@ -8,8 +8,11 @@ version on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.aggregation import topk_keep_mask
+
+NEG_INF = -1e30
 
 
 def fed_weighted_sum_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -76,3 +79,92 @@ def fed_dp_secure_apply_ref(msgs: torch.Tensor, noise=None, masks=None,
         w = torch.clamp(weights.to(torch.float32), min=1e-9)
         out = out + masks.to(torch.float32) / w.reshape(rows)
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale=None) -> torch.Tensor:
+    """q (B,H,S,D), k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype.
+
+    Materialized fp32 softmax over the (S, S) scores; GQA by index (query
+    head h reads kv head ``h // (H/Hkv)``, no repeat); the mask is causal
+    ``k <= q``, sliding-window ``k > q - window``, or full.  Masked
+    scores are ``NEG_INF`` before the softmax, as in the reference's
+    ``ref.flash_attention_ref``.
+    """
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.to(torch.float32).reshape(b, hkv, h // hkv, s, d)
+    scores = torch.einsum("bgrqd,bgkd->bgrqk", qf,
+                          k.to(torch.float32)) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", probs, v.to(torch.float32))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a (..., Q) -> (..., Q, Q) with out[i,j] = sum_{j<r<=i} a_r (i>=j),
+    -inf above the diagonal."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, out, float("-inf"))
+
+
+def ssd_scan_ref(x, dt, a, b, c, chunk: int):
+    """Mamba-2 SSD chunked scan from a zero state: the reference's
+    ``models/layers/mamba2.py:ssd_chunked`` in torch, chunk by chunk.
+
+    x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,N) [ngroups=1] -> (y
+    (B,S,H,P) in x's dtype, h_last (B,H,P,N) fp32).  Per chunk, with
+    ``cum = cumsum(dt*a)``:
+
+        y      = ((C B^T) o exp(segsum(dt a)) o dt_j) X + exp(cum) C h^T
+        h_new  = exp(cum_Q) h + (B o dt exp(cum_Q - cum))^T X
+
+    A ragged last chunk is padded with zero steps (dt = 0 leaves the
+    state as it is), as the reference's ``mamba2_apply`` pads.
+    """
+    s = x.shape[1]
+    pad = -s % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, b, c = (F.pad(t, (0, 0, 0, pad)) for t in (dt, b, c))
+    bs, sp, h, p = x.shape
+    n = b.shape[-1]
+    nc = sp // chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(bs, nc, chunk, h, p)
+    dtc = dt.to(f32).reshape(bs, nc, chunk, h)
+    bc = b.to(f32).reshape(bs, nc, chunk, n)
+    cc = c.to(f32).reshape(bs, nc, chunk, n)
+    af = a.to(f32)
+    hst = torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
+    ys = []
+    for i in range(nc):
+        xb, dtb, bb, cb = xc[:, i], dtc[:, i], bc[:, i], cc[:, i]
+        da = dtb * af                                      # (B,Q,H)
+        cum = torch.cumsum(da, dim=1)                      # (B,Q,H)
+        decay = torch.exp(_segsum(da.transpose(1, 2)))     # (B,H,Q,Q)
+        gram = torch.einsum("bin,bjn->bij", cb, bb)        # (B,Q,Q)
+        w = gram[:, None] * decay * dtb.transpose(1, 2)[:, :, None, :]
+        y = torch.einsum("bhij,bjhp->bihp", w, xb)
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "bin,bhpn->bihp", cb, hst)
+        to_end = torch.exp(cum[:, -1:, :] - cum) * dtb     # (B,Q,H)
+        new_state = torch.einsum("bjn,bjhp->bhpn", bb,
+                                 to_end[..., None] * xb)
+        hst = torch.exp(cum[:, -1, :])[:, :, None, None] * hst + new_state
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(bs, sp, h, p)[:, :s]
+    return y.to(x.dtype), hst

@@ -20,3 +20,11 @@ def dense_init(shape, *, generator: torch.Generator, device,
     torch.nn.init.trunc_normal_(w, mean=0.0, std=std, a=-2.0 * std,
                                 b=2.0 * std, generator=generator)
     return w.to(device)
+
+
+def embed_init(shape, *, generator: torch.Generator, device,
+               scale: float = 1.0) -> torch.Tensor:
+    """``scale`` times a standard normal (the reference's ``embed_init``),
+    drawn on the CPU generator like :func:`dense_init`."""
+    w = torch.randn(shape, dtype=torch.float32, generator=generator)
+    return (scale * w).to(device)

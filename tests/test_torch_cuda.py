@@ -7,11 +7,12 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the plain versions are held against the JAX reference by the
-CPU tests): B1 and B2 within their bounds, B3 and B4 bitwise.  A small
-service run and small synchronous training runs (the ``pallas-topk``,
-``pallas-secure`` and ``dp-transform`` specs on the batched cohort path)
-on the card are held against the same runs on the CPU.
-``chip_smoke.py`` repeats these checks at the full ProdLDA width.
+CPU tests): B1, B2, B5 and B6 within their bounds, B3 and B4 bitwise.
+A small service run, small synchronous training runs (the
+``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs on the
+batched cohort path) and a reduced hymba-1.5b prefill + decode on the
+card are held against the same runs on the CPU.  ``chip_smoke.py``
+repeats these checks at the full ProdLDA and hymba-1.5b widths.
 """
 import numpy as np
 import pytest
@@ -19,11 +20,15 @@ import torch
 
 from repro_torch.api import (Federation, FederationSpec, max_param_dev,
                              scenario_spec)
-from repro_torch.kernels import ops, ref
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention, ops, ref, ssd_scan
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
+from repro_torch.models import transformer as tfm
 from repro_torch.serve import FederationService, run_traffic
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +167,114 @@ def test_training_on_card_matches_cpu(cuda_device, name):
     assert [h["participants"] for h in gpu.history] == [3, 3, 3]
     assert all(np.isfinite(h["loss"]) for h in cpu.history)
     assert max_param_dev(cpu.params, gpu.params) <= 1e-5
+
+
+# (b, hq, hkv, s, d, causal, window): the reference's grid, hymba's 5:1
+# GQA with its window crossing tiles, every head dim the kernel takes
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, 0), (1, 4, 1, 128, 32, True, 0),
+    (2, 2, 2, 256, 64, True, 64), (1, 4, 4, 128, 64, False, 0),
+    (1, 8, 2, 100, 32, True, 0), (2, 10, 2, 300, 64, True, 100),
+    (1, 4, 4, 193, 96, True, 0), (1, 2, 1, 129, 128, False, 33),
+    (1, 25, 5, 2048, 64, True, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, s, d, causal,
+                                    window, dtype, rng):
+    """q, k, v as column slices of one fused projection (read through
+    their strides); 2e-5 in fp32, 2e-2 in bf16 (the reference's
+    bounds)."""
+    fused = torch.from_numpy(rng.standard_normal(
+        (b, s, hq + 2 * hkv, d)).astype(np.float32)).to(cuda_device, dtype)
+    q, k, v = fused.split([hq, hkv, hkv], dim=2)
+    before = flash_attention.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=d ** -0.5)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (b, s, h, p, n, chunk): the reference's grid, the hymba prefill's head
+# and state at two chunks, a ragged tail, N > 16 (shared-memory path)
+SSD_CASES = [(2, 256, 3, 32, 16, 64), (1, 100, 2, 16, 8, 32),
+             (1, 64, 1, 64, 128, 64), (2, 512, 4, 64, 16, 256),
+             (1, 300, 3, 64, 16, 256), (2, 96, 2, 32, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, dtype,
+                                  rng):
+    """x, B, C as column slices of one conv output (strided, as on the
+    model path); 1e-4 of the output's scale in fp32, 2e-2 in bf16."""
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(cuda_device, dtype)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32)).to(cuda_device)
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, h).astype(np.float32)).to(
+        cuda_device)
+    before = ssd_scan.launches
+    y, h_last = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    y_want, h_want = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((y, y_want), (h_last, h_want)):
+        scale = max(float(want.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   rtol=0, atol=tol)
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def rng_tokens(vocab, b, s, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s))
+
+
+def test_lm_prefill_decode_on_card_matches_cpu(cuda_device):
+    """Reduced hymba-1.5b in fp32, the same weights on both: prefill over
+    96 tokens (past the window of 64, two SSD chunks) and 4 teacher-forced
+    decode steps, logits within 2e-4; B5 and B6 launch once per layer of
+    the prefill and never in decode."""
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    gpu = _to(cpu, cuda_device)
+    toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 100))
+    runs = []
+    for params, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        counts = (flash_attention.launches, ssd_scan.launches)
+        logits, cache = tfm.prefill(params, cfg, {"tokens": toks[:, :96]
+                                                  .to(dev)},
+                                    dtype=torch.float32, max_len=100)
+        out = [logits]
+        mid = (flash_attention.launches, ssd_scan.launches)
+        for i in range(4):
+            step, cache = tfm.decode_step(params, cfg, cache,
+                                          toks[:, 96 + i:97 + i].to(dev),
+                                          dtype=torch.float32)
+            out.append(step)
+        after = (flash_attention.launches, ssd_scan.launches)
+        runs.append((out, counts, mid, after))
+    (cpu_out, c0, c1, c2), (gpu_out, g0, g1, g2) = runs
+    assert c0 == c1 == c2
+    assert g1 == (g0[0] + cfg.num_layers, g0[1] + cfg.num_layers) == g2
+    for a, b in zip(cpu_out, gpu_out):
+        scale = max(float(a.abs().max()), 1.0)
+        assert float((b.cpu() - a).abs().max()) / scale <= 2e-4

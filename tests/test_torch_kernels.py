@@ -1,4 +1,4 @@
-"""Port kernels B1-B4: the plain PyTorch versions against the JAX package.
+"""Port kernels B1-B6: the plain PyTorch versions against the JAX package.
 
 The JAX side runs its Pallas kernels in interpret mode, as
 tests/test_kernels.py does; the port's ``ops`` wrappers take their plain
@@ -18,9 +18,13 @@ from repro.kernels import ref as jref
 from repro.kernels.fed_aggregate import (fed_dp_secure_apply_pallas,
                                          fed_topk_ef_pallas,
                                          fed_weighted_sum_pallas)
+from repro.models.layers.attention import chunked_attention
+from repro.models.layers.mamba2 import ssd_chunked
 from repro_torch.core import aggregation as tagg
-from repro_torch.kernels import _build, fed_aggregate, ops, ref, \
-    topic_decoder
+from repro_torch.kernels import _build, fed_aggregate, flash_attention, \
+    ops, ref, ssd_scan, topic_decoder
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
@@ -298,11 +302,18 @@ def test_cpu_tensors_take_the_plain_path_and_build_nothing(rng):
 
 
 @pytest.mark.parametrize("call", ["weighted_sum", "decoder", "dp_secure",
-                                  "topk"])
+                                  "topk", "flash", "ssd"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers never run a CPU tensor (no quiet fallback)."""
     with pytest.raises(ValueError, match="CUDA"):
-        if call == "weighted_sum":
+        if call == "flash":
+            q = torch.zeros(1, 8, 2, 32)
+            flash_attention_cuda(q, q, q, causal=True, window=0, scale=1.0)
+        elif call == "ssd":
+            ssd_scan_cuda(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
+                          torch.zeros(2), torch.zeros(1, 8, 4),
+                          torch.zeros(1, 8, 4), chunk=8)
+        elif call == "weighted_sum":
             fed_weighted_sum_cuda(torch.zeros(2, 3), torch.ones(2))
         elif call == "decoder":
             topic_decoder_cuda(torch.ones(2, 3), torch.ones(3, 5),
@@ -330,3 +341,147 @@ def test_kernel_sources_and_build_key():
     assert topic_decoder.vocab_chunks(256, 5000, 132) == 9
     assert topic_decoder.vocab_chunks(1, 17, 132) == 1
     assert topic_decoder.vocab_chunks(4096, 5000, 132) == 1
+
+
+# ---------------------------------------------------------------------------
+# B5: flash attention (the reference's grid, tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # (b, hq, hkv, s, d, causal, window)
+    (2, 4, 2, 256, 64, True, 0),
+    (1, 4, 1, 128, 32, True, 0),      # MQA
+    (2, 2, 2, 256, 64, True, 64),     # sliding window
+    (1, 4, 4, 128, 64, False, 0),     # bidirectional
+    (1, 8, 2, 100, 32, True, 0),      # non-block-multiple sequence
+]
+
+
+def _qkv(b, hq, hkv, s, d, rng):
+    return (rng.standard_normal((b, s, hq, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(b, hq, hkv, s, d, causal,
+                                              window, dtype, rng):
+    """(B,S,H,D) in and out, as ``ops.flash_attention`` in both packages;
+    2e-5 in fp32, 2e-2 in bf16 (the reference's own bounds)."""
+    q, k, v = (jnp.asarray(a, dtype) for a in _qkv(b, hq, hkv, s, d, rng))
+    want = jops.flash_attention(q, k, v, causal=causal, window=window,
+                                interpret=True)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    got = ops.flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt),
+                              causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == (b, s, hq, d)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    dev = float(np.max(np.abs(got.to(torch.float32).numpy()
+                              - np.asarray(want, np.float32))))
+    print(f"B5 plain vs pallas {(b, hq, hkv, s, d, causal, window)} "
+          f"{dtype}: {dev:.3e}")
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+def test_flash_attention_plain_matches_chunked_attention(b, hq, hkv, s, d,
+                                                         causal, window,
+                                                         rng):
+    """Against the jnp core the reference's layers run (chunk 64, so the
+    longer cases cross chunks): 2e-5 in fp32."""
+    q, k, v = _qkv(b, hq, hkv, s, d, rng)
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    want = chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             pos, pos, causal=causal, window=window,
+                             scale=d ** -0.5, chunk=64)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# B6: the SSD scan (the reference's grid, tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # (b, s, h, p, n, chunk)
+    (2, 256, 3, 32, 16, 64),
+    (1, 100, 2, 16, 8, 32),           # ragged sequence
+    (1, 64, 1, 64, 128, 64),          # mamba2-1.3b-like state
+]
+
+
+def _ssd_inputs(b, s, h, p, n, rng):
+    return (rng.standard_normal((b, s, h, p)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (h,)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32),
+            rng.standard_normal((b, s, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_scan_plain_matches_pallas(b, s, h, p, n, chunk, rng):
+    args = _ssd_inputs(b, s, h, p, n, rng)
+    yj, hj = jops.ssd_scan(*(jnp.asarray(a) for a in args), chunk=chunk,
+                           interpret=True)
+    yt, ht = ops.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    assert yt.shape == (b, s, h, p) and ht.shape == (b, h, p, n)
+    print(f"B6 plain vs pallas {(b, s, h, p, n, chunk)}: y "
+          f"{np.max(np.abs(yt.numpy() - np.asarray(yj))):.3e}, h "
+          f"{np.max(np.abs(ht.numpy() - np.asarray(hj))):.3e}")
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_scan_plain_matches_ssd_chunked(b, s, h, p, n, chunk, rng):
+    """Against the jnp scan the reference's mamba2 layer runs; a ragged
+    sequence is padded with dt = 0 steps for it, as mamba2_apply pads."""
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, rng)
+    pad = -s % chunk
+    padded = [np.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2))
+              for t in (x, dt, bb, cc)]
+    yj, hj = ssd_chunked(*(jnp.asarray(t) for t in padded[:2]),
+                         jnp.asarray(a),
+                         *(jnp.asarray(t) for t in padded[2:]), chunk)
+    yt, ht = ops.ssd_scan(*(torch.from_numpy(t) for t in (x, dt, a, bb, cc)),
+                          chunk=chunk)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj)[:, :s], atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_scan_plain_keeps_bf16_and_the_padding_state(rng):
+    """bf16 x/b/c in, y out in bf16 and h_last in fp32; dt = 0 steps
+    appended to a sequence leave its final state as it was."""
+    x, dt, a, bb, cc = _ssd_inputs(1, 40, 2, 16, 8, rng)
+    y, h = ops.ssd_scan(torch.from_numpy(x).to(torch.bfloat16),
+                        torch.from_numpy(dt), torch.from_numpy(a),
+                        torch.from_numpy(bb).to(torch.bfloat16),
+                        torch.from_numpy(cc).to(torch.bfloat16), chunk=16)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    z = [np.concatenate([t, np.zeros((1, 8) + t.shape[2:], t.dtype)], 1)
+         for t in (x, dt, bb, cc)]
+    _, h_pad = ops.ssd_scan(*(torch.from_numpy(t) for t in z[:2]),
+                            torch.from_numpy(a),
+                            *(torch.from_numpy(t) for t in z[2:]), chunk=16)
+    _, h_ref = ops.ssd_scan(*(torch.from_numpy(t) for t in (x, dt, a, bb,
+                                                            cc)), chunk=16)
+    np.testing.assert_allclose(h_pad.numpy(), h_ref.numpy(), atol=1e-6)
+
+
+def test_lm_kernels_on_cpu_launch_nothing(rng):
+    before = (flash_attention.launches, ssd_scan.launches, dict(_build._LIBS))
+    q, k, v = _qkv(1, 4, 2, 40, 32, rng)
+    ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=True, window=16)
+    ops.ssd_scan(*(torch.from_numpy(t) for t in _ssd_inputs(1, 40, 2, 16, 8,
+                                                            rng)), chunk=16)
+    assert (flash_attention.launches, ssd_scan.launches,
+            dict(_build._LIBS)) == before
