@@ -14,27 +14,60 @@
 // and queries past the sequence end are masked (the ragged tail).
 //
 // Bound on this card: operations.  At the hymba-1.5b prefill shape (B=4,
-// H=25, Hkv=5, S=2048, D=64, window 1024, bf16) the window reaches ~1.57M
-// (q, k) pairs per head, 4*D flops each: ~40 GFLOP against ~63 MB of
-// q/k/v/out, far above the ~295 flop/byte at which bf16 tensor cores
-// (989 TFLOP/s against 3.35 TB/s, H100 SXM data-sheet peaks at 700 W)
-// stop waiting on memory.  This first version runs the products on the
-// fp32 units (IEEE fp32, the arithmetic of the reference), not the
-// tensor cores: wgmma/mma tiles, TMA and pipelining are later work.  What
-// the design does about the bound:
-//   * it never touches a key tile the mask cannot reach: each block loops
-//     over the tiles in [q0 - window + 1, q0 + 63] only (causal), so the
-//     work is the window's, not S^2;
-//   * one block per (query tile of 64 rows, head, batch); two threads per
-//     query row split the head dim, so q and the running (m, l, acc)
-//     statistics live in registers and the 64 scores of a tile too;
-//   * K and V tiles (64 keys) are staged once per block in shared memory
-//     as fp32 and read back as broadcast float4 loads (every lane of a
-//     warp reads the same key at the same time);
-//   * GQA by index: query head h reads kv head h / (H / Hkv) (H/Hkv = 5
-//     at hymba width is no power of two); K/V are never repeated;
-//   * strided operands: the wrapper passes the (b, s, h) strides of each
-//     of q, k, v and out, so (B,S,H,D) projections are read in place.
+// H=25, Hkv=5, S=2048, D=64, window 1024, bf16) the window reaches ~157M
+// (q, k) pairs, 4*D flops each: ~40 GFLOP against ~63 MB of q/k/v/out,
+// far above the ~295 flop/byte at which bf16 tensor cores (989 TFLOP/s
+// against 3.35 TB/s, H100 SXM data-sheet peaks at 700 W) stop waiting on
+// memory.
+//
+// Two routes, chosen by dtype (a rule, not a fallback):
+//
+// bf16 -> flash_fwd_tc_kernel, on the tensor cores (wgmma, sm_90a).
+//   * One block takes 128 query rows of one (batch, query head): two
+//     warpgroups of 64 rows.  The Q tile is loaded once into shared
+//     memory.  K and V tiles of 64 keys come through a 3-stage ring by
+//     cp.async (16 bytes a thread, zero-fill past the sequence end): tile
+//     t+1 loads while tile t multiplies, and the P V product of tile t-1
+//     is left in flight until S of tile t has been issued.  Every tile is
+//     stored as column atoms of 64 bf16 (one 128-byte row each) under the
+//     128-byte swizzle, the layout wgmma's shared-memory descriptors read.
+//     The grid starts the longest query tiles (the most key tiles under a
+//     causal mask) first, so the short ones fill the last wave.
+//   * S = Q K^T: wgmma.m64n64k16 per 16 columns of the head dim, A (Q)
+//     and B (K) both K-major from shared memory, fp32 accumulators.
+//   * Online softmax on the accumulator fragments: row max and row sum by
+//     quad shuffles, exp2 (ex2.approx on the special-function unit) with
+//     scale * log2(e) folded in.  The per-element mask runs only on tiles
+//     that cross the diagonal, the window's edge or the sequence end;
+//     interior tiles take an unmasked branch.
+//   * P is cast to bf16 in registers: the m64n64 accumulator layout is the
+//     A-register layout of the next four k16 slices, so P never goes to
+//     shared memory.  O += P V is a wgmma with A from registers and V from
+//     shared memory read as a transposed (N-major) B; O stays in fp32
+//     registers.
+//   * Each block visits only the key tiles in [q0 - window + 1, q0 + 127];
+//     a warpgroup skips the tiles its own 64 rows cannot reach.
+//   Arithmetic: q x k products of bf16 values are exact in fp32, so S
+//   differs from the reference only in summation order; P is rounded to
+//   bf16 before P V (2^-9 relative); l is summed from the fp32 p, as in
+//   the reference; the output is cast to bf16 once.  Bound: 2e-2 abs +
+//   rel against the plain version, the reference's own bf16 bound.
+//   Operands: 16-byte aligned data pointers and (b, s, h) strides that
+//   are multiples of 8 elements (the wrapper raises otherwise).
+//
+// fp32 -> flash_fwd_kernel, the port's first design, IEEE fp32 on the
+//   CUDA cores: the card-vs-CPU agreement holds fp32 inputs to 2e-5 per
+//   kernel case and 2e-4 end to end, which TF32 or bf16 products cannot.
+//   One block per (query tile of 64 rows, head, batch); two threads per
+//   query row split the head dim, so q, (m, l, acc) and the 64 scores of
+//   a tile live in registers; K and V tiles staged in shared memory as
+//   fp32, read back as broadcast float4 loads.
+//
+// Both: GQA by index (query head h reads kv head h / (H / Hkv); 5 at
+// hymba width is no power of two; K/V are never repeated); strided
+// operands (the wrapper passes the (b, s, h) strides of each of q, k, v
+// and out, so (B,S,H,D) projections are read in place); head dims 32,
+// 64, 96 and 128.
 //
 // Plain C interface (bound with ctypes): returns a CUDA error code (0 on
 // success) after the launch; launches on the caller's stream and never
@@ -46,19 +79,17 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// fp32 route: CUDA cores
+// ---------------------------------------------------------------------------
 constexpr int kBlockQ = 64;                 // query rows per block
 constexpr int kBlockK = 64;                 // keys per shared-memory tile
 constexpr int kTpr = 2;                     // threads per query row
 constexpr int kThreads = kBlockQ * kTpr;    // 128
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Strides {
   int64_t b, s, h;  // in elements; the head dim is contiguous
@@ -212,34 +243,506 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
-                 void* o, Strides qs, Strides ks, Strides vs, Strides os,
-                 int batch, int seq, int heads, int kv_heads, int causal,
-                 int window, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, qs, ks, vs, os, batch, seq, heads,
-                           kv_heads, causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, qs, ks, vs, os, batch, seq, heads,
-                           kv_heads, causal, window, scale, stream);
-    case 96:
-      return launch<T, 96>(q, k, v, o, qs, ks, vs, os, batch, seq, heads,
-                           kv_heads, causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, qs, ks, vs, os, batch, seq, heads,
-                            kv_heads, causal, window, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+constexpr int kTcRows = 128;     // query rows per block: two warpgroups of 64
+constexpr int kTcKeys = 64;      // keys per K/V tile
+constexpr int kTcThreads = 256;
+constexpr int kStages = 3;       // K/V ring: tile t+1 loads while tile t
+                                 // multiplies and P V of t-1 drains
+constexpr uint32_t kSwRow = 128; // bytes of one swizzled row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk c (entries 8c..8c+7) of row r in a tile
+// of `rows` rows kept as column atoms of 64 entries, [atom][row][128 B],
+// under the 128-byte swizzle: chunk (c mod 8) is stored at (c XOR r) mod 8.
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  return (uint32_t)(c >> 3) * rows * kSwRow + (uint32_t)r * kSwRow +
+         ((uint32_t)((c & 7) ^ (r & 7)) << 4);
+}
+
+// 16 bytes global -> shared, asynchronous; zero-fills when !valid (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async
+// proxy: each thread fences its own writes before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// K-major operand (rows of the reduction dim contiguous): 8-row groups
+// 1024 bytes apart; the leading offset is unused under the swizzle.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 8 * kSwRow);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, bf16, shared, K-major) x
+// B (16 x 64, bf16, shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16, registers) x B (16 x 32, bf16,
+// shared, N-major, so read transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16, registers) x B (16 x 64, bf16,
+// shared, N-major, so read transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 96, fp32) += A (64 x 16, bf16, registers) x B (16 x 96, bf16,
+// shared, N-major, so read transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16, registers) x B (16 x 128, bf16,
+// shared, N-major, so read transposed: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit (subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// one 64-key tile of K and of V into a ring stage; keys past the end read
+// as zeros
+template <int D>
+__device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv,
+                                        const bf16* kb, const bf16* vb,
+                                        int64_t kss, int64_t vss, int k0,
+                                        int seq, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < kTcKeys * kChunks / kTcThreads; ++i) {
+    const int idx = tid + i * kTcThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = k0 + r < seq;
+    const int64_t kp = ok ? k0 + r : 0;
+    cp_async16(sk + swz(kTcKeys, r, c), kb + kp * kss + c * 8, ok);
+    cp_async16(sv + swz(kTcKeys, r, c), vb + kp * vss + c * 8, ok);
   }
+}
+
+template <int D>
+constexpr int tc_smem_bytes() {
+  // Q, then the K and the V ring (kStages tiles each); 1024 bytes of slack
+  // to align the base to the swizzle's 1024-byte period
+  return ((D + 63) / 64) * (kTcRows + 2 * kStages * kTcKeys) * (int)kSwRow
+         + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    Strides qs, Strides ks, Strides vs, Strides os, int seq,
+                    int heads, int kv_heads, int causal, int window,
+                    float scale_log2) {
+  constexpr int kAtoms = (D + 63) / 64;
+  constexpr int kChunks = D / 8;
+  constexpr uint32_t kQBytes = kAtoms * kTcRows * kSwRow;
+  constexpr uint32_t kTileBytes = kAtoms * kTcKeys * kSwRow;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + kQBytes, sv = sk + kStages * kTileBytes;
+
+  // the longest query tiles (most key tiles under a causal mask) first:
+  // blocks start in index order, so the short ones fill the last wave
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcRows;
+  const int hk = h / (heads / kv_heads);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int w0 = q0 + wg * 64;                   // the warpgroup's rows
+  const int qa = w0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
+  const int cq = 2 * (lane & 3);  // its first column of each 8-column block
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+#pragma unroll
+  for (int i = 0; i < kTcRows * kChunks / kTcThreads; ++i) {
+    const int idx = tid + i * kTcThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = q0 + r < seq;
+    cp_async16(sq + swz(kTcRows, r, c),
+               qb + (ok ? (int64_t)(q0 + r) * qs.s : 0) + c * 8, ok);
+  }
+
+  // the key tiles the mask can reach from the block's rows, and from this
+  // warpgroup's
+  int lo = 0, hi = seq - 1, wlo = 0, whi = seq - 1;
+  if (window > 0) {
+    lo = max(0, q0 - window + 1);
+    wlo = max(0, w0 - window + 1);
+  }
+  if (causal) {
+    hi = min(hi, q0 + kTcRows - 1);
+    whi = min(whi, w0 + 63);
+  }
+  const int first = lo / kTcKeys, last = hi / kTcKeys;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  load_kv<D>(sk, sv, kb, vb, ks.s, vs.s, first * kTcKeys, seq, tid);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  // running max (in units of scale * log2(e)) and this thread's part of
+  // the row sum, for rows qa and qa + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  // Ring stage of tile t: (t - first) % 3.  At iteration t the block
+  // loads tile t+1 into the stage tile t-2 used; each warpgroup waited for
+  // its P V of t-2 at iteration t-1, before this iteration's barrier, so
+  // P V of t-1 may still run while tile t+1 loads and S of t multiplies.
+  for (int t = first; t <= last; ++t) {
+    const uint32_t st = (uint32_t)((t - first) % kStages) * kTileBytes;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile t is in; every warpgroup has waited for the
+                      // P V of tile t-2
+    if (t < last) {
+      const uint32_t nx = (uint32_t)((t + 1 - first) % kStages) * kTileBytes;
+      load_kv<D>(sk + nx, sv + nx, kb, vb, ks.s, vs.s, (t + 1) * kTcKeys,
+                 seq, tid);
+      cp_async_commit();
+    }
+    const int k0 = t * kTcKeys;
+    if (w0 >= seq || k0 > whi || k0 + kTcKeys - 1 < wlo) {
+      wgmma_wait_all();  // a skipped tile still retires the last P V
+      continue;
+    }
+
+    // S = Q K^T over the head dim, 16 columns a wgmma
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk & 3) * 32;  // 16 entries = 32 bytes
+      const uint32_t a = sq + (kk >> 2) * kTcRows * kSwRow + wg * 64 * kSwRow
+                         + col;
+      const uint32_t bk = sk + st + (kk >> 2) * kTcKeys * kSwRow + col;
+      wgmma_ss_n64(s, kmajor_desc(a), kmajor_desc(bk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // S of t, and P V of t-1 before acc is touched
+    pin(s);
+    pin(acc);
+
+    // online softmax on the fragments: s[4j + e] is row qa + 8 (e >> 1),
+    // key k0 + 8j + cq + (e & 1)
+    const bool edge = (causal && k0 + kTcKeys - 1 > w0) ||
+                      (window > 0 && k0 <= w0 + 63 - window) ||
+                      k0 + kTcKeys > seq;
+    uint32_t keep = 0xffffffffu;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge && !allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
+                           qa + 8 * ((i >> 1) & 1), seq, causal, window)) {
+        x = kNegInf;
+        keep &= ~(1u << i);
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fast_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = (keep >> i) & 1u ? fast_exp2(s[i] - mx[r]) : 0.0f;
+      const float p1 = (keep >> (i + 1)) & 1u ? fast_exp2(s[i + 1] - mx[r])
+                                              : 0.0f;
+      psum[r] += p0 + p1;
+      pa[i >> 1] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V, 16 keys a wgmma: P's registers for keys 16j..16j+15 are
+    // pa[4j..4j+3]; V's rows 16j.. start 16 * 128 bytes further
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTcKeys / 16; ++j) {
+      const uint32_t a[4] = {pa[4 * j], pa[4 * j + 1], pa[4 * j + 2],
+                             pa[4 * j + 3]};
+      wgmma_rs(acc, a,
+               sw128_desc(sv + st + j * 16 * kSwRow, kTcKeys * kSwRow,
+                          8 * kSwRow));
+    }
+    wgmma_commit();  // left in flight: waited for with the next S
+  }
+  wgmma_wait_all();
+  pin(acc);
+
+  if (w0 >= seq) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qa + 8 * r;
+    if (row >= seq) continue;
+    const float denom = l[r] == 0.0f ? 1.0f : l[r];  // fully masked -> 0
+    bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
+                                acc[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              Strides qs, Strides ks, Strides vs, Strides os, int batch,
+              int seq, int heads, int kv_heads, int causal, int window,
+              float scale, cudaStream_t stream) {
+  const int smem = tc_smem_bytes<D>();
+  auto kern = flash_fwd_tc_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(heads, batch, (seq + kTcRows - 1) / kTcRows);
+  kern<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), qs, ks, vs, os,
+      seq, heads, kv_heads, causal, window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// route by dtype, then head dim
+int dispatch(int is_bf16, int head_dim, const void* q, const void* k,
+             const void* v, void* o, Strides qs, Strides ks, Strides vs,
+             Strides os, int batch, int seq, int heads, int kv_heads,
+             int causal, int window, float scale, cudaStream_t s) {
+#define FLASH_ARGS q, k, v, o, qs, ks, vs, os, batch, seq, heads, kv_heads, \
+                   causal, window, scale, s
+  if (is_bf16) {
+    switch (head_dim) {
+      case 32: return launch_tc<32>(FLASH_ARGS);
+      case 64: return launch_tc<64>(FLASH_ARGS);
+      case 96: return launch_tc<96>(FLASH_ARGS);
+      case 128: return launch_tc<128>(FLASH_ARGS);
+    }
+  } else {
+    switch (head_dim) {
+      case 32: return launch<float, 32>(FLASH_ARGS);
+      case 64: return launch<float, 64>(FLASH_ARGS);
+      case 96: return launch<float, 96>(FLASH_ARGS);
+      case 128: return launch<float, 128>(FLASH_ARGS);
+    }
+  }
+#undef FLASH_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, const Strides& st) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 8 == 0 &&
+         st.s % 8 == 0 && st.h % 8 == 0;
 }
 
 }  // namespace
 
+// dynamic shared memory a block of the bf16 (tensor-core) kernel asks for
+// at head_dim, or -1 for a head dim it does not take
+extern "C" int flash_attention_tc_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 32: return tc_smem_bytes<32>();
+    case 64: return tc_smem_bytes<64>();
+    case 96: return tc_smem_bytes<96>();
+    case 128: return tc_smem_bytes<128>();
+    default: return -1;
+  }
+}
+
 // q, o: (B, S, H, D); k, v: (B, S, Hkv, D); each with its (b, s, h)
 // strides in elements and a contiguous head dim.  head_dim in
-// {32, 64, 96, 128}; H a multiple of Hkv.
+// {32, 64, 96, 128}; H a multiple of Hkv.  bf16 (is_bf16 = 1) runs on the
+// tensor cores and needs 16-byte aligned q, k, v with (b, s, h) strides
+// that are multiples of 8 (else cudaErrorMisalignedAddress); fp32 on the
+// CUDA cores.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -248,11 +751,10 @@ extern "C" int flash_attention_fwd(
     int causal, int window, float scale, int is_bf16, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, qs, ks, vs, os,
-                                       batch, seq, heads, kv_heads, causal,
-                                       window, scale, s);
-  return dispatch_dim<float>(head_dim, q, k, v, o, qs, ks, vs, os, batch,
-                             seq, heads, kv_heads, causal, window, scale, s);
+  if (is_bf16 && !(aligned16(q, qs) && aligned16(k, ks) &&
+                   aligned16(v, vs)))
+    return (int)cudaErrorMisalignedAddress;
+  return dispatch(is_bf16, head_dim, q, k, v, o, qs, ks, vs, os, batch, seq,
+                  heads, kv_heads, causal, window, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -133,12 +133,13 @@ def fed_dp_secure_apply_cuda(x: torch.Tensor, noise=None, masks=None,
         if tuple(t.shape) != want:
             raise ValueError(f"fed_dp_secure_apply_cuda: {n} has shape "
                              f"{tuple(t.shape)}, expected {want}")
-    if k > 65535:
-        raise ValueError(f"fed_dp_secure_apply_cuda takes at most 65535 "
-                         f"rows, got {k}")
     out = torch.empty((k, d), dtype=torch.float32, device=dev)
     if k == 0 or d == 0:
         return out
+    # the kernel streams float4s: an operand off 16 bytes (a view into a
+    # larger buffer) is copied to a fresh, aligned allocation
+    x, noise, masks = (t if t is None or t.data_ptr() % 16 == 0
+                       else t.clone() for t in (x, noise, masks))
     flags = (clip_coef is not None) | (noise is not None) << 1 \
         | (masks is not None) << 2
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731

@@ -5,6 +5,12 @@ Port of the TPU kernel ``flash_attention_bhsd``
 (``csrc/flash_attention.cu``, whose note says what bounds it on the
 card).  Model code calls ``ops.flash_attention``, which routes a CUDA
 tensor here and a CPU tensor to ``ref.flash_attention_ref``.
+
+Two routes, by dtype: bf16 runs on the tensor cores (``wgmma``), fp32
+on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of fp32
+models needs (TF32 or bf16 products would not hold its bounds).  A bf16
+call the tensor-core kernel cannot take raises; it never goes to the
+fp32 kernel or to the plain version.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,S,H,D), k/v (B,S,Hkv,D) CUDA tensors of one dtype (fp32 or
     bf16), read in place through their strides (the head dim must be
     contiguous) -> (B,S,H,D) contiguous in q's dtype.  ``window`` 0 means
-    no sliding window."""
+    no sliding window.  bf16 operands must start on 16 bytes and have
+    (b, s, h) strides that are multiples of 8 elements."""
     global launches
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -67,6 +74,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}, got {d}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda needs a contiguous head dim")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+                raise ValueError(
+                    f"flash_attention_cuda on bf16 takes 16-byte aligned "
+                    f"operands with (b, s, h) strides that are multiples "
+                    f"of 8: {name} starts at {t.data_ptr() % 16} mod 16 "
+                    f"with strides {t.stride()[:3]}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if b > 65535 or h > 65535:

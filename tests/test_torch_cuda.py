@@ -105,20 +105,51 @@ def _same_bits(a, b):
         torch.where(nb, zero, b.view(torch.int32))))
 
 
-@pytest.mark.parametrize("k,d", [(1, 1), (3, 129), (5, 4097),
-                                 (5, 775_500)])
-def test_dp_secure_kernel_bitwise_plain(cuda_device, k, d, rng):
+def _dp_secure_bitwise(x, rng):
+    """B3 against its plain version on ``x``'s device for the dp, secure
+    and all-terms variants, bitwise (a zero weight among the rows)."""
+    k, d = x.shape
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
-        cuda_device)
-    x, noise = t(rng.standard_normal((k, d))), t(rng.standard_normal((k, d)))
+        x.device)
+    noise = t(rng.standard_normal((k, d)))
     masks = t(rng.integers(-4096, 4097, (k, d)) * 2.0 ** -10)
     coef, w = t(rng.uniform(0.01, 1.0, k)), t(rng.integers(0, 99, k))
+    w[0] = 0.0
     for kw in (dict(noise=noise, clip_coef=coef),
                dict(masks=masks, weights=w),
                dict(noise=noise, masks=masks, clip_coef=coef, weights=w)):
         got = fed_dp_secure_apply_cuda(x, noise_scale=0.015, **kw)
         want = ref.fed_dp_secure_apply_ref(x, noise_scale=0.015, **kw)
         assert _same_bits(got, want)
+
+
+# D = 775 501-775 503 (the path's width, D mod 4 = 1, 2, 3) put a float4
+# across every row boundary of the flat stream
+@pytest.mark.parametrize("k,d", [(1, 1), (3, 129), (5, 4097),
+                                 (5, 775_500), (5, 775_501), (5, 775_502),
+                                 (5, 775_503), (3, 2), (2, 7)])
+def test_dp_secure_kernel_bitwise_plain(cuda_device, k, d, rng):
+    x = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    _dp_secure_bitwise(x.to(cuda_device), rng)
+
+
+def test_dp_secure_kernel_bitwise_plain_nonfinite(cuda_device, rng):
+    """NaN, +inf and -inf in x pass through as the plain version's do."""
+    x = rng.standard_normal((5, 4099)).astype(np.float32)
+    x.flat[rng.choice(x.size, 300, replace=False)] = np.nan
+    x.flat[rng.choice(x.size, 300, replace=False)] = np.inf
+    x.flat[rng.choice(x.size, 300, replace=False)] = -np.inf
+    _dp_secure_bitwise(torch.from_numpy(x).to(cuda_device), rng)
+
+
+def test_dp_secure_kernel_bitwise_plain_unaligned(cuda_device, rng):
+    """Operands that do not start on 16 bytes (views into a larger buffer)
+    give the plain version's bits all the same."""
+    flat = torch.from_numpy(rng.standard_normal(3 * 1001 + 1).astype(
+        np.float32)).to(cuda_device)
+    x = flat[1:].view(3, 1001)
+    assert x.data_ptr() % 16
+    _dp_secure_bitwise(x, rng)
 
 
 @pytest.mark.parametrize("frac", [0.01, 0.25, 1.0])
@@ -200,6 +231,24 @@ def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, s, d, causal,
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_flash_kernel_bf16_refuses_misaligned(cuda_device, fault):
+    """The tensor-core route takes 16-byte aligned operands with (b, s, h)
+    strides that are multiples of 8; anything else raises, and nothing
+    launches (no fp32 or plain fallback)."""
+    if fault == "pointer":
+        q = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda_device,
+                        dtype=torch.bfloat16)[1:].view(2, 64, 2, 64)
+    else:
+        q = torch.zeros(2, 64, 2, 68, device=cuda_device,
+                        dtype=torch.bfloat16)[..., :64]
+    k = torch.zeros(2, 64, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, k, k, causal=True, window=0, scale=0.125)
+    assert flash_attention.launches == before
 
 
 # (b, s, h, p, n, chunk): the reference's grid, the hymba prefill's head

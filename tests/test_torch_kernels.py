@@ -403,6 +403,64 @@ def test_flash_attention_plain_matches_chunked_attention(b, hq, hkv, s, d,
                                rtol=2e-5)
 
 
+def _flash_tensor_core_emulation(q, k, v, *, causal, window, scale):
+    """The arithmetic of B5's bf16 tensor-core route, in plain PyTorch on
+    (B,S,H,D) bf16 tensors: 64-key tiles, fp32 scores from the bf16 q and
+    k, the online softmax in exp2 with ``scale * log2(e)`` folded in, P
+    rounded to bf16 before P V, l summed from the fp32 p, one cast of the
+    output.  Test-only: the kernel's numeric design, checked on the CPU."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().transpose(1, 2)                          # (B,H,S,D)
+    kf = k.float().transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    c = scale * 1.4426950408889634
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, 64):
+        kpos = torch.arange(k0, min(k0 + 64, s))[None, :]
+        mask = torch.ones(s, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        t = torch.matmul(qf, kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c
+        t = torch.where(mask, t, -1e30)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(mask, torch.exp2(t - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
+                                         vf[:, :, k0:k0 + 64])
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+def test_flash_tensor_core_arithmetic_matches_pallas(b, hq, hkv, s, d,
+                                                     causal, window, rng):
+    """B5's bf16 route rounds P to bf16 before P V: its arithmetic, in
+    plain PyTorch, against the Pallas kernel in interpret mode on bf16
+    inputs within the reference's bf16 bound, 2e-2 abs + rel."""
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in _qkv(b, hq, hkv, s, d, rng))
+    want = np.asarray(jops.flash_attention(q, k, v, causal=causal,
+                                           window=window, interpret=True),
+                      np.float32)
+    got = _flash_tensor_core_emulation(
+        _t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16),
+        causal=causal, window=window, scale=d ** -0.5)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, hq, d)
+    got = got.float().numpy()
+    print(f"B5 tensor-core arithmetic vs pallas "
+          f"{(b, hq, hkv, s, d, causal, window)} bf16: "
+          f"{float(np.max(np.abs(got - want))):.3e}")
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+
+
 # ---------------------------------------------------------------------------
 # B6: the SSD scan (the reference's grid, tests/test_kernels.py)
 # ---------------------------------------------------------------------------
