@@ -12,7 +12,7 @@ Phases, each fatal on failure (no phase catches and carries on):
 3. kernels: each kernel against its plain PyTorch version on the card,
    over a shape grid (B3 and B4 bitwise; B5 and B6 at the hymba-1.5b
    prefill's shapes in bf16 and fp32, B5's bf16 route at every head
-   dim), and timed at the shapes its path gives it beside its plain
+   dim, B6's bf16 route also at mamba2-1.3b's width), and timed at the shapes its path gives it beside its plain
    version, a library call (or, for B4, a yardstick) where one exists
    (B3 and its library call also with the L2 evicted before each call),
    and its bound (bytes over 3.35 TB/s, or
@@ -200,6 +200,12 @@ def phase_build():
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     log("  flash_fwd_tc_kernel dynamic shared memory a block: " + ", ".join(
         f"D={d} {smem(d)} bytes" for d in (32, 64, 96, 128)))
+    log("  ssd_scan bf16 route dynamic shared memory a block (the larger of "
+        "its kernels): " + ", ".join(
+            f"P={p} N={n} chunk {q} {b} bytes" for (p, n, q), b in
+            zip(((64, 16, 256), (64, 128, 256)),
+                _ssd_tc_smem({"a": (64, 16, 256),
+                              "b": (64, 128, 256)}).values())))
 
 
 def ptxas_resources(text: str):
@@ -223,6 +229,13 @@ def ptxas_resources(text: str):
                         int(smem.group(1)) if smem else 0))
             fn = None
     return out
+
+
+def _short_name(name: str) -> str:
+    """A profiler event's kernel name without namespace, return type or
+    arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split(
+        " ")[-1]
 
 
 def _demangle(name: str) -> str:
@@ -577,6 +590,9 @@ B6_CASES = [  # (b, s, h, p, n, chunk, dtype)
     (2, 96, 16, 32, 16, 64, torch.float32),         # reduced hymba
     (1, 100, 2, 16, 8, 32, torch.float32),          # ragged tail
     (1, 64, 1, 64, 128, 64, torch.bfloat16),        # N > 16
+    # mamba2-1.3b's width (64 heads of P=64, N=128, chunk 256): the
+    # tensor-core route only (the fp32 kernel has not the shared memory)
+    (1, LM_PROMPT, 64, 64, 128, 256, torch.bfloat16),
 ]
 
 
@@ -687,14 +703,22 @@ def _kernel_b6(g, dev):
         del x, dt, a, bb, cc, y, hl, y_w, hl_w
     log(f"B6 ssd_scan: {len(B6_CASES)} shapes (the hymba prefill's (4, 2048, "
         f"50 heads, P=64, N=16, chunk 256) in bf16 and fp32, reduced hymba, "
-        f"ragged, N=128; x/B/C strided): max |kernel - plain| {errs} "
-        f"(bounds 1e-4 fp32, 2e-2 bf16, of max|plain|)")
+        f"ragged, N=128, mamba2-1.3b's (2048, 64 heads, P=64, N=128, chunk "
+        f"256) in bf16; x/B/C strided; bf16 on the tensor cores, fp32 on "
+        f"the CUDA cores): max |kernel - plain| {errs} (bounds 1e-4 fp32, "
+        f"2e-2 bf16, of max|plain|)")
     b, s, h, p, n, chunk, dtype = B6_CASES[0]
     x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
     rec = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:80",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "design": "bf16: wgmma in three launches (ssd_chunk_state_kernel,"
+                     " ssd_state_pass_kernel, ssd_chunk_scan_kernel); fp32: "
+                     "ssd_scan_kernel on the CUDA cores",
+           "ptxas": _ptxas_record("ssd_scan", ("ssd_chunk_", "ssd_state_")),
+           "smem_bytes": _ssd_tc_smem({"hymba": (p, n, chunk),
+                                       "mamba2": (64, 128, 256)}),
            "library": "none: no single PyTorch call computes the SSD scan"}
     # x, B, C (bf16) and dt, a (fp32) read once, y (bf16) and h_last (fp32)
     # written once; per (batch, head, chunk) the lower triangle of C B^T
@@ -710,7 +734,46 @@ def _kernel_b6(g, dev):
                                                 H100_BF16_FLOPS)
     _time_record(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk),
                  lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
+    # the bf16 route's three launches, one by one
+    by = {}
+    for e in _trace(lambda: [ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+                             for _ in range(10)]):
+        name = _short_name(e.name).split("<")[0]
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 10
+    rec["launch_us"] = by
+    log(f"  ssd_scan bf16 launches at the path's shape (device us/call): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in by.items()))
+    del x, dt, a, bb, cc
+    x, dt, a, bb, cc = _ssd_inputs(g, dev, 1, LM_PROMPT, 64, 64, 128,
+                                   torch.bfloat16)
+    rec["mamba2_ms"] = device_ms(lambda: ssd_scan_cuda(x, dt, a, bb, cc,
+                                                       chunk=256))
+    log(f"  ssd_scan at mamba2-1.3b's width (1, 2048, 64 heads, P=64, "
+        f"N=128, chunk 256, bf16): device {rec['mamba2_ms'] * 1e3:.2f} "
+        f"us/call")
     return rec
+
+
+def _ptxas_record(lib: str, prefixes) -> list:
+    """Registers, spills and static shared memory from ptxas' report for
+    the kernels of ``lib`` whose names start with one of ``prefixes``."""
+    from repro_torch.kernels import _build
+    out = []
+    for fn, regs, spill, smem in ptxas_resources(
+            str(_build.BUILD_LOG.get(lib, {}).get("log", ""))):
+        short = fn.split(" ")[-1]
+        if short.startswith(tuple(prefixes)):
+            out.append({"kernel": short, "registers": regs,
+                        "spill_stores": spill[0], "spill_loads": spill[1],
+                        "static_smem": smem})
+    return out
+
+
+def _ssd_tc_smem(shapes: dict) -> dict:
+    """Dynamic shared memory a block of B6's bf16 route asks for."""
+    from repro_torch.kernels import ssd_scan
+    smem = ssd_scan._kernels()[1]
+    return {k: int(smem(p, n, q, 1)) for k, (p, n, q) in shapes.items()}
 
 
 def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):
@@ -1102,6 +1165,15 @@ def phase_lm_serve(records):
         f"wall")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
+    for label, keys in (("B5 flash_attention", ("flash_fwd",)),
+                        ("B6 ssd_scan", ("ssd_chunk_", "ssd_state_pass",
+                                         "ssd_scan_kernel"))):
+        part = {k: us for k, us in by_name.items()
+                if any(key in k for key in keys)}
+        log(f"  {label} in this prefill: {sum(part.values()) / 1e3:.3f} ms "
+            f"of device time (" + ", ".join(
+                f"{_short_name(k)} {us / 1e3:.3f} ms"
+                for k, us in part.items()) + ")")
     if logits.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"LM prefill logits {tuple(logits.shape)} not "
@@ -1215,7 +1287,8 @@ def main() -> int:
     extra = ("launches_by_path", "k5", "variant", "dp_ms", "dp_plain_ms",
              "dp_bound_ms", "dp_library_ms", "cold_ms", "library_cold_ms",
              "dp_cold_ms", "yardstick", "yardstick_ms",
-             "max_abs_err_by_dtype", "pairs", "library")
+             "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
+             "smem_bytes", "launch_us", "mamba2_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

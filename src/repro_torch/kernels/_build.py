@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go
 to ``kernels/build/`` (listed in ``.gitignore``) under a name keyed on a
-hash of the source and the flags, so an edit triggers a rebuild.  The
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edit of any of them triggers a rebuild.  The
 first load builds every missing library at once, one ``nvcc`` process
 per source, all started together.  A failed build raises; nothing falls
 back to the plain version.
@@ -45,7 +46,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    # every header of csrc/ too, so an edited shared header rebuilds
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{key}.so"
 

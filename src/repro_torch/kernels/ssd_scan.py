@@ -4,6 +4,12 @@ Port of the TPU kernel ``ssd_scan_pallas`` (``repro/kernels/ssd_scan.py``)
 -> :func:`ssd_scan_cuda` (``csrc/ssd_scan.cu``, whose note says what
 bounds it on the card).  Model code calls ``ops.ssd_scan``, which routes
 a CUDA tensor here and a CPU tensor to ``ref.ssd_scan_ref``.
+
+Two routes, by dtype: bf16 runs on the tensor cores (``wgmma``) in three
+launches (chunk states, the pass over the chunks, the chunk outputs),
+fp32 on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of
+fp32 models needs.  A bf16 call the tensor-core kernels cannot take
+raises; it never goes to the fp32 kernel or to the plain version.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
+# the tensor-core route pads N to 16, 32, 64 or 128
+MAX_STATE_TC = 128
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 MAX_SMEM = 232_448
 
@@ -31,11 +39,11 @@ def _kernels():
     if _fns is None:
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 3
+        smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_int64
         _fns = (fn, smem)
     return _fns
@@ -48,7 +56,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dtype (fp32 or bf16), CUDA tensors read in place through their
     strides (last dims contiguous) -> (y (B,S,H,P) in x's dtype, h_last
     (B,H,P,N) fp32), from a zero state.  A ragged last chunk is read as
-    dt = 0 steps, which leave the state unchanged."""
+    dt = 0 steps, which leave the state unchanged.  bf16 takes N a
+    multiple of 8 up to 128 and x, b, c that start on 16 bytes with
+    (b, s, h) strides that are multiples of 8 elements."""
     global launches
     dev = x.device
     operands = {"x": x, "dt": dt, "a": a, "b": b, "c": c}
@@ -84,25 +94,43 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             or not a.is_contiguous():
         raise ValueError("ssd_scan_cuda needs contiguous last dims of x, "
                          "b, c and a contiguous a")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if n % 8 or not 8 <= n <= MAX_STATE_TC:
+            raise ValueError(f"ssd_scan_cuda on bf16 takes N a multiple of 8 "
+                             f"up to {MAX_STATE_TC}, got {n}")
+        for name, t in (("x", x), ("b", b), ("c", c)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+                raise ValueError(
+                    f"ssd_scan_cuda on bf16 takes 16-byte aligned operands "
+                    f"with (b, s, h) strides that are multiples of 8: {name} "
+                    f"starts at {t.data_ptr() % 16} mod 16 with strides "
+                    f"{t.stride()[:-1]}")
     fn, smem_fn = _kernels()
-    smem = smem_fn(p, n, chunk)
+    smem = smem_fn(p, n, chunk, int(bf16))
     if smem > MAX_SMEM:
         raise ValueError(f"ssd_scan_cuda: P={p}, N={n}, chunk={chunk} needs "
                          f"{smem} bytes of shared memory per block, more "
                          f"than the {MAX_SMEM} a Hopper block may hold")
     y = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev)
-    h_last = torch.zeros((bs, h, p, n), dtype=torch.float32, device=dev)
     if bs == 0 or s == 0 or h == 0:
-        return y, h_last
+        return y, torch.zeros((bs, h, p, n), dtype=torch.float32, device=dev)
+    h_last = torch.empty((bs, h, p, n), dtype=torch.float32, device=dev)
+    # the tensor-core route's scratch: each chunk's state (then the state
+    # entering it) and its cum_Q
+    nc = -(-s // chunk) if bf16 else 0
+    states = torch.empty((bs * h * nc * p * n,), dtype=torch.float32,
+                         device=dev)
+    tot = torch.empty((bs * h * nc,), dtype=torch.float32, device=dev)
     strides = [x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
                dt.stride(1), dt.stride(2), b.stride(0), b.stride(1),
                c.stride(0), c.stride(1)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), h_last.data_ptr(), *strides,
-                 bs, s, h, p, n, chunk, int(x.dtype == torch.bfloat16),
-                 stream)
+                 c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                 states.data_ptr(), tot.data_ptr(), *strides, bs, s, h, p,
+                 n, chunk, int(bf16), stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -21,32 +21,36 @@ from repro_torch.kernels import _build
 # before the service's main path and reads it after)
 launches = 0
 
-# the kernel keeps ROWS theta rows of K floats in shared memory
-MAX_TOPICS = 2048
-ROWS, THREADS = 4, 256          # kRows, kThreads of csrc/topic_decoder.cu
-BLOCKS_PER_SM = 4               # first-pass blocks the chunking aims for
+DOCS, WORDS = 32, 128           # kDocs, kWords of csrc/topic_decoder.cu
 
 _fn = None
+# per device: the kernel's arrival counters, one per document tile, 0
+# between calls (the last block of a tile resets its own), grown as needed
+_counters = {}
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("topic_decoder").topic_decoder_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def vocab_chunks(b: int, v: int, sms: int) -> int:
-    """Vocabulary chunks of the first pass: enough blocks to give every
-    SM about BLOCKS_PER_SM, but at least one full pass of threads per
-    chunk."""
-    row_tiles = -(-b // ROWS)
-    want = -(-BLOCKS_PER_SM * sms // row_tiles)
-    return max(1, min(want, -(-v // THREADS)))
+def grid(b: int, v: int):
+    """(document tiles, vocabulary tiles) of the one launch."""
+    return -(-b // DOCS), -(-v // WORDS)
+
+
+def _counter(dev: torch.device, n: int) -> torch.Tensor:
+    c = _counters.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
+        _counters[dev] = c
+    return c
 
 
 def topic_decoder_cuda(theta: torch.Tensor, beta: torch.Tensor,
@@ -77,24 +81,23 @@ def topic_decoder_cuda(theta: torch.Tensor, beta: torch.Tensor,
             f"topic_decoder_cuda shapes disagree: theta {tuple(theta.shape)}"
             f", beta {tuple(beta.shape)}, bow {tuple(bow.shape)}, dec_scale "
             f"{None if dec_scale is None else tuple(dec_scale.shape)}")
-    if not (1 <= k <= MAX_TOPICS and 1 <= v <= 65535 * THREADS
-            and b < 2 ** 31):
-        raise ValueError(f"topic_decoder_cuda takes 1 <= K <= {MAX_TOPICS} "
-                         f"and 1 <= V <= {65535 * THREADS}, got K={k}, "
-                         f"V={v}")
+    if not (1 <= k and 1 <= v <= 65535 * WORDS and b < 2 ** 31):
+        raise ValueError(f"topic_decoder_cuda takes K >= 1 and 1 <= V <= "
+                         f"{65535 * WORDS}, got K={k}, V={v}")
     out = torch.empty((b,), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    nchunk = vocab_chunks(
-        b, v, torch.cuda.get_device_properties(dev).multi_processor_count)
-    # per (document, chunk) partial (m, l, S, NB) of the first pass
-    part = torch.empty((b, nchunk, 4), dtype=torch.float32, device=dev)
+    doc_tiles, vocab_tiles = grid(b, v)
+    # per (document, vocabulary tile) partial (m, l, S, NB), merged in the
+    # same launch by the last block of each document tile to finish
+    part = torch.empty((b, vocab_tiles, 4), dtype=torch.float32, device=dev)
+    counter = _counter(dev, doc_tiles)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel()(theta.data_ptr(), beta.data_ptr(), bow.data_ptr(),
                         0 if dec_scale is None else dec_scale.data_ptr(),
-                        out.data_ptr(), part.data_ptr(), b, k, v, nchunk,
-                        stream)
+                        out.data_ptr(), part.data_ptr(), counter.data_ptr(),
+                        b, k, v, stream)
     if err:
         raise RuntimeError(f"topic_decoder kernel launch failed: CUDA "
                            f"error {err}")

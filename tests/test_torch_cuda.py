@@ -58,8 +58,13 @@ def test_weighted_sum_kernel_matches_plain(cuda_device, dtype, k, d, rng):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
 
 
+# the evaluate shape, and the tile edges of the one-launch kernel (32
+# documents x 128 words a block): B and V one past and one short of a
+# tile, exact tiles, K = 1 and 512
 @pytest.mark.parametrize("b,k,v", [(130, 8, 1100), (5, 4, 513), (2, 2, 17),
-                                   (256, 50, 5000), (300, 512, 4999)])
+                                   (256, 50, 5000), (300, 512, 4999),
+                                   (33, 1, 129), (95, 512, 383),
+                                   (64, 50, 256), (1, 1, 1)])
 def test_topic_decoder_kernel_matches_plain(cuda_device, b, k, v, rng):
     theta = torch.softmax(torch.from_numpy(
         rng.standard_normal((b, k)).astype(np.float32)), -1)
@@ -74,6 +79,23 @@ def test_topic_decoder_kernel_matches_plain(cuda_device, b, k, v, rng):
     scale = max(float(want.abs().max()), 1.0)
     torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-5)
     assert float(got[0]) == 0.0
+
+
+def test_topic_decoder_kernel_repeats_bitwise(cuda_device, rng):
+    """The last block of each document tile merges and resets its
+    counter: back-to-back calls, and a larger batch between them, give
+    the same bits."""
+    theta = torch.softmax(torch.from_numpy(
+        rng.standard_normal((100, 50)).astype(np.float32)), -1)
+    beta = torch.from_numpy(rng.standard_normal((50, 700)).astype(
+        np.float32))
+    bow = torch.from_numpy(rng.poisson(0.2, (100, 700)).astype(np.float32))
+    theta, beta, bow = (t.to(cuda_device) for t in (theta, beta, bow))
+    first = topic_decoder_cuda(theta, beta, bow)
+    big = topic_decoder_cuda(theta.repeat(40, 1), beta, bow.repeat(40, 1))
+    again = topic_decoder_cuda(theta, beta, bow)
+    assert torch.equal(first, again)
+    assert torch.equal(big[:100], first)
 
 
 def test_service_on_card_matches_cpu(cuda_device):
@@ -282,6 +304,58 @@ def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, dtype,
         torch.testing.assert_close(got.float() / scale, want.float() / scale,
                                    rtol=0, atol=tol)
     assert y.dtype == dtype and h_last.dtype == torch.float32
+
+
+# (b, s, h, p, n, chunk): the tensor-core route at chunk 256 with ragged
+# tails, N = 32, 64 and mamba2-1.3b's 128 (the fp32 kernel has not the
+# shared memory for N = 128 at chunk 256), and every head dim
+SSD_TC_CASES = [(1, 300, 3, 64, 32, 256), (2, 600, 2, 32, 64, 256),
+                (1, 520, 2, 64, 128, 256), (2, 270, 3, 16, 128, 256)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_TC_CASES)
+def test_ssd_kernel_bf16_tensor_cores_matches_plain(cuda_device, b, s, h, p,
+                                                    n, chunk, rng):
+    """bf16 x, B, C as column slices of one conv output (strided): y and
+    h_last within 2e-2 of the output's scale."""
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(cuda_device,
+                                                      torch.bfloat16)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32)).to(cuda_device)
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, h).astype(np.float32)).to(
+        cuda_device)
+    before = ssd_scan.launches
+    y, h_last = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    y_want, h_want = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    for got, want in ((y, y_want), (h_last, h_want)):
+        scale = max(float(want.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_ssd_kernel_bf16_refuses_misaligned(cuda_device, fault):
+    """The tensor-core route takes 16-byte aligned x, B, C with (b, s, h)
+    strides that are multiples of 8; anything else raises, and nothing
+    launches (no fp32 or plain fallback)."""
+    bf16 = torch.bfloat16
+    if fault == "pointer":
+        x = torch.zeros(2 * 64 * 2 * 16 + 1, device=cuda_device,
+                        dtype=bf16)[1:].view(2, 64, 2, 16)
+    else:
+        x = torch.zeros(2, 64, 2, 20, device=cuda_device,
+                        dtype=bf16)[..., :16]
+    bc = torch.zeros(2, 64, 16, device=cuda_device, dtype=bf16)
+    dt = torch.full((2, 64, 2), 0.01, device=cuda_device)
+    a = -torch.ones(2, device=cuda_device)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan_cuda(x, dt, a, bc, bc, chunk=32)
+    assert ssd_scan.launches == before
 
 
 def _to(tree, dev):

@@ -6,6 +6,8 @@ path because every tensor here lies on the CPU.  The CUDA kernels have
 no CPU mode: ``tests/test_torch_cuda.py`` holds them against the plain
 versions on a card, and ``chip_smoke.py`` at the service's shapes.
 """
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -327,8 +329,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
 
 
 def test_kernel_sources_and_build_key():
-    """Both kernels are built from sources in the package, keyed on a
-    hash of source + flags, for sm_90a."""
+    """Every kernel is built from sources in the package, keyed on a
+    hash of source + shared headers + flags, for sm_90a."""
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.SOURCES:
         src, so = _build._target(name)
@@ -336,11 +338,19 @@ def test_kernel_sources_and_build_key():
         assert so.parent == _build.BUILD_DIR and name in so.name
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
-    # B1's first pass: ~4 blocks per SM at the evaluate batch, never more
-    # chunks than one pass of threads over the vocabulary
-    assert topic_decoder.vocab_chunks(256, 5000, 132) == 9
-    assert topic_decoder.vocab_chunks(1, 17, 132) == 1
-    assert topic_decoder.vocab_chunks(4096, 5000, 132) == 1
+    # the key covers the shared headers: B5 and B6 include wgmma.cuh
+    headers = sorted(_build.CSRC.glob("*.cuh"))
+    assert [h.name for h in headers] == ["wgmma.cuh"]
+    for name in ("flash_attention", "ssd_scan"):
+        src, so = _build._target(name)
+        assert '#include "wgmma.cuh"' in src.read_text()
+        key = hashlib.sha256(src.read_bytes() + headers[0].read_bytes()
+                             + " ".join(_build.NVCC_FLAGS).encode())
+        assert so.name == f"lib{name}-{key.hexdigest()[:16]}.so"
+    # B1's one launch: 32 documents x 128 words a block, the tails ragged
+    assert topic_decoder.grid(256, 5000) == (8, 40)
+    assert topic_decoder.grid(1, 17) == (1, 1)
+    assert topic_decoder.grid(33, 129) == (2, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +542,81 @@ def test_ssd_scan_plain_keeps_bf16_and_the_padding_state(rng):
     _, h_ref = ops.ssd_scan(*(torch.from_numpy(t) for t in (x, dt, a, bb,
                                                             cc)), chunk=16)
     np.testing.assert_allclose(h_pad.numpy(), h_ref.numpy(), atol=1e-6)
+
+
+def _ssd_tensor_core_emulation(x, dt, a, b, c, chunk):
+    """The arithmetic of B6's bf16 tensor-core route, in plain PyTorch on
+    bf16 x (B,S,H,P), b/c (B,S,N) and fp32 dt, a: fp32 products of the
+    bf16 operands and fp32 sums; B o w (the chunk's own state), the
+    carried state in its product and W = (C B^T) o decay o dt are each
+    rounded to bf16 once; the carried state stays fp32; y is cast once.
+    Test-only: the kernels' numeric design, checked on the CPU."""
+    f32, bf = torch.float32, torch.bfloat16
+    s = x.shape[1]
+    pad = -s % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                    for t in (dt, b, c))
+    bs, sp, h, p = x.shape
+    n = b.shape[-1]
+    nc = sp // chunk
+    xc = x.to(f32).reshape(bs, nc, chunk, h, p)
+    dtc = dt.to(f32).reshape(bs, nc, chunk, h)
+    bc = b.to(f32).reshape(bs, nc, chunk, n)
+    cc = c.to(f32).reshape(bs, nc, chunk, n)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    hst = torch.zeros(bs, h, p, n)
+    ys = []
+    for i in range(nc):
+        xb, dtb, bb, cb = xc[:, i], dtc[:, i], bc[:, i], cc[:, i]
+        cum = torch.cumsum(dtb * a.to(f32), dim=1)                # (B,Q,H)
+        w = torch.exp(cum[:, -1:] - cum) * dtb
+        bw = (bb[:, :, None, :] * w[..., None]).to(bf).to(f32)    # (B,Q,H,N)
+        own = torch.einsum("bjhp,bjhn->bhpn", xb, bw)
+        y = torch.exp(cum)[..., None] * torch.einsum(
+            "bin,bhpn->bihp", cb, hst.to(bf).to(f32))
+        ct = cum.transpose(1, 2)                                  # (B,H,Q)
+        decay = torch.where(tril, torch.exp(ct[..., :, None]
+                                            - ct[..., None, :]), 0.0)
+        wm = torch.einsum("bin,bjn->bij", cb, bb)[:, None] * decay \
+            * dtb.transpose(1, 2)[:, :, None, :]
+        y = y + torch.einsum("bhij,bjhp->bihp", wm.to(bf).to(f32), xb)
+        hst = torch.exp(cum[:, -1])[..., None, None] * hst + own
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(bs, sp, h, p)[:, :s]
+    return y.to(bf), hst
+
+
+# the reference's grid, the hymba prefill's head (P=64, N=16, chunk 256,
+# ragged) and mamba2-1.3b's state (N=128, chunk 256)
+SSD_TC_CASES = SSD_CASES + [(1, 600, 2, 64, 16, 256), (1, 520, 2, 64, 128,
+                                                       256)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_TC_CASES)
+def test_ssd_tensor_core_arithmetic_matches_pallas(b, s, h, p, n, chunk,
+                                                   rng):
+    """B6's bf16 route rounds W, the carried state in its product and
+    B o w to bf16: its arithmetic, in plain PyTorch, against the Pallas
+    kernel in interpret mode on bf16 inputs within the reference's bf16
+    bound, 2e-2 of max|y| and of max|h_last|."""
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, rng)
+    xj, bj, cj = (jnp.asarray(t, jnp.bfloat16) for t in (x, bb, cc))
+    yj, hj = jops.ssd_scan(xj, jnp.asarray(dt), jnp.asarray(a), bj, cj,
+                           chunk=chunk, interpret=True)
+    yt, ht = _ssd_tensor_core_emulation(
+        _t(xj, torch.bfloat16), torch.from_numpy(dt), torch.from_numpy(a),
+        _t(bj, torch.bfloat16), _t(cj, torch.bfloat16), chunk)
+    assert yt.dtype == torch.bfloat16 and yt.shape == (b, s, h, p)
+    devs = []
+    for got, want in ((yt.float().numpy(), np.asarray(yj, np.float32)),
+                      (ht.numpy(), np.asarray(hj, np.float32))):
+        scale = max(float(np.max(np.abs(want))), 1.0)
+        devs.append(float(np.max(np.abs(got - want))) / scale)
+    print(f"B6 tensor-core arithmetic vs pallas {(b, s, h, p, n, chunk)} "
+          f"bf16: y {devs[0]:.3e}, h_last {devs[1]:.3e} of the scale")
+    assert max(devs) <= 2e-2
 
 
 def test_lm_kernels_on_cpu_launch_nothing(rng):
