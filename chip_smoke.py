@@ -14,7 +14,9 @@ Phases, each fatal on failure (no phase catches and carries on):
    prefill's shapes in bf16 and fp32, B5's bf16 route at every head
    dim, B6's bf16 route also at mamba2-1.3b's width), and timed at the shapes its path gives it beside its plain
    version, a library call (or, for B4, a yardstick) where one exists
-   (B3 and its library call also with the L2 evicted before each call),
+   (B3 and its library call also with the L2 evicted before each call;
+   B4 also over its chunk edges and edge rows, with the device time of
+   each of its device operations),
    and its bound (bytes over 3.35 TB/s, or
    flops over 67 TFLOP/s fp32 for B1-B4 and 989 TFLOP/s bf16 for B5-B6,
    whichever is larger: the H100 SXM data-sheet peaks at its 700 W power
@@ -510,10 +512,40 @@ def _topk_rows(g, k, d):
     return torch.stack([kinds[i % len(kinds)] for i in range(k)])
 
 
+# the chunk edges of B4's passes (4096 columns a block): segments of 1,
+# 4095, 4096, 4097 and 8193 columns at offsets 2 mod 4, between fillers;
+# D is 1 mod 4, so message rows and error rows differ in 16-byte phase
+B4_EDGE_SIZES = [500, 1, 2, 129, 4097, 9000, 1, 1, 3, 4095, 1, 4096, 4097,
+                 3, 8193, 2]
+
+
+def _topk_edge_rows(g, k, d):
+    """The edge rows of B4, cycled over ``k`` rows: all-equal (every key
+    a tie across chunks), +-inf and -0.0 among Gaussians, scattered NaNs,
+    and an all-NaN row."""
+    def sprinkle(value, p):
+        x = torch.randn(d, generator=g)
+        x[torch.rand(d, generator=g) < p] = value
+        return x
+    inf = sprinkle(float("inf"), 0.05)
+    inf[torch.rand(d, generator=g) < 0.05] = float("-inf")
+    kinds = [torch.full((d,), -0.375), inf, sprinkle(-0.0, 0.7),
+             sprinkle(float("nan"), 0.05), torch.full((d,), float("nan"))]
+    return torch.stack([kinds[i % len(kinds)] for i in range(k)])
+
+
+def _b4_bitwise(got, want, what):
+    for a, b, out in zip(got, want, ("sent", "new_err")):
+        if not same_bits(a, b):
+            raise AssertionError(f"B4 {what}: {out} kernel != plain bitwise")
+
+
 def _kernel_b4(g, dev):
     """B4 (top-k with error feedback per leaf segment): bitwise against
-    the plain version over the grid; timed at the training path's shape
-    (K=5 rows, the ProdLDA segment table, frac 0.25)."""
+    the plain version over the grid, then over the chunk edges, edge rows
+    and a misaligned message slab; timed at the training path's shape
+    (K=5 rows, the ProdLDA segment table, frac 0.25), with the device
+    time of each of its device operations."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.fed_aggregate import fed_topk_ef_cuda
     sizes = PRODLDA_SEGMENTS + [1, 2, 129, 4097]
@@ -531,21 +563,46 @@ def _kernel_b4(g, dev):
             got = fed_topk_ef_cuda(msgs, err, ids, table)
             want = topk_plain(msgs, err, ids, table)
             torch.cuda.synchronize()
-            for a, b, what in zip(got, want, ("sent", "new_err")):
-                if not same_bits(a, b):
-                    raise AssertionError(f"B4 K={k} frac={frac}: {what} "
-                                         "kernel != plain bitwise")
+            _b4_bitwise(got, want, f"K={k} frac={frac}")
             kept = [int((got[0][:, o:o + n] != 0).sum(1).max())
                     for o, n, _ in table]
             if any(c > kk for c, (_, _, kk) in zip(kept, table)):
                 raise AssertionError(f"B4 K={k} frac={frac}: kept more "
                                      f"than k_keep in a segment")
             cases += 1
+    # the edges, on a generator of their own (the timing input below keeps
+    # the draws of g it always had)
+    ge = torch.Generator().manual_seed(16)
+    segs_e, d_e = _segments(B4_EDGE_SIZES), sum(B4_EDGE_SIZES)
+    edge = 0
+    rows_e = torch.cat([_topk_edge_rows(ge, 5, d_e),
+                        _topk_rows(ge, 4, d_e)])
+    err = torch.randn(5, d_e, generator=ge) * 0.1
+    err[3] = -0.0                      # the -0.0 row's error row: stays -0.0
+    err = err.to(dev)
+    for k in (3, 9):
+        msgs = rows_e[:k].to(dev)
+        ids = torch.tensor((0, 1, 3, 4, 2, 0, 1, 2, 4)[:k], dtype=torch.int32,
+                           device=dev)
+        shifted = torch.empty(msgs.numel() + 1, device=dev)[1:].view(
+            msgs.shape)
+        shifted.copy_(msgs)
+        for frac in (0.01, 0.25, 1.0):
+            table = ops.topk_segments(segs_e, frac)
+            want = topk_plain(msgs, err, ids, table)
+            for m in (msgs, shifted):
+                _b4_bitwise(fed_topk_ef_cuda(m, err, ids, table), want,
+                            f"edges K={k} frac={frac}")
+                edge += 1
+    torch.cuda.synchronize()
     log(f"B4 fed_topk_ef: {cases} cases (K in 1,5,16 rows over L=5 with "
         f"repeated ids; {len(sizes)} segments = the ProdLDA table + 1,2,129,"
         f"4097; frac in 0.01,0.25,0.5,1.0; Gaussian, tie-heavy, bf16 "
-        f"near-tie, tiny and NaN rows): sent and new_err bitwise equal to "
-        f"the plain version")
+        f"near-tie, tiny and NaN rows) + {edge} edge cases (segments of 1, "
+        f"4095, 4096, 4097, 8193 columns at offsets 2 mod 4, D = 1 mod 4; "
+        f"all-equal, +-inf, -0.0, scattered-NaN and NaN rows; frac in 0.01,"
+        f"0.25,1.0; K in 3,9; the slab also off 16 bytes): sent and "
+        f"new_err bitwise equal to the plain version")
     k = 5
     table = ops.topk_segments(_segments(PRODLDA_SEGMENTS), 0.25)
     msgs = torch.randn(k, D_MODEL, generator=g).to(dev) * 1e-3
@@ -565,6 +622,19 @@ def _kernel_b4(g, dev):
                  lambda: topk_plain(msgs, err, ids, table),
                  lambda: [torch.topk(magq[:, o:o + n], kk, dim=1)
                           for o, n, kk in table], lib_label="yardstick")
+    # each device operation of one call (kernels and the memset)
+    calls, by = 10, {}
+    events = _trace(lambda: [fed_topk_ef_cuda(msgs, err, ids, table)
+                             for _ in range(calls)])
+    for e in events:
+        name = _short_name(e.name) or e.name
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    rec["launch_us"] = by
+    rec["device_ops_per_call"] = len(events) / calls
+    log(f"  fed_topk_ef at the path's shape: {rec['device_ops_per_call']:g} "
+        f"device operations a call; device us/call by operation: "
+        + ", ".join(f"{n} {us:.2f}" for n, us in by.items())
+        + f" (sum {sum(by.values()):.2f}; bound {rec['bound_ms'] * 1e3:.2f})")
     return rec
 
 
@@ -1288,7 +1358,7 @@ def main() -> int:
              "dp_bound_ms", "dp_library_ms", "cold_ms", "library_cold_ms",
              "dp_cold_ms", "yardstick", "yardstick_ms",
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
-             "smem_bytes", "launch_us", "mamba2_ms")
+             "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

@@ -159,7 +159,7 @@ def fed_dp_secure_apply_cuda(x: torch.Tensor, noise=None, masks=None,
 # B4: top-k with error feedback, per leaf segment of the flat row
 # ---------------------------------------------------------------------------
 CHUNK = 4096        # columns per block of the chunked passes (never
-#                     straddling a segment)
+#                     straddling a segment; kChunk of the kernel)
 _topk_fn = None
 _TABLES: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 
@@ -171,7 +171,7 @@ def _topk_kernel():
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
                                                ctypes.c_int] \
             + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int] \
-            + [ctypes.c_void_p] * 7
+            + [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
         _topk_fn = fn
     return _topk_fn
@@ -215,7 +215,7 @@ def fed_topk_ef_cuda(msgs: torch.Tensor, err_state: torch.Tensor,
     ``ids (K,)`` int32 rows of ``err_state`` (clamped to ``[0, L)`` in
     the kernel).  The segments must tile ``[0, D)`` in order.  Returns
     ``(sent, new_err)``, both ``(K, D)`` fp32, bitwise the plain
-    version."""
+    version, from one memset and three launches on the current stream."""
     global topk_ef_launches
     dev = msgs.device
     ts = {"msgs": msgs, "err_state": err_state, "ids": ids}
@@ -253,11 +253,18 @@ def fed_topk_ef_cuda(msgs: torch.Tensor, err_state: torch.Tensor,
     new_err = torch.empty((k, d), dtype=torch.float32, device=dev)
     if k == 0 or d == 0:
         return sent, new_err
+    if msgs.data_ptr() % 16:        # the kernel's vectors follow msgs' phase
+        msgs = msgs.clone()
     tab = _device_table(segments, dev)
     nseg, nchunk = len(segments), tab["chunk_seg"].shape[0]
-    hist = torch.empty((2, k, nseg, 256), dtype=torch.int32, device=dev)
-    sel = torch.empty((k, nseg, 4), dtype=torch.int32, device=dev)
-    ties = torch.empty((k, nchunk), dtype=torch.int32, device=dev)
+    # scratch of this call, on this stream: the two histograms (zeroed by
+    # the kernel's one memset), the selections and each chunk's low-byte
+    # histogram, and the 16-bit keys
+    ks = k * nseg
+    n_zeroed = 2 * ks * 256
+    scratch = torch.empty((n_zeroed + 2 * ks + k * nchunk * 256,),
+                          dtype=torch.int32, device=dev)
+    keys = torch.empty((k, d), dtype=torch.int16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _topk_kernel()(
@@ -265,8 +272,8 @@ def fed_topk_ef_cuda(msgs: torch.Tensor, err_state: torch.Tensor,
             err_state.shape[0], tab["chunk_seg"].data_ptr(),
             tab["chunk_start"].data_ptr(), tab["chunk_len"].data_ptr(),
             tab["seg_k"].data_ptr(), tab["seg_chunk0"].data_ptr(), nseg,
-            nchunk, hist[0].data_ptr(), hist[1].data_ptr(), sel.data_ptr(),
-            ties.data_ptr(), sent.data_ptr(), new_err.data_ptr(), stream)
+            nchunk, scratch.data_ptr(), scratch[n_zeroed:].data_ptr(),
+            keys.data_ptr(), sent.data_ptr(), new_err.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fed_topk_ef kernel launch failed: CUDA error "
                            f"{err}")

@@ -4,6 +4,9 @@ Model and service code import from here, never from the kernel modules.
 Dispatch follows the tensor and has no knob: a CUDA tensor launches the
 hand-written kernel (built from ``csrc/`` at first use; a build or launch
 failure raises), a CPU tensor runs the plain version in ``ref.py``.
+B1, B5 and B6 are forward-only on the card: a CUDA call that needs a
+gradient raises rather than return an output autograd cannot see
+through.
 """
 from __future__ import annotations
 
@@ -28,6 +31,20 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def _refuse_grad(kernel: str, *inputs) -> None:
+    """Raise where a forward-only kernel would be asked for a gradient:
+    its output carries no ``grad_fn``, so a backward would silently skip
+    it.  The plain versions (CPU tensors) stay differentiable."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in inputs):
+        raise RuntimeError(
+            f"{kernel} on a CUDA tensor is forward-only: an input requires "
+            f"grad under grad mode, and the kernel has no backward (queued "
+            f"with A16a, LM training). Call it under torch.no_grad(), or "
+            f"on CPU tensors for the differentiable plain version")
 
 
 def _weighted_sum_leaf(leaf: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -66,6 +83,7 @@ def topic_decoder_loss(theta, beta, bow,
     """Fused ProdLDA reconstruction loss, per document (B,)."""
     if not _on_cuda(theta):
         return ref.topic_decoder_ref(theta, beta, bow, dec_scale)
+    _refuse_grad("B1 topic_decoder", theta, beta, bow, dec_scale)
     return topic_decoder_cuda(
         theta.contiguous(), beta.contiguous(), bow.contiguous(),
         None if dec_scale is None else dec_scale.contiguous())
@@ -138,6 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       v.transpose(1, 2), causal=causal,
                                       window=window, scale=scale)
         return out.transpose(1, 2)
+    _refuse_grad("B5 flash_attention", q, k, v)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 scale=scale)
 
@@ -153,5 +172,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     q = min(chunk, x.shape[1])
     if not _on_cuda(x):
         return ref.ssd_scan_ref(x, dt, a, b, c, q)
+    _refuse_grad("B6 ssd_scan", x, dt, a, b, c)
     return ssd_scan_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
                          chunk=q)

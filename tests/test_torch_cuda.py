@@ -174,30 +174,99 @@ def test_dp_secure_kernel_bitwise_plain_unaligned(cuda_device, rng):
     _dp_secure_bitwise(x, rng)
 
 
+def _topk_rows(rng, d):
+    """B4's row kinds, one row each: Gaussian, tie-heavy, bf16 near-ties,
+    tiny, all-equal (every key a tie across chunks), +-inf among
+    Gaussians, -0.0 among Gaussians, scattered NaNs, an all-NaN padded
+    row."""
+    gauss = rng.standard_normal(d)
+    inf = rng.standard_normal(d)
+    inf[rng.random(d) < 0.05] = np.inf
+    inf[rng.random(d) < 0.05] = -np.inf
+    neg_zero = rng.standard_normal(d)
+    neg_zero[rng.random(d) < 0.7] = -0.0
+    some_nan = rng.standard_normal(d)
+    some_nan[rng.random(d) < 0.05] = np.nan
+    return np.stack([gauss, rng.integers(-3, 4, d) * 0.25,
+                     1.0 + rng.integers(0, 8, d) * 2.0 ** -12,
+                     1e-3 * rng.standard_normal(d), np.full(d, -0.375), inf,
+                     neg_zero, some_nan, np.full(d, np.nan)]
+                    ).astype(np.float32)
+
+
+def _topk_inputs(rng, sizes, dev, k=None):
+    """msgs (k rows of the kinds, cycled), an (L=5) error memory whose
+    row 3 is -0.0 (so -0.0 messages stay -0.0), ids over it, and the
+    segments of ``sizes``."""
+    d = sum(sizes)
+    kinds = _topk_rows(rng, d)
+    k = len(kinds) if k is None else k
+    msgs = kinds[np.arange(k) % len(kinds)]
+    err = (0.1 * rng.standard_normal((5, d))).astype(np.float32)
+    err[1:3] = 0.0
+    err[3] = -0.0
+    ids = np.asarray([(0, 1, 2, 4, 1, 0, 3, 2, 1)[i % 9] for i in range(k)],
+                     np.int32)
+    segs = list(zip(np.cumsum([0] + sizes[:-1]).tolist(), sizes))
+    return (torch.from_numpy(msgs).to(dev), torch.from_numpy(err).to(dev),
+            torch.from_numpy(ids).to(dev), segs)
+
+
+def _topk_plain(msgs, err, ids, table):
+    rows_err = err[ids.long()]
+    sent, new = torch.empty_like(msgs), torch.empty_like(msgs)
+    for o, n, kk in table:
+        sent[:, o:o + n], new[:, o:o + n] = ref.fed_topk_ef_ref(
+            msgs[:, o:o + n], rows_err[:, o:o + n], kk)
+    return sent, new
+
+
+# the path's leaf sizes in small, then the chunk edges (1, 4095, 4096,
+# 4097, 8193 columns at offsets 2 mod 4); D is 1 mod 4, so error rows
+# and message rows differ in their 16-byte phase
+TOPK_SIZES = [500, 1, 2, 129, 4097, 9000, 1, 1, 3, 4095, 1, 4096, 4097,
+              3, 8193, 2]
+
+
 @pytest.mark.parametrize("frac", [0.01, 0.25, 1.0])
 def test_topk_kernel_bitwise_plain(cuda_device, frac, rng):
-    sizes = [500, 1, 2, 129, 4097, 9000]
-    segs, off = [], 0
-    for n in sizes:
-        segs.append((off, n))
-        off += n
-    rows = [rng.standard_normal(off), rng.integers(-3, 4, off) * 0.25,
-            1.0 + rng.integers(0, 8, off) * 2.0 ** -12,
-            np.full(off, np.nan)]                   # a NaN padded row
-    msgs = torch.from_numpy(np.stack(rows).astype(np.float32)).to(
-        cuda_device)
-    err = torch.from_numpy((0.1 * rng.standard_normal((3, off))).astype(
-        np.float32)).to(cuda_device)
-    err[1:] = 0.0
-    ids = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=cuda_device)
+    msgs, err, ids, segs = _topk_inputs(rng, TOPK_SIZES, cuda_device)
+    edges = [segs[i] for i in (7, 9, 11, 12, 14)]
+    assert [n for _, n in edges] == [1, 4095, 4096, 4097, 8193]
+    assert [o % 4 for o, _ in edges] == [2] * 5
     table = ops.topk_segments(segs, frac)
-    sent, new = fed_topk_ef_cuda(msgs, err, ids, table)
-    rows_err = err[ids.long()]
-    for o, n, kk in table:
-        ws, we = ref.fed_topk_ef_ref(msgs[:, o:o + n], rows_err[:, o:o + n],
-                                     kk)
-        assert _same_bits(sent[:, o:o + n], ws)
-        assert _same_bits(new[:, o:o + n], we)
+    # also a message slab that starts off 16 bytes (a view), which the
+    # wrapper copies to an aligned one
+    flat = torch.empty(msgs.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(msgs.shape)
+    shifted.copy_(msgs)
+    assert shifted.data_ptr() % 16
+    want = _topk_plain(msgs, err, ids, table)
+    for m in (msgs, shifted):
+        sent, new = fed_topk_ef_cuda(m, err, ids, table)
+        assert _same_bits(sent, want[0]) and _same_bits(new, want[1])
+
+
+def test_topk_kernel_repeats_and_streams_bitwise(cuda_device):
+    """Two calls back to back with different K and tables, then one call
+    on each of two streams at once: every result is bitwise its plain
+    version (each call's scratch histograms are its own, zeroed on its
+    stream)."""
+    rng = np.random.default_rng(16)
+    a = _topk_inputs(rng, [4097, 3, 8193, 1, 500], cuda_device, k=7)
+    b = _topk_inputs(rng, [2, 9000, 4096, 129], cuda_device, k=3)
+    ta, tb = ops.topk_segments(a[3], 0.25), ops.topk_segments(b[3], 0.01)
+    runs = [(a, ta), (b, tb)]
+    got = [fed_topk_ef_cuda(*x[:3], t) for x, t in runs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in runs]
+    for (x, t), st in zip(runs, streams):
+        st.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(st):
+            got.append(fed_topk_ef_cuda(*x[:3], t))
+    torch.cuda.synchronize(cuda_device)
+    for (x, t), out in zip(runs + runs, got):
+        want = _topk_plain(*x[:3], t)
+        assert _same_bits(out[0], want[0]) and _same_bits(out[1], want[1])
 
 
 @pytest.mark.parametrize("name", ["pallas-topk", "pallas-secure",
@@ -401,3 +470,72 @@ def test_lm_prefill_decode_on_card_matches_cpu(cuda_device):
     for a, b in zip(cpu_out, gpu_out):
         scale = max(float(a.abs().max()), 1.0)
         assert float((b.cpu() - a).abs().max()) / scale <= 2e-4
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def test_forward_train_on_card_refuses_grad(cuda_device):
+    """B5 and B6 are forward-only on the card: ``forward_train`` with
+    parameters that require grad raises, naming the kernel, instead of
+    returning logits whose backward would skip the attention core and the
+    scan; under ``torch.no_grad()`` it runs and agrees with the CPU."""
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    gpu = _to(cpu, cuda_device)
+    for leaf in _leaves(gpu):
+        leaf.requires_grad_(True)
+    toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 96))
+    counts = (flash_attention.launches, ssd_scan.launches)
+    with pytest.raises(RuntimeError,
+                       match=r"B[56] (flash_attention|ssd_scan).*A16a"):
+        tfm.forward_train(gpu, cfg, {"tokens": toks.to(cuda_device)},
+                          dtype=torch.float32)
+    assert (flash_attention.launches, ssd_scan.launches) == counts
+    with torch.no_grad():
+        got, _ = tfm.forward_train(gpu, cfg, {"tokens": toks.to(cuda_device)},
+                                   dtype=torch.float32)
+    want, _ = tfm.forward_train(cpu, cfg, {"tokens": toks},
+                                dtype=torch.float32)
+    assert (flash_attention.launches, ssd_scan.launches) == (
+        counts[0] + cfg.num_layers, counts[1] + cfg.num_layers)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got.cpu() - want).abs().max()) / scale <= 2e-4
+
+
+@pytest.mark.parametrize("call", ["topic_decoder", "flash_attention",
+                                  "ssd_scan"])
+def test_forward_only_kernels_refuse_grad(cuda_device, call, rng):
+    """``ops.topic_decoder_loss``, ``ops.flash_attention`` and
+    ``ops.ssd_scan`` on CUDA tensors that require grad raise, naming the
+    kernel; under ``torch.no_grad()`` the same call runs and agrees with
+    the plain version."""
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    if call == "topic_decoder":
+        args = [torch.softmax(t(64, 8), -1), t(8, 300),
+                torch.from_numpy(rng.poisson(0.2, (64, 300)).astype(
+                    np.float32)), 0.5 + t(300).abs()]
+        fn, tol = ops.topic_decoder_loss, 1e-5
+    elif call == "flash_attention":
+        args = [t(2, 96, 4, 32), t(2, 96, 2, 32), t(2, 96, 2, 32)]
+        fn, tol = (lambda q, k, v: ops.flash_attention(q, k, v, window=64),
+                   2e-5)
+    else:
+        args = [t(1, 64, 2, 16), 0.01 + 0.09 * t(1, 64, 2).abs(),
+                -torch.arange(1.0, 3.0), t(1, 64, 8), t(1, 64, 8)]
+        fn, tol = (lambda *a: ops.ssd_scan(*a, chunk=32)[0], 1e-4)
+    want = fn(*args)
+    dev = [a.to(cuda_device).requires_grad_(True) for a in args]
+    with pytest.raises(RuntimeError, match=call):
+        fn(*dev)
+    with torch.no_grad():
+        got = fn(*dev)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got.cpu() - want).abs().max()) / scale <= tol

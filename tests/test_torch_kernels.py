@@ -6,6 +6,7 @@ path because every tensor here lies on the CPU.  The CUDA kernels have
 no CPU mode: ``tests/test_torch_cuda.py`` holds them against the plain
 versions on a card, and ``chip_smoke.py`` at the service's shapes.
 """
+import functools
 import hashlib
 
 import jax
@@ -282,6 +283,170 @@ def test_topk_ef_segments_match_reference_per_leaf(rng):
                 np.asarray(want[n]).reshape(k, -1).view(np.int32)), n
 
 
+def _suffix_select(hist, want):
+    """Per row of ``hist (..., 256)``: the bin b at which the count of
+    bins >= b first reaches ``want``, and the count in the bins above b
+    (the kernel's block-wide suffix scan)."""
+    incl = torch.flip(torch.cumsum(torch.flip(hist, [-1]), -1), [-1])
+    b = torch.sum(incl >= want[..., None], dim=-1) - 1
+    above = torch.gather(incl - hist, -1, b[..., None])[..., 0]
+    return b, above
+
+
+def _topk_three_pass_emulation(msgs, err_rows, segments):
+    """B4's three passes (``csrc/fed_topk_ef.cu``) on CPU tensors, as the
+    kernel runs them: keys and per-chunk high-byte histograms merged per
+    (row, segment) and the bucket B; per-chunk low-byte histograms of the
+    keys in B, T and need with the NaN accounting; each chunk's tie
+    prefix from the earlier chunks' low-byte bin of T, then ranks in index
+    order inside the chunk.  Returns ``(sent, new_err)``."""
+    tab = fed_aggregate.chunk_table(segments)
+    k_rows, nseg = msgs.shape[0], len(segments)
+    nchunk = len(tab["chunk_seg"])
+    seg_k = torch.from_numpy(tab["seg_k"].astype(np.int64))
+    corrected = msgs + err_rows
+    mag = corrected.abs().to(torch.bfloat16).view(torch.int16).to(
+        torch.int64) & 0xFFFF
+    keys = torch.where(mag > 0x7F80, 0xFFFF, mag)
+    chunks = [(int(s), int(c0), int(c0) + int(n)) for s, c0, n in
+              zip(tab["chunk_seg"], tab["chunk_start"], tab["chunk_len"])]
+
+    def counts(v):                      # per row, 256 bins
+        return torch.stack([torch.bincount(r, minlength=256) for r in v])
+
+    # 1. key pass
+    hist_hi = torch.zeros((k_rows, nseg, 256), dtype=torch.int64)
+    for s, a, b in chunks:
+        hist_hi[:, s] += counts(keys[:, a:b] >> 8)
+    hi, above_hi = _suffix_select(hist_hi, seg_k.expand(k_rows, nseg))
+    kk = seg_k - above_hi
+    # 2. low pass
+    lo_chunk = torch.zeros((k_rows, nchunk, 256), dtype=torch.int64)
+    hist_lo = torch.zeros((k_rows, nseg, 256), dtype=torch.int64)
+    for c, (s, a, b) in enumerate(chunks):
+        in_b = (keys[:, a:b] >> 8) == hi[:, s:s + 1]
+        lo = torch.where(in_b, keys[:, a:b] & 0xFF, 256)
+        lo_chunk[:, c] = torch.stack([torch.bincount(r, minlength=257)[:256]
+                                      for r in lo])
+        hist_lo[:, s] += lo_chunk[:, c]
+    lo_b, above_lo = _suffix_select(hist_lo, kk)
+    thr = (hi << 8) | lo_b
+    greater = (seg_k - kk) + above_lo - hist_hi[..., 255]
+    need = torch.where(thr == 0xFFFF, 0, seg_k - greater)
+    # 3. write pass: each chunk's tie prefix from bin (T & 0xFF) of the
+    # segment's earlier chunks, then ranks in index order inside the chunk
+    keep = torch.zeros(keys.shape, dtype=torch.bool)
+    first = tab["seg_chunk0"]
+    for c, (s, a, b) in enumerate(chunks):
+        t = thr[:, s:s + 1]
+        prior = torch.gather(lo_chunk[:, first[s]:c], 2,
+                             (t & 0xFF)[:, None].expand(-1, c - first[s], 1)
+                             ).sum(dim=(1, 2))
+        prior = torch.where(t[:, 0] == 0xFFFF, 0, prior)
+        key = keys[:, a:b]
+        tie = ((key == t) & (t != 0xFFFF)).to(torch.int64)
+        rank = prior[:, None] + torch.cumsum(tie, 1) - tie
+        keep[:, a:b] = (key != 0xFFFF) & (
+            (key > t) | ((tie == 1) & (rank < need[:, s:s + 1])))
+    sent = torch.where(keep, corrected, torch.zeros((), dtype=torch.float32))
+    return sent, corrected - sent
+
+
+# the edge segments 1, 4095, 4096, 4097 and 8193, each at an offset 2 mod 4
+# (the fillers of 2, 3, 1 and 3 columns between them are segments too)
+TOPK_EDGE_SIZES = [2, 1, 3, 4095, 1, 4096, 4097, 3, 8193]
+TOPK_EDGE_KINDS = ["gauss", "ties", "near_ties", "tiny", "all_equal", "inf",
+                   "neg_zero", "nan"]
+TOPK_EDGE_ROWS, TOPK_EDGE_L = 3, 4
+
+
+def _topk_edge_kind(kind, k, l_rows, d, rng):
+    """(msgs (k, d), err (l_rows, d)) of one row kind."""
+    err = np.zeros((l_rows, d), np.float32)
+    if kind in ("gauss", "ties", "near_ties"):
+        msgs = _topk_rows(kind, (k, d), rng)
+        if kind == "gauss":
+            err = (0.1 * rng.standard_normal((l_rows, d))).astype(np.float32)
+    elif kind == "tiny":
+        msgs = (1e-3 * rng.standard_normal((k, d))).astype(np.float32)
+        err = (1e-4 * rng.standard_normal((l_rows, d))).astype(np.float32)
+    elif kind == "all_equal":      # every key a tie, across every chunk
+        msgs = np.full((k, d), -0.375, np.float32)
+    elif kind == "inf":
+        msgs = rng.standard_normal((k, d)).astype(np.float32)
+        msgs[rng.random((k, d)) < 0.05] = np.inf
+        msgs[rng.random((k, d)) < 0.05] = -np.inf
+        err = (0.1 * rng.standard_normal((l_rows, d))).astype(np.float32)
+    elif kind == "neg_zero":        # -0.0 + -0.0 keeps the sign bit
+        msgs = rng.standard_normal((k, d)).astype(np.float32)
+        msgs[rng.random((k, d)) < 0.7] = -0.0
+        err = np.full((l_rows, d), -0.0, np.float32)
+    else:     # an all-NaN (padded) row; scattered NaNs rank above +inf
+        msgs = rng.standard_normal((k, d)).astype(np.float32)
+        msgs[rng.random((k, d)) < 0.05] = np.nan
+        msgs[0] = np.nan
+    return msgs, err
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_edge_case(frac):
+    """Every kind's rows stacked, and the Pallas kernel's outputs for them
+    per segment (one interpret-mode call a segment for all kinds)."""
+    rng = np.random.default_rng(16)
+    d = sum(TOPK_EDGE_SIZES)
+    parts = [_topk_edge_kind(kind, TOPK_EDGE_ROWS, TOPK_EDGE_L, d, rng)
+             for kind in TOPK_EDGE_KINDS]
+    msgs = np.concatenate([m for m, _ in parts])
+    err = np.concatenate([e for _, e in parts])
+    ids = np.concatenate([np.asarray([0, 2, 3], np.int32) + TOPK_EDGE_L * i
+                          for i in range(len(TOPK_EDGE_KINDS))])
+    segs = ops.topk_segments(
+        [(o, n) for o, n in zip(np.cumsum([0] + TOPK_EDGE_SIZES[:-1]),
+                                TOPK_EDGE_SIZES)], frac)
+    sent, new = np.empty_like(msgs), np.empty_like(msgs)
+    for o, n, kk in segs:
+        s, e = fed_topk_ef_pallas(jnp.asarray(msgs[:, o:o + n]),
+                                  jnp.asarray(err[:, o:o + n]),
+                                  jnp.asarray(ids), k_keep=kk,
+                                  interpret=True)
+        sent[:, o:o + n], new[:, o:o + n] = np.asarray(s), np.asarray(e)
+    return msgs, err, ids, segs, sent, new
+
+
+@pytest.mark.parametrize("kind", TOPK_EDGE_KINDS)
+@pytest.mark.parametrize("frac", [0.01, 0.25, 1.0])
+def test_topk_three_pass_emulation_matches_pallas(kind, frac):
+    """The CUDA kernel's algorithm (chunks of 4096 columns, per-chunk
+    low-byte histograms, tie prefixes taken from them, the NaN
+    accounting) is bitwise the Pallas kernel and the plain version, over
+    segments that end and start around the chunk edges at misaligned
+    offsets."""
+    assert fed_aggregate.CHUNK == 4096
+    msgs, err, ids, segs, sent_j, new_j = _topk_edge_case(frac)
+    rows = slice(TOPK_EDGE_KINDS.index(kind) * TOPK_EDGE_ROWS,
+                 (TOPK_EDGE_KINDS.index(kind) + 1) * TOPK_EDGE_ROWS)
+    m = torch.from_numpy(msgs[rows])
+    e = torch.from_numpy(err)[torch.from_numpy(ids[rows]).long()]
+    sent, new = _topk_three_pass_emulation(m, e, segs)
+    bits = lambda a: np.asarray(a).view(np.int32)  # noqa: E731
+    nan = np.isnan(sent_j[rows]) | np.isnan(new_j[rows])
+    for got, want in ((sent, sent_j[rows]), (new, new_j[rows])):
+        g = got.numpy()
+        assert np.array_equal(np.isnan(g), np.isnan(want))
+        assert np.array_equal(bits(g)[~nan], bits(want)[~nan])
+    for o, n, kk in segs:
+        ws, we = ref.fed_topk_ef_ref(m[:, o:o + n], e[:, o:o + n], kk)
+        for got, want in ((sent, ws), (new, we)):
+            g, w = got[:, o:o + n].numpy(), want.numpy()
+            assert np.array_equal(np.isnan(g), np.isnan(w))
+            assert np.array_equal(bits(g)[~np.isnan(g)],
+                                  bits(w)[~np.isnan(w)])
+        kept = (sent[:, o:o + n] != 0).sum(1) \
+            + (torch.signbit(sent[:, o:o + n])
+               & (sent[:, o:o + n] == 0)).sum(1)
+        assert int(kept.max()) <= kk
+
+
 # ---------------------------------------------------------------------------
 # dispatch and the wrappers' checks
 # ---------------------------------------------------------------------------
@@ -326,6 +491,36 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
         else:
             fed_topk_ef_cuda(torch.zeros(2, 3), torch.zeros(2, 3),
                              torch.zeros(2, dtype=torch.int32), [(0, 3, 1)])
+
+
+@pytest.mark.parametrize("call", ["topic_decoder", "flash_attention",
+                                  "ssd_scan"])
+def test_forward_only_wrappers_refuse_grad_before_the_kernel(call,
+                                                             monkeypatch):
+    """The routing of a CUDA tensor, forced here on CPU tensors: a call
+    that needs a gradient raises before any kernel is reached, naming
+    the kernel; without grad mode, or with no input requiring grad, the
+    call goes on to the kernel wrapper (which then refuses the CPU
+    tensors)."""
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    if call == "topic_decoder":
+        args = [torch.ones(2, 3), torch.ones(3, 5), torch.ones(2, 5), None]
+        fn = ops.topic_decoder_loss
+    elif call == "flash_attention":
+        args = [torch.zeros(1, 8, 2, 32)] * 3
+        fn = ops.flash_attention
+    else:
+        args = [torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
+                torch.zeros(2), torch.zeros(1, 8, 4), torch.zeros(1, 8, 4)]
+        fn = ops.ssd_scan
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+    grad = [a if a is None else a.clone().requires_grad_(i == 1)
+            for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match=f"{call}.*forward-only.*A16a"):
+        fn(*grad)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fn(*grad)
 
 
 def test_kernel_sources_and_build_key():
