@@ -31,7 +31,15 @@ Phases, each fatal on failure (no phase catches and carries on):
    the ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs, a
    few rounds each; the last secure round's masks must sum to exactly
    +0.0 on the card;
-6. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
+6. Algorithm 1 path: the paper's own system on the host loop
+   (``execution.exec_mode="loop"``) at the same width — the default spec
+   through ``Federation.from_spec(...).run()`` (20 rounds),
+   ``FederatedTrainer`` with adam (20 rounds; DSS and TSS against the
+   synthetic ground truth) and ``straggler-heavy`` through the host
+   pending list (10 rounds); B2 once per round with an arrival; one
+   traced loop round; loop against batched on the card and card against
+   CPU, 3 rounds each, within 1e-5;
+7. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
    width (bf16 activations, the port's seeded init), batch 4 x 2048-token
    prompts and 32 greedy tokens, after one warm-up call: prefill time,
    decode tokens/s, peak memory; B5 and B6 must launch 32 times each
@@ -41,10 +49,10 @@ Phases, each fatal on failure (no phase catches and carries on):
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
    held-out ELBO and the logits must be finite;
-7. profiles: a second service, and one round of each training spec,
+8. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
-8. agreement: small service and training runs on the card and on the
+9. agreement: small service and training runs on the card and on the
    CPU (the plain path the CPU tests hold against the JAX reference)
    from the same weights, within the repo's 1e-5 bound; reduced
    hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4.
@@ -78,6 +86,9 @@ DOCS_PER_NODE, VAL_DOCS_PER_NODE, SWEEPS = 10_000, 1_000, 8
 # cut in depth to a few synchronous rounds each
 TRAIN_SPECS, TRAIN_ROUNDS = ("pallas-topk", "pallas-secure",
                              "dp-transform"), 5
+# Algorithm 1 on the host loop: the default spec and FederatedTrainer cut
+# to 20 rounds, straggler-heavy to 10, the two comparisons to 3
+ALG1_ROUNDS, STRAGGLER_ROUNDS, COMPARE_ROUNDS = 20, 10, 3
 # ProdLDA at prodlda_synthetic width (V=5000, K=50, encoder 100-100,
 # learned priors): the 14 leaf sizes, in the port's parameter order
 PRODLDA_SEGMENTS = [500_000, 100, 10_000, 100, 5_000, 50, 5_000, 50,
@@ -934,8 +945,9 @@ def phase_main_path(records):
 
 def _train_spec(name, vocab, topics, hidden, clients, docs, val_docs,
                 rounds, **execution):
-    """A registry scenario over a synchronous base on the batched cohort
-    path (``execution.exec_mode="vmap"``)."""
+    """A registry scenario over a synchronous base, on the batched cohort
+    path (``execution.exec_mode="vmap"``) unless ``execution`` says
+    otherwise."""
     from repro_torch.api import (DataSpec, ExecutionSpec, FederationSpec,
                                  ModelSpec, ScheduleSpec, scenario_spec)
     base = FederationSpec(
@@ -943,7 +955,7 @@ def _train_spec(name, vocab, topics, hidden, clients, docs, val_docs,
         data=DataSpec(num_clients=clients, docs_per_node=docs,
                       val_docs_per_node=val_docs),
         schedule=ScheduleSpec(rounds=rounds),
-        execution=ExecutionSpec(exec_mode="vmap", **execution))
+        execution=ExecutionSpec(**{"exec_mode": "vmap", **execution}))
     return scenario_spec(name, base)
 
 
@@ -1018,6 +1030,196 @@ def phase_training(records, corpus):
             log(f"    last round's mask stack ({tuple(stack.shape)}, max "
                 f"|mask| {float(stack.abs().max()):.3f}) sums to exactly "
                 f"+0.0 on the card")
+
+
+def _alg1_run(label, run, history, evaluate, records, rounds):
+    """One main-path run of Algorithm 1 (``rounds`` of them): kernel
+    counts zeroed before it and read after it, per-round wall times; B2
+    must launch once per round with an arrival, B1 once per 256 held-out
+    documents, B3-B6 never."""
+    ends = []
+    zero_counts()
+    t0 = time.perf_counter()
+    run(lambda rec: ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    metrics = evaluate()
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t1
+    counts = read_counts()
+    later = [b - a for a, b in zip([t0] + ends[:-1], ends)][1:]
+    log(f"  {label}: {len(history)} rounds in {t_run:.3f} s; rounds 2-"
+        f"{len(history)} " + ", ".join(f"{x * 1e3:.1f}" for x in later)
+        + f" ms (median {sorted(later)[len(later) // 2] * 1e3:.1f} ms); "
+        f"evaluate {t_eval:.2f} s")
+    log(f"    losses " + ", ".join(f"{h['loss']:.3f}" for h in history))
+    log(f"    evaluate {json.dumps(metrics)}")
+    log(f"    launches: {json.dumps(counts)}")
+    want = {k: 0 for k in counts}
+    want.update(fed_weighted_sum=sum(1 for h in history if h["arrived"]),
+                topic_decoder=math.ceil(5 * VAL_DOCS_PER_NODE / 256))
+    if counts != want or len(history) != rounds:
+        raise AssertionError(f"{label}: {len(history)} rounds of {rounds}, "
+                             f"kernel launches {counts} != {want}")
+    if not all(math.isfinite(h["loss"]) for h in history if h["arrived"]) \
+            or not math.isfinite(metrics["heldout_elbo_per_token"]):
+        raise AssertionError(f"{label}: non-finite loss or held-out ELBO")
+    for r in records:
+        r["launches_by_path"][label] = counts[r["name"]]
+    return metrics
+
+
+def phase_algorithm1(records, corpus):
+    """The paper's Algorithm 1 on the host loop (``exec_mode="loop"``) at
+    full ProdLDA-synthetic width: (a) the default spec through
+    ``Federation.from_spec(...).run()``; (b) ``FederatedTrainer`` with
+    adam(2e-3) and its DSS/TSS against the synthetic ground truth; (c)
+    ``straggler-heavy`` through the host pending list.  Each run's kernel
+    counts are zeroed before it and read after it: B2 once per round with
+    an arrival, B1 once per held-out batch, nothing else.  Then one loop
+    round traced for the device's busy share; (d) loop against batched
+    on the card and (e) card against CPU, within 1e-5."""
+    import numpy as np
+    from repro_torch.api import Federation, build_clients, max_param_dev
+    from repro_torch.api.federation import heldout_elbo_per_token
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core.ntm import prodlda
+    from repro_torch.core.protocol import FederatedTrainer
+    from repro_torch.metrics import dss, tss, tss_baseline
+    from repro_torch.optim import adam, sgd
+    log(f"Algorithm 1 path (exec_mode='loop'): V=5000 K=50 hidden 100-100, "
+        f"L=5 clients, batch 64, lr 2e-3, {DOCS_PER_NODE} train + "
+        f"{VAL_DOCS_PER_NODE} val docs per node; cut: the default spec and "
+        f"FederatedTrainer to {ALG1_ROUNDS} rounds, straggler-heavy to "
+        f"{STRAGGLER_ROUNDS}, the comparisons to {COMPARE_ROUNDS}")
+
+    def loop_fed(name, rounds):
+        spec = _train_spec(name, 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, rounds, exec_mode="loop")
+        return Federation.from_spec(spec, device="cuda", corpus=corpus)
+
+    # (a) the default spec
+    fed = loop_fed("paper", ALG1_ROUNDS)
+    if fed.engine.exec_mode != "loop" or fed.spec.execution.exec_mode \
+            != "loop":
+        raise AssertionError("the default spec did not run on the host loop")
+
+    def run_fed(f):
+        def run(hook):
+            f.on_round_end(hook)
+            f.run()
+        return run
+    _alg1_run("alg1-paper", run_fed(fed), fed.history, fed.evaluate,
+              records, ALG1_ROUNDS)
+    if any(h["arrived"] != 5 for h in fed.history):
+        raise AssertionError("alg1-paper: a synchronous round lost a client")
+
+    # (b) the literal Algorithm 1: FederatedTrainer + adam
+    cfg = fed.model_cfg
+    clients = build_clients(corpus, 5, "topic", device="cuda")
+    init = prodlda.init_params(torch.Generator().manual_seed(1), cfg,
+                               device="cuda")
+    loss = lambda p, b: prodlda.elbo_loss(p, cfg, b)  # noqa: E731
+    tr = FederatedTrainer(loss, init, clients,
+                          FederatedConfig(learning_rate=2e-3,
+                                          max_rounds=ALG1_ROUNDS,
+                                          rel_tol=0.0),
+                          optimizer=adam(2e-3), batch_size=64)
+    val = torch.from_numpy(corpus.concat_val_bows()).to("cuda")
+
+    def run_trainer(hook):
+        for e in range(ALG1_ROUNDS):
+            hook(tr.round(seed=e))
+
+    def eval_trainer():
+        with torch.no_grad():
+            theta = prodlda.infer_theta(tr.params, cfg, val)
+        beta = prodlda.get_topics(tr.params)
+        return {"heldout_elbo_per_token": heldout_elbo_per_token(
+                    tr.params, cfg, val),
+                "dss": dss(torch.from_numpy(np.concatenate(
+                    corpus.node_val_thetas)).to("cuda"), theta),
+                "tss": tss(torch.from_numpy(corpus.beta).to("cuda"), beta)}
+    m = _alg1_run("alg1-trainer", run_trainer, tr.history, eval_trainer,
+                  records, ALG1_ROUNDS)
+    log(f"    TSS {m['tss']:.3f} of K=50 (prior baseline "
+        f"{tss_baseline(5000, 50, corpus.eta, runs=2):.3f}); DSS "
+        f"{m['dss']:.2f} (lower is better)")
+    if not math.isfinite(m["dss"]) or tr.history[-1]["loss"] \
+            >= tr.history[0]["loss"]:
+        raise AssertionError("FederatedTrainer: DSS not finite or the loss "
+                             "did not fall")
+
+    # (c) stragglers through the host pending list
+    strag = loop_fed("straggler-heavy", STRAGGLER_ROUNDS)
+    sp = strag.spec.schedule
+    log(f"  straggler-heavy: p={sp.straggler_prob}, max staleness "
+        f"{sp.max_staleness}, decay {sp.staleness_decay}")
+
+    _alg1_run("alg1-straggler-heavy", run_fed(strag), strag.history,
+              strag.evaluate, records, STRAGGLER_ROUNDS)
+    log("    (arrived, superseded, in_flight) per round: " + ", ".join(
+        str((h["arrived"], h["superseded"], h["in_flight"]))
+        for h in strag.history))
+    if not any(h["in_flight"] for h in strag.history) or sum(
+            h["superseded"] for h in strag.history) == 0:
+        raise AssertionError("straggler-heavy: nothing was delayed or "
+                             "superseded")
+
+    # one traced loop round of the default spec (after a warm round)
+    prof_fed = loop_fed("paper", 2)
+    prof_fed.step()
+    torch.cuda.synchronize()
+    timed = {}
+
+    def traced_round():
+        t0 = time.perf_counter()
+        prof_fed.step()
+        torch.cuda.synchronize()
+        timed["wall"] = time.perf_counter() - t0
+    by_name = {}
+    for e in _trace(traced_round, cpu=True):
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us()
+    busy, wall = sum(by_name.values()) / 1e6, timed["wall"]
+    log(f"profile alg1-paper (one loop round, traced): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms = "
+        f"{100 * busy / wall:.1f}% of wall")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
+
+    # (d) loop against batched on the card, from one init
+    pair = [loop_fed("sync", COMPARE_ROUNDS)]
+    pair.append(Federation.from_spec(
+        _train_spec("sync", 5000, 50, 100, 5, DOCS_PER_NODE,
+                    VAL_DOCS_PER_NODE, COMPARE_ROUNDS),
+        device="cuda", corpus=corpus, init_params=dict(pair[0].params)))
+    for f in pair:
+        f.run()
+    dev_d = max_param_dev(pair[0].params, pair[1].params)
+    log(f"agreement alg1 loop vs vmap on the card (sync, "
+        f"{COMPARE_ROUNDS} rounds): max_param_dev {dev_d:.3e} (bound 1e-5)")
+    if not dev_d <= 1e-5:
+        raise AssertionError("loop and batched paths disagree beyond 1e-5")
+
+    # (e) FederatedTrainer + sgd on the card against the CPU
+    runs = []
+    for dev in ("cuda", "cpu"):
+        t = FederatedTrainer(
+            loss, {k: v.to(dev) for k, v in init.items()},
+            build_clients(corpus, 5, "topic", device=dev),
+            FederatedConfig(learning_rate=2e-3, max_rounds=COMPARE_ROUNDS,
+                            rel_tol=0.0),
+            optimizer=sgd(2e-3), batch_size=64)
+        t.fit(seed=0)
+        runs.append(t)
+    dev_e = max_param_dev(runs[0].params, runs[1].params)
+    log(f"agreement alg1 FederatedTrainer+sgd card vs CPU ("
+        f"{COMPARE_ROUNDS} rounds, full width): max_param_dev {dev_e:.3e} "
+        f"(bound 1e-5)")
+    if not dev_e <= 1e-5:
+        raise AssertionError("card and CPU Algorithm 1 disagree beyond 1e-5")
 
 
 def phase_training_profile(corpus):
@@ -1344,6 +1546,7 @@ def main() -> int:
     records = phase_kernels()
     spec, corpus = phase_main_path(records)
     phase_training(records, corpus)
+    phase_algorithm1(records, corpus)
     phase_lm_serve(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())

@@ -4,9 +4,9 @@ Port of ``repro/api/federation.py`` for ProdLDA: the synthetic corpus,
 the per-node client corpora (put on the device once), the objective and
 init, ``step``/``run`` with the reference's per-round seed schedule
 ``seed * 100003 + round`` and ``on_round_end`` hooks, and ``evaluate``.
-Rounds run on the batched cohort path (``exec_mode="vmap"``); a
-loop-mode spec builds (the buffered-async service's sync twin) but
-raises when stepped (ROADMAP A6/A8).  Snapshots wait for A11.
+Rounds run on the host loop (``exec_mode="loop"``, the default: the
+paper's Algorithm 1, stragglers included) or on the batched cohort path
+(``exec_mode="vmap"``).  Snapshots wait for A11.
 """
 from __future__ import annotations
 
@@ -200,7 +200,8 @@ class Federation:
             fn(rec)
         return rec
 
-    def run(self, rounds: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    def run(self, rounds: Optional[int] = None, *,
+            verbose: bool = False) -> Dict[str, torch.Tensor]:
         """Step until ``schedule.rounds`` total rounds have run (``rounds=N``:
         at most N more), honoring the rel-tol stopping criterion; on a
         fresh federation this is step-for-step ``FederationEngine.fit``."""
@@ -208,6 +209,11 @@ class Federation:
             else self.engine._round + rounds
         while self.engine._round < total:
             rec = self.step()
+            if verbose and rec["round"] % 10 == 0:
+                print(f"[round {rec['round']:4d}] loss={rec['loss']:.4f} "
+                      f"rel={rec['rel_change']:.2e} "
+                      f"K={rec['participants']} "
+                      f"arrived={rec['arrived']}")
             if self.engine.stop_criterion(rec, self.engine.fed.rel_tol):
                 break
         return self.engine.params

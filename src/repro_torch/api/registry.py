@@ -1,12 +1,14 @@
 """Named scenario registry: one name -> one `FederationSpec`.
 
 The port's entries of ``repro/api/registry.py``, with the reference's
-override dicts: the paper regime, the synchronous scenario cells the
-batched cohort path runs (the transform cells build on a base spec with
-``execution.exec_mode="vmap"``; under loop mode they raise, ROADMAP.md
-A8/A9), the kernel cells, and the two buffered-async service presets.
-The other reference scenarios need stragglers, non-``topic`` partitions,
-the mesh or the LM zoo, and join as their slices land (ROADMAP.md §A).
+override dicts: the paper regime (Algorithm 1 on the host loop, the
+all-defaults spec), the synchronous scenario cells, the two straggler
+cells (host pending list; under ``execution.exec_mode="vmap"`` they
+raise, ROADMAP.md A10), the kernel cells, and the two buffered-async
+service presets.  The transform cells build on a base spec with
+``execution.exec_mode="vmap"``; under loop mode they raise (A9).  The
+other reference scenarios need non-``topic`` partitions, the mesh or the
+LM zoo, and join as their slices land (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from repro_torch.api.spec import FederationSpec, spec_replace
 # dp clip/noise sized for DELTA messages (magnitude ~ lr * |G|)
 _DP_KNOBS = {"transforms.dp_noise_multiplier": 0.3,
              "transforms.dp_clip_norm": 0.05}
+_STRAGGLER_KNOBS = {"schedule.straggler_prob": 0.3,
+                    "schedule.max_staleness": 3,
+                    "schedule.staleness_decay": 0.5}
 
 SCENARIOS: Dict[str, Mapping[str, Any]] = {
     # the paper regime: all defaults (topic partition, K = L, E = 1,
@@ -25,6 +30,10 @@ SCENARIOS: Dict[str, Mapping[str, Any]] = {
     "paper": {},
     # ---- the reference's scenario-bench cells the port runs ------------
     "sync": {},
+    "straggler": dict(_STRAGGLER_KNOBS),
+    "straggler-heavy": {"schedule.straggler_prob": 0.6,
+                        "schedule.max_staleness": 3,
+                        "schedule.staleness_decay": 0.25},
     "hetero-epochs": {"schedule.local_epochs_by_client": (1, 2, 4)},
     "dp-transform": {"transforms.names": ("dp",), **_DP_KNOBS},
     "topk-transform": {"transforms.names": ("topk",),

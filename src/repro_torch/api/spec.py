@@ -15,18 +15,23 @@ accepts round-trips to the identical dict in both packages:
 
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: transforms outside the batched cohort path (A8/A9),
-stragglers on it (the fused ring, A10), a mesh (A17),
-``model.family="lm"`` (A16), the ``serving`` section (A14), the
-stochastic loss (A4) and non-``topic`` partitions (A2).  Synchronous
-rounds under ``exec_mode="loop"`` validate (the buffered-async service
-builds on that twin) and raise when stepped (A6/A8).
+ROADMAP.md item: transforms under loop mode or in the buffered-async
+service (A9), stragglers on the batched cohort path (the fused ring,
+A10), a mesh (A17), ``model.family="lm"`` (A16), the ``serving``
+section (A14), the stochastic loss (A4) and non-``topic`` partitions
+(A2).  Synchronous rounds run under both exec modes, and under
+``exec_mode="loop"`` with stragglers (the host pending list).
 ``execution.kernel_backend`` is kept so dicts round-trip; it selects
 nothing in the port, where the tensor's device picks kernel or plain.
+Specs serialize to JSON files (:meth:`FederationSpec.save` /
+:meth:`FederationSpec.load`), and :func:`parse_int_tuple` is the CLI's
+strict int-list parser.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -481,7 +486,7 @@ class FederationSpec:
                 not vmap or self.schedule.mode == "buffered_async"):
             _not_ported("message transforms under exec_mode='loop' or the "
                         "buffered-async service (the per-client "
-                        "application)", "A8/A9")
+                        "application)", "A9")
         if vmap and self.schedule.straggler_prob > 0 \
                 and self.schedule.max_staleness > 0:
             _not_ported("stragglers on the batched cohort path (the fused "
@@ -588,6 +593,92 @@ class FederationSpec:
             if sect in d:
                 kw[sect] = _section_from_dict(sect_cls, d[sect], sect)
         return cls(**kw)
+
+    # -- JSON files ---------------------------------------------------------
+    def to_json(self, *, indent: int = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "FederationSpec":
+        try:
+            d = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise ValueError(f"FederationSpec JSON does not parse: {e}") \
+                from None
+        return cls.from_dict(d)
+
+    def save(self, path: str) -> str:
+        """JSON write with a trailing newline, through a temporary file
+        renamed over ``path`` (a reader never sees half a spec)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write(self.to_json() + "\n")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "FederationSpec":
+        try:
+            with open(path) as f:
+                text = f.read()
+        except OSError as e:
+            raise ValueError(f"cannot read spec file {path!r}: {e}") \
+                from None
+        try:
+            return cls.from_json(text)
+        except ValueError as e:
+            raise ValueError(f"spec file {path!r}: {e}") from None
+
+
+def parse_int_tuple(s, *, what: str = "int list",
+                    minimum: int = 0) -> Tuple[int, ...]:
+    """Parse a comma-separated int list STRICTLY (the CLI front door):
+    every empty, malformed or out-of-range element raises ``ValueError``
+    naming its position, as the reference's parser does; a tuple or list
+    of ints is checked the same way.  ``""`` and None give ``()``."""
+    if s is None:
+        return ()
+    if isinstance(s, (tuple, list)):
+        out = []
+        for i, x in enumerate(s):
+            if isinstance(x, bool) or not isinstance(x, int):
+                raise ValueError(f"{what}: {x!r} at position {i} is not "
+                                 "an integer")
+            if x < minimum:
+                raise ValueError(
+                    f"{what}: {x} at position {i} is out of range "
+                    f"(must be >= {minimum})")
+            out.append(x)
+        return tuple(out)
+    toks = str(s).split(",")
+    if len(toks) == 1 and not toks[0].strip():
+        return ()
+    out = []
+    for pos, tok in enumerate(toks):
+        t = tok.strip()
+        if not t:
+            raise ValueError(
+                f"{what}: empty element at position {pos} in {s!r} — "
+                "write an explicit integer for every comma-separated "
+                "slot (e.g. '1,2,4'); elements are never silently "
+                "dropped")
+        try:
+            v = int(t)
+        except ValueError:
+            raise ValueError(
+                f"{what}: {t!r} at position {pos} in {s!r} is not an "
+                "integer") from None
+        if v < minimum:
+            raise ValueError(
+                f"{what}: {v} at position {pos} in {s!r} is out of "
+                f"range (must be >= {minimum})")
+        out.append(v)
+    return tuple(out)
 
 
 def _jsonify(v):

@@ -7,8 +7,8 @@ carries the LM fields of the reference (for the serving slice:
 ``num_params()`` and ``reduced()`` are the reference's.  Fields no
 ported path reads (the lowering knobs ``scan_layers`` /
 ``unroll_chunks`` / ``remat_layers``, CTM's ``contextual_dim``,
-``ntm_dropout``, ``local_steps``, the mesh) join with the slices that
-read them (ROADMAP.md §A).
+``ntm_dropout``, the mesh) join with the slices that read them
+(ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -222,6 +222,9 @@ class FederatedConfig:
     num_clients: int = 5
     learning_rate: float = 2e-3     # lambda in Eq. (3)
     max_rounds: int = 100           # I in Alg. 1
+    # Sync-Opt syncs every minibatch (paper); local_steps > 1 is the
+    # FedAvg-style local-steps variant (FedAvgTrainer)
+    local_steps: int = 1
     secure_aggregation: bool = False    # pairwise-mask secure agg simulation
     compression_topk: float = 0.0       # 0 = dense; else fraction kept
     dp_noise_multiplier: float = 0.0    # local DP Gaussian noise

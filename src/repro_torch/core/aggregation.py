@@ -1,21 +1,37 @@
 """Eq. (2) aggregation, the server optimizers, top-k with error feedback
 and local DP, over ``dict[str, Tensor]``.
 
-Port of ``repro/core/aggregation.py``: the stacked weighted average, the
-fedavg / fedavgm / fedadam server rules (Reddi et al. 2021), the exact
-top-k selection rule and local DP.  Server-optimizer state is kept in
-fp32.  The secure masks live in ``core/transforms.py``.
+Port of ``repro/core/aggregation.py``: the weighted average over a
+client list and over a stacked client axis, the fedavg / fedavgm /
+fedadam server rules (Reddi et al. 2021), the exact top-k selection rule
+and local DP.  Server-optimizer state is kept in fp32.  The secure masks
+live in ``core/transforms.py``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from repro_torch.optim.optimizers import clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
+
+
+def aggregate_host(grads: Sequence[Mapping[str, torch.Tensor]],
+                   weights: Sequence[float]) -> Params:
+    """``G = sum_l n_l G_l / sum_l n_l`` over an explicit client list
+    (plain PyTorch, fp32).  The engine's combine computes the same sum
+    through kernel B2 (``engine.combine_arrivals``)."""
+    w = [float(x) for x in weights]
+    total = torch.sum(torch.tensor(w, dtype=torch.float32))
+    out = {}
+    for name in grads[0]:
+        acc = sum(wi * g[name].to(torch.float32) for wi, g in zip(w, grads))
+        out[name] = acc / total.to(acc.device)
+    return out
 
 
 def aggregate_stacked(tree: Mapping[str, torch.Tensor], weights) -> Params:

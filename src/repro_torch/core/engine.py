@@ -1,23 +1,34 @@
 """`FederationEngine` — sampler -> local update -> transforms -> combine ->
 server optimizer.
 
-Port of ``repro/core/engine.py`` for two paths:
+Port of ``repro/core/engine.py``.  A client's round message is either a
+``"delta"`` (E local SGD epochs, ``W_l - W``, handed to the
+``RoundConfig`` server optimizer) or a ``"grad"`` (one minibatch
+gradient, E = 1, handed to a wrapped client ``Optimizer``: Algorithm 1's
+information flow, ``core/protocol.py:FederatedTrainer``).  Two execution
+paths:
 
+* the host loop (``exec_mode="loop"``), the literal Algorithm 1: the
+  cohort's clients step one after another, stragglers wait in the host
+  pending list (:class:`PendingUpdate`, newest message wins), and each
+  round's arrivals go through :func:`combine_arrivals` — every arrival
+  one row of a reused flat ``(n, D)`` fp32 slab, scaled by
+  ``decay ** age``, combined by kernel B2 in one call.  Losses stay on
+  the device and are read once a round;
 * the batched cohort path (``exec_mode="vmap"``), one synchronous round
   at a time: the ``RoundScheduler`` cohort, its stacked ``(K, E, P, V)``
-  minibatches with ``doc_mask``, all K clients' E-epoch local updates in
-  one ``torch.func.vmap(grad)`` over ``functional_call``, the stacked
+  minibatches with ``doc_mask``, all K clients' updates in one
+  ``torch.func.vmap(grad)`` over ``functional_call``, the stacked
   transform stage (``core/transforms.py``) on ONE flat ``(K, D)`` message
   slab, padded rows re-zeroed, the Eq. (2) combine through kernel B2 and
   the server-optimizer step, gated on any positive weight.  Each kernel
   is one call per round: B2 for the combine, B3 for ``dp`` or
-  ``secure``, B4 for ``topk``;
-* one client's loop-mode local update (``_local_message``), which the
-  buffered-async service runs per upload.
+  ``secure``, B4 for ``topk``.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: loop-mode synchronous rounds and Algorithm 1's gradient messages
-(A6/A8), transforms under loop mode (A9), the fused straggler ring (A10).
+The buffered-async service runs one client's loop-mode local update per
+upload (``_local_message``).  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: transforms under loop
+mode (A9), the fused straggler ring of the batched path (A10).
 """
 from __future__ import annotations
 
@@ -31,7 +42,9 @@ from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
 from repro_torch.core.transforms import StackedTransformCtx, \
     build_transforms
-from repro_torch.data.federated_split import (round_minibatches,
+from repro_torch.data.federated_split import (draw_generator,
+                                              round_minibatches,
+                                              sample_minibatch,
                                               stacked_round_batches)
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import global_norm
@@ -41,6 +54,7 @@ Params = Dict[str, torch.Tensor]
 EXEC_MODES = ("loop", "vmap")
 KERNEL_BACKENDS = ("xla", "pallas")
 SAMPLING_MODES = ("uniform", "weighted", "deterministic")
+MESSAGE_KINDS = ("delta", "grad")
 
 
 @dataclass
@@ -238,26 +252,132 @@ class RoundScheduler:
         return np.sort(idx)
 
 
+# ---------------------------------------------------------------------------
+# staleness and the combine: the host pending list (loop mode)
+# ---------------------------------------------------------------------------
+@dataclass
+class PendingUpdate:
+    """A straggler's in-flight round message (loop mode)."""
+    client: int
+    issued_round: int
+    due_round: int
+    delta: Params
+    weight: float
+
+
+def combine_arrivals(arrivals: Sequence[Any], staleness_decay: float, *,
+                     clients: Optional[Sequence[int]] = None,
+                     slab: Optional[torch.Tensor] = None) -> Params:
+    """Eq. (2) weighted mean of one round's arriving messages.
+
+    ``arrivals`` is a non-empty list of ``(age, delta, weight)``, each
+    ``delta`` a parameter dict; ``staleness_decay`` must lie in [0, 1].
+    ``clients`` (optional, aligned with ``arrivals``) enables the
+    duplicate-client guard: two weight>0 arrivals from one client in one
+    delivery window would double-count its Eq. (2) weight and are
+    refused.  Zero-weight arrivals are absent, and a round whose
+    arrivals all weigh zero is an empty round (``ValueError``, as for an
+    empty list): the caller skips the combine.  The reference's checks
+    and messages.
+
+    INVARIANT: ``staleness_decay ** age`` scales the DELTA, not the
+    weight — a weight-only discount cancels in the normalization when a
+    round's arrivals share one age.
+
+    Each arrival becomes one row of a flat ``(n, D)`` fp32 slab (leaves
+    in :func:`flat_layout` order, written into ``slab``'s first rows when
+    it is given and wide enough, else into a new one), scaled in place by
+    its discount, and the slab goes through ``ops.fed_weighted_combine``:
+    kernel B2 once on a CUDA device, its plain version on the CPU.
+    """
+    if not 0.0 <= staleness_decay <= 1.0:
+        raise ValueError(f"staleness_decay must be in [0, 1], got "
+                         f"{staleness_decay!r} (values outside amplify or "
+                         "sign-flip stale deltas)")
+    arrivals = list(arrivals)
+    if clients is not None:
+        if len(clients) != len(arrivals):
+            raise ValueError(
+                f"combine_arrivals got {len(clients)} client ids for "
+                f"{len(arrivals)} arrivals — the alignment is the whole "
+                "point of the duplicate guard")
+        live = [int(c) for c, a in zip(clients, arrivals) if a[2] > 0]
+        dupes = sorted({c for c in live if live.count(c) > 1})
+        if dupes:
+            raise ValueError(
+                f"combine_arrivals got multiple weight>0 arrivals from "
+                f"client(s) {dupes} in one delivery window — a duplicated "
+                "client double-counts its Eq. (2) weight; the engine "
+                "supersedes in-flight deltas at message time (newest "
+                "wins), so this is a routing bug upstream")
+    arrivals = [a for a in arrivals if a[2] > 0]
+    if not arrivals:
+        raise ValueError("combine_arrivals needs at least one (age, delta, "
+                         "weight) arrival with weight > 0; an all-straggler "
+                         "(or all-padded) round must skip the combine, not "
+                         "average nothing")
+    layout = flat_layout(arrivals[0][1])
+    n, d = len(arrivals), layout[-1][2] + layout[-1][3]
+    dev = next(iter(arrivals[0][1].values())).device
+    if slab is None or slab.shape[0] < n or slab.shape[1] != d \
+            or slab.device != dev or slab.dtype != torch.float32:
+        slab = torch.empty((n, d), dtype=torch.float32, device=dev)
+    rows = slab[:n]
+    for row, (age, delta, _) in zip(rows, arrivals):
+        torch.cat([delta[name].reshape(-1).to(torch.float32)
+                   for name, _, _, _ in layout], out=row)
+        if age:
+            row.mul_(staleness_decay ** age)
+    bar = ops.fed_weighted_combine(
+        rows, torch.tensor([float(w) for _, _, w in arrivals],
+                           dtype=torch.float32))
+    return {name: bar[off:off + k].view(shape)
+            for name, shape, off, k in layout}
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
 class FederationEngine:
-    """Engine state: params, clients, cohort scheduler, transform stage
-    and server optimizer (module docstring).
+    """Engine state: params, clients, cohort scheduler, transform stage,
+    pending list and server optimizer (module docstring).
 
     ``loss_fn(params, batch) -> scalar mean loss`` is the client's local
     objective, ``loss_sum_fn`` its mask-aware ``(sum, count)`` form for
-    the stacked path; a client message is the E-epoch delta ``W_l - W``.
+    the stacked path.  ``message`` is ``"delta"`` (E local epochs, the
+    ``RoundConfig`` server optimizer) or ``"grad"`` (one minibatch
+    gradient, E = 1, an explicit ``server`` stage).  ``exec_mode`` and
+    ``transforms`` override the ``RoundConfig``'s; ``num_clients_for_masks``
+    sets the secure-mask population (default: the client count).
     """
 
     def __init__(self, loss_fn, init_params: Mapping[str, torch.Tensor],
                  clients: Sequence[ClientState], fed: FederatedConfig,
                  rounds: Optional[RoundConfig] = None, *,
-                 batch_size: int = 64, loss_sum_fn=None):
+                 batch_size: int = 64, exec_mode: Optional[str] = None,
+                 loss_sum_fn=None, message: str = "delta",
+                 server: Optional[agg.ServerOptimizer] = None,
+                 transforms: Optional[Sequence[str]] = None,
+                 num_clients_for_masks: Optional[int] = None):
+        if message not in MESSAGE_KINDS:
+            raise ValueError(f"unknown message kind {message!r}; "
+                             f"one of {MESSAGE_KINDS}")
+        if message == "grad" and server is None:
+            raise ValueError(
+                "message='grad' needs an explicit server stage: gradient "
+                "messages point UPHILL, so the delta-convention "
+                "RoundConfig server optimizers (which ADD their step) "
+                "would train by ascent — wrap the client optimizer, e.g. "
+                "protocol._wrap_client_optimizer(sgd(lr)), or use the "
+                "FederatedTrainer preset")
         self.loss_fn = loss_fn
         self.params: Params = dict(init_params)
         self.clients = list(clients)
         self.fed = fed
         self.rc = rounds or RoundConfig()
         self.batch_size = batch_size
-        self.exec_mode = self.rc.exec_mode
+        self.message = message
+        self.exec_mode = exec_mode or self.rc.exec_mode
         if self.exec_mode not in EXEC_MODES:
             raise ValueError(f"unknown exec_mode {self.exec_mode!r}; "
                              f"one of {EXEC_MODES}")
@@ -265,6 +385,7 @@ class FederationEngine:
             raise ValueError(
                 f"unknown kernel_backend {self.rc.kernel_backend!r}; "
                 f"one of {KERNEL_BACKENDS}")
+        self._nmask = num_clients_for_masks or len(self.clients)
         if not 0.0 <= self.rc.staleness_decay <= 1.0:
             raise ValueError(
                 f"staleness_decay must be in [0, 1], got "
@@ -273,7 +394,8 @@ class FederationEngine:
                 "amplify or sign-flip stale deltas outside that range")
 
         # -- transform stage ---------------------------------------------
-        names = tuple(self.rc.transforms)
+        names = tuple(transforms if transforms is not None
+                      else self.rc.transforms)
         if not names and (fed.dp_noise_multiplier > 0
                           or fed.compression_topk > 0
                           or fed.secure_aggregation
@@ -283,8 +405,10 @@ class FederationEngine:
                 "privacy/compression/precision but no transform stage is "
                 "configured for this engine; declare the intent explicitly "
                 "via RoundConfig.transforms="
-                "('dp'|'topk'|'secure'|'precision', ...) — the knobs are "
-                "never silently dropped")
+                "('dp'|'topk'|'secure'|'precision', ...) "
+                "(or use the FederatedTrainer preset, which derives its "
+                "grad transforms from FederatedConfig automatically) — "
+                "the knobs are never silently dropped")
         vmap = self.exec_mode == "vmap"
         if vmap:
             _check_vmap_preconditions(self.clients, batch_size, loss_sum_fn,
@@ -316,6 +440,10 @@ class FederationEngine:
         self._e_max = int(self._epochs.max()) if len(self.clients) else 1
         self._hetero = bool((self._epochs != self._epochs[0]).any()) \
             if len(self.clients) else False
+        if message == "grad" and self._e_max != 1:
+            raise ValueError("message='grad' is the single-minibatch "
+                             "Algorithm-1 protocol; local_epochs must be 1 "
+                             "(use message='delta' for multi-epoch clients)")
         self._grad_fn = torch.func.grad_and_value(loss_fn)
         self._stacked_grad = torch.func.vmap(torch.func.grad_and_value(
             masked_mean_loss(loss_fn, loss_sum_fn)))
@@ -332,15 +460,22 @@ class FederationEngine:
         self._check_secure_compat()
         if names and not vmap:
             raise _not_ported("message transforms under exec_mode='loop' "
-                              "(the per-client application)", "A8/A9")
+                              "(the per-client application)", "A9")
         if vmap and self.rc.straggler_prob > 0 and self.rc.max_staleness > 0:
             raise _not_ported("stragglers on the batched cohort path (the "
                               "fused straggler ring)", "A10")
         # fixed-K stacking: shrunken cohorts padded with zero-weight rows
         self._pad = vmap and self.rc.pad_cohorts and len(self.clients) > 0
 
+        # -- combine / staleness stage -----------------------------------
+        self.pending: List[PendingUpdate] = []
+        # the loop path's (L, D) arrival slab, made at the first combine
+        # and reused: after the newest-wins dedupe a round delivers at
+        # most one message per client
+        self._slab: Optional[torch.Tensor] = None
+
         # -- server stage ------------------------------------------------
-        self.server_opt = self._make_server_opt(self.rc)
+        self.server_opt = server or self._make_server_opt(self.rc)
         self.server_state = self.server_opt.init(self.params)
         self.history: List[Dict[str, float]] = []
         self._round = 0
@@ -382,24 +517,134 @@ class FederationEngine:
                       eps=rc.server_eps)
         return agg.get_server_optimizer(rc.server_optimizer, **kw)
 
+    # -- staleness ----------------------------------------------------------
+    def _straggler_delay(self, round_idx: int, client: int) -> int:
+        """0 = delivered this round; d>0 = arrives d rounds late (numpy,
+        so the delays are the reference's bit for bit)."""
+        rc = self.rc
+        if rc.straggler_prob <= 0.0 or rc.max_staleness <= 0:
+            return 0
+        rng = np.random.default_rng(
+            [rc.sampling_seed, 0x57A1E, round_idx, client])
+        if rng.random() >= rc.straggler_prob:
+            return 0
+        return int(rng.integers(1, rc.max_staleness + 1))
+
+    # -- the host loop ------------------------------------------------------
+    def _deliver_and_apply(self, r: int, fresh, fresh_clients=None
+                           ) -> Tuple[Optional[torch.Tensor], int, int]:
+        """Merge this round's fresh arrivals with due stragglers, run the
+        staleness-discounted Eq. (2) combine and the server step.
+        Returns ``(rel_change, num_arrived, num_superseded)``, the
+        relative change a 0-dim device tensor (None: nothing arrived)."""
+        due = [p for p in self.pending if p.due_round <= r]
+        self.pending = [p for p in self.pending if p.due_round > r]
+        superseded = 0
+        if fresh_clients is not None:
+            # newest-wins within the delivery window: a fresh message
+            # beats the same client's due straggler delta, and among due
+            # deltas from one client the latest issue wins
+            fresh_ids = set(fresh_clients)
+            best: Dict[int, PendingUpdate] = {}
+            for p in due:
+                if p.client in fresh_ids:
+                    superseded += 1
+                    continue
+                b = best.get(p.client)
+                if b is None:
+                    best[p.client] = p
+                else:
+                    superseded += 1
+                    if p.issued_round > b.issued_round:
+                        best[p.client] = p
+            due = [p for p in due if best.get(p.client) is p]
+        arrivals = list(fresh) + [(r - p.issued_round, p.delta, p.weight)
+                                  for p in due]
+        clients = None
+        if fresh_clients is not None:
+            clients = list(fresh_clients) + [p.client for p in due]
+        if not arrivals:
+            return None, 0, superseded
+        if self._slab is None:
+            self._slab = torch.empty(
+                (max(len(self.clients), 1), self.layout[-1][2]
+                 + self.layout[-1][3]), dtype=torch.float32,
+                device=next(iter(self.params.values())).device)
+        delta_bar = combine_arrivals(arrivals, self.rc.staleness_decay,
+                                     clients=clients, slab=self._slab)
+        old = self.params
+        self.params, self.server_state = self.server_opt.apply(
+            self.params, delta_bar, self.server_state, r)
+        return _rel_change(old, self.params), len(arrivals), superseded
+
     def _local_message(self, l: int, round_seed: int):
-        """One client's local update against ``self.params``:
-        ``(delta, n, mean_loss)``; the draws are seeded from
-        ``(round_seed, l, epoch)``."""
+        """One client's message against ``self.params``: ``(message, n,
+        mean_loss)``, the loss a 0-dim device tensor.  A ``"grad"``
+        message is the gradient on the draw of ``(round_seed, l, 0)``
+        (the batched path's epoch 0); a ``"delta"`` runs the client's E
+        epochs on the draws of ``(round_seed, l, epoch)``."""
+        c = self.clients[l]
+        if self.message == "grad":
+            batch, n = sample_minibatch(c.data, c.num_docs,
+                                        draw_generator(round_seed, l, 0),
+                                        self.batch_size)
+            grads, loss = self._grad_fn(self.params, batch)
+            return grads, float(n), loss.detach()
         return client_round_update(
-            self._grad_fn, self.params, self.clients[l], round_seed, l,
+            self._grad_fn, self.params, c, round_seed, l,
             learning_rate=self.fed.learning_rate,
             local_epochs=int(self._epochs[l]), batch_size=self.batch_size)
+
+    def _round_loop(self, r: int, round_seed: int, cohort
+                    ) -> Dict[str, float]:
+        """Algorithm 1's round on the host: each cohort member's message
+        in turn, stragglers into the pending list, then the delivery.
+        The losses and the relative change come to the host in one read."""
+        losses, loss_w = [], []
+        fresh, fresh_clients = [], []      # (age=0, message, weight)
+        for l in cohort:
+            l = int(l)
+            msg, n, loss = self._local_message(l, round_seed)
+            losses.append(loss)
+            loss_w.append(n)
+            d = self._straggler_delay(r, l)
+            if d == 0:
+                fresh.append((0, msg, n))
+                fresh_clients.append(l)
+            else:
+                self.pending.append(PendingUpdate(l, r, r + d, msg, n))
+        rel, arrived, superseded = self._deliver_and_apply(
+            r, fresh, fresh_clients)
+        reads = losses + ([rel] if rel is not None else [])
+        host = torch.stack(reads).cpu().numpy() if reads else np.zeros(0)
+        return {"round": r,
+                "loss": float(np.average(host[:len(losses)],
+                                         weights=loss_w))
+                if losses else float("nan"),
+                "rel_change": float(host[-1]) if rel is not None else 0.0,
+                "participants": len(cohort),
+                "arrived": arrived,
+                "superseded": superseded,
+                "in_flight": len(self.pending)}
 
     # -- the batched cohort path --------------------------------------------
     def _stacked_messages(self, stacked: Mapping[str, torch.Tensor],
                           e_counts: np.ndarray
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """All K clients' E-epoch local updates at once: returns the flat
-        ``(K, D)`` delta slab and the ``(K, E)`` per-epoch mean losses.
-        Under heterogeneous E, epochs beyond a client's count leave its
-        parameters as they are (the loop client never runs them)."""
+        """All K clients' messages at once: returns the flat ``(K, D)``
+        slab and the ``(K, E)`` per-epoch mean losses.  A ``"grad"``
+        message is the epoch-0 gradient; a ``"delta"`` the E-epoch local
+        update, where under heterogeneous E the epochs beyond a client's
+        count leave its parameters as they are (the loop client never
+        runs them)."""
         k = len(e_counts)
+        if self.message == "grad":
+            grads, loss = self._stacked_grad(
+                {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
+                 for n, p in self.params.items()},
+                {n: v[:, 0] for n, v in stacked.items()})
+            return torch.cat([grads[n].reshape(k, -1)
+                              for n in self.params], dim=1), loss[:, None]
         lr = self.fed.learning_rate
         local = {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
                  for n, p in self.params.items()}
@@ -455,7 +700,7 @@ class FederationEngine:
         w = torch.from_numpy(weights).to(msgs.device)
         if self._transforms:
             ctx = StackedTransformCtx(round_seed, ids, valid, w,
-                                      len(self.clients), self.layout)
+                                      self._nmask, self.layout)
             for name, t in self._transforms:
                 msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
                 if name in self._tstate:
@@ -490,25 +735,30 @@ class FederationEngine:
         return bool(rec["arrived"]) and rec["rel_change"] < rel_tol
 
     def round(self, seed: Optional[int] = None) -> Dict[str, float]:
-        """Sample cohort -> local updates -> transforms -> Eq. (2) combine
-        -> server-optimizer update; ``seed`` is the round's draw seed
-        (default: the round index)."""
-        if self.exec_mode != "vmap":
-            raise _not_ported("synchronous rounds under exec_mode='loop' "
-                              "(Algorithm 1's host loop; the batched "
-                              "cohort path is exec_mode='vmap')", "A6/A8")
+        """Sample cohort -> local updates -> transforms -> staleness
+        routing -> Eq. (2) combine -> server-optimizer update; ``seed`` is
+        the round's draw seed (default: the round index)."""
         r = self._round
-        rec = self._round_vmap(r, r if seed is None else int(seed),
-                               self.scheduler.select(r))
+        round_seed = r if seed is None else int(seed)
+        cohort = self.scheduler.select(r)
+        if self.exec_mode == "vmap":
+            rec = self._round_vmap(r, round_seed, cohort)
+        else:
+            rec = self._round_loop(r, round_seed, cohort)
         self.history.append(rec)
         self._round += 1
         return rec
 
-    def fit(self, *, seed: int = 0) -> Params:
+    def fit(self, *, seed: int = 0, verbose: bool = False) -> Params:
         """``fed.max_rounds`` rounds with the fixed per-round seed schedule
         ``seed * 100003 + round`` and the Alg.-1 stopping criterion."""
         for e in range(self.fed.max_rounds):
             rec = self.round(seed=seed * 100003 + e)
+            if verbose and e % 10 == 0:
+                print(f"[round {e:4d}] loss={rec['loss']:.4f} "
+                      f"rel={rec['rel_change']:.2e} "
+                      f"K={rec['participants']} "
+                      f"arrived={rec['arrived']}")
             if self.stop_criterion(rec, self.fed.rel_tol):
                 break
         return self.params

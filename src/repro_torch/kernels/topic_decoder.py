@@ -24,8 +24,11 @@ launches = 0
 DOCS, WORDS = 32, 128           # kDocs, kWords of csrc/topic_decoder.cu
 
 _fn = None
-# per device: the kernel's arrival counters, one per document tile, 0
-# between calls (the last block of a tile resets its own), grown as needed
+# per (device, stream): the kernel's arrival counters, one per document
+# tile, 0 between calls (the last block of a tile resets its own), grown
+# as needed.  Calls on one stream run one after another, so they can
+# share a set; calls on two streams may overlap, so each stream has its
+# own, and no call counts another's arrivals.
 _counters = {}
 
 
@@ -45,11 +48,13 @@ def grid(b: int, v: int):
     return -(-b // DOCS), -(-v // WORDS)
 
 
-def _counter(dev: torch.device, n: int) -> torch.Tensor:
-    c = _counters.get(dev)
+def _counter(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The counters of calls on ``stream``: zeroed on that stream when
+    made, so the first call that uses them is ordered after the fill."""
+    c = _counters.get((dev, stream))
     if c is None or c.numel() < n:
         c = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
-        _counters[dev] = c
+        _counters[(dev, stream)] = c
     return c
 
 
@@ -91,8 +96,8 @@ def topic_decoder_cuda(theta: torch.Tensor, beta: torch.Tensor,
     # per (document, vocabulary tile) partial (m, l, S, NB), merged in the
     # same launch by the last block of each document tile to finish
     part = torch.empty((b, vocab_tiles, 4), dtype=torch.float32, device=dev)
-    counter = _counter(dev, doc_tiles)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    counter = _counter(dev, stream, doc_tiles)
     with torch.cuda.device(dev):
         err = _kernel()(theta.data_ptr(), beta.data_ptr(), bow.data_ptr(),
                         0 if dec_scale is None else dec_scale.data_ptr(),

@@ -10,8 +10,10 @@ tensors (the plain versions are held against the JAX reference by the
 CPU tests): B1, B2, B5 and B6 within their bounds, B3 and B4 bitwise.
 A small service run, small synchronous training runs (the
 ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs on the
-batched cohort path) and a reduced hymba-1.5b prefill + decode on the
-card are held against the same runs on the CPU.  ``chip_smoke.py``
+batched cohort path), Algorithm 1 on the host loop (the ``paper`` and
+``straggler-heavy`` specs, ``FederatedTrainer``) and a reduced
+hymba-1.5b prefill + decode on the card are held against the same runs
+on the CPU.  ``chip_smoke.py``
 repeats these checks at the full ProdLDA and hymba-1.5b widths.
 """
 import numpy as np
@@ -21,13 +23,18 @@ import torch
 from repro_torch.api import (Federation, FederationSpec, max_param_dev,
                              scenario_spec)
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention, ops, ref, ssd_scan
+from repro_torch.configs.base import FederatedConfig
+from repro_torch.core.ntm import prodlda
+from repro_torch.core.protocol import ClientState, FederatedTrainer
+from repro_torch.kernels import (fed_aggregate, flash_attention, ops, ref,
+                                 ssd_scan)
+from repro_torch.optim import sgd
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.kernels.topic_decoder import topic_decoder_cuda
+from repro_torch.kernels.topic_decoder import grid, topic_decoder_cuda
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import FederationService, run_traffic
 
@@ -96,6 +103,52 @@ def test_topic_decoder_kernel_repeats_bitwise(cuda_device, rng):
     again = topic_decoder_cuda(theta, beta, bow)
     assert torch.equal(first, again)
     assert torch.equal(big[:100], first)
+
+
+def test_topic_decoder_kernel_two_streams_bitwise(cuda_device):
+    """Two B1 calls in flight at once on two streams, on different
+    inputs (different document- and vocabulary-tile counts): each result
+    is bitwise the same call made alone, over many rounds, so a shared
+    arrival counter (fault C2) would show as a tile merged before its
+    partials exist, or never merged.
+
+    Both calls are held behind one gate, a sleep kernel on the main
+    stream that both streams wait on, so the two launches are pending
+    together and start together; the two grids (160 and 105 blocks) fit
+    on the card at once.  Before each call, NaN-filled blocks of the
+    call's scratch and output sizes are freed on its stream, so the
+    allocator hands the call poisoned memory rather than the identical
+    partials and result of the round before, which would hide a wrong
+    merge."""
+    g = np.random.default_rng(17)
+
+    def inputs(b, k, v):
+        theta = torch.softmax(torch.from_numpy(
+            g.standard_normal((b, k)).astype(np.float32)), -1)
+        beta = torch.from_numpy(g.standard_normal((k, v)).astype(
+            np.float32))
+        bow = torch.from_numpy(g.poisson(0.2, (b, v)).astype(np.float32))
+        return [t.to(cuda_device) for t in (theta, beta, bow)]
+    runs = [inputs(128, 50, 5000), inputs(96, 50, 4400)]
+    alone = [topic_decoder_cuda(*x) for x in runs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in runs]
+    main = torch.cuda.current_stream(cuda_device)
+    sizes = []                  # elements of the call's scratch and output
+    for theta, beta, _ in runs:
+        b = theta.shape[0]
+        sizes.append((b * grid(b, beta.shape[1])[1] * 4, b))
+    for _ in range(200):
+        torch.cuda._sleep(5_000_000)          # the gate: ~2.5 ms
+        outs = []
+        for x, st, sz in zip(runs, streams, sizes):
+            st.wait_stream(main)
+            with torch.cuda.stream(st):
+                for n in sz:            # made and freed on this stream
+                    torch.full((n,), float("nan"), device=cuda_device)
+                outs.append(topic_decoder_cuda(*x))
+        for st in streams:
+            main.wait_stream(st)
+        assert all(torch.equal(o, a) for o, a in zip(outs, alone))
 
 
 def test_service_on_card_matches_cpu(cuda_device):
@@ -289,6 +342,66 @@ def test_training_on_card_matches_cpu(cuda_device, name):
     assert [h["participants"] for h in gpu.history] == [3, 3, 3]
     assert all(np.isfinite(h["loss"]) for h in cpu.history)
     assert max_param_dev(cpu.params, gpu.params) <= 1e-5
+
+
+_LOOP_BASE = {"data": {"num_clients": 3, "docs_per_node": 40,
+                       "val_docs_per_node": 8},
+              "schedule": {"rounds": 3},
+              "execution": {"batch_size": 64, "learning_rate": 2e-4}}
+
+
+@pytest.mark.parametrize("name", ["paper", "straggler-heavy"])
+def test_loop_federation_on_card_matches_cpu(cuda_device, name):
+    """Algorithm 1's host loop (the spec's default widths V=400, K=10,
+    hidden 64): 3 rounds on the card (B2 combines) and on the CPU, within
+    1e-5, with the same round records."""
+    spec = scenario_spec(name, FederationSpec.from_dict(_LOOP_BASE))
+    cpu = Federation.from_spec(spec, device="cpu")
+    gpu = Federation.from_spec(spec, device=cuda_device,
+                               init_params=cpu.params)
+    cpu.run()
+    gpu.run()
+    assert gpu.engine.exec_mode == "loop"
+    keys = ("participants", "arrived", "superseded", "in_flight")
+    assert [[h[k] for k in keys] for h in gpu.history] == \
+        [[h[k] for k in keys] for h in cpu.history]
+    assert max_param_dev(cpu.params, gpu.params) <= 1e-5
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_federated_trainer_on_card_matches_cpu(cuda_device, momentum):
+    spec = FederationSpec.from_dict(_LOOP_BASE)
+    cpu_fed = Federation.from_spec(spec, device="cpu")
+    runs = []
+    for dev in ("cpu", cuda_device):
+        cfg = cpu_fed.model_cfg
+        clients = [ClientState(data={"bow": c.data["bow"].to(dev)},
+                               num_docs=c.num_docs)
+                   for c in cpu_fed.engine.clients]
+        tr = FederatedTrainer(
+            lambda p, b: prodlda.elbo_loss(p, cfg, b),
+            {k: v.to(dev) for k, v in cpu_fed.params.items()}, clients,
+            FederatedConfig(learning_rate=2e-4, max_rounds=3, rel_tol=0.0),
+            optimizer=sgd(2e-4, momentum=momentum), batch_size=64)
+        tr.fit(seed=0)
+        runs.append(tr)
+    assert [h["arrived"] for h in runs[1].history] == [3, 3, 3]
+    assert max_param_dev(runs[0].params, runs[1].params) <= 1e-5
+
+
+def test_loop_round_launches_b2_once_per_arrival_round(cuda_device):
+    """On the host loop every round with an arrival is one B2 launch (the
+    arrivals laid out as rows of one slab), and a round where every
+    message straggles launches none."""
+    spec = scenario_spec("straggler-heavy",
+                         FederationSpec.from_dict(_LOOP_BASE))
+    fed = Federation.from_spec(spec, device=cuda_device)
+    for _ in range(6):
+        before = fed_aggregate.launches
+        rec = fed.step()
+        assert fed_aggregate.launches - before == (1 if rec["arrived"]
+                                                   else 0)
+    assert sum(h["superseded"] for h in fed.history) > 0
 
 
 # (b, hq, hkv, s, d, causal, window): the reference's grid, hymba's 5:1
