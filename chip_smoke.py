@@ -39,7 +39,18 @@ Phases, each fatal on failure (no phase catches and carries on):
    pending list (10 rounds); B2 once per round with an arrival; one
    traced loop round; loop against batched on the card and card against
    CPU, 3 rounds each, within 1e-5;
-7. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
+7. loop transforms: the message transforms on the host loop and in the
+   service at the same width — the ``dp-transform``, ``topk-transform``,
+   ``secure-transform`` and ``precision-transform`` specs (5 rounds
+   each), ``dp-straggler`` and ``dirichlet-noniid`` (10 rounds each),
+   ``FederatedTrainer`` with top-k and secure grads (5 rounds), and the
+   ``buffered_async`` service with dp and with top-k uploads (8 sweeps);
+   B3 or B4 exactly once per round with a transform (one ``(n, D)`` slab
+   a round) and once per computed upload; one traced loop round each of
+   dp and secure; B3 and B4 bitwise at the (1, D) and (3, D) slabs; card
+   against CPU and loop against batched on the card for each loop
+   transform (the spec's default widths, 3 rounds), within 1e-5;
+8. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
    width (bf16 activations, the port's seeded init), batch 4 x 2048-token
    prompts and 32 greedy tokens, after one warm-up call: prefill time,
    decode tokens/s, peak memory; B5 and B6 must launch 32 times each
@@ -49,13 +60,13 @@ Phases, each fatal on failure (no phase catches and carries on):
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
    held-out ELBO and the logits must be finite;
-8. profiles: a second service, and one round of each training spec,
+9. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
-9. agreement: small service and training runs on the card and on the
-   CPU (the plain path the CPU tests hold against the JAX reference)
-   from the same weights, within the repo's 1e-5 bound; reduced
-   hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4.
+10. agreement: small service and training runs on the card and on the
+    CPU (the plain path the CPU tests hold against the JAX reference)
+    from the same weights, within the repo's 1e-5 bound; reduced
+    hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -1032,11 +1043,12 @@ def phase_training(records, corpus):
                 f"+0.0 on the card")
 
 
-def _alg1_run(label, run, history, evaluate, records, rounds):
+def _alg1_run(label, run, history, evaluate, records, rounds, extra=None):
     """One main-path run of Algorithm 1 (``rounds`` of them): kernel
     counts zeroed before it and read after it, per-round wall times; B2
     must launch once per round with an arrival, B1 once per 256 held-out
-    documents, B3-B6 never."""
+    documents, the kernels of ``extra`` (name -> count) as it says, and
+    every other kernel never."""
     ends = []
     zero_counts()
     t0 = time.perf_counter()
@@ -1058,7 +1070,8 @@ def _alg1_run(label, run, history, evaluate, records, rounds):
     log(f"    launches: {json.dumps(counts)}")
     want = {k: 0 for k in counts}
     want.update(fed_weighted_sum=sum(1 for h in history if h["arrived"]),
-                topic_decoder=math.ceil(5 * VAL_DOCS_PER_NODE / 256))
+                topic_decoder=math.ceil(5 * VAL_DOCS_PER_NODE / 256),
+                **(extra or {}))
     if counts != want or len(history) != rounds:
         raise AssertionError(f"{label}: {len(history)} rounds of {rounds}, "
                              f"kernel launches {counts} != {want}")
@@ -1068,6 +1081,31 @@ def _alg1_run(label, run, history, evaluate, records, rounds):
     for r in records:
         r["launches_by_path"][label] = counts[r["name"]]
     return metrics
+
+
+def _traced_loop_round(label, fed):
+    """One loop round of ``fed`` under ``torch.profiler`` after a warm
+    round: its wall time, the device's busy share and the largest device
+    items."""
+    fed.step()
+    torch.cuda.synchronize()
+    timed = {}
+
+    def traced_round():
+        t0 = time.perf_counter()
+        fed.step()
+        torch.cuda.synchronize()
+        timed["wall"] = time.perf_counter() - t0
+    by_name = {}
+    for e in _trace(traced_round, cpu=True):
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us()
+    busy, wall = sum(by_name.values()) / 1e6, timed["wall"]
+    log(f"profile {label} (one loop round, traced): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms = "
+        f"{100 * busy / wall:.1f}% of wall")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
 
 
 def phase_algorithm1(records, corpus):
@@ -1168,26 +1206,7 @@ def phase_algorithm1(records, corpus):
                              "superseded")
 
     # one traced loop round of the default spec (after a warm round)
-    prof_fed = loop_fed("paper", 2)
-    prof_fed.step()
-    torch.cuda.synchronize()
-    timed = {}
-
-    def traced_round():
-        t0 = time.perf_counter()
-        prof_fed.step()
-        torch.cuda.synchronize()
-        timed["wall"] = time.perf_counter() - t0
-    by_name = {}
-    for e in _trace(traced_round, cpu=True):
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.elapsed_us()
-    busy, wall = sum(by_name.values()) / 1e6, timed["wall"]
-    log(f"profile alg1-paper (one loop round, traced): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms = "
-        f"{100 * busy / wall:.1f}% of wall")
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
+    _traced_loop_round("alg1-paper", loop_fed("paper", 2))
 
     # (d) loop against batched on the card, from one init
     pair = [loop_fed("sync", COMPARE_ROUNDS)]
@@ -1220,6 +1239,233 @@ def phase_algorithm1(records, corpus):
         f"(bound 1e-5)")
     if not dev_e <= 1e-5:
         raise AssertionError("card and CPU Algorithm 1 disagree beyond 1e-5")
+
+
+# the message transforms on the host loop and in the service: each loop
+# transform spec cut to 5 rounds, dp-straggler and dirichlet-noniid to
+# 10, FederatedTrainer (topk + secure) to 5, each service to SWEEPS
+LOOP_TRANSFORM_SPECS = ("dp-transform", "topk-transform",
+                        "secure-transform", "precision-transform")
+LOOP_TRANSFORM_ROUNDS, LOOP_SCENARIO_ROUNDS = 5, 10
+# the kernel each transform launches once per round (or upload)
+TRANSFORM_KERNEL = {"dp": "fed_dp_secure_apply", "secure":
+                    "fed_dp_secure_apply", "topk": "fed_topk_ef"}
+
+
+def _transform_kernels(names, calls):
+    """Expected launches of B3 and B4 for a transform stage ``names``
+    that ran ``calls`` times (one B3 call covers dp and secure each)."""
+    want = {}
+    for n in names:
+        if n in TRANSFORM_KERNEL:
+            k = TRANSFORM_KERNEL[n]
+            want[k] = want.get(k, 0) + calls
+    return want
+
+
+def _transform_kernels_bitwise(g, dev):
+    """B3 and B4 at the new shapes of this path: the service's (1, D) and
+    a partial cohort's (3, D) slab, bitwise their plain versions (these
+    launches are comparisons, outside every counted run)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
+                                                   fed_topk_ef_cuda)
+    table = ops.topk_segments(_segments(PRODLDA_SEGMENTS), 0.25)
+    err = (torch.randn(5, D_MODEL, generator=g) * 1e-4).to(dev)
+    for k in (1, 3):
+        x = (torch.randn(k, D_MODEL, generator=g) * 1e-3).to(dev)
+        noise = torch.randn(k, D_MODEL, generator=g).to(dev)
+        masks = (torch.randint(-4096, 4097, (k, D_MODEL), generator=g)
+                 .to(torch.float32) * 2.0 ** -10).to(dev)
+        coef = (torch.rand(k, generator=g) + 1e-3).to(dev)
+        w = torch.full((k,), 10_000.0, device=dev)
+        for name, kw in (("dp", dict(noise=noise, clip_coef=coef,
+                                     noise_scale=0.015)),
+                         ("secure", dict(masks=masks, weights=w))):
+            if not same_bits(fed_dp_secure_apply_cuda(x, **kw),
+                             ref.fed_dp_secure_apply_ref(x, **kw)):
+                raise AssertionError(f"B3 {name} ({k}, {D_MODEL}): kernel "
+                                     f"!= plain bitwise")
+        ids = torch.tensor((3, 0, 4)[:k], dtype=torch.int32, device=dev)
+        _b4_bitwise(fed_topk_ef_cuda(x, err, ids, table),
+                    topk_plain(x, err, ids, table), f"({k}, {D_MODEL})")
+    torch.cuda.synchronize()
+    log(f"B3 (dp, secure) and B4 (frac 0.25, the ProdLDA table) at (1, "
+        f"{D_MODEL}) and (3, {D_MODEL}): bitwise equal to the plain "
+        f"versions")
+
+
+def phase_loop_transforms(records, corpus):
+    """The message transforms on Algorithm 1's host loop and in the
+    buffered-async service at full ProdLDA-synthetic width: (a) the loop
+    dp, topk, secure and precision specs; (b) dp-straggler and
+    dirichlet-noniid; (c) FederatedTrainer with topk and secure grads;
+    (d) the service with dp and with topk uploads.  Each run's counts are
+    zeroed before it and read after it: B3 or B4 exactly once per round
+    with a transform (one (n, D) slab a round) and once per computed
+    upload.  Then one traced loop round each of dp and secure, B3 and B4
+    bitwise at the new shapes, card against CPU for each loop transform
+    and loop against batched on the card, within 1e-5."""
+    from repro_torch.api import (Federation, build_clients, max_param_dev,
+                                 spec_replace)
+    from repro_torch.api.federation import heldout_elbo_per_token
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core.ntm import prodlda
+    from repro_torch.core.protocol import FederatedTrainer
+    from repro_torch.optim import sgd
+    from repro_torch.serve import FederationService, run_traffic
+    log(f"loop transforms (exec_mode='loop'): V=5000 K=50 hidden 100-100, "
+        f"L=5 clients, batch 64, lr 2e-3, {DOCS_PER_NODE} train + "
+        f"{VAL_DOCS_PER_NODE} val docs per node; cut: "
+        f"{', '.join(LOOP_TRANSFORM_SPECS)} to {LOOP_TRANSFORM_ROUNDS} "
+        f"rounds, dp-straggler and dirichlet-noniid to "
+        f"{LOOP_SCENARIO_ROUNDS}, FederatedTrainer (topk 0.25 + secure) to "
+        f"{LOOP_TRANSFORM_ROUNDS}, the services (dp, topk) to {SWEEPS} "
+        f"sweeps, the comparisons to {COMPARE_ROUNDS} rounds")
+
+    def loop_fed(name, rounds):
+        spec = _train_spec(name, 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, rounds, exec_mode="loop")
+        return Federation.from_spec(spec, device="cuda", corpus=corpus)
+
+    def run_fed(f):
+        def run(hook):
+            f.on_round_end(hook)
+            f.run()
+        return run
+
+    # (a) and (b): the registry specs through Federation.from_spec
+    for name, rounds in ([(n, LOOP_TRANSFORM_ROUNDS)
+                          for n in LOOP_TRANSFORM_SPECS]
+                         + [("dp-straggler", LOOP_SCENARIO_ROUNDS),
+                            ("dirichlet-noniid", LOOP_SCENARIO_ROUNDS)]):
+        t0 = time.perf_counter()
+        fed = loop_fed(name, rounds)
+        torch.cuda.synchronize()
+        log(f"  {name}: set-up {time.perf_counter() - t0:.2f} s; client "
+            f"corpora {[c.num_docs for c in fed.engine.clients]}")
+        if fed.engine.exec_mode != "loop":
+            raise AssertionError(f"{name} did not run on the host loop")
+        _alg1_run(f"loop-{name}", run_fed(fed), fed.history, fed.evaluate,
+                  records, rounds,
+                  _transform_kernels(fed.spec.transforms.names, rounds))
+        if name == "dp-straggler":
+            log("    (arrived, superseded, in_flight) per round: "
+                + ", ".join(str((h["arrived"], h["superseded"],
+                                 h["in_flight"])) for h in fed.history))
+            if not any(h["in_flight"] for h in fed.history):
+                raise AssertionError("dp-straggler: nothing was delayed")
+        if name == "topk-transform":
+            kept = float((fed.engine._tstate["topk"] != 0).float().mean())
+            log(f"    topk error memory (5, {D_MODEL}): {kept:.3f} of its "
+                f"entries nonzero")
+
+    # (c) FederatedTrainer: topk then secure grads every round
+    cfg = fed.model_cfg
+    init = prodlda.init_params(torch.Generator().manual_seed(2), cfg,
+                               device="cuda")
+    tr = FederatedTrainer(lambda p, b: prodlda.elbo_loss(p, cfg, b), init,
+                          build_clients(corpus, 5, "topic", device="cuda"),
+                          FederatedConfig(learning_rate=2e-3,
+                                          compression_topk=0.25,
+                                          secure_aggregation=True,
+                                          max_rounds=LOOP_TRANSFORM_ROUNDS,
+                                          rel_tol=0.0),
+                          optimizer=sgd(2e-3), batch_size=64)
+    if [n for n, _ in tr._transforms] != ["topk", "secure"]:
+        raise AssertionError(f"FederatedTrainer transforms "
+                             f"{[n for n, _ in tr._transforms]}")
+    val = torch.from_numpy(corpus.concat_val_bows()).to("cuda")
+
+    def run_trainer(hook):
+        for e in range(LOOP_TRANSFORM_ROUNDS):
+            hook(tr.round(seed=e))
+    _alg1_run("loop-trainer-topk-secure", run_trainer, tr.history,
+              lambda: {"heldout_elbo_per_token": heldout_elbo_per_token(
+                  tr.params, cfg, val)}, records, LOOP_TRANSFORM_ROUNDS,
+              _transform_kernels(("topk", "secure"), LOOP_TRANSFORM_ROUNDS))
+
+    # (d) the buffered-async service with transformed uploads
+    for which, knobs in (("dp", {"transforms.names": ("dp",),
+                                 "transforms.dp_noise_multiplier": 0.3,
+                                 "transforms.dp_clip_norm": 0.05}),
+                         ("topk", {"transforms.names": ("topk",),
+                                   "transforms.compression_topk": 0.25})):
+        spec = spec_replace(_async_spec(5000, 50, 100, 5, DOCS_PER_NODE,
+                                        VAL_DOCS_PER_NODE), knobs)
+        svc = FederationService.from_spec(spec, device="cuda", corpus=corpus)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        stats = run_traffic(svc, sweeps=SWEEPS, order_seed=0, hold_prob=0.2,
+                            duplicate_prob=0.1, infer_every=3, infer_batch=8)
+        svc.shutdown()
+        torch.cuda.synchronize()
+        t_traffic = time.perf_counter() - t0
+        metrics = svc.evaluate()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        label = f"service-{which}"
+        log(f"  {label}: {stats['steps']} computed uploads, traffic + drain "
+            f"{t_traffic:.2f} s ({t_traffic / stats['steps'] * 1e3:.1f} ms "
+            f"an upload); aggregations {stats['aggregations']}, uploads "
+            f"{stats['accepted']}/{stats['uploads']} accepted, rejections "
+            f"{stats['rejections']}")
+        log(f"    evaluate {json.dumps(metrics)}")
+        log(f"    launches: {json.dumps(counts)}")
+        want = {k: 0 for k in counts}
+        want.update(fed_weighted_sum=svc.agg_index,
+                    topic_decoder=math.ceil(5 * VAL_DOCS_PER_NODE / 256),
+                    **_transform_kernels((which,), stats["steps"]))
+        if counts != want:
+            raise AssertionError(f"{label}: kernel launches {counts} != one "
+                                 f"{TRANSFORM_KERNEL[which]} per computed "
+                                 f"upload {want}")
+        if not math.isfinite(metrics["heldout_elbo_per_token"]):
+            raise AssertionError(f"{label}: non-finite held-out ELBO")
+        for r in records:
+            r["launches_by_path"][label] = counts[r["name"]]
+
+    # one traced loop round each of dp and secure
+    for name in ("dp-transform", "secure-transform"):
+        _traced_loop_round(f"loop-{name}", loop_fed(name, 2))
+
+    _transform_kernels_bitwise(torch.Generator().manual_seed(18), "cuda")
+
+    # card against CPU, and loop against batched on the card, at the
+    # spec's default widths (V=400, K=10, hidden 64) with whole-corpus
+    # draws: at full width a top-k selection can flip on an fp32 ulp
+    # between two paths' gradients
+    for name in LOOP_TRANSFORM_SPECS + ("dp-straggler",):
+        spec = _train_spec(name, 400, 10, 64, 3, 40, 8, COMPARE_ROUNDS,
+                           exec_mode="loop", batch_size=64,
+                           learning_rate=2e-4)
+        cpu = Federation.from_spec(spec, device="cpu")
+        gpu = Federation.from_spec(spec, device="cuda",
+                                   init_params=cpu.params)
+        runs = [cpu, gpu]
+        if name != "dp-straggler":
+            runs.append(Federation.from_spec(
+                spec_replace(spec, {"execution.exec_mode": "vmap"}),
+                device="cuda", init_params=cpu.params))
+        for f in runs:
+            f.run()
+        dev_c = max_param_dev(cpu.params, gpu.params)
+        dev_v = max_param_dev(gpu.params, runs[2].params) \
+            if len(runs) > 2 else None
+        log(f"agreement loop {name} (V=400 K=10, 3 clients, "
+            f"{COMPARE_ROUNDS} rounds): card vs CPU max_param_dev "
+            f"{dev_c:.3e}" + ("" if dev_v is None else
+                              f", loop vs batched on the card {dev_v:.3e}")
+            + " (bound 1e-5)")
+        ints = [[h[k] for k in ("participants", "arrived", "in_flight")]
+                for h in gpu.history]
+        if not dev_c <= 1e-5 or (dev_v is not None and not dev_v <= 1e-5) \
+                or ints != [[h[k] for k in ("participants", "arrived",
+                                            "in_flight")]
+                            for h in cpu.history]:
+            raise AssertionError(f"loop {name}: card, CPU and batched "
+                                 f"paths disagree beyond 1e-5")
 
 
 def phase_training_profile(corpus):
@@ -1547,6 +1793,7 @@ def main() -> int:
     spec, corpus = phase_main_path(records)
     phase_training(records, corpus)
     phase_algorithm1(records, corpus)
+    phase_loop_transforms(records, corpus)
     phase_lm_serve(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())

@@ -1,12 +1,12 @@
 """`Federation` — spec -> wired engine, stepping and held-out evaluation.
 
 Port of ``repro/api/federation.py`` for ProdLDA: the synthetic corpus,
-the per-node client corpora (put on the device once), the objective and
-init, ``step``/``run`` with the reference's per-round seed schedule
-``seed * 100003 + round`` and ``on_round_end`` hooks, and ``evaluate``.
-Rounds run on the host loop (``exec_mode="loop"``, the default: the
-paper's Algorithm 1, stragglers included) or on the batched cohort path
-(``exec_mode="vmap"``).  Snapshots wait for A11.
+the client corpora of the spec's partition (put on the device once), the
+objective and init, ``step``/``run`` with the reference's per-round seed
+schedule ``seed * 100003 + round`` and ``on_round_end`` hooks, and
+``evaluate``.  Rounds run on the host loop (``exec_mode="loop"``, the
+default: the paper's Algorithm 1, stragglers included) or on the batched
+cohort path (``exec_mode="vmap"``).  Snapshots wait for A11.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from repro_torch.api.spec import FederationSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ClientState, FederationEngine
 from repro_torch.core.ntm import prodlda
-from repro_torch.data.federated_split import parse_partition_spec
+from repro_torch.data.federated_split import (parse_partition_spec,
+                                              partition_corpus)
 from repro_torch.data.synthetic_lda import SyntheticLDA, generate_lda_corpus
 from repro_torch.kernels import ops
 from repro_torch.metrics import npmi_coherence, tss
@@ -60,19 +61,30 @@ def build_corpus(spec: FederationSpec) -> SyntheticLDA:
 
 
 def build_clients(syn: SyntheticLDA, num_clients: int, partition: str, *,
-                  device) -> List[ClientState]:
-    """The paper's ``topic`` split: each node keeps its own corpus, copied
-    to ``device`` once (minibatches gather from it there)."""
+                  device, seed: int = 0) -> List[ClientState]:
+    """The spec's client corpora, each copied to ``device`` once
+    (minibatches gather from it there): ``topic`` keeps the paper's
+    per-node split; any other registry partition pools the nodes' corpora
+    and re-partitions the documents (labels = each document's dominant
+    ground-truth topic), as the reference does."""
     name, _ = parse_partition_spec(partition)
-    if name not in ("topic", "by_label"):
-        raise NotImplementedError(
-            f"partition {partition!r} is not ported to repro_torch yet "
-            "(ROADMAP.md A2); only the per-node 'topic' split is")
-    if len(syn.node_bows) != num_clients:
-        raise ValueError(f"corpus has {len(syn.node_bows)} nodes, the spec "
-                         f"declares {num_clients} clients")
+    if name in ("topic", "by_label"):
+        if len(syn.node_bows) != num_clients:
+            raise ValueError(f"corpus has {len(syn.node_bows)} nodes, the "
+                             f"spec declares {num_clients} clients")
+        parts = [(b, len(b)) for b in syn.node_bows]
+    else:
+        bows = syn.concat_bows()
+        labels = np.concatenate(syn.node_thetas).argmax(axis=1)
+        idx = partition_corpus(len(bows), num_clients, partition,
+                               labels=labels, seed=seed)
+        if any(len(p) == 0 for p in idx):
+            raise ValueError(f"partition {partition!r} left a client with "
+                             "no documents; raise alpha or shrink "
+                             "num_clients")
+        parts = [(bows[p], len(p)) for p in idx]
     return [ClientState(data={"bow": torch.from_numpy(b).to(device)},
-                        num_docs=len(b)) for b in syn.node_bows]
+                        num_docs=n) for b, n in parts]
 
 
 def heldout_elbo_per_token(params: Mapping[str, torch.Tensor],
@@ -154,7 +166,8 @@ class Federation:
                 f"{tuple(np.shape(corpus.beta))} but the spec declares "
                 f"{(spec.model.topics, spec.model.vocab)}")
         clients = build_clients(corpus, spec.data.num_clients,
-                                spec.data.partition.to_string(), device=dev)
+                                spec.data.partition.to_string(), device=dev,
+                                seed=spec.resolved_data_seed)
         if init_params is None:
             init_params = prodlda.init_params(
                 torch.Generator().manual_seed(spec.execution.seed), cfg,

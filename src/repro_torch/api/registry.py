@@ -2,20 +2,25 @@
 
 The port's entries of ``repro/api/registry.py``, with the reference's
 override dicts: the paper regime (Algorithm 1 on the host loop, the
-all-defaults spec), the synchronous scenario cells, the two straggler
-cells (host pending list; under ``execution.exec_mode="vmap"`` they
-raise, ROADMAP.md A10), the kernel cells, and the two buffered-async
-service presets.  The transform cells build on a base spec with
-``execution.exec_mode="vmap"``; under loop mode they raise (A9).  The
-other reference scenarios need non-``topic`` partitions, the mesh or the
-LM zoo, and join as their slices land (ROADMAP.md §A).
+all-defaults spec), the synchronous scenario cells, the partition cells,
+the straggler cells (host pending list; under
+``execution.exec_mode="vmap"`` they raise, ROADMAP.md A10), the
+transform cells (on the host loop under the default base, or on the
+batched cohort path under a vmap base), the kernel cells, and the two
+buffered-async service presets.  An entry is an override dict or a
+callable ``(base) -> overrides`` for knobs sized to the base
+(``dropout-join``).  The ``mesh-*`` cells (A17), the LM presets (A16)
+and the wire preset (A14) join as their slices land (ROADMAP.md §A).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 from repro_torch.api.spec import FederationSpec, spec_replace
+
+Overrides = Union[Mapping[str, Any],
+                  Callable[[FederationSpec], Mapping[str, Any]]]
 
 # dp clip/noise sized for DELTA messages (magnitude ~ lr * |G|)
 _DP_KNOBS = {"transforms.dp_noise_multiplier": 0.3,
@@ -23,8 +28,19 @@ _DP_KNOBS = {"transforms.dp_noise_multiplier": 0.3,
 _STRAGGLER_KNOBS = {"schedule.straggler_prob": 0.3,
                     "schedule.max_staleness": 3,
                     "schedule.staleness_decay": 0.5}
+_DIRICHLET = {"data.partition": "dirichlet(0.3)"}
 
-SCENARIOS: Dict[str, Mapping[str, Any]] = {
+
+def _dropout_join(base: FederationSpec) -> Dict[str, Any]:
+    """One late joiner and one early leaver, sized to the base
+    federation (the reference's tuples)."""
+    k, r = base.data.num_clients, base.schedule.rounds
+    return {"schedule.client_join_round": (0,) * (k - 1) + (2,),
+            "schedule.client_leave_round": (0,) * (k - 1)
+            + (max(r - 1, 1),)}
+
+
+SCENARIOS: Dict[str, Overrides] = {
     # the paper regime: all defaults (topic partition, K = L, E = 1,
     # synchronous, FedAvg(server_lr=1) == Eq. (3) server SGD)
     "paper": {},
@@ -34,11 +50,16 @@ SCENARIOS: Dict[str, Mapping[str, Any]] = {
     "straggler-heavy": {"schedule.straggler_prob": 0.6,
                         "schedule.max_staleness": 3,
                         "schedule.staleness_decay": 0.25},
+    "dirichlet-noniid": dict(_DIRICHLET),
+    "quantity-skew": {"data.partition": "quantity_skew(0.5)"},
     "hetero-epochs": {"schedule.local_epochs_by_client": (1, 2, 4)},
+    "dropout-join": _dropout_join,
     "dp-transform": {"transforms.names": ("dp",), **_DP_KNOBS},
     "topk-transform": {"transforms.names": ("topk",),
                        "transforms.compression_topk": 0.25},
     "secure-transform": {"transforms.names": ("secure",)},
+    "dp-straggler": {"transforms.names": ("dp",), **_DP_KNOBS,
+                     **_STRAGGLER_KNOBS},
     # bf16 wire format (never composes with 'secure' — the spec refuses)
     "precision-transform": {"transforms.names": ("precision",),
                             "transforms.precision": "bf16"},
@@ -52,6 +73,11 @@ SCENARIOS: Dict[str, Mapping[str, Any]] = {
     "pallas-secure": {"transforms.names": ("secure",),
                       "execution.exec_mode": "vmap",
                       "execution.kernel_backend": "pallas"},
+    # label-skewed + local-DP messages on the batched cohort path
+    "private_vmap": {**_DIRICHLET, "transforms.names": ("dp",),
+                     **_DP_KNOBS, "execution.exec_mode": "vmap"},
+    # alias of dirichlet-noniid under the related-work spelling
+    "dirichlet_niid": dict(_DIRICHLET),
     # FedBuff-style: aggregate every M=2 arrivals, staleness window 2,
     # polynomial delta discount
     "buffered_async": {"schedule.mode": "buffered_async",
@@ -66,6 +92,16 @@ SCENARIOS: Dict[str, Mapping[str, Any]] = {
 }
 
 
+# the reference's scenario-bench sweep, in sweep order, without its four
+# mesh-* cells (the mesh layer, ROADMAP.md A17)
+BENCH_SCENARIOS = ("sync", "straggler", "straggler-heavy",
+                   "dirichlet-noniid", "quantity-skew", "hetero-epochs",
+                   "dropout-join", "dp-transform", "topk-transform",
+                   "secure-transform", "dp-straggler",
+                   "precision-transform", "pallas-aggregate",
+                   "pallas-topk", "pallas-secure")
+
+
 def scenario_names() -> list:
     return sorted(SCENARIOS)
 
@@ -78,5 +114,7 @@ def scenario_spec(name: str,
         raise ValueError(f"unknown scenario {name!r}; known: "
                          f"{scenario_names()}")
     base = base if base is not None else FederationSpec()
-    return dataclasses.replace(spec_replace(base, SCENARIOS[name]),
-                               name=name)
+    ov = SCENARIOS[name]
+    if callable(ov):
+        ov = ov(base)
+    return dataclasses.replace(spec_replace(base, ov), name=name)

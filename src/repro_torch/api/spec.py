@@ -15,12 +15,13 @@ accepts round-trips to the identical dict in both packages:
 
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: transforms under loop mode or in the buffered-async
-service (A9), stragglers on the batched cohort path (the fused ring,
+ROADMAP.md item: stragglers on the batched cohort path (the fused ring,
 A10), a mesh (A17), ``model.family="lm"`` (A16), the ``serving``
-section (A14), the stochastic loss (A4) and non-``topic`` partitions
-(A2).  Synchronous rounds run under both exec modes, and under
-``exec_mode="loop"`` with stragglers (the host pending list).
+section (A14) and the stochastic loss (A4).  Synchronous rounds run
+under both exec modes, and under ``exec_mode="loop"`` with stragglers
+(the host pending list); the message transforms run under both exec
+modes and in the buffered-async service; every partitioner of the
+reference's registry runs.
 ``execution.kernel_backend`` is kept so dicts round-trip; it selects
 nothing in the port, where the tensor's device picks kernel or plain.
 Specs serialize to JSON files (:meth:`FederationSpec.save` /
@@ -162,10 +163,7 @@ class PartitionSpec:
         return f"{self.kind}({self.alpha!r})"
 
     def _validate(self) -> None:
-        name, _ = parse_partition_spec(self.to_string())
-        if name not in ("topic", "by_label"):
-            _not_ported(f"data.partition {self.to_string()!r} (only the "
-                        "paper's per-node 'topic' split is)", "A2")
+        parse_partition_spec(self.to_string())
 
 
 @dataclass(frozen=True)
@@ -479,14 +477,9 @@ class FederationSpec:
                      "round barrier — each upload is an independent "
                      "per-client local update (the loop/reference "
                      "path); set exec_mode='loop'")
-        # what the port runs: transforms on the batched cohort path only,
-        # and that path without the straggler ring
+        # what the port runs: the batched cohort path without the
+        # straggler ring
         vmap = self.execution.exec_mode == "vmap"
-        if self.transforms.names and (
-                not vmap or self.schedule.mode == "buffered_async"):
-            _not_ported("message transforms under exec_mode='loop' or the "
-                        "buffered-async service (the per-client "
-                        "application)", "A9")
         if vmap and self.schedule.straggler_prob > 0 \
                 and self.schedule.max_staleness > 0:
             _not_ported("stragglers on the batched cohort path (the fused "

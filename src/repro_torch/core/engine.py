@@ -9,10 +9,15 @@ information flow, ``core/protocol.py:FederatedTrainer``).  Two execution
 paths:
 
 * the host loop (``exec_mode="loop"``), the literal Algorithm 1: the
-  cohort's clients step one after another, stragglers wait in the host
-  pending list (:class:`PendingUpdate`, newest message wins), and each
-  round's arrivals go through :func:`combine_arrivals` — every arrival
-  one row of a reused flat ``(n, D)`` fp32 slab, scaled by
+  cohort's clients step one after another; with a transform stage the
+  round's n messages then become the rows of one ``(n, D)`` slab of its
+  own storage, which goes through the stage once (one B3 or B4 call a
+  round, :meth:`FederationEngine.transform_messages`), so a straggler
+  carries its transformed message, as in the reference, where a message
+  is transformed when it is made.  Stragglers wait in the host pending
+  list (:class:`PendingUpdate`, newest message wins, each a copy of its
+  row), and each round's arrivals go through :func:`combine_arrivals` —
+  every arrival one row of a reused flat ``(n, D)`` fp32 slab, scaled by
   ``decay ** age``, combined by kernel B2 in one call.  Losses stay on
   the device and are read once a round;
 * the batched cohort path (``exec_mode="vmap"``), one synchronous round
@@ -26,9 +31,9 @@ paths:
   ``secure``, B4 for ``topk``.
 
 The buffered-async service runs one client's loop-mode local update per
-upload (``_local_message``).  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: transforms under loop
-mode (A9), the fused straggler ring of the batched path (A10).
+upload (``_local_message``) and the transform stage on it as a ``(1, D)``
+slab.  Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
+item: the fused straggler ring of the batched path (A10).
 """
 from __future__ import annotations
 
@@ -416,15 +421,14 @@ class FederationEngine:
         self._transforms = build_transforms(names, fed)
         # the flat (K, D) message slab's columns, one segment per leaf
         self.layout = flat_layout(self.params)
-        # stacked transform state (the topk error memory, one row per
-        # GLOBAL client), kept on the params' device
+        # transform state (the topk error memory, one row per GLOBAL
+        # client), kept on the params' device, under both exec modes
         self._tstate: Dict[str, Any] = {}
-        if vmap:
-            dev = next(iter(self.params.values())).device
-            for name, t in self._transforms:
-                st = t.init_state(self.layout, len(self.clients), dev)
-                if st is not None:
-                    self._tstate[name] = st
+        dev = next(iter(self.params.values())).device
+        for name, t in self._transforms:
+            st = t.init_state(self.layout, len(self.clients), dev)
+            if st is not None:
+                self._tstate[name] = st
 
         # -- local-update stage ------------------------------------------
         self._epochs = _cycle_per_client(self.rc.local_epochs_by_client,
@@ -458,9 +462,6 @@ class FederationEngine:
             join_rounds=self.rc.client_join_round,
             leave_rounds=self.rc.client_leave_round)
         self._check_secure_compat()
-        if names and not vmap:
-            raise _not_ported("message transforms under exec_mode='loop' "
-                              "(the per-client application)", "A9")
         if vmap and self.rc.straggler_prob > 0 and self.rc.max_staleness > 0:
             raise _not_ported("stragglers on the batched cohort path (the "
                               "fused straggler ring)", "A10")
@@ -595,23 +596,82 @@ class FederationEngine:
             learning_rate=self.fed.learning_rate,
             local_epochs=int(self._epochs[l]), batch_size=self.batch_size)
 
+    # -- the transform stage ------------------------------------------------
+    def _message_slab(self, msgs: Sequence[Mapping[str, torch.Tensor]]
+                      ) -> torch.Tensor:
+        """The messages as the rows of a new ``(n, D)`` fp32 slab (leaves in
+        :func:`flat_layout` order): storage of its own, row 0 at its start,
+        so it aliases no other slab and meets B4's 16-byte alignment."""
+        slab = torch.empty((len(msgs), self.layout[-1][2]
+                            + self.layout[-1][3]), dtype=torch.float32,
+                           device=next(iter(self.params.values())).device)
+        for row, msg in zip(slab, msgs):
+            torch.cat([msg[name].reshape(-1).to(torch.float32)
+                       for name, _, _, _ in self.layout], out=row)
+        return slab
+
+    def transform_messages(self, msgs: torch.Tensor, client_ids,
+                           weights: torch.Tensor, round_seed: int,
+                           valid: Optional[np.ndarray] = None
+                           ) -> torch.Tensor:
+        """Run the transform stage, in its listed order, over an ``(n, D)``
+        message slab: row i is global client ``client_ids[i]``'s message
+        of Eq. (2) weight ``weights[i]`` (``valid`` marks the real rows,
+        default all).  One call per transform for the whole slab — one B3
+        launch for ``dp`` or ``secure``, one B4 call for ``topk`` — with
+        the ``topk`` error memory updated in place.  The host loop hands
+        a round's cohort, the service one upload as a ``(1, D)`` slab."""
+        ids = np.asarray(client_ids, np.int64)
+        ctx = StackedTransformCtx(
+            round_seed, ids,
+            np.ones(len(ids), bool) if valid is None else valid,
+            weights.to(msgs.device, torch.float32), self._nmask,
+            self.layout)
+        for name, t in self._transforms:
+            msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
+            if name in self._tstate:
+                self._tstate[name] = st
+        return msgs
+
+    def transform_message(self, l: int, msg: Mapping[str, torch.Tensor],
+                          n: float, round_seed: int) -> Params:
+        """One client's message through the transform stage (a ``(1, D)``
+        slab); without a stage the message as it is."""
+        if not self._transforms:
+            return dict(msg)
+        row = self.transform_messages(self._message_slab([msg]), [l],
+                                      torch.tensor([n]), round_seed)[0]
+        return self._unflatten(row)
+
     def _round_loop(self, r: int, round_seed: int, cohort
                     ) -> Dict[str, float]:
         """Algorithm 1's round on the host: each cohort member's message
-        in turn, stragglers into the pending list, then the delivery.
-        The losses and the relative change come to the host in one read."""
-        losses, loss_w = [], []
-        fresh, fresh_clients = [], []      # (age=0, message, weight)
+        in turn, then the transform stage once over the round's message
+        slab, stragglers into the pending list, then the delivery.  The
+        losses and the relative change come to the host in one read."""
+        cohort = [int(l) for l in cohort]
+        msgs, losses, loss_w = [], [], []
         for l in cohort:
-            l = int(l)
             msg, n, loss = self._local_message(l, round_seed)
+            msgs.append(msg)
             losses.append(loss)
             loss_w.append(n)
+        if self._transforms and cohort:
+            slab = self.transform_messages(
+                self._message_slab(msgs), cohort,
+                torch.tensor(loss_w, dtype=torch.float32), round_seed)
+            msgs = [self._unflatten(row) for row in slab]
+        fresh, fresh_clients = [], []      # (age=0, message, weight)
+        for i, (l, msg, n) in enumerate(zip(cohort, msgs, loss_w)):
             d = self._straggler_delay(r, l)
             if d == 0:
                 fresh.append((0, msg, n))
                 fresh_clients.append(l)
             else:
+                if self._transforms:
+                    # its own copy: the pending message must not keep (or
+                    # share) the round's slab
+                    msg = self._unflatten(slab[i].clone())
                 self.pending.append(PendingUpdate(l, r, r + d, msg, n))
         rel, arrived, superseded = self._deliver_and_apply(
             r, fresh, fresh_clients)
@@ -699,12 +759,7 @@ class FederationEngine:
         msgs, losses = self._stacked_messages(stacked, e_counts)
         w = torch.from_numpy(weights).to(msgs.device)
         if self._transforms:
-            ctx = StackedTransformCtx(round_seed, ids, valid, w,
-                                      self._nmask, self.layout)
-            for name, t in self._transforms:
-                msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
-                if name in self._tstate:
-                    self._tstate[name] = st
+            msgs = self.transform_messages(msgs, ids, w, round_seed, valid)
         # padded rows are absent: re-zeroed after the transform stage
         keep = torch.from_numpy(valid).to(msgs.device)[:, None]
         msgs = torch.where(keep, msgs, torch.zeros((), device=msgs.device))

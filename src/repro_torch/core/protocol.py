@@ -74,7 +74,8 @@ class FederatedTrainer(FederationEngine):
     batched round.  The ``FederatedConfig`` knobs ``dp_noise_multiplier``,
     ``compression_topk``, ``secure_aggregation`` and
     ``message_precision`` become the gradient transforms, in the
-    reference's order; under loop mode they raise (ROADMAP.md A9).
+    reference's order (precision, dp, topk, secure), under both exec
+    modes: one stage call over the round's ``(L, D)`` gradient slab.
     """
 
     def __init__(self, loss_fn, init_params: Mapping[str, torch.Tensor],
@@ -115,9 +116,10 @@ class FederatedTrainer(FederationEngine):
 
     def _client_grad(self, l: int, c: ClientState, round_seed: int):
         """GETCLIENTGRAD(N_l, W): ``(loss, grad, n)`` of client l's
-        minibatch for the round seeded ``round_seed`` (Alg. 1)."""
+        minibatch for the round seeded ``round_seed`` (Alg. 1), the grad
+        through the transform stage as the client would send it."""
         msg, n, loss = self._local_message(l, round_seed)
-        return loss, msg, n
+        return loss, self.transform_message(l, msg, n, round_seed), n
 
 
 class FedAvgTrainer(FederationEngine):

@@ -1,13 +1,29 @@
-"""Message transforms on the batched cohort path (``exec_mode="vmap"``).
+"""Message transforms, one round's ``(n, D)`` message slab at a time.
 
-Port of the stacked half of ``repro/core/transforms.py``: every
-registered transform (``dp``, ``topk``, ``secure``, ``precision``) maps
-the round's ``(K, D)`` message slab — one flat row per cohort member,
-columns laid out by ``engine.flat_layout`` — to a new slab, with the
-reference's math.  The kernels each take the whole slab in one call: B3
-(``ops.fed_dp_secure_apply``) for ``dp`` and ``secure``, B4
-(``ops.fed_topk_ef``) for ``topk``.  The per-client application (loop
-mode, the service) waits for ROADMAP.md A9.
+Port of ``repro/core/transforms.py``: every registered transform
+(``dp``, ``topk``, ``secure``, ``precision``) maps a message slab — one
+flat row per message, columns laid out by ``engine.flat_layout`` — to a
+new slab, with the reference's math.  The kernels each take the whole
+slab in one call: B3 (``ops.fed_dp_secure_apply``) for ``dp`` and
+``secure``, B4 (``ops.fed_topk_ef``) for ``topk``.
+
+Both halves of the reference run through the one slab form:
+
+* the batched cohort path (``exec_mode="vmap"``) hands the round's
+  fixed-K ``(K, D)`` stacked slab, padded rows marked invalid;
+* the host loop (``exec_mode="loop"``, Algorithm 1) hands the ``(n, D)``
+  slab of the n messages its cohort made, in cohort order, all valid,
+  weighted by their Eq. (2) weights — one B3 or B4 call a round, not n;
+  the buffered-async service hands one upload as a ``(1, D)`` slab
+  (``FederationEngine.transform_messages``).
+
+The reference applies each loop-mode transform to one client's message
+at a time (its ``TransformCtx`` at ``repro/core/transforms.py:73-81``).
+Every transform here is row-independent — ``dp`` clips each row by its
+own norm and draws its noise from its own client id, ``topk`` reads and
+writes only the error-memory row of its own client, ``secure`` adds the
+row of a mask stack drawn once a round, ``precision`` is pointwise — so
+the slab form gives each message the value the per-client form gives it.
 
 Randomness.  The reference draws dp noise and secure masks from threefry
 keys; the port draws them from CPU ``torch.Generator``\\ s seeded like the
@@ -51,12 +67,13 @@ _SECURE_SALT = 0x5EC
 
 @dataclass
 class StackedTransformCtx:
-    """Whole-cohort context of one round's transform stage.
+    """Context of one transform-stage call over an ``(n, D)`` slab.
 
-    ``client_ids`` / ``valid`` are ``(K,)`` host arrays over the fixed-K
-    stacked axis (padded rows: id 0, not valid); ``weights`` the ``(K,)``
-    fp32 Eq. (2) weights on the messages' device; ``layout`` the
-    ``(name, shape, offset, numel)`` columns of the slab."""
+    ``client_ids`` / ``valid`` are ``(n,)`` host arrays over the slab's
+    rows (on the batched path's fixed-K axis padded rows have id 0 and
+    are not valid); ``weights`` the ``(n,)`` fp32 Eq. (2) weights on the
+    messages' device; ``layout`` the ``(name, shape, offset, numel)``
+    columns of the slab."""
     round_seed: int
     client_ids: np.ndarray
     valid: np.ndarray

@@ -1,10 +1,15 @@
-"""Partition-spec parsing and the per-client minibatch draws.
+"""The partitioner registry, partition-spec parsing and the per-client
+minibatch draws.
 
-The port serves the paper's ``topic`` split (each node keeps its own
-corpus, ``api/federation.py:build_clients``); the other registry
-partitioners of the reference (``iid``, ``dirichlet``,
-``quantity_skew``) are parsed here so specs validate identically, and
-refused at build time until their slice (ROADMAP A2).
+The registry maps ``(n_docs, num_clients, labels, seed, **kwargs)`` to
+disjoint per-client index arrays covering ``[0, n_docs)``, as the
+reference's does (``repro/data/federated_split.py``): ``iid`` (a uniform
+equal-size split), ``by_label`` (alias ``topic``, distinct categories per
+client), ``dirichlet`` (per-label Dirichlet(alpha) allocation) and
+``quantity_skew`` (content-iid, Dirichlet(alpha) client sizes).  They are
+numpy only, on ``np.random.default_rng(seed)``, so the index arrays are
+the reference's bit for bit.  Specs are strings such as
+``"dirichlet(0.3)"``, parsed by :func:`parse_partition_spec`.
 
 Minibatch draws: the reference draws ``jax.random.choice(replace=False)``
 from a threefry key ``fold_in(PRNGKey(seed * 100003 + t), client)``.  The
@@ -19,12 +24,83 @@ per-client iterator.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
 
-PARTITIONERS = ("iid", "by_label", "topic", "dirichlet", "quantity_skew")
+
+# ---------------------------------------------------------------------------
+# partitioner registry
+# ---------------------------------------------------------------------------
+def _partition_iid(n_docs: int, num_clients: int, *, labels=None,
+                   seed: int = 0) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(n_docs)
+    return [np.sort(part) for part in np.array_split(idx, num_clients)]
+
+
+def _partition_by_label(n_docs: int, num_clients: int, *, labels=None,
+                        seed: int = 0) -> List[np.ndarray]:
+    if labels is None:
+        raise ValueError("by_label split needs labels")
+    labels = np.asarray(labels)
+    uniq = np.unique(labels)
+    groups = [np.where(np.isin(labels, u))[0]
+              for u in np.array_split(uniq, num_clients)]
+    return [np.sort(g) for g in groups]
+
+
+def _partition_dirichlet(n_docs: int, num_clients: int, *, labels=None,
+                         seed: int = 0,
+                         alpha: float = 0.5) -> List[np.ndarray]:
+    if labels is None:
+        raise ValueError("dirichlet split needs labels")
+    if alpha <= 0:
+        raise ValueError(f"dirichlet alpha must be > 0, got {alpha}")
+    labels = np.asarray(labels)
+    rng = np.random.default_rng(seed)
+    rng.permutation(n_docs)     # the reference's stream position
+    out = [[] for _ in range(num_clients)]
+    for u in np.unique(labels):
+        members = rng.permutation(np.where(labels == u)[0])
+        props = rng.dirichlet(np.full(num_clients, alpha))
+        cuts = (np.cumsum(props)[:-1] * len(members)).astype(int)
+        for c, part in enumerate(np.split(members, cuts)):
+            out[c].extend(part.tolist())
+    return [np.sort(np.array(o, dtype=np.int64)) for o in out]
+
+
+def _partition_quantity_skew(n_docs: int, num_clients: int, *, labels=None,
+                             seed: int = 0,
+                             alpha: float = 0.5) -> List[np.ndarray]:
+    """Content-iid split with Dirichlet(alpha)-skewed client sizes; every
+    client gets at least one document, the skew shares the rest."""
+    if alpha <= 0:
+        raise ValueError(f"quantity_skew alpha must be > 0, got {alpha}")
+    if n_docs < num_clients:
+        raise ValueError(f"cannot give {num_clients} clients >=1 of "
+                         f"{n_docs} docs")
+    rng = np.random.default_rng(seed)
+    props = rng.dirichlet(np.full(num_clients, alpha))
+    spare = n_docs - num_clients
+    sizes = 1 + np.floor(props * spare).astype(np.int64)
+    # the flooring remainder goes to the largest shares
+    for c in np.argsort(-props)[: n_docs - int(sizes.sum())]:
+        sizes[c] += 1
+    idx = rng.permutation(n_docs)
+    cuts = np.cumsum(sizes)[:-1]
+    return [np.sort(part) for part in np.split(idx, cuts)]
+
+
+PARTITIONERS: Dict[str, Callable[..., List[np.ndarray]]] = {
+    "iid": _partition_iid,
+    "by_label": _partition_by_label,
+    "topic": _partition_by_label,        # the paper's name for the regime
+    "dirichlet": _partition_dirichlet,
+    "quantity_skew": _partition_quantity_skew,
+}
 # partitioners that accept an '(alpha)' argument; every other name must
 # appear bare — 'iid(0.3)' is a user error, not a silently-ignored knob
 _PARAMETRIC = frozenset({"dirichlet", "quantity_skew"})
@@ -59,6 +135,34 @@ def parse_partition_spec(spec: str) -> Tuple[str, Dict[str, float]]:
         raise ValueError(f"partition spec {spec!r}: alpha must be > 0, "
                          f"got {alpha!r}")
     return name, {"alpha": alpha}
+
+
+def partition_corpus(n_docs: int, num_clients: int, spec: str = "iid", *,
+                     labels: Optional[Sequence[int]] = None,
+                     seed: int = 0) -> List[np.ndarray]:
+    """Spec string -> per-client document index arrays."""
+    name, kw = parse_partition_spec(spec)
+    return PARTITIONERS[name](n_docs, num_clients, labels=labels, seed=seed,
+                              **kw)
+
+
+def split_corpus_across_clients(
+    n_docs: int,
+    num_clients: int,
+    *,
+    mode: str = "iid",
+    labels: Optional[Sequence[int]] = None,
+    dirichlet_alpha: float = 0.5,
+    seed: int = 0,
+) -> List[np.ndarray]:
+    """The reference's pre-registry entry point: ``mode`` is any
+    registered name, ``dirichlet_alpha`` the alpha of the parametric
+    ones."""
+    if mode not in PARTITIONERS:
+        raise ValueError(f"unknown split mode {mode!r}")
+    kw = {"alpha": dirichlet_alpha} if mode in _PARAMETRIC else {}
+    return PARTITIONERS[mode](n_docs, num_clients, labels=labels, seed=seed,
+                              **kw)
 
 
 def seeded_generator(*words: int) -> torch.Generator:

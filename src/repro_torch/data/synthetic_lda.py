@@ -35,6 +35,9 @@ class SyntheticLDA:
     alpha: float
     eta: float
 
+    def concat_bows(self) -> np.ndarray:
+        return np.concatenate(self.node_bows, axis=0)
+
     def concat_val_bows(self) -> np.ndarray:
         return np.concatenate(self.node_val_bows, axis=0)
 

@@ -21,6 +21,15 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.federate_serve \\
         --scenario buffered_async --sweeps 4 --device cpu
 
+    # top-k compressed uploads (kernel B4 once per upload on the card)
+    PYTHONPATH=src python -m repro_torch.launch.federate_serve \\
+        --transforms topk --topk 0.25 --sweeps 4
+
+``--transforms``, ``--dp-noise``, ``--dp-clip`` and ``--topk`` are the
+flags of ``launch/simulate.py``: each upload goes through the transform
+stage (``secure`` is refused by the spec: its masks cancel only in a
+fixed cohort's combine).
+
 ``--checkpoint`` is accepted and refused: checkpoints come with ROADMAP
 item A11.
 """
@@ -35,7 +44,8 @@ import time
 from repro_torch.api import FederationSpec, scenario_names, scenario_spec
 from repro_torch.api.spec import (STALENESS_POLICIES, DataSpec,
                                   ExecutionSpec, ModelSpec, PartitionSpec,
-                                  ScheduleSpec)
+                                  ScheduleSpec, TransformsSpec)
+from repro_torch.core.transforms import TRANSFORMS
 from repro_torch.serve import FederationService, run_traffic
 
 
@@ -54,6 +64,11 @@ def spec_from_args(args) -> FederationSpec:
                               staleness_decay=args.staleness_decay,
                               staleness_policy=args.staleness_policy,
                               local_epochs=args.local_epochs),
+        transforms=TransformsSpec(
+            names=tuple(x.strip() for x in args.transforms.split(",")
+                        if x.strip()),
+            dp_noise_multiplier=args.dp_noise, dp_clip_norm=args.dp_clip,
+            compression_topk=args.topk),
         execution=ExecutionSpec(exec_mode="loop", batch_size=args.batch,
                                 learning_rate=args.lr, seed=args.seed))
 
@@ -138,6 +153,17 @@ def main(argv=None):
                          "model every N steps; 0 = train-only")
     ap.add_argument("--infer-batch", type=int, default=8)
     ap.add_argument("--partition", default="topic")
+    ap.add_argument("--transforms", default="",
+                    help="comma list of upload transforms "
+                         f"({sorted(TRANSFORMS)}), in order")
+    ap.add_argument("--dp-noise", type=float, default=0.0,
+                    help="local-DP Gaussian noise multiplier (used by the "
+                         "'dp' transform)")
+    ap.add_argument("--dp-clip", type=float, default=1.0,
+                    help="local-DP clip norm")
+    ap.add_argument("--topk", type=float, default=0.0,
+                    help="top-k compression fraction (used by the 'topk' "
+                         "transform)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default="",
                     help="not ported yet (ROADMAP.md A11); refused")

@@ -8,11 +8,13 @@ into a :class:`repro_torch.api.FederationSpec`, and
 ``cuda``; a host without a card raises unless ``--device cpu`` is
 passed).  The all-defaults invocation is the paper's Algorithm 1: full
 participation, one minibatch step per client, the Eq. (2) combine
-(kernel B2 on the card) and server SGD, on the host loop.  Flags that
-reach what the port does not run yet fail with the spec's labelled
-refusals: ``--mesh`` (ROADMAP.md A17), ``--stochastic-loss`` (A4), a
-non-``topic`` ``--partition`` (A2), ``--transforms`` under
-``--exec-mode loop`` (A9), stragglers under ``--exec-mode vmap`` (A10).
+(kernel B2 on the card) and server SGD, on the host loop.
+``--transforms`` runs under both exec modes (kernel B3 for ``dp`` and
+``secure``, B4 for ``topk``, once a round), and every registry
+``--partition`` runs.  Flags that reach what the port does not run yet
+fail with the spec's labelled refusals: ``--mesh`` (ROADMAP.md A17),
+``--stochastic-loss`` (A4), stragglers under ``--exec-mode vmap``
+(A10).
 
 Usage:
 
@@ -22,6 +24,11 @@ Usage:
     # a named registry scenario, on the CPU (plain PyTorch path)
     PYTHONPATH=src python -m repro_torch.launch.simulate \\
         --scenario straggler-heavy --rounds 10 --device cpu
+
+    # Algorithm 1 with top-k compressed messages over a Dirichlet split
+    PYTHONPATH=src python -m repro_torch.launch.simulate --rounds 5 \\
+        --transforms topk --topk 0.25 --partition 'dirichlet(0.3)' \\
+        --device cpu
 
     # compile a flag combination into a reusable spec file
     PYTHONPATH=src python -m repro_torch.launch.simulate \\
@@ -266,12 +273,12 @@ def main(argv=None):
     ap.add_argument("--partition", default="topic",
                     help="data partitioner spec: 'topic' = the paper's "
                          "per-node topic split; 'iid', 'dirichlet(a)', "
-                         "'quantity_skew(a)' are not ported yet "
-                         "(ROADMAP.md A2), refused")
+                         "'quantity_skew(a)' pool and re-split the "
+                         "corpus")
     ap.add_argument("--transforms", default="",
                     help="comma list of message transforms "
-                         f"({sorted(TRANSFORMS)}); --exec-mode vmap only "
-                         "(loop mode: ROADMAP.md A9, refused)")
+                         f"({sorted(TRANSFORMS)}), in order; either "
+                         "--exec-mode")
     ap.add_argument("--no-pad-cohorts", action="store_true",
                     help="disable fixed-K zero-weight padding of "
                          "shrunken cohorts (vmap mode)")

@@ -4,11 +4,12 @@ Port of ``repro/serve/service.py`` for the ProdLDA family.  One process,
 two surfaces:
 
 * **train**: clients fetch the live model version, run the engine's
-  loop-path local update and ``upload`` the delta.  Whenever M deltas
-  accumulate in the :class:`DeltaBuffer` the service applies one
-  staleness-discounted Eq. (2) combine — kernel B2 over the flat ``(M,
-  D)`` buffer on a CUDA device — and a server-optimizer step, and
-  advances the model version.
+  loop-path local update and its transform stage (one ``(1, D)`` B3 or
+  B4 call per upload for ``dp`` or ``topk``) and ``upload`` the delta.
+  Whenever M deltas accumulate in the :class:`DeltaBuffer` the service
+  applies one staleness-discounted Eq. (2) combine — kernel B2 over the
+  flat ``(M, D)`` buffer on a CUDA device — and a server-optimizer step,
+  and advances the model version.
 * **serve**: ``infer`` answers doc->topic requests from the live model,
   read through one atomic reference swap; ``evaluate`` scores it on
   held-out documents (kernel B1 computes the reconstruction term).
@@ -126,8 +127,10 @@ class FederationService:
 
     def client_update(self, client: int):
         """One client's local update against the CURRENT published model,
-        with the per-client upload counter as the round index of the seed
-        schedule.  Returns ``(base_version, delta, weight)``."""
+        then the engine's transform stage on it, with the per-client
+        upload counter as the round index of the seed schedule (``dp``
+        noise from ``(seed * 100003 + t, client, 7)``).  Returns
+        ``(base_version, delta, weight)``."""
         L = self.spec.data.num_clients
         if not 0 <= int(client) < L:
             raise ValueError(f"unknown client {client!r}; this federation "
@@ -136,8 +139,9 @@ class FederationService:
         version, params = self._live
         eng.params = params
         t = self.client_rounds[client]
-        msg, n, _loss = eng._local_message(
-            int(client), self.spec.execution.seed * 100003 + t)
+        round_seed = self.spec.execution.seed * 100003 + t
+        msg, n, _loss = eng._local_message(int(client), round_seed)
+        msg = eng.transform_message(int(client), msg, n, round_seed)
         self.client_rounds[client] = t + 1
         return version, msg, float(n)
 

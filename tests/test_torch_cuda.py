@@ -11,7 +11,8 @@ CPU tests): B1, B2, B5 and B6 within their bounds, B3 and B4 bitwise.
 A small service run, small synchronous training runs (the
 ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs on the
 batched cohort path), Algorithm 1 on the host loop (the ``paper`` and
-``straggler-heavy`` specs, ``FederatedTrainer``) and a reduced
+``straggler-heavy`` specs, ``FederatedTrainer``, and each message
+transform on the loop and in the service) and a reduced
 hymba-1.5b prefill + decode on the card are held against the same runs
 on the CPU.  ``chip_smoke.py``
 repeats these checks at the full ProdLDA and hymba-1.5b widths.
@@ -402,6 +403,93 @@ def test_loop_round_launches_b2_once_per_arrival_round(cuda_device):
         assert fed_aggregate.launches - before == (1 if rec["arrived"]
                                                    else 0)
     assert sum(h["superseded"] for h in fed.history) > 0
+
+
+# the ProdLDA leaf sizes at prodlda_synthetic width (D = 775 500), and
+# the same with one more column (odd D: rows off 16 bytes past row 0)
+PRODLDA_SIZES = [500_000, 100, 10_000, 100, 5_000, 50, 5_000, 50, 250_000,
+                 50, 50, 5_000, 50, 50]
+
+
+@pytest.mark.parametrize("k,sizes", [(1, PRODLDA_SIZES),
+                                     (3, PRODLDA_SIZES + [1]),
+                                     (1, [3, 129, 1]), (3, [4097, 2])])
+def test_transform_kernels_at_loop_and_service_shapes(cuda_device, k, sizes,
+                                                      rng):
+    """B3 and B4 through the ``ops`` wrappers the transform stage calls,
+    at the service's (1, D) slab and a partial cohort's (3, D) slab of
+    odd width, bitwise their plain versions on the same tensors."""
+    d = sum(sizes)
+    x = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    _dp_secure_bitwise(x.to(cuda_device), rng)
+    msgs, err, ids, segs = _topk_inputs(rng, sizes, cuda_device, k=k)
+    table = ops.topk_segments(segs, 0.25)
+    before = fed_aggregate.topk_ef_launches
+    sent, new = ops.fed_topk_ef(msgs, err, ids, frac=0.25, segments=segs)
+    assert fed_aggregate.topk_ef_launches - before == 1
+    want = _topk_plain(msgs, err, ids, table)
+    assert _same_bits(sent, want[0]) and _same_bits(new, want[1])
+
+
+def _launches():
+    return fed_aggregate.dp_secure_launches, fed_aggregate.topk_ef_launches
+
+
+@pytest.mark.parametrize("name", ["dp-transform", "topk-transform",
+                                  "secure-transform", "precision-transform",
+                                  "dp-straggler"])
+def test_loop_transforms_on_card_match_cpu(cuda_device, name):
+    """Each transform on Algorithm 1's host loop (V=400, K=10, hidden
+    64), 3 rounds on the card and on the CPU from one init: within 1e-5,
+    the same round records, and one B3 (dp, secure) or B4 (topk) launch
+    per round on the card."""
+    spec = scenario_spec(name, FederationSpec.from_dict(_LOOP_BASE))
+    cpu = Federation.from_spec(spec, device="cpu")
+    gpu = Federation.from_spec(spec, device=cuda_device,
+                               init_params=cpu.params)
+    cpu.run()
+    for _ in range(3):
+        before = _launches()
+        gpu.step()
+        got = tuple(a - b for a, b in zip(_launches(), before))
+        assert got == {"topk-transform": (0, 1),
+                       "precision-transform": (0, 0)}.get(name, (1, 0))
+    assert gpu.engine.exec_mode == "loop"
+    keys = ("participants", "arrived", "superseded", "in_flight")
+    assert [[h[k] for k in keys] for h in gpu.history] == \
+        [[h[k] for k in keys] for h in cpu.history]
+    assert max_param_dev(cpu.params, gpu.params) <= 1e-5
+
+
+@pytest.mark.parametrize("which", ["dp", "topk"])
+def test_service_transforms_on_card_match_cpu(cuda_device, which):
+    """The ``buffered_async`` service with dp or topk uploads on the card
+    and on the CPU: the same events, parameters within 1e-5, and one B3
+    or B4 launch per computed upload on the card."""
+    base = FederationSpec.from_dict({
+        "model": {"vocab": 64, "topics": 4, "hidden": 16},
+        "data": {"num_clients": 3, "docs_per_node": 40,
+                 "val_docs_per_node": 8},
+        "transforms": {"names": [which], "dp_clip_norm": 0.05,
+                       **({"dp_noise_multiplier": 0.3} if which == "dp"
+                          else {"compression_topk": 0.25})},
+        "execution": {"batch_size": 64, "learning_rate": 2e-4}})
+    spec = scenario_spec("buffered_async", base)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        svc = FederationService.from_spec(spec, device=dev)
+        before = _launches()
+        stats = run_traffic(svc, sweeps=4, order_seed=1, hold_prob=0.3,
+                            duplicate_prob=0.3, infer_every=2)
+        svc.shutdown()
+        launched = tuple(a - b for a, b in zip(_launches(), before))
+        runs.append((svc, stats, launched))
+    (cpu, st_cpu, _), (gpu, st_gpu, launched) = runs
+    assert st_cpu["aggregations"] == st_gpu["aggregations"] >= 3
+    assert cpu.rejections == gpu.rejections
+    n = st_gpu["steps"]
+    assert launched == ((n, 0) if which == "dp" else (0, n))
+    assert max_param_dev(cpu.fetch_model()[1], gpu.fetch_model()[1]) <= 1e-5
 
 
 # (b, hq, hkv, s, d, causal, window): the reference's grid, hymba's 5:1

@@ -5,11 +5,17 @@ import torch
 
 from repro.api.federation import build_clients as jbuild_clients
 from repro.data.federated_split import parse_partition_spec as jparse
+from repro.data.federated_split import partition_corpus as jpartition
+from repro.data.federated_split import \
+    split_corpus_across_clients as jsplit
 from repro.data.synthetic_lda import generate_lda_corpus as jgen
 from repro_torch.api.federation import build_clients as tbuild_clients
-from repro_torch.data.federated_split import (draw_generator,
+from repro_torch.data.federated_split import (PARTITIONERS,
+                                              draw_generator,
                                               parse_partition_spec,
-                                              round_minibatches)
+                                              partition_corpus,
+                                              round_minibatches,
+                                              split_corpus_across_clients)
 from repro_torch.data.synthetic_lda import generate_lda_corpus as tgen
 
 _SIZE = dict(vocab_size=80, num_topics=6, num_nodes=3, shared_topics=2,
@@ -51,8 +57,51 @@ def test_partition_spec_parser_matches(spec):
 
 
 def test_non_topic_partition_is_refused():
-    with pytest.raises(NotImplementedError, match="A2"):
-        tbuild_clients(tgen(seed=0, **_SIZE), 3, "iid", device="cpu")
+    """Non-``topic`` partitions now run: the pooled corpus re-split into
+    client corpora equal to the reference's, and a split that leaves a
+    client empty raises the reference's error."""
+    a, b = jgen(seed=0, **_SIZE), tgen(seed=0, **_SIZE)
+    for spec in ("iid", "dirichlet(0.3)", "quantity_skew(0.5)"):
+        jc = jbuild_clients(a, 3, spec, seed=4)
+        tc = tbuild_clients(b, 3, spec, device="cpu", seed=4)
+        assert [c.num_docs for c in tc] == [c.num_docs for c in jc]
+        for x, y in zip(jc, tc):
+            assert np.array_equal(x.data["bow"], y.data["bow"].numpy())
+    with pytest.raises(ValueError) as want:
+        jbuild_clients(a, 30, "dirichlet(0.01)")
+    with pytest.raises(ValueError) as got:
+        tbuild_clients(b, 30, "dirichlet(0.01)", device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+_LABELS = np.random.default_rng(11).integers(0, 7, 500)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 12345])
+@pytest.mark.parametrize("spec", ["iid", "dirichlet(0.1)", "dirichlet(0.5)",
+                                  "dirichlet(10.0)", "quantity_skew(0.5)",
+                                  "topic"])
+def test_partitioner_indices_bitwise(spec, seed):
+    """Every registry partitioner's per-client index arrays equal the
+    reference's bit for bit (dtype included), and cover the corpus
+    disjointly."""
+    want = jpartition(500, 5, spec, labels=_LABELS, seed=seed)
+    got = partition_corpus(500, 5, spec, labels=_LABELS, seed=seed)
+    assert len(got) == len(want)
+    for x, y in zip(want, got):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert np.array_equal(np.sort(np.concatenate(got)), np.arange(500))
+
+
+@pytest.mark.parametrize("mode", sorted(PARTITIONERS))
+def test_split_corpus_across_clients_matches(mode):
+    kw = dict(labels=_LABELS, dirichlet_alpha=0.7, seed=5)
+    for x, y in zip(jsplit(500, 4, mode=mode, **kw),
+                    split_corpus_across_clients(500, 4, mode=mode, **kw)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    for call in (jsplit, split_corpus_across_clients):
+        with pytest.raises(ValueError, match="unknown split mode"):
+            call(10, 2, mode="nope")
 
 
 def test_draws_are_seeded_and_full_batches_cover_the_corpus():

@@ -36,7 +36,8 @@ _SMALL = {"model": {"vocab": 64, "topics": 4, "hidden": 16},
                         "exec_mode": "vmap"}}
 ADDED = ("sync", "dp-transform", "topk-transform", "secure-transform",
          "precision-transform", "hetero-epochs", "pallas-aggregate",
-         "pallas-topk", "pallas-secure")
+         "pallas-topk", "pallas-secure", "dirichlet-noniid",
+         "quantity-skew", "dropout-join", "dirichlet_niid", "private_vmap")
 
 
 def _host(tree):
@@ -199,13 +200,16 @@ def test_added_registry_entries_round_trip(name):
 @pytest.mark.parametrize("overrides,item", [
     ({"execution.exec_mode": "loop"}, None),
     ({"schedule.straggler_prob": 0.3, "schedule.max_staleness": 2}, "A10"),
-    ({"execution.exec_mode": "loop", "transforms.names": ("topk",),
-      "transforms.compression_topk": 0.25}, "A9"),
+    # the former A9 refusal, now a running path (its id kept)
+    pytest.param({"execution.exec_mode": "loop",
+                  "transforms.names": ("topk",),
+                  "transforms.compression_topk": 0.25}, None,
+                 id="overrides2-A9"),
 ])
 def test_paths_outside_the_slice_raise(overrides, item):
-    """Stragglers on the batched path (A10) and transforms under loop
-    mode (A9) are refused at spec time; a loop-mode spec (Algorithm 1's
-    host loop) now steps."""
+    """Stragglers on the batched path (A10) are refused at spec time; a
+    loop-mode spec (Algorithm 1's host loop) steps, with a transform
+    stage too (the per-client application)."""
     spec = FederationSpec.from_dict(_SMALL)
     if item is None:
         fed = Federation.from_spec(spec_replace(spec, overrides),

@@ -169,12 +169,19 @@ def test_default_spec_runs_algorithm_1_on_the_cpu():
     with pytest.raises(NotImplementedError, match="A10"):
         spec_replace(scenario_spec("straggler", spec),
                      {"execution.exec_mode": "vmap"})
-    with pytest.raises(NotImplementedError, match="A9"):
+    topk = Federation.from_spec(
         spec_replace(spec, {"transforms.names": ("topk",),
-                            "transforms.compression_topk": 0.25})
+                            "transforms.compression_topk": 0.25}),
+        device="cpu")
+    rec = topk.step()
+    assert topk.engine.exec_mode == "loop" and rec["arrived"] == 3
+    assert float(topk.engine._tstate["topk"].abs().max()) > 0
 
 
-@pytest.mark.parametrize("name", ["straggler", "straggler-heavy", "paper"])
+@pytest.mark.parametrize("name", ["straggler", "straggler-heavy", "paper",
+                                  "dp-straggler", "dirichlet-noniid",
+                                  "quantity-skew", "dropout-join",
+                                  "dirichlet_niid"])
 def test_straggler_registry_entries_round_trip(name):
     jbase = JSpec.from_dict(_SMALL)
     want = jscenario(name, jbase).to_dict()
@@ -208,9 +215,14 @@ def test_simulate_cli_matches_reference_keys(tmp_path, capsys):
         simulate.main(["--scenario", "paper", "--rounds", "3"])
     with pytest.raises(NotImplementedError, match="A17"):
         simulate.main(flags + ["--mesh", "data=2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        simulate.main(flags + ["--transforms", "topk", "--topk", "0.25",
-                               "--device", "cpu"])
+    topk = ["--transforms", "topk", "--topk", "0.25", "--partition",
+            "dirichlet(0.3)"]
+    got = simulate.main(flags + topk + ["--device", "cpu"])
+    want = jsimulate.main(flags + topk)
+    assert got["spec"] == want["spec"]
+    assert got["config"]["transforms"] == ["topk"]
+    assert [{k: h[k] for k in INTS} for h in got["history"]] == \
+        [{k: h[k] for k in INTS} for h in want["history"]]
     if not torch.cuda.is_available():       # the default device is cuda
         with pytest.raises(RuntimeError, match="device='cpu'"):
             simulate.main(flags)

@@ -284,18 +284,29 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
         <= set(scenario_names())
 
 
+# the former A9 and A2 refusals are running paths now (their ids kept)
 @pytest.mark.parametrize("overrides,item", [
-    ({"transforms.names": ("dp",), "transforms.dp_noise_multiplier": 0.3},
-     "A9"),
+    pytest.param({"transforms.names": ("dp",),
+                  "transforms.dp_noise_multiplier": 0.3}, None,
+                 id="overrides0-A9"),
     ({"execution.exec_mode": "vmap", "schedule.mode": "sync",
       "schedule.straggler_prob": 0.3, "schedule.max_staleness": 2}, "A10"),
     ({"execution.mesh": {"data": 2}}, "A17"),
     ({"model.family": "lm"}, "A16"),
     ({"serving": {"host": "127.0.0.1", "port": 0}}, "A14"),
-    ({"data.partition": "dirichlet(0.3)"}, "A2"),
+    pytest.param({"data.partition": "dirichlet(0.3)"}, None,
+                 id="overrides5-A2"),
     ({"execution.stochastic_loss": True}, "A4"),
 ])
 def test_sections_outside_the_slice_raise(overrides, item):
+    """The sections of later slices raise naming their ROADMAP item;
+    upload transforms and non-``topic`` partitions now run (item None):
+    the service builds and accepts an upload."""
+    if item is None:
+        svc = FederationService.from_spec(
+            spec_replace(_specs()[1], overrides), device="cpu")
+        assert svc.upload(0)["accepted"] and svc.buffer.count == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         spec_replace(_specs()[1], overrides)
 
