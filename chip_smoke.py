@@ -20,7 +20,12 @@ Phases, each fatal on failure (no phase catches and carries on):
    and its bound (bytes over 3.35 TB/s, or
    flops over 67 TFLOP/s fp32 for B1-B4 and 989 TFLOP/s bf16 for B5-B6,
    whichever is larger: the H100 SXM data-sheet peaks at its 700 W power
-   limit);
+   limit); then the backward kernels of B5 and B6 against their plain
+   backward passes over a grid (B5: causal, windowed and full masks, GQA,
+   ragged S, D = 32, 64, 96, 128, fp32 and bf16; B6: chunk edges, a
+   ragged tail, N = 16, 64, 128, a cotangent on h_last, fp32 and bf16)
+   and timed at the LM training path's shapes (B5's beside the backward
+   of ``F.scaled_dot_product_attention``);
 4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
@@ -56,6 +61,14 @@ Phases, each fatal on failure (no phase catches and carries on):
    decode tokens/s, peak memory; B5 and B6 must launch 32 times each
    (once per layer of the prefill); then one traced prefill (busy share,
    finite logits), 8 timed decode steps and one traced;
+   LM train path: ``repro_torch.launch.train.main`` with hymba-1.5b at
+   full width (bf16 activations over the serve phase's fp32 masters,
+   sgd lr 2e-3), 4 steps of 1 x 4096 tokens (the reference's
+   ``train_4k`` shape, its global batch of 256 cut to 1 for one card):
+   every loss finite; per step, B5 and B6 forward and their backward
+   kernels 32 launches each (one per layer), nothing else; step time
+   after the warm-up step, peak memory, and the last step traced (busy
+   share, device time by kernel);
    on every path each kernel's launch count is zeroed just before each
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
@@ -66,7 +79,9 @@ Phases, each fatal on failure (no phase catches and carries on):
 10. agreement: small service and training runs on the card and on the
     CPU (the plain path the CPU tests hold against the JAX reference)
     from the same weights, within the repo's 1e-5 bound; reduced
-    hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4.
+    hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4, and its
+    ``train_loss`` gradients (every leaf, through the backward kernels)
+    within 1e-4.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -256,10 +271,10 @@ def ptxas_resources(text: str):
 
 
 def _short_name(name: str) -> str:
-    """A profiler event's kernel name without namespace, return type or
-    arguments."""
+    """A profiler event's kernel name without namespace, return type,
+    template or call arguments."""
     return name.replace("(anonymous namespace)::", "").split("(")[0].split(
-        " ")[-1]
+        "<")[0].split(" ")[-1]
 
 
 def _demangle(name: str) -> str:
@@ -385,7 +400,8 @@ def phase_kernels():
     b2["k5"] = {k: b2k5[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms")}
     return [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev),
-            _kernel_b5(g, dev), _kernel_b6(g, dev)]
+            _kernel_b5(g, dev), _kernel_b6(g, dev), _kernel_b5_bwd(g, dev),
+            _kernel_b6_bwd(g, dev)]
 
 
 def _time_record(r, kern, plain, lib, lib_label="library"):
@@ -686,6 +702,32 @@ B6_CASES = [  # (b, s, h, p, n, chunk, dtype)
     # tensor-core route only (the fp32 kernel has not the shared memory)
     (1, LM_PROMPT, 64, 64, 128, 256, torch.bfloat16),
 ]
+# hymba-1.5b training at the reference's train_4k shape (sequence 4096),
+# its global batch of 256 cut to 1 for one card; 4 sgd steps
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_STEPS = 1, 4096, 4
+BF16, FP32 = torch.bfloat16, torch.float32
+B5_BWD_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
+    (TRAIN_LM_BATCH, 25, 5, TRAIN_LM_SEQ, 64, True, 1024, BF16),  # path
+    (1, 25, 5, 1024, 64, True, 256, FP32),
+    *[(b, hq, hkv, s, d, causal, window, dt)
+      for b, hq, hkv, s, d, causal, window in (
+          (2, 4, 2, 70, 32, True, 16),      # GQA, window, ragged
+          (1, 5, 1, 130, 64, True, 0),      # MQA, causal
+          (1, 3, 3, 100, 96, False, 0),     # full
+          (1, 4, 2, 77, 128, False, 20))    # bidirectional window
+      for dt in (FP32, BF16)],
+]
+B6_BWD_CASES = [  # (b, s, h, p, n, chunk, dtype); h_last gets a cotangent
+    (TRAIN_LM_BATCH, TRAIN_LM_SEQ, 50, 64, 16, 256, BF16),  # path
+    (1, 1024, 50, 64, 16, 256, FP32),
+    (2, 64, 3, 16, 16, 32, FP32), (2, 64, 3, 16, 16, 32, BF16),
+    (1, 100, 2, 32, 16, 48, FP32), (1, 100, 2, 32, 16, 48, BF16),
+    (1, 257, 2, 64, 16, 256, BF16),     # one past a chunk edge
+    (1, 255, 3, 64, 16, 64, FP32),      # one short of one
+    (1, 128, 2, 64, 64, 64, FP32), (1, 128, 2, 64, 64, 64, BF16),
+    (1, 200, 2, 64, 128, 128, BF16),
+    (1, LM_PROMPT, 64, 64, 128, 256, BF16),   # mamba2-1.3b's width
+]
 
 
 def _window_pairs(s: int, causal: bool, window: int) -> int:
@@ -827,11 +869,8 @@ def _kernel_b6(g, dev):
     _time_record(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk),
                  lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
     # the bf16 route's three launches, one by one
-    by = {}
-    for e in _trace(lambda: [ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
-                             for _ in range(10)]):
-        name = _short_name(e.name).split("<")[0]
-        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 10
+    by = _device_ops(lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk),
+                     10)
     rec["launch_us"] = by
     log(f"  ssd_scan bf16 launches at the path's shape (device us/call): "
         + ", ".join(f"{k} {v:.2f}" for k, v in by.items()))
@@ -843,6 +882,196 @@ def _kernel_b6(g, dev):
     log(f"  ssd_scan at mamba2-1.3b's width (1, 2048, 64 heads, P=64, "
         f"N=128, chunk 256, bf16): device {rec['mamba2_ms'] * 1e3:.2f} "
         f"us/call")
+    return rec
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| (in fp32)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) \
+        / max(float(want.abs().max()), 1e-30)
+
+
+def _device_ops(fn, calls: int = 5) -> dict:
+    """Device time per call (us) of each device operation of ``fn``."""
+    by = {}
+    for e in _trace(lambda: [fn() for _ in range(calls)]):
+        name = _short_name(e.name)
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return by
+
+
+def _kernel_b5_bwd(g, dev):
+    """B5's backward kernel against ``ref.flash_attention_bwd_ref`` on the
+    card over the grid (q, k, v strided slices of one fused projection;
+    out and lse from the forward kernel); timed at the LM training path's
+    shape in bf16 beside the backward of the library's attention."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.models.layers.attention import make_mask
+    errs, worst = {}, 0.0
+
+    def inputs(b, hq, hkv, s, d, causal, window, dtype):
+        fused = torch.randn(b, s, hq + 2 * hkv, d, generator=g).to(dev,
+                                                                   dtype)
+        q, k, v = fused.split([hq, hkv, hkv], dim=2)
+        dout = torch.randn(b, s, hq, d, generator=g).to(dev, dtype)
+        kw = dict(causal=causal, window=window, scale=d ** -0.5)
+        out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+        return q, k, v, out, lse, dout, kw
+    for case in B5_BWD_CASES:
+        dtype = case[-1]
+        q, k, v, out, lse, dout, kw = inputs(*case)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        _, lse_w = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == FP32 else 2e-2
+        rel = [_rel_err(a, w) for a, w in zip(got, want)]
+        e_lse = float((lse - lse_w).abs().max())
+        if not (max(rel) <= tol and e_lse <= tol * max(
+                float(lse_w.abs().max()), 1.0)):
+            raise AssertionError(f"B5 backward {case[:-1]} {dtype}: (dq, dk, "
+                                 f"dv) |kernel - plain| / max|plain| {rel}, "
+                                 f"lse {e_lse}; bound {tol}")
+        key = str(dtype).replace("torch.", "")
+        errs[key] = max([errs.get(key, 0.0)]
+                        + [float((a.float() - w.float()).abs().max())
+                           for a, w in zip(got, want)])
+        worst = max(worst, max(rel))
+        del q, k, v, out, lse, dout, got, want
+    log(f"B5 flash_attention backward: {len(B5_BWD_CASES)} shapes (the "
+        f"training path's (1, 4096, 25/5 heads, 64, window 1024) bf16, "
+        f"(1, 1024, 25/5, 64, window 256) fp32; causal, windowed and full "
+        f"masks, GQA and MQA, ragged S, D=32, 64, 96, 128 in both "
+        f"dtypes): max |kernel - plain| {errs}, of max|plain| {worst:.3e} "
+        f"(bounds 2e-5 fp32, 2e-2 bf16, of each gradient's max|plain|)")
+    b, hq, hkv, s, d, causal, window, dtype = B5_BWD_CASES[0]
+    q, k, v, out, lse, dout, kw = inputs(*B5_BWD_CASES[0])
+    pairs = b * hq * _window_pairs(s, causal, window)
+    rec = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/layers/attention.py:143",
+           "replaces_note": "no TPU kernel: the reference's jnp VJP "
+                            "_flash_vjp_bwd of B5",
+           "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "pairs": pairs,
+           "library": "backward of F.scaled_dot_product_attention(boolean "
+                      "window mask, enable_gqa=True) on (B,H,S,D) copies"}
+    # q, k, v, out, dout (bf16) and lse (fp32) read once, dq, dk, dv
+    # (bf16) written once; 10 D flops per (q, k) pair the window reaches
+    # (s and dout.v recomputed, dv, dq, dk) at the bf16 tensor-core peak
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        2 * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s
+        + 2 * (b * s * hq * d + 2 * b * s * hkv * d), 10 * d * pairs,
+        H100_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    mask = make_mask(pos, pos, causal=causal, window=window)
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    _time_record(rec,
+                 lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                  **kw),
+                 lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                     **kw),
+                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                             retain_graph=True))
+    rec["launch_us"] = _device_ops(
+        lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw))
+    rec["device_ops_per_call"] = len(rec["launch_us"])
+    rec["fwd_lse_ms"] = device_ms(
+        lambda: flash_attention_cuda(q, k, v, want_lse=True, **kw))
+    rec["fwd_ms"] = device_ms(lambda: flash_attention_cuda(q, k, v, **kw))
+    log(f"  flash_attention backward launches at the path's shape (device "
+        f"us/call): " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in
+                                  rec["launch_us"].items())
+        + f"; the forward at the same shape {rec['fwd_ms'] * 1e3:.2f} us, "
+        f"{rec['fwd_lse_ms'] * 1e3:.2f} us when it also writes lse")
+    del q, k, v, out, lse, dout, qt, kt, vt, lib_out, dout_t
+    return rec
+
+
+def _kernel_b6_bwd(g, dev):
+    """B6's backward kernel against ``ref.ssd_scan_bwd_ref`` on the card
+    over the grid (x, B, C strided slices of one conv output, states kept
+    by the forward kernel, a cotangent on h_last); timed at the LM
+    training path's shape in bf16 (h_last unused there, as in the
+    model)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    errs, worst = {}, 0.0
+    for i, (b, s, h, p, n, chunk, dtype) in enumerate(B6_BWD_CASES):
+        x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+        dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+        dh = None if i == 0 else torch.randn(b, h, p, n, generator=g).to(dev)
+        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                 keep_states=True)
+        got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=chunk)
+        want = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, chunk)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == FP32 else 2e-2
+        rel = [_rel_err(u, w) for u, w in zip(got, want)]
+        if not max(rel) <= tol:
+            raise AssertionError(f"B6 backward {(b, s, h, p, n, chunk)} "
+                                 f"{dtype}: (dx, ddt, da, db, dc) |kernel - "
+                                 f"plain| / max|plain| {rel}; bound {tol}")
+        key = str(dtype).replace("torch.", "")
+        errs[key] = max([errs.get(key, 0.0)]
+                        + [float((u.float() - w.float()).abs().max())
+                           for u, w in zip(got, want)])
+        worst = max(worst, max(rel))
+        del x, dt, a, bb, cc, dy, dh, st, got, want
+    log(f"B6 ssd_scan backward: {len(B6_BWD_CASES)} shapes (the training "
+        f"path's (1, 4096, 50 heads, P=64, N=16, chunk 256) bf16, its 1024 "
+        f"steps in fp32; chunk edges, ragged tails, N=16, 64, 128, "
+        f"mamba2-1.3b's width; a cotangent on h_last but at the path's "
+        f"shape): max |kernel - plain| {errs}, of max|plain| {worst:.3e} "
+        f"(bounds 1e-4 fp32, 2e-2 bf16, of each gradient's max|plain|)")
+    b, s, h, p, n, chunk, dtype = B6_BWD_CASES[0]
+    x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+    dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
+    nc = s // chunk
+    rec = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/models/layers/mamba2.py:75",
+           "replaces_note": "no TPU kernel: jax.grad of the reference's "
+                            "ssd_chunked (B6's backward)",
+           "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "library": "none: no single PyTorch call computes the SSD scan's "
+                      "gradient"}
+    # x, B, C, dy (bf16), dt, a and the kept states (fp32) read once; dx,
+    # dB, dC (bf16), ddt, da (fp32) written once; per (batch, head, chunk)
+    # the pairs j <= i take G, D and the dx, dB, dC updates (6N + 4P
+    # flops) and every step the carried-state terms (8PN), at the bf16
+    # tensor-core peak
+    tri = chunk * (chunk + 1) // 2
+    flops = b * h * nc * (tri * (6 * n + 4 * p) + chunk * 8 * p * n)
+    nbytes = 2 * (3 * b * s * h * p + 4 * b * s * n) \
+        + 4 * (2 * b * s * h + 2 * h + b * h * nc * p * n)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops,
+                                                H100_BF16_FLOPS)
+    _time_record(rec, lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st,
+                                                None, chunk=chunk),
+                 lambda: ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None,
+                                              chunk), None)
+    rec["launch_us"] = _device_ops(
+        lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
+                                  chunk=chunk))
+    rec["device_ops_per_call"] = len(rec["launch_us"])
+    rec["fwd_states_ms"] = device_ms(
+        lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                              keep_states=True))
+    log(f"  ssd_scan backward launches at the path's shape (device "
+        f"us/call): " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in
+                                  rec["launch_us"].items())
+        + f"; the forward at the same shape {rec['fwd_states_ms'] * 1e3:.2f}"
+        f" us")
+    del x, dt, a, bb, cc, dy, st
     return rec
 
 
@@ -885,6 +1114,7 @@ def zero_counts() -> None:
     fed_aggregate.launches = fed_aggregate.dp_secure_launches = 0
     fed_aggregate.topk_ef_launches = topic_decoder.launches = 0
     flash_attention.launches = ssd_scan.launches = 0
+    flash_attention.bwd_launches = ssd_scan.bwd_launches = 0
 
 
 def read_counts() -> dict:
@@ -895,7 +1125,9 @@ def read_counts() -> dict:
             "fed_dp_secure_apply": fed_aggregate.dp_secure_launches,
             "fed_topk_ef": fed_aggregate.topk_ef_launches,
             "flash_attention": flash_attention.launches,
-            "ssd_scan": ssd_scan.launches}
+            "ssd_scan": ssd_scan.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "ssd_scan_bwd": ssd_scan.bwd_launches}
 
 
 def phase_main_path(records):
@@ -940,7 +1172,8 @@ def phase_main_path(records):
     want = {"fed_weighted_sum": svc.agg_index,
             "topic_decoder": math.ceil(n_val / 256),
             "fed_dp_secure_apply": 0, "fed_topk_ef": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "ssd_scan": 0, "flash_attention_bwd": 0,
+            "ssd_scan_bwd": 0}
     if stats["aggregations"] < 1 or stats["infer_calls"] < 1:
         raise AssertionError("main path ran no aggregation or no inference")
     if launches != want:
@@ -1726,7 +1959,108 @@ def phase_lm_serve(records):
         f"tokens/s); one traced step: wall {wall * 1e3:.1f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms = {100 * dev_us / 1e3 / (wall * 1e3):.1f}% "
         f"in {n_launch} device operations; prefill and decode logits finite")
-    del params, act, cache, step
+    del act, cache, step
+    torch.cuda.empty_cache()
+    return params
+
+
+def phase_lm_train(records, masters):
+    """hymba-1.5b training at full width through the launcher's
+    ``main`` with its own flags (bf16 activations over the serve
+    phase's fp32 masters, popped from ``masters`` so that the first
+    update frees them; sgd lr 2e-3): 4 steps of
+    1 x 4096 tokens.  Every loss finite; per step, the counts zeroed
+    just before and read just after: B5 and B6 forward and their
+    backward kernels once per layer each, nothing else.  Step time after
+    the warm-up step (host clock around each step, batch draw included),
+    peak memory over the timed steps, and the last step traced."""
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lm_train
+    cfg = get_config("hymba-1.5b")
+    argv = ["--arch", "hymba-1.5b", "--steps", str(TRAIN_LM_STEPS),
+            "--batch", str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ),
+            "--num-clients", "1", "--log-every", "1"]
+    log(f"LM train path: repro_torch.launch.train "
+        f"{' '.join(argv)} (full width, bf16 activations over fp32 "
+        f"masters, sgd lr 2e-3; the reference's train_4k shape with its "
+        f"global batch of 256 cut to {TRAIN_LM_BATCH}; depth cut to "
+        f"{TRAIN_LM_STEPS} steps)")
+    want = {k: 0 for k in read_counts()}
+    want.update(flash_attention=cfg.num_layers, ssd_scan=cfg.num_layers,
+                flash_attention_bwd=cfg.num_layers,
+                ssd_scan_bwd=cfg.num_layers)
+    st = {"losses": [], "times": [], "counts": [], "prof": None}
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        st["counts"].append(read_counts())
+        st["losses"].append(float(loss))
+        if step == 0:        # after the warm-up step
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            st["times"].append(now - st["t"])
+        if step == TRAIN_LM_STEPS - 1:
+            st["prof"].__exit__(None, None, None)
+            st["traced_wall"] = now - st["t"]
+        if step == TRAIN_LM_STEPS - 2:
+            st["prof"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            st["prof"].__enter__()
+        zero_counts()
+        st["t"] = time.perf_counter()
+
+    zero_counts()
+    st["t"] = time.perf_counter()
+    final = lm_train.main(argv, init=masters.pop, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: sum(c[k] for c in st["counts"]) for k in want}
+    for i, c in enumerate(st["counts"]):
+        if c != want:
+            raise AssertionError(f"LM train step {i}: kernel launches {c} != "
+                                 f"one B5 and one B6, forward and backward, "
+                                 f"per layer {want}")
+    if len(st["losses"]) != TRAIN_LM_STEPS or not all(
+            math.isfinite(x) for x in st["losses"] + [final]):
+        raise AssertionError(f"LM train losses {st['losses']}")
+    by_name = {}
+    for e in st["prof"].events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time in "
+                             "the traced LM train step")
+    untraced = sorted(st["times"][:-1])
+    med = untraced[len(untraced) // 2]
+    log(f"  losses {st['losses']}; steps 1-{TRAIN_LM_STEPS - 1} after the "
+        f"warm-up step " + ", ".join(f"{x:.4f}" for x in st["times"])
+        + f" s (the last traced; untraced median {med:.4f} s = "
+        f"{TRAIN_LM_BATCH * TRAIN_LM_SEQ / med:.0f} tokens/s); peak device "
+        f"memory over them {peak / 2**30:.2f} GiB")
+    log(f"  launches per step: {json.dumps(st['counts'][0])}")
+    wall = st["traced_wall"]
+    log(f"profile LM train step (traced, the last): wall {wall * 1e3:.1f} "
+        f"ms, device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of "
+        f"wall")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"  {us / 1e3:9.3f} ms  {kname[:90]}")
+    for label, keys in (("B5 flash_attention forward", ("flash_fwd",)),
+                        ("B5 backward", ("flash_bwd",)),
+                        ("B6 ssd_scan forward", ("ssd_chunk_",
+                                                 "ssd_state_pass",
+                                                 "ssd_scan_kernel")),
+                        ("B6 backward", ("ssd_bwd",))):
+        part = {k: us for k, us in by_name.items()
+                if any(key in k for key in keys)}
+        log(f"  {label} in this step: {sum(part.values()) / 1e3:.3f} ms of "
+            f"device time (" + ", ".join(
+                f"{_short_name(k)} {us / 1e3:.3f} ms"
+                for k, us in part.items()) + ")")
+    for r in records:
+        r["launches_by_path"]["lm_train"] = counts[r["name"]]
     torch.cuda.empty_cache()
 
 
@@ -1773,6 +2107,29 @@ def phase_lm_agreement():
                              f"want none and one per layer")
     if not max(devs) <= 2e-4:
         raise AssertionError("card and CPU LM paths disagree beyond 2e-4")
+    # train_loss and every gradient leaf, through the backward kernels on
+    # the card and the plain backward passes on the CPU
+    from repro_torch.optim.optimizers import tree_leaves
+    batch = {"tokens": toks[:, :96], "labels": toks[:, 1:97]}
+    grads = {}
+    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, "cuda"))):
+        leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss = tfm.train_loss(params, cfg, {k: v.to(dev) for k, v in
+                                            batch.items()},
+                              dtype=torch.float32)
+        loss.backward()
+        grads[dev] = (float(loss.detach()), [x.grad.cpu() for x in leaves])
+    gdev = max(float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+               for c, g in zip(grads["cpu"][1], grads["cuda"][1]))
+    ldev = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    log(f"agreement LM train (reduced hymba-1.5b, fp32, 2 x 96): card vs "
+        f"CPU train_loss {ldev:.3e}, gradients max |diff| / max|cpu| over "
+        f"{len(grads['cpu'][1])} leaves {gdev:.3e} (bound 1e-4)")
+    if not (gdev <= 1e-4 and ldev <= 1e-4):
+        raise AssertionError("card and CPU LM gradients disagree beyond "
+                             "1e-4")
 
 
 def main() -> int:
@@ -1794,7 +2151,7 @@ def main() -> int:
     phase_training(records, corpus)
     phase_algorithm1(records, corpus)
     phase_loop_transforms(records, corpus)
-    phase_lm_serve(records)
+    phase_lm_train(records, [phase_lm_serve(records)])
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)
@@ -1808,7 +2165,8 @@ def main() -> int:
              "dp_bound_ms", "dp_library_ms", "cold_ms", "library_cold_ms",
              "dp_cold_ms", "yardstick", "yardstick_ms",
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
-             "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call")
+             "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
+             "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

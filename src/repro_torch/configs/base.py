@@ -6,9 +6,9 @@ carries the LM fields of the reference (for the serving slice:
 ``dense``, ``ssm`` and ``hybrid`` kinds) beside the ProdLDA ones;
 ``num_params()`` and ``reduced()`` are the reference's.  Fields no
 ported path reads (the lowering knobs ``scan_layers`` /
-``unroll_chunks`` / ``remat_layers``, CTM's ``contextual_dim``,
-``ntm_dropout``, the mesh) join with the slices that read them
-(ROADMAP.md §A).
+``unroll_chunks``, CTM's ``contextual_dim``, ``ntm_dropout``, the mesh)
+join with the slices that read them (ROADMAP.md §A); ``remat_layers``
+joined with LM training.
 """
 from __future__ import annotations
 
@@ -104,6 +104,11 @@ class ModelConfig:
 
     dtype: str = "bfloat16"       # activation dtype on the target hardware
     param_dtype: str = "float32"
+
+    # recompute each layer in the backward from its input
+    # (``torch.utils.checkpoint``), so the saved activations are one
+    # (B,S,D) residual per layer instead of every intermediate
+    remat_layers: bool = False
 
     @property
     def resolved_head_dim(self) -> int:

@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 SOURCES = ("fed_aggregate", "topic_decoder", "fed_dp_secure", "fed_topk_ef",
-           "flash_attention", "ssd_scan")
+           "flash_attention", "ssd_scan", "flash_attention_bwd",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -70,6 +70,13 @@
 // 64, 96 and 128.  The wgmma building blocks are in wgmma.cuh (shared with
 // ssd_scan.cu).
 //
+// Both also write, when given a non-null lse (B, H, S) fp32, each row's
+// log-sum-exp of its masked scaled scores, lse = m + log(l), from the m
+// and l the epilogue already holds; a fully masked row (l == 0) writes
+// NEG_INF (the reference's l_safe convention: m + log(1) with m = NEG_INF).
+// The backward (flash_attention_bwd.cu) recomputes p = exp(s - lse) from
+// it.  A null lse (the serve path) skips the store.
+//
 // Plain C interface (bound with ctypes): returns a CUDA error code (0 on
 // success) after the launch; launches on the caller's stream and never
 // synchronises.
@@ -84,6 +91,7 @@ namespace {
 using namespace wg;
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // fp32 route: CUDA cores
@@ -111,9 +119,10 @@ __device__ __forceinline__ bool allowed(int kp, int qp, int seq, int causal,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int seq, int heads,
-                 int kv_heads, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int seq, int heads, int kv_heads, int causal,
+                 int window, float scale) {
   constexpr int kDpt = D / kTpr;  // head-dim entries per thread
   constexpr int kVec = kDpt / 4;  // float4 groups per thread
   extern __shared__ float4 smem4[];
@@ -218,6 +227,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < seq) {
     const float denom = l == 0.0f ? 1.0f : l;  // fully masked rows give 0
+    if (lse != nullptr && part == 0)
+      lse[((int64_t)b * heads + h) * seq + qpos] =
+          l == 0.0f ? kNegInf : m + logf(l);
     T* orow = o + b * os.b + (int64_t)qpos * os.s + h * os.h;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
@@ -231,10 +243,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-           Strides ks, Strides vs, Strides os, int batch, int seq, int heads,
-           int kv_heads, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int batch,
+           int seq, int heads, int kv_heads, int causal, int window,
+           float scale, cudaStream_t stream) {
   const int smem = 2 * kBlockK * D * (int)sizeof(float);
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -243,8 +255,8 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, seq,
-      heads, kv_heads, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os,
+      seq, heads, kv_heads, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -290,9 +302,9 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    Strides qs, Strides ks, Strides vs, Strides os, int seq,
-                    int heads, int kv_heads, int causal, int window,
-                    float scale_log2) {
+                    float* __restrict__ lse, Strides qs, Strides ks,
+                    Strides vs, Strides os, int seq, int heads, int kv_heads,
+                    int causal, int window, float scale_log2) {
   constexpr int kAtoms = (D + 63) / 64;
   constexpr int kChunks = D / 8;
   constexpr uint32_t kQBytes = kAtoms * kTcRows * kSwRow;
@@ -456,6 +468,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = qa + 8 * r;
     if (row >= seq) continue;
     const float denom = l[r] == 0.0f ? 1.0f : l[r];  // fully masked -> 0
+    // m is in units of scale * log2(e): lse = m ln 2 + log(l)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * heads + h) * seq + row] =
+          l[r] == 0.0f ? kNegInf : m[r] * kLn2 + logf(l[r]);
     bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h + cq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -468,9 +484,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              Strides qs, Strides ks, Strides vs, Strides os, int batch,
-              int seq, int heads, int kv_heads, int causal, int window,
-              float scale, cudaStream_t stream) {
+              float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+              int batch, int seq, int heads, int kv_heads, int causal,
+              int window, float scale, cudaStream_t stream) {
   const int smem = tc_smem_bytes<D>();
   auto kern = flash_fwd_tc_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -479,18 +495,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   dim3 grid(heads, batch, (seq + kTcRows - 1) / kTcRows);
   kern<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), qs, ks, vs, os,
-      seq, heads, kv_heads, causal, window, scale * kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs,
+      os, seq, heads, kv_heads, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 // route by dtype, then head dim
 int dispatch(int is_bf16, int head_dim, const void* q, const void* k,
-             const void* v, void* o, Strides qs, Strides ks, Strides vs,
-             Strides os, int batch, int seq, int heads, int kv_heads,
-             int causal, int window, float scale, cudaStream_t s) {
-#define FLASH_ARGS q, k, v, o, qs, ks, vs, os, batch, seq, heads, kv_heads, \
-                   causal, window, scale, s
+             const void* v, void* o, float* lse, Strides qs, Strides ks,
+             Strides vs, Strides os, int batch, int seq, int heads,
+             int kv_heads, int causal, int window, float scale,
+             cudaStream_t s) {
+#define FLASH_ARGS q, k, v, o, lse, qs, ks, vs, os, batch, seq, heads, \
+                   kv_heads, causal, window, scale, s
   if (is_bf16) {
     switch (head_dim) {
       case 32: return launch_tc<32>(FLASH_ARGS);
@@ -534,19 +551,20 @@ extern "C" int flash_attention_tc_smem_bytes(int head_dim) {
 // {32, 64, 96, 128}; H a multiple of Hkv.  bf16 (is_bf16 = 1) runs on the
 // tensor cores and needs 16-byte aligned q, k, v with (b, s, h) strides
 // that are multiples of 8 (else cudaErrorMisalignedAddress); fp32 on the
-// CUDA cores.
+// CUDA cores.  lse: null, or (B, H, S) fp32 for the backward.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
     int64_t o_sh, int batch, int seq, int heads, int kv_heads, int head_dim,
-    int causal, int window, float scale, int is_bf16, void* stream) {
+    int causal, int window, float scale, int is_bf16, float* lse,
+    void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   if (is_bf16 && !(aligned16(q, qs) && aligned16(k, ks) &&
                    aligned16(v, vs)))
     return (int)cudaErrorMisalignedAddress;
-  return dispatch(is_bf16, head_dim, q, k, v, o, qs, ks, vs, os, batch, seq,
-                  heads, kv_heads, causal, window, scale,
+  return dispatch(is_bf16, head_dim, q, k, v, o, lse, qs, ks, vs, os, batch,
+                  seq, heads, kv_heads, causal, window, scale,
                   static_cast<cudaStream_t>(stream));
 }

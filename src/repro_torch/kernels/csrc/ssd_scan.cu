@@ -83,7 +83,11 @@
 //   * the cumsum of dt * a is a block scan (warp shuffles, then the warp
 //     totals);
 //   * B and C are shared across heads (ngroups = 1) and re-read per head;
-//     C_i sits in registers when N <= 16.
+//     C_i sits in registers when N <= 16;
+//   * given a non-null states (B, H, chunks, P, N) fp32, it also writes the
+//     state entering each chunk there, for the backward (ssd_scan_bwd.cu);
+//     a null pointer (the serve path) skips the store.  The bf16 route
+//     leaves the same in its scratch.
 //
 // Both: strided operands (x, dt, B and C are read in place through their
 // strides: they are column slices of the conv output on the model path;
@@ -150,7 +154,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a, const T* __restrict__ bmat,
                 const T* __restrict__ cmat, T* __restrict__ y,
-                float* __restrict__ h_last, Args g) {
+                float* __restrict__ h_last, float* __restrict__ states,
+                Args g) {
   const int n = g.n, q = g.chunk;
   const int nb = SMALL_N ? kSmallN : n;      // B row pitch (zero padded)
   const int cp = SMALL_N ? kSmallN : n + 1;  // C row pitch
@@ -176,8 +181,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int o = tid; o < P * n; o += kThreads) h_s[o] = 0.0f;
 
+  const int nc = (g.seq + q - 1) / q;
   for (int c0 = 0; c0 < g.seq; c0 += q) {
     __syncthreads();  // the previous chunk's state update is done
+    if (states != nullptr) {  // the state entering this chunk
+      float* st = states + (((int64_t)bi * g.heads + hh) * nc + c0 / q) *
+                               P * n;
+      for (int o = tid; o < P * n; o += kThreads) st[o] = h_s[o];
+    }
     for (int idx = tid; idx < q * P; idx += kThreads) {
       const int r = idx / P, col = idx - r * P;
       x_s[idx] = c0 + r < g.seq
@@ -293,8 +304,8 @@ size_t smem_bytes(int p, int n, int q) {
 
 template <typename T, int P, bool SMALL_N>
 int launch(const void* x, const float* dt, const float* a, const void* b,
-           const void* c, void* y, float* h_last, const Args& g, int batch,
-           cudaStream_t stream) {
+           const void* c, void* y, float* h_last, float* states,
+           const Args& g, int batch, cudaStream_t stream) {
   const int smem = (int)smem_bytes(P, g.n, g.chunk);
   auto kern = ssd_scan_kernel<T, P, SMALL_N>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -302,30 +313,35 @@ int launch(const void* x, const float* dt, const float* a, const void* b,
   if (e != cudaSuccess) return (int)e;
   kern<<<batch * g.heads, kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), h_last, g);
+      static_cast<const T*>(c), static_cast<T*>(y), h_last, states, g);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int P>
 int dispatch_n(const void* x, const float* dt, const float* a, const void* b,
-               const void* c, void* y, float* h_last, const Args& g,
-               int batch, cudaStream_t stream) {
+               const void* c, void* y, float* h_last, float* states,
+               const Args& g, int batch, cudaStream_t stream) {
   if (g.n <= kSmallN)
-    return launch<T, P, true>(x, dt, a, b, c, y, h_last, g, batch, stream);
-  return launch<T, P, false>(x, dt, a, b, c, y, h_last, g, batch, stream);
+    return launch<T, P, true>(x, dt, a, b, c, y, h_last, states, g, batch,
+                              stream);
+  return launch<T, P, false>(x, dt, a, b, c, y, h_last, states, g, batch,
+                             stream);
 }
 
 template <typename T>
 int dispatch_p(int p, const void* x, const float* dt, const float* a,
                const void* b, const void* c, void* y, float* h_last,
-               const Args& g, int batch, cudaStream_t stream) {
+               float* states, const Args& g, int batch, cudaStream_t stream) {
   switch (p) {
     case 16:
-      return dispatch_n<T, 16>(x, dt, a, b, c, y, h_last, g, batch, stream);
+      return dispatch_n<T, 16>(x, dt, a, b, c, y, h_last, states, g, batch,
+                               stream);
     case 32:
-      return dispatch_n<T, 32>(x, dt, a, b, c, y, h_last, g, batch, stream);
+      return dispatch_n<T, 32>(x, dt, a, b, c, y, h_last, states, g, batch,
+                               stream);
     case 64:
-      return dispatch_n<T, 64>(x, dt, a, b, c, y, h_last, g, batch, stream);
+      return dispatch_n<T, 64>(x, dt, a, b, c, y, h_last, states, g, batch,
+                               stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -919,8 +935,9 @@ extern "C" int64_t ssd_scan_smem_bytes(int head_dim, int state_dim,
 // bf16 (is_bf16 = 1) runs on the tensor cores: N a multiple of 8 up to
 // 128, 16-byte aligned x, B, C with strides that are multiples of 8
 // (else cudaErrorMisalignedAddress), and a scratch of B*H*chunks*P*N
-// (states) and B*H*chunks (tot) fp32; fp32 on the CUDA cores (states and
-// tot unused).
+// (states) and B*H*chunks (tot) fp32, which leaves in states the state
+// entering each chunk; fp32 on the CUDA cores (tot unused; states null, or
+// B*H*chunks*P*N fp32 to keep the states entering the chunks).
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
                             const void* b, const void* c, void* y,
                             float* h_last, float* states, float* tot,
@@ -935,8 +952,8 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
                c_sb, c_ss, seq,  heads, state_dim, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return dispatch_p<float>(head_dim, x, dt, a, b, c, y, h_last, g, batch,
-                             s);
+    return dispatch_p<float>(head_dim, x, dt, a, b, c, y, h_last, states, g,
+                             batch, s);
   if (head_dim != 16 && head_dim != 32 && head_dim != 64)
     return (int)cudaErrorInvalidValue;
   if (state_dim < 8 || state_dim > 128 || state_dim % 8)

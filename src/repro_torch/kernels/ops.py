@@ -4,9 +4,15 @@ Model and service code import from here, never from the kernel modules.
 Dispatch follows the tensor and has no knob: a CUDA tensor launches the
 hand-written kernel (built from ``csrc/`` at first use; a build or launch
 failure raises), a CPU tensor runs the plain version in ``ref.py``.
-B1, B5 and B6 are forward-only on the card: a CUDA call that needs a
-gradient raises rather than return an output autograd cannot see
-through.
+B5 and B6 are differentiable on both: a call that needs a gradient goes
+through a ``torch.autograd.Function`` whose backward is the hand-written
+backward kernel on a CUDA tensor (a build or launch failure raises; no
+fallback) and the plain backward on a CPU tensor.  The backward kernels
+are called as ``torch.library`` operators: inside ``torch.func``
+transforms a Function's backward sees wrapped tensors without storage,
+and an operator receives the plain tensors under them.  B1 is
+forward-only on the card: a CUDA call that needs a gradient raises
+rather than return an output autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -18,8 +24,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
 
 Stacked = Union[torch.Tensor, Mapping[str, torch.Tensor]]
@@ -33,18 +40,23 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
+def _needs_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.is_floating_point() and t.requires_grad
+        for t in inputs)
+
+
 def _refuse_grad(kernel: str, *inputs) -> None:
     """Raise where a forward-only kernel would be asked for a gradient:
     its output carries no ``grad_fn``, so a backward would silently skip
     it.  The plain versions (CPU tensors) stay differentiable."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.is_floating_point() and t.requires_grad
-            for t in inputs):
+    if _needs_grad(*inputs):
         raise RuntimeError(
             f"{kernel} on a CUDA tensor is forward-only: an input requires "
             f"grad under grad mode, and the kernel has no backward (queued "
-            f"with A16a, LM training). Call it under torch.no_grad(), or "
-            f"on CPU tensors for the differentiable plain version")
+            f"with A3, ProdLDA's train mode). Call it under "
+            f"torch.no_grad(), or on CPU tensors for the differentiable "
+            f"plain version")
 
 
 def _weighted_sum_leaf(leaf: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -142,23 +154,113 @@ def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
                             table)
 
 
+# The backward kernels as operators of their own, implemented for CUDA
+# tensors only (the CPU path calls the plain backward directly).
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+            "Tensor lse, Tensor dout, bool causal, int window, float scale) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, out, lse, dout, causal, window, scale:
+          flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
+                                   window=window, scale=scale), "CUDA")
+_LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+            "Tensor dy, Tensor states, Tensor? dh_last, int chunk) -> "
+            "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssd_scan_bwd",
+          lambda x, dt, a, b, c, dy, states, dh_last, chunk:
+          ssd_scan_bwd_cuda(x, dt, a, b, c, dy, states, dh_last,
+                            chunk=chunk), "CUDA")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B5 with its gradient: the forward also keeps each row's
+    log-sum-exp, and the backward recomputes the probabilities from
+    (q, k, v, out, lse), as the reference's ``_flash_vjp`` does.  Kernels
+    on a CUDA tensor, the plain versions on a CPU tensor."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        if _on_cuda(q):
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, scale=scale,
+                                        want_lse=True)
+        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, scale=scale)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if _on_cuda(q):
+            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, out, lse, dout, **ctx.mask)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                     **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D) in q's dtype: softmax
     attention with a causal, sliding-window (``window`` > 0) or full
     mask, GQA by index, fp32 accumulation.  Kernel B5 on a CUDA tensor
-    (read in place through its strides)."""
+    (read in place through its strides); a call that needs a gradient
+    also keeps the row log-sum-exp for B5's backward kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)[0]
     if not _on_cuda(q):
-        out = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                      v.transpose(1, 2), causal=causal,
-                                      window=window, scale=scale)
-        return out.transpose(1, 2)
-    _refuse_grad("B5 flash_attention", q, k, v)
+        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale)[0]
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 scale=scale)
+
+
+class _SSDScan(torch.autograd.Function):
+    """B6 with its gradient: on a CUDA tensor the forward keeps the state
+    entering each chunk and the backward kernel reads it; on a CPU tensor
+    the backward is the plain one (autograd through ``ssd_scan_ref``, as
+    the reference differentiates ``ssd_chunked``)."""
+
+    @staticmethod
+    def forward(x, dt, a, b, c, chunk):
+        if _on_cuda(x):
+            return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk,
+                                 keep_states=True)
+        y, h_last = ref.ssd_scan_ref(x, dt, a, b, c, chunk)
+        return y, h_last, h_last.new_empty((0,))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, a, b, c, chunk = inputs
+        ctx.save_for_backward(x, dt, a, b, c, output[2])
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(output[2])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last, _dstates):
+        x, dt, a, b, c, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if _on_cuda(x):
+            grads = torch.ops.repro_torch.ssd_scan_bwd(
+                x, dt, a, b, c, dy, states, dh_last, ctx.chunk)
+        else:
+            grads = ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last,
+                                         ctx.chunk)
+        return (*grads, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -168,10 +270,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (H,), b/c (B,S,N) -> (y (B,S,H,P) in x's dtype, h_last (B,H,P,N)
     fp32), over chunks of ``min(chunk, S)`` steps (a ragged tail is
     padded with dt = 0 steps, which leave the state unchanged).  Kernel
-    B6 on a CUDA tensor."""
+    B6 on a CUDA tensor, with its backward kernel when a gradient is
+    needed (dt and a reach it through their cast to fp32)."""
     q = min(chunk, x.shape[1])
+    if _needs_grad(x, dt, a, b, c):
+        y, h_last, _ = _SSDScan.apply(x, dt.to(torch.float32),
+                                      a.to(torch.float32), b, c, q)
+        return y, h_last
     if not _on_cuda(x):
         return ref.ssd_scan_ref(x, dt, a, b, c, q)
-    _refuse_grad("B6 ssd_scan", x, dt, a, b, c)
     return ssd_scan_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
                          chunk=q)

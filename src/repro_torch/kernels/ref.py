@@ -81,34 +81,105 @@ def fed_dp_secure_apply_ref(msgs: torch.Tensor, noise=None, masks=None,
     return out
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        scale=None) -> torch.Tensor:
-    """q (B,H,S,D), k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype.
+def _attention_mask(q_pos, k_pos, causal: bool, window: int):
+    """(Sq,) x (Sk,) positions -> (Sq, Sk) bool: True = may attend."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def _softmax_attention(q, k, v, causal: bool, window: int, scale):
+    """q (B,S,H,D), k/v (B,S,Hkv,D) -> (out (B,S,H,D) in q's dtype, the
+    masked fp32 scores (B,Hkv,H/Hkv,S,S)).
 
     Materialized fp32 softmax over the (S, S) scores; GQA by index (query
     head h reads kv head ``h // (H/Hkv)``, no repeat); the mask is causal
     ``k <= q``, sliding-window ``k > q - window``, or full.  Masked
     scores are ``NEG_INF`` before the softmax, as in the reference's
-    ``ref.flash_attention_ref``.
-    """
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
+    ``ref.flash_attention_ref``.  Heads-major inside, so that both
+    products are batched GEMMs."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
     if scale is None:
         scale = d ** -0.5
-    qf = q.to(torch.float32).reshape(b, hkv, h // hkv, s, d)
+    qf = q.transpose(1, 2).to(torch.float32).reshape(b, hkv, h // hkv, s, d)
     scores = torch.einsum("bgrqd,bgkd->bgrqk", qf,
-                          k.to(torch.float32)) * scale
+                          k.transpose(1, 2).to(torch.float32)) * scale
     pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrqk,bgkd->bgrqd", probs, v.to(torch.float32))
-    return out.reshape(b, h, s, d).to(q.dtype)
+    scores = torch.where(_attention_mask(pos, pos, causal, window), scores,
+                         NEG_INF)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(scores, dim=-1),
+                       v.transpose(1, 2).to(torch.float32))
+    return out.reshape(b, h, s, d).transpose(1, 2).to(q.dtype), scores
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale=None) -> torch.Tensor:
+    """q (B,H,S,D), k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype: the
+    attention of :func:`_softmax_attention` in the heads-major layout."""
+    out, _ = _softmax_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal, window, scale)
+    return out.transpose(1, 2)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
+                            window: int = 0, scale=None):
+    """q (B,S,H,D), k/v (B,S,Hkv,D) -> (out (B,S,H,D) in q's dtype, lse
+    (B,H,S) fp32): :func:`_softmax_attention` plus the row log-sum-exp
+    the backward recomputes from, over the same scores.  The reference's
+    ``_flash_fwd_scan`` takes ``lse = m + log(l_safe)`` with ``l_safe =
+    1`` where a row is fully masked: a masked score adds exp(NEG_INF - m)
+    = 0, and a fully masked row gives NEG_INF + log(S), which is NEG_INF
+    in fp32."""
+    b, s, h, _ = q.shape
+    out, scores = _softmax_attention(q, k, v, causal, window, scale)
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, scale=None, chunk: int = 512):
+    """The reference's ``_flash_vjp_bwd`` (``models/layers/attention.py``)
+    line for line, in the kernels' layout: q, out, dout (B,S,H,D), k/v
+    (B,S,Hkv,D), lse (B,H,S) -> (dq, dk, dv) in the inputs' dtypes.
+
+    Recomputes ``p = exp(s - lse)`` chunk by chunk over the keys, with
+    ``delta = rowsum(dout * out)``, ``ds = p (dp - delta) scale``; GQA by
+    index, so dk and dv sum over the ``H/Hkv`` query heads that read each
+    kv head.  A fully masked row gives zero gradients."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, s, hkv, g, d)
+    d_out = dout.to(f32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    o = out.to(f32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    delta = torch.sum(d_out * o, dim=-1)                 # (B,Hkv,g,Sq)
+    lse_r = lse.to(f32).reshape(b, hkv, g, s)
+    pos = torch.arange(s, device=q.device)
+    ck = min(chunk, s)
+    dq = torch.zeros((b, s, hkv, g, d), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, s, ck):
+        kb = k[:, k0:k0 + ck].to(f32)
+        vb = v[:, k0:k0 + ck].to(f32)
+        mask = _attention_mask(pos, pos[k0:k0 + ck], causal, window)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
+        p = torch.where(mask, torch.exp(sc - lse_r[..., None]), 0.0)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, d_out))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", d_out, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qf))
+    return (dq.reshape(b, s, h, d).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -168,3 +239,17 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int):
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bs, sp, h, p)[:, :s]
     return y.to(x.dtype), hst
+
+
+def ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk: int):
+    """Gradient of :func:`ssd_scan_ref` (the reference's ``ssd_chunked``
+    from a zero state, whose own backward is ``jax.grad`` through its
+    checkpointed chunk body) by ``torch.func.vjp`` through the plain
+    version, which also runs inside ``torch.func`` transforms:
+    cotangents ``dy`` (B,S,H,P) of y and ``dh_last`` (B,H,P,N) of h_last
+    (``None``: zero) -> (dx, ddt, da, db, dc) in the inputs' dtypes."""
+    (y, h_last), vjp = torch.func.vjp(
+        lambda *ins: ssd_scan_ref(*ins, chunk), x, dt, a, b, c)
+    dh = torch.zeros_like(h_last) if dh_last is None \
+        else dh_last.to(h_last.dtype)
+    return vjp((dy.to(y.dtype), dh))

@@ -10,12 +10,17 @@ a leading ``num_layers`` axis for ``lax.scan`` and the port keeps a list
 of per-layer dicts and loops over it in Python.  There is no mesh, so
 the reference's ``constrain_batch`` is the identity here (ROADMAP.md
 A17).  Positions are the implicit ``arange(S)`` of the serve path: a
-``positions`` entry in the batch raises.
+``positions`` entry in the batch raises.  ``cfg.remat_layers`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per layer).  Training differentiates the fp32
+masters: the layers cast each weight at its use (``w.to(x.dtype)``), and
+``activation_copy`` (bf16 copies for serving) is not for training.
 
 Public entry points:
   * ``init_params``      — parameter tree (fp32 masters)
-  * ``forward_train``    — full-sequence logits (the loss waits for the
-                           training slice)
+  * ``forward_train``    — full-sequence logits
+  * ``xent_loss``, ``train_loss``, ``train_loss_sum`` — the training
+                           objective (no MoE aux: no MoE kind is ported)
   * ``prefill``          — logits + populated decode cache
   * ``decode_step``      — ONE token against the cache (updated in place)
   * ``init_cache``       — zeroed decode cache for a given batch/seq
@@ -27,6 +32,8 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.models.layers import attention as attn_lib
@@ -156,7 +163,12 @@ def _angles_for(cfg, positions):
 
 def _run_layers_full(params, cfg, x, angles, *, want_cache: bool):
     caches: List[Any] = []
+    remat = cfg.remat_layers and not want_cache and torch.is_grad_enabled()
     for lp in params["layers"]:
+        if remat:
+            x = checkpoint(lambda x, lp: _block_full(cfg, lp, x, angles)[0],
+                           x, lp, use_reentrant=False)
+            continue
         x, cache = _block_full(cfg, lp, x, angles)
         if want_cache:
             caches.append(cache)
@@ -182,6 +194,43 @@ def forward_train(params, cfg: ModelConfig, batch, *, dtype=None):
                             want_cache=False)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), torch.zeros((), device=tokens.device)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def xent_loss(logits, labels, mask=None):
+    """Masked token cross-entropy as ``(sum_loss, num_tokens)``: the pair,
+    not the mean, is what lets the federated protocol weight clients by
+    their token counts (Eq. 2)."""
+    logp = F.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+    mask = torch.ones_like(ll) if mask is None else mask.to(torch.float32)
+    return -torch.sum(ll * mask), torch.sum(mask)
+
+
+def train_loss(params, cfg: ModelConfig, batch, *, dtype=None):
+    """Scalar mean token loss of a batch (``labels``, optional
+    ``loss_mask``)."""
+    logits, _ = forward_train(params, cfg, batch, dtype=dtype)
+    s, n = xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return s / torch.clamp(n, min=1.0)
+
+
+def train_loss_sum(params, cfg: ModelConfig, batch, *, dtype=None):
+    """``(sum_loss, num_tokens)`` form of :func:`train_loss`: a
+    ``doc_mask`` row mask (zero-padded cohort rows) multiplies into the
+    token mask, so padded documents stay out of the objective and its
+    gradient."""
+    logits, _ = forward_train(params, cfg, batch, dtype=dtype)
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device) if mask is None \
+        else mask.to(torch.float32)
+    doc_mask = batch.get("doc_mask")
+    if doc_mask is not None:
+        mask = mask * doc_mask.to(torch.float32)[..., None]
+    return xent_loss(logits, labels, mask)
 
 
 # ---------------------------------------------------------------------------

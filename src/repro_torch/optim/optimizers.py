@@ -1,5 +1,6 @@
 """Optimizers and schedules of the reference's ``optim/optimizers.py``,
-over ``dict[str, Tensor]``.
+over parameter trees: nested dicts, lists and tuples of tensors (the
+ProdLDA ``{name: tensor}`` dicts, the LM's list of per-layer dicts).
 
 The paper's server update (Eq. 3) is plain SGD, ``W <- W - lambda * G``:
 ``sgd()`` with momentum 0 is the gFedNTM-faithful optimizer.  Adam and
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping, Tuple
+from typing import Any, Callable, List, Mapping, Tuple
 
 import torch
 
@@ -27,20 +28,41 @@ class Optimizer:
     update: Callable[..., Any]   # (params, grads, state, step) -> (params, state)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same structure; dict leaves matched by key), into a
+    tree of ``tree``'s structure."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of ``tree`` in order (dicts in key order)."""
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def global_norm(tree) -> torch.Tensor:
     """``sqrt(sum over leaves of sum(leaf ** 2))`` in fp32, as a 0-dim
     tensor on the leaves' device."""
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree.values()))
+                          for leaf in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
-                        ) -> Tuple[dict, torch.Tensor]:
+def clip_by_global_norm(tree, max_norm: float) -> Tuple[Any, torch.Tensor]:
     """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))``;
     returns ``(clipped, norm)``."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: g * scale for k, g in tree.items()}, norm
+    return tree_map(lambda g: g * scale, tree), norm
 
 
 # ---------------------------------------------------------------------------
@@ -85,18 +107,18 @@ def sgd(learning_rate, momentum: float = 0.0,
     def init(params):
         if momentum == 0.0:
             return {}
-        return {"mu": {k: torch.zeros_like(p) for k, p in params.items()}}
+        return {"mu": tree_map(torch.zeros_like, params)}
 
     def update(params, grads, state, step=0):
         lr = sched(step)
         if momentum == 0.0:
-            return {k: p - lr * grads[k].to(p.dtype)
-                    for k, p in params.items()}, state
-        mu = {k: momentum * m + grads[k].to(m.dtype)
-              for k, m in state["mu"].items()}
-        upd = {k: momentum * m + grads[k].to(m.dtype)
-               for k, m in mu.items()} if nesterov else mu
-        return {k: p - lr * upd[k] for k, p in params.items()}, {"mu": mu}
+            return tree_map(lambda p, g: p - lr * g.to(p.dtype), params,
+                            grads), state
+        mu = tree_map(lambda m, g: momentum * m + g.to(m.dtype),
+                      state["mu"], grads)
+        upd = tree_map(lambda m, g: momentum * m + g.to(m.dtype), mu,
+                       grads) if nesterov else mu
+        return tree_map(lambda p, u: p - lr * u, params, upd), {"mu": mu}
 
     return Optimizer(init, update)
 
@@ -106,22 +128,21 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
     sched = _resolve(learning_rate)
 
     def init(params):
-        z = {k: torch.zeros_like(p, dtype=torch.float32)
-             for k, p in params.items()}
-        return {"m": z, "v": {k: torch.zeros_like(x) for k, x in z.items()}}
+        z = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
+        return {"m": z, "v": tree_map(torch.zeros_like, z)}
 
     def update(params, grads, state, step=0):
         lr = sched(step)
         t = step + 1
-        g32 = {k: g.to(torch.float32) for k, g in grads.items()}
-        m = {k: b1 * m_ + (1 - b1) * g32[k] for k, m_ in state["m"].items()}
-        v = {k: b2 * v_ + (1 - b2) * torch.square(g32[k])
-             for k, v_ in state["v"].items()}
+        g32 = tree_map(lambda g: g.to(torch.float32), grads)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], g32)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g),
+                     state["v"], g32)
         mhat_scale = 1.0 / (1 - b1 ** t)
         vhat_scale = 1.0 / (1 - b2 ** t)
-        new = {k: p - lr * (m[k] * mhat_scale)
-               / (torch.sqrt(v[k] * vhat_scale) + eps)
-               for k, p in params.items()}
+        new = tree_map(lambda p, m_, v_: p - lr * (m_ * mhat_scale)
+                       / (torch.sqrt(v_ * vhat_scale) + eps), params, m, v)
         return new, {"m": m, "v": v}
 
     return Optimizer(init, update)
@@ -135,8 +156,8 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
     def update(params, grads, state, step=0):
         lr = sched(step)
         new, st = inner.update(params, grads, state, step)
-        return {k: n - lr * weight_decay * params[k]
-                for k, n in new.items()}, st
+        return tree_map(lambda n, p: n - lr * weight_decay * p, new,
+                        params), st
 
     return Optimizer(inner.init, update)
 

@@ -7,14 +7,16 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (the plain versions are held against the JAX reference by the
-CPU tests): B1, B2, B5 and B6 within their bounds, B3 and B4 bitwise.
+CPU tests): B1, B2, B5 and B6 within their bounds, B3 and B4 bitwise; the backward
+kernels of B5 and B6 against their plain backward passes, and bitwise
+from call to call.
 A small service run, small synchronous training runs (the
 ``pallas-topk``, ``pallas-secure`` and ``dp-transform`` specs on the
 batched cohort path), Algorithm 1 on the host loop (the ``paper`` and
 ``straggler-heavy`` specs, ``FederatedTrainer``, and each message
-transform on the loop and in the service) and a reduced
-hymba-1.5b prefill + decode on the card are held against the same runs
-on the CPU.  ``chip_smoke.py``
+transform on the loop and in the service), a reduced
+hymba-1.5b prefill + decode and its ``train_loss`` gradients on the card
+are held against the same runs on the CPU.  ``chip_smoke.py``
 repeats these checks at the full ProdLDA and hymba-1.5b widths.
 """
 import numpy as np
@@ -33,8 +35,9 @@ from repro_torch.optim import sgd
 from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import grid, topic_decoder_cuda
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import FederationService, run_traffic
@@ -681,62 +684,246 @@ def _leaves(tree):
     return [tree]
 
 
-def test_forward_train_on_card_refuses_grad(cuda_device):
-    """B5 and B6 are forward-only on the card: ``forward_train`` with
-    parameters that require grad raises, naming the kernel, instead of
-    returning logits whose backward would skip the attention core and the
-    scan; under ``torch.no_grad()`` it runs and agrees with the CPU."""
+def _grads_of_train_loss(params, cfg, batch, dtype):
+    for leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    loss = tfm.train_loss(params, cfg, batch, dtype=dtype)
+    loss.backward()
+    return float(loss.detach()), [leaf.grad for leaf in _leaves(params)]
+
+
+def test_train_loss_grads_on_card_match_cpu(cuda_device):
+    """Reduced hymba-1.5b in fp32 from the same weights: ``train_loss``
+    and every gradient leaf through B5's and B6's backward kernels on
+    the card against the plain backward passes on the CPU, within 1e-4
+    of each leaf's scale; each backward kernel runs once per layer."""
     cfg = get_config("hymba-1.5b").reduced()
     cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
                           device="cpu")
     gpu = _to(cpu, cuda_device)
-    for leaf in _leaves(gpu):
-        leaf.requires_grad_(True)
-    toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 96))
-    counts = (flash_attention.launches, ssd_scan.launches)
-    with pytest.raises(RuntimeError,
-                       match=r"B[56] (flash_attention|ssd_scan).*A16a"):
-        tfm.forward_train(gpu, cfg, {"tokens": toks.to(cuda_device)},
-                          dtype=torch.float32)
-    assert (flash_attention.launches, ssd_scan.launches) == counts
-    with torch.no_grad():
-        got, _ = tfm.forward_train(gpu, cfg, {"tokens": toks.to(cuda_device)},
-                                   dtype=torch.float32)
-    want, _ = tfm.forward_train(cpu, cfg, {"tokens": toks},
-                                dtype=torch.float32)
-    assert (flash_attention.launches, ssd_scan.launches) == (
+    toks = rng_tokens(cfg.vocab_size, 2, 97)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    want_loss, want = _grads_of_train_loss(cpu, cfg, batch, torch.float32)
+    counts = (flash_attention.bwd_launches, ssd_scan.bwd_launches)
+    got_loss, got = _grads_of_train_loss(
+        gpu, cfg, {k: v.to(cuda_device) for k, v in batch.items()},
+        torch.float32)
+    assert (flash_attention.bwd_launches, ssd_scan.bwd_launches) == (
         counts[0] + cfg.num_layers, counts[1] + cfg.num_layers)
-    scale = max(float(want.abs().max()), 1.0)
-    assert float((got.cpu() - want).abs().max()) / scale <= 2e-4
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.cpu() - w).abs().max()) / scale <= 1e-4
 
 
-@pytest.mark.parametrize("call", ["topic_decoder", "flash_attention",
-                                  "ssd_scan"])
+@pytest.mark.parametrize("call", ["topic_decoder"])
 def test_forward_only_kernels_refuse_grad(cuda_device, call, rng):
-    """``ops.topic_decoder_loss``, ``ops.flash_attention`` and
-    ``ops.ssd_scan`` on CUDA tensors that require grad raise, naming the
-    kernel; under ``torch.no_grad()`` the same call runs and agrees with
-    the plain version."""
+    """``ops.topic_decoder_loss`` (B1, forward-only until A3) on CUDA
+    tensors that require grad raises, naming the kernel; under
+    ``torch.no_grad()`` the same call runs and agrees with the plain
+    version.  (B5 and B6 have backward kernels: the tests below.)"""
     t = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32))
-    if call == "topic_decoder":
-        args = [torch.softmax(t(64, 8), -1), t(8, 300),
-                torch.from_numpy(rng.poisson(0.2, (64, 300)).astype(
-                    np.float32)), 0.5 + t(300).abs()]
-        fn, tol = ops.topic_decoder_loss, 1e-5
-    elif call == "flash_attention":
-        args = [t(2, 96, 4, 32), t(2, 96, 2, 32), t(2, 96, 2, 32)]
-        fn, tol = (lambda q, k, v: ops.flash_attention(q, k, v, window=64),
-                   2e-5)
-    else:
-        args = [t(1, 64, 2, 16), 0.01 + 0.09 * t(1, 64, 2).abs(),
-                -torch.arange(1.0, 3.0), t(1, 64, 8), t(1, 64, 8)]
-        fn, tol = (lambda *a: ops.ssd_scan(*a, chunk=32)[0], 1e-4)
+    args = [torch.softmax(t(64, 8), -1), t(8, 300),
+            torch.from_numpy(rng.poisson(0.2, (64, 300)).astype(
+                np.float32)), 0.5 + t(300).abs()]
+    fn, tol = ops.topic_decoder_loss, 1e-5
     want = fn(*args)
     dev = [a.to(cuda_device).requires_grad_(True) for a in args]
-    with pytest.raises(RuntimeError, match=call):
+    with pytest.raises(RuntimeError, match=f"{call}.*A3"):
         fn(*dev)
     with torch.no_grad():
         got = fn(*dev)
     scale = max(float(want.abs().max()), 1.0)
     assert float((got.cpu() - want).abs().max()) / scale <= tol
+
+
+# (b, hq, hkv, s, d, causal, window): causal, windowed (causal and not)
+# and full masks, GQA and MQA, ragged S, every head dim
+FLASH_BWD_CASES = [
+    (2, 4, 2, 70, 32, True, 16), (1, 5, 1, 130, 64, True, 0),
+    (1, 3, 3, 100, 96, False, 0), (1, 4, 2, 77, 128, False, 20),
+    (1, 25, 5, 300, 64, True, 128), (2, 2, 1, 64, 64, True, 64),
+]
+
+
+def _flash_bwd_inputs(case, dtype, rng, dev):
+    b, hq, hkv, s, d, causal, window = case
+    fused = torch.from_numpy(rng.standard_normal(
+        (b, s, hq + 2 * hkv, d)).astype(np.float32)).to(dev, dtype)
+    q, k, v = fused.split([hq, hkv, hkv], dim=2)
+    dout = torch.from_numpy(rng.standard_normal((b, s, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+    return q, k, v, out, lse, dout, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda_device, case, dtype, rng):
+    """B5's backward against ``ref.flash_attention_bwd_ref`` on the same
+    (q, k, v, out, lse, dout), q/k/v strided slices of one projection:
+    2e-5 (fp32) and 2e-2 (bf16) of each gradient's scale; the lse the
+    forward writes against the plain one."""
+    q, k, v, out, lse, dout, kw = _flash_bwd_inputs(case, dtype, rng,
+                                                    cuda_device)
+    _, lse_want = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    before = flash_attention.bwd_launches
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert flash_attention.bwd_launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(lse, lse_want, rtol=tol, atol=tol)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+
+
+# (b, s, h, p, n, chunk): chunk edges (one past, one short, exact), a
+# ragged tail, N in 8, 16, 64, 128 and every head dim
+SSD_BWD_CASES = [(2, 64, 3, 16, 16, 32), (1, 100, 2, 32, 16, 48),
+                 (1, 257, 2, 64, 16, 256), (1, 255, 3, 64, 16, 64),
+                 (1, 128, 2, 64, 64, 64), (1, 200, 2, 64, 128, 128),
+                 (1, 96, 2, 32, 8, 64)]
+
+
+def _ssd_bwd_inputs(case, dtype, rng, dev):
+    b, s, h, p, n, chunk = case
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(dev, dtype)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32)).to(dev)
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, h).astype(np.float32)).to(
+        dev)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(
+        np.float32)).to(dev, dtype)
+    dh = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(
+        np.float32)).to(dev)
+    return x, dt, a, bb, cc, dy, dh
+
+
+@pytest.mark.parametrize("with_h_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype, with_h_last,
+                                      rng):
+    """B6's backward against ``ref.ssd_scan_bwd_ref`` (autodiff through
+    the plain scan) from the states the forward kept, with and without a
+    cotangent on h_last: 1e-4 (fp32) and 2e-2 (bf16) of each gradient's
+    scale."""
+    b, s, h, p, n, chunk = case
+    x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, dtype, rng,
+                                               cuda_device)
+    dh = dh if with_h_last else None
+    _, _, states = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                 keep_states=True)
+    before = ssd_scan.bwd_launches
+    got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, states, dh, chunk=chunk)
+    assert ssd_scan.bwd_launches == before + 1
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, chunk)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
+def test_backward_kernels_repeat_bitwise(cuda_device, kernel, rng):
+    """No atomics: two backward calls on the same inputs give the same
+    bits."""
+    if kernel == "flash_attention":
+        q, k, v, out, lse, dout, kw = _flash_bwd_inputs(
+            FLASH_BWD_CASES[4], torch.bfloat16, rng, cuda_device)
+        runs = [flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+                for _ in range(2)]
+    else:
+        case = SSD_BWD_CASES[3]
+        x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, torch.bfloat16,
+                                                   rng, cuda_device)
+        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=case[-1],
+                                 keep_states=True)
+        runs = [ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
+                                  chunk=case[-1]) for _ in range(2)]
+    for g1, g2 in zip(*runs):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("mode", ["backward", "func_grad"])
+def test_bf16_function_grads_on_card_match_plain(cuda_device, kernel, mode,
+                                                 rng):
+    """``ops.flash_attention`` and ``ops.ssd_scan`` on bf16 CUDA tensors,
+    differentiated by ``loss.backward()`` and by ``torch.func.grad``: the
+    backward kernels' gradients against autograd through the plain
+    forward on the same tensors, within 2e-2 of each gradient's scale
+    (dt's through its cast to fp32)."""
+    if kernel == "flash_attention":
+        fused = torch.from_numpy(rng.standard_normal(
+            (1, 200, 35, 64)).astype(np.float32)).to(cuda_device,
+                                                     torch.bfloat16)
+        cot = torch.randn(1, 200, 25, 64, device=cuda_device)
+
+        def run(fn, f):
+            q, k, v = f.split([25, 5, 5], dim=2)
+            return torch.sum(fn(q, k, v).float() * cot)
+        fast = lambda q, k, v: ops.flash_attention(  # noqa: E731
+            q, k, v, window=64)
+        plain = lambda q, k, v: ref.flash_attention_ref(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=64).transpose(1, 2)
+        args = (fused,)
+    else:
+        x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(
+            (1, 300, 4, 64, 16, 256), torch.bfloat16, rng, cuda_device)
+
+        def run(fn, x, dt, a, bb, cc):
+            y, hl = fn(x, dt, a, bb, cc)
+            return torch.sum(y.float() * dy.float()) + torch.sum(hl * dh)
+        fast = lambda *t: ops.ssd_scan(*t, chunk=256)  # noqa: E731
+        plain = lambda *t: ref.ssd_scan_ref(*t, 256)  # noqa: E731
+        args = (x.contiguous(), dt, a, bb.contiguous(), cc.contiguous())
+    argnums = tuple(range(len(args)))
+    want = torch.func.grad(lambda *t: run(plain, *t), argnums=argnums)(*args)
+    if mode == "func_grad":
+        got = torch.func.grad(lambda *t: run(fast, *t),
+                              argnums=argnums)(*args)
+    else:
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        run(fast, *leaves).backward()
+        got = [t.grad for t in leaves]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= 2e-2
+
+
+def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
+    """One ``make_train_step`` step of reduced hymba-1.5b on the card:
+    B5 and B6 forward and backward each launch once per layer, B1-B4
+    never; the step's loss and parameters are finite."""
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_config("hymba-1.5b").reduced()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
+                             device=cuda_device)
+    toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 129)).to(
+        cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, sgd(2e-3), dtype=torch.float32)
+    before = (flash_attention.launches, flash_attention.bwd_launches,
+              ssd_scan.launches, ssd_scan.bwd_launches,
+              fed_aggregate.launches)
+    new, _, loss = step(params, {}, batch, 0)
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, flash_attention.bwd_launches,
+             ssd_scan.launches, ssd_scan.bwd_launches,
+             fed_aggregate.launches)
+    assert [y - x for x, y in zip(before, after)] == [cfg.num_layers] * 4 \
+        + [0]
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(t).all()) for t in _leaves(new))

@@ -79,9 +79,9 @@ def _angles(cfg, b, s):
 # configs
 # ---------------------------------------------------------------------------
 # reference fields the port leaves out: lowering knobs and CTM fields no
-# ported path reads (configs/base.py says so)
-OMITTED = {"scan_layers", "unroll_chunks", "remat_layers", "ntm_dropout",
-           "contextual_dim"}
+# ported path reads (configs/base.py says so; remat_layers joined with LM
+# training)
+OMITTED = {"scan_layers", "unroll_chunks", "ntm_dropout", "contextual_dim"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -288,7 +288,7 @@ def test_forward_train_cpu_is_differentiable():
     attention core (``wq``) and the scan (Mamba-2's ``in_proj`` and
     ``A_log``, which enters only through the scan), and agrees with
     ``jax.grad`` of the reference within 2e-4 of each gradient's scale.
-    (On the card the same call raises: the kernels are forward-only.)"""
+    (On the card the same call runs B5's and B6's backward kernels.)"""
     jc, tc, jp, tp = _model("hymba-1.5b", seed=2)
     toks = _tokens(jc, 2, 70, seed=1)
     cot = np.random.default_rng(3).standard_normal(
