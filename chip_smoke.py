@@ -22,8 +22,9 @@ Phases, each fatal on failure (no phase catches and carries on):
    whichever is larger: the H100 SXM data-sheet peaks at its 700 W power
    limit); then the backward kernels of B5 and B6 against their plain
    backward passes over a grid (B5: causal, windowed and full masks, GQA,
-   ragged S, D = 32, 64, 96, 128, fp32 and bf16; B6: chunk edges, a
-   ragged tail, N = 16, 64, 128, a cotangent on h_last, fp32 and bf16)
+   ragged S, D = 32, 64, 96, 128, fp32 and bf16, bf16 on the tensor
+   cores; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
+   on h_last, fp32 and bf16)
    and timed at the LM training path's shapes (B5's beside the backward
    of ``F.scaled_dot_product_attention``);
 4. service path: the buffered-async service at the full width of
@@ -714,7 +715,9 @@ B5_BWD_CASES = [  # (b, hq, hkv, s, d, causal, window, dtype)
           (2, 4, 2, 70, 32, True, 16),      # GQA, window, ragged
           (1, 5, 1, 130, 64, True, 0),      # MQA, causal
           (1, 3, 3, 100, 96, False, 0),     # full
-          (1, 4, 2, 77, 128, False, 20))    # bidirectional window
+          (1, 4, 2, 77, 128, False, 20),    # bidirectional window
+          (1, 4, 2, 256, 64, True, 40),     # window edge inside a tile
+          (1, 5, 1, 129, 96, True, 0))      # a ragged tail of one row
       for dt in (FP32, BF16)],
 ]
 B6_BWD_CASES = [  # (b, s, h, p, n, chunk, dtype); h_last gets a cotangent
@@ -944,9 +947,11 @@ def _kernel_b5_bwd(g, dev):
     log(f"B5 flash_attention backward: {len(B5_BWD_CASES)} shapes (the "
         f"training path's (1, 4096, 25/5 heads, 64, window 1024) bf16, "
         f"(1, 1024, 25/5, 64, window 256) fp32; causal, windowed and full "
-        f"masks, GQA and MQA, ragged S, D=32, 64, 96, 128 in both "
-        f"dtypes): max |kernel - plain| {errs}, of max|plain| {worst:.3e} "
-        f"(bounds 2e-5 fp32, 2e-2 bf16, of each gradient's max|plain|)")
+        f"masks, GQA and MQA, ragged S down to a one-row tail, a window "
+        f"edge inside a tile, D=32, 64, 96, 128 in both dtypes; bf16 on "
+        f"the tensor cores, fp32 on the CUDA cores): max |kernel - plain| "
+        f"{errs}, of max|plain| {worst:.3e} (bounds 2e-5 fp32, 2e-2 bf16, "
+        f"of each gradient's max|plain|)")
     b, hq, hkv, s, d, causal, window, dtype = B5_BWD_CASES[0]
     q, k, v, out, lse, dout, kw = inputs(*B5_BWD_CASES[0])
     pairs = b * hq * _window_pairs(s, causal, window)
@@ -957,6 +962,12 @@ def _kernel_b5_bwd(g, dev):
                             "_flash_vjp_bwd of B5",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
            "pairs": pairs,
+           "routes": {"bfloat16": "wgmma", "float32": "simt"},
+           "design": "bf16: wgmma in three launches (flash_bwd_dq_tc_kernel"
+                     ", flash_bwd_dkdv_tc_kernel per query head, "
+                     "flash_bwd_group_sum_kernel); fp32: flash_bwd_dq_kernel"
+                     " and flash_bwd_dkdv_kernel on the CUDA cores",
+           "ptxas": _ptxas_record("flash_attention_bwd", ("flash_bwd_",)),
            "library": "backward of F.scaled_dot_product_attention(boolean "
                       "window mask, enable_gqa=True) on (B,H,S,D) copies"}
     # q, k, v, out, dout (bf16) and lse (fp32) read once, dq, dk, dv
@@ -992,6 +1003,15 @@ def _kernel_b5_bwd(g, dev):
         + f"; the forward at the same shape {rec['fwd_ms'] * 1e3:.2f} us, "
         f"{rec['fwd_lse_ms'] * 1e3:.2f} us when it also writes lse")
     del q, k, v, out, lse, dout, qt, kt, vt, lib_out, dout_t
+    # the fp32 route at its grid case
+    case = B5_BWD_CASES[1]
+    q, k, v, out, lse, dout, kw = inputs(*case)
+    rec["fp32_case"] = list(case[:-1])
+    rec["fp32_ms"] = device_ms(
+        lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw))
+    log(f"  flash_attention backward fp32 (CUDA cores) at {case[:-1]}: "
+        f"device {rec['fp32_ms'] * 1e3:.2f} us/call")
+    del q, k, v, out, lse, dout
     return rec
 
 
@@ -2166,7 +2186,8 @@ def main() -> int:
              "dp_cold_ms", "yardstick", "yardstick_ms",
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
-             "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms")
+             "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
+             "routes", "fp32_case", "fp32_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

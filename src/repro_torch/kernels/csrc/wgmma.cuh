@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): cp.async loads into shared memory,
-// the swizzled tile layouts and the shared-memory matrix descriptors that
-// wgmma reads, and the wgmma instructions themselves (sm_90a).
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): cp.async
+// loads into shared memory, the swizzled tile layouts and the
+// shared-memory matrix descriptors that wgmma reads, and the wgmma
+// instructions themselves (sm_90a).
 //
 // Layouts (bf16 tiles; "row" is the strided dim of the tile):
 //   * 128-byte swizzle: column atoms of 64 entries, [atom][row][128 B];
@@ -49,6 +50,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared, asynchronous (through L1); zero-fills when
+// !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

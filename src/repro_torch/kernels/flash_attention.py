@@ -9,12 +9,13 @@ card), and of the reference's jnp VJP ``_flash_vjp_bwd``
 Model code calls ``ops.flash_attention``, which routes a CUDA tensor
 here and a CPU tensor to the plain versions in ``ref.py``.
 
-Two routes, by dtype: bf16 runs on the tensor cores (``wgmma``), fp32
+Two routes, by dtype, in the forward and in the backward alike: bf16
+runs on the tensor cores (``wgmma``; the backward in three launches:
+dq, dk/dv partials per query head, their sum over each GQA group), fp32
 on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of fp32
 models needs (TF32 or bf16 products would not hold its bounds).  A bf16
-call the tensor-core kernel cannot take raises; it never goes to the
-fp32 kernel or to the plain version.  The backward takes either dtype
-and computes in fp32 on the CUDA cores.
+call the tensor-core kernels cannot take raises; it never goes to the
+fp32 kernels or to the plain version.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def _kernel(name: str):
             fn = _build.load("flash_attention_bwd").flash_attention_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 15 \
                 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_void_p]
+                                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -82,6 +83,17 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError(f"{fn} takes B, H <= 65535, got {b}, {h}")
 
 
+def _check_aligned(fn: str, **operands: torch.Tensor):
+    """The tensor-core routes read 16-byte aligned operands whose (b, s,
+    h) strides are multiples of 8 elements; raise on any other."""
+    for name, t in operands.items():
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+            raise ValueError(
+                f"{fn} on bf16 takes 16-byte aligned operands with (b, s, "
+                f"h) strides that are multiples of 8: {name} starts at "
+                f"{t.data_ptr() % 16} mod 16 with strides {t.stride()[:3]}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, scale: float,
                          want_lse: bool = False):
@@ -98,13 +110,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
-                raise ValueError(
-                    f"flash_attention_cuda on bf16 takes 16-byte aligned "
-                    f"operands with (b, s, h) strides that are multiples "
-                    f"of 8: {name} starts at {t.data_ptr() % 16} mod 16 "
-                    f"with strides {t.stride()[:3]}")
+        _check_aligned("flash_attention_cuda", q=q, k=k, v=v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
@@ -134,9 +140,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The gradient of :func:`flash_attention_cuda`: q, k, v as the
     forward took them, its ``out`` and ``lse``, and ``dout`` (B,S,H,D) ->
     (dq (B,S,H,D), dk, dv (B,S,Hkv,D)) contiguous in q's dtype, dk and dv
-    summed over the query heads of each kv head.  Two launches (dq with
-    each row's ``rowsum(dout * out)``, then dk and dv); no atomics, so
-    repeated calls give the same bits."""
+    summed over the query heads of each kv head.  bf16 runs on the tensor
+    cores in three launches (dq with each row's ``rowsum(dout * out)``,
+    dk and dv as fp32 partials per query head, their sum over each kv
+    head's group) and takes operands as the forward's bf16 route does.
+    fp32 runs on the CUDA cores in two launches (dq, then dk and
+    dv).  No atomics, so repeated calls give the same bits."""
     global bwd_launches
     _check("flash_attention_bwd_cuda", q, k, v)
     dev = q.device
@@ -157,6 +166,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{lse.dtype} on {lse.device}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned("flash_attention_bwd_cuda", q=q, k=k, v=v, out=out,
+                       dout=dout)
     lse = lse.contiguous()
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=dev)
@@ -164,6 +177,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if b == 0 or s == 0 or h == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    # the bf16 route's dk, dv partials, one per query head
+    part = torch.empty((2, b, s, h, d),
+                       dtype=torch.float32, device=dev) if bf16 else None
     strides = [t.stride(i) for t in (q, k, v, out, dout) for i in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -172,7 +188,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                              dv.data_ptr(), *strides, b, s, h, hkv, d,
                              int(bool(causal)), int(window), float(scale),
-                             int(q.dtype == torch.bfloat16), stream)
+                             int(bf16), part.data_ptr() if bf16 else None,
+                             stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

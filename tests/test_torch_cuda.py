@@ -546,6 +546,27 @@ def test_flash_kernel_bf16_refuses_misaligned(cuda_device, fault):
     assert flash_attention.launches == before
 
 
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_flash_bwd_kernel_bf16_refuses_misaligned(cuda_device, fault):
+    """The backward's tensor-core route reads its operands as the
+    forward's does; a misaligned q raises before any launch (no fp32 or
+    plain fallback)."""
+    if fault == "pointer":
+        q = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda_device,
+                        dtype=torch.bfloat16)[1:].view(2, 64, 2, 64)
+    else:
+        q = torch.zeros(2, 64, 2, 68, device=cuda_device,
+                        dtype=torch.bfloat16)[..., :64]
+    k = torch.zeros(2, 64, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    out = torch.zeros(2, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 2, 64, device=cuda_device)
+    before = flash_attention.bwd_launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd_cuda(q, k, k, out, lse, out, causal=True,
+                                 window=0, scale=0.125)
+    assert flash_attention.bwd_launches == before
+
+
 # (b, s, h, p, n, chunk): the reference's grid, the hymba prefill's head
 # and state at two chunks, a ragged tail, N > 16 (shared-memory path)
 SSD_CASES = [(2, 256, 3, 32, 16, 64), (1, 100, 2, 16, 8, 32),
@@ -745,7 +766,11 @@ FLASH_BWD_CASES = [
     (2, 4, 2, 70, 32, True, 16), (1, 5, 1, 130, 64, True, 0),
     (1, 3, 3, 100, 96, False, 0), (1, 4, 2, 77, 128, False, 20),
     (1, 25, 5, 300, 64, True, 128), (2, 2, 1, 64, 64, True, 64),
+    (1, 4, 2, 256, 64, True, 40),   # the window's edge inside a 128-row tile
+    (1, 5, 1, 129, 96, True, 0),    # a ragged tail of one row
 ]
+# the LM training path's shape (hymba-1.5b, 1 x 4096)
+FLASH_BWD_PATH = (1, 25, 5, 4096, 64, True, 1024)
 
 
 def _flash_bwd_inputs(case, dtype, rng, dev):
@@ -836,22 +861,25 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype, with_h_last,
 @pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
 def test_backward_kernels_repeat_bitwise(cuda_device, kernel, rng):
     """No atomics: two backward calls on the same inputs give the same
-    bits."""
+    bits (B5's also at the LM training path's shape)."""
+    pairs = []
     if kernel == "flash_attention":
-        q, k, v, out, lse, dout, kw = _flash_bwd_inputs(
-            FLASH_BWD_CASES[4], torch.bfloat16, rng, cuda_device)
-        runs = [flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-                for _ in range(2)]
+        for case in (FLASH_BWD_CASES[4], FLASH_BWD_PATH):
+            q, k, v, out, lse, dout, kw = _flash_bwd_inputs(
+                case, torch.bfloat16, rng, cuda_device)
+            pairs.append([flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                   **kw) for _ in range(2)])
     else:
         case = SSD_BWD_CASES[3]
         x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, torch.bfloat16,
                                                    rng, cuda_device)
         _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=case[-1],
                                  keep_states=True)
-        runs = [ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
-                                  chunk=case[-1]) for _ in range(2)]
-    for g1, g2 in zip(*runs):
-        assert torch.equal(g1, g2)
+        pairs.append([ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
+                                        chunk=case[-1]) for _ in range(2)])
+    for first, second in pairs:
+        for g1, g2 in zip(first, second):
+            assert torch.equal(g1, g2)
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])

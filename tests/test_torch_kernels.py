@@ -671,6 +671,84 @@ def test_flash_tensor_core_arithmetic_matches_pallas(b, hq, hkv, s, d,
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
 
 
+def _flash_bwd_tensor_core_emulation(q, k, v, out, lse, dout, *, causal,
+                                     window, scale):
+    """The arithmetic of B5's backward on its bf16 tensor-core route, in
+    plain PyTorch on (B,S,H,D) bf16 tensors and the (B,H,S) fp32 lse: fp32
+    S and dP from the bf16 operands, delta = rowsum(dO o O) in fp32, P =
+    exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta) scale; P and
+    dS rounded to bf16 before their products; dQ, dK, dV (dK and dV per
+    query head, then summed over each kv head's group) accumulated in
+    fp32 and cast once.  Test-only: the kernels' numeric design, checked
+    on the CPU."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    log2e = 1.4426950408889634
+    qf, dof, of = (t.float().transpose(1, 2) for t in (q, dout, out))
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+              for t in (k, v))                              # (B,H,S,D)
+    pos = torch.arange(s)
+    mask = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    t = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * log2e)
+    p = torch.where(mask, torch.exp2(t - lse[..., None] * log2e), 0.0)
+    delta = torch.sum(dof * of, dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale
+    pb, dsb = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.matmul(dsb, kf)
+    dk = torch.matmul(dsb.transpose(-1, -2), qf)
+    dv = torch.matmul(pb.transpose(-1, -2), dof)
+    group = lambda x: x.reshape(b, hkv, h // hkv, s, d).sum(2)  # noqa: E731
+    return (dq.transpose(1, 2).to(torch.bfloat16),
+            group(dk).transpose(1, 2).to(torch.bfloat16),
+            group(dv).transpose(1, 2).to(torch.bfloat16))
+
+
+# the B5 backward grid of tests/test_torch_lm_train.py
+FLASH_BWD_CASES = [  # (b, s, hq, hkv, d, causal, window)
+    (2, 70, 4, 2, 32, True, 16),     # GQA, window, ragged over chunks
+    (1, 64, 4, 4, 16, True, 0),      # causal
+    (1, 37, 3, 1, 16, False, 0),     # full, MQA, ragged
+    (2, 50, 6, 2, 32, False, 8),     # bidirectional window
+    (1, 65, 5, 5, 32, True, 64),     # one past a chunk, window = chunk
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_tensor_core_arithmetic_matches_jax_vjp(case, rng):
+    """B5's backward on its bf16 route rounds P and dS to bf16 before
+    their products: its arithmetic, in plain PyTorch from the forward
+    route's bf16 output, against ``jax.vjp`` of the reference's
+    ``chunked_attention`` on the same seeded bf16 inputs, within 2e-2 of
+    each gradient's max|reference|."""
+    b, s, hq, hkv, d, causal, window = case
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in _qkv(b, hq, hkv, s, d, rng))
+    dout = jnp.asarray(rng.standard_normal((b, s, hq, d)), jnp.bfloat16)
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    _, vjp = jax.vjp(lambda q, k, v: chunked_attention(
+        q, k, v, pos, pos, causal=causal, window=window, scale=d ** -0.5,
+        chunk=16), q, k, v)
+    want = vjp(dout)
+    qt, kt, vt, dt = (_t(a, torch.bfloat16) for a in (q, k, v, dout))
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    out = _flash_tensor_core_emulation(qt, kt, vt, **kw)
+    _, lse = ref.flash_attention_fwd_ref(qt, kt, vt, **kw)
+    got = _flash_bwd_tensor_core_emulation(qt, kt, vt, out, lse, dt, **kw)
+    devs = []
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        devs.append(float(np.max(np.abs(g.float().numpy() - w)))
+                    / float(np.max(np.abs(w))))
+    print(f"B5 backward tensor-core arithmetic vs jax.vjp {case} bf16: dq, "
+          f"dk, dv {['%.3e' % e for e in devs]} of max|reference|")
+    assert max(devs) <= 2e-2
+
+
 # ---------------------------------------------------------------------------
 # B6: the SSD scan (the reference's grid, tests/test_kernels.py)
 # ---------------------------------------------------------------------------
