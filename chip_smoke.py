@@ -24,9 +24,10 @@ Phases, each fatal on failure (no phase catches and carries on):
    backward passes over a grid (B5: causal, windowed and full masks, GQA,
    ragged S, D = 32, 64, 96, 128, fp32 and bf16, bf16 on the tensor
    cores; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
-   on h_last, fp32 and bf16)
+   on h_last, fp32 and bf16, bf16 on the tensor cores)
    and timed at the LM training path's shapes (B5's beside the backward
-   of ``F.scaled_dot_product_attention``);
+   of ``F.scaled_dot_product_attention``), each fp32 route at its grid
+   case;
 4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
@@ -244,8 +245,8 @@ def phase_build():
         "its kernels): " + ", ".join(
             f"P={p} N={n} chunk {q} {b} bytes" for (p, n, q), b in
             zip(((64, 16, 256), (64, 128, 256)),
-                _ssd_tc_smem({"a": (64, 16, 256),
-                              "b": (64, 128, 256)}).values())))
+                _ssd_smem({"a": (64, 16, 256, 1),
+                           "b": (64, 128, 256, 1)}).values())))
 
 
 def ptxas_resources(text: str):
@@ -854,8 +855,8 @@ def _kernel_b6(g, dev):
                      " ssd_state_pass_kernel, ssd_chunk_scan_kernel); fp32: "
                      "ssd_scan_kernel on the CUDA cores",
            "ptxas": _ptxas_record("ssd_scan", ("ssd_chunk_", "ssd_state_")),
-           "smem_bytes": _ssd_tc_smem({"hymba": (p, n, chunk),
-                                       "mamba2": (64, 128, 256)}),
+           "smem_bytes": _ssd_smem({"hymba": (p, n, chunk, 1),
+                                    "mamba2": (64, 128, 256, 1)}),
            "library": "none: no single PyTorch call computes the SSD scan"}
     # x, B, C (bf16) and dt, a (fp32) read once, y (bf16) and h_last (fp32)
     # written once; per (batch, head, chunk) the lower triangle of C B^T
@@ -1062,6 +1063,18 @@ def _kernel_b6_bwd(g, dev):
            "replaces_note": "no TPU kernel: jax.grad of the reference's "
                             "ssd_chunked (B6's backward)",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "routes": {"bfloat16": "wgmma", "float32": "simt"},
+           "design": "bf16: wgmma in four launches (ssd_bwd_rows_tc_kernel, "
+                     "ssd_bwd_state_pass_kernel, ssd_bwd_cols_tc_kernel, "
+                     "ssd_bwd_reduce_kernel); fp32: ssd_bwd_rows_kernel and "
+                     "ssd_bwd_cols_kernel on the CUDA cores, with the same "
+                     "state pass and head sums",
+           "ptxas": _ptxas_record("ssd_scan_bwd", ("ssd_bwd_rows_tc",
+                                                   "ssd_bwd_cols_tc")),
+           "smem_bytes": _ssd_smem({"hymba": (p, n, chunk, 1),
+                                    "mamba2": (64, 128, 256, 1),
+                                    "fp32_hymba": (p, n, chunk, 0)},
+                                   backward=True),
            "library": "none: no single PyTorch call computes the SSD scan's "
                       "gradient"}
     # x, B, C, dy (bf16), dt, a and the kept states (fp32) read once; dx,
@@ -1090,7 +1103,20 @@ def _kernel_b6_bwd(g, dev):
         f"us/call): " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in
                                   rec["launch_us"].items())
         + f"; the forward at the same shape {rec['fwd_states_ms'] * 1e3:.2f}"
-        f" us")
+        f" us; shared memory a block {rec['smem_bytes']}")
+    del x, dt, a, bb, cc, dy, st
+    # the fp32 route at its grid case
+    case = B6_BWD_CASES[1]
+    b, s, h, p, n, chunk, dtype = case
+    x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+    dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
+    rec["fp32_case"] = list(case[:-1])
+    rec["fp32_ms"] = device_ms(
+        lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
+                                  chunk=chunk))
+    log(f"  ssd_scan backward fp32 (CUDA cores) at {case[:-1]}: device "
+        f"{rec['fp32_ms'] * 1e3:.2f} us/call")
     del x, dt, a, bb, cc, dy, st
     return rec
 
@@ -1102,7 +1128,7 @@ def _ptxas_record(lib: str, prefixes) -> list:
     out = []
     for fn, regs, spill, smem in ptxas_resources(
             str(_build.BUILD_LOG.get(lib, {}).get("log", ""))):
-        short = fn.split(" ")[-1]
+        short = fn[len("void "):] if fn.startswith("void ") else fn
         if short.startswith(tuple(prefixes)):
             out.append({"kernel": short, "registers": regs,
                         "spill_stores": spill[0], "spill_loads": spill[1],
@@ -1110,11 +1136,12 @@ def _ptxas_record(lib: str, prefixes) -> list:
     return out
 
 
-def _ssd_tc_smem(shapes: dict) -> dict:
-    """Dynamic shared memory a block of B6's bf16 route asks for."""
+def _ssd_smem(shapes: dict, backward: bool = False) -> dict:
+    """Dynamic shared memory a block of B6 (or of its backward) asks for,
+    the larger of its kernels, at each (P, N, chunk, is_bf16)."""
     from repro_torch.kernels import ssd_scan
-    smem = ssd_scan._kernels()[1]
-    return {k: int(smem(p, n, q, 1)) for k, (p, n, q) in shapes.items()}
+    smem = (ssd_scan._bwd_kernels if backward else ssd_scan._kernels)()[1]
+    return {k: int(smem(*shape)) for k, shape in shapes.items()}
 
 
 def _async_spec(vocab, topics, hidden, clients, docs, val_docs, **execution):

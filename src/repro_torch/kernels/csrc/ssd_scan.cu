@@ -59,7 +59,8 @@
 //   Layouts: x as column atoms of 64 entries under the 128-byte swizzle;
 //   B, C (and h, and B o w) as blocks of 16 columns under the 32-byte
 //   swizzle (a row of N=16 is 32 bytes); N is zero-padded to 16, 32, 64
-//   or 128.  The wgmma building blocks are in wgmma.cuh.
+//   or 128.  The wgmma building blocks are in wgmma.cuh; cum, the loads
+//   and the decay factors in ssd_common.cuh, shared with the backward.
 //   Arithmetic: products of bf16 values are exact in fp32, so C B^T
 //   differs from the reference only in summation order; W, the carried
 //   state in its product and B o w are each rounded to bf16 once (2^-9
@@ -101,11 +102,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ssd_common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using namespace wg;
+using namespace ssd;
 
 // ---------------------------------------------------------------------------
 // fp32 route: CUDA cores
@@ -351,125 +354,8 @@ int dispatch_p(int p, const void* x, const float* dt, const float* a,
 // ---------------------------------------------------------------------------
 // bf16 route: tensor cores (wgmma), three launches
 // ---------------------------------------------------------------------------
-constexpr int kTile = 64;           // rows of a query or key tile
 constexpr int kStateThreads = 128;  // chunk_state: one warpgroup
 constexpr int kScanThreads = 256;   // chunk_scan: two warpgroups
-
-__host__ __device__ __forceinline__ int tile_rows(int chunk) {
-  return (chunk + kTile - 1) / kTile * kTile;
-}
-
-// dt of the rows this thread stores (row threadIdx.x + i * blockDim.x), 0
-// past the chunk or the sequence: loaded before the chunk's copies are
-// issued, so they lead the queue
-__device__ __forceinline__ void load_dt(float (&dtv)[2], const float* dt,
-                                        const Args& g, int bi, int hh,
-                                        int c0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = threadIdx.x + i * blockDim.x;
-    dtv[i] = (r < g.chunk && c0 + r < g.seq)
-                 ? dt[bi * g.dt_sb + (int64_t)(c0 + r) * g.dt_ss +
-                      hh * g.dt_sh]
-                 : 0.0f;
-  }
-}
-
-// cum[r] = sum_{r' <= r} dt[r'] a over the `rows` rows of a chunk (rows <=
-// 256; rows past the chunk hold dt = 0), by one warp: lane l sums rows
-// 8l..8l+7 in order, then the lanes' totals are scanned.  Both
-// tensor-core kernels call it, so they see the same cum to the bit.  Per
-// 64-row tile t (lanes 8t..8t+7) it also keeps the largest and the
-// smallest cum, tmax_s[t] and tmax_s[4 + t], and in tmax_s[8 + t] 1 if
-// cum never rises over the tile (else 0, also for a NaN).
-__device__ __forceinline__ void warp_chunk_cumsum(const float* dt_s,
-                                                  float a_h, float* cum_s,
-                                                  int rows, float* tmax_s) {
-  const int lane = threadIdx.x & 31;
-  float v[8], run = 0.0f;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int r = 8 * lane + e;
-    run += r < rows ? dt_s[r] * a_h : 0.0f;
-    v[e] = run;
-  }
-  float t = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, t, off);
-    if (lane >= off) t += u;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, t, 1);
-  if (lane == 0) excl = 0.0f;
-  float hi = -INFINITY, lo = INFINITY, prev = INFINITY;
-  bool mono = true;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float c = excl + v[e];
-    if (8 * lane + e < rows) cum_s[8 * lane + e] = c;
-    hi = fmaxf(hi, c);
-    lo = fminf(lo, c);
-    mono = mono && c <= prev;
-    prev = c;
-  }
-  // the next lane's first row against this lane's last, inside a tile
-  const float next = __shfl_down_sync(0xffffffffu, excl + v[0], 1);
-  mono = mono && ((lane & 7) == 7 || next <= prev);
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) {
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    const int other = __shfl_xor_sync(0xffffffffu, (int)mono, off);
-    mono = mono && other;
-  }
-  if ((lane & 7) == 0 && 8 * lane < rows) {
-    tmax_s[lane >> 3] = hi;
-    tmax_s[4 + (lane >> 3)] = lo;
-    tmax_s[8 + (lane >> 3)] = mono ? 1.0f : 0.0f;
-  }
-}
-
-// dt into shared memory, then cum by one warp
-__device__ __forceinline__ void chunk_cum(const float (&dtv)[2], float a_h,
-                                          int rows, float* dt_s,
-                                          float* cum_s, float* tmax_s) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = threadIdx.x + i * blockDim.x;
-    if (r < rows) dt_s[r] = dtv[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < 32)
-    warp_chunk_cumsum(dt_s, a_h, cum_s, rows, tmax_s);
-  __syncthreads();
-}
-
-// the rows of x of one (batch, head, chunk) into the 128-byte swizzled
-// tile at s_x, 16 bytes a copy; rows past the chunk or the sequence zero
-__device__ __forceinline__ void load_x(uint32_t s_x, const bf16* xb,
-                                       const Args& g, int c0, int rows,
-                                       int p_dim) {
-  const int pch = p_dim / 8;
-  for (int idx = threadIdx.x; idx < rows * pch; idx += blockDim.x) {
-    const int r = idx / pch, c = idx - r * pch;
-    const bool ok = r < g.chunk && c0 + r < g.seq;
-    cp_async16(s_x + swz(rows, r, c),
-               xb + (ok ? (int64_t)(c0 + r) * g.x_ss : 0) + 8 * c, ok);
-  }
-}
-
-// the rows of B or C (N zero-padded to nch 16-byte chunks) into the
-// 32-byte swizzled tile at s_t
-__device__ __forceinline__ void load_bc(uint32_t s_t, const bf16* tb,
-                                        int64_t t_ss, const Args& g, int c0,
-                                        int rows, int nch) {
-  for (int idx = threadIdx.x; idx < rows * nch; idx += blockDim.x) {
-    const int r = idx / nch, c = idx - r * nch;
-    const bool ok = 8 * c < g.n && r < g.chunk && c0 + r < g.seq;
-    cp_async16(s_t + swz32(rows, r, c),
-               tb + (ok ? (int64_t)(c0 + r) * t_ss + 8 * c : 0), ok);
-  }
-}
 
 size_t state_smem_bytes(int np, int rows) {
   return 1024 + (size_t)rows * (kSwRow + 2 * np) + 2 * sizeof(float) * rows
@@ -480,11 +366,6 @@ size_t scan_smem_bytes(int p, int np, int rows) {
   return 1024 + (size_t)rows * kSwRow + (size_t)(np / 16) * 32 *
          (2 * rows + p) + 2 * kTile * kSwRow + 4 * sizeof(float) * rows
          + 64;
-}
-
-// barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void wg_sync(int wgi) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(wgi + 1) : "memory");
 }
 
 // 1. the chunk's own state X^T (B o w) and cum_Q, into the scratch
@@ -515,7 +396,8 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
   constexpr int kCh = NP / 8;
   load_bc(s_x + o_bw, bmat + bi * g.b_sb, g.b_ss, g, c0, rows, kCh);
   cp_async_commit();
-  load_x(s_x, x + bi * g.x_sb + hh * g.x_sh, g, c0, rows, p_dim);
+  load_x(s_x, x + bi * g.x_sb + hh * g.x_sh, g.x_ss, g, c0, rows,
+         p_dim);
   cp_async_commit();
   chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
   const float cum_last = cum_s[rows - 1];
@@ -640,42 +522,18 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x,
   load_dt(dtv, dt, g, bi, hh, c0);
   const float* st =
       states + (((int64_t)bi * g.heads + hh) * gridDim.y + ci) * P * g.n;
-  constexpr int kHPer = P * 16 / kScanThreads;  // P x N <= P x 128
-  float4 hv[kHPer][2];
-#pragma unroll
-  for (int i = 0; i < kHPer; ++i) {
-    const int idx = tid + i * kScanThreads, p = idx / nch, c = idx % nch;
-    if (idx < P * nch && 8 * c < g.n) {
-      const float4* src =
-          reinterpret_cast<const float4*>(st + p * g.n + 8 * c);
-      hv[i][0] = src[0];
-      hv[i][1] = src[1];
-    } else {
-      hv[i][0] = hv[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
+  float4 hv[kStateChunks<P, kScanThreads>][2];
+  load_state<P, kScanThreads>(hv, st, g.n, nch);
   load_bc(s_c, cmat + bi * g.c_sb, g.c_ss, g, c0, rows, nch);
   load_bc(s_b, bmat + bi * g.b_sb, g.b_ss, g, c0, rows, nch);
-  load_x(s_x, x + bi * g.x_sb + hh * g.x_sh, g, c0, rows, P);
+  load_x(s_x, x + bi * g.x_sb + hh * g.x_sh, g.x_ss, g, c0, rows, P);
   cp_async_commit();
   // the entering state, rounded to bf16 for its product
-#pragma unroll
-  for (int i = 0; i < kHPer; ++i) {
-    const int idx = tid + i * kScanThreads, p = idx / nch, c = idx % nch;
-    if (idx < P * nch)
-      *reinterpret_cast<uint4*>(sm + o_h + swz32(P, p, c)) = make_uint4(
-          pack_bf16(hv[i][0].x, hv[i][0].y), pack_bf16(hv[i][0].z,
-                                                       hv[i][0].w),
-          pack_bf16(hv[i][1].x, hv[i][1].y), pack_bf16(hv[i][1].z,
-                                                       hv[i][1].w));
-  }
+  store_state<P, kScanThreads>(sm + o_h, hv, nch);
   chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
   // the decay's column factors through a tile's last row (below the
   // diagonal) and a 16-row group's last row (on it)
-  for (int r = tid; r < rows; r += kScanThreads) {
-    vl_s[r] = expf(cum_s[r | (kTile - 1)] - cum_s[r]) * dt_s[r];
-    vg_s[r] = expf(cum_s[r | 15] - cum_s[r]) * dt_s[r];
-  }
+  decay_factors(cum_s, dt_s, vl_s, vg_s, rows);
   cp_async_wait_all();
   fence_proxy_async();
   __syncthreads();
@@ -686,13 +544,7 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x,
   uint8_t* y_s = sm + o_y + wgi * kTile * kSwRow;
   // query tiles, longest first, each to the less loaded warpgroup
   const int nqt = rows / kTile;
-  int load0 = 0, load1 = 0;
-  unsigned mine = 0;
-  for (int t = nqt - 1; t >= 0; --t) {
-    const int owner = load1 < load0 ? 1 : 0;
-    if (owner) load1 += t + 1; else load0 += t + 1;
-    if (owner == wgi) mine |= 1u << t;
-  }
+  const unsigned mine = own_tiles(wgi, nqt, true);
   for (int t = nqt - 1; t >= 0; --t) {
     const int row0 = t * kTile;
     if (!((mine >> t) & 1u) || c0 + row0 >= g.seq) continue;
@@ -838,10 +690,6 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x,
     wg_sync(wgi);  // the staging tile is free for the next query tile
   }
 }
-
-// N zero-padded to the state width the kernels are built for
-int padded_state(int n) { return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64
-                                                                      : 128; }
 
 template <typename K>
 cudaError_t set_smem(K kern, size_t smem) {

@@ -9,14 +9,16 @@ kernel) -> :func:`ssd_scan_bwd_cuda` (``csrc/ssd_scan_bwd.cu``).  Model
 code calls ``ops.ssd_scan``, which routes a CUDA tensor here and a CPU
 tensor to the plain versions in ``ref.py``.
 
-Two routes, by dtype: bf16 runs on the tensor cores (``wgmma``) in three
-launches (chunk states, the pass over the chunks, the chunk outputs),
-fp32 on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of
-fp32 models needs.  A bf16 call the tensor-core kernels cannot take
-raises; it never goes to the fp32 kernel or to the plain version.  The
-backward recomputes nothing of the forward's state pass: the forward
-keeps the state entering each chunk (``keep_states``) and the backward
-reads it, in fp32 on the CUDA cores for either dtype.
+Two routes in each direction, by dtype: bf16 runs on the tensor cores
+(``wgmma``), fp32 on the CUDA cores in IEEE fp32, which the card-vs-CPU
+agreement of fp32 models needs.  The forward takes three launches on
+bf16 (chunk states, the pass over the chunks, the chunk outputs), the
+backward four on either dtype (rows, the reverse pass over the chunks,
+columns, the sums over the heads).  A bf16 call the tensor-core kernels
+cannot take raises; it never goes to the fp32 kernels or to the plain
+version.  The backward recomputes nothing of the forward's state pass:
+the forward keeps the state entering each chunk (``keep_states``) and
+the backward reads it.
 """
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ def _bwd_kernels():
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         smem = lib.ssd_scan_bwd_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 2
+        smem.argtypes = [ctypes.c_int] * 4
         smem.restype = ctypes.c_int64
         _fns["bwd"] = (fn, smem)
     return _fns["bwd"]
@@ -113,6 +115,23 @@ def _check(fn: str, x, dt, a, b, c, chunk: int):
     return bs, s, h, p, n
 
 
+def _check_tensor_core_operands(fn: str, x, b, c):
+    """What the bf16 routes read: N a multiple of 8 up to 128, and x, b,
+    c starting on 16 bytes with (b, s, h) strides that are multiples of 8
+    elements."""
+    n = b.shape[-1]
+    if n % 8 or not 8 <= n <= MAX_STATE_TC:
+        raise ValueError(f"{fn} on bf16 takes N a multiple of 8 up to "
+                         f"{MAX_STATE_TC}, got {n}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(
+                f"{fn} on bf16 takes 16-byte aligned operands with (b, s, "
+                f"h) strides that are multiples of 8: {name} starts at "
+                f"{t.data_ptr() % 16} mod 16 with strides "
+                f"{t.stride()[:-1]}")
+
+
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor, *, chunk: int,
                   keep_states: bool = False):
@@ -130,16 +149,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
     if bf16:
-        if n % 8 or not 8 <= n <= MAX_STATE_TC:
-            raise ValueError(f"ssd_scan_cuda on bf16 takes N a multiple of 8 "
-                             f"up to {MAX_STATE_TC}, got {n}")
-        for name, t in (("x", x), ("b", b), ("c", c)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-                raise ValueError(
-                    f"ssd_scan_cuda on bf16 takes 16-byte aligned operands "
-                    f"with (b, s, h) strides that are multiples of 8: {name} "
-                    f"starts at {t.data_ptr() % 16} mod 16 with strides "
-                    f"{t.stride()[:-1]}")
+        _check_tensor_core_operands("ssd_scan_cuda", x, b, c)
     fn, smem_fn = _kernels()
     smem = smem_fn(p, n, chunk, int(bf16))
     if smem > MAX_SMEM:
@@ -186,15 +196,21 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B,H,P,N) of h_last or None (zero) -> (dx (B,S,H,P) in x's dtype, ddt
     (B,S,H) fp32, da (H,) fp32, db, dc (B,S,N) in x's dtype).  Four
     launches; no atomics, so repeated calls give the same bits.  N up to
-    128 in either dtype."""
+    128 in either dtype; bf16 (the tensor cores) takes what the forward's
+    bf16 route takes."""
     global bwd_launches
     bs, s, h, p, n = _check("ssd_scan_bwd_cuda", x, dt, a, b, c, chunk)
     dev = x.device
     nc = -(-s // chunk)
+    bf16 = x.dtype == torch.bfloat16
     if n > MAX_STATE_BWD:
         raise ValueError(f"ssd_scan_bwd_cuda takes N <= {MAX_STATE_BWD}, "
                          f"got {n}")
+    if bf16:
+        _check_tensor_core_operands("ssd_scan_bwd_cuda", x, b, c)
     dy = dy.to(x.dtype).contiguous()
+    if dy.data_ptr() % 16:  # a view into another tensor: the kernel
+        dy = dy.clone()     # reads whole 16-byte chunks of its rows
     if dy.shape != x.shape or dy.device != dev:
         raise ValueError(f"ssd_scan_bwd_cuda: dy {tuple(dy.shape)} on "
                          f"{dy.device} must match x {tuple(x.shape)} on "
@@ -212,11 +228,11 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                              f"{(bs, h, p, n)} on {dev}, got "
                              f"{tuple(dh_last.shape)}")
     fn, smem_fn = _bwd_kernels()
-    smem = smem_fn(p, n)
+    smem = smem_fn(p, n, chunk, int(bf16))
     if smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan_bwd_cuda: P={p}, N={n} needs {smem} "
-                         f"bytes of shared memory per block, more than the "
-                         f"{MAX_SMEM} a Hopper block may hold")
+        raise ValueError(f"ssd_scan_bwd_cuda: P={p}, N={n}, chunk={chunk} "
+                         f"needs {smem} bytes of shared memory per block, "
+                         f"more than the {MAX_SMEM} a Hopper block may hold")
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((bs, s, h), **f32)
@@ -243,7 +259,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  dc.data_ptr(), dcum.data_ptr(), du.data_ptr(),
                  cum_q.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
                  da_part.data_ptr(), *strides, bs, s, h, p, n, chunk,
-                 int(x.dtype == torch.bfloat16), stream)
+                 int(bf16), stream)
     if err:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
                            f"error {err}")

@@ -652,6 +652,29 @@ def test_ssd_kernel_bf16_refuses_misaligned(cuda_device, fault):
     assert ssd_scan.launches == before
 
 
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_ssd_bwd_kernel_bf16_refuses_misaligned(cuda_device, fault):
+    """B6's backward on bf16 reads what the forward's tensor-core route
+    reads: a misaligned x raises, and nothing launches (no fp32 or plain
+    fallback)."""
+    bf16 = torch.bfloat16
+    if fault == "pointer":
+        x = torch.zeros(2 * 64 * 2 * 16 + 1, device=cuda_device,
+                        dtype=bf16)[1:].view(2, 64, 2, 16)
+    else:
+        x = torch.zeros(2, 64, 2, 20, device=cuda_device,
+                        dtype=bf16)[..., :16]
+    bc = torch.zeros(2, 64, 16, device=cuda_device, dtype=bf16)
+    dt = torch.full((2, 64, 2), 0.01, device=cuda_device)
+    a = -torch.ones(2, device=cuda_device)
+    dy = torch.zeros(2, 64, 2, 16, device=cuda_device, dtype=bf16)
+    states = torch.zeros(2, 2, 2, 16, 16, device=cuda_device)
+    before = ssd_scan.bwd_launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan_bwd_cuda(x, dt, a, bc, bc, dy, states, None, chunk=32)
+    assert ssd_scan.bwd_launches == before
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -812,7 +835,14 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, case, dtype, rng):
 SSD_BWD_CASES = [(2, 64, 3, 16, 16, 32), (1, 100, 2, 32, 16, 48),
                  (1, 257, 2, 64, 16, 256), (1, 255, 3, 64, 16, 64),
                  (1, 128, 2, 64, 64, 64), (1, 200, 2, 64, 128, 128),
-                 (1, 96, 2, 32, 8, 64)]
+                 (1, 96, 2, 32, 8, 64),
+                 (2, 513, 2, 64, 16, 256),    # a one-step tail, 3 chunks
+                 (1, 300, 2, 16, 128, 128)]   # P=16 at N=128
+# bf16 only: chunk 256 at N=128 and 64 (the fp32 forward has not the
+# shared memory for N=128 at chunk 256)
+SSD_BWD_TC_CASES = [(1, 300, 2, 16, 128, 256), (2, 270, 3, 32, 64, 256)]
+# the LM training path's shape (hymba-1.5b, sequence 4096)
+SSD_BWD_PATH = (1, 4096, 50, 64, 16, 256)
 
 
 def _ssd_bwd_inputs(case, dtype, rng, dev):
@@ -841,9 +871,31 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype, with_h_last,
     the plain scan) from the states the forward kept, with and without a
     cotangent on h_last: 1e-4 (fp32) and 2e-2 (bf16) of each gradient's
     scale."""
+    _ssd_bwd_check(case, dtype, with_h_last, rng, cuda_device)
+
+
+@pytest.mark.parametrize("with_h_last", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_TC_CASES)
+def test_ssd_bwd_kernel_bf16_tensor_cores_matches_plain(cuda_device, case,
+                                                        with_h_last, rng):
+    """B6's backward on its bf16 tensor-core route at chunk 256 with N=128
+    (P=16) and N=64 (P=32, batch 2, ragged): 2e-2 of each gradient's
+    scale."""
+    _ssd_bwd_check(case, torch.bfloat16, with_h_last, rng, cuda_device)
+
+
+def test_ssd_bwd_kernel_bf16_rising_cum_matches_plain(cuda_device, rng):
+    """Heads whose cum rises (a > 0) take the tensor-core kernels' decay
+    per entry instead of through its monotone factors: their gradients,
+    beside decaying heads', within 2e-2 of each gradient's scale."""
+    _ssd_bwd_check((1, 300, 4, 64, 16, 256), torch.bfloat16, True, rng,
+                   cuda_device, a=[-1.0, 0.1, -0.5, 0.02])
+
+
+def _ssd_bwd_check(case, dtype, with_h_last, rng, dev, a=None):
     b, s, h, p, n, chunk = case
-    x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, dtype, rng,
-                                               cuda_device)
+    x, dt, a_drawn, bb, cc, dy, dh = _ssd_bwd_inputs(case, dtype, rng, dev)
+    a = a_drawn if a is None else torch.tensor(a, device=dev)
     dh = dh if with_h_last else None
     _, _, states = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
                                  keep_states=True)
@@ -861,7 +913,8 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype, with_h_last,
 @pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
 def test_backward_kernels_repeat_bitwise(cuda_device, kernel, rng):
     """No atomics: two backward calls on the same inputs give the same
-    bits (B5's also at the LM training path's shape)."""
+    bits (both also at the LM training path's shape, B6's on its
+    tensor-core route)."""
     pairs = []
     if kernel == "flash_attention":
         for case in (FLASH_BWD_CASES[4], FLASH_BWD_PATH):
@@ -870,13 +923,14 @@ def test_backward_kernels_repeat_bitwise(cuda_device, kernel, rng):
             pairs.append([flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                                    **kw) for _ in range(2)])
     else:
-        case = SSD_BWD_CASES[3]
-        x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, torch.bfloat16,
-                                                   rng, cuda_device)
-        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=case[-1],
-                                 keep_states=True)
-        pairs.append([ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
-                                        chunk=case[-1]) for _ in range(2)])
+        for case in (SSD_BWD_CASES[3], SSD_BWD_PATH):
+            x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, torch.bfloat16,
+                                                       rng, cuda_device)
+            _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=case[-1],
+                                     keep_states=True)
+            pairs.append([ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
+                                            chunk=case[-1])
+                          for _ in range(2)])
     for first, second in pairs:
         for g1, g2 in zip(first, second):
             assert torch.equal(g1, g2)

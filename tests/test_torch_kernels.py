@@ -538,13 +538,18 @@ def test_kernel_sources_and_build_key():
         assert so.parent == _build.BUILD_DIR and name in so.name
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
-    # the key covers the shared headers: B5 and B6 include wgmma.cuh
+    # the key covers the shared headers: B5 and B6 include wgmma.cuh, both
+    # directions of B6 ssd_common.cuh
     headers = sorted(_build.CSRC.glob("*.cuh"))
-    assert [h.name for h in headers] == ["wgmma.cuh"]
-    for name in ("flash_attention", "ssd_scan"):
+    assert [h.name for h in headers] == ["ssd_common.cuh", "wgmma.cuh"]
+    for name in ("flash_attention", "ssd_scan", "ssd_scan_bwd"):
         src, so = _build._target(name)
-        assert '#include "wgmma.cuh"' in src.read_text()
-        key = hashlib.sha256(src.read_bytes() + headers[0].read_bytes()
+        text = src.read_text()
+        assert '#include "wgmma.cuh"' in text
+        assert name == "flash_attention" \
+            or '#include "ssd_common.cuh"' in text
+        key = hashlib.sha256(src.read_bytes()
+                             + b"".join(h.read_bytes() for h in headers)
                              + " ".join(_build.NVCC_FLAGS).encode())
         assert so.name == f"lib{name}-{key.hexdigest()[:16]}.so"
     # B1's one launch: 32 documents x 128 words a block, the tails ragged
@@ -894,6 +899,141 @@ def test_ssd_tensor_core_arithmetic_matches_pallas(b, s, h, p, n, chunk,
         devs.append(float(np.max(np.abs(got - want))) / scale)
     print(f"B6 tensor-core arithmetic vs pallas {(b, s, h, p, n, chunk)} "
           f"bf16: y {devs[0]:.3e}, h_last {devs[1]:.3e} of the scale")
+    assert max(devs) <= 2e-2
+
+
+def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk):
+    """The arithmetic of B6's backward on its bf16 tensor-core route, in
+    plain PyTorch on bf16 x, dy (B,S,H,P), b/c (B,S,N) and fp32 dt, a,
+    from a zero state and no cotangent on h_last (the training path's
+    case).  The states entering the chunks are the forward route's (B o w
+    rounded to bf16 for the chunk's own state, fp32 carried).  Per chunk,
+    fp32 G = C B^T, D = dY X^T and M = D o G o L o dt_j from the bf16
+    operands; W_D = D o L o dt_j, W_G = G o L o dt_j and C o exp(cum)
+    rounded to bf16 before their products; h0 and dh1 rounded to bf16
+    for their products only; M's diagonal left out of dcum (it enters
+    once from each side with opposite signs); dcum, g, ddt and da summed
+    in fp32; dx, db, dc cast once.  Test-only: the kernels' numeric
+    design, checked on the CPU."""
+    f32, bf = torch.float32, torch.bfloat16
+    rb = lambda t: t.to(bf).to(f32)  # noqa: E731
+    s = x.shape[1]
+    pad = -s % chunk
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                 for t in (x, dy))
+        dt, b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                    for t in (dt, b, c))
+    bs, sp, h, p = x.shape
+    n = b.shape[-1]
+    nc = sp // chunk
+    # (B, H, chunk, Q, .) layouts
+    xc = x.to(f32).reshape(bs, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    dyc = dy.to(f32).reshape(bs, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    dtc = dt.to(f32).reshape(bs, nc, chunk, h).permute(0, 3, 1, 2)
+    bc = b.to(f32).reshape(bs, 1, nc, chunk, n)
+    cc = c.to(f32).reshape(bs, 1, nc, chunk, n)
+    cum = torch.cumsum(dtc * a.to(f32)[None, :, None, None], dim=-1)
+    cq = cum[..., -1]                                          # (B,H,nc)
+    e = torch.exp(cum)
+    w = torch.exp(cq[..., None] - cum) * dtc
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    ldt = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                      0.0) * dtc[..., None, :]                 # L o dt_j
+    # the forward's states entering each chunk
+    own = torch.einsum("bhcjp,bhcjn->bhcpn", xc, rb(bc * w[..., None]))
+    h0 = [torch.zeros(bs, h, p, n)]
+    for i in range(nc - 1):
+        h0.append(torch.exp(cq[..., i])[..., None, None] * h0[-1]
+                  + own[:, :, i])
+    h0 = torch.stack(h0, dim=2)                                # (B,H,nc,P,N)
+    g_m = torch.einsum("bhcin,bhcjn->bhcij", cc.expand(-1, h, -1, -1, -1),
+                       bc.expand(-1, h, -1, -1, -1))
+    d_m = torch.einsum("bhcip,bhcjp->bhcij", dyc, xc)
+    m = d_m * g_m * ldt
+    off = ~torch.eye(chunk, dtype=torch.bool)
+    # 1. rows: dC, the row part of dcum, U
+    z = torch.einsum("bhcip,bhcpn->bhcin", dyc, rb(h0))
+    dc_h = torch.einsum("bhcij,bhcjn->bhcin", rb(d_m * ldt), bc) \
+        + e[..., None] * z
+    dcum = torch.where(off, m, 0.0).sum(-1) + e * (z * cc).sum(-1)
+    u = torch.einsum("bhcip,bhcin->bhcpn", dyc, rb(cc * e[..., None]))
+    # 2. the state pass, from the last chunk back
+    dh1, carry = [None] * nc, torch.zeros(bs, h, p, n)
+    for i in reversed(range(nc)):
+        dh1[i] = carry
+        carry = torch.exp(cq[..., i])[..., None, None] * carry + u[:, :, i]
+    dh1 = torch.stack(dh1, dim=2)
+    # 3. columns: dx, dB, the direct ddt and the column part of dcum
+    t = torch.einsum("bhcjn,bhcpn->bhcjp", bc.expand(-1, h, -1, -1, -1),
+                     rb(dh1))
+    dx = torch.einsum("bhcij,bhcip->bhcjp", rb(g_m * ldt), dyc) \
+        + w[..., None] * t
+    sj = (xc * t).sum(-1)
+    db_h = torch.einsum("bhcij,bhcin->bhcjn", rb(d_m * ldt), cc) \
+        + w[..., None] * torch.einsum("bhcjp,bhcpn->bhcjn", xc, rb(dh1))
+    r_all = (d_m * g_m * torch.where(tril, torch.exp(
+        cum[..., :, None] - cum[..., None, :]), 0.0)).sum(-2)
+    ddt_direct = r_all + torch.exp(cq[..., None] - cum) * sj
+    dcum = dcum - torch.where(off, m, 0.0).sum(-2) - w * sj
+    dcum[..., -1] += torch.exp(cq) * (dh1 * h0).sum((-1, -2)) \
+        + (w * sj).sum(-1)
+    g = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = ddt_direct + a.to(f32)[None, :, None, None] * g
+    da = (dtc * g).sum((0, 2, 3))
+    back = lambda t: t.permute(0, 2, 3, 1, *range(4, t.dim())).reshape(  # noqa
+        bs, sp, h, *t.shape[4:])[:, :s]
+    return (back(dx).to(bf), back(ddt), da,
+            db_h.sum(1).reshape(bs, sp, n)[:, :s].to(bf),
+            dc_h.sum(1).reshape(bs, sp, n)[:, :s].to(bf))
+
+
+# the plain backward's grid of tests/test_torch_lm_train.py, the training
+# path's head (P=64, N=16, chunk 256, ragged) and mamba2-1.3b's state
+# (N=128, chunk 256)
+SSD_BWD_TC_CASES = [(2, 64, 3, 8, 4, 16), (1, 40, 2, 16, 8, 16),
+                    (1, 48, 2, 8, 16, 48), (1, 17, 2, 8, 4, 8),
+                    (2, 31, 1, 4, 2, 8), (1, 300, 2, 64, 16, 256),
+                    (1, 260, 2, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_TC_CASES)
+def test_ssd_bwd_tensor_core_arithmetic_matches_jax_vjp(case, rng):
+    """B6's backward on its bf16 route rounds W_D, W_G, C o exp(cum), h0
+    and dh1 to bf16 before their products: its arithmetic, in plain
+    PyTorch, against ``jax.vjp`` of the reference's ``ssd_chunked`` on
+    the same bf16-rounded inputs (held in fp32, a ragged tail padded with
+    zero steps as mamba2_apply pads), within 2e-2 of each gradient's
+    max|reference| for all five gradients."""
+    b, s, h, p, n, chunk = case
+    rnd = lambda t: np.asarray(jnp.asarray(t, jnp.bfloat16),  # noqa: E731
+                               np.float32)
+    x = rnd(rng.standard_normal((b, s, h, p)))
+    dt = rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32)
+    a = -rng.uniform(0.5, 2.0, h).astype(np.float32)
+    bm, cm = (rnd(rng.standard_normal((b, s, n))) for _ in range(2))
+    dy = rnd(rng.standard_normal((b, s, h, p)))
+    pad = -s % chunk
+
+    def f(x, dt, a, bm, cm):
+        padt = lambda t: jnp.pad(t, [(0, 0), (0, pad)]  # noqa: E731
+                                 + [(0, 0)] * (t.ndim - 2))
+        return ssd_chunked(padt(x), padt(dt), a, padt(bm), padt(cm),
+                           chunk)[0][:, :s]
+    _, vjp = jax.vjp(f, x, dt, a, bm, cm)
+    want = vjp(jnp.asarray(dy))
+    bf = torch.bfloat16
+    got = _ssd_bwd_tensor_core_emulation(
+        _t(x, bf), torch.from_numpy(dt), torch.from_numpy(a), _t(bm, bf),
+        _t(cm, bf), _t(dy, bf), chunk)
+    devs = []
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape
+        devs.append(float(np.max(np.abs(g.float().numpy() - w)))
+                    / float(np.max(np.abs(w))))
+    print(f"B6 backward tensor-core arithmetic vs jax.vjp {case} bf16: dx, "
+          f"ddt, da, db, dc {['%.3e' % d for d in devs]} of max|reference|")
     assert max(devs) <= 2e-2
 
 
