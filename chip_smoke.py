@@ -27,7 +27,11 @@ Phases, each fatal on failure (no phase catches and carries on):
    on h_last, fp32 and bf16, bf16 on the tensor cores)
    and timed at the LM training path's shapes (B5's beside the backward
    of ``F.scaled_dot_product_attention``), each fp32 route at its grid
-   case;
+   case; then B5, B6 and their backward kernels on their fp32 routes,
+   and B2 and B4 over the (4, D) message slab, at the federated LM
+   path's full-width shapes (B5 forward and backward beside the fp32
+   library attention; B4 bitwise on three of its leaves, the 51 M-entry
+   embedding among them);
 4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
@@ -71,6 +75,20 @@ Phases, each fatal on failure (no phase catches and carries on):
    kernels 32 launches each (one per layer), nothing else; step time
    after the warm-up step, peak memory, and the last step traced (busy
    share, device time by kernel);
+   LM federation path (``phase_lm_federation``): the registry's
+   ``lm_fedavg`` (host loop) and ``lm_dirichlet_topk`` (batched cohort
+   path, top-k deltas; also over hymba-1.5b) at the reduced sizes of
+   ``tests/test_federated_lm.py``, 3 rounds each, card against CPU
+   within 1e-4 (top-k's support flips aside) and loop against batched
+   within 1e-5; then hymba-1.5b at full width, 2 of its 32 layers, fp32,
+   4 clients of 4 x 2048-token documents through ``Federation.from_spec``
+   with the bundle's loss and init: ``lm_dirichlet_topk`` on the batched
+   path and ``lm_fedavg`` on the host loop, 3 rounds each (round wall
+   time, the traced third round's busy share, peak memory, falling
+   losses, the held-out cross-entropy per token); per round B2 once, B4
+   once under top-k, B5 and its backward once per layer on the batched
+   path (the clients folded into the batch axis) and once per layer and
+   client on the loop, B6 and its backward once per layer and client;
    on every path each kernel's launch count is zeroed just before each
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
@@ -401,9 +419,11 @@ def phase_kernels():
                  lambda: torch.matmul(w5, x5))
     b2["k5"] = {k: b2k5[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms")}
-    return [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev),
-            _kernel_b5(g, dev), _kernel_b6(g, dev), _kernel_b5_bwd(g, dev),
-            _kernel_b6_bwd(g, dev)]
+    records = [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev),
+               _kernel_b5(g, dev), _kernel_b6(g, dev),
+               _kernel_b5_bwd(g, dev), _kernel_b6_bwd(g, dev)]
+    _kernel_fed_lm(g, dev, records)
+    return records
 
 
 def _time_record(r, kern, plain, lib, lib_label="library"):
@@ -1119,6 +1139,244 @@ def _kernel_b6_bwd(g, dev):
         f"{rec['fp32_ms'] * 1e3:.2f} us/call")
     del x, dt, a, bb, cc, dy, st
     return rec
+
+
+# federated LM training at hymba-1.5b's full width (2 of its 32 layers):
+# 4 clients of 4 x 2048-token documents, fp32 as the reference federates
+FED_LM_LAYERS, FED_LM_CLIENTS, FED_LM_BATCH, FED_LM_SEQ = 2, 4, 4, 2048
+# documents per node: dirichlet(0.3) over 4 nodes leaves no client empty
+# at 8 (3, 5, 14 and 10 documents; one client ragged under the batch of 4)
+FED_LM_DOCS, FED_LM_VAL_DOCS, FED_LM_ROUNDS = 8, 1, 3
+# client sgd lr: the registry's 0.1 is sized for the reduced configs; at
+# full width sgd at 0.1 overshoots by the third top-k round (losses 10.81,
+# 8.56, 11.18 on an H100)
+FED_LM_LR = 0.02
+
+
+def _fed_lm_config():
+    from repro_torch.configs import get_config
+    import dataclasses
+    return dataclasses.replace(get_config("hymba-1.5b"),
+                               num_layers=FED_LM_LAYERS)
+
+
+def _fed_lm_leaf_sizes(cfg) -> dict:
+    """Entries of each leaf of the engine's flat LM dict (the reference's
+    leaves, layers stacked), by name in its order: one layer at vocabulary
+    1 is
+    drawn on the CPU for the shapes, the rest is arithmetic."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    one = tfm.stack_layers(tfm.init_params(
+        torch.Generator().manual_seed(0),
+        dataclasses.replace(cfg, num_layers=1, vocab_size=1), device="cpu"))
+    sizes = {}
+    for name, t in one.items():
+        n = t.numel()
+        if name.startswith("layers."):
+            n *= cfg.num_layers
+        elif name in ("embed.table", "lm_head.w"):
+            n *= cfg.vocab_size
+        sizes[name] = n
+    return sizes
+
+
+def _fed_lm_time(rec, kern, plain, lib, plain_iters=3):
+    """Device time of kernel, plain version and library call at the
+    federated LM path's shapes (fewer plain calls: they take up to a
+    second each here)."""
+    rec["ms"] = device_ms(kern, 10)
+    rec["plain_ms"] = device_ms(plain, plain_iters)
+    rec["library_ms"] = None if lib is None else device_ms(lib, 10)
+
+
+def _kernel_fed_lm(g, dev, records):
+    """The kernels at the federated LM path's full-width shapes (phase
+    ``lm_federation``): B5 and its backward in fp32 on the batched cohort
+    path's folded batch (4 clients x 4 documents), beside the fp32
+    library attention with the same window mask, forward and backward;
+    B6 and its backward in fp32 at one client's batch (the rule runs one
+    call per client); B2 and B4 over the (4, D) message slab of the 2-layer
+    hymba-1.5b (D = 203 403 400, one B4 segment per leaf, the embedding
+    51 201 600), B4 bitwise against its plain version on three leaves.
+    Each record of ``records`` gains a ``fed_lm`` entry."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fed_aggregate import (fed_topk_ef_cuda,
+                                                   fed_weighted_sum_cuda)
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    from repro_torch.models.layers.attention import make_mask
+    from repro_torch.models.layers.mamba2 import mamba2_dims
+    t_start = time.perf_counter()
+    cfg = _fed_lm_config()
+    by_name = {r["name"]: r for r in records}
+    out = {}
+    # -- B5 and its backward, fp32, the folded cohort ----------------------
+    b = FED_LM_CLIENTS * FED_LM_BATCH
+    s, hq, hkv, d = FED_LM_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window = cfg.sliding_window
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    q = torch.randn(b, s, hq, d, generator=g).to(dev)
+    k = torch.randn(b, s, hkv, d, generator=g).to(dev)
+    v = torch.randn(b, s, hkv, d, generator=g).to(dev)
+    dout = torch.randn(b, s, hq, d, generator=g).to(dev)
+    o, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+    o_w, lse_w = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, dout, **kw)
+    grads_w = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, **kw)
+    torch.cuda.synchronize()
+    e5 = _rel_err(o, o_w)
+    e5b = max(_rel_err(a, w) for a, w in zip(grads, grads_w))
+    if not (e5 <= 2e-5 and e5b <= 2e-5):
+        raise AssertionError(f"B5 fp32 at the federated LM shape: |kernel - "
+                             f"plain| / max|plain| out {e5}, grads {e5b} > "
+                             f"2e-5")
+    del o_w, lse_w, grads, grads_w
+    pairs = b * hq * _window_pairs(s, True, window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    mask = make_mask(pos, pos, causal=True, window=window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {"shape": [b, s, hq, hkv, d, window], "dtype": "float32",
+           "route": "simt", "max_rel_err": e5}
+    # q, k, v read and out written once (fp32); QK^T and PV over the
+    # pairs the window reaches, at the fp32 CUDA-core peak
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * (2 * b * s * hq * d + 2 * b * s * hkv * d), 4 * d * pairs)
+    _fed_lm_time(rec, lambda: flash_attention_cuda(q, k, v, **kw),
+                 lambda: ref.flash_attention_fwd_ref(q, k, v, **kw),
+                 lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
+                              attn_mask=mask, enable_gqa=True))
+    out["flash_attention"] = rec
+    lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    rec = {"shape": [b, s, hq, hkv, d, window], "dtype": "float32",
+           "route": "simt", "max_rel_err": e5b}
+    # q, k, v, out, dout, lse read and dq, dk, dv written once (fp32); 10 D
+    # flops a pair, at the fp32 CUDA-core peak
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * (3 * b * s * hq * d + 2 * b * s * hkv * d + b * hq * s
+             + b * s * hq * d + 2 * b * s * hkv * d), 10 * d * pairs)
+    _fed_lm_time(rec, lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout,
+                                                       **kw),
+                 lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                                     **kw),
+                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                             retain_graph=True))
+    out["flash_attention_bwd"] = rec
+    del q, k, v, dout, o, lse, qt, kt, vt, lib_out, dout_t
+    # -- B6 and its backward, fp32, one client's batch ---------------------
+    _, h, _ = mamba2_dims(cfg)
+    bs, p, n, chunk = FED_LM_BATCH, cfg.ssm.head_dim, cfg.ssm.state_dim, \
+        cfg.ssm.chunk_size
+    x, dt, a, bb, cc = _ssd_inputs(g, dev, bs, s, h, p, n, torch.float32)
+    dy = torch.randn(bs, s, h, p, generator=g).to(dev)
+    y, hl, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                              keep_states=True)
+    y_w, hl_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    grads = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None, chunk=chunk)
+    grads_w = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None, chunk)
+    torch.cuda.synchronize()
+    e6 = max(_rel_err(y, y_w), _rel_err(hl, hl_w))
+    e6b = max(_rel_err(u, w) for u, w in zip(grads, grads_w))
+    if not (e6 <= 1e-4 and e6b <= 1e-4):
+        raise AssertionError(f"B6 fp32 at the federated LM shape: |kernel - "
+                             f"plain| / max|plain| forward {e6}, backward "
+                             f"{e6b} > 1e-4")
+    del y, hl, y_w, hl_w, grads, grads_w
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
+           "route": "simt", "max_rel_err": e6}
+    # x, B, C, dt, a read, y and h_last written once (fp32); the scan's
+    # products as B6's record counts them, at the fp32 CUDA-core peak
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * (2 * bs * s * h * p + 2 * bs * s * n + bs * s * h + h
+             + bs * h * p * n),
+        bs * h * nc * (tri * (2 * n + 2 * p + 2) + chunk * 4 * p * n))
+    _fed_lm_time(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                            keep_states=True),
+                 lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
+    out["ssd_scan"] = rec
+    rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
+           "route": "simt", "max_rel_err": e6b}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * (3 * bs * s * h * p + 4 * bs * s * n + 2 * bs * s * h + 2 * h
+             + bs * h * nc * p * n),
+        bs * h * nc * (tri * (6 * n + 4 * p) + chunk * 8 * p * n))
+    _fed_lm_time(rec, lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st,
+                                                None, chunk=chunk),
+                 lambda: ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None,
+                                              chunk), None)
+    out["ssd_scan_bwd"] = rec
+    del x, dt, a, bb, cc, dy, st
+    # -- B2 and B4 over the (4, D) message slab -------------------------
+    leaves = _fed_lm_leaf_sizes(cfg)
+    sizes, names = list(leaves.values()), list(leaves)
+    dm, kc = sum(sizes), FED_LM_CLIENTS
+    msgs = torch.randn(kc, dm, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev) * 1e-3
+    w = torch.tensor([3.0, 5.0, 14.0, 10.0], device=dev)
+    rec = {"shape": [kc, dm], "dtype": "float32"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms((kc * dm + kc + dm) * 4,
+                                                2 * kc * dm)
+    _fed_lm_time(rec, lambda: fed_weighted_sum_cuda(msgs, w),
+                 lambda: ref.fed_weighted_sum_ref(msgs, w),
+                 lambda: torch.matmul(w, msgs), plain_iters=10)
+    got = fed_weighted_sum_cuda(msgs, w)
+    rec["max_abs_err"] = float((got - ref.fed_weighted_sum_ref(msgs, w))
+                               .abs().max())
+    if not rec["max_abs_err"] <= 2e-6 * float(w.sum()):
+        raise AssertionError(f"B2 at (4, {dm}): |kernel - plain| "
+                             f"{rec['max_abs_err']}")
+    out["fed_weighted_sum"] = rec
+    del got
+    err = torch.randn(kc, dm, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev) * 1e-4
+    ids = torch.arange(kc, dtype=torch.int32, device=dev)
+    table = ops.topk_segments(_segments(sizes), 0.25)
+    sent, new = fed_topk_ef_cuda(msgs, err, ids, table)
+    # bitwise on three leaves: the embedding (51.2 M), the widest stacked
+    # layer leaf and the smallest leaf
+    layer = [i for i, nm in enumerate(names) if nm.startswith("layers.")]
+    pick = [names.index("embed.table"),
+            max(layer, key=lambda i: sizes[i]),
+            min(range(len(sizes)), key=lambda i: sizes[i])]
+    for i in pick:
+        off, nn, kk = table[i]
+        want = topk_plain(msgs[:, off:off + nn], err[:, off:off + nn], ids,
+                          [(0, nn, kk)])
+        if not (same_bits(sent[:, off:off + nn], want[0])
+                and same_bits(new[:, off:off + nn], want[1])):
+            raise AssertionError(f"B4 at (4, {dm}): segment {i} ({nn} "
+                                 f"entries) differs from the plain version")
+    del sent, new, want
+    rec = {"shape": [kc, dm], "dtype": "float32", "segments": len(table),
+           "bitwise_segments": {names[i]: table[i][1] for i in pick}}
+    rec["bound_ms"], rec["bound_by"] = bound_ms((4 * kc * dm + kc) * 4,
+                                                2 * kc * dm)
+    _fed_lm_time(rec, lambda: fed_topk_ef_cuda(msgs, err, ids, table),
+                 lambda: topk_plain(msgs, err, ids, table), None,
+                 plain_iters=2)
+    out["fed_topk_ef"] = rec
+    del msgs, err
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        by_name[name]["fed_lm"] = rec
+        lib = "none" if rec["library_ms"] is None \
+            else f"{rec['library_ms'] * 1e3:.2f} us"
+        log(f"{name} at the federated LM path's shape {rec['shape']} "
+            f"{rec['dtype']}: device {rec['ms'] * 1e3:.2f} us/call, plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+    log(f"  fed LM kernels against their plain versions: B5 fp32 {e5:.3e}, "
+        f"B5-bwd {e5b:.3e} (bound 2e-5), B6 {e6:.3e}, B6-bwd {e6b:.3e} "
+        f"(bound 1e-4), of max|plain|; B2 "
+        f"{out['fed_weighted_sum']['max_abs_err']:.3e}; "
+        f"B4 bitwise on segments of {out['fed_topk_ef']['bitwise_segments']}"
+        f"; {time.perf_counter() - t_start:.1f} s for these checks")
 
 
 def _ptxas_record(lib: str, prefixes) -> list:
@@ -2111,6 +2369,254 @@ def phase_lm_train(records, masters):
     torch.cuda.empty_cache()
 
 
+def _fed_lm_want(fed) -> dict:
+    """Launches of one round: B2 once, B4 once under top-k; B5 and its
+    backward once per layer and local step on the batched path (the
+    cohort folded into the batch axis) and once per layer, client and
+    step on the host loop; B6 and its backward once per layer, client and
+    step on both (one call per client)."""
+    from repro_torch.configs.base import HYBRID, SSM
+    cfg, spec = fed.model_cfg, fed.spec
+    layers, steps = cfg.num_layers, spec.schedule.local_epochs
+    k = len(fed.engine.scheduler.select(fed.round_index))
+    vmap = spec.execution.exec_mode == "vmap"
+    b5 = 0 if cfg.kind == SSM else layers * steps * (1 if vmap else k)
+    b6 = layers * steps * k if cfg.kind in (SSM, HYBRID) else 0
+    want = {name: 0 for name in read_counts()}
+    want.update(fed_weighted_sum=1,
+                fed_topk_ef=int("topk" in spec.transforms.names),
+                flash_attention=b5, flash_attention_bwd=b5, ssd_scan=b6,
+                ssd_scan_bwd=b6)
+    return want
+
+
+def _fed_lm_rounds(fed, rounds, label, traced_last=False):
+    """``rounds`` steps of ``fed`` on the card, each with the counts zeroed
+    just before and read just after, its host-clock wall time and its
+    launches checked against :func:`_fed_lm_want`; the last one traced
+    when ``traced_last`` (device time by kernel)."""
+    from torch.autograd import DeviceType
+    walls, counts, by_name = [], [], {}
+    for i in range(rounds):
+        want = _fed_lm_want(fed)
+        prof = None
+        if traced_last and i == rounds - 1:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        fed.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = read_counts()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) \
+                        + e.time_range.elapsed_us()
+        counts.append(got)
+        if got != want:
+            raise AssertionError(f"{label} round {i}: kernel launches {got} "
+                                 f"!= {want}")
+    return walls, counts, by_name
+
+
+def _short_counts(c: dict) -> str:
+    keys = (("B2", "fed_weighted_sum"), ("B4", "fed_topk_ef"),
+            ("B5", "flash_attention"), ("B5-bwd", "flash_attention_bwd"),
+            ("B6", "ssd_scan"), ("B6-bwd", "ssd_scan_bwd"))
+    return ", ".join(f"{k} {c[n]}" for k, n in keys)
+
+
+def _fed_lm_devs(a, b) -> "numpy.ndarray":
+    import numpy as np
+    from repro_torch.optim.optimizers import tree_leaves
+    return np.concatenate([(x.detach().cpu() - y.detach().cpu()).abs()
+                           .numpy().ravel()
+                           for x, y in zip(tree_leaves(a), tree_leaves(b))])
+
+
+def _within(devs, bound: float, topk: bool) -> bool:
+    """Every parameter within ``bound``; under top-k, as the CPU tests
+    hold it, all but at most 1e-4 of the entries (the kept set's support
+    flips under fp32 summation-order differences), those within 1e-3."""
+    if not topk:
+        return float(devs.max()) <= bound
+    return int((devs > bound).sum()) <= 1e-4 * devs.size \
+        and float(devs.max()) <= 1e-3
+
+
+def phase_lm_federation(records):
+    """Federated LM training (``model.family="lm"``) on the card, through
+    ``Federation.from_spec``.
+
+    (a) The registry's ``lm_fedavg`` (host loop) and ``lm_dirichlet_topk``
+    (batched cohort path, top-k deltas), and the latter over hymba-1.5b
+    (B6), at the reduced sizes of ``tests/test_federated_lm.py``, 3
+    rounds each: card against CPU from the same init within 1e-4 (top-k's
+    support flips aside), ``lm_fedavg`` loop against vmap on the card
+    within 1e-5, the launches of every round as :func:`_fed_lm_want`
+    counts them.
+    (b) hymba-1.5b at full width, 2 of its 32 layers (the bundle's fp32
+    ``init``, ``loss`` and ``loss_sum`` through ``from_spec``'s
+    overrides), 4 clients of 4 x 2048-token documents, client lr
+    :data:`FED_LM_LR`:
+    ``lm_dirichlet_topk`` on the batched path and ``lm_fedavg`` on the
+    host loop, 3 rounds each (the third traced): wall time, busy share,
+    peak memory, losses (they must fall), launches per round, and the
+    held-out cross-entropy per token of the trained model."""
+    import numpy as np
+    from repro_torch.api import (Federation, heldout_xent_per_token,
+                                 scenario_spec, spec_replace)
+    from repro_torch.models.registry import build_model
+    t_start = time.perf_counter()
+    tiny = {"model.vocab": 128, "model.seq_len": 16, "data.num_clients": 3,
+            "data.docs_per_node": 24, "data.val_docs_per_node": 8,
+            "schedule.rounds": 3}
+    log("LM federation (a): the registry's LM scenarios at the reduced "
+        "sizes of tests/test_federated_lm.py (vocab 128, 16 tokens a "
+        "document, 3 clients of 24 documents, 3 rounds), card vs CPU")
+    totals = {name: 0 for name in read_counts()}
+    feds = {}
+    for label, name, extra in (
+            ("lm_fedavg", "lm_fedavg", {}),
+            ("lm_fedavg on vmap", "lm_fedavg",
+             {"execution.exec_mode": "vmap"}),
+            ("lm_dirichlet_topk", "lm_dirichlet_topk", {}),
+            ("lm_dirichlet_topk over hymba-1.5b", "lm_dirichlet_topk",
+             {"model.arch": "hymba-1.5b"})):
+        spec = spec_replace(scenario_spec(name), {**tiny, **extra})
+        cpu = Federation.from_spec(spec, device="cpu")
+        gpu = Federation.from_spec(spec, device="cuda",
+                                   init_params=cpu.params)
+        cpu.run()
+        walls, counts, _ = _fed_lm_rounds(gpu, 3, label)
+        for c in counts:
+            for k_, v_ in c.items():
+                totals[k_] += v_
+        devs = _fed_lm_devs(cpu.params, gpu.params)
+        topk = "topk" in spec.transforms.names
+        losses = [h["loss"] for h in gpu.history]
+        ldev = max(abs(a["loss"] - b["loss"])
+                   for a, b in zip(cpu.history, gpu.history))
+        log(f"  {label} ({spec.model.arch}, {spec.execution.exec_mode}): "
+            f"card vs CPU max |diff| {devs.max():.3e}, "
+            f"{int((devs > 1e-4).sum())} of {devs.size} entries beyond 1e-4, "
+            f"losses {ldev:.3e}; losses {[round(x, 4) for x in losses]}; "
+            f"rounds " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+            + f" ms; launches a round: {_short_counts(counts[0])}")
+        if not (_within(devs, 1e-4, topk) and ldev <= 1e-4):
+            raise AssertionError(f"{label}: card and CPU disagree beyond "
+                                 f"1e-4")
+        feds[label] = gpu
+    dev_lv = float(_fed_lm_devs(feds["lm_fedavg"].params,
+                                feds["lm_fedavg on vmap"].params).max())
+    log(f"  lm_fedavg loop vs vmap on the card: max |diff| {dev_lv:.3e} "
+        f"(bound 1e-5)")
+    if not dev_lv <= 1e-5:
+        raise AssertionError("LM federation: loop and vmap disagree on the "
+                             "card beyond 1e-5")
+    del feds
+
+    # (b) full width
+    cfg = _fed_lm_config()
+    bundle = build_model(cfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    init = bundle.init(torch.Generator().manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = {"model.arch": "hymba-1.5b", "model.vocab": cfg.vocab_size,
+             "model.seq_len": FED_LM_SEQ,
+             "data.num_clients": FED_LM_CLIENTS,
+             "data.docs_per_node": FED_LM_DOCS,
+             "data.val_docs_per_node": FED_LM_VAL_DOCS,
+             "schedule.rounds": FED_LM_ROUNDS,
+             "execution.batch_size": FED_LM_BATCH,
+             "execution.learning_rate": FED_LM_LR}
+    log(f"LM federation (b): hymba-1.5b at full width (d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, window {cfg.sliding_window}, SSD heads of P="
+        f"{cfg.ssm.head_dim} N={cfg.ssm.state_dim} chunk "
+        f"{cfg.ssm.chunk_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"fp32 as the reference federates, the port's seeded init "
+        f"({t_init:.1f} s); {FED_LM_CLIENTS} clients, batch {FED_LM_BATCH} x "
+        f"{FED_LM_SEQ} tokens, {FED_LM_DOCS} documents a node, client sgd lr "
+        f"{FED_LM_LR} (the registry's 0.1 is sized for the reduced "
+        f"configs); reduced: "
+        f"depth {FED_LM_LAYERS} of 32 layers ({cfg.num_params()} "
+        f"parameters by num_params), {FED_LM_ROUNDS} rounds")
+    for name in ("lm_dirichlet_topk", "lm_fedavg"):
+        spec = spec_replace(scenario_spec(name), sizes)
+        fed = Federation.from_spec(spec, device="cuda", loss_fn=bundle.loss,
+                                   loss_sum_fn=bundle.loss_sum,
+                                   init_params=init)
+        d = sum(p.numel() for p in fed.engine.params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, counts, by_name = _fed_lm_rounds(fed, FED_LM_ROUNDS, name,
+                                                traced_last=True)
+        peak = torch.cuda.max_memory_allocated()
+        for c in counts:
+            for k_, v_ in c.items():
+                totals[k_] += v_
+        losses = [h["loss"] for h in fed.history]
+        busy = sum(by_name.values()) / 1e6
+        if busy <= 0:
+            raise AssertionError(f"{name}: torch.profiler recorded no "
+                                 f"device time in the traced round")
+        part_spec = spec.data.partition.to_string()
+        log(f"  {name} ({spec.execution.exec_mode}, {part_spec}, "
+            f"transforms {list(spec.transforms.names)}; "
+            f"clients {[c.num_docs for c in fed.engine.clients]} documents; "
+            f"D = {d} parameters): rounds "
+            + ", ".join(f"{w:.4f}" for w in walls)
+            + f" s (the last traced: device busy {busy:.4f} s = "
+            f"{100 * busy / walls[-1]:.1f}% of its wall); peak device "
+            f"memory {peak / 2**30:.2f} GiB; losses {losses}; launches a "
+            f"round: {_short_counts(counts[0])}")
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"    {us / 1e3:9.3f} ms  {kname[:90]}")
+        for label, keys in (("B5", ("flash_fwd",)),
+                            ("B5-bwd", ("flash_bwd",)),
+                            ("B6", ("ssd_chunk_", "ssd_state_pass",
+                                    "ssd_scan_kernel")),
+                            ("B6-bwd", ("ssd_bwd",)),
+                            ("B2", ("weighted_sum",)),
+                            ("B4", ("key_pass", "low_pass", "write_pass"))):
+            part = sum(us for k_, us in by_name.items()
+                       if any(key in k_ for key in keys))
+            log(f"    {label} in the traced round: {part / 1e3:.3f} ms")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} at full width: losses {losses} "
+                                 f"do not fall")
+        zero_counts()
+        t0 = time.perf_counter()
+        xent = heldout_xent_per_token(fed.params, cfg,
+                                      fed.corpus.val_tokens, batch=4)
+        torch.cuda.synchronize()
+        c = read_counts()
+        log(f"    held-out cross-entropy per token (heldout_xent_per_token, "
+            f"{len(fed.corpus.val_tokens)} documents, bf16 activations as "
+            f"cfg.dtype says): {xent:.4f} (ln V = "
+            f"{math.log(cfg.vocab_size):.4f}) in "
+            f"{time.perf_counter() - t0:.2f} s; launches "
+            f"{_short_counts(c)}")
+        if not math.isfinite(xent):
+            raise AssertionError(f"{name}: held-out cross-entropy {xent}")
+        del fed
+        torch.cuda.empty_cache()
+    del init
+    torch.cuda.empty_cache()
+    log(f"  launches on the LM federation path: {json.dumps(totals)}; the "
+        f"phase took {time.perf_counter() - t_start:.1f} s")
+    for r in records:
+        r["launches_by_path"]["lm_federation"] = totals[r["name"]]
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -2199,6 +2705,7 @@ def main() -> int:
     phase_algorithm1(records, corpus)
     phase_loop_transforms(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
+    phase_lm_federation(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)
@@ -2214,7 +2721,7 @@ def main() -> int:
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
-             "routes", "fp32_case", "fp32_ms")
+             "routes", "fp32_case", "fp32_ms", "fed_lm")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

@@ -6,11 +6,12 @@ all-defaults spec), the synchronous scenario cells, the partition cells,
 the straggler cells (host pending list; under
 ``execution.exec_mode="vmap"`` they raise, ROADMAP.md A10), the
 transform cells (on the host loop under the default base, or on the
-batched cohort path under a vmap base), the kernel cells, and the two
-buffered-async service presets.  An entry is an override dict or a
-callable ``(base) -> overrides`` for knobs sized to the base
-(``dropout-join``).  The ``mesh-*`` cells (A17), the LM presets (A16)
-and the wire preset (A14) join as their slices land (ROADMAP.md §A).
+batched cohort path under a vmap base), the kernel cells, the two
+federated LM presets and the two buffered-async service presets.  An
+entry is an override dict or a callable ``(base) -> overrides`` for
+knobs sized to the base (``dropout-join``).  The ``mesh-*`` cells (A17),
+``straggler_ring`` (A10) and the wire preset (A14) join as their slices
+land (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -29,6 +30,17 @@ _STRAGGLER_KNOBS = {"schedule.straggler_prob": 0.3,
                     "schedule.max_staleness": 3,
                     "schedule.staleness_decay": 0.5}
 _DIRICHLET = {"data.partition": "dirichlet(0.3)"}
+# CPU-scale federated LM fine-tune (phi3 family over its reduced()
+# config); client lr sized for SGD on token cross-entropy
+_LM_BASE = {"model.family": "lm", "model.arch": "phi3-mini-3.8b",
+            # reset the NTM-only shape fields so the scenario rebases
+            # cleanly over any caller-sized NTM base spec
+            "model.topics": 10, "model.hidden": 64,
+            "model.vocab": 256, "model.seq_len": 32,
+            "data.num_clients": 4, "data.docs_per_node": 96,
+            "data.val_docs_per_node": 24,
+            "schedule.rounds": 20, "execution.batch_size": 8,
+            "execution.learning_rate": 0.1}
 
 
 def _dropout_join(base: FederationSpec) -> Dict[str, Any]:
@@ -78,6 +90,16 @@ SCENARIOS: Dict[str, Overrides] = {
                      **_DP_KNOBS, "execution.exec_mode": "vmap"},
     # alias of dirichlet-noniid under the related-work spelling
     "dirichlet_niid": dict(_DIRICHLET),
+    # ---- federated LM presets -----------------------------------------
+    # a registry LM fine-tuned under the same scenario machinery as the
+    # topic models
+    "lm_fedavg": dict(_LM_BASE),
+    # label-skewed token windows + top-k compressed deltas on the batched
+    # cohort path
+    "lm_dirichlet_topk": {**_LM_BASE, **_DIRICHLET,
+                          "transforms.names": ("topk",),
+                          "transforms.compression_topk": 0.25,
+                          "execution.exec_mode": "vmap"},
     # FedBuff-style: aggregate every M=2 arrivals, staleness window 2,
     # polynomial delta discount
     "buffered_async": {"schedule.mode": "buffered_async",

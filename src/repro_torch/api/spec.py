@@ -5,7 +5,7 @@ defaults, validation messages and dict form, so a spec this slice
 accepts round-trips to the identical dict in both packages:
 
     FederationSpec
-      ├── model        ProdLDA sizing (family, vocab, topics, hidden ...)
+      ├── model        ProdLDA or a registry LM (family, vocab, arch ...)
       ├── data         synthetic federation + partition sub-spec
       ├── schedule     rounds, participation, staleness, buffered-async
       ├── transforms   message transform stage
@@ -16,8 +16,9 @@ accepts round-trips to the identical dict in both packages:
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item: stragglers on the batched cohort path (the fused ring,
-A10), a mesh (A17), ``model.family="lm"`` (A16), the ``serving``
-section (A14) and the stochastic loss (A4).  Synchronous rounds run
+A10), a mesh (A17), an LM arch whose layers the port lacks (A16b), the
+``serving`` section (A14) and the NTM's stochastic loss (A4).
+Synchronous rounds of both families run
 under both exec modes, and under ``exec_mode="loop"`` with stragglers
 (the host pending list); the message transforms run under both exec
 modes and in the buffered-async service; every partitioner of the
@@ -36,8 +37,9 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-from repro_torch.configs.base import (NTM, FederatedConfig, ModelConfig,
-                                      RoundConfig)
+from repro_torch.configs import ARCH_KIND_OF, get_config
+from repro_torch.configs.base import (AUDIO, NTM, VLM, FederatedConfig,
+                                      ModelConfig, RoundConfig)
 from repro_torch.core.aggregation import SERVER_OPTIMIZERS
 from repro_torch.core.engine import EXEC_MODES, KERNEL_BACKENDS, \
     SAMPLING_MODES
@@ -106,30 +108,69 @@ def _check_int_tuple(v, where: str, minimum: int = 0) -> None:
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ModelSpec:
-    """``model`` section (``family="ntm"``: ProdLDA)."""
+    """``model`` section: what the federation trains.
+
+    ``family="ntm"`` (default) is the paper's ProdLDA, sized by
+    ``vocab``/``topics``/``hidden``; the LM-only fields stay at their
+    zero defaults.  ``family="lm"`` is a language model of the
+    architecture registry (``repro_torch.configs``) over the arch's
+    ``reduced()`` config: ``arch`` picks it (a token-causal kind:
+    dense/moe/ssm/hybrid), ``layers``/``width``/``seq_len`` override the
+    reduced sizing (``0`` keeps it), and ``topics``/``hidden`` stay at
+    their defaults.  A registered id whose layers the port lacks raises
+    ``NotImplementedError`` naming ROADMAP.md A16b.
+    """
     family: str = "ntm"
     vocab: int = 400
     topics: int = 10
     hidden: int = 64            # both encoder MLP widths
     arch: str = ""              # LM-only fields (family="lm")
-    layers: int = 0
-    width: int = 0
-    seq_len: int = 0
+    layers: int = 0             # 0 = the arch's reduced() layer count
+    width: int = 0              # d_model override; 0 = reduced default
+    seq_len: int = 0            # tokens per document; 0 = 32
 
     def _validate(self) -> None:
         _require(self.family in ("ntm", "lm"),
                  f"model.family {self.family!r} is not one of "
                  "('ntm', 'lm')")
-        if self.family == "lm":
-            _not_ported("model.family='lm' (the LM model zoo)", "A16")
         _check_int(self.vocab, "model.vocab", 2)
         _check_int(self.topics, "model.topics", 1)
         _check_int(self.hidden, "model.hidden", 1)
-        _require(self.arch == "" and self.layers == 0
-                 and self.width == 0 and self.seq_len == 0,
-                 "model.arch/layers/width/seq_len are LM-only "
-                 "fields — set model.family='lm' to use them; "
+        _require(isinstance(self.arch, str),
+                 f"model.arch must be a string, got {self.arch!r}")
+        _check_int(self.layers, "model.layers", 0)
+        _check_int(self.width, "model.width", 0)
+        _check_int(self.seq_len, "model.seq_len", 0)
+        if self.family == "ntm":
+            _require(self.arch == "" and self.layers == 0
+                     and self.width == 0 and self.seq_len == 0,
+                     "model.arch/layers/width/seq_len are LM-only "
+                     "fields — set model.family='lm' to use them; "
+                     "fields are never silently dropped")
+            return
+        _require(self.arch in ARCH_KIND_OF,
+                 f"model.arch {self.arch!r} is not a registered "
+                 f"architecture; known: {sorted(ARCH_KIND_OF)}")
+        kind = ARCH_KIND_OF[self.arch]
+        _require(kind not in (NTM, AUDIO, VLM),
+                 f"model.arch {self.arch!r} has kind {kind!r} — "
+                 "model.family='lm' federates the token-causal "
+                 "families (dense/moe/ssm/hybrid); audio and "
+                 "vision-language archs need modality batch keys the "
+                 "federated token pipeline does not carry, and NTM "
+                 "archs go through model.family='ntm'")
+        _require(self.topics == 10 and self.hidden == 64,
+                 "model.topics/model.hidden are NTM-only fields — "
+                 "leave them at their defaults under model.family='lm'; "
                  "fields are never silently dropped")
+        if self.width:
+            _require(self.width % 64 == 0,
+                     f"model.width must be a multiple of 64 (the "
+                     f"federated LM head size), got {self.width}")
+        if self.seq_len:
+            _require(self.seq_len >= 2,
+                     f"model.seq_len must be >= 2, got {self.seq_len}")
+        get_config(self.arch)       # A16b: the ids the port lacks raise
 
 
 @dataclass(frozen=True)
@@ -375,9 +416,6 @@ class ExecutionSpec:
         _check_int(self.seed, "execution.seed", 0)
         if self.mesh is not None:
             _not_ported("execution.mesh (the sharded cohort path)", "A17")
-        if self.stochastic_loss:
-            _not_ported("execution.stochastic_loss (the train-mode ELBO's "
-                        "dropout and reparametrization draws)", "A4")
 
 
 _SECTIONS = {
@@ -477,6 +515,15 @@ class FederationSpec:
                      "round barrier — each upload is an independent "
                      "per-client local update (the loop/reference "
                      "path); set exec_mode='loop'")
+        if self.execution.stochastic_loss:
+            _require(self.model.family != "lm",
+                     "execution.stochastic_loss is the train-mode ELBO "
+                     "(dropout + reparametrization) of the NTM family — "
+                     "the federated LM objective is deterministic; drop "
+                     "the flag under model.family='lm' instead of having "
+                     "it silently ignored")
+            _not_ported("execution.stochastic_loss (the train-mode ELBO's "
+                        "dropout and reparametrization draws)", "A4")
         # what the port runs: the batched cohort path without the
         # straggler ring
         vmap = self.execution.exec_mode == "vmap"
@@ -503,6 +550,11 @@ class FederationSpec:
             else max(self.model.topics // 5, 1)
 
     @property
+    def resolved_seq_len(self) -> int:
+        """Tokens per federated LM document (model.seq_len, default 32)."""
+        return self.model.seq_len or 32
+
+    @property
     def resolved_buffer_size(self) -> int:
         """Buffered-async aggregation threshold M (0 = the cohort width
         K — the M=K default is the sync-equivalence anchor)."""
@@ -516,10 +568,34 @@ class FederationSpec:
 
     # -- compilation to the engine's config objects -----------------------
     def to_model_config(self) -> ModelConfig:
+        if self.model.family == "lm":
+            return self._to_lm_model_config()
         return ModelConfig(name=self.name or "federation-spec", kind=NTM,
                            vocab_size=self.model.vocab,
                            num_topics=self.model.topics,
                            ntm_hidden=(self.model.hidden, self.model.hidden))
+
+    def _to_lm_model_config(self) -> ModelConfig:
+        """The arch's ``reduced()`` config with the spec's size overrides
+        (the reference's rule: the launcher's ``--reduced`` path)."""
+        m = self.model
+        cfg = get_config(m.arch).reduced()
+        kw: Dict[str, Any] = {
+            "name": self.name or f"fed-{m.arch}",
+            "vocab_size": m.vocab,
+            # documents are seq_len+1 tokens (inputs + shifted labels)
+            "max_seq_len": max(cfg.max_seq_len, self.resolved_seq_len + 1),
+        }
+        if m.layers:
+            kw["num_layers"] = m.layers
+        if m.width:
+            heads = max(m.width // 64, 1)
+            kw.update(d_model=m.width, d_ff=m.width * 2, num_heads=heads,
+                      head_dim=64,
+                      num_kv_heads=heads
+                      if cfg.num_kv_heads >= cfg.num_heads
+                      else max(1, heads // 2))
+        return dataclasses.replace(cfg, **kw)
 
     def to_federated_config(self) -> FederatedConfig:
         t = self.transforms

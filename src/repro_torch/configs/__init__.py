@@ -2,8 +2,11 @@
 
 Only the architectures whose layers the port has: ``hybrid``
 (hymba-1.5b), ``ssm`` (mamba2-1.3b) and dense GQA without MoE, MLA or
-M-RoPE (phi3-mini-3.8b).  The reference's other ids raise
-``NotImplementedError`` naming ROADMAP.md A16 (the LM zoo).
+M-RoPE (phi3-mini-3.8b).  :data:`ARCH_KIND_OF` keeps the kind of every
+id of the reference's registry, so that a spec check can refuse an
+unknown id or a modality kind with the reference's wording; the ids not
+ported yet raise ``NotImplementedError`` naming ROADMAP.md A16b (the
+rest of the LM zoo).
 """
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_KINDS, AUDIO, DENSE, HYBRID, MOE, NTM, SSM, VLM, FederatedConfig,
@@ -18,10 +21,25 @@ ARCHS = {
     "phi3-mini-3.8b": _phi3,
 }
 
+# every id of the reference's registry and its kind (the reference's
+# ``configs/*.py``), the ported ones included
+ARCH_KIND_OF = {
+    "granite-34b": DENSE,
+    "qwen2-vl-7b": VLM,
+    "hubert-xlarge": AUDIO,
+    "hymba-1.5b": HYBRID,
+    "qwen1.5-110b": DENSE,
+    "phi3-mini-3.8b": DENSE,
+    "llama4-maverick-400b-a17b": MOE,
+    "qwen3-moe-235b-a22b": MOE,
+    "minicpm3-4b": DENSE,
+    "mamba2-1.3b": SSM,
+    "prodlda-synthetic": NTM,
+    "ctm-s2orc": NTM,
+}
+
 # the reference registry's other ids, still to port
-NOT_PORTED = ("granite-34b", "qwen2-vl-7b", "hubert-xlarge", "qwen1.5-110b",
-              "llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b",
-              "minicpm3-4b", "prodlda-synthetic", "ctm-s2orc")
+NOT_PORTED = tuple(a for a in ARCH_KIND_OF if a not in ARCHS)
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -29,6 +47,6 @@ def get_config(arch: str) -> ModelConfig:
         return ARCHS[arch]
     if arch in NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not in the port yet (ROADMAP.md A16); "
+            f"arch {arch!r} is not in the port yet (ROADMAP.md A16b); "
             f"ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")

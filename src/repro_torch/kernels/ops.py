@@ -7,12 +7,17 @@ failure raises), a CPU tensor runs the plain version in ``ref.py``.
 B5 and B6 are differentiable on both: a call that needs a gradient goes
 through a ``torch.autograd.Function`` whose backward is the hand-written
 backward kernel on a CUDA tensor (a build or launch failure raises; no
-fallback) and the plain backward on a CPU tensor.  The backward kernels
-are called as ``torch.library`` operators: inside ``torch.func``
-transforms a Function's backward sees wrapped tensors without storage,
-and an operator receives the plain tensors under them.  B1 is
-forward-only on the card: a CUDA call that needs a gradient raises
-rather than return an output autograd cannot see through.
+fallback) and the plain backward on a CPU tensor.  The backward passes
+are ``torch.library`` operators with a CUDA and a CPU implementation:
+inside ``torch.func`` transforms a Function's backward sees wrapped
+tensors without storage, and an operator receives the plain tensors
+under them.  Both Functions and both operators have ``vmap`` rules, so
+``torch.func.vmap(grad(...))`` over a cohort of clients (the batched
+cohort path) reaches the kernels: B5 and its backward fold the clients
+into the batch axis (one launch a cohort), B6 and its backward run once
+per client (each client has its own decay ``a``).  B1 is forward-only on
+the card: a CUDA call that needs a gradient raises rather than return an
+output autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -53,10 +58,11 @@ def _refuse_grad(kernel: str, *inputs) -> None:
     if _needs_grad(*inputs):
         raise RuntimeError(
             f"{kernel} on a CUDA tensor is forward-only: an input requires "
-            f"grad under grad mode, and the kernel has no backward (queued "
-            f"with A3, ProdLDA's train mode). Call it under "
-            f"torch.no_grad(), or on CPU tensors for the differentiable "
-            f"plain version")
+            f"grad under grad mode, and the kernel has no backward. None "
+            f"is planned: the reference's training never runs its decoder "
+            f"kernel, so ProdLDA's train mode (A3) will run the plain "
+            f"decode on the card. Call it under torch.no_grad(), or on CPU "
+            f"tensors for the differentiable plain version")
 
 
 def _weighted_sum_leaf(leaf: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -154,8 +160,11 @@ def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
                             table)
 
 
-# The backward kernels as operators of their own, implemented for CUDA
-# tensors only (the CPU path calls the plain backward directly).
+# The backward kernels as operators of their own: the kernel on a CUDA
+# tensor, the plain backward on a CPU tensor.  Under ``torch.func.vmap``
+# (the batched cohort path) a Function's backward runs on batched
+# tensors, which a ctypes call cannot read; the batching rules below
+# hand each operator the plain tensors under them.
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
             "Tensor lse, Tensor dout, bool causal, int window, float scale) "
@@ -164,6 +173,10 @@ _LIB.impl("flash_attention_bwd",
           lambda q, k, v, out, lse, dout, causal, window, scale:
           flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
                                    window=window, scale=scale), "CUDA")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, out, lse, dout, causal, window, scale:
+          ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                      window=window, scale=scale), "CPU")
 _LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
             "Tensor dy, Tensor states, Tensor? dh_last, int chunk) -> "
             "(Tensor, Tensor, Tensor, Tensor, Tensor)")
@@ -171,6 +184,54 @@ _LIB.impl("ssd_scan_bwd",
           lambda x, dt, a, b, c, dy, states, dh_last, chunk:
           ssd_scan_bwd_cuda(x, dt, a, b, c, dy, states, dh_last,
                             chunk=chunk), "CUDA")
+_LIB.impl("ssd_scan_bwd",
+          lambda x, dt, a, b, c, dy, states, dh_last, chunk:
+          tuple(ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk)),
+          "CPU")
+
+
+def _batch_first(t: Optional[torch.Tensor], dim: Optional[int], size: int
+                 ) -> Optional[torch.Tensor]:
+    """A vmapped operand with its vmap axis first; an operand without one
+    (``dim`` None) broadcast along a new first axis of ``size``."""
+    if t is None:
+        return None
+    if dim is None:
+        return t.unsqueeze(0).expand((size,) + tuple(t.shape))
+    return t.movedim(dim, 0)
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(K, B, ...) -> (K*B, ...): the vmap axis into the batch axis."""
+    return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
+
+
+def _flash_bwd_vmap(info, in_dims, q, k, v, out, lse, dout, causal, window,
+                    scale):
+    """Every operand of B5's backward is per sequence, so the vmap axis
+    folds into the batch axis: one call for the whole cohort."""
+    ts = [_batch_first(t, d, info.batch_size)
+          for t, d in zip((q, k, v, out, lse, dout), in_dims)]
+    grads = torch.ops.repro_torch.flash_attention_bwd(
+        *(_fold(t) for t in ts), causal, window, scale)
+    return tuple(g.unflatten(0, ts[0].shape[:2]) for g in grads), (0, 0, 0)
+
+
+def _ssd_bwd_vmap(info, in_dims, x, dt, a, b, c, dy, states, dh_last, chunk):
+    """B6's backward sums ``da`` over the batch, and each member of the
+    vmap axis (a client) has its own ``a``: one call per member."""
+    ts = [_batch_first(t, d, info.batch_size)
+          for t, d in zip((x, dt, a, b, c, dy, states, dh_last), in_dims)]
+    grads = [torch.ops.repro_torch.ssd_scan_bwd(
+        *(None if t is None else t[i] for t in ts), chunk)
+        for i in range(info.batch_size)]
+    return tuple(torch.stack(g) for g in zip(*grads)), (0,) * 5
+
+
+torch.library.register_vmap("repro_torch::flash_attention_bwd",
+                            _flash_bwd_vmap, lib=_LIB)
+torch.library.register_vmap("repro_torch::ssd_scan_bwd", _ssd_bwd_vmap,
+                            lib=_LIB)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -199,13 +260,21 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        if _on_cuda(q):
-            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-                q, k, v, out, lse, dout, **ctx.mask)
-        else:
-            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                                     **ctx.mask)
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, out, lse, dout, **ctx.mask)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        """The vmap axis (the batched cohort's clients) folds into the
+        batch axis, ``(K, B, S, H, D) -> (K*B, S, H, D)``: every operand
+        is per sequence, so one launch serves the whole cohort."""
+        ts = [_batch_first(t, d, info.batch_size)
+              for t, d in zip((q, k, v), in_dims)]
+        out, lse = _FlashAttention.apply(*(_fold(t) for t in ts), causal,
+                                         window, scale)
+        kb = ts[0].shape[:2]
+        return (out.unflatten(0, kb), lse.unflatten(0, kb)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -254,13 +323,21 @@ class _SSDScan(torch.autograd.Function):
         x, dt, a, b, c, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if _on_cuda(x):
-            grads = torch.ops.repro_torch.ssd_scan_bwd(
-                x, dt, a, b, c, dy, states, dh_last, ctx.chunk)
-        else:
-            grads = ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last,
-                                         ctx.chunk)
+        grads = torch.ops.repro_torch.ssd_scan_bwd(
+            x, dt, a, b, c, dy, states, dh_last, ctx.chunk)
         return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, a, b, c, chunk):
+        """One call per member of the vmap axis (a client of the batched
+        cohort): ``a`` comes from each client's own ``A_log``, and the
+        kernel takes one ``(H,)`` decay and sums ``da`` over its batch,
+        so the clients cannot fold into the batch axis as B5's do."""
+        ts = [_batch_first(t, d, info.batch_size)
+              for t, d in zip((x, dt, a, b, c), in_dims)]
+        outs = [_SSDScan.apply(*(t[i] for t in ts), chunk)
+                for i in range(info.batch_size)]
+        return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -32,7 +32,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, dtype=None,
     gather)."""
     if remat in ("full", "dots"):
         raise NotImplementedError(
-            f"remat={remat!r} is not in the port yet (ROADMAP.md A16a): "
+            f"remat={remat!r} is not in the port yet (ROADMAP.md A16b): "
             f"use 'layer' (cfg.remat_layers) or 'none'")
     if remat == "layer":
         cfg = dataclasses.replace(cfg, remat_layers=True)

@@ -25,6 +25,8 @@ Public entry points:
   * ``decode_step``      — ONE token against the cache (updated in place)
   * ``init_cache``       — zeroed decode cache for a given batch/seq
   * ``params_from_reference`` — the reference's tree -> this layout
+  * ``stack_layers``, ``unstack_layers`` — this layout <-> one flat dict
+                           of the reference's (layer-stacked) leaves
 """
 from __future__ import annotations
 
@@ -381,3 +383,55 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ModelConfig, *,
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
     return out
+
+
+def _leaf_paths(node, prefix=()):
+    if isinstance(node, Mapping):
+        for k in sorted(node):
+            yield from _leaf_paths(node[k], prefix + (k,))
+    else:
+        yield prefix, node
+
+
+def stack_layers(params: Params) -> Dict[str, torch.Tensor]:
+    """The port's tree -> one flat dict of the reference's leaves: dotted
+    paths in the reference's (sorted-key) order, each per-layer leaf
+    stacked on a leading ``num_layers`` axis as the reference stacks it.
+    The federation engine holds this form, so each of its per-leaf
+    segments (top-k's count, the secure masks) is a leaf of the
+    reference's tree."""
+    out: Dict[str, torch.Tensor] = {}
+    for key in sorted(params):
+        if key != "layers":
+            for path, leaf in _leaf_paths(params[key], (key,)):
+                out[".".join(path)] = leaf
+            continue
+        per_layer = [dict(_leaf_paths(lp)) for lp in params["layers"]]
+        for path in per_layer[0] if per_layer else ():
+            out[".".join(("layers",) + path)] = torch.stack(
+                [lp[path] for lp in per_layer])
+    return out
+
+
+def unstack_layers(flat: Mapping[str, torch.Tensor]) -> Params:
+    """The inverse of :func:`stack_layers`, as views: each stacked leaf
+    is unbound into its layers (under ``torch.func`` transforms too), so
+    a gradient through the tree reaches the stacked leaf."""
+    tree: Params = {"layers": []}
+
+    def put(node, path, value):
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    for name, leaf in flat.items():
+        path = name.split(".")
+        if path[0] != "layers":
+            put(tree, path, leaf)
+            continue
+        parts = leaf.unbind(0)
+        if not tree["layers"]:
+            tree["layers"] = [{} for _ in parts]
+        for lp, part in zip(tree["layers"], parts):
+            put(lp, path[1:], part)
+    return tree

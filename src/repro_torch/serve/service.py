@@ -1,7 +1,7 @@
 """`FederationService` — FedBuff-style buffered-async federation + serving.
 
-Port of ``repro/serve/service.py`` for the ProdLDA family.  One process,
-two surfaces:
+Port of ``repro/serve/service.py`` for ProdLDA and the registry LMs.  One
+process, two surfaces:
 
 * **train**: clients fetch the live model version, run the engine's
   loop-path local update and its transform stage (one ``(1, D)`` B3 or
@@ -11,16 +11,18 @@ two surfaces:
   flat ``(M, D)`` buffer on a CUDA device — and a server-optimizer step,
   and advances the model version.
 * **serve**: ``infer`` answers doc->topic requests from the live model,
-  read through one atomic reference swap; ``evaluate`` scores it on
-  held-out documents (kernel B1 computes the reconstruction term).
+  read through one atomic reference swap (``model.family="ntm"``);
+  ``generate`` decodes greedily from it (``model.family="lm"``: one
+  batched prefill, then lock-step decode through the registry bundle);
+  ``evaluate`` scores it on held-out documents (kernel B1 computes
+  ProdLDA's reconstruction term).
 
 Late (version lag > ``schedule.max_staleness``), superseded, malformed
 and post-shutdown deltas are rejected with the reference's reasons
 (:data:`REJECT_REASONS`).  With ``M=K``, ``max_staleness=0`` and in-order
 arrivals every aggregation is one synchronous FedAvg round.
 
-Snapshots, checkpoints (ROADMAP A11) and LM generation (A16) wait for
-their slices.
+Snapshots and checkpoints (ROADMAP A11) wait for their slice.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.api.federation import Federation
 from repro_torch.api.spec import FederationSpec, spec_replace
 from repro_torch.core.ntm import prodlda
 from repro_torch.kernels import ops as kops
+from repro_torch.models import transformer as tfm
 from repro_torch.serve.buffer import DeltaBuffer
 
 REJECT_REASONS = ("stale", "superseded", "unknown_client", "draining",
@@ -92,11 +95,13 @@ class FederationService:
         # the serving reference: ONE attribute holding (version, params);
         # aggregation publishes by rebinding it (the atomic hot swap)
         self._live = (0, eng.params)
+        self._bundle = None         # the LM bundle, built at first generate
 
     @classmethod
     def from_spec(cls, spec: Union[FederationSpec, Mapping, str], *,
-                  device=None, corpus=None,
-                  init_params=None) -> "FederationService":
+                  device=None, corpus=None, clients=None, loss_fn=None,
+                  loss_sum_fn=None, init_params=None
+                  ) -> "FederationService":
         """Build a buffered-async spec (object, mapping, or registry
         name) into a running service on ``device`` (default ``cuda``;
         raises on a host without one).  The overrides match
@@ -113,7 +118,9 @@ class FederationService:
                 "schedule.mode='buffered_async'; run sync specs through "
                 "Federation.from_spec")
         fed = Federation.from_spec(sync_twin_spec(spec), device=device,
-                                   corpus=corpus, init_params=init_params)
+                                   corpus=corpus, clients=clients,
+                                   loss_fn=loss_fn, loss_sum_fn=loss_sum_fn,
+                                   init_params=init_params)
         return cls(spec, fed)
 
     @property
@@ -285,6 +292,10 @@ class FederationService:
     def infer(self, bow, contextual=None) -> torch.Tensor:
         """Batched doc->topic posteriors ``theta (B, K)`` from the live
         model, on the service's device."""
+        if self.spec.model.family == "lm":
+            raise ValueError(
+                "doc->topic posteriors are an NTM surface; an LM-family "
+                "service serves generate()")
         if contextual is not None:
             _not_ported("infer(contextual=...) (CombinedTM input)", "A3")
         params = self._live[1]
@@ -297,10 +308,37 @@ class FederationService:
         self._fed.engine.params = self._live[1]
         return self._fed.evaluate()
 
-    # -- later slices --------------------------------------------------------
-    def generate(self, prompts, max_new: int = 16):
-        _not_ported("generate (LM-family serving)", "A16")
+    def generate(self, prompts, max_new: int = 16) -> np.ndarray:
+        """Greedy generation from the live model (``model.family="lm"``
+        only): one batched fp32 prefill of the ``(B, S)`` prompts, then
+        lock-step decode through the registry bundle, as
+        ``launch/serve.py`` runs.  Returns ``(B, max_new)`` int32
+        tokens."""
+        if self.spec.model.family != "lm":
+            raise ValueError(
+                "generation is an LM surface (model.family='lm'); the "
+                "NTM service serves doc->topic posteriors via infer()")
+        if self._bundle is None:
+            from repro_torch.models.registry import build_model
+            self._bundle = build_model(self._fed.model_cfg,
+                                       dtype=torch.float32)
+        b = self._bundle
+        prompts = torch.as_tensor(np.asarray(prompts),
+                                  dtype=torch.int64).to(self.device)
+        params = tfm.unstack_layers(self._live[1])
+        with torch.no_grad():
+            logits, cache = b.prefill(
+                params, {"tokens": prompts},
+                max_len=prompts.shape[1] + int(max_new))
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            out = [tok]
+            for _ in range(int(max_new) - 1):
+                logits, cache = b.decode_step(params, cache, tok)
+                tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
+    # -- later slices --------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         _not_ported("state_dict", "A11")
 

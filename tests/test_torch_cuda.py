@@ -1009,3 +1009,162 @@ def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
         + [0]
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(t).all()) for t in _leaves(new))
+
+
+# ---------------------------------------------------------------------------
+# the batched cohort path's vmap rules, and LM federation on the card
+# ---------------------------------------------------------------------------
+def _vmap_case(kernel, dtype, rng, dev):
+    """(f, args, in_dims) of a per-client loss through ``ops``: 3 clients,
+    an operand without the client axis (v, or B), a batched decay ``a``."""
+    def t(*shape, lo=None, hi=None, dt=dtype):
+        x = rng.standard_normal(shape) if lo is None \
+            else rng.uniform(lo, hi, shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev, dt)
+    kc = 3
+    if kernel == "flash_attention":
+        args = (t(kc, 2, 200, 25, 64), t(kc, 2, 200, 5, 64),
+                t(2, 200, 5, 64), t(kc, 2, 200, 25, 64, dt=torch.float32))
+
+        def f(q, k, v, w):
+            return torch.sum(ops.flash_attention(q, k, v, window=64).float()
+                             * w)
+        return f, args, (0, 0, None, 0), 3
+    args = (t(kc, 2, 300, 4, 64), t(kc, 2, 300, 4, lo=0.001, hi=0.1,
+                                    dt=torch.float32),
+            t(kc, 4, lo=-2.0, hi=-0.5, dt=torch.float32), t(2, 300, 16),
+            t(kc, 2, 300, 16), t(kc, 2, 300, 4, 64, dt=torch.float32),
+            t(kc, 2, 4, 64, 16, dt=torch.float32))
+
+    def f(x, dt, a, b, c, wy, wh):
+        y, h_last = ops.ssd_scan(x, dt, a, b, c, chunk=256)
+        return torch.sum(y.float() * wy) + torch.sum(h_last * wh)
+    return f, args, (0, 0, 0, None, 0, 0, 0), 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
+def test_vmap_grad_kernels_match_a_loop(cuda_device, kernel, dtype, rng):
+    """``vmap(grad)`` through B5 and B6 on the card (the batched cohort
+    path's rule) against a loop of per-client ``torch.func.grad`` through
+    the same kernels, within 1e-6 of each gradient's scale; B5 and its
+    backward launch once for the cohort, B6 and its backward once per
+    client."""
+    f, args, in_dims, n = _vmap_case(kernel, dtype, rng, cuda_device)
+    kc = args[0].shape[0]
+    argnums = tuple(range(n))
+    mod = flash_attention if kernel == "flash_attention" else ssd_scan
+    before = (mod.launches, mod.bwd_launches)
+    got = torch.func.vmap(torch.func.grad(f, argnums=argnums),
+                          in_dims=in_dims)(*args)
+    torch.cuda.synchronize()
+    per = 1 if kernel == "flash_attention" else kc
+    assert (mod.launches - before[0], mod.bwd_launches - before[1]) \
+        == (per, per)
+    for i in range(kc):
+        one = [a if d is None else a[i] for a, d in zip(args, in_dims)]
+        want = torch.func.grad(f, argnums=argnums)(*one)
+        for g, w in zip(got, want):
+            assert g[i].dtype == w.dtype
+            scale = max(float(w.float().abs().max()), 1e-30)
+            assert float((g[i].float() - w.float()).abs().max()) / scale \
+                <= 1e-6
+
+
+def test_backward_operator_batching_rules_on_card(cuda_device, rng):
+    """``repro_torch::flash_attention_bwd`` and ``repro_torch::ssd_scan_bwd``
+    under ``torch.func.vmap`` on CUDA tensors (an unbatched operand
+    each) against a loop of calls, within 1e-6 of each gradient's
+    scale."""
+    dev = cuda_device
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    kc, b, s, h, hkv, d = 3, 2, 130, 4, 2, 64
+    q, k, v, dout = t(kc, b, s, h, d), t(kc, b, s, hkv, d), \
+        t(b, s, hkv, d), t(kc, b, s, h, d)
+    fw = [flash_attention_cuda(q[i], k[i], v, causal=True, window=32,
+                               scale=d ** -0.5, want_lse=True)
+          for i in range(kc)]
+    out, lse = torch.stack([o for o, _ in fw]), torch.stack([x for _, x in fw])
+    op = torch.ops.repro_torch.flash_attention_bwd
+    checks = [(torch.func.vmap(lambda *a: op(*a, True, 32, d ** -0.5),
+                               in_dims=(0, 0, None, 0, 0, 0))(
+        q, k, v, out, lse, dout),
+        [op(q[i], k[i], v, out[i], lse[i], dout[i], True, 32, d ** -0.5)
+         for i in range(kc)])]
+    hs, p, n = 3, 64, 16
+    x, dy = t(kc, b, s, hs, p), t(kc, b, s, hs, p)
+    dt = torch.rand((kc, b, s, hs), device=dev) * 0.1
+    a = -torch.rand((hs,), device=dev) - 0.5
+    bb, cc, dh = t(kc, b, s, n), t(b, s, n), t(kc, b, hs, p, n)
+    st = torch.stack([ssd_scan_cuda(x[i], dt[i], a, bb[i], cc, chunk=64,
+                                    keep_states=True)[2] for i in range(kc)])
+    op = torch.ops.repro_torch.ssd_scan_bwd
+    checks.append((torch.func.vmap(lambda *z: op(*z, 64),
+                                   in_dims=(0, 0, None, 0, None, 0, 0, 0))(
+        x, dt, a, bb, cc, dy, st, dh),
+        [op(x[i], dt[i], a, bb[i], cc, dy[i], st[i], dh[i], 64)
+         for i in range(kc)]))
+    for got, want in checks:
+        for i, w in enumerate(want):
+            for g, e in zip(got, w):
+                scale = max(float(e.abs().max()), 1e-30)
+                assert float((g[i] - e).abs().max()) / scale <= 1e-6
+
+
+def _flips_within(devs: np.ndarray, bound: float) -> bool:
+    """Every entry within ``bound`` but top-k's support flips: at most
+    1e-4 of the entries beyond it, and those within 1e-3 (see
+    tests/test_torch_lm_federation.py)."""
+    return int(np.sum(devs > bound)) <= 1e-4 * devs.size \
+        and float(devs.max()) <= 1e-3
+
+
+def test_lm_dirichlet_topk_round_on_card_matches_cpu(cuda_device):
+    """One reduced ``lm_dirichlet_topk`` round (phi3 family, the batched
+    cohort path, top-k deltas) on the card and on the CPU from one init:
+    every parameter within 1e-4 (top-k's support flips aside), the same
+    round record, and one B2 and one B4 launch, B5 and its backward once
+    per layer (the cohort folded)."""
+    from repro_torch.api import spec_replace
+    spec = spec_replace(scenario_spec("lm_dirichlet_topk"), {
+        "model.vocab": 128, "model.seq_len": 16, "data.num_clients": 3,
+        "data.docs_per_node": 24, "data.val_docs_per_node": 8,
+        "schedule.rounds": 1})
+    cpu = Federation.from_spec(spec, device="cpu")
+    gpu = Federation.from_spec(spec, device=cuda_device,
+                               init_params=cpu.params)
+    cpu.run()
+    counts = (fed_aggregate.launches, fed_aggregate.topk_ef_launches,
+              flash_attention.launches, flash_attention.bwd_launches)
+    gpu.run()
+    torch.cuda.synchronize()
+    got = [b - a for a, b in zip(counts, (
+        fed_aggregate.launches, fed_aggregate.topk_ef_launches,
+        flash_attention.launches, flash_attention.bwd_launches))]
+    layers = gpu.model_cfg.num_layers
+    assert got == [1, 1, layers, layers]
+    assert abs(cpu.history[0]["loss"] - gpu.history[0]["loss"]) <= 1e-4
+    assert cpu.history[0]["participants"] == gpu.history[0]["participants"]
+    devs = np.concatenate([(c - g.cpu()).abs().numpy().ravel()
+                           for c, g in zip(_leaves(cpu.params),
+                                           _leaves(gpu.params))])
+    assert _flips_within(devs, 1e-4)
+
+
+def test_topk_kernel_bitwise_at_a_51m_segment(cuda_device, rng):
+    """B4 at the LM slab's widest segment (hymba-1.5b's embedding, 32 001 x
+    1600 = 51 201 600 entries), two rows over an error memory of three:
+    bitwise its plain version."""
+    d = 32_001 * 1600
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    msgs = torch.randn((2, d), generator=g, device=cuda_device) * 1e-3
+    err = torch.randn((3, d), generator=g, device=cuda_device) * 1e-4
+    ids = torch.tensor([2, 0], dtype=torch.int32, device=cuda_device)
+    table = ops.topk_segments([(0, d)], 0.25)
+    got = fed_topk_ef_cuda(msgs, err, ids, table)
+    want = _topk_plain(msgs, err, ids, table)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert int((got[0] != 0).sum(1).max()) <= table[0][2]

@@ -413,7 +413,7 @@ def test_remat_layers_gives_the_same_gradients():
                                             toptim.tree_leaves(new))])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="A16a"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         tsteps.make_train_step(tc, toptim.sgd(1.0), remat="dots")
 
 
