@@ -61,7 +61,21 @@ Phases, each fatal on failure (no phase catches and carries on):
    dp and secure; B3 and B4 bitwise at the (1, D) and (3, D) slabs; card
    against CPU and loop against batched on the card for each loop
    transform (the spec's default widths, 3 rounds), within 1e-5;
-8. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
+8. NTM train mode (``phase_ntm_train_mode``): the train-mode ELBO
+   (dropout and reparametrization on the reference's threefry keys) at
+   the same width, ``execution.stochastic_loss=True`` through
+   ``Federation.from_spec(...).run()`` on the host loop and the batched
+   path (10 rounds each, then ``evaluate``; B2 once a round, B1 once a
+   held-out batch; one traced loop round), ``launch.train.main --arch
+   prodlda-synthetic --ntm`` (20 rounds, every loss finite), card
+   against CPU and loop against batched (3 rounds, within 1e-5); then
+   gFedNTM-CTM at the width of ``configs/ctm_s2orc.py`` (V=10000, K=25,
+   C=768, D = 1 352 150) as ``benchmarks/bench_wmd.py`` runs it: 5 nodes
+   with ``fake_contextual_embeddings``, ``FederatedTrainer`` with adam
+   (20 rounds, B2 once a round), five node CTMs by
+   ``train_centralized``, the AMWMD table (finite; its host time),
+   ZeroShotTM (3 rounds) and CombinedTM card against CPU within 1e-5;
+9. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
    width (bf16 activations, the port's seeded init), batch 4 x 2048-token
    prompts and 32 greedy tokens, after one warm-up call: prefill time,
    decode tokens/s, peak memory; B5 and B6 must launch 32 times each
@@ -93,10 +107,10 @@ Phases, each fatal on failure (no phase catches and carries on):
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
    held-out ELBO and the logits must be finite;
-9. profiles: a second service, and one round of each training spec,
+10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
-10. agreement: small service and training runs on the card and on the
+11. agreement: small service and training runs on the card and on the
     CPU (the plain path the CPU tests hold against the JAX reference)
     from the same weights, within the repo's 1e-5 bound; reduced
     hymba-1.5b prefill + 4 decode steps in fp32, within 2e-4, and its
@@ -110,6 +124,7 @@ when no CUDA device is visible or the port's sources are not beside it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2006,6 +2021,306 @@ def phase_loop_transforms(records, corpus):
                                  f"paths disagree beyond 1e-5")
 
 
+# the paper's training mode: prodlda-synthetic through Federation on both
+# paths cut to 10 rounds, the --ntm launcher to 20 rounds; gFedNTM-CTM at
+# ctm-s2orc width (V=10000, K=25, C=768, encoder 100-100) over 5 nodes of
+# CTM_DOCS documents (bench_wmd.py's 600, raised so batch 64 is a tenth),
+# cut to 20 rounds, the five node CTMs to 20 steps, ZeroShotTM to 3 rounds
+NTM_ROUNDS, NTM_LAUNCH_ROUNDS, CTM_ROUNDS, CTM_DOCS = 10, 20, 20, 640
+
+
+def _expect_counts(label, counts, want, records):
+    """Fail unless the run's launches are exactly ``want`` (every other
+    kernel 0); record them under ``label``."""
+    full = {k: 0 for k in counts}
+    full.update(want)
+    log(f"    launches: {json.dumps(counts)}")
+    if counts != full:
+        raise AssertionError(f"{label}: kernel launches {counts} != {full}")
+    for r in records:
+        r["launches_by_path"][label] = counts[r["name"]]
+
+
+def _ctm_corpus():
+    """bench_wmd.py's five-discipline corpus at ctm-s2orc's vocabulary,
+    its topic-local word embeddings, and each node's {bow, contextual}
+    (fake_contextual_embeddings, C=768)."""
+    import numpy as np
+    from repro_torch.data.synthetic_lda import (fake_contextual_embeddings,
+                                                generate_lda_corpus)
+    syn = generate_lda_corpus(vocab_size=10000, num_topics=25, num_nodes=5,
+                              shared_topics=6, eta=0.02,
+                              docs_per_node=CTM_DOCS, val_docs_per_node=50,
+                              seed=0)
+    rng = np.random.default_rng(0)
+    axes = rng.standard_normal((25, 16)).astype(np.float32)
+    emb = (syn.beta.T / syn.beta.T.sum(1, keepdims=True)) @ axes
+    emb += 0.05 * rng.standard_normal(emb.shape).astype(np.float32)
+    datas = [{"bow": b, "contextual": fake_contextual_embeddings(b, 768,
+                                                                 seed=1)}
+             for b in syn.node_bows]
+    return datas, emb
+
+
+def phase_ntm_train_mode(records, corpus):
+    """The paper's training mode on the card: the train-mode ELBO
+    (dropout and reparametrization on the reference's threefry keys) and
+    CombinedTM/ZeroShotTM through Algorithm 1.  (a) prodlda-synthetic at
+    full width, ``execution.stochastic_loss=True``, batch 64 of 10 000
+    documents a client, through ``Federation.from_spec(...).run()`` on
+    the host loop and on the batched path, then ``evaluate``: B2 once a
+    round, B1 once a held-out batch; one traced loop round; card against
+    CPU and loop against batched, 3 rounds each, within 1e-5.  (b)
+    ``launch.train.main`` with ``--arch prodlda-synthetic --ntm``: every
+    loss finite, B2 once a round.  (c) gFedNTM-CTM at ctm-s2orc width as
+    ``benchmarks/bench_wmd.py`` runs it: FederatedTrainer with adam(2e-3)
+    and batch 64 (B2 once a round), five node CTMs by
+    ``train_centralized``, the AMWMD table (finite), ZeroShotTM, and
+    CombinedTM card against CPU within 1e-5."""
+    import numpy as np
+    from repro_torch.api import Federation, max_param_dev
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core.engine import ClientState
+    from repro_torch.core.ntm import ctm, prodlda
+    from repro_torch.core.protocol import FederatedTrainer, train_centralized
+    from repro_torch.launch import train as launch_train
+    from repro_torch.metrics import amwmd
+    from repro_torch.optim import adam, sgd
+    n_eval = math.ceil(5 * VAL_DOCS_PER_NODE / 256)
+    log(f"NTM train mode: prodlda-synthetic V=5000 K=50 hidden 100-100 "
+        f"dropout 0.2, L=5 clients, batch 64, lr 2e-3, "
+        f"stochastic_loss=True, {DOCS_PER_NODE} train + {VAL_DOCS_PER_NODE} "
+        f"val docs per node; cut: {NTM_ROUNDS} rounds a path, the launcher "
+        f"to {NTM_LAUNCH_ROUNDS}, the comparisons to {COMPARE_ROUNDS}")
+
+    def ntm_fed(mode, rounds, dev="cuda", init=None):
+        spec = _train_spec("sync", 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, rounds, exec_mode=mode,
+                           stochastic_loss=True)
+        return Federation.from_spec(spec, device=dev, corpus=corpus,
+                                    init_params=init)
+
+    # (a) both paths, 10 rounds each, then evaluate
+    walls = {}
+    for mode in ("loop", "vmap"):
+        fed = ntm_fed(mode, NTM_ROUNDS)
+        ends = []
+        fed.on_round_end(lambda rec: ends.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        fed.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        metrics = fed.evaluate()
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        later = [b - a for a, b in zip([t0] + ends[:-1], ends)][1:]
+        walls[mode] = sorted(later)[len(later) // 2]
+        log(f"  ntm-train-{mode}: {len(fed.history)} rounds in {t_run:.3f} "
+            f"s; rounds 2-{len(fed.history)} "
+            + ", ".join(f"{x * 1e3:.1f}" for x in later)
+            + f" ms (median {walls[mode] * 1e3:.1f} ms); evaluate "
+            f"{t_eval:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+        log(f"    losses " + ", ".join(f"{h['loss']:.3f}"
+                                      for h in fed.history))
+        log(f"    evaluate {json.dumps(metrics)}")
+        _expect_counts(f"ntm-train-{mode}", read_counts(),
+                       {"fed_weighted_sum": NTM_ROUNDS,
+                        "topic_decoder": n_eval}, records)
+        bad = [k for k, v in fed.params.items()
+               if not bool(torch.isfinite(v).all())]
+        if bad or len(fed.history) != NTM_ROUNDS or not all(
+                math.isfinite(h["loss"]) for h in fed.history) \
+                or not math.isfinite(metrics["heldout_elbo_per_token"]):
+            raise AssertionError(f"ntm-train-{mode}: non-finite params "
+                                 f"{bad}, loss or held-out ELBO")
+    _traced_loop_round("ntm-train-loop", ntm_fed("loop", 2))
+
+    # card against CPU, and loop against batched on the card, 3 rounds
+    ref = ntm_fed("loop", COMPARE_ROUNDS)
+    init = {k: v.detach().clone() for k, v in ref.params.items()}
+    ref.run()
+    cpu = ntm_fed("loop", COMPARE_ROUNDS, "cpu",
+                  {k: v.cpu() for k, v in init.items()})
+    cpu.run()
+    vm = ntm_fed("vmap", COMPARE_ROUNDS, init=init)
+    vm.run()
+    dev_cpu = max_param_dev(ref.params, cpu.params)
+    dev_vm = max_param_dev(ref.params, vm.params)
+    log(f"agreement ntm train mode ({COMPARE_ROUNDS} rounds, full width): "
+        f"card vs CPU max_param_dev {dev_cpu:.3e}, loop vs vmap on the card "
+        f"{dev_vm:.3e} (bound 1e-5)")
+    if not (dev_cpu <= 1e-5 and dev_vm <= 1e-5):
+        raise AssertionError("train-mode runs disagree beyond 1e-5")
+
+    # where a client's host time goes: one minibatch draw (its shuffle
+    # hashed and sorted on the card, or on the host) and one client
+    # gradient step in train and in eval mode, each timed to a sync
+    from repro_torch.core import prng
+    from repro_torch.data.federated_split import (_draw_indices,
+                                                  sample_minibatch)
+
+    def host_ms(fn, reps=20):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i + 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    key = prng.PRNGKey(7)
+    costs = {f"draw n={n} on {dev}": host_ms(
+        lambda i, n=n, dev=dev: _draw_indices(prng.fold_in(key, i), n, 64,
+                                              dev))
+             for n in (DOCS_PER_NODE, CTM_DOCS) for dev in ("cuda", "cpu")}
+    client = ref.engine.clients[0]
+    batch, _ = sample_minibatch(client.data, client.num_docs, key, 64)
+    for train in (True, False):
+        step = torch.func.grad_and_value(
+            lambda p, b, train=train: prodlda.elbo_loss(p, ref.model_cfg, b,
+                                                        train=train))
+        costs[f"client step train={train}"] = host_ms(
+            lambda i, step=step: step(ref.params, batch))
+    log("  host time (ms, mean of 20, to a sync): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in costs.items()))
+
+    # (b) the --ntm launcher
+    losses = []
+    zero_counts()
+    t0 = time.perf_counter()
+    final = launch_train.main(
+        ["--arch", "prodlda-synthetic", "--ntm", "--steps",
+         str(NTM_LAUNCH_ROUNDS), "--batch", "64", "--log-every", "10"],
+        on_step=lambda r, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    t_launch = time.perf_counter() - t0
+    log(f"  launch.train --ntm (prodlda-synthetic, 4 clients x 500 docs, "
+        f"batch 64, sgd 2e-3): {len(losses)} rounds in {t_launch:.2f} s "
+        f"(corpus and set-up included); losses "
+        + ", ".join(f"{x:.3f}" for x in losses))
+    _expect_counts("ntm-launch", read_counts(),
+                   {"fed_weighted_sum": NTM_LAUNCH_ROUNDS}, records)
+    if len(losses) != NTM_LAUNCH_ROUNDS or not all(
+            math.isfinite(x) for x in losses) or final != losses[-1]:
+        raise AssertionError("launch.train --ntm: a loss is not finite")
+
+    # (c) gFedNTM-CTM at ctm-s2orc width
+    t0 = time.perf_counter()
+    datas, word_emb = _ctm_corpus()
+    t_corpus = time.perf_counter() - t0
+    cfg = get_config("ctm-s2orc")
+    node_cfg = dataclasses.replace(cfg, num_topics=max(25 // 5 + 2, 4))
+
+    def clients(dev):
+        return [ClientState(data={k: torch.from_numpy(v).to(dev)
+                                  for k, v in d.items()},
+                            num_docs=CTM_DOCS) for d in datas]
+
+    def trainer(loss, init, rounds, dev="cuda", opt=None):
+        return FederatedTrainer(
+            loss, {k: v.to(dev) for k, v in init.items()}, clients(dev),
+            FederatedConfig(num_clients=5, learning_rate=2e-3,
+                            max_rounds=rounds, rel_tol=0.0),
+            optimizer=opt or adam(2e-3), batch_size=64)
+
+    combined = lambda p, b: ctm.loss_combined(p, cfg, b)  # noqa: E731
+    init = ctm.init_combined(torch.Generator().manual_seed(100), cfg,
+                             device="cuda")
+    d_msg = sum(v.numel() for v in init.values())
+    log(f"gFedNTM-CTM (bench_wmd.py's pipeline): ctm-s2orc V=10000 K=25 "
+        f"C=768 hidden 100-100 dropout 0.2, message D = {d_msg}, 5 nodes "
+        f"x {CTM_DOCS} docs (corpus + embeddings {t_corpus:.1f} s), adam "
+        f"2e-3, batch 64; cut: {CTM_ROUNDS} rounds, node CTMs (K="
+        f"{node_cfg.num_topics}) {CTM_ROUNDS} steps, ZeroShotTM 3 rounds")
+    if d_msg != 1_352_150:
+        raise AssertionError(f"CombinedTM message D = {d_msg}")
+    tr = trainer(combined, init, CTM_ROUNDS)
+    ends = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    tr.fit(seed=0, on_round=lambda rec: ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t_fed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    later = [b - a for a, b in zip([t0] + ends[:-1], ends)][1:]
+    log(f"  ctm-federated: {len(tr.history)} rounds in {t_fed:.3f} s; "
+        f"rounds 2-{len(tr.history)} median "
+        f"{sorted(later)[len(later) // 2] * 1e3:.1f} ms (min "
+        f"{min(later) * 1e3:.1f}, max {max(later) * 1e3:.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB; losses "
+        + ", ".join(f"{h['loss']:.2f}" for h in tr.history))
+    _expect_counts("ctm-federated", read_counts(),
+                   {"fed_weighted_sum": CTM_ROUNDS}, records)
+    if not all(math.isfinite(h["loss"]) for h in tr.history):
+        raise AssertionError("gFedNTM-CTM: a loss is not finite")
+
+    # the non-collaborative CTMs, one per node (scenario 1)
+    node_loss = lambda p, b: ctm.loss_combined(p, node_cfg, b)  # noqa: E731
+    t0 = time.perf_counter()
+    nodes = []
+    for l, d in enumerate(datas):
+        nodes.append(train_centralized(
+            node_loss, ctm.init_combined(torch.Generator().manual_seed(l),
+                                         node_cfg, device="cuda"),
+            {k: torch.from_numpy(v).to("cuda") for k, v in d.items()},
+            optimizer=adam(2e-3), batch_size=64, steps=CTM_ROUNDS, seed=l))
+    torch.cuda.synchronize()
+    log(f"  node CTMs: 5 x {CTM_ROUNDS} steps in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # AMWMD (Eq. 7) of the federated model and each node model against
+    # every node's topics, on the host
+    node_betas = [prodlda.get_topics(p).cpu().numpy() for p in nodes]
+    evals = {f"node:{l}": b for l, b in enumerate(node_betas)}
+    evals["federated:K=25"] = prodlda.get_topics(tr.params).cpu().numpy()
+    t0 = time.perf_counter()
+    table = {name: [0.0 if name == f"node:{l}" else
+                    amwmd(node_betas[l], beta, word_emb, top_n=8)
+                    for l in range(5)] for name, beta in evals.items()}
+    t_amwmd = time.perf_counter() - t0
+    log(f"  AMWMD (top 8 words, host time {t_amwmd:.2f} s), rows: the "
+        f"evaluated model, columns: node 0-4")
+    for name, row in table.items():
+        log(f"    {name:16s} " + " ".join(f"{v:7.3f}" for v in row)
+            + f"   avg {float(np.mean(row)):.3f}")
+    if not all(math.isfinite(v) for row in table.values() for v in row):
+        raise AssertionError("AMWMD table is not finite")
+
+    # ZeroShotTM, 3 rounds
+    zs = trainer(lambda p, b: ctm.loss_zeroshot(p, cfg, b),
+                 ctm.init_zeroshot(torch.Generator().manual_seed(101), cfg,
+                                   device="cuda"), 3)
+    zero_counts()
+    zs.fit(seed=0)
+    torch.cuda.synchronize()
+    log("  ZeroShotTM: 3 rounds, losses "
+        + ", ".join(f"{h['loss']:.3f}" for h in zs.history))
+    _expect_counts("ctm-zeroshot", read_counts(), {"fed_weighted_sum": 3},
+                   records)
+    if not all(math.isfinite(h["loss"]) for h in zs.history):
+        raise AssertionError("ZeroShotTM: a loss is not finite")
+
+    # CombinedTM card against CPU, 3 rounds of sgd from one init
+    runs = []
+    for dev in ("cuda", "cpu"):
+        t = trainer(combined, init, COMPARE_ROUNDS, dev, sgd(2e-3))
+        t.fit(seed=0)
+        runs.append(t)
+    dev_ctm = max_param_dev(runs[0].params, runs[1].params)
+    log(f"agreement CombinedTM FederatedTrainer+sgd card vs CPU "
+        f"({COMPARE_ROUNDS} rounds, ctm-s2orc width): max_param_dev "
+        f"{dev_ctm:.3e} (bound 1e-5)")
+    if not dev_ctm <= 1e-5:
+        raise AssertionError("card and CPU CombinedTM disagree beyond 1e-5")
+
+
 def phase_training_profile(corpus):
     """Where the training time goes: two rounds of each spec on a fresh
     federation under ``torch.profiler``; the device's busy share of the
@@ -2704,6 +3019,7 @@ def main() -> int:
     phase_training(records, corpus)
     phase_algorithm1(records, corpus)
     phase_loop_transforms(records, corpus)
+    phase_ntm_train_mode(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)
     for r in records:

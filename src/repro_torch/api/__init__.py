@@ -6,9 +6,10 @@ from repro_torch.api.federation import (Federation,  # noqa: F401
                                         heldout_perplexity,
                                         heldout_xent_per_token,
                                         max_param_dev, resolve_device)
-from repro_torch.api.registry import (scenario_names,  # noqa: F401
-                                      scenario_spec)
-from repro_torch.api.spec import (DataSpec, ExecutionSpec,  # noqa: F401
-                                  FederationSpec, ModelSpec, PartitionSpec,
-                                  ScheduleSpec, ServerOptSpec,
-                                  TransformsSpec, spec_replace)
+from repro_torch.api.registry import (  # noqa: F401
+    BENCH_SCENARIOS, SCENARIOS, register_scenario, scenario_names,
+    scenario_spec)
+from repro_torch.api.spec import (  # noqa: F401
+    SPEC_VERSION, DataSpec, ExecutionSpec, FederationSpec, ModelSpec,
+    PartitionSpec, ScheduleSpec, ServerOptSpec, TransformsSpec,
+    parse_int_tuple, spec_replace)

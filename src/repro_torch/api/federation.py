@@ -280,8 +280,10 @@ class Federation:
     @staticmethod
     def _wire_ntm(spec, cfg, dev, corpus, clients, loss_fn, loss_sum_fn,
                   init_params):
-        """ProdLDA: the synthetic topic corpus and its clients, the
-        deterministic ELBO and the seeded init, each unless overridden."""
+        """ProdLDA: the synthetic topic corpus and its clients, the ELBO
+        (train mode — dropout and reparametrization from each batch's key
+        — iff ``execution.stochastic_loss``) and the seeded init, each
+        unless overridden."""
         if clients is None:
             if corpus is None:
                 corpus = build_corpus(spec)
@@ -295,13 +297,15 @@ class Federation:
                                     spec.data.partition.to_string(),
                                     device=dev, seed=spec.resolved_data_seed)
         if loss_fn is None:
+            train = spec.execution.stochastic_loss
+
             def loss_fn(p, b):
-                return prodlda.elbo_loss(p, cfg, b)
+                return prodlda.elbo_loss(p, cfg, b, train=train)
             if loss_sum_fn is None:
                 # mask-aware (sum, count): padded cohort rows stay out of
                 # the stacked objective
                 def loss_sum_fn(p, b):
-                    return prodlda.elbo_loss_sum(p, cfg, b)
+                    return prodlda.elbo_loss_sum(p, cfg, b, train=train)
         if init_params is None:
             init_params = prodlda.init_params(
                 torch.Generator().manual_seed(spec.execution.seed), cfg,

@@ -140,3 +140,13 @@ def scenario_spec(name: str,
     if callable(ov):
         ov = ov(base)
     return dataclasses.replace(spec_replace(base, ov), name=name)
+
+
+def register_scenario(name: str, overrides: Overrides, *,
+                      overwrite: bool = False) -> None:
+    """Add a scenario at runtime (sweep scripts, notebooks, tests); an
+    existing name is replaced only with ``overwrite=True``."""
+    if name in SCENARIOS and not overwrite:
+        raise ValueError(f"scenario {name!r} already registered; pass "
+                         "overwrite=True to replace it")
+    SCENARIOS[name] = overrides

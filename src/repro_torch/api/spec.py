@@ -16,9 +16,9 @@ accepts round-trips to the identical dict in both packages:
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item: stragglers on the batched cohort path (the fused ring,
-A10), a mesh (A17), an LM arch whose layers the port lacks (A16b), the
-``serving`` section (A14) and the NTM's stochastic loss (A4).
-Synchronous rounds of both families run
+A10), a mesh (A17), an LM arch whose layers the port lacks (A16b) and
+the ``serving`` section (A14).  The NTM's ``execution.stochastic_loss``
+(the train-mode ELBO) runs.  Synchronous rounds of both families run
 under both exec modes, and under ``exec_mode="loop"`` with stragglers
 (the host pending list); the message transforms run under both exec
 modes and in the buffered-async service; every partitioner of the
@@ -522,8 +522,6 @@ class FederationSpec:
                      "the federated LM objective is deterministic; drop "
                      "the flag under model.family='lm' instead of having "
                      "it silently ignored")
-            _not_ported("execution.stochastic_loss (the train-mode ELBO's "
-                        "dropout and reparametrization draws)", "A4")
         # what the port runs: the batched cohort path without the
         # straggler ring
         vmap = self.execution.exec_mode == "vmap"

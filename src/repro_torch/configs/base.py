@@ -3,12 +3,11 @@
 
 Same names and defaults as the reference dataclasses.  ``ModelConfig``
 carries the LM fields of the reference (for the serving slice:
-``dense``, ``ssm`` and ``hybrid`` kinds) beside the ProdLDA ones;
-``num_params()`` and ``reduced()`` are the reference's.  Fields no
-ported path reads (the lowering knobs ``scan_layers`` /
-``unroll_chunks``, CTM's ``contextual_dim``, ``ntm_dropout``, the mesh)
-join with the slices that read them (ROADMAP.md §A); ``remat_layers``
-joined with LM training.
+``dense``, ``ssm`` and ``hybrid`` kinds) beside the ProdLDA/CTM ones
+(``contextual_dim``, ``ntm_dropout``); ``num_params()`` and
+``reduced()`` are the reference's.  Fields no ported path reads (the
+lowering knobs ``scan_layers`` / ``unroll_chunks``, the mesh) join with
+the slices that read them (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -97,9 +96,11 @@ class ModelConfig:
     # hymba: attention and mamba branches run in parallel, mean-fused
     hybrid_attn: bool = False
 
-    # NTM-specific (ProdLDA)
+    # NTM-specific (ProdLDA / CTM)
     num_topics: int = 50
     ntm_hidden: Tuple[int, ...] = (100, 100)
+    ntm_dropout: float = 0.2
+    contextual_dim: int = 0       # CombinedTM: SBERT embedding size (0 = ProdLDA)
     learn_priors: bool = True
 
     dtype: str = "bfloat16"       # activation dtype on the target hardware
@@ -126,7 +127,7 @@ class ModelConfig:
             v, k = self.vocab_size, self.num_topics
             h = list(self.ntm_hidden)
             n = 0
-            dims = [v] + h
+            dims = [v + self.contextual_dim] + h
             for a, b in zip(dims[:-1], dims[1:]):
                 n += a * b + b
             n += 2 * (h[-1] * k + k)        # mu and logvar heads
@@ -216,7 +217,8 @@ class ModelConfig:
         if self.kind == NTM:
             kw = dict(vocab_size=min(self.vocab_size, 512),
                       num_topics=min(self.num_topics, 10),
-                      ntm_hidden=(32, 32))
+                      ntm_hidden=(32, 32),
+                      contextual_dim=32 if self.contextual_dim else 0)
         return replace(self, **kw)
 
 

@@ -45,10 +45,10 @@ import torch
 
 from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
+from repro_torch.core import prng
 from repro_torch.core.transforms import StackedTransformCtx, \
     build_transforms
-from repro_torch.data.federated_split import (draw_generator,
-                                              round_minibatches,
+from repro_torch.data.federated_split import (round_minibatches,
                                               sample_minibatch,
                                               stacked_round_batches)
 from repro_torch.kernels import ops
@@ -77,18 +77,18 @@ def param_delta(old: Mapping[str, torch.Tensor],
 
 
 def client_round_update(grad_fn, params: Mapping[str, torch.Tensor],
-                        client: ClientState, round_seed: int, client_id: int,
-                        *, learning_rate: float, local_epochs: int = 1,
+                        client: ClientState, round_rng: torch.Tensor, *,
+                        learning_rate: float, local_epochs: int = 1,
                         batch_size: int = 64
                         ) -> Tuple[Params, float, torch.Tensor]:
-    """Run E local SGD epochs on one client from the server weights;
-    return ``(delta, n_total, mean_loss)``.  ``grad_fn(params, batch) ->
-    (grads, loss)``; the loss stays a 0-dim tensor (no host sync)."""
+    """Run E local SGD epochs on one client from the server weights, on
+    the draws of the client's round key ``round_rng``; return ``(delta,
+    n_total, mean_loss)``.  ``grad_fn(params, batch) -> (grads, loss)``;
+    the loss stays a 0-dim tensor (no host sync)."""
     local = dict(params)
     tot_loss, tot_n = 0.0, 0.0
     for batch, n in round_minibatches(client.data, client.num_docs,
-                                      round_seed, client_id,
-                                      batch_size=batch_size,
+                                      round_rng, batch_size=batch_size,
                                       local_epochs=local_epochs):
         grads, loss = grad_fn(local, batch)
         local = {k: p - learning_rate * grads[k].to(p.dtype)
@@ -580,19 +580,19 @@ class FederationEngine:
 
     def _local_message(self, l: int, round_seed: int):
         """One client's message against ``self.params``: ``(message, n,
-        mean_loss)``, the loss a 0-dim device tensor.  A ``"grad"``
-        message is the gradient on the draw of ``(round_seed, l, 0)``
-        (the batched path's epoch 0); a ``"delta"`` runs the client's E
-        epochs on the draws of ``(round_seed, l, epoch)``."""
+        mean_loss)``, the loss a 0-dim device tensor.  The client's key is
+        ``fold_in(PRNGKey(round_seed), l)``, the reference's; a ``"grad"``
+        message is the gradient on its epoch-0 draw, a ``"delta"`` runs
+        the client's E epochs (``data/federated_split.py``)."""
         c = self.clients[l]
+        rng = prng.fold_in(prng.PRNGKey(round_seed), l)
         if self.message == "grad":
-            batch, n = sample_minibatch(c.data, c.num_docs,
-                                        draw_generator(round_seed, l, 0),
+            batch, n = sample_minibatch(c.data, c.num_docs, rng,
                                         self.batch_size)
             grads, loss = self._grad_fn(self.params, batch)
             return grads, float(n), loss.detach()
         return client_round_update(
-            self._grad_fn, self.params, c, round_seed, l,
+            self._grad_fn, self.params, c, rng,
             learning_rate=self.fed.learning_rate,
             local_epochs=int(self._epochs[l]), batch_size=self.batch_size)
 
@@ -743,7 +743,8 @@ class FederationEngine:
             else len(cohort)
         stacked, counts = stacked_round_batches(
             [self.clients[l].data for l in cohort],
-            [self.clients[l].num_docs for l in cohort], round_seed, cohort,
+            [self.clients[l].num_docs for l in cohort],
+            prng.PRNGKey(round_seed), cohort,
             batch_size=self.batch_size, local_epochs=self._e_max,
             pad_to=k_fix)
         e_counts = np.zeros((k_fix,), np.int64)
@@ -804,11 +805,15 @@ class FederationEngine:
         self._round += 1
         return rec
 
-    def fit(self, *, seed: int = 0, verbose: bool = False) -> Params:
+    def fit(self, *, seed: int = 0, verbose: bool = False,
+            on_round=None) -> Params:
         """``fed.max_rounds`` rounds with the fixed per-round seed schedule
-        ``seed * 100003 + round`` and the Alg.-1 stopping criterion."""
+        ``seed * 100003 + round`` and the Alg.-1 stopping criterion;
+        ``on_round(record)`` is called after each round."""
         for e in range(self.fed.max_rounds):
             rec = self.round(seed=seed * 100003 + e)
+            if on_round is not None:
+                on_round(rec)
             if verbose and e % 10 == 0:
                 print(f"[round {e:4d}] loss={rec['loss']:.4f} "
                       f"rel={rec['rel_change']:.2e} "

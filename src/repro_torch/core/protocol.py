@@ -16,10 +16,11 @@ Port of ``repro/core/protocol.py``:
   trusted server on the concatenated corpus) and
   :func:`train_non_collaborative` (scenario 1, one model per node).
 
-Minibatches are drawn from seeded CPU ``torch.Generator``\\ s
-(``data/federated_split.py``), so a card run and a CPU run see the same
-documents.  The in-graph ``shard_map`` step waits for the mesh layer
-(ROADMAP.md A17).
+Minibatches and the train-mode loss's keys follow the reference's
+threefry schedule (``core/prng.py``, ``data/federated_split.py``), so a
+card run, a CPU run and the reference see the same documents and draws.
+The in-graph ``shard_map`` step waits for the mesh layer (ROADMAP.md
+A17).
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ import torch
 
 from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
+from repro_torch.core import prng
 from repro_torch.core.engine import ClientState, FederationEngine
-from repro_torch.data.federated_split import seeded_generator
 from repro_torch.optim.optimizers import Optimizer, sgd
 
 Params = Dict[str, torch.Tensor]
@@ -116,8 +117,8 @@ class FederatedTrainer(FederationEngine):
 
     def _client_grad(self, l: int, c: ClientState, round_seed: int):
         """GETCLIENTGRAD(N_l, W): ``(loss, grad, n)`` of client l's
-        minibatch for the round seeded ``round_seed`` (Alg. 1), the grad
-        through the transform stage as the client would send it."""
+        minibatch for the round key ``PRNGKey(round_seed)`` (Alg. 1), the
+        grad through the transform stage as the client would send it."""
         msg, n, loss = self._local_message(l, round_seed)
         return loss, self.transform_message(l, msg, n, round_seed), n
 
@@ -164,17 +165,22 @@ def train_centralized(loss_fn, init_params: Mapping[str, torch.Tensor],
                       steps: int, seed: int = 0,
                       verbose: bool = False) -> Params:
     """Scenario 2: a trusted server trains on the concatenated corpus C.
-    Step e draws ``min(batch_size, n_docs)`` documents without
-    replacement from the CPU generator of ``(seed, e)``; ``data`` lives
-    on the parameters' device."""
+    The reference's key schedule: ``key = PRNGKey(seed)``, and each step
+    ``key, k1, k2 = split(key, 3)``, draws ``min(batch_size, n_docs)``
+    documents without replacement from ``k1`` and gives the batch
+    ``rng = k2``; ``data`` lives on the parameters' device."""
     params = dict(init_params)
     opt_state = optimizer.init(params)
     grad_fn = torch.func.grad_and_value(loss_fn)
     n_docs = len(next(iter(data.values())))
     n = min(batch_size, n_docs)
+    dev = next(iter(data.values())).device
+    key = prng.PRNGKey(seed)
     for e in range(steps):
-        idx = torch.randperm(n_docs, generator=seeded_generator(seed, e))[:n]
-        batch = {k: v[idx.to(v.device)] for k, v in data.items()}
+        key, k1, k2 = prng.split(key, 3)
+        idx = prng.choice(k1, n_docs, n, device=dev)
+        batch = {k: v[idx] for k, v in data.items()}
+        batch["rng"] = k2.to(dev)
         grads, loss = grad_fn(params, batch)
         params, opt_state = optimizer.update(params, grads, opt_state, e)
         if verbose and e % 50 == 0:
@@ -188,7 +194,8 @@ def train_non_collaborative(loss_fn, init_fn,
                             steps: int, seed: int = 0) -> List[Params]:
     """Scenario 1: every node trains its own model on its own corpus.
     ``init_fn(generator)`` makes node l's weights from the CPU generator
-    seeded ``seed + 17 * l``; node l draws from ``seed + 31 * l``."""
+    seeded ``seed + 17 * l``; node l's draws are :func:`train_centralized`'s
+    with ``seed + 31 * l``."""
     out = []
     for l, data in enumerate(node_data):
         params = init_fn(torch.Generator().manual_seed(seed + 17 * l))

@@ -26,8 +26,9 @@ row of a mask stack drawn once a round, ``precision`` is pointwise — so
 the slab form gives each message the value the per-client form gives it.
 
 Randomness.  The reference draws dp noise and secure masks from threefry
-keys; the port draws them from CPU ``torch.Generator``\\ s seeded like the
-minibatch draws (``data/federated_split.py:seeded_generator``) — dp from
+keys; the port draws them from CPU ``torch.Generator``\\ s seeded from the
+round seed (``data/federated_split.py:seeded_generator``; the threefry
+draws of ``core/prng.py`` do not reach them yet, ROADMAP.md A4) — dp from
 ``(round_seed, client, 7, _DP_SALT)``, the masks from ``(round_seed,
 leaf, m, _SECURE_SALT)`` — and copies them to the device, so a card run
 and a CPU run draw the same values.  Against the reference they agree in

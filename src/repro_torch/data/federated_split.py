@@ -11,15 +11,20 @@ numpy only, on ``np.random.default_rng(seed)``, so the index arrays are
 the reference's bit for bit.  Specs are strings such as
 ``"dirichlet(0.3)"``, parsed by :func:`parse_partition_spec`.
 
-Minibatch draws: the reference draws ``jax.random.choice(replace=False)``
-from a threefry key ``fold_in(PRNGKey(seed * 100003 + t), client)``.  The
-port draws ``torch.randperm`` from a CPU ``torch.Generator`` seeded from
-the same schedule ``(seed * 100003 + t, client, epoch)`` — the same
-documents when the draw is the whole corpus (``batch_size >= num_docs``,
-the parity setting), the same distribution otherwise, and the same
-indices on a CPU and a GPU run.  :func:`stacked_round_batches` stacks
-a round's cohort draws for the batched path, with the same draws as the
-per-client iterator.
+Minibatch draws follow the reference's key schedule with its own
+threefry draws (``core/prng.py``): client l's key in round t is
+``fold_in(PRNGKey(seed * 100003 + t), l)``; epoch 0 draws from it and
+epoch s > 0 from ``fold_in(key, s + 1)`` (:func:`_epoch_key`); a draw is
+``choice(key, num_docs, min(batch_size, num_docs), replace=False)`` and
+the batch carries ``rng = fold_in(key, 1)``, the key of the train-mode
+loss's dropout and reparametrization noise.  So the port selects the
+reference's documents at any ``batch_size``, and the same ones on a CPU
+and a GPU run.  The keys are hashed on the host, the shuffle's sort keys
+on the device of the client corpus, where the indices and the batch's
+``rng`` go.  :func:`stacked_round_batches`
+stacks a round's cohort draws for the batched path, with the same draws
+as the per-client iterator.  :func:`seeded_generator` remains the
+source of the dp noise and secure-mask draws (``core/transforms.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 
 # ---------------------------------------------------------------------------
@@ -175,67 +182,74 @@ def seeded_generator(*words: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state[0]))
 
 
-def draw_generator(round_seed: int, client: int,
-                   epoch: int) -> torch.Generator:
-    """The CPU generator of one (round, client, epoch) draw."""
-    return seeded_generator(round_seed, client, epoch)
-
-
-def _draw_indices(num_docs: int, gen: torch.Generator,
-                  batch_size: int) -> Tuple[torch.Tensor, int]:
+def _draw_indices(rng: torch.Tensor, num_docs: int, batch_size: int,
+                  device) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The one place a client draw is made: ``min(batch_size, num_docs)``
-    document indices without replacement, on the CPU.  The per-client
-    iterator and :func:`stacked_round_batches` both call it, so the two
-    execution paths see the same documents."""
+    document indices without replacement, the in-batch model key and the
+    draw size, on ``device``.  The per-client iterator and
+    :func:`stacked_round_batches` both call it, so the two execution
+    paths see the same documents and keys."""
     n = min(batch_size, int(num_docs))
-    return torch.randperm(int(num_docs), generator=gen)[:n], n
+    return (prng.choice(rng, int(num_docs), n, device=device),
+            prng.fold_in(rng, 1).to(device), n)
+
+
+def _epoch_key(round_rng: torch.Tensor, s: int) -> torch.Tensor:
+    """Epoch-s draw key: epoch 0 reuses the client's round key (the draw
+    Algorithm 1 makes), s > 0 folds in s + 1 — ``fold_in(key, 1)`` is
+    epoch 0's model key."""
+    return round_rng if s == 0 else prng.fold_in(round_rng, s + 1)
 
 
 def sample_minibatch(data: Dict[str, torch.Tensor], num_docs: int,
-                     gen: torch.Generator,
-                     batch_size: int) -> Tuple[Dict[str, torch.Tensor], int]:
-    """One client draw, gathered on the device the client corpus lives
-    on."""
-    idx, n = _draw_indices(num_docs, gen, batch_size)
-    return {k: v[idx.to(v.device)] for k, v in data.items()}, n
+                     rng: torch.Tensor, batch_size: int
+                     ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """One client draw from key ``rng``, gathered on the device the
+    client corpus lives on, with ``batch["rng"] = fold_in(rng, 1)``."""
+    dev = next(iter(data.values())).device
+    idx, model_rng, n = _draw_indices(rng, num_docs, batch_size, dev)
+    batch = {k: v[idx] for k, v in data.items()}
+    batch["rng"] = model_rng
+    return batch, n
 
 
 def round_minibatches(data: Dict[str, torch.Tensor], num_docs: int,
-                      round_seed: int, client: int, *, batch_size: int,
+                      round_rng: torch.Tensor, *, batch_size: int,
                       local_epochs: int = 1
                       ) -> Iterator[Tuple[Dict[str, torch.Tensor], int]]:
-    """Yield the E local-epoch minibatches of one client in one round."""
+    """Yield the E local-epoch minibatches of one client in one round
+    (``round_rng`` is the client's round key)."""
     for s in range(local_epochs):
-        yield sample_minibatch(data, num_docs,
-                               draw_generator(round_seed, client, s),
+        yield sample_minibatch(data, num_docs, _epoch_key(round_rng, s),
                                batch_size)
 
 
 def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
-                          num_docs: Sequence[int], round_seed: int,
+                          num_docs: Sequence[int], round_key: torch.Tensor,
                           client_ids: Sequence[int], *, batch_size: int,
                           local_epochs: int = 1,
                           pad_to: Optional[int] = None
                           ) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
     """One round's cohort minibatches on a leading client axis.
 
-    For cohort member ``i`` (global id ``client_ids[i]``) and epoch ``s``
-    the draw is exactly the one :func:`round_minibatches` makes (same
-    generator, same ``randperm``), gathered on the device the client
-    corpus lives on and stacked into fixed shapes:
+    For cohort member ``i`` (global id ``client_ids[i]``, key
+    ``fold_in(round_key, id)``) and epoch ``s`` the draw is exactly the
+    one :func:`round_minibatches` makes, gathered on the device the
+    client corpus lives on and stacked into fixed shapes:
 
       * every data key -> ``(K, E, P, ...)``, ``P = batch_size``, rows
         beyond a client's draw size zero;
       * ``"doc_mask"`` -> ``(K, E, P)`` float32, 1 for real rows — the
         mask-aware loss keeps padded rows out of the objective and its
-        gradient.
+        gradient;
+      * ``"rng"`` -> ``(K, E, 2)`` int64, the in-batch model keys the
+        loop path puts in ``batch["rng"]``.
 
     Returns ``(stacked, counts)``, ``counts`` the ``(K, E)`` float32 draw
     sizes on the host (the Eq. (2) weights are ``counts.sum(axis=1)``).
     ``pad_to`` (>= the cohort) widens the client axis to a fixed K with
-    all-zero rows (data, mask, counts): zero-weight padding, the real
-    rows unchanged.  The reference's in-batch ``rng`` keys have no
-    counterpart: the port's loss is deterministic (ROADMAP.md A4).
+    all-zero rows (data, mask, keys, counts): zero-weight padding, the
+    real rows unchanged.
     """
     k_clients = len(datas)
     k_stack = k_clients if pad_to is None else int(pad_to)
@@ -251,16 +265,20 @@ def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
                                 dtype=v.dtype, device=v.device)
                for key, v in datas[0].items()}
     mask = np.zeros((k_stack, e, p), np.float32)
+    dev = next(iter(stacked.values())).device
+    keys = torch.zeros((k_stack, e, 2), dtype=torch.int64, device=dev)
     counts = np.zeros((k_stack, e), np.float32)
     for i, (data, nd, cid) in enumerate(zip(datas, num_docs, client_ids)):
-        draws = [_draw_indices(nd, draw_generator(round_seed, cid, s),
-                               batch_size) for s in range(e)]
-        n = draws[0][1]
-        idx = torch.stack([d for d, _ in draws])        # (E, n)
+        crng = prng.fold_in(round_key, int(cid))
+        draws = [_draw_indices(_epoch_key(crng, s), nd, batch_size, dev)
+                 for s in range(e)]
+        n = draws[0][2]
+        idx = torch.stack([d[0] for d in draws])        # (E, n)
         for key, v in data.items():
-            stacked[key][i, :, :n] = v[idx.to(v.device)]
+            stacked[key][i, :, :n] = v[idx]
+        keys[i] = torch.stack([d[1] for d in draws])
         mask[i, :, :n] = 1.0
         counts[i, :] = n
-    dev = next(iter(stacked.values())).device
     stacked["doc_mask"] = torch.from_numpy(mask).to(dev)
+    stacked["rng"] = keys
     return stacked, counts

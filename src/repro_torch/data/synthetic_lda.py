@@ -109,3 +109,17 @@ def generate_lda_corpus(
         node_val_thetas=node_val_thetas, node_val_bows=node_val_bows,
         node_topics=node_topics, shared_topics=shared_ids,
         alpha=alpha, eta=eta)
+
+
+def fake_contextual_embeddings(bows: np.ndarray, dim: int,
+                               seed: int = 0) -> np.ndarray:
+    """Deterministic stand-in for SBERT document embeddings (CombinedTM):
+    a fixed random projection of the normalized BoW, unit-normed, so
+    documents with similar BoWs get similar embeddings.  The reference's
+    numpy, so the two packages' embeddings are equal bit for bit."""
+    rng = np.random.default_rng(seed)
+    proj = rng.standard_normal((bows.shape[1], dim)).astype(np.float32)
+    tf = bows / np.maximum(bows.sum(axis=1, keepdims=True), 1.0)
+    emb = tf @ proj
+    norm = np.linalg.norm(emb, axis=1, keepdims=True)
+    return (emb / np.maximum(norm, 1e-8)).astype(np.float32)

@@ -60,7 +60,7 @@ def _refuse_grad(kernel: str, *inputs) -> None:
             f"{kernel} on a CUDA tensor is forward-only: an input requires "
             f"grad under grad mode, and the kernel has no backward. None "
             f"is planned: the reference's training never runs its decoder "
-            f"kernel, so ProdLDA's train mode (A3) will run the plain "
+            f"kernel, so ProdLDA's train mode (A3) runs the plain "
             f"decode on the card. Call it under torch.no_grad(), or on CPU "
             f"tensors for the differentiable plain version")
 

@@ -12,9 +12,9 @@ participation, one minibatch step per client, the Eq. (2) combine
 ``--transforms`` runs under both exec modes (kernel B3 for ``dp`` and
 ``secure``, B4 for ``topk``, once a round), and every registry
 ``--partition`` runs.  Flags that reach what the port does not run yet
-fail with the spec's labelled refusals: ``--mesh`` (ROADMAP.md A17),
-``--stochastic-loss`` (A4), stragglers under ``--exec-mode vmap``
-(A10).
+fail with the spec's labelled refusals: ``--mesh`` (ROADMAP.md A17)
+and stragglers under ``--exec-mode vmap`` (A10).  ``--stochastic-loss``
+trains with the train-mode ELBO on the reference's threefry draws.
 
 Usage:
 
@@ -301,8 +301,7 @@ def main(argv=None):
                     help="comma list: round at which client l leaves "
                          "(0 = never; cycled)")
     ap.add_argument("--stochastic-loss", action="store_true",
-                    help="train-mode ELBO (dropout + reparam noise): not "
-                         "ported yet (ROADMAP.md A4), refused")
+                    help="train-mode ELBO (dropout + reparam noise)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device: 'cuda' (the default; kernels) or "

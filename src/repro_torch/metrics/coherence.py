@@ -1,5 +1,5 @@
-"""NPMI topic coherence (numpy), as the reference's
-``repro/metrics/coherence.py`` computes it."""
+"""NPMI topic coherence and topic diversity (numpy), as the reference's
+``repro/metrics/coherence.py`` computes them."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,3 +27,11 @@ def npmi_coherence(beta: np.ndarray, bows: np.ndarray, top_n: int = 10,
                 vals.append(pmi / (-np.log(p_ij + eps)))
         scores.append(np.mean(vals) if vals else 0.0)
     return float(np.mean(scores))
+
+
+def topic_diversity(beta: np.ndarray, top_n: int = 25) -> float:
+    """Fraction of unique words among all topics' top-n words."""
+    tops = [tuple(np.argsort(beta[k])[::-1][:top_n])
+            for k in range(beta.shape[0])]
+    flat = [w for t in tops for w in t]
+    return len(set(flat)) / max(len(flat), 1)

@@ -291,17 +291,22 @@ class FederationService:
     # -- the serve surface -------------------------------------------------
     def infer(self, bow, contextual=None) -> torch.Tensor:
         """Batched doc->topic posteriors ``theta (B, K)`` from the live
-        model, on the service's device."""
+        model, on the service's device (``prodlda.infer_theta``,
+        ``train=False``).  ``contextual`` goes with the batch, as in the
+        reference; the spec-built model's input mode is ``bow``, which
+        reads only the BoW."""
         if self.spec.model.family == "lm":
             raise ValueError(
                 "doc->topic posteriors are an NTM surface; an LM-family "
                 "service serves generate()")
-        if contextual is not None:
-            _not_ported("infer(contextual=...) (CombinedTM input)", "A3")
         params = self._live[1]
         bow = torch.as_tensor(bow, dtype=torch.float32, device=self.device)
+        if contextual is not None:
+            contextual = torch.as_tensor(contextual, dtype=torch.float32,
+                                         device=self.device)
         with torch.no_grad():
-            return prodlda.infer_theta(params, self._fed.model_cfg, bow)
+            return prodlda.infer_theta(params, self._fed.model_cfg, bow,
+                                       contextual=contextual)
 
     def evaluate(self) -> Dict[str, float]:
         """Held-out metrics of the live model (``Federation.evaluate``)."""

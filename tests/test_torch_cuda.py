@@ -1168,3 +1168,107 @@ def test_topk_kernel_bitwise_at_a_51m_segment(cuda_device, rng):
     want = _topk_plain(msgs, err, ids, table)
     assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
     assert int((got[0] != 0).sum(1).max()) <= table[0][2]
+
+
+# ---------------------------------------------------------------------------
+# the paper's training mode: threefry draws, the train-mode ELBO, CTM
+# ---------------------------------------------------------------------------
+def test_threefry_draws_on_card_equal_cpu(cuda_device):
+    """Keys, bits, uniforms and masks bitwise, normals within the
+    erfinv rounding of the CPU tests (4 ulps), permutations equal; also
+    under ``torch.func.vmap`` on the card."""
+    from repro_torch.core import prng
+    for seed in (0, 7, 2 ** 31 + 5):
+        kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device=cuda_device)
+        assert torch.equal(prng.split(kg, 3).cpu(), prng.split(kc, 3))
+        assert torch.equal(prng.fold_in(kg, 9).cpu(), prng.fold_in(kc, 9))
+        for shape in ((64, 100), (3, 5)):
+            assert torch.equal(prng.random_bits(kg, shape).cpu(),
+                               prng.random_bits(kc, shape))
+            assert torch.equal(prng.uniform(kg, shape).cpu(),
+                               prng.uniform(kc, shape))
+            assert torch.equal(prng.bernoulli(kg, 0.8, shape).cpu(),
+                               prng.bernoulli(kc, 0.8, shape))
+            a = prng.normal(kg, shape).cpu().numpy().view(np.int32)
+            b = prng.normal(kc, shape).numpy().view(np.int32)
+            assert np.abs(a.astype(np.int64) - b).max() <= 4
+        assert torch.equal(prng.permutation(kg, 10_000).cpu(),
+                           prng.permutation(kc, 10_000))
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(1), c) for c in range(4)])
+    got = torch.func.vmap(lambda k: prng.bernoulli(k, 0.8, (7, 9)))(
+        keys.to(cuda_device))
+    for c in range(4):
+        assert torch.equal(got[c].cpu(), prng.bernoulli(keys[c], 0.8, (7, 9)))
+
+
+@pytest.mark.parametrize("mode", ["bow", "combined", "zeroshot"])
+def test_train_mode_elbo_on_card_matches_cpu(cuda_device, mode, rng):
+    """The train-mode ELBO (dropout, reparametrization, batch norm) and
+    its gradients, on the card against the CPU from one key."""
+    from repro_torch.configs.base import NTM, ModelConfig
+    from repro_torch.core import prng
+    cfg = ModelConfig(name="t", kind=NTM, vocab_size=300, num_topics=8,
+                      ntm_hidden=(32, 32), contextual_dim=24)
+    params = prodlda.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu", input_mode=mode)
+    batch = {"bow": torch.from_numpy(
+        rng.poisson(0.4, (40, 300)).astype(np.float32)),
+        "contextual": torch.from_numpy(
+            rng.standard_normal((40, 24)).astype(np.float32)),
+        "rng": prng.PRNGKey(3)}
+    for bn in (False, True):
+        def f(p, b):
+            return prodlda.elbo_loss(p, cfg, b, use_batchnorm=bn,
+                                     input_mode=mode)
+        gc, lc = torch.func.grad_and_value(f)(params, batch)
+        gg, lg = torch.func.grad_and_value(f)(
+            {k: v.to(cuda_device) for k, v in params.items()},
+            {k: v.to(cuda_device) for k, v in batch.items()})
+        assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+        assert max_param_dev(gc, gg) <= 1e-4 * max(
+            1.0, max(float(v.abs().max()) for v in gc.values()))
+
+
+@pytest.mark.parametrize("exec_mode", ["loop", "vmap"])
+def test_stochastic_federation_on_card_matches_cpu(cuda_device, exec_mode):
+    spec = FederationSpec.from_dict({
+        "model": {"vocab": 400, "topics": 10, "hidden": 32},
+        "data": {"num_clients": 3, "docs_per_node": 120,
+                 "val_docs_per_node": 10},
+        "schedule": {"rounds": 3},
+        "execution": {"batch_size": 32, "exec_mode": exec_mode,
+                      "stochastic_loss": True}})
+    cpu = Federation.from_spec(spec, device="cpu")
+    card = Federation.from_spec(spec, device=cuda_device,
+                                init_params=dict(cpu.params))
+    cpu.run()
+    fed_aggregate.launches = 0
+    card.run()
+    assert fed_aggregate.launches == 3
+    assert max_param_dev(cpu.params, card.params) <= 1e-5
+
+
+def test_combinedtm_trainer_on_card_matches_cpu(cuda_device, rng):
+    from repro_torch.configs.base import NTM, ModelConfig
+    from repro_torch.core.ntm import ctm
+    from repro_torch.data.synthetic_lda import fake_contextual_embeddings
+    cfg = ModelConfig(name="c", kind=NTM, vocab_size=300, num_topics=6,
+                      ntm_hidden=(32, 32), contextual_dim=24)
+    bows = [rng.poisson(0.4, (60, 300)).astype(np.float32) for _ in range(3)]
+    init = ctm.init_combined(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    runs = []
+    for dev in ("cpu", cuda_device):
+        clients = [ClientState(data={
+            "bow": torch.from_numpy(b).to(dev),
+            "contextual": torch.from_numpy(
+                fake_contextual_embeddings(b, 24, seed=1)).to(dev)},
+            num_docs=60) for b in bows]
+        tr = FederatedTrainer(
+            lambda p, b: ctm.loss_combined(p, cfg, b),
+            {k: v.to(dev) for k, v in init.items()}, clients,
+            FederatedConfig(learning_rate=2e-3, max_rounds=3, rel_tol=0.0),
+            optimizer=sgd(2e-3), batch_size=16)
+        tr.fit(seed=0)
+        runs.append(tr)
+    assert max_param_dev(runs[0].params, runs[1].params) <= 1e-5

@@ -1,4 +1,5 @@
 """Port data layer against the JAX package: corpora, split, draws."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -7,11 +8,13 @@ from repro.api.federation import build_clients as jbuild_clients
 from repro.data.federated_split import parse_partition_spec as jparse
 from repro.data.federated_split import partition_corpus as jpartition
 from repro.data.federated_split import \
+    round_minibatches as jround_minibatches
+from repro.data.federated_split import \
     split_corpus_across_clients as jsplit
 from repro.data.synthetic_lda import generate_lda_corpus as jgen
 from repro_torch.api.federation import build_clients as tbuild_clients
+from repro_torch.core import prng
 from repro_torch.data.federated_split import (PARTITIONERS,
-                                              draw_generator,
                                               parse_partition_spec,
                                               partition_corpus,
                                               round_minibatches,
@@ -105,14 +108,25 @@ def test_split_corpus_across_clients_matches(mode):
 
 
 def test_draws_are_seeded_and_full_batches_cover_the_corpus():
+    """The per-client iterator draws the reference's documents and
+    in-batch keys (``round_minibatches`` in both packages, the client
+    key ``fold_in(PRNGKey(4), 2)``), deterministically, epoch by
+    epoch."""
     data = {"bow": torch.arange(30, dtype=torch.float32)[:, None]}
-    draws = [[b["bow"][:, 0].tolist() for b, _ in round_minibatches(
-        data, 30, 100003 * 0 + 4, 2, batch_size=8, local_epochs=2)]
-        for _ in range(2)]
+    key = prng.fold_in(prng.PRNGKey(4), 2)
+    draws = [[(b["bow"][:, 0].tolist(), b["rng"].tolist())
+              for b, _ in round_minibatches(data, 30, key, batch_size=8,
+                                            local_epochs=2)]
+             for _ in range(2)]
     assert draws[0] == draws[1]                     # deterministic
     assert draws[0][0] != draws[0][1]               # epochs differ
-    (full, n), = round_minibatches(data, 30, 5, 1, batch_size=64)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(4), 2)
+    want = [(np.asarray(b["bow"])[:, 0].tolist(),
+             np.asarray(b["rng"]).astype(np.int64).tolist())
+            for b, _ in jround_minibatches(
+                {"bow": data["bow"].numpy()}, 30, jkey, batch_size=8,
+                local_epochs=2)]
+    assert draws[0] == want
+    (full, n), = round_minibatches(data, 30, key, batch_size=64)
     assert n == 30 and sorted(full["bow"][:, 0].tolist()) == \
         list(range(30))
-    g1 = draw_generator(5, 1, 0).initial_seed()
-    assert g1 != draw_generator(5, 2, 0).initial_seed()

@@ -23,6 +23,7 @@ from repro.data.federated_split import \
     stacked_round_batches as jstacked_round_batches
 from repro_torch.api import (Federation, FederationSpec, max_param_dev,
                              scenario_names, scenario_spec, spec_replace)
+from repro_torch.core import prng
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.data.federated_split import stacked_round_batches
 
@@ -160,12 +161,13 @@ def test_stacked_round_batches_pad_to_contract(rng):
     equal the unpadded call (mirrors tests/test_transforms_vmap.py:292)."""
     datas = [{"bow": torch.from_numpy(
         rng.poisson(0.5, (n, 16)).astype(np.float32))} for n in (20, 9)]
-    plain, counts = stacked_round_batches(datas, [20, 9], 11, [0, 1],
+    key = prng.PRNGKey(11)
+    plain, counts = stacked_round_batches(datas, [20, 9], key, [0, 1],
                                           batch_size=8, local_epochs=2)
-    padded, pcounts = stacked_round_batches(datas, [20, 9], 11, [0, 1],
+    padded, pcounts = stacked_round_batches(datas, [20, 9], key, [0, 1],
                                             batch_size=8, local_epochs=2,
                                             pad_to=5)
-    assert set(plain) == {"bow", "doc_mask"}
+    assert set(plain) == {"bow", "doc_mask", "rng"}
     for k in plain:
         assert padded[k].shape[0] == 5
         assert torch.equal(padded[k][:2], plain[k])
@@ -174,7 +176,7 @@ def test_stacked_round_batches_pad_to_contract(rng):
     assert counts.tolist() == [[8, 8], [8, 8]]
     assert plain["doc_mask"].sum().item() == 32
     with pytest.raises(ValueError, match="pad_to"):
-        stacked_round_batches(datas, [20, 9], 11, [0, 1], batch_size=8,
+        stacked_round_batches(datas, [20, 9], key, [0, 1], batch_size=8,
                               pad_to=1)
     # the same contract in the reference, shape for shape
     jdatas = [{"bow": d["bow"].numpy()} for d in datas]
@@ -184,6 +186,10 @@ def test_stacked_round_batches_pad_to_contract(rng):
     assert np.array_equal(jcounts, pcounts)
     assert jst["doc_mask"].shape == tuple(padded["doc_mask"].shape)
     assert np.array_equal(jst["doc_mask"], padded["doc_mask"].numpy())
+    # and the same rows: the reference's documents and in-batch keys
+    assert np.array_equal(jst["bow"], padded["bow"].numpy())
+    assert np.array_equal(jst["rng"].astype(np.int64),
+                          padded["rng"].numpy())
 
 
 @pytest.mark.parametrize("name", ADDED)
@@ -240,3 +246,19 @@ def test_run_hooks_and_stopping():
     if not torch.cuda.is_available():       # the default device is cuda
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Federation.from_spec(spec)
+
+
+def test_register_scenario_guard():
+    """Twin of tests/test_api_spec.py:325, and the package exports of the
+    reference's ``repro.api`` that ride with it."""
+    import repro.api as japi
+    import repro_torch.api as tapi
+    with pytest.raises(ValueError, match="already registered"):
+        tapi.register_scenario("paper", {})
+    tapi.register_scenario("paper", {}, overwrite=True)   # no-op replace
+    assert tapi.scenario_spec("paper").to_dict() == \
+        japi.scenario_spec("paper").to_dict()
+    assert tapi.SPEC_VERSION == japi.SPEC_VERSION
+    assert set(tapi.BENCH_SCENARIOS) <= set(japi.BENCH_SCENARIOS)
+    assert set(tapi.BENCH_SCENARIOS) <= set(tapi.SCENARIOS)
+    assert tapi.parse_int_tuple("1,2,3") == japi.parse_int_tuple("1,2,3")

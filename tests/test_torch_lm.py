@@ -78,10 +78,10 @@ def _angles(cfg, b, s):
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------
-# reference fields the port leaves out: lowering knobs and CTM fields no
-# ported path reads (configs/base.py says so; remat_layers joined with LM
-# training)
-OMITTED = {"scan_layers", "unroll_chunks", "ntm_dropout", "contextual_dim"}
+# reference fields the port leaves out: the lowering knobs no ported path
+# reads (configs/base.py says so; remat_layers joined with LM training,
+# the CTM fields with the NTM train mode)
+OMITTED = {"scan_layers", "unroll_chunks"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -537,11 +537,16 @@ def test_launcher_train_lm_matches_reference(monkeypatch):
     assert abs(got - want) <= 2e-4 * abs(want)
 
 
-@pytest.mark.parametrize("flag,label", [("--ntm", "A3"),
-                                        ("--checkpoint-dir=ck", "A11")])
-def test_launcher_refusals(flag, label):
+@pytest.mark.parametrize("flags,label", [
+    pytest.param(["--checkpoint-dir=ck"], "A11",
+                 id="--checkpoint-dir=ck-A11"),
+    pytest.param(["--ntm", "--checkpoint-dir=ck"], "A11",
+                 id="--ntm--checkpoint-dir=ck-A11")])
+def test_launcher_refusals(flags, label):
+    """Checkpoints are A11 on both trainers (``--ntm`` runs since the
+    eighth slice, ``tests/test_torch_ctm.py``)."""
     with pytest.raises(NotImplementedError, match=label):
-        ttrain.main(LAUNCH + ["--device", "cpu", flag])
+        ttrain.main(LAUNCH + ["--device", "cpu"] + flags)
 
 
 def test_train_lm_on_step_hook_and_params():
@@ -559,8 +564,8 @@ def test_train_lm_on_step_hook_and_params():
 @pytest.mark.parametrize("flag", ["--topk=0.25", "--secure-agg",
                                   "--local-steps=2", "--docs-per-node=9"])
 def test_launcher_rejects_ntm_only_flags(flag):
-    """The reference's NTM-only flags are not accepted without the NTM
-    trainer, so none is silently ignored."""
+    """The NTM trainer's flags are refused on the LM path (where the
+    reference ignores them), so none is silently ignored."""
     with pytest.raises(SystemExit):
         ttrain.main(LAUNCH + ["--device", "cpu", flag])
 

@@ -2,9 +2,10 @@
 
 The reference's init tree (``prodlda.init_params``, numpy leaves) is
 carried into the port with ``params_from_reference``; the same numpy
-batches go through both, in evaluation mode (``train=False``: no
-dropout, the posterior mean), and every output, loss and gradient must
-agree within 1e-5.
+batches go through both, in evaluation mode (``train=False`` on both
+sides: no dropout, the posterior mean), and every output, loss and
+gradient must agree within 1e-5.  The train mode and the other input
+modes are held against the reference in ``tests/test_torch_ctm.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -46,7 +47,8 @@ def _close(got, want, tol=1e-5):
 def test_forward_outputs_match(seed):
     jcfg, tcfg, jparams, tparams, bow = _setup(seed)
     want = jp.forward(jparams, jcfg, {"bow": jnp.asarray(bow)}, train=False)
-    got = tp.forward(tparams, tcfg, {"bow": torch.from_numpy(bow)})
+    got = tp.forward(tparams, tcfg, {"bow": torch.from_numpy(bow)},
+                     train=False)
     dev = max(_close(got[key], want[key])
               for key in ("theta", "mu", "logvar", "log_recon"))
     print(f"forward (seed {seed}): max scaled deviation {dev:.3e}")
@@ -58,12 +60,12 @@ def test_elbo_loss_and_sum_match(learn_priors):
     mask = np.asarray([1, 1, 0, 1, 1, 1, 0, 1], np.float32)
     jb = {"bow": jnp.asarray(bow)}
     tb = {"bow": torch.from_numpy(bow)}
-    _close(tp.elbo_loss(tparams, tcfg, tb),
+    _close(tp.elbo_loss(tparams, tcfg, tb, train=False),
            jp.elbo_loss(jparams, jcfg, jb, train=False))
     for b_j, b_t in ((jb, tb), ({**jb, "doc_mask": jnp.asarray(mask)},
                                 {**tb, "doc_mask": torch.from_numpy(mask)})):
         s_j, n_j = jp.elbo_loss_sum(jparams, jcfg, b_j, train=False)
-        s_t, n_t = tp.elbo_loss_sum(tparams, tcfg, b_t)
+        s_t, n_t = tp.elbo_loss_sum(tparams, tcfg, b_t, train=False)
         _close(s_t, s_j)
         assert float(n_t) == float(n_j)
 
@@ -76,7 +78,8 @@ def test_every_gradient_matches_jax_grad():
                                          train=False))(jparams)
     want = tp.params_from_reference(jax.tree_util.tree_map(np.asarray, jg))
     got, _ = torch.func.grad_and_value(
-        lambda q: tp.elbo_loss(q, tcfg, {"bow": torch.from_numpy(bow)}))(
+        lambda q: tp.elbo_loss(q, tcfg, {"bow": torch.from_numpy(bow)},
+                               train=False))(
             tparams)
     assert list(got) == list(want)
     dev = max(_close(got[name], want[name].numpy()) for name in want)
@@ -100,7 +103,7 @@ def test_module_names_and_forward():
     recon, kl = jp.elbo_parts(jparams, jcfg, {"bow": jnp.asarray(bow)},
                               train=False)
     with torch.no_grad():
-        _close(model(torch.from_numpy(bow)), recon + kl)
+        _close(model(torch.from_numpy(bow), train=False), recon + kl)
 
 
 def test_weight_carrier_round_trips_bitwise():

@@ -2,14 +2,14 @@
 stage-1 vocabulary consensus, DSS/TSS, the loop path's combine, the
 trainers and the paper's baselines.
 
-Both packages train ProdLDA in evaluation mode (the reference's loss
-wrapped as ``elbo_loss(..., train=False)``; the port has no train mode
-yet, ROADMAP.md A3) from the reference's init weights
-(``params_from_reference``), and every minibatch draw is the whole
-client corpus (``batch_size >= num_docs``): the port draws from CPU
-generators, the reference from threefry (A4), and only whole-corpus
-draws select the same documents.  The two then differ in fp32 summation
-order alone, and trajectories must agree within 1e-5 every round.
+Both packages train ProdLDA in evaluation mode here (each loss passes
+``train=False``: no dropout, the posterior mean; the train-mode runs are
+in ``tests/test_torch_ctm.py``) from the reference's init weights
+(``params_from_reference``).  The minibatches are the reference's own
+threefry draws (``repro_torch/core/prng.py``), and the draws here are
+the whole client corpus (``batch_size >= num_docs``).  The two then
+differ in fp32 summation order alone, and trajectories must agree
+within 1e-5 every round.
 """
 import jax
 import numpy as np
@@ -26,13 +26,12 @@ from repro.metrics import similarity as jsim
 from repro.optim import optimizers as jopt
 from repro_torch.api import max_param_dev
 from repro_torch.configs.base import NTM, FederatedConfig, ModelConfig
-from repro_torch.core import protocol, vocab
+from repro_torch.core import prng, protocol, vocab
 from repro_torch.core.aggregation import aggregate_host
 from repro_torch.core.engine import ClientState, combine_arrivals
 from repro_torch.core.ntm import prodlda
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.core.rounds import RoundEngine
-from repro_torch.data.federated_split import draw_generator
 from repro_torch.data.synthetic_lda import generate_lda_corpus
 from repro_torch.metrics import dss, tss_baseline
 from repro_torch.optim import optimizers as opt
@@ -61,7 +60,7 @@ def setup():
     return {
         "syn": syn,
         "jloss": lambda p, b: jprodlda.elbo_loss(p, jcfg, b, train=False),
-        "loss": lambda p, b: prodlda.elbo_loss(p, cfg, b),
+        "loss": lambda p, b: prodlda.elbo_loss(p, cfg, b, train=False),
         "jinit": jinit, "init": _host(jinit), "cfg": cfg,
         "jclients": [jprotocol.ClientState(data={"bow": b},
                                            num_docs=len(b))
@@ -333,8 +332,9 @@ def test_federated_equals_centralized_gradient(setup):
         _, g, n = tr._client_grad(l, c, 7)
         grads.append(g)
         weights.append(n)
-        idx = torch.randperm(c.num_docs, generator=draw_generator(7, l, 0))
-        batches.append(c.data["bow"][idx[:24]])
+        idx = prng.choice(prng.fold_in(prng.PRNGKey(7), l), c.num_docs,
+                          min(24, c.num_docs))
+        batches.append(c.data["bow"][idx])
     g_cent = torch.func.grad(setup["loss"])(
         setup["init"], {"bow": torch.cat(batches)})
     for g_fed in (aggregate_host(grads, weights),
@@ -362,7 +362,7 @@ def test_federated_training_loss_decreases_and_stops():
                      ntm_hidden=(32, 32))))
     clients = [ClientState(data={"bow": torch.from_numpy(b)},
                            num_docs=len(b)) for b in syn.node_bows]
-    loss = lambda p, b: prodlda.elbo_loss(p, cfg, b)  # noqa: E731
+    loss = lambda p, b: prodlda.elbo_loss(p, cfg, b, train=False)  # noqa: E731,E501
     tr = protocol.FederatedTrainer(
         loss, init, clients,
         FederatedConfig(num_clients=3, learning_rate=5e-3, max_rounds=30,
@@ -406,7 +406,7 @@ def test_federated_trainer_loop_equals_vmap(setup, optimizer):
             optimizer=opt.get_optimizer(optimizer, 2e-3), batch_size=BATCH,
             exec_mode=mode,
             loss_sum_fn=lambda p, b: prodlda.elbo_loss_sum(
-                p, setup["cfg"], b))
+                p, setup["cfg"], b, train=False))
         tr.fit(seed=5)
         runs.append(tr)
     dev = max_param_dev(runs[0].params, runs[1].params)
@@ -425,7 +425,8 @@ def test_federated_trainer_transforms_by_exec_mode(setup):
     trs = [protocol.FederatedTrainer(
         setup["loss"], setup["init"], setup["clients"], fed,
         batch_size=BATCH, exec_mode=mode,
-        loss_sum_fn=lambda p, b: prodlda.elbo_loss_sum(p, setup["cfg"], b))
+        loss_sum_fn=lambda p, b: prodlda.elbo_loss_sum(p, setup["cfg"], b,
+                                                       train=False))
         for mode in ("loop", "vmap")]
     for tr in trs:
         assert [n for n, _ in tr._transforms] == ["topk", "secure"]
@@ -494,7 +495,8 @@ def test_two_stage_protocol_with_heterogeneous_vocabularies():
     clients = [ClientState(data={"bow": torch.from_numpy(g)},
                            num_docs=len(g)) for g in (ga, gb)]
     tr = protocol.FederatedTrainer(
-        lambda p, b: prodlda.elbo_loss(p, cfg, b), init, clients,
+        lambda p, b: prodlda.elbo_loss(p, cfg, b, train=False), init,
+        clients,
         FederatedConfig(learning_rate=2e-3, max_rounds=25, rel_tol=0.0),
         optimizer=opt.adam(2e-3), batch_size=32)
     tr.fit(seed=0)
