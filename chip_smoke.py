@@ -31,7 +31,8 @@ Phases, each fatal on failure (no phase catches and carries on):
    and B2 and B4 over the (4, D) message slab, at the federated LM
    path's full-width shapes (B5 forward and backward beside the fp32
    library attention; B4 bitwise on three of its leaves, the 51 M-entry
-   embedding among them);
+   embedding among them); B2 also at the straggler ring's (15, D) slab
+   beside ``torch.matmul``;
 4. service path: the buffered-async service at the full width of
    ``configs/prodlda_synthetic.py`` (V=5000, K=50, encoder 100-100,
    learned priors, L=5 clients, the ``buffered_async`` preset) — a few
@@ -75,8 +76,15 @@ Phases, each fatal on failure (no phase catches and carries on):
    (20 rounds, B2 once a round), five node CTMs by
    ``train_centralized``, the AMWMD table (finite; its host time),
    ZeroShotTM (3 rounds) and CombinedTM card against CPU within 1e-5;
+   straggler ring (``phase_ring_and_resume``): ``straggler_ring`` at the
+   same width on the batched path, 20 rounds, B2 at most twice a round,
+   held every round against the host pending list within 1e-5; a
+   snapshot after round 10 resumed in a fresh ``Federation`` bitwise,
+   and the service's likewise; secure masks card == CPU bitwise, dp
+   noise, normals and the ProdLDA init card against CPU within 4 ulps;
 9. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
-   width (bf16 activations, the port's seeded init), batch 4 x 2048-token
+   width (bf16 activations, the reference's init from seed 0, drawn on
+   the card and timed), batch 4 x 2048-token
    prompts and 32 greedy tokens, after one warm-up call: prefill time,
    decode tokens/s, peak memory; B5 and B6 must launch 32 times each
    (once per layer of the prefill); then one traced prefill (busy share,
@@ -150,6 +158,10 @@ TRAIN_SPECS, TRAIN_ROUNDS = ("pallas-topk", "pallas-secure",
 # Algorithm 1 on the host loop: the default spec and FederatedTrainer cut
 # to 20 rounds, straggler-heavy to 10, the two comparisons to 3
 ALG1_ROUNDS, STRAGGLER_ROUNDS, COMPARE_ROUNDS = 20, 10, 3
+# the straggler ring at full width: straggler_ring on the batched path,
+# cut to 20 rounds, the mid-run snapshot after 10; the service's resume
+# after 10 uploads, 10 more on each side
+RING_ROUNDS, RING_SNAPSHOT, SERVICE_UPLOADS = 20, 10, 10
 # ProdLDA at prodlda_synthetic width (V=5000, K=50, encoder 100-100,
 # learned priors): the 14 leaf sizes, in the port's parameter order
 PRODLDA_SEGMENTS = [500_000, 100, 10_000, 100, 5_000, 50, 5_000, 50,
@@ -434,6 +446,25 @@ def phase_kernels():
                  lambda: torch.matmul(w5, x5))
     b2["k5"] = {k: b2k5[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms")}
+    # and the straggler ring's (C, D) slab, C = K * max_staleness = 15,
+    # every slot due (the most a round reads)
+    c_ring = 5 * 3
+    xr = torch.randn(c_ring, d_model, generator=g).to(dev)
+    wr = (torch.rand(c_ring, generator=g) * 40.0 + 1.0).to(dev)
+    b2ring = {"name": f"fed_weighted_sum (C={c_ring} ring slab)"}
+    b2ring["bound_ms"], b2ring["bound_by"] = bound_ms(
+        (c_ring * d_model + c_ring + d_model) * 4, 2 * c_ring * d_model)
+    e_ring = float(torch.max(torch.abs(fed_weighted_sum_cuda(xr, wr)
+                                       - ref.fed_weighted_sum_ref(xr, wr))))
+    if not e_ring <= 2e-6 * float(wr.sum()):
+        raise AssertionError(f"B2 at the ring's shape: |kernel - plain| "
+                             f"{e_ring}")
+    _time_record(b2ring, lambda: fed_weighted_sum_cuda(xr, wr),
+                 lambda: ref.fed_weighted_sum_ref(xr, wr),
+                 lambda: torch.matmul(wr, xr))
+    b2["ring"] = {k: b2ring[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}
+    b2["ring"].update(shape=[c_ring, d_model], max_abs_err=e_ring)
     records = [b2, b1, _kernel_b3(g, dev), _kernel_b4(g, dev),
                _kernel_b5(g, dev), _kernel_b6(g, dev),
                _kernel_b5_bwd(g, dev), _kernel_b6_bwd(g, dev)]
@@ -1180,11 +1211,12 @@ def _fed_lm_leaf_sizes(cfg) -> dict:
     leaves, layers stacked), by name in its order: one layer at vocabulary
     1 is
     drawn on the CPU for the shapes, the rest is arithmetic."""
+    from repro_torch.core import prng
     import dataclasses
     from repro_torch.models import transformer as tfm
     one = tfm.stack_layers(tfm.init_params(
-        torch.Generator().manual_seed(0),
-        dataclasses.replace(cfg, num_layers=1, vocab_size=1), device="cpu"))
+        prng.PRNGKey(0), dataclasses.replace(cfg, num_layers=1,
+                                             vocab_size=1)))
     sizes = {}
     for name, t in one.items():
         n = t.numel()
@@ -1584,9 +1616,7 @@ def phase_training(records, corpus):
                                  f"ELBO {metrics['heldout_elbo_per_token']}")
         if name == "pallas-secure":
             last = spec.execution.seed * 100003 + TRAIN_ROUNDS - 1
-            stack = pairwise_mask_stack(
-                last, [(o, n) for _, _, o, n in fed.engine.layout],
-                5).to("cuda")
+            stack = pairwise_mask_stack(last, fed.engine.layout, 5, "cuda")
             total = torch.sum(stack, dim=0)
             if not same_bits(total, torch.zeros_like(total)):
                 raise AssertionError("secure masks of the last round do not "
@@ -1671,6 +1701,7 @@ def phase_algorithm1(records, corpus):
     an arrival, B1 once per held-out batch, nothing else.  Then one loop
     round traced for the device's busy share; (d) loop against batched
     on the card and (e) card against CPU, within 1e-5."""
+    from repro_torch.core import prng
     import numpy as np
     from repro_torch.api import Federation, build_clients, max_param_dev
     from repro_torch.api.federation import heldout_elbo_per_token
@@ -1709,8 +1740,7 @@ def phase_algorithm1(records, corpus):
     # (b) the literal Algorithm 1: FederatedTrainer + adam
     cfg = fed.model_cfg
     clients = build_clients(corpus, 5, "topic", device="cuda")
-    init = prodlda.init_params(torch.Generator().manual_seed(1), cfg,
-                               device="cuda")
+    init = prodlda.init_params(prng.PRNGKey(1, device="cuda"), cfg)
     loss = lambda p, b: prodlda.elbo_loss(p, cfg, b)  # noqa: E731
     tr = FederatedTrainer(loss, init, clients,
                           FederatedConfig(learning_rate=2e-3,
@@ -1859,6 +1889,7 @@ def phase_loop_transforms(records, corpus):
     upload.  Then one traced loop round each of dp and secure, B3 and B4
     bitwise at the new shapes, card against CPU for each loop transform
     and loop against batched on the card, within 1e-5."""
+    from repro_torch.core import prng
     from repro_torch.api import (Federation, build_clients, max_param_dev,
                                  spec_replace)
     from repro_torch.api.federation import heldout_elbo_per_token
@@ -1915,8 +1946,7 @@ def phase_loop_transforms(records, corpus):
 
     # (c) FederatedTrainer: topk then secure grads every round
     cfg = fed.model_cfg
-    init = prodlda.init_params(torch.Generator().manual_seed(2), cfg,
-                               device="cuda")
+    init = prodlda.init_params(prng.PRNGKey(2, device="cuda"), cfg)
     tr = FederatedTrainer(lambda p, b: prodlda.elbo_loss(p, cfg, b), init,
                           build_clients(corpus, 5, "topic", device="cuda"),
                           FederatedConfig(learning_rate=2e-3,
@@ -2229,8 +2259,7 @@ def phase_ntm_train_mode(records, corpus):
             optimizer=opt or adam(2e-3), batch_size=64)
 
     combined = lambda p, b: ctm.loss_combined(p, cfg, b)  # noqa: E731
-    init = ctm.init_combined(torch.Generator().manual_seed(100), cfg,
-                             device="cuda")
+    init = ctm.init_combined(prng.PRNGKey(100, device="cuda"), cfg)
     d_msg = sum(v.numel() for v in init.values())
     log(f"gFedNTM-CTM (bench_wmd.py's pipeline): ctm-s2orc V=10000 K=25 "
         f"C=768 hidden 100-100 dropout 0.2, message D = {d_msg}, 5 nodes "
@@ -2267,8 +2296,8 @@ def phase_ntm_train_mode(records, corpus):
     nodes = []
     for l, d in enumerate(datas):
         nodes.append(train_centralized(
-            node_loss, ctm.init_combined(torch.Generator().manual_seed(l),
-                                         node_cfg, device="cuda"),
+            node_loss, ctm.init_combined(prng.PRNGKey(l, device="cuda"),
+                                         node_cfg),
             {k: torch.from_numpy(v).to("cuda") for k, v in d.items()},
             optimizer=adam(2e-3), batch_size=64, steps=CTM_ROUNDS, seed=l))
     torch.cuda.synchronize()
@@ -2295,8 +2324,7 @@ def phase_ntm_train_mode(records, corpus):
 
     # ZeroShotTM, 3 rounds
     zs = trainer(lambda p, b: ctm.loss_zeroshot(p, cfg, b),
-                 ctm.init_zeroshot(torch.Generator().manual_seed(101), cfg,
-                                   device="cuda"), 3)
+                 ctm.init_zeroshot(prng.PRNGKey(101, device="cuda"), cfg), 3)
     zero_counts()
     zs.fit(seed=0)
     torch.cuda.synchronize()
@@ -2319,6 +2347,161 @@ def phase_ntm_train_mode(records, corpus):
         f"{dev_ctm:.3e} (bound 1e-5)")
     if not dev_ctm <= 1e-5:
         raise AssertionError("card and CPU CombinedTM disagree beyond 1e-5")
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Units in the last place between two fp32 tensors (one device)."""
+    return torch.abs(a.view(torch.int32).to(torch.int64)
+                     - b.view(torch.int32).to(torch.int64))
+
+
+def phase_ring_and_resume(records, corpus):
+    """(a) ``straggler_ring`` at full ProdLDA-synthetic width on the
+    batched cohort path, 20 rounds through ``Federation.step``, each
+    round's kernel counts zeroed before it and read after it (B2 at most
+    twice a round, once per slab with a positive coefficient; nothing
+    else), held every round against the host pending list (the same spec
+    on the loop) within 1e-5; (b) a snapshot after round 10 loaded into a
+    fresh ``Federation`` continues bitwise, and the service's snapshot
+    likewise; (c) the threefry draws card against CPU: secure masks
+    bitwise, dp noise, normals and the full ProdLDA init within 4 ulps."""
+    import pickle
+    import numpy as np
+    from repro_torch.api import Federation, max_param_dev, spec_replace
+    from repro_torch.core import prng
+    from repro_torch.core.ntm import prodlda
+    from repro_torch.core.transforms import dp_noise, pairwise_mask_stack
+    from repro_torch.serve import FederationService
+    t_phase = time.perf_counter()
+    spec = _train_spec("straggler_ring", 5000, 50, 100, 5, DOCS_PER_NODE,
+                       VAL_DOCS_PER_NODE, RING_ROUNDS)
+    sc = spec.schedule
+    log(f"straggler ring (batched path): straggler_ring at V=5000 K=50 "
+        f"hidden 100-100, L=K=5, p={sc.straggler_prob}, max staleness "
+        f"{sc.max_staleness}, decay {sc.staleness_decay}, ring C = "
+        f"{5 * sc.max_staleness} x D = {D_MODEL}; cut: {RING_ROUNDS} rounds,"
+        f" snapshot after {RING_SNAPSHOT}")
+    fed = Federation.from_spec(spec, device="cuda", corpus=corpus)
+    host = Federation.from_spec(spec_replace(
+        spec, {"execution.exec_mode": "loop"}), device="cuda",
+        corpus=corpus)
+    totals = {k: 0 for k in read_counts()}
+    per_round, walls, devs, snap = [], [], [], None
+    for r in range(RING_ROUNDS):
+        if r == RING_SNAPSHOT:
+            t0 = time.perf_counter()
+            snap = pickle.dumps(fed.state_dict())
+            t_snap = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rec = fed.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        host.step()
+        devs.append(max_param_dev(fed.params, host.params))
+        n_b2 = counts["fed_weighted_sum"]
+        if n_b2 > 2 or (n_b2 > 0) != (rec["arrived"] > 0) or any(
+                v for k, v in counts.items() if k != "fed_weighted_sum"):
+            raise AssertionError(f"ring round {r}: launches {counts} with "
+                                 f"{rec['arrived']} arrivals")
+        per_round.append(n_b2)
+        for k, v in counts.items():
+            totals[k] += v
+    zero_counts()
+    metrics = fed.evaluate()
+    torch.cuda.synchronize()
+    totals["topic_decoder"] += read_counts()["topic_decoder"]
+    ints = ("participants", "arrived", "superseded", "in_flight")
+    same = [{k: h[k] for k in ints} for h in fed.history] == \
+        [{k: h[k] for k in ints} for h in host.history]
+    log("  (arrived, superseded, in_flight) per round: " + ", ".join(
+        str((h["arrived"], h["superseded"], h["in_flight"]))
+        for h in fed.history))
+    log(f"  B2 launches per round {per_round}; rounds 2-{RING_ROUNDS} "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls[1:]) + " ms (median "
+        f"{sorted(walls[1:])[len(walls) // 2 - 1] * 1e3:.1f} ms); evaluate "
+        f"{json.dumps(metrics)}")
+    log(f"  batched ring vs host pending list: max |param diff| per round "
+        f"max {max(devs):.3e} (bound 1e-5), records equal {same}")
+    if not same or max(devs) > 1e-5 or not any(
+            h["in_flight"] for h in fed.history) or max(per_round) < 1:
+        raise AssertionError("straggler ring: off the host pending list, "
+                             "or nothing in flight")
+    for r in records:
+        r["launches_by_path"]["straggler_ring"] = totals[r["name"]]
+
+    # (b) resume bitwise on the card
+    t0 = time.perf_counter()
+    again = Federation.from_spec(spec, device="cuda", corpus=corpus)
+    again.load_state_dict(pickle.loads(snap))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    again.run()
+    bitwise = all(same_bits(v, again.params[k]) for k, v in
+                  fed.params.items()) and again.history == fed.history
+    log(f"  snapshot after round {RING_SNAPSHOT}: state_dict + pickle "
+        f"{t_snap * 1e3:.1f} ms ({len(snap) / 2**20:.1f} MiB, the ring "
+        f"{len(fed.engine._ring['weight'])} x {D_MODEL}); a fresh "
+        f"Federation + load {t_load:.2f} s; resumed run bitwise the "
+        f"uninterrupted one: {bitwise}")
+    if not bitwise:
+        raise AssertionError("ring resume on the card is not bitwise")
+    sspec = _async_spec(5000, 50, 100, 5, DOCS_PER_NODE, VAL_DOCS_PER_NODE)
+    order = [int(c) for c in np.random.default_rng(5).integers(
+        0, 5, 2 * SERVICE_UPLOADS)]
+    a = FederationService.from_spec(sspec, device="cuda", corpus=corpus)
+    for c in order[:SERVICE_UPLOADS]:
+        a.upload(c)
+    t0 = time.perf_counter()
+    ssnap = pickle.dumps(a.state_dict())
+    t_ssnap = time.perf_counter() - t0
+    for c in order[SERVICE_UPLOADS:]:
+        a.upload(c)
+    b = FederationService.from_spec(sspec, device="cuda", corpus=corpus)
+    b.load_state_dict(pickle.loads(ssnap))
+    for c in order[SERVICE_UPLOADS:]:
+        b.upload(c)
+    sbit = all(same_bits(v, b._live[1][k]) for k, v in a._live[1].items()) \
+        and a.history == b.history and a.rejections == b.rejections
+    log(f"  service snapshot after {SERVICE_UPLOADS} uploads "
+        f"({t_ssnap * 1e3:.1f} ms, {len(ssnap) / 2**20:.1f} MiB), "
+        f"{SERVICE_UPLOADS} more on each side: version {a.version}, "
+        f"bitwise {sbit}")
+    if not sbit:
+        raise AssertionError("service resume on the card is not bitwise")
+
+    # (c) threefry draws, card against CPU
+    layout = fed.engine.layout
+    seed = spec.execution.seed * 100003 + 7
+    masks = [pairwise_mask_stack(seed, layout, 5, d) for d in ("cuda",
+                                                              "cpu")]
+    if not torch.equal(masks[0].cpu(), masks[1]):
+        raise AssertionError("secure masks: card != CPU")
+    ids, valid = np.arange(5), np.ones(5, bool)
+    noise = [dp_noise(seed, ids, valid, layout, d) for d in ("cuda", "cpu")]
+    u_dp = _ulps(noise[0].cpu(), noise[1])
+    z = [prng.normal(prng.PRNGKey(3, device=d), (10_000_000,))
+         for d in ("cuda", "cpu")]
+    u_n = _ulps(z[0].cpu(), z[1])
+    tz = [prng.truncated_normal(prng.PRNGKey(4, device=d), -2.0, 2.0,
+                                (10_000_000,)) for d in ("cuda", "cpu")]
+    u_t = _ulps(tz[0].cpu(), tz[1])
+    inits = [prodlda.init_params(prng.PRNGKey(0, device=d),
+                                 fed.model_cfg) for d in ("cuda", "cpu")]
+    u_i = max(int(_ulps(v.cpu(), inits[1][k]).max())
+              for k, v in inits[0].items())
+    log(f"  threefry card vs CPU: secure masks (5 x {D_MODEL}) bitwise; "
+        f"dp noise (5 x {D_MODEL}) max {int(u_dp.max())} ulps "
+        f"({float((u_dp == 0).double().mean()):.4f} bitwise); normals "
+        f"(1e7) max {int(u_n.max())} ulps "
+        f"({float((u_n == 0).double().mean()):.4f} bitwise); truncated "
+        f"normals (1e7) max {int(u_t.max())} ulps; ProdLDA init "
+        f"(prodlda-synthetic) max {u_i} ulps")
+    if max(int(u_dp.max()), int(u_n.max()), int(u_t.max()), u_i) > 4:
+        raise AssertionError("threefry normals: card vs CPU beyond 4 ulps")
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_training_profile(corpus):
@@ -2449,6 +2632,7 @@ def phase_lm_serve(records):
     launch once per layer of the one prefill and nothing else may launch.
     Then one traced prefill of the same prompts for the device's busy
     share, with finite logits, 8 timed decode steps and one traced."""
+    from repro_torch.core import prng
     import argparse
     import numpy as np
     from torch.autograd import DeviceType
@@ -2464,12 +2648,11 @@ def phase_lm_serve(records):
         f"P={cfg.ssm.head_dim} N={cfg.ssm.state_dim} chunk "
         f"{cfg.ssm.chunk_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{cfg.num_params()} parameters), bf16 activations over fp32 "
-        f"masters, the port's seeded init; batch {LM_BATCH} x prompt "
-        f"{LM_PROMPT}, {LM_NEW} new tokens; cut: none (serving has no depth "
-        f"to cut)")
+        f"masters, the reference's init from seed 0; batch {LM_BATCH} x "
+        f"prompt {LM_PROMPT}, {LM_NEW} new tokens; cut: none (serving has no "
+        f"depth to cut)")
     t0 = time.perf_counter()
-    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                             device="cuda")
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     args = argparse.Namespace(arch="hymba-1.5b", reduced=False,
@@ -2488,8 +2671,9 @@ def phase_lm_serve(records):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     gen = out["generated"]
-    log(f"  init (CPU draws of {cfg.num_params()} weights, to the card) "
-        f"{t_init:.1f} s; cold warm-up serve (2 new tokens) {t_warm:.2f} s")
+    log(f"  init (threefry draws of {cfg.num_params()} weights on the card, "
+        f"the reference's key tree, leaf by leaf) {t_init:.2f} s; cold "
+        f"warm-up serve (2 new tokens) {t_warm:.2f} s")
     log(f"  serve (warm): prefill {out['prefill_s']:.4f} s; decode "
         f"{LM_NEW - 1} steps in {out['decode_s']:.4f} s = "
         f"{out['tokens_per_s']:.1f} tokens/s; peak device memory "
@@ -2783,6 +2967,7 @@ def phase_lm_federation(records):
     host loop, 3 rounds each (the third traced): wall time, busy share,
     peak memory, losses (they must fall), launches per round, and the
     held-out cross-entropy per token of the trained model."""
+    from repro_torch.core import prng
     import numpy as np
     from repro_torch.api import (Federation, heldout_xent_per_token,
                                  scenario_spec, spec_replace)
@@ -2840,7 +3025,7 @@ def phase_lm_federation(records):
     cfg = _fed_lm_config()
     bundle = build_model(cfg, dtype=torch.float32)
     t0 = time.perf_counter()
-    init = bundle.init(torch.Generator().manual_seed(0), device="cuda")
+    init = bundle.init(prng.PRNGKey(0, device="cuda"))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     sizes = {"model.arch": "hymba-1.5b", "model.vocab": cfg.vocab_size,
@@ -2938,13 +3123,13 @@ def phase_lm_agreement():
     over 96 tokens, past the window of 64 and over two SSD chunks of 64,
     then 4 teacher-forced decode steps; logits within 2e-4, the repo's
     bound for this path."""
+    from repro_torch.core import prng
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import transformer as tfm
     cfg = get_config("hymba-1.5b").reduced()
-    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                          device="cpu")
+    cpu = tfm.init_params(prng.PRNGKey(0), cfg)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 100)))
     runs = {}
@@ -3020,6 +3205,7 @@ def main() -> int:
     phase_algorithm1(records, corpus)
     phase_loop_transforms(records, corpus)
     phase_ntm_train_mode(records, corpus)
+    phase_ring_and_resume(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)
     for r in records:
@@ -3031,9 +3217,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("launches_by_path", "k5", "variant", "dp_ms", "dp_plain_ms",
-             "dp_bound_ms", "dp_library_ms", "cold_ms", "library_cold_ms",
-             "dp_cold_ms", "yardstick", "yardstick_ms",
+    extra = ("launches_by_path", "k5", "ring", "variant", "dp_ms",
+             "dp_plain_ms", "dp_bound_ms", "dp_library_ms", "cold_ms",
+             "library_cold_ms", "dp_cold_ms", "yardstick", "yardstick_ms",
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",

@@ -14,19 +14,24 @@ the host loop (``exec_mode="loop"``, the default: the paper's Algorithm
 the reference.  The engine holds an LM's parameters as one flat dict of
 the reference's leaves (``transformer.stack_layers``: per-layer leaves
 stacked on a leading axis), so each message segment is a reference
-leaf; ``Federation.params`` gives the model's tree.  Snapshots wait for
-A11.
+leaf; ``Federation.params`` gives the model's tree.  ``state_dict`` /
+``load_state_dict`` (and ``save_state`` / ``load_state``, a pickle of
+it) snapshot the run in the reference's form: a snapshot taken mid-run
+resumes bitwise in a federation built from the same spec, in either
+package.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Callable, Dict, List, Mapping, Optional, \
     Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.api.spec import FederationSpec
+from repro_torch.api.spec import FederationSpec, atomic_write
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core.engine import ClientState, FederationEngine
 from repro_torch.core.ntm import prodlda
 from repro_torch.data.federated_split import (parse_partition_spec,
@@ -308,8 +313,7 @@ class Federation:
                     return prodlda.elbo_loss_sum(p, cfg, b, train=train)
         if init_params is None:
             init_params = prodlda.init_params(
-                torch.Generator().manual_seed(spec.execution.seed), cfg,
-                device=dev)
+                prng.PRNGKey(spec.execution.seed, device=dev), cfg)
         return corpus, clients, loss_fn, loss_sum_fn, init_params
 
     @staticmethod
@@ -354,8 +358,7 @@ class Federation:
                 loss_sum_fn = bundle.loss_sum
         if init_params is None:
             init_params = bundle.init(
-                torch.Generator().manual_seed(spec.execution.seed),
-                device=dev)
+                prng.PRNGKey(spec.execution.seed, device=dev))
         return corpus, clients, loss_fn, loss_sum_fn, init_params
 
     # -- state --------------------------------------------------------------
@@ -410,6 +413,38 @@ class Federation:
             if self.engine.stop_criterion(rec, self.engine.fed.rel_tol):
                 break
         return self.engine.params
+
+    # -- snapshot / resume ----------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """Host snapshot: the spec (checked on load) and the whole engine
+        state (``FederationEngine.state_dict``)."""
+        return {"spec": self.spec.to_dict(),
+                "engine": self.engine.state_dict()}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Restore a :meth:`state_dict` snapshot taken under THIS spec:
+        resume means "same spec, same run", so a spec that differs is
+        refused, not reinterpreted."""
+        snap_spec = state.get("spec")
+        if snap_spec is not None and snap_spec != self.spec.to_dict():
+            raise ValueError(
+                "snapshot spec does not match this Federation's spec — "
+                "resume requires Federation.from_spec with the SAME spec "
+                "the snapshot was taken under (diff the two to_dict() "
+                "trees to see what changed)")
+        self.engine.load_state_dict(state["engine"])
+
+    def save_state(self, path: str) -> str:
+        """Atomic pickle of :meth:`state_dict` (numpy and primitives
+        only).  Pickle is a trusted-input format: load only files you
+        wrote."""
+        state = self.state_dict()
+        return atomic_write(path, lambda f: pickle.dump(state, f),
+                            binary=True)
+
+    def load_state(self, path: str) -> None:
+        with open(path, "rb") as f:
+            self.load_state_dict(pickle.load(f))
 
     def evaluate(self, *, batch: int = 256) -> Dict[str, float]:
         """Held-out quality of the global model against the synthetic

@@ -3,15 +3,14 @@
 The port's entries of ``repro/api/registry.py``, with the reference's
 override dicts: the paper regime (Algorithm 1 on the host loop, the
 all-defaults spec), the synchronous scenario cells, the partition cells,
-the straggler cells (host pending list; under
-``execution.exec_mode="vmap"`` they raise, ROADMAP.md A10), the
-transform cells (on the host loop under the default base, or on the
-batched cohort path under a vmap base), the kernel cells, the two
-federated LM presets and the two buffered-async service presets.  An
-entry is an override dict or a callable ``(base) -> overrides`` for
-knobs sized to the base (``dropout-join``).  The ``mesh-*`` cells (A17),
-``straggler_ring`` (A10) and the wire preset (A14) join as their slices
-land (ROADMAP.md §A).
+the straggler cells (the host pending list on the loop, the straggler
+ring under ``execution.exec_mode="vmap"``), the transform cells (on the
+host loop under the default base, or on the batched cohort path under a
+vmap base), the kernel cells, ``straggler_ring``, the two federated LM
+presets and the two buffered-async service presets.  An entry is an
+override dict or a callable ``(base) -> overrides`` for knobs sized to
+the base (``dropout-join``).  The ``mesh-*`` cells (A17) and the wire
+preset (A14) join as their slices land (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -85,6 +84,9 @@ SCENARIOS: Dict[str, Overrides] = {
     "pallas-secure": {"transforms.names": ("secure",),
                       "execution.exec_mode": "vmap",
                       "execution.kernel_backend": "pallas"},
+    # the straggler ring of the batched cohort path
+    "straggler_ring": {**_STRAGGLER_KNOBS,
+                       "execution.exec_mode": "vmap"},
     # label-skewed + local-DP messages on the batched cohort path
     "private_vmap": {**_DIRICHLET, "transforms.names": ("dp",),
                      **_DP_KNOBS, "execution.exec_mode": "vmap"},

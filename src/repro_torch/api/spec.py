@@ -15,14 +15,13 @@ accepts round-trips to the identical dict in both packages:
 
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: stragglers on the batched cohort path (the fused ring,
-A10), a mesh (A17), an LM arch whose layers the port lacks (A16b) and
-the ``serving`` section (A14).  The NTM's ``execution.stochastic_loss``
-(the train-mode ELBO) runs.  Synchronous rounds of both families run
-under both exec modes, and under ``exec_mode="loop"`` with stragglers
-(the host pending list); the message transforms run under both exec
-modes and in the buffered-async service; every partitioner of the
-reference's registry runs.
+ROADMAP.md item: a mesh (A17), an LM arch whose layers the port lacks
+(A16b) and the ``serving`` section (A14).  The NTM's
+``execution.stochastic_loss`` (the train-mode ELBO) runs.  Rounds of
+both families run under both exec modes, stragglers included (the host
+pending list on the loop, the straggler ring on the batched path); the
+message transforms run under both exec modes and in the buffered-async
+service; every partitioner of the reference's registry runs.
 ``execution.kernel_backend`` is kept so dicts round-trip; it selects
 nothing in the port, where the tensor's device picks kernel or plain.
 Specs serialize to JSON files (:meth:`FederationSpec.save` /
@@ -34,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -55,6 +55,34 @@ TRANSFORM_NAMES = ("dp", "topk", "secure", "precision")
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"invalid FederationSpec: {msg}")
+
+
+# the process umask, read once at import (single-threaded): setting it
+# per write would zero the process-wide umask for a moment under threads
+_UMASK = os.umask(0)
+os.umask(_UMASK)
+
+
+def atomic_write(path: str, writer, *, binary: bool = False) -> str:
+    """Write ``path`` atomically: ``writer(f)`` fills a temporary file in
+    the same directory, which is then renamed over ``path`` (a reader
+    never sees half a file).  ``FederationSpec.save`` and the snapshot
+    writers (``Federation.save_state``, the service's) all go through
+    here."""
+    dirname = os.path.dirname(path) or "."
+    os.makedirs(dirname, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".tmp")
+    try:
+        # mkstemp files are 0600: give the file the mode a plain open()
+        # would have, so written specs and snapshots stay shareable
+        os.chmod(tmp, 0o666 & ~_UMASK)
+        with os.fdopen(fd, "wb" if binary else "w") as f:
+            writer(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def _not_ported(what: str, item: str) -> None:
@@ -522,13 +550,6 @@ class FederationSpec:
                      "the federated LM objective is deterministic; drop "
                      "the flag under model.family='lm' instead of having "
                      "it silently ignored")
-        # what the port runs: the batched cohort path without the
-        # straggler ring
-        vmap = self.execution.exec_mode == "vmap"
-        if vmap and self.schedule.straggler_prob > 0 \
-                and self.schedule.max_staleness > 0:
-            _not_ported("stragglers on the batched cohort path (the fused "
-                        "straggler ring)", "A10")
 
     # -- resolved (cross-section) defaults --------------------------------
     @property
@@ -675,18 +696,9 @@ class FederationSpec:
         return cls.from_dict(d)
 
     def save(self, path: str) -> str:
-        """JSON write with a trailing newline, through a temporary file
-        renamed over ``path`` (a reader never sees half a spec)."""
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        try:
-            with open(tmp, "w") as f:
-                f.write(self.to_json() + "\n")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return path
+        """JSON write with a trailing newline (:func:`atomic_write`)."""
+        text = self.to_json() + "\n"
+        return atomic_write(path, lambda f: f.write(text))
 
     @classmethod
     def load(cls, path: str) -> "FederationSpec":

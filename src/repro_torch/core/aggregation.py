@@ -10,11 +10,12 @@ live in ``core/transforms.py``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.optim.optimizers import clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
@@ -174,23 +175,39 @@ def compress_with_error_feedback(grads: Mapping[str, torch.Tensor],
     return sent, {k: corrected[k] - sent[k] for k in corrected}
 
 
+def reference_order(names: Sequence[str]) -> List[int]:
+    """Indices into ``names`` (dotted leaf paths, digits a list index,
+    as ``encoder.0.w``) in the reference's tree-flatten order: dict keys
+    sorted, list items in order, as ``jax.tree_util`` flattens the
+    reference's parameter tree.  The j-th leaf of that order draws from
+    the j-th key of a ``split`` (dp noise) or ``fold_in`` (secure
+    masks)."""
+    def path(i):
+        return tuple(int(c) if c.isdigit() else c
+                     for c in names[i].split("."))
+    return sorted(range(len(names)), key=path)
+
+
 # ---------------------------------------------------------------------------
 # local differential privacy
 # ---------------------------------------------------------------------------
 def dp_privatize(grads: Mapping[str, torch.Tensor],
-                 noise: Union[Mapping[str, torch.Tensor], torch.Generator],
+                 noise: Union[Mapping[str, torch.Tensor], torch.Tensor],
                  *, clip_norm: float, noise_multiplier: float) -> Params:
     """Per-client clip to ``clip_norm`` + Gaussian noise (local DP).
 
     ``noise`` is either the standard-normal draws themselves, one tensor
-    per leaf (a test hands in the reference's), or a CPU
-    ``torch.Generator`` they are drawn from, leaf by leaf in dict order."""
+    per leaf, or the reference's threefry key (a ``(2,)`` int64 tensor):
+    ``split(key, n_leaves)``, leaf j of the reference's tree-flatten
+    order drawing from the j-th key on its own device."""
     clipped, _ = clip_by_global_norm(grads, clip_norm)
     if noise_multiplier <= 0:
         return clipped
-    if isinstance(noise, torch.Generator):
-        noise = {k: torch.randn(v.shape, generator=noise).to(v.device)
-                 for k, v in clipped.items()}
+    if isinstance(noise, torch.Tensor):
+        names = list(clipped)
+        noise = {names[i]: prng.normal(prng.fold_in(noise, j).to(
+            clipped[names[i]].device), clipped[names[i]].shape)
+            for j, i in enumerate(reference_order(names))}
     scale = noise_multiplier * clip_norm
     return {k: v + scale * noise[k].to(torch.float32)
             for k, v in clipped.items()}

@@ -28,12 +28,21 @@ paths:
   slab, padded rows re-zeroed, the Eq. (2) combine through kernel B2 and
   the server-optimizer step, gated on any positive weight.  Each kernel
   is one call per round: B2 for the combine, B3 for ``dp`` or
-  ``secure``, B4 for ``topk``.
+  ``secure``, B4 for ``topk``.  With stragglers the round's messages
+  meet the straggler ring (the reference's fused ring): one flat
+  ``(C, D)`` slab of in-flight messages, ``C = K * max_staleness``,
+  with host ``(C,)`` vectors ``weight``/``due``/``age``/``client``.
+  Due slots deliver with the fresh rows (newest message of a client
+  wins, delivered and superseded slots leave the ring), the numerator is
+  at most two B2 calls over whole slabs — the due ring slots scaled by
+  ``weight * decay ** age``, the fresh rows by their weights — and the
+  round's stragglers take the free slots in cohort order.
 
 The buffered-async service runs one client's loop-mode local update per
 upload (``_local_message``) and the transform stage on it as a ``(1, D)``
-slab.  Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
-item: the fused straggler ring of the batched path (A10).
+slab.  :meth:`FederationEngine.state_dict` snapshots everything the next
+round depends on in the reference's tree form (``STATE_FORMAT`` 2), so a
+snapshot of either package resumes in the other.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import host, to_tree, tree_get
 from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
 from repro_torch.core import prng
@@ -179,12 +189,6 @@ def _cycle_per_client(values: Optional[Sequence[int]], num_clients: int,
         return np.full(num_clients, default, np.int64)
     v = np.asarray(values, np.int64)
     return v[np.arange(num_clients) % len(v)]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
-        "run it on the JAX reference package")
 
 
 class RoundScheduler:
@@ -462,14 +466,15 @@ class FederationEngine:
             join_rounds=self.rc.client_join_round,
             leave_rounds=self.rc.client_leave_round)
         self._check_secure_compat()
-        if vmap and self.rc.straggler_prob > 0 and self.rc.max_staleness > 0:
-            raise _not_ported("stragglers on the batched cohort path (the "
-                              "fused straggler ring)", "A10")
         # fixed-K stacking: shrunken cohorts padded with zero-weight rows
         self._pad = vmap and self.rc.pad_cohorts and len(self.clients) > 0
 
         # -- combine / staleness stage -----------------------------------
-        self.pending: List[PendingUpdate] = []
+        # both knobs on: the batched path routes rounds through the ring
+        self._stale_enabled = (self.rc.straggler_prob > 0.0
+                               and self.rc.max_staleness > 0)
+        self.pending: List[PendingUpdate] = []      # loop mode
+        self._ring: Optional[Dict[str, Any]] = None  # batched path
         # the loop path's (L, D) arrival slab, made at the first combine
         # and reused: after the newest-wins dedupe a round delivers at
         # most one message per client
@@ -730,15 +735,105 @@ class FederationEngine:
         return {name: vec[off:off + n].view(shape)
                 for name, shape, off, n in self.layout}
 
+    # -- the straggler ring (batched path) ----------------------------------
+    def _init_ring(self) -> Dict[str, Any]:
+        """The ring at capacity ``C = K * max_staleness``, which cannot
+        overflow: a round inserts at most K stragglers and each stays at
+        most ``max_staleness`` rounds."""
+        c = max(1, self.scheduler.clients_per_round * self.rc.max_staleness)
+        return init_delta_buffer(self.params, c,
+                                 int_fields={"due": -1, "age": 0})
+
+    def _ring_deliver(self, r: int, fresh=None
+                      ) -> Tuple[Optional[torch.Tensor], int, int]:
+        """The reference's ``ring_deliver``: the fresh ``(msgs, weights,
+        delays, ids)`` rows (optional) and the due ring slots, after the
+        newest-wins dedupe (among due slots of one client the youngest
+        wins, ties to the lower slot; a live fresh row beats them all),
+        through the staleness-discounted Eq. (2) combine and the server
+        step, gated on any positive weight.  The numerator is at most two
+        B2 calls, one over the ring slab and one over the fresh slab,
+        each skipped when it has no positive coefficient.  Delivered and
+        superseded slots leave the ring.  Returns ``(rel_change or None,
+        delivered slots, superseded slots)``."""
+        ring = self._ring
+        wt, cl, age = ring["weight"], ring["client"], ring["age"]
+        idx = np.arange(len(wt))
+        due = (wt > 0) & (ring["due"] <= r)
+        same = due[:, None] & due[None, :] & (cl[:, None] == cl[None, :]) \
+            & (idx[:, None] != idx[None, :])
+        beat = same & ((age[None, :] < age[:, None])
+                       | ((age[None, :] == age[:, None])
+                          & (idx[None, :] < idx[:, None])))
+        sup = beat.any(axis=1)
+        total = np.float32(0.0)
+        if fresh is not None:
+            msgs, fw, delays, ids = fresh
+            live = (delays == 0) & (fw > 0)
+            sup |= due & np.isin(cl, ids[live])
+            fresh_w = np.where(delays == 0, fw, 0).astype(np.float32)
+            total = fresh_w.sum(dtype=np.float32)
+        n_sup = int(sup.sum())
+        due &= ~sup
+        due_w = np.where(due, wt, 0).astype(np.float32)
+        total = due_w.sum(dtype=np.float32) + total
+        acc = None
+        if due.any():
+            coef = due_w * np.power(np.float32(self.rc.staleness_decay),
+                                    age.astype(np.float32))
+            acc = ops.fed_weighted_sum(ring["delta"], torch.from_numpy(
+                coef.astype(np.float32)))
+        if fresh is not None and (fresh_w > 0).any():
+            part = ops.fed_weighted_sum(msgs, torch.from_numpy(fresh_w))
+            acc = part if acc is None else acc + part
+        rel = None
+        if total > 0:
+            old = self.params
+            self.params, self.server_state = self.server_opt.apply(
+                self.params, self._unflatten(acc / float(total)),
+                self.server_state, r)
+            rel = _rel_change(old, self.params)
+        gone = due | sup
+        wt[gone] = 0.0
+        ring["due"][gone] = -1
+        cl[gone] = -1
+        return rel, int(due.sum()), n_sup
+
+    def _ring_insert(self, r: int, msgs: torch.Tensor, weights: np.ndarray,
+                     delays: np.ndarray, ids: np.ndarray) -> None:
+        """The round's stragglers into the free slots: the j-th straggler
+        (cohort order) takes the j-th free slot (slot order)."""
+        ring = self._ring
+        strag = np.flatnonzero((delays > 0) & (weights > 0))
+        free = np.flatnonzero(ring["weight"] <= 0)[:len(strag)]
+        if len(free) < len(strag):
+            raise RuntimeError(
+                f"straggler ring overflow: {len(strag)} stragglers for "
+                f"{len(free)} free slots of {len(ring['weight'])}")
+        if not len(strag):
+            return
+        dev = msgs.device
+        ring["delta"][torch.from_numpy(free).to(dev)] = \
+            msgs[torch.from_numpy(strag).to(dev)]
+        ring["weight"][free] = weights[strag]
+        ring["due"][free] = r + delays[strag]
+        ring["age"][free] = delays[strag]
+        ring["client"][free] = ids[strag]
+
     def _round_vmap(self, r: int, round_seed: int, cohort) -> Dict[str, float]:
         cohort = [int(l) for l in cohort]
         if not cohort:
             # an all-padded round: no message, so params, server state
-            # and transform state stay bitwise as they are (the
-            # reference's has-weight gate)
-            return {"round": r, "loss": float("nan"), "rel_change": 0.0,
-                    "participants": 0, "arrived": 0, "superseded": 0,
-                    "in_flight": 0}
+            # and transform state stay as they are (the reference's
+            # has-weight gate), while due stragglers still deliver
+            rel, arrived, superseded, in_flight = None, 0, 0, 0
+            if self._stale_enabled and self._ring is not None:
+                rel, arrived, superseded = self._ring_deliver(r)
+                in_flight = int((self._ring["weight"] > 0).sum())
+            return {"round": r, "loss": float("nan"),
+                    "rel_change": 0.0 if rel is None else float(rel),
+                    "participants": 0, "arrived": arrived,
+                    "superseded": superseded, "in_flight": in_flight}
         k_fix = self.scheduler.clients_per_round if self._pad \
             else len(cohort)
         stacked, counts = stacked_round_batches(
@@ -764,9 +859,21 @@ class FederationEngine:
         # padded rows are absent: re-zeroed after the transform stage
         keep = torch.from_numpy(valid).to(msgs.device)[:, None]
         msgs = torch.where(keep, msgs, torch.zeros((), device=msgs.device))
-        bar = ops.fed_weighted_combine(msgs, w)
-        rel = 0.0
-        if weights.sum() > 0:
+        rel, arrived, superseded, in_flight = 0.0, len(cohort), 0, 0
+        if self._stale_enabled:
+            if self._ring is None:
+                self._ring = self._init_ring()
+            delays = np.zeros((k_fix,), np.int32)
+            delays[:len(cohort)] = [self._straggler_delay(r, l)
+                                    for l in cohort]
+            rel_t, n_due, superseded = self._ring_deliver(
+                r, (msgs, weights, delays, ids))
+            self._ring_insert(r, msgs, weights, delays, ids)
+            rel = 0.0 if rel_t is None else float(rel_t)
+            arrived = int(((delays == 0) & valid).sum()) + n_due
+            in_flight = int((self._ring["weight"] > 0).sum())
+        elif weights.sum() > 0:
+            bar = ops.fed_weighted_combine(msgs, w)
             old = self.params
             self.params, self.server_state = self.server_opt.apply(
                 self.params, self._unflatten(bar), self.server_state, r)
@@ -779,9 +886,181 @@ class FederationEngine:
                 "loss": float(np.average(client_loss, weights=weights)),
                 "rel_change": rel,
                 "participants": len(cohort),
-                "arrived": len(cohort),
-                "superseded": 0,
-                "in_flight": 0}
+                "arrived": arrived,
+                "superseded": superseded,
+                "in_flight": in_flight}
+
+    # -- snapshot / resume --------------------------------------------------
+    # format 2: the straggler ring has a per-slot "client" array (the
+    # supersede-at-message rule); format-1 rings cannot be resumed
+    STATE_FORMAT = 2
+
+    def _row_tree(self, row: torch.Tensor):
+        """A ``(D,)`` row of the flat layout -> the reference's tree."""
+        return to_tree({name: host(row[off:off + n].reshape(shape))
+                        for name, shape, off, n in self.layout})
+
+    def _slab_tree(self, slab: torch.Tensor):
+        """An ``(N, D)`` slab -> the reference's tree of ``(N, ...)``
+        stacked leaves."""
+        k = slab.shape[0]
+        return to_tree({name: host(slab[:, off:off + n].reshape(
+            (k,) + tuple(shape))) for name, shape, off, n in self.layout})
+
+    def _fill_slab(self, slab: torch.Tensor, tree) -> None:
+        """Write the reference's stacked tree into an ``(N, D)`` slab."""
+        for name, _, off, n in self.layout:
+            leaf = np.array(tree_get(tree, name), np.float32)
+            if leaf.shape[0] != slab.shape[0]:
+                raise ValueError(
+                    f"snapshot holds {leaf.shape[0]} rows of {name!r}, "
+                    f"this engine {slab.shape[0]}; rebuild the engine "
+                    "with the snapshot's configuration")
+            slab[:, off:off + n] = torch.from_numpy(
+                leaf.reshape(slab.shape[0], n)).to(slab.device)
+
+    def _is_params(self, obj) -> bool:
+        return isinstance(obj, Mapping) and len(obj) > 0 \
+            and set(obj) == set(self.params)
+
+    def _export(self, obj):
+        """A state object (the server state, a message) with every
+        parameter-shaped dict in the reference's tree form, every tensor
+        a host array."""
+        if self._is_params(obj):
+            return to_tree(obj, host)
+        if isinstance(obj, Mapping):
+            return {k: self._export(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._export(v) for v in obj)
+        return host(obj)
+
+    def _import(self, snap, like):
+        """Inverse of :meth:`_export` against the live object ``like``:
+        tensors on ``like``'s devices and dtypes, the engine's names."""
+        def tensor(value, ref: torch.Tensor) -> torch.Tensor:
+            return torch.from_numpy(np.array(value)).to(ref.device,
+                                                        ref.dtype)
+        if self._is_params(like):
+            return {name: tensor(tree_get(snap, name), v)
+                    for name, v in like.items()}
+        if isinstance(like, Mapping):
+            return {k: self._import(snap[k], v) for k, v in like.items()}
+        if isinstance(like, (list, tuple)):
+            return type(like)(self._import(s, v) for s, v in zip(snap, like))
+        if isinstance(like, torch.Tensor):
+            return tensor(snap, like)
+        return snap
+
+    def _export_error_memory(self) -> Tuple[Dict[str, Any], List[Any]]:
+        """The top-k error memory as the reference holds it: ``(
+        transform_state, client_error_memory)``, the ``(L, ...)`` tree on
+        the batched path, one tree a client on the loop (``None`` for a
+        client that has sent nothing)."""
+        tstate: Dict[str, Any] = {}
+        mems: List[Any] = [None] * len(self.clients)
+        topk = self._tstate.get("topk")
+        if topk is not None:
+            if self.exec_mode == "vmap":
+                tstate["topk"] = self._slab_tree(topk)
+            else:
+                mems = [self._row_tree(row) if bool(row.any()) else None
+                        for row in topk]
+        return tstate, mems
+
+    def _import_error_memory(self, tstate: Mapping[str, Any],
+                             mems: Sequence[Any]) -> None:
+        topk = self._tstate.get("topk")
+        if topk is None:
+            return
+        topk.zero_()
+        if "topk" in tstate:
+            self._fill_slab(topk, tstate["topk"])
+        for l, mem in enumerate(mems):
+            for name, _, off, n in self.layout if mem is not None else ():
+                topk[l, off:off + n] = torch.from_numpy(np.array(
+                    tree_get(mem, name), np.float32).reshape(n)) \
+                    .to(topk.device)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Host snapshot of everything the next round depends on, in the
+        reference's form (numpy leaves and primitives, parameters as the
+        reference's tree): params, server-optimizer state, the top-k
+        error memory (``transform_state`` on the batched path, one
+        ``client_error_memory`` entry a client on the loop, ``None`` for
+        a client that has sent nothing), the straggler ring or pending
+        list, the round counter and the history.  Cohorts, delays and
+        every draw are pure functions of ``(config, round)``, so loading
+        this into an engine built the same way (:meth:`load_state_dict`)
+        continues the run bitwise, and a snapshot of the reference's
+        engine loads here."""
+        tstate, mems = self._export_error_memory()
+        ring = None
+        if self._ring is not None:
+            ring = {"delta": self._slab_tree(self._ring["delta"])}
+            ring.update({k: np.array(v) for k, v in self._ring.items()
+                         if k != "delta"})
+        return {
+            "format": self.STATE_FORMAT,
+            "exec_mode": self.exec_mode,
+            "message": self.message,
+            "round": self._round,
+            "params": self._export(self.params),
+            "server_state": self._export(self.server_state),
+            "transform_state": tstate,
+            "ring": ring,
+            "pending": [{"client": p.client,
+                         "issued_round": p.issued_round,
+                         "due_round": p.due_round,
+                         "weight": p.weight,
+                         "delta": self._export(p.delta)}
+                        for p in self.pending],
+            "client_error_memory": mems,
+            "history": [dict(h) for h in self.history],
+        }
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Restore a :meth:`state_dict` snapshot (of either package) into
+        this engine, which must be built with the snapshot's
+        configuration (``exec_mode`` and ``message`` are checked, the
+        rest is the caller's resume contract, checked spec-level by
+        ``api.Federation.load_state_dict``)."""
+        fmt = state.get("format")
+        if fmt != self.STATE_FORMAT:
+            raise ValueError(f"unsupported engine state format {fmt!r} "
+                             f"(this build writes {self.STATE_FORMAT})")
+        for key in ("exec_mode", "message"):
+            if state.get(key) != getattr(self, key):
+                raise ValueError(
+                    f"snapshot was taken under {key}={state.get(key)!r} "
+                    f"but this engine runs {key}={getattr(self, key)!r}; "
+                    "rebuild the engine with the snapshot's "
+                    "configuration")
+        mems = state["client_error_memory"]
+        if len(mems) != len(self.clients):
+            raise ValueError(
+                f"snapshot carries error memory for {len(mems)} clients "
+                f"but this engine has {len(self.clients)}")
+        self._round = int(state["round"])
+        self.params = self._import(state["params"], self.params)
+        self.server_state = self._import(state["server_state"],
+                                         self.server_state)
+        self._import_error_memory(state["transform_state"], mems)
+        self._ring = None
+        if state["ring"] is not None:
+            snap = state["ring"]
+            self._ring = self._init_ring()
+            self._fill_slab(self._ring["delta"], snap["delta"])
+            for k in ("weight", "client", "due", "age"):
+                self._ring[k][:] = np.asarray(snap[k])
+        self.pending = [
+            PendingUpdate(client=int(p["client"]),
+                          issued_round=int(p["issued_round"]),
+                          due_round=int(p["due_round"]),
+                          delta=self._import(p["delta"], self.params),
+                          weight=float(p["weight"]))
+            for p in state["pending"]]
+        self.history = [dict(h) for h in state["history"]]
 
     # -- stopping, rounds ---------------------------------------------------
     @staticmethod

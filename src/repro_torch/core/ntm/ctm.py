@@ -23,16 +23,14 @@ def _need_contextual(cfg: ModelConfig, what: str) -> None:
         raise ValueError(f"{what} needs contextual_dim > 0")
 
 
-def init_combined(generator: torch.Generator, cfg: ModelConfig, *, device):
+def init_combined(key: torch.Tensor, cfg: ModelConfig):
     _need_contextual(cfg, "CombinedTM")
-    return prodlda.init_params(generator, cfg, device=device,
-                               input_mode="combined")
+    return prodlda.init_params(key, cfg, input_mode="combined")
 
 
-def init_zeroshot(generator: torch.Generator, cfg: ModelConfig, *, device):
+def init_zeroshot(key: torch.Tensor, cfg: ModelConfig):
     _need_contextual(cfg, "ZeroShotTM")
-    return prodlda.init_params(generator, cfg, device=device,
-                               input_mode="zeroshot")
+    return prodlda.init_params(key, cfg, input_mode="zeroshot")
 
 
 def loss_combined(params, cfg, batch, **kw):

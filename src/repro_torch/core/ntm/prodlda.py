@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.checkpoint.checkpoint import host, to_tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.models.layers.init import dense_init
@@ -86,15 +87,26 @@ def param_shapes(cfg: ModelConfig, input_mode: Optional[str] = None
     return shapes
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device, input_mode: Optional[str] = None) -> Params:
+def init_params(key: torch.Tensor, cfg: ModelConfig,
+                input_mode: Optional[str] = None) -> Params:
     """Fresh ProdLDA weights (truncated-normal fan-in init, unit scales,
-    the AVITM Dirichlet(1/K) Laplace prior when priors are learned)."""
+    the AVITM Dirichlet(1/K) Laplace prior when priors are learned) on
+    the threefry ``key``'s device, on the reference's key schedule
+    (``split(key, len(dims) + 3)``: encoder layer i from ``keys[i]``, the
+    two heads and ``beta`` from the last three), so the weights are the
+    reference's."""
     k = cfg.num_topics
+    device = key.device
+    keys = prng.split(key, len(cfg.ntm_hidden) + 4)
+    key_of = {"mu_head.w": keys[-3], "lv_head.w": keys[-2],
+              "beta": keys[-1]}
     out: Params = {}
     for name, shape in param_shapes(cfg, input_mode).items():
         if name.endswith(".w") or name == "beta":
-            out[name] = dense_init(shape, generator=generator, device=device)
+            w_key = key_of.get(name)
+            if w_key is None:                   # encoder.{i}.w
+                w_key = keys[int(name.split(".")[1])]
+            out[name] = dense_init(w_key, shape)
         elif name.endswith("_scale"):
             out[name] = torch.ones(shape, device=device)
         elif name == "prior_logvar":
@@ -315,15 +327,4 @@ def params_from_reference(tree: Mapping[str, Any], *,
 def params_to_reference(params: Mapping[str, torch.Tensor]
                         ) -> Dict[str, Any]:
     """Inverse of :func:`params_from_reference` (numpy leaves)."""
-    host = {k: v.detach().cpu().numpy() for k, v in params.items()}
-    n_enc = sum(1 for k in host if k.startswith("encoder.") and
-                k.endswith(".w"))
-    tree: Dict[str, Any] = {
-        "encoder": [{"w": host[f"encoder.{i}.w"], "b": host[f"encoder.{i}.b"]}
-                    for i in range(n_enc)]}
-    for head in _HEADS:
-        tree[head] = {"w": host[f"{head}.w"], "b": host[f"{head}.b"]}
-    for name in _VECTORS:
-        if name in host:
-            tree[name] = host[name]
-    return tree
+    return to_tree(params, host)

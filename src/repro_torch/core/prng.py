@@ -1,11 +1,12 @@
 """Threefry2x32 keys and draws, bit for bit those of ``jax.random``.
 
-The subset of ``jax.random`` the federated NTM path draws from — the
-minibatch indices, the in-batch model keys, the dropout masks and the
-reparametrization noise — written once in PyTorch integer ops, so one
-key gives the reference's bits on a CPU tensor, on a CUDA tensor and
-inside ``torch.func.vmap`` (the loss of every cohort client draws from
-its own key, as the reference draws inside ``jax.vmap``).
+The subset of ``jax.random`` the port draws from — the minibatch
+indices, the in-batch model keys, the dropout masks, the
+reparametrization noise, the dp noise, the secure masks and every
+weight init — written once in PyTorch integer ops, so one key gives the
+reference's bits on a CPU tensor, on a CUDA tensor and inside
+``torch.func.vmap`` (the loss of every cohort client draws from its own
+key, as the reference draws inside ``jax.vmap``).
 
 A key is an int64 tensor of shape ``(2,)`` holding two uint32 words (a
 stack of keys has shape ``(..., 2)``).  uint32 arithmetic runs in int64
@@ -23,10 +24,20 @@ word, low word) under the key, ``fold_in(key, d)`` hashes ``(0, d)``,
 and 32-bit draws are the xor of the two output words.
 
 ``uniform`` and ``bernoulli`` are exact (the mantissa trick of
-``jax.random.uniform``); ``normal`` is ``sqrt(2) * erfinv(u)`` on
+``jax.random.uniform``, its fused ``u * span + lo`` as one float32
+rounding); ``normal`` is ``sqrt(2) * erfinv(u)`` on
 ``uniform(nextafter(-1, 0), 1)``, with XLA's float32 ``erfinv`` (Giles'
 polynomials on ``-log1p(-u*u)``), so it equals the reference's up to the
 rounding of ``log1p`` (at most a few ulps, ``tests/test_torch_prng.py``).
+``truncated_normal`` is jax's ``_truncated_normal``: a uniform on
+``[erf(lo/sqrt2), erf(hi/sqrt2)]`` (the bounds' float32 ``erf`` taken as
+the correctly rounded value, which is XLA's at the bounds tested, ±2
+among them, the only ones the reference's init uses), ``sqrt2 *
+erfinv``, then a clip to the ``nextafter`` of the bounds.  ``randint`` is
+jax's ``_randint`` for int32: two ``random_bits`` draws from
+``split(key)`` folded into the span with the ``2^32 mod span``
+multiplier, all uint32 wrap-around kept in int64 words masked to 32
+bits, so it is bitwise the reference's.
 ``choice(replace=False)`` is jax's ``permutation(key, n)[:k]``: its
 ``_shuffle`` sorts by fresh 32-bit keys ``ceil(3 ln n / ln(2^32 - 1))``
 times, stably, so ties resolve as the reference's do.  Constants enter
@@ -116,11 +127,15 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform on ``[minval, maxval)``: the top 23 bits as the
     mantissa of a float in [1, 2), less one (exact), scaled and clamped
-    as ``jax.random.uniform`` does."""
+    as ``jax.random.uniform`` does.  XLA fuses ``u * span + lo`` into one
+    fma; in float64 the product and the sum are exact (at most 48
+    significant bits), so one rounding to float32 gives the fma's
+    value."""
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    u = (random_bits(key, shape) >> 9).to(torch.float32) * 2.0 ** -23
-    return torch.clamp(u * span + float(lo), min=float(lo))
+    u = (random_bits(key, shape) >> 9).to(torch.float64) * 2.0 ** -23
+    return torch.clamp((u * span + float(lo)).to(torch.float32),
+                       min=float(lo))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -152,6 +167,57 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Standard normal float32 draws (the inverse-CDF form of
     ``jax.random.normal``)."""
     return _SQRT2 * _erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: Sequence[int]) -> torch.Tensor:
+    """float32 standard normal draws truncated to ``(lower, upper)``
+    (``jax.random.truncated_normal``'s inverse-CDF form)."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    sqrt2 = np.float32(np.sqrt(2))
+    a = float(np.float32(math.erf(float(lo / sqrt2))))
+    b = float(np.float32(math.erf(float(hi / sqrt2))))
+    out = _SQRT2 * _erfinv(uniform(key, shape, a, b))
+    return torch.clamp(out, min=float(np.nextafter(lo, np.float32(np.inf))),
+                       max=float(np.nextafter(hi, np.float32(-np.inf))))
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``(a * m) mod 2^32`` for uint32 words ``a`` (int64) and ``m``, with
+    no int64 overflow: ``m`` is split into 16-bit halves."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` (``jax.random.randint`` with
+    its default int32 dtype); a stack of keys ``(..., 2)`` draws
+    ``(...,) + shape``."""
+    out_of_range = int(maxval) > _I32_MAX
+    lo = min(max(int(minval), _I32_MIN), _I32_MAX)
+    hi = min(max(int(maxval), _I32_MIN), _I32_MAX)
+    span = (hi - lo) & MASK
+    if hi <= lo:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    if span == 0:           # the full 2^32 span: remainders are no-ops
+        offset = lower
+    else:
+        mult = (2 ** 16) % span
+        mult = ((mult * mult) & MASK) % span
+        offset = ((_mulmod32(higher % span, mult) + lower % span) & MASK) \
+            % span
+    v = (offset + (lo & MASK)) & MASK
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]

@@ -193,12 +193,14 @@ def train_non_collaborative(loss_fn, init_fn,
                             *, optimizer_factory, batch_size: int,
                             steps: int, seed: int = 0) -> List[Params]:
     """Scenario 1: every node trains its own model on its own corpus.
-    ``init_fn(generator)`` makes node l's weights from the CPU generator
-    seeded ``seed + 17 * l``; node l's draws are :func:`train_centralized`'s
+    ``init_fn(key)`` makes node l's weights from the threefry key
+    ``PRNGKey(seed + 17 * l)`` (on the node's data device), the
+    reference's; node l's draws are :func:`train_centralized`'s
     with ``seed + 31 * l``."""
     out = []
     for l, data in enumerate(node_data):
-        params = init_fn(torch.Generator().manual_seed(seed + 17 * l))
+        params = init_fn(prng.PRNGKey(
+            seed + 17 * l, device=next(iter(data.values())).device))
         out.append(train_centralized(
             loss_fn, params, data, optimizer=optimizer_factory(),
             batch_size=batch_size, steps=steps, seed=seed + 31 * l))

@@ -25,14 +25,16 @@ writes only the error-memory row of its own client, ``secure`` adds the
 row of a mask stack drawn once a round, ``precision`` is pointwise — so
 the slab form gives each message the value the per-client form gives it.
 
-Randomness.  The reference draws dp noise and secure masks from threefry
-keys; the port draws them from CPU ``torch.Generator``\\ s seeded from the
-round seed (``data/federated_split.py:seeded_generator``; the threefry
-draws of ``core/prng.py`` do not reach them yet, ROADMAP.md A4) — dp from
-``(round_seed, client, 7, _DP_SALT)``, the masks from ``(round_seed,
-leaf, m, _SECURE_SALT)`` — and copies them to the device, so a card run
-and a CPU run draw the same values.  Against the reference they agree in
-distribution only.
+Randomness.  dp noise and secure masks come from the reference's
+threefry keys (``core/prng.py``), drawn on the slab's device: dp noise
+row i from ``fold_in(fold_in(PRNGKey(round_seed), client), 7)``, split
+into one key per leaf, a ``normal`` per leaf (the reference's values up
+to the few-ulp rounding of ``erfinv``); the masks' row m of leaf j from
+``fold_in(fold_in(fold_in(PRNGKey(round_seed), _SECURE_SALT), j), m)``
+and ``randint`` (bitwise the reference's).  Leaf j is the j-th leaf in
+the reference's tree-flatten order (``aggregation.reference_order``:
+dict keys sorted, list items in order), wherever the leaf's columns lie in
+the slab.  Every draw is a pure function of ``(round_seed, client)``.
 
 Padded zero-weight rows (fixed-K cohorts) flow through every transform:
 ``ctx.valid`` marks the real rows, the ``topk`` memory is never written
@@ -56,14 +58,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.data.federated_split import seeded_generator
+from repro_torch.core import aggregation as agg
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import global_norm
 
-# salts separating the dp-noise and secure-mask streams from the
-# minibatch draws, which use 3-word seeds (round, client, epoch)
-_DP_SALT = 0xD9
+# fold-in salt separating the secure-mask stream from the minibatch
+# draws and the model noise, which also derive from the round key
 _SECURE_SALT = 0x5EC
+# int64 elements one mask hash may hold (its temporaries stay ~100 MiB)
+_MASK_CHUNK = 1 << 24
+
 
 
 @dataclass
@@ -109,15 +114,29 @@ class MessageTransform:
 # ---------------------------------------------------------------------------
 # dp: per-client clip + Gaussian noise
 # ---------------------------------------------------------------------------
-def dp_noise(round_seed: int, client_ids, valid, d: int) -> torch.Tensor:
-    """Standard-normal ``(K, D)`` noise on the CPU, row ``i`` from
-    ``(round_seed, client_ids[i], 7, _DP_SALT)``; padded rows stay 0."""
-    out = torch.zeros((len(client_ids), d), dtype=torch.float32)
-    for i, (cid, ok) in enumerate(zip(client_ids, valid)):
-        if ok:
-            out[i] = torch.randn(d, generator=seeded_generator(
-                round_seed, int(cid), 7, _DP_SALT))
-    return out
+def dp_noise(round_seed: int, client_ids, valid, layout, device
+             ) -> torch.Tensor:
+    """Standard-normal ``(K, D)`` noise on ``device``: row i is client
+    ``client_ids[i]``'s, from the reference's ``fold_in(fold_in(
+    PRNGKey(round_seed), client), 7)`` split into one key per leaf
+    (``aggregation.reference_order``), one ``normal`` per leaf for all rows
+    at once; padded rows are 0."""
+    root = prng.PRNGKey(round_seed)
+    client_keys = [prng.fold_in(prng.fold_in(root, int(c)), 7)
+                   for c in client_ids]
+    d = layout[-1][2] + layout[-1][3] if layout else 0
+    out = torch.empty((len(client_ids), d), dtype=torch.float32,
+                      device=device)
+    names = [name for name, _, _, _ in layout]
+    for j, i in enumerate(agg.reference_order(names)):
+        _, shape, off, n = layout[i]
+        # split(key, n_leaves)[j] is fold_in(key, j): both hash (0, j)
+        keys = torch.stack([prng.fold_in(k, j) for k in client_keys]) \
+            .to(device)
+        out[:, off:off + n] = prng.normal(keys, tuple(shape)) \
+            .reshape(len(client_ids), n)
+    keep = torch.as_tensor(np.asarray(valid, bool), device=device)
+    return torch.where(keep[:, None], out, torch.zeros((), device=device))
 
 
 def dp_apply(msgs: torch.Tensor, layout, noise: torch.Tensor, *,
@@ -129,7 +148,7 @@ def dp_apply(msgs: torch.Tensor, layout, noise: torch.Tensor, *,
     views = {name: msgs[:, off:off + n] for name, _, off, n in layout}
     norms = torch.func.vmap(global_norm)(views)
     coef = torch.clamp(clip / torch.clamp(norms, min=1e-12), max=1.0)
-    return ops.fed_dp_secure_apply(msgs, noise=noise.to(msgs.device),
+    return ops.fed_dp_secure_apply(msgs, noise=noise,
                                    clip_coef=coef, noise_scale=mult * clip)
 
 
@@ -143,7 +162,7 @@ def _dp_transform(fed: FederatedConfig) -> MessageTransform:
 
     def stacked(msgs, ctx: StackedTransformCtx, state):
         noise = dp_noise(ctx.round_seed, ctx.client_ids, ctx.valid,
-                         msgs.shape[1])
+                         ctx.layout, msgs.device)
         return dp_apply(msgs, ctx.layout, noise, clip=clip,
                         mult=mult), state
 
@@ -198,41 +217,51 @@ def _mask_grid_bits(num_clients: int) -> int:
     return max(b, 1)
 
 
-def pairwise_mask_stack(round_seed: int, segments: Sequence[Tuple[int, int]],
-                        num_clients: int, scale: float = 1.0
-                        ) -> torch.Tensor:
-    """All K clients' pairwise-cancelling masks, ``(K, D)`` fp32 on the CPU.
+def pairwise_mask_stack(round_seed: int, layout, num_clients: int,
+                        device, scale: float = 1.0) -> torch.Tensor:
+    """All K clients' pairwise-cancelling masks, ``(K, D)`` fp32 on
+    ``device``, bitwise the reference's.
 
-    Per leaf segment there is an antisymmetric pair tensor ``U - U^T``
-    (``U`` integers in ``[-2^b, 2^b]``) and client l's mask is its row
-    sum; a loop over m draws ``U``'s m-th row at a time (every l takes
-    ``-U[m, l]``, client m its row sum), so memory stays O(K * D).  Row
-    m of leaf i is drawn from ``(round_seed, i, m, _SECURE_SALT)``.  The
-    accumulation is int32 (exact: partial sums stay below 2^23 grid
-    units) and the final ``int * 2^-b`` conversion is exact, so
-    ``sum_l mask_l`` is bitwise +0.0 per column in any order."""
+    Per leaf there is an antisymmetric pair tensor ``U - U^T`` (``U``
+    integers in ``[-2^b, 2^b]``) and client l's mask is its row sum: row
+    m of ``U`` takes ``-U[m, l]`` into every l and its own sum into m, so
+    ``mask_l = sum_m U[l, m] - sum_m U[m, l]``.  ``U[m]`` of the
+    reference's leaf j is ``randint(fold_in(fold_in(fold_in(
+    PRNGKey(round_seed), _SECURE_SALT), j), m), (K,) + leaf.shape)``;
+    a chunk of rows is drawn in one hash.  The sums run in int32 (exact:
+    partial sums stay below 2^23 grid units) and the final ``int *
+    2^-b`` conversion is exact, so ``sum_l mask_l`` is bitwise +0.0 per
+    column in any order."""
     bits = _mask_grid_bits(num_clients)
     unit = 2.0 ** (math.floor(math.log2(scale)) - bits)
-    d = sum(n for _, n in segments)
-    acc = torch.zeros((num_clients, d), dtype=torch.int32)
-    for i, (off, n) in enumerate(segments):
-        for m in range(num_clients):
-            row = torch.randint(-(2 ** bits), 2 ** bits + 1,
-                                (num_clients, n), dtype=torch.int32,
-                                generator=seeded_generator(
-                                    round_seed, i, m, _SECURE_SALT))
-            acc[:, off:off + n] -= row
-            acc[m, off:off + n] += row.sum(dim=0, dtype=torch.int32)
+    k = num_clients
+    d = layout[-1][2] + layout[-1][3] if layout else 0
+    acc = torch.zeros((k, d), dtype=torch.int32, device=device)
+    base = prng.fold_in(prng.PRNGKey(round_seed), _SECURE_SALT)
+    names = [name for name, _, _, _ in layout]
+    for j, i in enumerate(agg.reference_order(names)):
+        _, _, off, n = layout[i]
+        leaf_key = prng.fold_in(base, j)
+        chunk = max(1, _MASK_CHUNK // max(k * n, 1))
+        for m0 in range(0, k, chunk):
+            ms = range(m0, min(k, m0 + chunk))
+            keys = torch.stack([prng.fold_in(leaf_key, m) for m in ms]) \
+                .to(device)
+            rows = prng.randint(keys, (k, n), -(2 ** bits), 2 ** bits + 1)
+            acc[:, off:off + n] -= rows.sum(dim=0, dtype=torch.int32)
+            acc[m0:m0 + len(ms), off:off + n] += rows.sum(
+                dim=1, dtype=torch.int32)
     return acc.to(torch.float32) * unit
 
 
 def _secure_transform(fed: FederatedConfig) -> MessageTransform:
     def stacked(msgs, ctx: StackedTransformCtx, state):
-        stack = pairwise_mask_stack(ctx.round_seed, ctx.segments,
-                                    ctx.num_clients)
-        rows = stack[torch.as_tensor(ctx.client_ids, dtype=torch.int64)]
+        stack = pairwise_mask_stack(ctx.round_seed, ctx.layout,
+                                    ctx.num_clients, msgs.device)
+        rows = stack[torch.as_tensor(ctx.client_ids, dtype=torch.int64,
+                                     device=msgs.device)]
         # masks cancel in the Eq. (2) NUMERATOR: each row adds mask / n
-        return ops.fed_dp_secure_apply(msgs, masks=rows.to(msgs.device),
+        return ops.fed_dp_secure_apply(msgs, masks=rows,
                                        weights=ctx.weights), state
 
     return MessageTransform("secure", stacked)

@@ -23,8 +23,7 @@ and a GPU run.  The keys are hashed on the host, the shuffle's sort keys
 on the device of the client corpus, where the indices and the batch's
 ``rng`` go.  :func:`stacked_round_batches`
 stacks a round's cohort draws for the batched path, with the same draws
-as the per-client iterator.  :func:`seeded_generator` remains the
-source of the dp noise and secure-mask draws (``core/transforms.py``).
+as the per-client iterator.
 """
 from __future__ import annotations
 
@@ -170,16 +169,6 @@ def split_corpus_across_clients(
     kw = {"alpha": dirichlet_alpha} if mode in _PARAMETRIC else {}
     return PARTITIONERS[mode](n_docs, num_clients, labels=labels, seed=seed,
                               **kw)
-
-
-def seeded_generator(*words: int) -> torch.Generator:
-    """A CPU generator seeded from a tuple of non-negative ints through
-    numpy's ``SeedSequence`` (tuples of different lengths never share a
-    stream).  Draws are made on the CPU and copied to the device, so a
-    CPU run and a card run see the same numbers."""
-    state = np.random.SeedSequence([int(w) for w in words]) \
-        .generate_state(1, np.uint64)
-    return torch.Generator().manual_seed(int(state[0]))
 
 
 def _draw_indices(rng: torch.Tensor, num_docs: int, batch_size: int,

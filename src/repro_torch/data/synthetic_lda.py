@@ -41,6 +41,9 @@ class SyntheticLDA:
     def concat_val_bows(self) -> np.ndarray:
         return np.concatenate(self.node_val_bows, axis=0)
 
+    def concat_val_thetas(self) -> np.ndarray:
+        return np.concatenate(self.node_val_thetas, axis=0)
+
 
 def make_federated_topic_split(num_topics: int, shared: int, num_nodes: int,
                                rng: np.random.Generator):

@@ -30,8 +30,9 @@ flags of ``launch/simulate.py``: each upload goes through the transform
 stage (``secure`` is refused by the spec: its masks cancel only in a
 fixed cohort's combine).
 
-``--checkpoint`` is accepted and refused: checkpoints come with ROADMAP
-item A11.
+``--checkpoint PATH`` writes the live model, after the drain, as a sync
+``Federation`` snapshot (a pickle of numpy leaves and primitives), the
+file the reference's flag writes.
 """
 from __future__ import annotations
 
@@ -74,10 +75,6 @@ def spec_from_args(args) -> FederationSpec:
 
 
 def run_service(args) -> dict:
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: service checkpoints are not ported to "
-            "repro_torch yet (ROADMAP.md A11)")
     spec = scenario_spec(args.scenario) if args.scenario \
         else spec_from_args(args)
     svc = FederationService.from_spec(spec, device=args.device)
@@ -103,6 +100,11 @@ def run_service(args) -> dict:
           f"{stats['accepted']}/{stats['uploads']} uploads accepted, "
           f"rejections={stats['rejections']}, "
           f"ppl={result['heldout_perplexity']:.1f}")
+    if args.checkpoint:
+        os.makedirs(os.path.dirname(args.checkpoint) or ".",
+                    exist_ok=True)
+        svc.save_checkpoint(args.checkpoint)
+        print(f"wrote sync-format checkpoint {args.checkpoint}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -166,7 +168,8 @@ def main(argv=None):
                          "transform)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default="",
-                    help="not ported yet (ROADMAP.md A11); refused")
+                    help="write the final served model as a sync "
+                         "Federation.state_dict() pickle")
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (kernels) or 'cpu' (plain "
                          "PyTorch path)")

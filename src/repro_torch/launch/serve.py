@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.api import resolve_device
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core import prng
 from repro_torch.models import transformer as tfm
 
 
@@ -46,8 +47,8 @@ def serve(args, params=None) -> dict:
     device = resolve_device(args.device)
     dtype = torch.float32 if args.reduced else getattr(torch, cfg.dtype)
     if params is None:
-        params = tfm.init_params(torch.Generator().manual_seed(args.seed),
-                                 cfg, device=device)
+        params = tfm.init_params(prng.PRNGKey(args.seed, device=device),
+                                 cfg)
     if dtype != torch.float32:
         params = tfm.activation_copy(params, cfg, dtype)
     rng = np.random.default_rng(args.seed)

@@ -20,9 +20,11 @@ As in the reference, the clients hold BoW only, so ``--arch ctm-s2orc``
 ``KeyError: 'contextual'``.  The NTM-only flags are refused on the LM
 path, rather than ignored.
 
-Weights are the port's own seeded init (the reference draws threefry
-init keys, ROADMAP.md A4); ``init=`` carries others in.
-``--checkpoint-dir`` raises, naming A11.
+Weights come from ``--seed`` on the reference's threefry key tree, so
+they are the reference's; ``init=`` carries others in.
+``--checkpoint-dir DIR`` writes the LM's final weights as the
+reference's npz (``ckpt_{steps:08d}.npz``, its layer-stacked tree keyed
+by path).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
@@ -42,7 +44,9 @@ import torch
 from repro_torch.api import resolve_device
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import NTM, FederatedConfig
-from repro_torch.core import vocab
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.checkpoint.checkpoint import to_tree
+from repro_torch.core import prng, vocab
 from repro_torch.core.engine import ClientState
 from repro_torch.core.ntm import prodlda
 from repro_torch.core.protocol import FederatedTrainer
@@ -66,7 +70,7 @@ def train_lm(args, init=None, on_step=None) -> float:
     device = resolve_device(args.device)
     opt = get_optimizer(args.optimizer, args.lr)
     params = init() if init is not None else tfm.init_params(
-        torch.Generator().manual_seed(args.seed), cfg, device=device)
+        prng.PRNGKey(args.seed, device=device), cfg)
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, dtype=torch.float32
                               if args.reduced else None)
@@ -82,6 +86,11 @@ def train_lm(args, init=None, on_step=None) -> float:
         if step % args.log_every == 0:
             print(f"[step {step:5d}] loss={float(loss):.4f} "
                   f"({time.time() - t0:.1f}s)")
+    if args.checkpoint_dir:
+        # the reference's file: its layer-stacked tree, path-keyed
+        save_checkpoint(args.checkpoint_dir, args.steps,
+                        to_tree(tfm.stack_layers(params)))
+        print(f"saved checkpoint to {args.checkpoint_dir}")
     print(f"final loss: {float(loss):.4f}")
     return float(loss)
 
@@ -113,7 +122,7 @@ def train_ntm(args, init=None, on_step=None) -> float:
     def loss_fn(p, b):
         return prodlda.elbo_loss(p, cfg, b)
     params = init() if init is not None else prodlda.init_params(
-        torch.Generator().manual_seed(args.seed), cfg, device=device)
+        prng.PRNGKey(args.seed, device=device), cfg)
     fed = FederatedConfig(num_clients=args.num_clients,
                           learning_rate=args.lr, max_rounds=args.steps,
                           local_steps=args.local_steps,
@@ -172,9 +181,6 @@ def main(argv=None, init=None, on_step=None):
     the last step's loss."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError("checkpoints (--checkpoint-dir) are not "
-                                  "in the port yet (ROADMAP.md A11)")
     if args.ntm or get_config(args.arch).kind == NTM:
         return train_ntm(args, init=init, on_step=on_step)
     given = [f"--{k.replace('_', '-')}" for k, v in _NTM_FLAGS.items()

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models.layers.init import dense_init
 from repro_torch.models.layers.rope import apply_rope
@@ -52,18 +53,18 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 
-def gqa_init(cfg, *, generator, device) -> dict:
+def gqa_init(key, cfg) -> dict:
     if cfg.qkv_bias:
         raise NotImplementedError("q/k/v biases are not in the port yet "
                                   "(ROADMAP.md A16)")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    kw = dict(generator=generator, device=device)
+    ks = prng.split(key, 4)
     return {
-        "wq": dense_init((d, nq * hd), **kw),
-        "wk": dense_init((d, nkv * hd), **kw),
-        "wv": dense_init((d, nkv * hd), **kw),
-        "wo": dense_init((nq * hd, d), **kw),
+        "wq": dense_init(ks[0], (d, nq * hd)),
+        "wk": dense_init(ks[1], (d, nkv * hd)),
+        "wv": dense_init(ks[2], (d, nkv * hd)),
+        "wo": dense_init(ks[3], (nq * hd, d)),
     }
 
 

@@ -7,10 +7,8 @@ import torch
 from repro_torch.models.layers.init import dense_init, embed_init
 
 
-def embedding_init(vocab_size: int, d_model: int, *, generator,
-                   device) -> dict:
-    return {"table": embed_init((vocab_size, d_model), generator=generator,
-                                device=device, scale=0.02)}
+def embedding_init(key, vocab_size: int, d_model: int) -> dict:
+    return {"table": embed_init(key, (vocab_size, d_model), scale=0.02)}
 
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -18,10 +16,8 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, params["table"]).to(dtype)
 
 
-def lm_head_init(d_model: int, vocab_size: int, *, generator,
-                 device) -> dict:
-    return {"w": dense_init((d_model, vocab_size), generator=generator,
-                            device=device)}
+def lm_head_init(key, d_model: int, vocab_size: int) -> dict:
+    return {"w": dense_init(key, (d_model, vocab_size))}
 
 
 def lm_head(params, x: torch.Tensor) -> torch.Tensor:

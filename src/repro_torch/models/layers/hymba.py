@@ -13,16 +13,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import mamba2
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
 
 
-def hymba_init(cfg, *, generator, device) -> dict:
-    d = cfg.d_model
+def hymba_init(key, cfg) -> dict:
+    k1, k2 = prng.split(key)
+    d, device = cfg.d_model, key.device
     return {
-        "attn": attn.gqa_init(cfg, generator=generator, device=device),
-        "ssm": mamba2.mamba2_init(cfg, generator=generator, device=device),
+        "attn": attn.gqa_init(k1, cfg),
+        "ssm": mamba2.mamba2_init(k2, cfg),
         "attn_norm": rmsnorm_init(d, device=device),
         "ssm_norm": rmsnorm_init(d, device=device),
         "beta_attn": torch.ones((d,), dtype=torch.float32, device=device),

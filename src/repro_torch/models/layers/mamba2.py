@@ -11,11 +11,12 @@ heads.  The port of the reference's ``models/layers/mamba2.py``.
 """
 from __future__ import annotations
 
-import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models.layers.init import dense_init
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
@@ -29,27 +30,32 @@ def mamba2_dims(cfg):
     return d_inner, nheads, conv_ch
 
 
-def mamba2_init(cfg, *, generator, device) -> dict:
+# float32 log(1e-3) and log(1e-1), the bounds of the reference's dt draw
+_LOG_DT_MIN, _LOG_DT_MAX = float(np.log(np.float32(1e-3))), \
+    float(np.log(np.float32(1e-1)))
+
+
+def mamba2_init(key, cfg) -> dict:
     s = cfg.ssm
     d = cfg.d_model
     d_in, nh, conv_ch = mamba2_dims(cfg)
     # in_proj packs [z, x, B, C, dt]
     proj_out = 2 * d_in + 2 * s.state_dim + nh
-    u = torch.rand((nh,), dtype=torch.float32, generator=generator)
-    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
-    kw = dict(generator=generator, device=device)
+    ks = prng.split(key, 4)
+    device = key.device
+    dt = torch.exp(prng.uniform(ks[2], (nh,), _LOG_DT_MIN, _LOG_DT_MAX))
     return {
-        "in_proj": dense_init((d, proj_out), **kw),
-        "conv_w": dense_init((s.conv_width, conv_ch), scale=1.0, **kw),
+        "in_proj": dense_init(ks[0], (d, proj_out)),
+        "conv_w": dense_init(ks[1], (s.conv_width, conv_ch), scale=1.0),
         "conv_b": torch.zeros((conv_ch,), dtype=torch.float32,
                               device=device),
         "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
                                         device=device)),
         "D": torch.ones((nh,), dtype=torch.float32, device=device),
         # inverse softplus of dt
-        "dt_bias": (dt + torch.log(-torch.expm1(-dt))).to(device),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
         "norm": rmsnorm_init(d_in, device=device),
-        "out_proj": dense_init((d_in, d), **kw),
+        "out_proj": dense_init(ks[3], (d_in, d)),
     }
 
 

@@ -4,17 +4,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.models.layers.init import dense_init
 
 
-def swiglu_init(d_model: int, d_ff: int, *, generator, device) -> dict:
+def swiglu_init(key, d_model: int, d_ff: int) -> dict:
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "w_gate": dense_init((d_model, d_ff), generator=generator,
-                             device=device),
-        "w_up": dense_init((d_model, d_ff), generator=generator,
-                           device=device),
-        "w_down": dense_init((d_ff, d_model), generator=generator,
-                             device=device),
+        "w_gate": dense_init(k1, (d_model, d_ff)),
+        "w_up": dense_init(k2, (d_model, d_ff)),
+        "w_down": dense_init(k3, (d_ff, d_model)),
     }
 
 

@@ -19,7 +19,7 @@ from repro_torch.models import transformer as t
 @dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
-    init: Callable[..., Any]            # (generator, device=) -> params
+    init: Callable[..., Any]            # (threefry key) -> params
     loss: Callable[..., Any]            # (params, batch) -> scalar loss
     # (params, batch) -> (sum_loss, count), padded rows masked out
     loss_sum: Callable[..., Any]
@@ -32,8 +32,8 @@ class ModelBundle:
 def build_model(cfg: ModelConfig, *, dtype=None) -> ModelBundle:
     t.check_supported(cfg)
 
-    def init(generator, *, device):
-        return t.init_params(generator, cfg, device=device)
+    def init(key):
+        return t.init_params(key, cfg)
 
     def loss(params, batch, **kw):
         return t.train_loss(params, cfg, batch, dtype=dtype, **kw)

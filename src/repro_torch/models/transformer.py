@@ -17,7 +17,8 @@ masters: the layers cast each weight at its use (``w.to(x.dtype)``), and
 ``activation_copy`` (bf16 copies for serving) is not for training.
 
 Public entry points:
-  * ``init_params``      — parameter tree (fp32 masters)
+  * ``init_params``      — parameter tree (fp32 masters) from a threefry
+                           key, the reference's values
   * ``forward_train``    — full-sequence logits
   * ``xent_loss``, ``train_loss``, ``train_loss_sum`` — the training
                            objective (no MoE aux: no MoE kind is ported)
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.core import prng
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import hymba as hymba_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
@@ -75,31 +77,39 @@ def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _layer_init(cfg: ModelConfig, kw) -> Params:
-    d, dev = cfg.d_model, kw["device"]
+def _layer_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    d, dev = cfg.d_model, key.device
+    k1, k2 = prng.split(key)
     if cfg.kind == SSM:
         return {"norm": rmsnorm_init(d, device=dev),
-                "mixer": mamba_lib.mamba2_init(cfg, **kw)}
-    mixer = hymba_lib.hymba_init(cfg, **kw) if cfg.kind == HYBRID \
-        else attn_lib.gqa_init(cfg, **kw)
+                "mixer": mamba_lib.mamba2_init(k1, cfg)}
+    mixer = hymba_lib.hymba_init(k1, cfg) if cfg.kind == HYBRID \
+        else attn_lib.gqa_init(k1, cfg)
     return {"attn_norm": rmsnorm_init(d, device=dev), "mixer": mixer,
             "ffn_norm": rmsnorm_init(d, device=dev),
-            "ffn": swiglu_init(d, cfg.d_ff, **kw)}
+            "ffn": swiglu_init(k2, d, cfg.d_ff)}
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device) -> Params:
-    """Fresh fp32 weights from ``generator`` (drawn on the CPU and moved,
-    so a seed gives the same weights on every device)."""
+def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    """Fresh fp32 weights from the threefry ``key``
+    (``prng.PRNGKey(seed)``) on the reference's key tree: ``split(key,
+    8)``, layer i from ``split(keys[0], num_layers)[i]``, the embedding
+    from ``keys[1]`` and the head from ``keys[2]``.  Drawn on the key's
+    device, leaf by leaf, so each hash's int64 temporaries are one
+    leaf's; the values are the reference's (``core/prng.py``)."""
     check_supported(cfg)
-    kw = dict(generator=generator, device=device)
+    dev = key.device
+    keys = prng.split(key, 8)
+    unit_keys = prng.split(keys[0], cfg.num_layers)
     params: Params = {
-        "layers": [_layer_init(cfg, kw) for _ in range(cfg.num_layers)],
-        "final_norm": rmsnorm_init(cfg.d_model, device=device),
-        "embed": embedding_init(cfg.vocab_size, cfg.d_model, **kw),
+        "layers": [_layer_init(unit_keys[i], cfg)
+                   for i in range(cfg.num_layers)],
+        "final_norm": rmsnorm_init(cfg.d_model, device=dev),
+        "embed": embedding_init(keys[1], cfg.vocab_size, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = lm_head_init(cfg.d_model, cfg.vocab_size, **kw)
+        params["lm_head"] = lm_head_init(keys[2], cfg.d_model,
+                                         cfg.vocab_size)
     return params
 
 

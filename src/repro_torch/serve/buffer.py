@@ -17,11 +17,12 @@ Invariants (the service's contract):
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import host, to_tree, tree_get
 from repro_torch.core.engine import flat_layout, init_delta_buffer
 
 
@@ -80,6 +81,30 @@ class DeltaBuffer:
         slots, free ones weight-0-masked downstream."""
         b = self._buf
         return b["delta"], b["weight"], b["client"], b["base_version"]
+
+    # -- snapshot ------------------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The reference's buffer snapshot: the slots' deltas as its tree
+        of ``(M, ...)`` stacked leaves, the per-slot arrays as they
+        are."""
+        buf = {k: np.array(v) for k, v in self._buf.items() if k != "delta"}
+        buf["delta"] = to_tree({name: host(v) for name, v
+                                in self.leaves.items()})
+        return {"capacity": self.capacity, "count": self.count, "buf": buf}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        if int(state["capacity"]) != self.capacity:
+            raise ValueError(
+                f"snapshot buffer capacity {state['capacity']} != this "
+                f"buffer's {self.capacity}; rebuild the service from the "
+                "snapshot's spec")
+        buf = state["buf"]
+        for name, view in self.leaves.items():
+            view.copy_(torch.from_numpy(np.array(tree_get(buf["delta"], name),
+                                                 np.float32)))
+        for k in ("weight", "client", "base_version"):
+            self._buf[k][:] = np.asarray(buf[k])
+        self.count = int(state["count"])
 
     def unflatten(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
         """A ``(D,)`` vector in the buffer's layout -> per-leaf views."""

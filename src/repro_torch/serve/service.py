@@ -22,18 +22,24 @@ and post-shutdown deltas are rejected with the reference's reasons
 (:data:`REJECT_REASONS`).  With ``M=K``, ``max_staleness=0`` and in-order
 arrivals every aggregation is one synchronous FedAvg round.
 
-Snapshots and checkpoints (ROADMAP A11) wait for their slice.
+``state_dict``/``load_state_dict`` (``SERVE_STATE_FORMAT``,
+``save_state``/``load_state``) snapshot everything the next upload
+depends on in the reference's form, so a service rebuilt from the same
+spec continues bitwise; ``export_federation_state`` and
+``save_checkpoint`` publish the live model as a sync ``Federation``
+snapshot.
 """
 from __future__ import annotations
 
+import pickle
 import time
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Union
 
 import numpy as np
 import torch
 
 from repro_torch.api.federation import Federation
-from repro_torch.api.spec import FederationSpec, spec_replace
+from repro_torch.api.spec import FederationSpec, atomic_write, spec_replace
 from repro_torch.core.ntm import prodlda
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
@@ -42,6 +48,9 @@ from repro_torch.serve.buffer import DeltaBuffer
 REJECT_REASONS = ("stale", "superseded", "unknown_client", "draining",
                   "zero_weight", "bad_version", "upload_failed",
                   "malformed", "wire_version")
+
+# format 2: the buffer snapshot carries a per-slot "client" array
+SERVE_STATE_FORMAT = 2
 
 # the ledger keeps only the newest records; per-reason totals in
 # `rejection_totals` are monotonic and survive eviction
@@ -61,12 +70,6 @@ def sync_twin_spec(spec: FederationSpec) -> FederationSpec:
                                "schedule.staleness_policy": "",
                                "schedule.max_staleness": 0,
                                "serving": None})
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"FederationService.{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md {item})")
 
 
 class FederationService:
@@ -343,12 +346,81 @@ class FederationService:
                 out.append(tok)
         return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
-    # -- later slices --------------------------------------------------------
+    # -- snapshot / resume ---------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        _not_ported("state_dict", "A11")
+        """Everything the next upload depends on, in the reference's form
+        (numpy leaves and primitives), with the top-k error memory of the
+        uploads besides: restored into a service built from the SAME
+        spec, the run continues bitwise."""
+        eng = self._fed.engine
+        return {"format": SERVE_STATE_FORMAT,
+                "spec": self.spec.to_dict(),
+                "version": self.version,
+                "agg_index": self.agg_index,
+                "draining": self.draining,
+                "params": eng._export(self._live[1]),
+                "server_state": eng._export(self.server_state),
+                "buffer": self.buffer.state_dict(),
+                "client_rounds": list(self.client_rounds),
+                "rejections": [dict(r) for r in self.rejections],
+                "rejection_totals": dict(self.rejection_totals),
+                "history": [dict(h) for h in self.history],
+                # the uploads' top-k error memory, one entry a client
+                # (the reference's snapshot leaves it out; its loader
+                # ignores the key)
+                "client_error_memory": eng._export_error_memory()[1]}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        _not_ported("load_state_dict", "A11")
+        fmt = state.get("format")
+        if fmt != SERVE_STATE_FORMAT:
+            raise ValueError(
+                f"unsupported service state format {fmt!r} (this build "
+                f"writes {SERVE_STATE_FORMAT})")
+        if state["spec"] != self.spec.to_dict():
+            raise ValueError(
+                "snapshot was taken under a different spec; resume "
+                "never reinterprets — rebuild the service from the "
+                "snapshot's spec")
+        eng = self._fed.engine
+        self.version = int(state["version"])
+        self.agg_index = int(state["agg_index"])
+        self.draining = bool(state["draining"])
+        self.server_state = eng._import(state["server_state"],
+                                        self.server_state)
+        self.buffer.load_state_dict(state["buffer"])
+        self.client_rounds = [int(t) for t in state["client_rounds"]]
+        self.rejections = [dict(r) for r in state["rejections"]]
+        self.rejection_totals = {str(k): int(v) for k, v in
+                                 state["rejection_totals"].items()}
+        self.history = [dict(h) for h in state["history"]]
+        self._live = (self.version, eng._import(state["params"],
+                                                self._live[1]))
+        eng._import_error_memory({}, state.get(
+            "client_error_memory", [None] * len(eng.clients)))
 
-    def save_checkpoint(self, path: str) -> Optional[str]:
-        _not_ported("save_checkpoint", "A11")
+    def save_state(self, path: str) -> str:
+        """Atomic pickle of :meth:`state_dict` (trusted-input format)."""
+        state = self.state_dict()
+        return atomic_write(path, lambda f: pickle.dump(state, f),
+                            binary=True)
+
+    def load_state(self, path: str) -> None:
+        with open(path, "rb") as f:
+            self.load_state_dict(pickle.load(f))
+
+    def export_federation_state(self) -> Dict[str, Any]:
+        """The live model as a SYNC ``Federation.state_dict()`` snapshot,
+        the hot-swap and checkpoint format that any sync tooling opens:
+        the embedded spec is the sync twin, the round counter the
+        aggregation index."""
+        eng = self._fed.engine
+        eng.params = self._live[1]
+        eng.server_state = self.server_state
+        eng._round = self.agg_index
+        return self._fed.state_dict()
+
+    def save_checkpoint(self, path: str) -> str:
+        """Atomic ``Federation``-format checkpoint of the live model."""
+        state = self.export_federation_state()
+        return atomic_write(path, lambda f: pickle.dump(state, f),
+                            binary=True)

@@ -141,8 +141,8 @@ def test_ctm_module_matches_reference():
              tctm.loss_zeroshot, True)):
         jparams = jinit(jax.random.PRNGKey(0), jcfg)
         tparams = _host(jparams)
-        shapes = {k: tuple(v.shape) for k, v in tinit(
-            torch.Generator().manual_seed(0), tcfg, device="cpu").items()}
+        shapes = {k: tuple(v.shape)
+                  for k, v in tinit(prng.PRNGKey(0), tcfg).items()}
         assert shapes == {k: tuple(v.shape) for k, v in tparams.items()}
         _close(tloss(tparams, tcfg, tb), jloss(jparams, jcfg, jb))
         _close(tctm.infer_theta(tparams, tcfg, tb["bow"], tb["contextual"],
@@ -151,8 +151,7 @@ def test_ctm_module_matches_reference():
                                 zeroshot=zs))
         _close(tctm.get_topics(tparams), jctm.get_topics(jparams))
     with pytest.raises(ValueError, match="contextual_dim"):
-        tctm.init_combined(torch.Generator(), _cfgs(contextual_dim=0)[1],
-                           device="cpu")
+        tctm.init_combined(prng.PRNGKey(0), _cfgs(contextual_dim=0)[1])
 
 
 @pytest.mark.parametrize("arch", ["prodlda-synthetic", "ctm-s2orc"])
@@ -224,8 +223,7 @@ def test_stochastic_loop_equals_vmap():
     clients = [ClientState(data={"bow": torch.from_numpy(
         rng.poisson(0.3, (40, V)).astype(np.float32))}, num_docs=40)
         for _ in range(3)]
-    init = tp.init_params(torch.Generator().manual_seed(3), cfg,
-                          device="cpu")
+    init = tp.init_params(prng.PRNGKey(3), cfg)
     fed = FederatedConfig(num_clients=3, learning_rate=1e-2, max_rounds=3,
                           rel_tol=0.0)
     loop = RoundEngine(lambda p, b: tp.elbo_loss(p, cfg, b, train=True),
@@ -312,7 +310,7 @@ def test_combinedtm_baselines_track_reference(ctm_setup):
         jloss, lambda key: inits[int(np.asarray(key)[1])], s["datas"],
         optimizer_factory=lambda: jopt.adam(2e-3), batch_size=16, steps=4)
     got = protocol.train_non_collaborative(
-        tloss, lambda g: _host(inits[g.initial_seed()]),
+        tloss, lambda key: _host(inits[int(key[1])]),
         [_tdata(d) for d in s["datas"]],
         optimizer_factory=lambda: topt.adam(2e-3), batch_size=16, steps=4)
     for w, g in zip(want, got):

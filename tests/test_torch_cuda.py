@@ -24,9 +24,10 @@ import pytest
 import torch
 
 from repro_torch.api import (Federation, FederationSpec, max_param_dev,
-                             scenario_spec)
+                             scenario_spec, spec_replace)
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FederatedConfig
+from repro_torch.core import prng
 from repro_torch.core.ntm import prodlda
 from repro_torch.core.protocol import ClientState, FederatedTrainer
 from repro_torch.kernels import (fed_aggregate, flash_attention, ops, ref,
@@ -693,8 +694,7 @@ def test_lm_prefill_decode_on_card_matches_cpu(cuda_device):
     decode steps, logits within 2e-4; B5 and B6 launch once per layer of
     the prefill and never in decode."""
     cfg = get_config("hymba-1.5b").reduced()
-    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                          device="cpu")
+    cpu = tfm.init_params(prng.PRNGKey(0), cfg)
     gpu = _to(cpu, cuda_device)
     toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 100))
     runs = []
@@ -742,8 +742,7 @@ def test_train_loss_grads_on_card_match_cpu(cuda_device):
     the card against the plain backward passes on the CPU, within 1e-4
     of each leaf's scale; each backward kernel runs once per layer."""
     cfg = get_config("hymba-1.5b").reduced()
-    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                          device="cpu")
+    cpu = tfm.init_params(prng.PRNGKey(0), cfg)
     gpu = _to(cpu, cuda_device)
     toks = rng_tokens(cfg.vocab_size, 2, 97)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]),
@@ -991,8 +990,7 @@ def test_train_step_launches_each_kernel_once_per_layer(cuda_device):
     never; the step's loss and parameters are finite."""
     from repro_torch.launch.steps import make_train_step
     cfg = get_config("hymba-1.5b").reduced()
-    params = tfm.init_params(torch.Generator().manual_seed(0), cfg,
-                             device=cuda_device)
+    params = tfm.init_params(prng.PRNGKey(0, device=cuda_device), cfg)
     toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 129)).to(
         cuda_device)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1128,7 +1126,6 @@ def test_lm_dirichlet_topk_round_on_card_matches_cpu(cuda_device):
     every parameter within 1e-4 (top-k's support flips aside), the same
     round record, and one B2 and one B4 launch, B5 and its backward once
     per layer (the cohort folded)."""
-    from repro_torch.api import spec_replace
     spec = spec_replace(scenario_spec("lm_dirichlet_topk"), {
         "model.vocab": 128, "model.seq_len": 16, "data.num_clients": 3,
         "data.docs_per_node": 24, "data.val_docs_per_node": 8,
@@ -1177,7 +1174,6 @@ def test_threefry_draws_on_card_equal_cpu(cuda_device):
     """Keys, bits, uniforms and masks bitwise, normals within the
     erfinv rounding of the CPU tests (4 ulps), permutations equal; also
     under ``torch.func.vmap`` on the card."""
-    from repro_torch.core import prng
     for seed in (0, 7, 2 ** 31 + 5):
         kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device=cuda_device)
         assert torch.equal(prng.split(kg, 3).cpu(), prng.split(kc, 3))
@@ -1206,11 +1202,9 @@ def test_train_mode_elbo_on_card_matches_cpu(cuda_device, mode, rng):
     """The train-mode ELBO (dropout, reparametrization, batch norm) and
     its gradients, on the card against the CPU from one key."""
     from repro_torch.configs.base import NTM, ModelConfig
-    from repro_torch.core import prng
     cfg = ModelConfig(name="t", kind=NTM, vocab_size=300, num_topics=8,
                       ntm_hidden=(32, 32), contextual_dim=24)
-    params = prodlda.init_params(torch.Generator().manual_seed(0), cfg,
-                                 device="cpu", input_mode=mode)
+    params = prodlda.init_params(prng.PRNGKey(0), cfg, input_mode=mode)
     batch = {"bow": torch.from_numpy(
         rng.poisson(0.4, (40, 300)).astype(np.float32)),
         "contextual": torch.from_numpy(
@@ -1255,8 +1249,7 @@ def test_combinedtm_trainer_on_card_matches_cpu(cuda_device, rng):
     cfg = ModelConfig(name="c", kind=NTM, vocab_size=300, num_topics=6,
                       ntm_hidden=(32, 32), contextual_dim=24)
     bows = [rng.poisson(0.4, (60, 300)).astype(np.float32) for _ in range(3)]
-    init = ctm.init_combined(torch.Generator().manual_seed(0), cfg,
-                             device="cpu")
+    init = ctm.init_combined(prng.PRNGKey(0), cfg)
     runs = []
     for dev in ("cpu", cuda_device):
         clients = [ClientState(data={
@@ -1272,3 +1265,90 @@ def test_combinedtm_trainer_on_card_matches_cpu(cuda_device, rng):
         tr.fit(seed=0)
         runs.append(tr)
     assert max_param_dev(runs[0].params, runs[1].params) <= 1e-5
+
+
+def test_randint_and_truncated_normal_on_card_equal_cpu(cuda_device):
+    """The secure masks' ``randint`` bitwise (also the whole mask stack
+    over a ProdLDA layout), normals and truncated normals within the
+    erfinv rounding of the CPU tests (4 ulps)."""
+    from repro_torch.core.engine import flat_layout
+    from repro_torch.core.transforms import dp_noise, pairwise_mask_stack
+    for seed in (0, 7, 2 ** 31 + 5):
+        kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device=cuda_device)
+        for lo, hi in ((-(2 ** 10), 2 ** 10 + 1), (0, 2 ** 31 - 1),
+                       (-5, 3)):
+            assert torch.equal(prng.randint(kg, (64, 100), lo, hi).cpu(),
+                               prng.randint(kc, (64, 100), lo, hi))
+        for draw in (lambda k: prng.normal(k, (200_000,)),
+                     lambda k: prng.truncated_normal(k, -2.0, 2.0,
+                                                     (200_000,))):
+            a = draw(kg).cpu().numpy().view(np.int32).astype(np.int64)
+            b = draw(kc).numpy().view(np.int32)
+            assert np.abs(a - b).max() <= 4
+    from repro_torch.configs.base import NTM, ModelConfig
+    cfg = ModelConfig(name="t", kind=NTM, vocab_size=300, num_topics=8,
+                      ntm_hidden=(32, 32))
+    layout = flat_layout(prodlda.init_params(prng.PRNGKey(0), cfg))
+    assert torch.equal(pairwise_mask_stack(5, layout, 4, cuda_device).cpu(),
+                       pairwise_mask_stack(5, layout, 4, "cpu"))
+    ids, valid = np.array([2, 0, 1]), np.ones(3, bool)
+    a = dp_noise(5, ids, valid, layout, cuda_device).cpu().numpy()
+    b = dp_noise(5, ids, valid, layout, "cpu").numpy()
+    assert np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32)).max() <= 4
+    init = [prodlda.init_params(prng.PRNGKey(3, device=d), cfg)
+            for d in (cuda_device, "cpu")]
+    for k, v in init[0].items():
+        u = np.abs(v.cpu().numpy().view(np.int32).astype(np.int64)
+                   - init[1][k].numpy().view(np.int32))
+        assert u.max() <= 4, k
+
+
+_RING_SPEC = {"model": {"vocab": 400, "topics": 10, "hidden": 32},
+              "data": {"num_clients": 4, "docs_per_node": 80,
+                       "val_docs_per_node": 10},
+              "schedule": {"rounds": 8, "straggler_prob": 0.6,
+                           "max_staleness": 3, "staleness_decay": 0.25},
+              "execution": {"batch_size": 32, "exec_mode": "vmap"}}
+
+
+def test_straggler_ring_on_card_matches_cpu(cuda_device):
+    """The batched path's straggler ring: B2 at most twice a round (once
+    per slab with a positive coefficient), card against CPU within 1e-5
+    with the records equal."""
+    spec = FederationSpec.from_dict(_RING_SPEC)
+    cpu = Federation.from_spec(spec, device="cpu")
+    card = Federation.from_spec(spec, device=cuda_device)
+    per_round = []
+    for _ in range(8):
+        cpu.step()
+        fed_aggregate.launches = 0
+        rec = card.step()
+        per_round.append(fed_aggregate.launches)
+        assert fed_aggregate.launches <= 2
+        assert (fed_aggregate.launches > 0) == (rec["arrived"] > 0)
+    assert max(per_round) == 2 and any(h["in_flight"] for h in card.history)
+    assert max_param_dev(cpu.params, card.params) <= 1e-5
+    assert [{k: h[k] for k in ("arrived", "superseded", "in_flight")}
+            for h in cpu.history] == \
+        [{k: h[k] for k in ("arrived", "superseded", "in_flight")}
+         for h in card.history]
+
+
+def test_resume_on_card_is_bitwise(cuda_device):
+    """A straggler + top-k run on the batched path, snapshotted after 4
+    rounds, continues bitwise in a fresh ``Federation`` on the card."""
+    import pickle
+    spec = spec_replace(FederationSpec.from_dict(_RING_SPEC), {
+        "transforms.names": ("topk",), "transforms.compression_topk": 0.25})
+    a = Federation.from_spec(spec, device=cuda_device)
+    a.run(rounds=4)
+    snap = pickle.dumps(a.state_dict())
+    a.run()
+    b = Federation.from_spec(spec, device=cuda_device)
+    b.load_state_dict(pickle.loads(snap))
+    b.run()
+    assert a.history == b.history
+    for k, v in a.params.items():
+        assert torch.equal(v, b.params[k]), k
+    assert torch.equal(a.engine._ring["delta"], b.engine._ring["delta"])

@@ -205,24 +205,28 @@ def test_added_registry_entries_round_trip(name):
 
 @pytest.mark.parametrize("overrides,item", [
     ({"execution.exec_mode": "loop"}, None),
-    ({"schedule.straggler_prob": 0.3, "schedule.max_staleness": 2}, "A10"),
-    # the former A9 refusal, now a running path (its id kept)
+    # the former A10 and A9 refusals, now running paths (their ids kept)
+    pytest.param({"schedule.straggler_prob": 0.3,
+                  "schedule.max_staleness": 2}, None, id="overrides1-A10"),
     pytest.param({"execution.exec_mode": "loop",
                   "transforms.names": ("topk",),
                   "transforms.compression_topk": 0.25}, None,
                  id="overrides2-A9"),
 ])
 def test_paths_outside_the_slice_raise(overrides, item):
-    """Stragglers on the batched path (A10) are refused at spec time; a
-    loop-mode spec (Algorithm 1's host loop) steps, with a transform
-    stage too (the per-client application)."""
+    """A loop-mode spec (Algorithm 1's host loop) steps, with a
+    transform stage too, and so do stragglers on the batched path (the
+    straggler ring): every message arrives or waits in flight."""
     spec = FederationSpec.from_dict(_SMALL)
     if item is None:
         fed = Federation.from_spec(spec_replace(spec, overrides),
                                    device="cpu")
         rec = fed.step()
         assert fed.round_index == 1 and fed.history == [rec]
-        assert rec["arrived"] == 3 and rec["rel_change"] > 0
+        assert rec["arrived"] + rec["in_flight"] == 3
+        if "schedule.straggler_prob" not in overrides:
+            assert rec["in_flight"] == 0
+        assert (rec["rel_change"] > 0) == (rec["arrived"] > 0)
     else:
         with pytest.raises(NotImplementedError, match=item):
             spec_replace(spec, overrides)

@@ -27,6 +27,7 @@ from repro.models.layers import mamba2 as jmamba
 from repro.models.layers.rope import rope_angles as jrope_angles
 from repro_torch import configs as tconfigs
 from repro_torch.configs import base as tbase
+from repro_torch.core import prng
 from repro_torch.launch import serve as tserve
 from repro_torch.models import registry as treg
 from repro_torch.models import transformer as ttfm
@@ -136,8 +137,7 @@ def test_kinds_outside_the_slice_raise(change):
     cfg = dataclasses.replace(tconfigs.get_config("phi3-mini-3.8b").reduced(),
                               **change)
     with pytest.raises(NotImplementedError, match="A16"):
-        ttfm.init_params(torch.Generator().manual_seed(0), cfg,
-                         device="cpu")
+        ttfm.init_params(prng.PRNGKey(0), cfg)
     with pytest.raises(NotImplementedError, match="A16"):
         treg.build_model(cfg)
 
@@ -332,7 +332,7 @@ def test_bundle_matches_module_functions():
     empty = bundle.init_cache(1, 20, device="cpu")
     assert {k: tuple(v.shape) for k, v in empty.items() if k != "pos"} \
         == {k: tuple(v.shape) for k, v in cache.items() if k != "pos"}
-    fresh = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    fresh = bundle.init(prng.PRNGKey(0))
     assert len(fresh["layers"]) == tc.num_layers
 
 

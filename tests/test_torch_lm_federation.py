@@ -40,6 +40,7 @@ from repro_torch.api import (Federation, FederationSpec, build_lm_clients,
                              build_lm_corpus, heldout_xent_per_token,
                              max_param_dev, scenario_spec, spec_replace)
 from repro_torch.core import engine as tengine
+from repro_torch.core import prng
 from repro_torch.data.lm_data import generate_lm_corpus
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as tfm
@@ -248,7 +249,7 @@ def test_overrides_clients_and_losses_equal_the_defaults():
     spec = _lm_spec(**{"execution.exec_mode": "vmap", **_WHOLE})
     cfg = spec.to_model_config()
     bundle = build_model(cfg, dtype=torch.float32)
-    init = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    init = bundle.init(prng.PRNGKey(0))
     clients = build_lm_clients(build_lm_corpus(spec), 3, "topic",
                                device="cpu")
     a = Federation.from_spec(spec, device="cpu", init_params=init)

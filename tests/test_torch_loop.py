@@ -166,9 +166,17 @@ def test_default_spec_runs_algorithm_1_on_the_cpu():
     assert [h["arrived"] for h in fed.history] == [3, 3, 3]
     assert fed.history[-1]["loss"] < fed.history[0]["loss"]
     assert np.isfinite(fed.evaluate()["heldout_elbo_per_token"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        spec_replace(scenario_spec("straggler", spec),
-                     {"execution.exec_mode": "vmap"})
+    # stragglers run on the batched path too (the straggler ring), with
+    # the host pending list's arrivals
+    strag = scenario_spec("straggler", spec)
+    ring = Federation.from_spec(spec_replace(
+        strag, {"execution.exec_mode": "vmap"}), device="cpu")
+    host = Federation.from_spec(strag, device="cpu")
+    ring.run(rounds=3)
+    host.run(rounds=3)
+    assert ring.engine._ring is not None
+    assert [{k: h[k] for k in INTS} for h in ring.history] == \
+        [{k: h[k] for k in INTS} for h in host.history]
     topk = Federation.from_spec(
         spec_replace(spec, {"transforms.names": ("topk",),
                             "transforms.compression_topk": 0.25}),

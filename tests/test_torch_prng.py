@@ -2,8 +2,9 @@
 
 The installed jax 0.9.0 with its default ``jax_threefry_partitionable``
 is the oracle.  Keys, ``split``/``fold_in``, raw bits, uniforms,
-Bernoulli masks and ``choice(replace=False)`` index sets must equal
-jax's bit for bit; normals may differ by the rounding of ``log1p`` in
+Bernoulli masks, ``randint`` draws (the secure masks' grid) and
+``choice(replace=False)`` index sets must equal jax's bit for bit;
+normals and truncated normals may differ by the rounding of ``log1p`` in
 the float32 ``erfinv`` (measured: at most 3 ulps on 2e6 draws, the
 bound here is 4).
 """
@@ -147,3 +148,51 @@ def test_draws_under_vmap_equal_per_key_draws():
         jd, js = jax.random.split(jkeys[c])
         assert np.array_equal(m.numpy(), np.asarray(
             jax.random.bernoulli(jd, 0.8, (5, 6))))
+
+
+def _ulps(a, b):
+    return np.abs(np.asarray(a).view(np.int32).astype(np.int64)
+                  - np.asarray(b).view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("bounds", [(-2.0, 2.0), (-1.0, 1.0), (-3.0, 0.5)])
+def test_truncated_normal_within_erfinv_rounding(bounds):
+    """``dense_init``'s draw: bounds ±2 are the reference's; every draw
+    lies strictly inside them, within 4 ulps of jax's."""
+    lo, hi = bounds
+    worst = 0
+    for seed in SEEDS[:6]:
+        for shape in ((20_000,), (3, 4), (64, 50), ()):
+            want = np.asarray(jax.random.truncated_normal(
+                jax.random.PRNGKey(seed), lo, hi, shape, jnp.float32))
+            got = prng.truncated_normal(prng.PRNGKey(seed), lo, hi,
+                                        shape).numpy()
+            assert got.dtype == np.float32 and got.shape == want.shape
+            assert (got > lo).all() and (got < hi).all()
+            worst = max(worst, int(_ulps(got, want).max()))
+    print(f"truncated_normal{bounds}: max {worst} ulps")
+    assert worst <= NORMAL_ULPS
+
+
+@pytest.mark.parametrize("span", [(-(2 ** 10), 2 ** 10 + 1),
+                                  (-(2 ** 6), 2 ** 6 + 1), (-2, 3), (0, 1),
+                                  (5, 5), (7, 3), (0, 2 ** 31 - 1),
+                                  (-(2 ** 31), 2 ** 31 - 1),
+                                  (-1000, 123457), (3, 2 ** 20 + 7)])
+def test_randint_bitwise(span):
+    """``jax.random.randint``'s int32 draws, the secure masks' ``[-2^b,
+    2^b]`` grid among the spans, also from a stack of keys."""
+    lo, hi = span
+    for seed in SEEDS:
+        jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+        for shape in ((1000,), (3, 7), ()):
+            want = np.asarray(jax.random.randint(jk, shape, lo, hi))
+            got = prng.randint(tk, shape, lo, hi)
+            assert got.dtype == torch.int32
+            assert np.array_equal(got.numpy(), want)
+    keys = torch.stack([prng.fold_in(prng.PRNGKey(4), m) for m in range(3)])
+    got = prng.randint(keys, (2, 5), lo, hi).numpy()
+    for m in range(3):
+        want = jax.random.randint(jax.random.fold_in(
+            jax.random.PRNGKey(4), m), (2, 5), lo, hi)
+        assert np.array_equal(got[m], np.asarray(want))

@@ -16,6 +16,7 @@ import torch
 from repro.configs.base import NTM, ModelConfig as JConfig
 from repro.core.ntm import prodlda as jp
 from repro_torch.configs.base import ModelConfig as TConfig
+from repro_torch.core import prng
 from repro_torch.core.ntm import prodlda as tp
 
 
@@ -118,22 +119,29 @@ def test_weight_carrier_round_trips_bitwise():
 
 
 def test_init_respects_two_sigma_truncation():
-    """The reference truncates a standard normal at ±2 and scales it; the
-    port's bounds are therefore ±2·std in absolute units."""
+    """The reference truncates a standard normal at ±2 and scales it by
+    ``std = fan_in ** -0.5``; the port draws the same values from the
+    same key (within 4 ulps), so every weight lies within ±2·std."""
     _, tcfg = _cfgs()
-    params = tp.init_params(torch.Generator().manual_seed(0), tcfg,
-                            device="cpu")
+    params = tp.init_params(prng.PRNGKey(0), tcfg)
     ref_tree = jp.init_params(jax.random.PRNGKey(0), _cfgs()[0])
     ref_flat = tp.params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_tree))
     assert {k: v.shape for k, v in params.items()} == \
         {k: v.shape for k, v in ref_flat.items()}
+    standardized = []
     for name, w in params.items():
+        want = ref_flat[name].numpy()
         if name.endswith(".w") or name == "beta":
             std = w.shape[0] ** -0.5
             assert float(w.abs().max()) <= 2.0 * std * (1 + 1e-6)
             assert float(w.abs().max()) > 1.5 * std
-            # a N(0,1) truncated at ±2 has std 0.8796
-            assert abs(float(w.std()) / std - 0.8796) < 0.1
+            ulps = np.abs(w.numpy().view(np.int32).astype(np.int64)
+                          - want.view(np.int32).astype(np.int64))
+            assert ulps.max() <= 4
+            standardized.append(w.reshape(-1) / std)
         else:
-            _close(w, ref_flat[name].numpy(), tol=1e-6)
+            _close(w, want, tol=1e-6)
+    # a N(0,1) truncated at ±2 has std 0.8796 (over all weights: a
+    # 16 x 4 head alone is too few draws to pin it)
+    assert abs(float(torch.cat(standardized).std()) - 0.8796) < 0.1

@@ -464,7 +464,7 @@ def test_train_non_collaborative_one_model_per_node(setup):
     cfg = setup["cfg"]
     models = protocol.train_non_collaborative(
         setup["loss"],
-        lambda g: prodlda.init_params(g, cfg, device="cpu"),
+        lambda key: prodlda.init_params(key, cfg),
         [{"bow": c.data["bow"]} for c in setup["clients"]],
         optimizer_factory=lambda: opt.adam(2e-3), batch_size=16, steps=3,
         seed=1)

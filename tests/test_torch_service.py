@@ -9,6 +9,7 @@ differ only in fp32 summation order, and every trajectory must agree
 within 1e-5.
 """
 import os
+import pickle
 import subprocess
 import sys
 
@@ -24,8 +25,8 @@ from repro.metrics import npmi_coherence as jnpmi
 from repro.metrics import tss as jtss
 from repro.serve import FederationService as JService
 from repro.serve import run_traffic as jrun_traffic
-from repro_torch.api import FederationSpec, max_param_dev, scenario_names, \
-    scenario_spec, spec_replace
+from repro_torch.api import Federation, FederationSpec, max_param_dev, \
+    scenario_names, scenario_spec, spec_replace
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.launch import federate_serve
 from repro_torch.metrics import npmi_coherence, tss
@@ -284,13 +285,15 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
         <= set(scenario_names())
 
 
-# the former A9 and A2 refusals are running paths now (their ids kept)
+# the former A9, A10 and A2 refusals are running paths now (their ids
+# kept)
 @pytest.mark.parametrize("overrides,item", [
     pytest.param({"transforms.names": ("dp",),
                   "transforms.dp_noise_multiplier": 0.3}, None,
                  id="overrides0-A9"),
-    ({"execution.exec_mode": "vmap", "schedule.mode": "sync",
-      "schedule.straggler_prob": 0.3, "schedule.max_staleness": 2}, "A10"),
+    pytest.param({"execution.exec_mode": "vmap", "schedule.mode": "sync",
+                  "schedule.straggler_prob": 0.3,
+                  "schedule.max_staleness": 2}, None, id="overrides1-A10"),
     ({"execution.mesh": {"data": 2}}, "A17"),
     # an LM arch whose layers the port lacks (LM federation runs since
     # the seventh slice; the rest of the zoo is A16b)
@@ -306,7 +309,15 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
 def test_sections_outside_the_slice_raise(overrides, item):
     """The sections of later slices raise naming their ROADMAP item;
     upload transforms and non-``topic`` partitions now run (item None):
-    the service builds and accepts an upload."""
+    the service builds and accepts an upload; a sync spec with
+    stragglers runs on the batched path (the straggler ring)."""
+    if item is None and overrides.get("schedule.mode") == "sync":
+        fed = Federation.from_spec(spec_replace(_specs()[1], overrides),
+                                   device="cpu")
+        rec = fed.step()
+        assert fed.engine.exec_mode == "vmap"
+        assert rec["arrived"] + rec["in_flight"] == rec["participants"]
+        return
     if item is None:
         svc = FederationService.from_spec(
             spec_replace(_specs()[1], overrides), device="cpu")
@@ -316,12 +327,15 @@ def test_sections_outside_the_slice_raise(overrides, item):
         spec_replace(_specs()[1], overrides)
 
 
-def test_later_slice_surfaces_raise(corpus):
+def test_later_slice_surfaces_raise(corpus, tmp_path):
+    """The former A11 refusals run: the snapshot has the reference's
+    format, the checkpoint is a sync ``Federation`` snapshot."""
     svc = _svc(corpus)
-    for call, item in ((lambda: svc.state_dict(), "A11"),
-                       (lambda: svc.save_checkpoint("x.pkl"), "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    assert svc.state_dict()["format"] == 2
+    path = svc.save_checkpoint(str(tmp_path / "x.pkl"))
+    with open(path, "rb") as f:
+        ck = pickle.load(f)
+    assert set(ck) == {"spec", "engine"} and ck["engine"]["round"] == 0
     # infer(contextual=...) runs (A3): the spec-built model reads the BoW
     bow = corpus.node_val_bows[0][:3]
     assert torch.equal(svc.infer(bow, contextual=np.ones((3, 8))),
@@ -351,8 +365,14 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
     assert "aggregations -> version" in text and out.exists()
     assert res["device"] == "cpu" and res["traffic"]["aggregations"] >= 1
     assert np.isfinite(res["heldout_elbo_per_token"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        federate_serve.main(["--checkpoint", "x.pkl", "--device", "cpu"])
+    ck = tmp_path / "served.pkl"
+    federate_serve.main([
+        "--vocab", "64", "--topics", "4", "--hidden", "16",
+        "--num-clients", "3", "--docs-per-node", "20", "--val-docs", "4",
+        "--buffer-size", "2", "--sweeps", "1", "--lr", "2e-4",
+        "--device", "cpu", "--checkpoint", str(ck)])
+    with open(ck, "rb") as f:
+        assert pickle.load(f)["engine"]["format"] == 2
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -1,9 +1,10 @@
 """The port's message transforms against the JAX package.
 
-Selection rules and the precision cast are held bitwise; ``dp`` runs on
-the reference's own noise (drawn here with the reference's key schedule)
-and stays within 1e-6; the secure masks cancel to exactly +0.0 at every
-K up to 1024; the secure refusals raise the reference's errors.
+Selection rules and the precision cast are held bitwise; ``dp`` draws
+the reference's noise from the reference's keys (within 4 ulps) and
+stays within 1e-6 of the reference's transform; the secure masks are
+bitwise the reference's and cancel to exactly +0.0 at every K up to
+1024; the secure refusals raise the reference's errors.
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,10 @@ SHAPES = {"a": (4, 3), "b": (5,), "c": (2, 2, 2)}   # jax's (sorted) order
 
 def _bits(a):
     return np.asarray(a, np.float32).view(np.int32)
+
+
+def _ulps(a, b):
+    return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
 
 
 def _tree(rng, lead=()):
@@ -137,9 +142,11 @@ def test_dp_stacked_matches_reference_on_its_noise(clip, rng):
     (_, jt), = jtr.build_transforms(("dp",), fed)
     jm = {n: jnp.asarray(v) for n, v in msgs.items()}
     want, _ = jt.stacked(jm, ctx, None)
-    noise = _reference_noise(key, ids, jm)
-    got = ttr.dp_apply(_slab(msgs, k), _layout(), _slab(noise, k),
-                       clip=clip, mult=mult)
+    noise = _slab(_reference_noise(key, ids, jm), k)
+    drawn = ttr.dp_noise(11, [0, 2, 1], np.ones(k, bool), _layout(), "cpu")
+    assert _ulps(drawn, noise).max() <= 4
+    got = ttr.dp_apply(_slab(msgs, k), _layout(), noise, clip=clip,
+                       mult=mult)
     dev = np.max(np.abs(got.numpy() - _slab(want, k).numpy()))
     print(f"dp stacked vs reference (its noise) clip={clip}: {dev:.3e}")
     assert dev <= 1e-6
@@ -150,38 +157,49 @@ def test_dp_privatize_matches_reference_on_its_noise(rng):
     key = jax.random.PRNGKey(3)
     want = jagg.dp_privatize({n: jnp.asarray(v) for n, v in tree.items()},
                              key, clip_norm=0.5, noise_multiplier=0.3)
-    leaves, treedef = jax.tree_util.tree_flatten(tree)
-    noise = jax.tree_util.tree_unflatten(treedef, [
-        np.array(jax.random.normal(kk, l.shape, jnp.float32))
-        for l, kk in zip(leaves, jax.random.split(key, len(leaves)))])
-    got = tagg.dp_privatize({n: torch.from_numpy(v) for n, v in tree.items()},
-                            {n: torch.from_numpy(v) for n, v in noise.items()},
-                            clip_norm=0.5, noise_multiplier=0.3)
+    # the port draws from the reference's key, leaf j of the sorted
+    # order from split(key, n_leaves)[j], whatever the dict's order
+    shuffled = {n: torch.from_numpy(tree[n]) for n in ("c", "a", "b")}
+    got = tagg.dp_privatize(shuffled, torch.from_numpy(np.asarray(
+        key).astype(np.int64)), clip_norm=0.5, noise_multiplier=0.3)
     for n in SHAPES:
         np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]),
                                    rtol=0, atol=1e-6)
 
 
 def test_dp_transform_draws_its_noise_per_client(rng):
-    """The registry's dp draws from (round_seed, client id): the same
-    client gets the same noise in any row, padded rows get none."""
+    """The registry's dp draws from the reference's ``(round_seed, client
+    id)`` keys: its rows equal the reference's transform (its own draws)
+    within 1e-6, the same client gets the same noise in any row, padded
+    rows get none."""
     fed = FederatedConfig(dp_noise_multiplier=0.3, dp_clip_norm=0.05)
     (_, t), = ttr.build_transforms(("dp",), fed)
     layout = _layout()
-    msgs = _slab(_tree(rng, (3,)), 3)
+    tree = _tree(rng, (3,))
+    msgs = _slab(tree, 3)
     ids, valid = np.array([1, 2, 0]), np.array([True, True, False])
     ctx = ttr.StackedTransformCtx(9, ids, valid, torch.ones(3), 3, layout)
     out, _ = t.stacked(msgs, ctx, None)
-    noise = ttr.dp_noise(9, ids, valid, msgs.shape[1])
+    (_, jt), = jtr.build_transforms(("dp",), JFed(dp_noise_multiplier=0.3,
+                                                  dp_clip_norm=0.05))
+    jctx = jtr.StackedTransformCtx(
+        round_key=jax.random.PRNGKey(9), client_ids=jnp.asarray(ids),
+        valid=jnp.asarray(valid), weights=jnp.ones(3), num_clients=3)
+    want, _ = jt.stacked({n: jnp.asarray(v) for n, v in tree.items()},
+                         jctx, None)
+    dev = float(torch.max(torch.abs(out[:2] - _slab(want, 3)[:2])))
+    print(f"dp transform vs the reference's draws: {dev:.3e}")
+    assert dev <= 1e-6
+    noise = ttr.dp_noise(9, ids, valid, layout, "cpu")
     assert torch.equal(out, ttr.dp_apply(msgs, layout, noise, clip=0.05,
                                          mult=0.3))
     assert not noise[2].any()
-    swapped = ttr.dp_noise(9, ids[::-1].copy(), valid[::-1].copy(),
-                           msgs.shape[1])
+    swapped = ttr.dp_noise(9, ids[::-1].copy(), valid[::-1].copy(), layout,
+                           "cpu")
     assert torch.equal(swapped[1], noise[1]) and \
         not torch.equal(noise[0], noise[1])
-    assert not torch.equal(noise, ttr.dp_noise(10, ids, valid,
-                                               msgs.shape[1]))
+    assert not torch.equal(noise, ttr.dp_noise(10, ids, valid, layout,
+                                               "cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +209,8 @@ def test_dp_transform_draws_its_noise_per_client(rng):
 def test_secure_masks_cancel_to_exact_zero(k):
     """sum_l mask_l is exactly +0.0 per column under torch.sum, a
     sequential fp32 sum and three shuffled orders."""
-    stack = ttr.pairwise_mask_stack(k, [(0, 36), (36, 7)], k)
+    stack = ttr.pairwise_mask_stack(k, [("w", (6, 6), 0, 36),
+                                        ("b", (7,), 36, 7)], k, "cpu")
     arr = stack.numpy()
     assert arr.shape == (k, 43) and arr.std() > 0
     zero = np.zeros(43, np.float32)
@@ -208,9 +227,25 @@ def test_secure_masks_cancel_to_exact_zero(k):
                               _bits(zero))
 
 
+@pytest.mark.parametrize("k", [2, 3, 5, 16])
+def test_secure_masks_bitwise_reference(k):
+    """The stack is the reference's ``pairwise_mask_stack`` bit for bit:
+    leaf j of the sorted tree order from ``fold_in(fold_in(round_key,
+    SALT), j)``, wherever its columns lie in the slab."""
+    layout = [("w", torch.Size((6, 6)), 0, 36), ("b", torch.Size((7,)),
+                                                   36, 7)]
+    got = ttr.pairwise_mask_stack(k + 20, layout, k, "cpu")
+    want = jtr.pairwise_mask_stack(
+        jax.random.PRNGKey(k + 20), {"w": jnp.zeros((6, 6)),
+                                     "b": jnp.zeros((7,))}, k)
+    flat = np.concatenate([np.asarray(want["w"]).reshape(k, -1),
+                           np.asarray(want["b"]).reshape(k, -1)], axis=1)
+    assert np.array_equal(_bits(got.numpy()), _bits(flat))
+
+
 def test_secure_mask_population_cap():
     with pytest.raises(ValueError, match="1024"):
-        ttr.pairwise_mask_stack(0, [(0, 2)], 2000)
+        ttr.pairwise_mask_stack(0, [("w", (2,), 0, 2)], 2000, "cpu")
     assert ttr._mask_grid_bits(1024) == jtr._mask_grid_bits(1024)
     assert [ttr._mask_grid_bits(k) for k in (2, 5, 64)] == \
         [jtr._mask_grid_bits(k) for k in (2, 5, 64)]
