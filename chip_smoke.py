@@ -82,6 +82,19 @@ Phases, each fatal on failure (no phase catches and carries on):
    snapshot after round 10 resumed in a fresh ``Federation`` bitwise,
    and the service's likewise; secure masks card == CPU bitwise, dp
    noise, normals and the ProdLDA init card against CPU within 4 ulps;
+   the wire (``phase_wire``): ``buffered_async_net`` at the same width
+   behind a ``BackgroundServer``, ``ServiceClient`` replicas on the
+   card: the anchor over TCP (M=K=5, 3 sweeps) equal to the sync twin
+   within 1e-5 with B2 once per aggregation, and its upload and
+   ``GET /v1/model`` round trips of the 3.10 MB frame; ``run_traffic``
+   with holds and duplicates in process and over the wire, ledgers
+   equal; a bf16 upload bitwise the round trip and half the payload;
+   topk and dp uploads (B4 or B3 once per upload); a malformed and a
+   foreign-version frame answered 400 and recorded; ``federate_load``
+   with a server process and 4 client processes on the card (their
+   corpora cut to 2 000 + 200 docs a node), 2 sweeps, round-trip
+   percentiles and rates; one ``/v1/generate`` of reduced hymba-1.5b
+   (B5 and B6 once per layer);
 9. LM serve path: ``repro_torch.launch.serve`` with hymba-1.5b at full
    width (bf16 activations, the reference's init from seed 0, drawn on
    the card and timed), batch 4 x 2048-token
@@ -162,6 +175,12 @@ ALG1_ROUNDS, STRAGGLER_ROUNDS, COMPARE_ROUNDS = 20, 10, 3
 # cut to 20 rounds, the mid-run snapshot after 10; the service's resume
 # after 10 uploads, 10 more on each side
 RING_ROUNDS, RING_SNAPSHOT, SERVICE_UPLOADS = 20, 10, 10
+# the wire: the anchor and the parity runs at full width and depth, 3
+# sweeps; the load run's spawned server and client processes each build
+# their own corpus, cut in depth to LOAD_DOCS train + LOAD_VAL_DOCS
+# validation docs a node (widths never are), 4 client processes, 2 sweeps
+WIRE_SWEEPS, LOAD_PROCS, LOAD_SWEEPS = 3, 4, 2
+LOAD_DOCS, LOAD_VAL_DOCS = 2_000, 200
 # ProdLDA at prodlda_synthetic width (V=5000, K=50, encoder 100-100,
 # learned priors): the 14 leaf sizes, in the port's parameter order
 PRODLDA_SEGMENTS = [500_000, 100, 10_000, 100, 5_000, 50, 5_000, 50,
@@ -253,18 +272,22 @@ def bound_ms(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def phase_device():
-    name = torch.cuda.get_device_name(0)
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
     try:
-        smi = subprocess.run(
+        return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
-        smi = f"nvidia-smi unavailable ({e})"
+        return f"nvidia-smi unavailable ({e})"
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
     log(f"device: {name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    log(smi)
+    log(smi_line())
     # IEEE fp32 everywhere: the 1e-5 anchors assume no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2504,6 +2527,318 @@ def phase_ring_and_resume(records, corpus):
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _net_spec(docs=DOCS_PER_NODE, val_docs=VAL_DOCS_PER_NODE, **overrides):
+    """``buffered_async_net`` at prodlda-synthetic width (V=5000, K=50,
+    encoder 100-100, L=5), with ``overrides``."""
+    from repro_torch.api import (DataSpec, FederationSpec, ModelSpec,
+                                 scenario_spec, spec_replace)
+    base = FederationSpec(
+        model=ModelSpec(vocab=5000, topics=50, hidden=100),
+        data=DataSpec(num_clients=5, docs_per_node=docs,
+                      val_docs_per_node=val_docs))
+    spec = scenario_spec("buffered_async_net", base)
+    return spec_replace(spec, overrides) if overrides else spec
+
+
+def _pcts(xs) -> str:
+    import numpy as np
+    a = np.asarray(xs) * 1e3
+    return (f"p50 {np.percentile(a, 50):.2f} / p95 "
+            f"{np.percentile(a, 95):.2f} / p99 {np.percentile(a, 99):.2f} ms")
+
+
+def _payload_bytes(frame: bytes) -> int:
+    """The array bytes of a wire frame: all but its prefix and header."""
+    return len(frame) - 9 - int.from_bytes(frame[5:9], "big")
+
+
+def phase_wire(records, corpus):
+    """The wire (``repro_torch.net``) at prodlda-synthetic width, every
+    service and client replica on the card, each step fatal:
+    (a) the anchor over TCP: a ``BackgroundServer`` over the service, a
+    ``ServiceClient``, M=K=5, staleness 0, 3 in-order sweeps, equal to the
+    sync twin's ``Federation.run()`` on the card within 1e-5, B2 once per
+    aggregation (counts zeroed just before, read just after); upload and
+    ``GET /v1/model`` round trips of the 3.10 MB fp32 frame;
+    (b) ``run_traffic`` with holds and duplicates (``max_staleness=0``:
+    real ``stale`` and ``superseded`` rejections) in process and over the
+    wire: the ledgers equal reason for reason, params within 1e-5;
+    (c) ``wire_precision="bf16"``: half the payload, and the delta the
+    server buffers bitwise the bf16 round trip of the client's;
+    (d) topk and dp uploads over the wire: B4 or B3 once per computed
+    upload, B2 once per aggregation, params equal to the in-process
+    service's within 1e-5;
+    (e) a malformed frame and a frame of a foreign version: 400 and a
+    ledger entry for client -1 each;
+    (f) ``federate_load.run_load``: a server process and 4 client
+    processes on the card, 2 sweeps: every upload answered, every
+    rejection reason a known one; round-trip percentiles and rates;
+    (g) one ``/v1/generate`` from an LM service (reduced hymba-1.5b):
+    B5 and B6 once per layer of the prefill."""
+    import numpy as np
+    from repro_torch.api import (Federation, max_param_dev, scenario_spec,
+                                 spec_replace)
+    from repro_torch.launch import federate_load
+    from repro_torch.net import BackgroundServer, HttpClient, ServiceClient
+    from repro_torch.serve import (REJECT_REASONS, FederationService,
+                                   run_traffic, sync_twin_spec)
+    t_phase = time.perf_counter()
+
+    # (a) the anchor over TCP
+    spec = _net_spec(**{"schedule.buffer_size": 0,
+                        "schedule.max_staleness": 0,
+                        "schedule.rounds": WIRE_SWEEPS})
+    twin = Federation.from_spec(sync_twin_spec(spec), device="cuda",
+                                corpus=corpus)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin.run()
+    torch.cuda.synchronize()
+    t_twin = time.perf_counter() - t0
+    svc = FederationService.from_spec(spec, device="cuda", corpus=corpus)
+    rtts, fetches = [], []
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(spec, bg.host, bg.port, corpus=corpus,
+                           device="cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(WIRE_SWEEPS):
+            for c in range(5):
+                bv, delta, w = cl.client_update(c)
+                t1 = time.perf_counter()
+                if not cl.submit(c, delta, w, base_version=bv)["accepted"]:
+                    raise AssertionError(f"wire anchor: upload of client "
+                                         f"{c} refused")
+                rtts.append(time.perf_counter() - t1)
+        version, params = cl.fetch_model()
+        torch.cuda.synchronize()
+        t_wire = time.perf_counter() - t0
+        counts = read_counts()
+        for _ in range(10):
+            t1 = time.perf_counter()
+            cl.fetch_model()
+            fetches.append(time.perf_counter() - t1)
+        frame = cl.encode_upload(0, delta, w, base_version=bv)
+        cl.close()
+    dev = max_param_dev(twin.params, params)
+    log(f"wire (a) anchor over TCP: M=K=5, staleness 0, {WIRE_SWEEPS} "
+        f"in-order sweeps at V=5000 K=50 hidden 100-100, "
+        f"{DOCS_PER_NODE} docs a node; upload frame {len(frame)} bytes "
+        f"({_payload_bytes(frame)} of fp32 payload, D = {D_MODEL}); the "
+        f"sync twin's run {t_twin:.3f} s in process, the wire's "
+        f"{t_wire:.3f} s ({len(rtts)} fetches, local updates and "
+        f"uploads); upload round trip {_pcts(rtts)}; GET /v1/model "
+        f"{_pcts(fetches)}; version {version}; max |wire - twin| "
+        f"{dev:.3e} (bound 1e-5)")
+    _expect_counts("wire_anchor", counts, {"fed_weighted_sum": WIRE_SWEEPS},
+                   records)
+    if version != WIRE_SWEEPS or not dev <= 1e-5 \
+            or _payload_bytes(frame) != 4 * D_MODEL:
+        raise AssertionError("wire anchor: off the sync twin")
+    del twin, svc
+
+    # (b) run_traffic in process and over the wire
+    tspec = _net_spec(**{"schedule.max_staleness": 0})
+    knobs = dict(sweeps=WIRE_SWEEPS, order_seed=7, hold_prob=0.5,
+                 duplicate_prob=0.5, infer_every=3, infer_batch=8)
+    local = FederationService.from_spec(tspec, device="cuda", corpus=corpus)
+    lstats = run_traffic(local, **knobs)
+    svc = FederationService.from_spec(tspec, device="cuda", corpus=corpus)
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(tspec, bg.host, bg.port, corpus=corpus,
+                           device="cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        wstats = run_traffic(cl, **knobs)
+        torch.cuda.synchronize()
+        t_traffic = time.perf_counter() - t0
+        counts = read_counts()
+        _, wparams = cl.fetch_model()
+        bow = np.random.default_rng(3).poisson(
+            1.0, (8, tspec.model.vocab)).astype(np.float32)
+        infers = []
+        for _ in range(8):
+            t1 = time.perf_counter()
+            cl.infer(bow).cpu()
+            infers.append(time.perf_counter() - t1)
+        cl.close()
+    dev = max_param_dev(local.fetch_model()[1], wparams)
+    keys = ("steps", "uploads", "accepted", "held", "duplicates",
+            "aggregations", "version", "infer_calls")
+    log(f"wire (b) run_traffic ({knobs}): in process "
+        f"{json.dumps({k: lstats[k] for k in keys})} rejections "
+        f"{lstats['rejections']}, infer p50 "
+        f"{lstats['infer_latency_p50_s'] * 1e3:.2f} ms; over the wire "
+        f"{t_traffic:.2f} s, rejections {wstats['rejections']}, infer "
+        f"round trip p50 {wstats['infer_latency_p50_s'] * 1e3:.2f} ms "
+        f"(8 x {tspec.model.vocab} counts as JSON); ledgers equal "
+        f"{svc.rejections == local.rejections}; max |wire - in process| "
+        f"{dev:.3e} (bound 1e-5)")
+    log(f"  8 more infer round trips over the wire, in order: "
+        + ", ".join(f"{x * 1e3:.2f}" for x in infers) + " ms")
+    _expect_counts("wire_traffic", counts,
+                   {"fed_weighted_sum": wstats["aggregations"]}, records)
+    if not ({"stale", "superseded"} <= set(lstats["rejections"])
+            and svc.rejections == local.rejections
+            and wstats["rejections"] == lstats["rejections"]
+            and all(wstats[k] == lstats[k] for k in keys)
+            and dev <= 1e-5):
+        raise AssertionError("wire run_traffic: off the in-process run")
+    del local, svc
+
+    # (c) bf16 deltas on the wire
+    bspec = _net_spec(**{"serving.wire_precision": "bf16"})
+    svc = FederationService.from_spec(bspec, device="cuda", corpus=corpus)
+    brtts = []
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(bspec, bg.host, bg.port, corpus=corpus,
+                           device="cuda")
+        bv, delta, w = cl.client_update(0)
+        cl.submit(0, delta, w, base_version=bv)
+        slot = svc.buffer.slot_of(0)
+        exact = all(same_bits(view[slot], delta[name].to(torch.bfloat16)
+                              .to(torch.float32))
+                    for name, view in svc.buffer.leaves.items())
+        half = cl.encode_upload(0, delta, w, base_version=bv)
+        for c in range(1, 5):
+            bv, delta, w = cl.client_update(c)
+            t1 = time.perf_counter()
+            cl.submit(c, delta, w, base_version=bv)
+            brtts.append(time.perf_counter() - t1)
+        cl.close()
+    log(f"wire (c) bf16: payload {_payload_bytes(half)} bytes against "
+        f"{_payload_bytes(frame)} fp32; the buffered delta the bf16 round "
+        f"trip of the client's, bitwise: {exact}; upload round trip "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in brtts)} ms")
+    if not exact or 2 * _payload_bytes(half) != _payload_bytes(frame):
+        raise AssertionError("wire bf16: not half the payload, or not the "
+                             "bf16 round trip")
+    del svc
+
+    # (d) transformed uploads over the wire
+    for name, kname, extra in (
+            ("topk", "fed_topk_ef", {"transforms.compression_topk": 0.25}),
+            ("dp", "fed_dp_secure_apply",
+             {"transforms.dp_noise_multiplier": 0.3,
+              "transforms.dp_clip_norm": 0.05})):
+        xspec = _net_spec(**{"transforms.names": (name,), **extra})
+        local = FederationService.from_spec(xspec, device="cuda",
+                                            corpus=corpus)
+        svc = FederationService.from_spec(xspec, device="cuda",
+                                          corpus=corpus)
+        with BackgroundServer(svc) as bg:
+            cl = ServiceClient(xspec, bg.host, bg.port, corpus=corpus,
+                               device="cuda")
+            torch.cuda.synchronize()
+            zero_counts()
+            for _ in range(2):
+                for c in range(5):
+                    if not cl.upload(c)["accepted"]:
+                        raise AssertionError(f"wire {name}: upload refused")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            cl.close()
+        for _ in range(2):
+            for c in range(5):
+                local.upload(c)
+        dev = max_param_dev(local.fetch_model()[1], svc.fetch_model()[1])
+        log(f"wire (d) {name} uploads: 10 over the wire, "
+            f"{svc.agg_index} aggregations; max |wire - in process| "
+            f"{dev:.3e} (bound 1e-5)")
+        _expect_counts(f"wire_{name}", counts,
+                       {kname: 10, "fed_weighted_sum": svc.agg_index},
+                       records)
+        if not dev <= 1e-5:
+            raise AssertionError(f"wire {name}: off the in-process service")
+        del local, svc
+
+    # (e) refusals
+    svc = FederationService.from_spec(_net_spec(), device="cuda",
+                                      corpus=corpus)
+    with BackgroundServer(svc) as bg:
+        http = HttpClient(bg.host, bg.port)
+        binary = "application/x-repro-wire"
+        answers = [http.request("POST", "/v1/upload", b"not a frame",
+                                content_type=binary)]
+        answers.append(http.request("POST", "/v1/upload",
+                                    frame[:4] + bytes([99]) + frame[5:],
+                                    content_type=binary))
+        http.close()
+    got = [(status, json.loads(body)["reason"], json.loads(body)["client"])
+           for status, body in answers]
+    log(f"wire (e) refusals: {got}; ledger {svc.rejections}")
+    if got != [(400, "malformed", -1), (400, "wire_version", -1)] \
+            or [(r["client"], r["reason"]) for r in svc.rejections] != \
+            [(-1, "malformed"), (-1, "wire_version")]:
+        raise AssertionError("wire refusals: not answered 400 and recorded")
+    del svc
+
+    # (f) the load run: separate processes, one card
+    lspec = _net_spec(LOAD_DOCS, LOAD_VAL_DOCS)
+    cell = federate_load.run_load(lspec, procs=LOAD_PROCS,
+                                  sweeps=LOAD_SWEEPS, infer_every=2,
+                                  infer_batch=8, device="cuda")
+    answered = cell["accepted"] + sum(cell["receipt_reasons"].values())
+    log(f"wire (f) load: a server process and {LOAD_PROCS} client "
+        f"processes on the card ({smi_line()}), {LOAD_SWEEPS} sweeps over "
+        f"L=5 clients; cut: {LOAD_DOCS} train + {LOAD_VAL_DOCS} val docs "
+        f"a node in the spawned processes; {cell['uploads']} uploads "
+        f"({cell['accepted']} accepted), {cell['aggregations']} "
+        f"aggregations, rejections {cell['rejections']}; wall "
+        f"{cell['wall_s']:.2f} s (process start-up included): "
+        f"{cell['uploads_per_s']:.3f} uploads/s, {cell['aggs_per_s']:.3f} "
+        f"aggregations/s; upload round trip p50 "
+        f"{cell['upload_p50_s'] * 1e3:.2f} / p95 "
+        f"{cell['upload_p95_s'] * 1e3:.2f} / p99 "
+        f"{cell['upload_p99_s'] * 1e3:.2f} ms; infer round trip p50 "
+        f"{cell['infer_p50_s'] * 1e3:.2f} / p95 "
+        f"{cell['infer_p95_s'] * 1e3:.2f} / p99 "
+        f"{cell['infer_p99_s'] * 1e3:.2f} ms ({cell['infer_calls']} calls)")
+    if cell["uploads"] != 5 * LOAD_SWEEPS or answered != cell["uploads"] \
+            or not set(cell["rejections"]) <= set(REJECT_REASONS) \
+            or cell["aggregations"] < 1:
+        raise AssertionError(f"wire load run: {cell}")
+
+    # (g) an LM service generates over the wire
+    lm = spec_replace(scenario_spec("lm_fedavg"), {
+        "model.arch": "hymba-1.5b", "model.vocab": 128, "model.seq_len": 16,
+        "data.num_clients": 3, "data.docs_per_node": 24,
+        "data.val_docs_per_node": 8, "schedule.mode": "buffered_async",
+        "schedule.max_staleness": 0, "execution.exec_mode": "loop",
+        "serving.port": 0})
+    svc = FederationService.from_spec(lm, device="cuda")
+    cfg = svc._fed.model_cfg
+    prompts = np.random.default_rng(0).integers(0, 128, (2, 8)) \
+        .astype(np.int32)
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(lm, bg.host, bg.port, corpus=svc._fed.corpus,
+                           device="cuda")
+        for c in range(3):
+            if not cl.upload(c)["accepted"]:
+                raise AssertionError("wire LM: upload refused")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        tokens = cl.generate(prompts, max_new=8)
+        t_gen = time.perf_counter() - t0
+        counts = read_counts()
+        cl.close()
+    same = bool(np.array_equal(tokens, svc.generate(prompts, max_new=8)))
+    log(f"wire (g) LM generate (reduced hymba-1.5b, {cfg.num_layers} "
+        f"layers, version {svc.version} after 3 wire uploads): 2 x 8 "
+        f"prompt tokens, 8 new, {t_gen * 1e3:.1f} ms over the wire (the "
+        f"first generate builds the bundle); tokens equal in process: "
+        f"{same}")
+    _expect_counts("wire_generate", counts,
+                   {"flash_attention": cfg.num_layers,
+                    "ssd_scan": cfg.num_layers}, records)
+    if not same or svc.version != 1:
+        raise AssertionError("wire LM generate: tokens differ in process")
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_training_profile(corpus):
     """Where the training time goes: two rounds of each spec on a fresh
     federation under ``torch.profiler``; the device's busy share of the
@@ -3206,6 +3541,7 @@ def main() -> int:
     phase_loop_transforms(records, corpus)
     phase_ntm_train_mode(records, corpus)
     phase_ring_and_resume(records, corpus)
+    phase_wire(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)
     for r in records:

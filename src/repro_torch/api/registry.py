@@ -7,10 +7,11 @@ the straggler cells (the host pending list on the loop, the straggler
 ring under ``execution.exec_mode="vmap"``), the transform cells (on the
 host loop under the default base, or on the batched cohort path under a
 vmap base), the kernel cells, ``straggler_ring``, the two federated LM
-presets and the two buffered-async service presets.  An entry is an
-override dict or a callable ``(base) -> overrides`` for knobs sized to
-the base (``dropout-join``).  The ``mesh-*`` cells (A17) and the wire
-preset (A14) join as their slices land (ROADMAP.md §A).
+presets, the two buffered-async service presets and the one behind the
+wire front-end (``buffered_async_net``).  An entry is an override dict
+or a callable ``(base) -> overrides`` for knobs sized to the base
+(``dropout-join``).  The ``mesh-*`` cells (A17) join with their slice
+(ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -113,6 +114,16 @@ SCENARIOS: Dict[str, Overrides] = {
     "buffered_async_eq": {"schedule.mode": "buffered_async",
                           "schedule.max_staleness": 0,
                           "execution.exec_mode": "loop"},
+    # the FedBuff preset behind the wire front-end: a serving section
+    # (ephemeral localhost port, fp32 deltas) makes it bootable by
+    # launch/federate_load.py and repro_torch.net.server.run_server
+    "buffered_async_net": {"schedule.mode": "buffered_async",
+                           "schedule.buffer_size": 2,
+                           "schedule.max_staleness": 2,
+                           "schedule.staleness_policy": "polynomial",
+                           "execution.exec_mode": "loop",
+                           "serving": {"host": "127.0.0.1", "port": 0,
+                                       "wire_precision": "fp32"}},
 }
 
 

@@ -15,8 +15,9 @@ accepts round-trips to the identical dict in both packages:
 
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: a mesh (A17), an LM arch whose layers the port lacks
-(A16b) and the ``serving`` section (A14).  The NTM's
+ROADMAP.md item: a mesh (A17) and an LM arch whose layers the port
+lacks (A16b).  The ``serving`` section configures the wire front-end
+of the buffered-async service (``repro_torch.net``).  The NTM's
 ``execution.stochastic_loss`` (the train-mode ELBO) runs.  Rounds of
 both families run under both exec modes, stragglers included (the host
 pending list on the loop, the straggler ring on the batched path); the
@@ -48,6 +49,9 @@ from repro_torch.data.federated_split import parse_partition_spec
 SPEC_VERSION = 1
 SCHEDULE_MODES = ("sync", "buffered_async")
 STALENESS_POLICIES = ("exponential", "polynomial")
+# delta payload formats on the wire (serving.wire_precision): bf16 halves
+# upload bytes with the `precision` transform's cast rule
+WIRE_PRECISIONS = ("fp32", "bf16")
 # the reference's transform registry names (core/transforms.py)
 TRANSFORM_NAMES = ("dp", "topk", "secure", "precision")
 
@@ -446,6 +450,51 @@ class ExecutionSpec:
             _not_ported("execution.mesh (the sharded cohort path)", "A17")
 
 
+@dataclass(frozen=True)
+class ServingSpec:
+    """``serving`` section (optional): the wire front-end
+    (``repro_torch.net``).
+
+    Where the buffered-async service listens and what format delta
+    uploads travel in.  ``None`` (the :class:`FederationSpec` default)
+    means no wire: the service is driven in-process.  ``port=0`` binds
+    an ephemeral port (the server reports the bound one).
+    ``wire_precision="bf16"`` halves upload payloads with the
+    ``precision`` transform's cast rule (down to bfloat16 on encode,
+    straight back to float32 on decode).  Only buffered-async specs may
+    carry the section: a sync spec has no server, and the section is
+    never silently dropped."""
+    host: str = "127.0.0.1"
+    port: int = 0
+    wire_precision: str = "fp32"
+
+    @classmethod
+    def from_value(cls, v, where: str = "serving"):
+        if v is None or isinstance(v, cls):
+            return v
+        if isinstance(v, Mapping):
+            fields = {f.name for f in dataclasses.fields(cls)}
+            unknown = sorted(set(v) - fields)
+            if unknown:
+                raise ValueError(f"unknown key(s) {unknown} in {where}; "
+                                 f"known: {sorted(fields)}")
+            return cls(**dict(v))
+        raise ValueError(
+            f"{where} must be null or a {{host, port, wire_precision}} "
+            f"mapping, got {type(v).__name__}")
+
+    def _validate(self) -> None:
+        _require(isinstance(self.host, str) and self.host != "",
+                 f"serving.host must be a non-empty string, got "
+                 f"{self.host!r}")
+        _check_int(self.port, "serving.port", 0)
+        _require(self.port <= 65535,
+                 f"serving.port must be <= 65535, got {self.port}")
+        _require(self.wire_precision in WIRE_PRECISIONS,
+                 f"serving.wire_precision {self.wire_precision!r} is not "
+                 f"one of {WIRE_PRECISIONS}")
+
+
 _SECTIONS = {
     "model": ModelSpec,
     "data": DataSpec,
@@ -471,7 +520,7 @@ class FederationSpec:
     transforms: TransformsSpec = field(default_factory=TransformsSpec)
     server_opt: ServerOptSpec = field(default_factory=ServerOptSpec)
     execution: ExecutionSpec = field(default_factory=ExecutionSpec)
-    serving: Optional[Any] = None
+    serving: Optional[ServingSpec] = None
 
     def __post_init__(self):
         self.validate()
@@ -493,8 +542,17 @@ class FederationSpec:
                      f"section {sect!r} must be a {cls.__name__}, got "
                      f"{type(v).__name__}")
             v._validate()
+        _require(self.serving is None
+                 or isinstance(self.serving, ServingSpec),
+                 "section 'serving' must be null or a ServingSpec (or "
+                 "the mapping form accepted by from_dict)")
         if self.serving is not None:
-            _not_ported("the serving section (the wire front-end)", "A14")
+            self.serving._validate()
+            _require(self.schedule.mode == "buffered_async",
+                     "the serving section configures the repro.net wire "
+                     "front-end of the buffered-async FederationService "
+                     "(docs/serving.md) — a sync spec has no server; "
+                     "remove the section (it is never silently dropped)")
         if "secure" in self.transforms.names:
             _require("precision" not in self.transforms.names,
                      "the 'secure' transform is incompatible with "
@@ -675,11 +733,12 @@ class FederationSpec:
                 f"FederationSpec version {version!r} is not supported by "
                 f"this build (expected {SPEC_VERSION}); migrate the spec "
                 "or update the repo")
-        kw: Dict[str, Any] = {"version": version, "name": d.get("name", ""),
-                              "serving": d.get("serving")}
+        kw: Dict[str, Any] = {"version": version, "name": d.get("name", "")}
         for sect, sect_cls in _SECTIONS.items():
             if sect in d:
                 kw[sect] = _section_from_dict(sect_cls, d[sect], sect)
+        if "serving" in d:
+            kw["serving"] = ServingSpec.from_value(d["serving"])
         return cls(**kw)
 
     # -- JSON files ---------------------------------------------------------
@@ -795,12 +854,21 @@ def spec_replace(spec: FederationSpec,
     re-validates, and unknown paths raise ``ValueError``."""
     top: Dict[str, Any] = {}
     by_section: Dict[str, Dict[str, Any]] = {}
+    serving_updates: Dict[str, Any] = {}
     for key, v in overrides.items():
         if "." in key:
             sect, _, fname = key.partition(".")
-            if sect == "serving" or key.startswith("execution.mesh."):
-                _not_ported(f"override {key!r}",
-                            "A14" if sect == "serving" else "A17")
+            if key.startswith("execution.mesh."):
+                _not_ported(f"override {key!r}", "A17")
+            if sect == "serving":
+                serving_fields = {f.name
+                                  for f in dataclasses.fields(ServingSpec)}
+                if fname not in serving_fields:
+                    raise ValueError(
+                        f"unknown key {fname!r} in spec section "
+                        f"'serving'; known: {sorted(serving_fields)}")
+                serving_updates[fname] = v
+                continue
             if sect not in _SECTIONS:
                 raise ValueError(f"unknown spec section {sect!r} in "
                                  f"override {key!r}; known: "
@@ -811,13 +879,22 @@ def spec_replace(spec: FederationSpec,
                     f"unknown key {fname!r} in spec section {sect!r}; "
                     f"known: {sorted(f.name for f in dataclasses.fields(cls))}")
             by_section.setdefault(sect, {})[fname] = _coerce(cls, fname, v)
-        elif key in _SECTIONS or key in ("name", "version", "serving"):
+        elif key == "serving":
+            top[key] = ServingSpec.from_value(v)
+        elif key in _SECTIONS or key in ("name", "version"):
             top[key] = v
         else:
             raise ValueError(f"unknown spec override {key!r}; use "
                              "'section.field' dotted paths or one of "
                              f"{sorted(set(_SECTIONS) | {'name', 'version', 'serving'})}")
     kw = dict(top)
+    if serving_updates:
+        # on the whole-section override if one rode along, else on the
+        # spec's own section; a spec without one gets the defaults
+        base_serving = top.get("serving", spec.serving)
+        kw["serving"] = ServingSpec(**serving_updates) \
+            if base_serving is None \
+            else dataclasses.replace(base_serving, **serving_updates)
     for sect, updates in by_section.items():
         kw[sect] = dataclasses.replace(kw.get(sect, getattr(spec, sect)),
                                        **updates)

@@ -8,7 +8,9 @@ hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so
 an edit of any of them triggers a rebuild.  The
 first load builds every missing library at once, one ``nvcc`` process
 per source, all started together.  A failed build raises; nothing falls
-back to the plain version.
+back to the plain version.  One lock serializes builds and loads within
+a process, so threads that reach their first kernel together (the wire
+server's readers and its aggregation thread) compile each source once.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -30,6 +33,9 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# guards the build's temporaries, BUILD_LOG and _LIBS within a process
+# (temporaries carry the pid, so processes never share one)
+_LOCK = threading.Lock()
 # name -> {"seconds": wall time of the parallel build, "log": nvcc output}
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
@@ -57,6 +63,11 @@ def _target(name: str) -> Tuple[Path, Path]:
 def build(names=SOURCES) -> Dict[str, Dict[str, object]]:
     """Compile every library in ``names`` that is missing, in parallel;
     returns :data:`BUILD_LOG`.  Raises with nvcc's output on failure."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> Dict[str, Dict[str, object]]:
     todo = [(n, *_target(n)) for n in names if not _target(n)[1].exists()]
     if not todo:
         return BUILD_LOG
@@ -87,7 +98,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build()
-        lib = ctypes.CDLL(str(_target(name)[1]))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _build(SOURCES)
+                lib = ctypes.CDLL(str(_target(name)[1]))
+                _LIBS[name] = lib
     return lib

@@ -22,6 +22,10 @@ and post-shutdown deltas are rejected with the reference's reasons
 (:data:`REJECT_REASONS`).  With ``M=K``, ``max_staleness=0`` and in-order
 arrivals every aggregation is one synchronous FedAvg round.
 
+The wire (``repro_torch.net``) puts the service on sockets: its
+decode refusals land on the ledger through ``record_rejection``, and
+``status`` is its ``GET /v1/status``.
+
 ``state_dict``/``load_state_dict`` (``SERVE_STATE_FORMAT``,
 ``save_state``/``load_state``) snapshot everything the next upload
 depends on in the reference's form, so a service rebuilt from the same
@@ -240,10 +244,39 @@ class FederationService:
         if overflow > 0:
             del self.rejections[:overflow]
 
+    def record_rejection(self, client: int, base_version,
+                         reason: str) -> Dict[str, Any]:
+        """Record a rejection that never reached the buffer (the wire's
+        decode refusals: a ``malformed`` frame carries client -1, since
+        an unparseable upload has no trusted client id).  Returns a
+        ``submit``-shaped receipt."""
+        if reason not in REJECT_REASONS:
+            raise ValueError(f"unknown rejection reason {reason!r}; the "
+                             f"ledger records {REJECT_REASONS}")
+        receipt: Dict[str, Any] = {"client": int(client), "accepted": False,
+                                   "reason": None, "version": self.version,
+                                   "slot": -1}
+        return self._reject(receipt, int(base_version), reason)
+
     @property
     def rejection_counts(self) -> Dict[str, int]:
         """Monotonic per-reason totals (never lose counts to eviction)."""
         return dict(self.rejection_totals)
+
+    def status(self) -> Dict[str, Any]:
+        """The ``GET /v1/status`` payload: counters only, JSON-safe."""
+        return {"version": self.version,
+                "aggregations": self.agg_index,
+                "draining": self.draining,
+                "buffer_count": self.buffer.count,
+                "buffer_size": self.buffer_size,
+                "max_staleness": self.max_staleness,
+                "num_clients": self.spec.data.num_clients,
+                "model_family": self.spec.model.family,
+                "rejections": dict(self.rejection_totals),
+                "rejection_records": len(self.rejections),
+                "rejection_ledger_cap": REJECTION_LEDGER_CAP,
+                "history": [dict(h) for h in self.history]}
 
     def _aggregate(self) -> None:
         """One FedBuff aggregation: discount, combine, server step,

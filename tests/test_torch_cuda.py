@@ -1352,3 +1352,117 @@ def test_resume_on_card_is_bitwise(cuda_device):
     for k, v in a.params.items():
         assert torch.equal(v, b.params[k]), k
     assert torch.equal(a.engine._ring["delta"], b.engine._ring["delta"])
+
+
+# ---------------------------------------------------------------------------
+# the wire on the card
+# ---------------------------------------------------------------------------
+_WIRE_SPEC = {"model": {"vocab": 64, "topics": 4, "hidden": 16},
+              "data": {"num_clients": 3, "docs_per_node": 40,
+                       "val_docs_per_node": 8},
+              "schedule": {"rounds": 3, "mode": "buffered_async",
+                           "max_staleness": 0},
+              "execution": {"batch_size": 16, "learning_rate": 2e-4,
+                            "exec_mode": "loop"},
+              "serving": {"host": "127.0.0.1", "port": 0}}
+
+
+def _wire_spec(**overrides):
+    spec = FederationSpec.from_dict(_WIRE_SPEC)
+    return spec_replace(spec, overrides) if overrides else spec
+
+
+def test_wire_anchor_on_card_matches_sync_twin(cuda_device):
+    """A ``BackgroundServer`` over a service on the card, a
+    ``ServiceClient`` with its replica on the card: M=K=3, staleness 0,
+    3 in-order sweeps equal the sync twin's ``Federation.run()`` on the
+    card within 1e-5, with one B2 launch per aggregation."""
+    from repro_torch.net import BackgroundServer, ServiceClient
+    from repro_torch.serve import sync_twin_spec
+    spec = _wire_spec()
+    twin = Federation.from_spec(sync_twin_spec(spec), device=cuda_device)
+    twin.run()
+    svc = FederationService.from_spec(spec, device=cuda_device,
+                                      corpus=twin.corpus)
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(spec, bg.host, bg.port, corpus=twin.corpus,
+                           device=cuda_device)
+        before = fed_aggregate.launches
+        for _ in range(3):
+            for c in range(3):
+                assert cl.upload(c)["accepted"]
+        torch.cuda.synchronize()
+        b2 = fed_aggregate.launches - before
+        version, params = cl.fetch_model()
+        cl.close()
+    assert version == 3 and b2 == 3
+    assert all(v.device.type == "cuda" for v in params.values())
+    assert max_param_dev(twin.params, params) <= 1e-5
+
+
+def test_bf16_upload_on_card_is_decoded_bitwise(cuda_device):
+    """``wire_precision="bf16"``: the delta the server buffers on the
+    card is bitwise the bf16 round trip of the client's."""
+    from repro_torch.net import BackgroundServer, ServiceClient
+    spec = _wire_spec(**{"serving.wire_precision": "bf16"})
+    svc = FederationService.from_spec(spec, device=cuda_device)
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(spec, bg.host, bg.port, device=cuda_device,
+                           corpus=svc._fed.corpus)
+        bv, delta, w = cl.client_update(0)
+        assert cl.submit(0, delta, w, base_version=bv)["accepted"]
+        cl.close()
+    slot = svc.buffer.slot_of(0)
+    for name, view in svc.buffer.leaves.items():
+        want = delta[name].to(torch.bfloat16).to(torch.float32)
+        assert view.device.type == "cuda"
+        assert torch.equal(view[slot], want), name
+
+
+def test_topk_upload_over_the_wire_launches_b4_once(cuda_device):
+    from repro_torch.net import BackgroundServer, ServiceClient
+    spec = _wire_spec(**{"transforms.names": ("topk",),
+                         "transforms.compression_topk": 0.25})
+    svc = FederationService.from_spec(spec, device=cuda_device)
+    with BackgroundServer(svc) as bg:
+        cl = ServiceClient(spec, bg.host, bg.port, device=cuda_device,
+                           corpus=svc._fed.corpus)
+        before = (_launches(), fed_aggregate.launches)
+        assert cl.upload(0)["accepted"]
+        torch.cuda.synchronize()
+        after = (_launches(), fed_aggregate.launches)
+        cl.close()
+    assert after[0][1] - before[0][1] == 1          # B4 in the client
+    assert after[0][0] == before[0][0] and after[1] == before[1]
+
+
+def test_kernel_load_from_two_threads_on_a_fresh_build(cuda_device,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """Two threads reach their first kernel together on an empty build
+    directory: one ``nvcc``, one library, both threads get it."""
+    import threading
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    monkeypatch.setattr(_build, "SOURCES", ("fed_aggregate",))
+    barrier = threading.Barrier(2)
+    got, errors = [None, None], []
+
+    def first(i):
+        try:
+            barrier.wait(timeout=30)
+            got[i] = _build.load("fed_aggregate")
+        except Exception as e:          # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert got[0] is got[1] and hasattr(got[0], "fed_weighted_sum")
+    assert list(_build.BUILD_LOG) == ["fed_aggregate"]
+    assert [p.suffix for p in (tmp_path / "build").iterdir()] == [".so"]

@@ -8,6 +8,7 @@ docs_per_node`` makes every draw the whole client corpus, so the two
 differ only in fp32 summation order, and every trajectory must agree
 within 1e-5.
 """
+import json
 import os
 import pickle
 import subprocess
@@ -234,6 +235,71 @@ def test_upload_retry_backoff_drain_and_draining(corpus):
     assert svc.upload(2)["reason"] == "draining"
 
 
+def test_record_rejection_validates_reason(corpus):
+    """Twin of tests/test_serve_service.py:372: the wire's decode
+    refusals land on the ledger with client -1; an unknown reason is
+    refused."""
+    svc = _svc(corpus)
+    with pytest.raises(ValueError, match="unknown rejection reason"):
+        svc.record_rejection(-1, -1, "gremlins")
+    receipt = svc.record_rejection(-1, -1, "malformed")
+    assert receipt == {"client": -1, "accepted": False,
+                       "reason": "malformed", "version": 0, "slot": -1}
+    assert svc.rejections == [{"client": -1, "base_version": -1,
+                               "at_version": 0, "reason": "malformed"}]
+    st = svc.status()
+    assert st["rejections"] == {"malformed": 1}
+    assert st["rejection_records"] == 1 and st["buffer_count"] == 0
+    assert json.loads(json.dumps(st)) == st
+
+
+def test_live_snapshot_is_consistent_under_reader_hammer(corpus):
+    """Twin of tests/test_serve_service.py:406: 4 reader threads hammer
+    ``fetch_model`` while the writer aggregates on every upload (M=1).
+    Every observed ``(version, params)`` pair must be one the writer
+    published; a torn read fails the fingerprint match."""
+    import threading
+
+    def fingerprint(params):
+        return float(sum(float(v.double().sum()) for v in params.values()))
+
+    svc = _svc(corpus, **{"schedule.buffer_size": 1,
+                          "schedule.max_staleness": 8})
+    published = {0: fingerprint(svc._live[1])}
+    done = threading.Event()
+    observed, errors = [], []
+
+    def reader():
+        try:
+            while not done.is_set():
+                version, params = svc.fetch_model()
+                observed.append((version, fingerprint(params)))
+        except Exception as e:       # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader) for _ in range(4)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(4):               # 12 uploads -> 12 aggregations
+            for c in range(3):
+                assert svc.upload(c)["accepted"]
+                published[svc._live[0]] = fingerprint(svc._live[1])
+    finally:
+        done.set()
+        sys.setswitchinterval(switch)
+        for t in threads:
+            t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors
+    assert svc.version == 12 and len(published) == 13
+    assert len(observed) > 0
+    for version, fp in observed:
+        assert published[version] == fp, f"torn read at version {version}"
+
+
 def test_stale_delta_is_discounted(corpus):
     moved = {}
     for policy in ("exponential", "polynomial"):
@@ -271,7 +337,8 @@ def test_server_optimizers_match_reference(opt):
 # spec surface, refusals, device rule, launcher, import guard
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["paper", "buffered_async",
-                                  "buffered_async_eq"])
+                                  "buffered_async_eq",
+                                  "buffered_async_net"])
 def test_registry_specs_round_trip_to_the_reference_dict(name):
     js, _ = _specs()
     for base_j in (None, js):
@@ -281,8 +348,8 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
         got = scenario_spec(name, base_t)
         assert got.to_dict() == want
         assert FederationSpec.from_dict(want) == got
-    assert {"paper", "buffered_async", "buffered_async_eq"} \
-        <= set(scenario_names())
+    assert {"paper", "buffered_async", "buffered_async_eq",
+            "buffered_async_net"} <= set(scenario_names())
 
 
 # the former A9, A10 and A2 refusals are running paths now (their ids
@@ -299,7 +366,9 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
     # the seventh slice; the rest of the zoo is A16b)
     ({"model.family": "lm", "model.arch": "granite-34b",
       "model.topics": 10, "model.hidden": 64}, "A16"),
-    ({"serving": {"host": "127.0.0.1", "port": 0}}, "A14"),
+    # the wire's section runs since the tenth slice
+    pytest.param({"serving": {"host": "127.0.0.1", "port": 0}}, None,
+                 id="overrides4-A14"),
     pytest.param({"data.partition": "dirichlet(0.3)"}, None,
                  id="overrides5-A2"),
     # the train-mode ELBO runs since the eighth slice
@@ -325,6 +394,44 @@ def test_sections_outside_the_slice_raise(overrides, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         spec_replace(_specs()[1], overrides)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"serving": {"host": "127.0.0.1", "port": 0}},
+    {"serving.wire_precision": "bf16"},
+    {"serving": {"host": "0.0.0.0", "port": 8080}, "serving.port": 9090},
+    {"serving.host": "localhost", "serving.port": 65535},
+    {"serving": None},
+], ids=["section", "field-creates", "section-then-field", "fields",
+        "none"])
+def test_serving_section_matches_the_reference(overrides):
+    """The ``serving`` section through ``spec_replace`` and the dict
+    form: the reference's ``to_dict()``, both ways."""
+    js, ts = _specs()
+    want = jspec_replace(js, overrides).to_dict()
+    got = spec_replace(ts, overrides)
+    assert got.to_dict() == want
+    assert FederationSpec.from_dict(want) == got
+    assert JSpec.from_dict(got.to_dict()).to_dict() == want
+
+
+@pytest.mark.parametrize("overrides", [
+    {"serving.wire_precision": "fp16"},
+    {"serving.port": 70000},
+    {"serving.port": -1},
+    {"serving.host": ""},
+    {"serving.nope": 1},
+    {"serving": {"host": "127.0.0.1", "tls": True}},
+    {"serving": "127.0.0.1:0"},
+    {"serving.port": 0, "schedule.mode": "sync"},
+])
+def test_serving_section_refusals_match_the_reference(overrides):
+    js, ts = _specs()
+    with pytest.raises(ValueError) as want:
+        jspec_replace(js, overrides)
+    with pytest.raises(ValueError) as got:
+        spec_replace(ts, overrides)
+    assert str(got.value) == str(want.value)
 
 
 def test_later_slice_surfaces_raise(corpus, tmp_path):
@@ -385,6 +492,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.net.codec', 'repro_torch.net.server', "
+        "'repro_torch.net.client', 'repro_torch.launch.federate_load'} "
+        "<= set(sys.modules)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
