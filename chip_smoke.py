@@ -153,6 +153,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -208,42 +209,86 @@ def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _trace(run, attempts: int = 3, cpu: bool = False):
+def _trace(run, attempts: int = 3, cpu: bool = False,
+           want: Optional[int] = None):
     """The device events of one ``torch.profiler`` trace around ``run()``
-    (host activity traced too when ``cpu``).  A trace with no device
-    event was dropped by the profiler (seen once in about ten runs on the
-    card), not a zero: it is taken again, at most ``attempts`` times, and
-    then fails."""
+    (host activity traced too when ``cpu``).  ``want`` is the number of
+    device operations ``run()`` launches (the calls times what one call
+    launches, :func:`launches_per_call`).  Late in a process the profiler
+    misses the first kernels launched in a trace (on the card, after the
+    kernel phase's earlier traces: B6-bwd's first kernel counted n - 1
+    times in every trace of n calls, one large B2 call missing from
+    every one-call trace; in a fresh process none was missed), so each
+    trace first runs 16 spin kernels to a synchronize and leaves them
+    out, and a trace may hold one event fewer than ``want``; a trace
+    short by more lost events (a partial trace, seen as a short sum), and
+    a trace with no device event was dropped (seen once in about ten
+    runs).  Either is taken again, at most ``attempts`` times, and then
+    fails; a partial trace is never summed."""
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         acts.append(torch.profiler.ProfilerActivity.CPU)
+    seen = []
     for _ in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        if events and (want is None or want - 1 <= len(events) <= want):
             return events
-    raise AssertionError(f"torch.profiler recorded no device time in "
-                         f"{attempts} traces")
+        seen.append(len(events))
+    raise AssertionError(f"torch.profiler recorded {seen} device events in "
+                         f"{attempts} traces, want "
+                         f"{'some' if want is None else want}")
+
+
+def per_call_ops(events, calls: int) -> dict:
+    """``{name: (launches a call, mean device us a launch)}`` of a trace
+    of ``calls`` calls: a name's launches a call are its events over the
+    calls, rounded, so the one event a trace may miss biases neither."""
+    by = {}
+    for e in events:
+        by.setdefault(_short_name(e.name) or e.name, []).append(
+            e.time_range.elapsed_us())
+    return {n: (round(len(v) / calls), sum(v) / len(v))
+            for n, v in by.items()}
+
+
+def launches_per_call(fn) -> int:
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches, from a trace of 3 calls (:func:`per_call_ops`)."""
+    return sum(k for k, _ in per_call_ops(
+        _trace(lambda: [fn(), fn(), fn()]), 3).values())
+
+
+def traced_ops(fn, calls: int, exclude=()) -> dict:
+    """:func:`per_call_ops` of a trace of ``calls`` calls of ``fn`` that
+    holds their launches (:func:`_trace`), names in ``exclude`` left
+    out of the result."""
+    per_call = launches_per_call(fn)
+    ops = per_call_ops(_trace(lambda: [fn() for _ in range(calls)],
+                              want=calls * per_call), calls)
+    return {n: v for n, v in ops.items() if n not in exclude}
 
 
 def device_ms(fn, iters: int = 20) -> float:
     """Mean device time of one call: the durations of every kernel, copy
-    and fill it ran, from a ``torch.profiler`` trace of ``iters`` calls.
-    A trace with no device time is a failure, not a zero."""
+    and fill it ran, from a ``torch.profiler`` trace of ``iters`` calls
+    that holds the operations the calls launch (a partial trace is taken
+    again, then fails), each operation's mean time times its launches a
+    call.  A trace with no device time is a failure, not a zero."""
     fn()
     torch.cuda.synchronize()
-
-    def run():
-        for _ in range(iters):
-            fn()
-    us = sum(e.time_range.elapsed_us() for e in _trace(run))
+    us = sum(k * mean for k, mean in traced_ops(fn, iters).values())
     if us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    return us / 1e3
 
 
 def device_ms_cold(fn, iters: int = 20) -> float:
@@ -254,17 +299,19 @@ def device_ms_cold(fn, iters: int = 20) -> float:
     fn()
     flush.fill_(0.0)
     torch.cuda.synchronize()
-    evict = {e.name for e in _trace(lambda: flush.fill_(1.0))}
+    evict = set(per_call_ops(_trace(
+        lambda: [flush.fill_(1.0) for _ in range(3)]), 3))
+    step = [0]
 
-    def run():
-        for i in range(iters):
-            flush.fill_(float(i))
-            fn()
-    us = sum(e.time_range.elapsed_us() for e in _trace(run)
-             if e.name not in evict)
+    def call():
+        step[0] += 1
+        flush.fill_(float(step[0]))
+        fn()
+    us = sum(k * mean for k, mean in
+             traced_ops(call, iters, exclude=evict).values())
     if us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    return us / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
@@ -752,14 +799,10 @@ def _kernel_b4(g, dev):
                  lambda: [torch.topk(magq[:, o:o + n], kk, dim=1)
                           for o, n, kk in table], lib_label="yardstick")
     # each device operation of one call (kernels and the memset)
-    calls, by = 10, {}
-    events = _trace(lambda: [fed_topk_ef_cuda(msgs, err, ids, table)
-                             for _ in range(calls)])
-    for e in events:
-        name = _short_name(e.name) or e.name
-        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    ops = traced_ops(lambda: fed_topk_ef_cuda(msgs, err, ids, table), 10)
+    by = {n: k * mean for n, (k, mean) in ops.items()}
     rec["launch_us"] = by
-    rec["device_ops_per_call"] = len(events) / calls
+    rec["device_ops_per_call"] = sum(k for k, _ in ops.values())
     log(f"  fed_topk_ef at the path's shape: {rec['device_ops_per_call']:g} "
         f"device operations a call; device us/call by operation: "
         + ", ".join(f"{n} {us:.2f}" for n, us in by.items())
@@ -987,11 +1030,7 @@ def _rel_err(got, want) -> float:
 
 def _device_ops(fn, calls: int = 5) -> dict:
     """Device time per call (us) of each device operation of ``fn``."""
-    by = {}
-    for e in _trace(lambda: [fn() for _ in range(calls)]):
-        name = _short_name(e.name)
-        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / calls
-    return by
+    return {n: k * mean for n, (k, mean) in traced_ops(fn, calls).items()}
 
 
 def _kernel_b5_bwd(g, dev):
@@ -2527,6 +2566,191 @@ def phase_ring_and_resume(records, corpus):
     log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+MESH_SPECS, MESH_ROUNDS, MESH_STEPS = ("mesh-sync", "mesh-straggler",
+                                      "mesh-topk", "mesh-pallas"), 5, 3
+
+
+def _round_device_ms(fed) -> float:
+    """Device time of one round: every kernel, copy and fill of one
+    ``Federation.step`` from a ``torch.profiler`` trace."""
+    # one attempt: a retaken trace would run one more round
+    return sum(e.time_range.elapsed_us()
+               for e in _trace(fed.step, attempts=1)) / 1e3
+
+
+def phase_mesh(records, corpus):
+    """The batched cohort path over the ``("data",)`` mesh
+    (``execution.mesh``): the four ``mesh-*`` scenarios over the training
+    phase's full-width base (V=5000, K=50, hidden 100-100, L = K = 5, so
+    ``_mesh_overrides`` resolves the data axis to one shard: the sharded
+    code path on the one card), 5 rounds each through
+    ``Federation.step`` and then ``evaluate``.  Each round's kernel counts
+    are zeroed before it and read after it: B2 once per shard a round (at
+    most twice in a ``mesh-straggler`` round, once per slab with a
+    positive coefficient), B4 once per shard a ``mesh-topk`` round, B3
+    never, B1 once per held-out batch.  Each run is held against the same
+    spec unsharded on the card (bitwise expected, 1e-5 required) and
+    against the same mesh spec on the CPU (1e-5, the training bound);
+    median round wall and device time, mesh against unsharded.  Then a
+    mesh wider than the visible cards is refused, and
+    ``make_federated_train_step`` takes 3 steps on a one-card mesh at the
+    same width with dp and with secure, held against the CPU."""
+    from repro_torch.api import (Federation, max_param_dev, spec_replace)
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import prng
+    from repro_torch.core.ntm import prodlda
+    from repro_torch.core.protocol import make_federated_train_step
+    from repro_torch.optim import sgd
+    from repro_torch.parallel import fed_mesh
+    t_phase = time.perf_counter()
+    n_eval = math.ceil(5 * VAL_DOCS_PER_NODE / 256)
+    log(f"mesh (execution.mesh): {', '.join(MESH_SPECS)} at V=5000 K=50 "
+        f"hidden 100-100, L=K=5 (data=1: one shard on the one card), "
+        f"batch 64; cut: {MESH_ROUNDS} rounds")
+    totals = {}
+    for name in MESH_SPECS:
+        spec = _train_spec(name, 5000, 50, 100, 5, DOCS_PER_NODE,
+                           VAL_DOCS_PER_NODE, MESH_ROUNDS)
+        data = spec.execution.mesh.data
+        runs = {"mesh": Federation.from_spec(spec, device="cuda",
+                                             corpus=corpus),
+                "plain": Federation.from_spec(spec_replace(
+                    spec, {"execution.mesh": None}), device="cuda",
+                    corpus=corpus)}
+        if runs["mesh"].mesh_shape != {"data": data} \
+                or runs["plain"].mesh_shape is not None:
+            raise AssertionError(f"{name}: mesh shapes {runs['mesh'].mesh_shape}"
+                                 f", {runs['plain'].mesh_shape}")
+        walls = {k: [] for k in runs}
+        dev_ms = {}
+        counts_total = {k: 0 for k in read_counts()}
+        per_round = []
+        for r in range(MESH_ROUNDS):
+            for key, fed in runs.items():
+                if r == MESH_ROUNDS - 1:
+                    # the last round traced: its device time
+                    zero_counts()
+                    dev_ms[key] = _round_device_ms(fed)
+                    rec, counts = fed.history[-1], read_counts()
+                else:
+                    torch.cuda.synchronize()
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    rec = fed.step()
+                    torch.cuda.synchronize()
+                    walls[key].append(time.perf_counter() - t0)
+                    counts = read_counts()
+                if key != "mesh":
+                    continue
+                per_round.append((counts["fed_weighted_sum"],
+                                  counts["fed_topk_ef"]))
+                n_b2 = counts["fed_weighted_sum"]
+                want_b4 = data if name == "mesh-topk" else 0
+                if name == "mesh-straggler":
+                    ok_b2 = n_b2 <= 2 * data \
+                        and (n_b2 > 0) == (rec["arrived"] > 0)
+                else:
+                    ok_b2 = n_b2 == data
+                others = {k: v for k, v in counts.items()
+                          if k not in ("fed_weighted_sum", "fed_topk_ef")}
+                if not ok_b2 or counts["fed_topk_ef"] != want_b4 \
+                        or any(others.values()):
+                    raise AssertionError(f"{name} round {r}: launches "
+                                         f"{counts} on a {data}-shard mesh")
+                for k, v in counts.items():
+                    counts_total[k] += v
+        zero_counts()
+        metrics = runs["mesh"].evaluate()
+        torch.cuda.synchronize()
+        n_b1 = read_counts()["topic_decoder"]
+        if n_b1 != n_eval or not math.isfinite(
+                metrics["heldout_elbo_per_token"]):
+            raise AssertionError(f"{name}: evaluate launched B1 {n_b1} "
+                                 f"times, held-out ELBO {metrics}")
+        counts_total["topic_decoder"] += n_b1
+        totals[name] = counts_total
+        for rr in records:
+            rr["launches_by_path"][name] = counts_total[rr["name"]]
+        mesh, plain = runs["mesh"], runs["plain"]
+        bitwise = all(same_bits(v, plain.params[k])
+                      for k, v in mesh.params.items()) \
+            and mesh.history == plain.history
+        dev_plain = max_param_dev(mesh.params, plain.params)
+        cpu = Federation.from_spec(spec, device="cpu", corpus=corpus)
+        cpu.run()
+        dev_cpu = max_param_dev(mesh.params, cpu.params)
+        ints = ("participants", "arrived", "superseded", "in_flight")
+        same = [{k: h[k] for k in ints} for h in mesh.history] == \
+            [{k: h[k] for k in ints} for h in cpu.history]
+        med = {k: sorted(v[1:])[len(v[1:]) // 2] * 1e3
+               for k, v in walls.items()}
+        log(f"  {name} (data={data}): mesh vs unsharded on the card "
+            f"bitwise {bitwise} (max |param diff| {dev_plain:.3e}); card vs "
+            f"CPU {dev_cpu:.3e} (bound 1e-5), records equal {same}; "
+            f"(B2, B4) launches per round {per_round}; median round wall "
+            f"mesh {med['mesh']:.2f} ms / unsharded {med['plain']:.2f} ms "
+            f"(rounds 2-{MESH_ROUNDS - 1}); device time of the traced last "
+            f"round mesh {dev_ms['mesh']:.3f} ms / unsharded "
+            f"{dev_ms['plain']:.3f} ms; evaluate {json.dumps(metrics)}")
+        if not dev_plain <= 1e-5 or not dev_cpu <= 1e-5 or not same:
+            raise AssertionError(f"{name}: mesh run off the unsharded run "
+                                 f"({dev_plain}) or the CPU ({dev_cpu}), "
+                                 f"records equal {same}")
+    log(f"  launches on the mesh paths: {json.dumps(totals)}")
+
+    # a mesh wider than the visible cards is refused
+    n = torch.cuda.device_count()
+    wide = _train_spec("sync", 64, 4, 16, 2 * (n + 1), 40, 8, 1)
+    wide = spec_replace(wide, {"execution.mesh": {"data": n + 1}})
+    want = f"needs {n + 1} devices but only {n} are visible"
+    try:
+        Federation.from_spec(wide, device="cuda")
+    except ValueError as e:
+        if want not in str(e):
+            raise
+        log(f"  L=K={2 * (n + 1)} at data={n + 1} on {n} card(s) refused: "
+            f"{e}")
+    else:
+        raise AssertionError(f"a {n + 1}-shard mesh on {n} card(s) was not "
+                             "refused")
+
+    # the mesh protocol step, one card against the CPU, at the same width
+    cfg = runs["mesh"].model_cfg
+    bow = torch.from_numpy(corpus.node_bows[0][:64])
+    for label, fed in (("dp", {"dp_noise_multiplier": 0.3,
+                               "dp_clip_norm": 1.0}),
+                       ("secure", {"secure_aggregation": True})):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = prodlda.init_params(prng.PRNGKey(0, device=dev), cfg)
+            step = make_federated_train_step(
+                lambda p, b: prodlda.elbo_loss_sum(p, cfg, b, train=False),
+                sgd(2e-3), fed_mesh(1, dev), fed=FederatedConfig(**fed))
+            state, losses = {}, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MESH_STEPS):
+                params, state, loss = step(params, state,
+                                           {"bow": bow.to(dev)}, i,
+                                           prng.PRNGKey(1))
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            out[dev] = (params, losses, time.perf_counter() - t0)
+        dev_p = max_param_dev(out["cuda"][0], out["cpu"][0])
+        dev_l = max(abs(a - b) / abs(b) for a, b in
+                    zip(out["cuda"][1], out["cpu"][1]))
+        log(f"  make_federated_train_step ({label}, data=1, 1 x 64 docs at "
+            f"full width, {MESH_STEPS} steps): card {out['cuda'][2]:.3f} s; "
+            f"card vs CPU params {dev_p:.3e} (bound 1e-5), losses rel "
+            f"{dev_l:.3e}; losses "
+            + ", ".join(f"{x:.3f}" for x in out["cuda"][1]))
+        if not dev_p <= 1e-5 or not dev_l <= 1e-5 \
+                or not all(math.isfinite(x) for x in out["cuda"][1]):
+            raise AssertionError(f"mesh protocol step ({label}): card vs CPU "
+                                 f"{dev_p}, losses {dev_l}")
+    log(f"  the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _net_spec(docs=DOCS_PER_NODE, val_docs=VAL_DOCS_PER_NODE, **overrides):
     """``buffered_async_net`` at prodlda-synthetic width (V=5000, K=50,
     encoder 100-100, L=5), with ``overrides``."""
@@ -3541,6 +3765,7 @@ def main() -> int:
     phase_loop_transforms(records, corpus)
     phase_ntm_train_mode(records, corpus)
     phase_ring_and_resume(records, corpus)
+    phase_mesh(records, corpus)
     phase_wire(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)

@@ -10,6 +10,6 @@ from repro_torch.api.registry import (  # noqa: F401
     BENCH_SCENARIOS, SCENARIOS, register_scenario, scenario_names,
     scenario_spec)
 from repro_torch.api.spec import (  # noqa: F401
-    SPEC_VERSION, DataSpec, ExecutionSpec, FederationSpec, ModelSpec,
-    PartitionSpec, ScheduleSpec, ServerOptSpec, TransformsSpec,
+    SPEC_VERSION, DataSpec, ExecutionSpec, FederationSpec, MeshSpec,
+    ModelSpec, PartitionSpec, ScheduleSpec, ServerOptSpec, TransformsSpec,
     parse_int_tuple, spec_replace)

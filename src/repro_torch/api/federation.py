@@ -371,6 +371,14 @@ class Federation:
         return self.engine.params
 
     @property
+    def mesh_shape(self) -> Optional[Dict[str, int]]:
+        """The engine's resolved mesh axes (``{"data": N}``), or None when
+        it runs unsharded — what ``execution.mesh`` compiled to (always
+        None under loop mode, where the mesh is inert)."""
+        mesh = self.engine._mesh
+        return dict(mesh.shape) if mesh is not None else None
+
+    @property
     def history(self) -> List[Dict[str, float]]:
         return self.engine.history
 

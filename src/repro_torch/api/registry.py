@@ -6,12 +6,12 @@ all-defaults spec), the synchronous scenario cells, the partition cells,
 the straggler cells (the host pending list on the loop, the straggler
 ring under ``execution.exec_mode="vmap"``), the transform cells (on the
 host loop under the default base, or on the batched cohort path under a
-vmap base), the kernel cells, ``straggler_ring``, the two federated LM
-presets, the two buffered-async service presets and the one behind the
-wire front-end (``buffered_async_net``).  An entry is an override dict
-or a callable ``(base) -> overrides`` for knobs sized to the base
-(``dropout-join``).  The ``mesh-*`` cells (A17) join with their slice
-(ROADMAP.md §A).
+vmap base), the kernel cells, the ``mesh-*`` cells (the batched cohort path over a
+``("data",)`` mesh), ``straggler_ring``, the two federated LM presets,
+the two buffered-async service presets and the one behind the wire
+front-end (``buffered_async_net``).  An entry is an override dict or a
+callable ``(base) -> overrides`` for knobs sized to the base
+(``dropout-join``, ``mesh-*``).
 """
 from __future__ import annotations
 
@@ -52,6 +52,25 @@ def _dropout_join(base: FederationSpec) -> Dict[str, Any]:
             + (max(r - 1, 1),)}
 
 
+def _mesh_overrides(extra: Optional[Mapping[str, Any]] = None, *,
+                    axis: int = 2) -> Overrides:
+    """Mesh scenario knobs sized to the base federation: the data axis is
+    the largest divisor of both K (cohort width) and L (client count) not
+    above ``axis``, so the scenario rebases onto any base without
+    tripping the never-silently-repartitioned refusal."""
+    def overrides(base: FederationSpec) -> Dict[str, Any]:
+        L = base.data.num_clients
+        k = min(base.schedule.clients_per_round or L, L)
+        d = max(axis, 1)
+        while d > 1 and (k % d or L % d):
+            d -= 1
+        ov = dict(extra or {})
+        ov.update({"execution.exec_mode": "vmap",
+                   "execution.mesh": {"data": d}})
+        return ov
+    return overrides
+
+
 SCENARIOS: Dict[str, Overrides] = {
     # the paper regime: all defaults (topic partition, K = L, E = 1,
     # synchronous, FedAvg(server_lr=1) == Eq. (3) server SGD)
@@ -85,6 +104,15 @@ SCENARIOS: Dict[str, Overrides] = {
     "pallas-secure": {"transforms.names": ("secure",),
                       "execution.exec_mode": "vmap",
                       "execution.kernel_backend": "pallas"},
+    # ---- the batched cohort path over a ("data",) mesh ------------------
+    # the stacked (K, ...) cohort, the (L, ...) transform state and the
+    # straggler ring row-sharded, B2/B3/B4 once per shard
+    "mesh-sync": _mesh_overrides(),
+    "mesh-straggler": _mesh_overrides(_STRAGGLER_KNOBS),
+    "mesh-topk": _mesh_overrides({"transforms.names": ("topk",),
+                                  "transforms.compression_topk": 0.25}),
+    "mesh-pallas": _mesh_overrides(
+        {"execution.kernel_backend": "pallas"}),
     # the straggler ring of the batched cohort path
     "straggler_ring": {**_STRAGGLER_KNOBS,
                        "execution.exec_mode": "vmap"},
@@ -127,14 +155,14 @@ SCENARIOS: Dict[str, Overrides] = {
 }
 
 
-# the reference's scenario-bench sweep, in sweep order, without its four
-# mesh-* cells (the mesh layer, ROADMAP.md A17)
+# the reference's scenario-bench sweep, in sweep order
 BENCH_SCENARIOS = ("sync", "straggler", "straggler-heavy",
                    "dirichlet-noniid", "quantity-skew", "hetero-epochs",
                    "dropout-join", "dp-transform", "topk-transform",
                    "secure-transform", "dp-straggler",
                    "precision-transform", "pallas-aggregate",
-                   "pallas-topk", "pallas-secure")
+                   "pallas-topk", "pallas-secure", "mesh-sync",
+                   "mesh-straggler", "mesh-topk", "mesh-pallas")
 
 
 def scenario_names() -> list:

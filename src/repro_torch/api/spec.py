@@ -15,8 +15,8 @@ accepts round-trips to the identical dict in both packages:
 
 Specs validate at construction, with the reference's messages.  What
 the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: a mesh (A17) and an LM arch whose layers the port
-lacks (A16b).  The ``serving`` section configures the wire front-end
+ROADMAP.md item: an LM arch whose layers the port lacks (A16b).
+``execution.mesh`` (:class:`MeshSpec`) shards the batched cohort path.  The ``serving`` section configures the wire front-end
 of the buffered-async service (``repro_torch.net``).  The NTM's
 ``execution.stochastic_loss`` (the train-mode ELBO) runs.  Rounds of
 both families run under both exec modes, stragglers included (the host
@@ -87,12 +87,6 @@ def atomic_write(path: str, writer, *, binary: bool = False) -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
-
-
-def _not_ported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item}); "
-        "run it on the JAX reference package")
 
 
 def _check_int(v, where: str, minimum: int, *,
@@ -419,9 +413,52 @@ class ServerOptSpec:
 
 
 @dataclass(frozen=True)
+class MeshSpec:
+    """``execution.mesh`` sub-section: the device mesh's axis shape.
+
+    ``{"data": N}`` shards the batched cohort path's client axes — the
+    stacked ``(K, ...)`` cohort, the ``(L, ...)`` top-k error memory and
+    the straggler ring — over ``N`` shards (``parallel.sharding.
+    fed_mesh``: the first ``N`` cards, or ``N`` CPU shards).  ``None``
+    (the :class:`ExecutionSpec` default) runs unsharded; ``data=1`` is a
+    real one-shard mesh, the sharded code path without cross-device
+    traffic.  Serializes as the ``{"data": N}`` mapping; ``from_value``
+    also takes the CLI's ``"data=N"`` string."""
+    data: int = 1
+
+    @classmethod
+    def from_value(cls, v, where: str = "execution.mesh"):
+        if v is None or isinstance(v, cls):
+            return v
+        if isinstance(v, str):
+            axis, sep, size = v.partition("=")
+            if axis.strip() != "data" or not sep:
+                raise ValueError(f"{where} string form must be 'data=N', "
+                                 f"got {v!r}")
+            try:
+                return cls(data=int(size))
+            except ValueError:
+                raise ValueError(f"{where}: axis size {size!r} is not an "
+                                 "integer") from None
+        if isinstance(v, Mapping):
+            unknown = sorted(set(v) - {"data"})
+            if unknown:
+                raise ValueError(f"unknown key(s) {unknown} in {where}; "
+                                 "known: ['data']")
+            return cls(data=v.get("data", 1))
+        raise ValueError(
+            f"{where} must be null, a {{data: N}} mapping, or the "
+            f"'data=N' string form, got {type(v).__name__}")
+
+    def _validate(self) -> None:
+        _check_int(self.data, "execution.mesh.data", 1)
+
+
+@dataclass(frozen=True)
 class ExecutionSpec:
-    """``execution`` section: how the spec runs.  ``mesh`` must stay
-    None in the port (ROADMAP A17)."""
+    """``execution`` section: how the spec runs.  ``mesh`` (a
+    :class:`MeshSpec` or None) shards the batched cohort path and is
+    accepted and inert under ``exec_mode="loop"``."""
     exec_mode: str = "loop"
     batch_size: int = 64
     pad_cohorts: bool = True
@@ -430,7 +467,7 @@ class ExecutionSpec:
     stochastic_loss: bool = False
     seed: int = 0
     kernel_backend: str = "xla"     # round-trips; the device picks
-    mesh: Optional[Any] = None
+    mesh: Optional[MeshSpec] = None
 
     def _validate(self) -> None:
         _require(self.exec_mode in EXEC_MODES,
@@ -446,8 +483,11 @@ class ExecutionSpec:
                      exclusive_min=True)
         _check_float(self.rel_tol, "execution.rel_tol", 0.0)
         _check_int(self.seed, "execution.seed", 0)
+        _require(self.mesh is None or isinstance(self.mesh, MeshSpec),
+                 "execution.mesh must be null or a MeshSpec (or the "
+                 "mapping/string forms accepted by from_dict)")
         if self.mesh is not None:
-            _not_ported("execution.mesh (the sharded cohort path)", "A17")
+            self.mesh._validate()
 
 
 @dataclass(frozen=True)
@@ -601,6 +641,28 @@ class FederationSpec:
                      "round barrier — each upload is an independent "
                      "per-client local update (the loop/reference "
                      "path); set exec_mode='loop'")
+            _require(self.execution.mesh is None,
+                     "execution.mesh shards the fused vmap graphs; the "
+                     "buffered-async service aggregates its M-slot "
+                     "buffer on the serving host — drop the mesh "
+                     "(multi-host serving is a ROADMAP item)")
+        mesh = self.execution.mesh
+        if mesh is not None:
+            # cohorts are never silently repartitioned: an indivisible
+            # mesh is refused at construction, whatever the exec_mode
+            L = self.data.num_clients
+            k = min(self.schedule.clients_per_round or L, L)
+            _require(k % mesh.data == 0,
+                     f"execution.mesh data={mesh.data} does not divide "
+                     f"the cohort width K={k} (schedule.clients_per_round"
+                     f" or data.num_clients) — cohorts are never "
+                     "silently repartitioned; resize K or the mesh")
+            _require(L % mesh.data == 0,
+                     f"execution.mesh data={mesh.data} does not divide "
+                     f"the registered-client count L={L} "
+                     "(data.num_clients) — the (L, ...) per-client state "
+                     "trees shard over the same axis; resize L or the "
+                     "mesh")
         if self.execution.stochastic_loss:
             _require(self.model.family != "lm",
                      "execution.stochastic_loss is the train-mode ELBO "
@@ -707,7 +769,9 @@ class FederationSpec:
             local_epochs_by_client=s.local_epochs_by_client,
             client_join_round=s.client_join_round,
             client_leave_round=s.client_leave_round,
-            kernel_backend=self.execution.kernel_backend)
+            kernel_backend=self.execution.kernel_backend,
+            mesh_data=self.execution.mesh.data
+            if self.execution.mesh is not None else 0)
 
     # -- dict round trip ----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
@@ -830,6 +894,8 @@ def _jsonify(v):
 def _coerce(cls, fname: str, v):
     if cls is DataSpec and fname == "partition":
         return PartitionSpec.from_value(v)
+    if cls is ExecutionSpec and fname == "mesh":
+        return MeshSpec.from_value(v)
     return tuple(v) if isinstance(v, list) else v
 
 
@@ -855,11 +921,20 @@ def spec_replace(spec: FederationSpec,
     top: Dict[str, Any] = {}
     by_section: Dict[str, Dict[str, Any]] = {}
     serving_updates: Dict[str, Any] = {}
+    mesh_updates: Dict[str, Any] = {}
     for key, v in overrides.items():
         if "." in key:
             sect, _, fname = key.partition(".")
             if key.startswith("execution.mesh."):
-                _not_ported(f"override {key!r}", "A17")
+                # nested dotted path: execution.mesh.<field>
+                sub = fname[len("mesh."):]
+                mesh_fields = {f.name for f in dataclasses.fields(MeshSpec)}
+                if sub not in mesh_fields:
+                    raise ValueError(
+                        f"unknown key {sub!r} in spec section "
+                        f"'execution.mesh'; known: {sorted(mesh_fields)}")
+                mesh_updates[sub] = v
+                continue
             if sect == "serving":
                 serving_fields = {f.name
                                   for f in dataclasses.fields(ServingSpec)}
@@ -895,6 +970,13 @@ def spec_replace(spec: FederationSpec,
         kw["serving"] = ServingSpec(**serving_updates) \
             if base_serving is None \
             else dataclasses.replace(base_serving, **serving_updates)
+    if mesh_updates:
+        # on the whole-mesh override if one rode along, else on the spec's
+        # own mesh; a meshless spec gets MeshSpec's defaults + the updates
+        updates = by_section.setdefault("execution", {})
+        base_mesh = updates.get("mesh", spec.execution.mesh)
+        updates["mesh"] = MeshSpec(**mesh_updates) if base_mesh is None \
+            else dataclasses.replace(base_mesh, **mesh_updates)
     for sect, updates in by_section.items():
         kw[sect] = dataclasses.replace(kw.get(sect, getattr(spec, sect)),
                                        **updates)

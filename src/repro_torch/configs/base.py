@@ -269,3 +269,9 @@ class RoundConfig:
     client_leave_round: Tuple[int, ...] = ()
     # kept so specs round-trip; the tensor's device picks kernel or plain
     kernel_backend: str = "xla"
+    # the ("data",) mesh width of the batched cohort path (the spec's
+    # execution.mesh.data): 0 = unsharded; N >= 1 shards the stacked
+    # (K, ...) cohort, the (L, ...) per-client state and the straggler
+    # ring over N shards (parallel/sharding.py fed_mesh).  K and L must
+    # divide by N.  Inert under loop mode
+    mesh_data: int = 0

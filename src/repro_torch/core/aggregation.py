@@ -4,8 +4,12 @@ and local DP, over ``dict[str, Tensor]``.
 Port of ``repro/core/aggregation.py``: the weighted average over a
 client list and over a stacked client axis, the fedavg / fedavgm /
 fedadam server rules (Reddi et al. 2021), the exact top-k selection rule
-and local DP.  Server-optimizer state is kept in fp32.  The secure masks
-live in ``core/transforms.py``.
+and local DP, and for the mesh protocol step (``core/protocol.py``
+``make_federated_train_step``) the in-graph Eq. (2) over a mesh
+(:func:`aggregate_psum`) and the per-client pairwise masks
+(:func:`pairwise_mask`, :func:`secure_mask_grads`).  Server-optimizer
+state is kept in fp32.  The engine's secure masks (one dyadic-grid stack
+a round) live in ``core/transforms.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +37,20 @@ def aggregate_host(grads: Sequence[Mapping[str, torch.Tensor]],
         acc = sum(wi * g[name].to(torch.float32) for wi, g in zip(w, grads))
         out[name] = acc / total.to(acc.device)
     return out
+
+
+def aggregate_psum(grads: Sequence[Mapping[str, torch.Tensor]],
+                   n_samples: Sequence[torch.Tensor], mesh) -> Params:
+    """Eq. (2) over a mesh: shard ``d`` holds client ``d``'s gradient
+    ``grads[d]`` and sample count ``n_samples[d]`` on its device; the
+    port's ``psum`` (``parallel.sharding.FedMesh.psum``) adds the
+    partials ``n_d * G_d`` and ``n_d`` in shard order on the mesh's first
+    device, which returns ``sum_d n_d G_d / sum_d n_d`` there."""
+    n = [torch.as_tensor(x, dtype=torch.float32) for x in n_samples]
+    total = mesh.psum(n)
+    return {k: mesh.psum([nd.to(g[k].device) * g[k].to(torch.float32)
+                          for nd, g in zip(n, grads)]) / total
+            for k in grads[0]}
 
 
 def aggregate_stacked(tree: Mapping[str, torch.Tensor], weights) -> Params:
@@ -186,6 +204,53 @@ def reference_order(names: Sequence[str]) -> List[int]:
         return tuple(int(c) if c.isdigit() else c
                      for c in names[i].split("."))
     return sorted(range(len(names)), key=path)
+
+
+# ---------------------------------------------------------------------------
+# secure aggregation for the mesh step (pairwise antisymmetric masks)
+# ---------------------------------------------------------------------------
+def pairwise_mask(tree: Mapping[str, torch.Tensor], round_key: torch.Tensor,
+                  client: int, num_clients: int, scale: float = 1.0
+                  ) -> Params:
+    """One client's mask, the sum over all clients' masks zero.
+
+    ``mask_l = sum_{m>l} PRG(l,m) - sum_{m<l} PRG(m,l)``: every pair puts
+    ``+PRG`` on one side and ``-PRG`` on the other.  ``PRG(lo, hi)`` of
+    leaf j (the j-th leaf in the reference's tree-flatten order,
+    :func:`reference_order`) is ``scale * normal(fold_in(fold_in(fold_in(
+    round_key, lo), hi), j))``, the reference's draws (normals within a
+    few ulps), on the leaf's device."""
+    names = list(tree)
+    out: Params = {}
+    for j, i in enumerate(reference_order(names)):
+        leaf = tree[names[i]]
+        total = torch.zeros(leaf.shape, dtype=torch.float32,
+                            device=leaf.device)
+        for other in range(num_clients):
+            lo, hi = min(client, other), max(client, other)
+            key = prng.fold_in(prng.fold_in(prng.fold_in(
+                round_key, lo), hi), j).to(leaf.device)
+            noise = scale * prng.normal(key, tuple(leaf.shape))
+            sign = 1.0 if client < other else (-1.0 if client > other
+                                               else 0.0)
+            total = total + sign * noise
+        out[names[i]] = total
+    return {name: out[name] for name in names}
+
+
+def secure_mask_grads(grads: Mapping[str, torch.Tensor],
+                      round_key: torch.Tensor, client: int,
+                      num_clients: int, n_samples, scale: float = 1.0
+                      ) -> Params:
+    """The cancelling mask on the Eq. (2) numerator contribution: the
+    masks cancel in ``sum_l n_l G_l``, so ``G_l`` gets ``mask_l / n_l``."""
+    mask = pairwise_mask(grads, round_key, client, num_clients, scale)
+    out = {}
+    for k, g in grads.items():
+        n = torch.clamp(torch.as_tensor(n_samples, dtype=torch.float32),
+                        min=1e-9).to(g.device)
+        out[k] = g + mask[k] / n
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,15 @@ paths:
   ``weight * decay ** age``, the fresh rows by their weights — and the
   round's stragglers take the free slots in cohort order.
 
+Under ``RoundConfig.mesh_data`` (the spec's ``execution.mesh``) the
+batched path runs over a ``("data",)`` mesh (``parallel/sharding.py``):
+the stacked cohort, the ``(L, D)`` top-k error memory and the ``(C, D)``
+ring are lists of row shards, each shard runs its rows' local updates
+and kernels on its own device, and every cross-row sum is per-shard
+partials added on the mesh's first device, where params and server
+state live.  ``data=1`` is that path with one shard.  Snapshots hold the
+unsharded form (rows in global order), so they resume under any mesh.
+
 The buffered-async service runs one client's loop-mode local update per
 upload (``_local_message``) and the transform stage on it as a ``(1, D)``
 slab.  :meth:`FederationEngine.state_dict` snapshots everything the next
@@ -63,6 +72,7 @@ from repro_torch.data.federated_split import (round_minibatches,
                                               stacked_round_batches)
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import global_norm
+from repro_torch.parallel.sharding import fed_mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -121,15 +131,17 @@ def flat_layout(params: Mapping[str, torch.Tensor]
 
 
 def init_delta_buffer(params: Mapping[str, torch.Tensor], capacity: int, *,
-                      int_fields: Optional[Mapping[str, int]] = None
-                      ) -> Dict[str, object]:
+                      int_fields: Optional[Mapping[str, int]] = None,
+                      mesh=None) -> Dict[str, object]:
     """The fixed-capacity delta-slot layout, flat.
 
     ``delta`` is ONE ``(capacity, D)`` fp32 tensor on the params' device
     (``D`` = all parameters, leaves laid out by :func:`flat_layout`), so
     a combine over the slots is one kernel launch; ``weight`` (the Eq. (2)
     sample count, 0 = free slot), ``client`` (-1 = free) and the
-    ``int_fields`` are per-slot host arrays."""
+    ``int_fields`` are per-slot host arrays.  With ``mesh`` (a
+    ``parallel.sharding.FedMesh``) ``delta`` is row-sharded: a list of
+    ``(capacity / data, D)`` shards, one on each shard's device."""
     c = int(capacity)
     if c < 1:
         raise ValueError(f"delta buffer capacity must be >= 1, got "
@@ -137,8 +149,8 @@ def init_delta_buffer(params: Mapping[str, torch.Tensor], capacity: int, *,
     first = next(iter(params.values()))
     d = sum(p.numel() for p in params.values())
     buf: Dict[str, object] = {
-        "delta": torch.zeros((c, d), dtype=torch.float32,
-                             device=first.device),
+        "delta": mesh.zeros(c, d) if mesh is not None else
+        torch.zeros((c, d), dtype=torch.float32, device=first.device),
         "weight": np.zeros((c,), np.float32),
         "client": np.full((c,), -1, np.int32),
     }
@@ -174,6 +186,12 @@ def _check_vmap_preconditions(clients, batch_size: int, loss_sum_fn, *,
             f"batch_size={batch_size}) needs a mask-aware loss_sum_fn "
             "(e.g. prodlda.elbo_loss_sum) so padded rows stay out of the "
             "objective; pass loss_sum_fn= or use exec_mode='loop'")
+
+
+def _zero_rows(msgs: torch.Tensor, valid: np.ndarray) -> torch.Tensor:
+    """The slab with its invalid (padded) rows zero."""
+    keep = torch.from_numpy(np.asarray(valid)).to(msgs.device)[:, None]
+    return torch.where(keep, msgs, torch.zeros((), device=msgs.device))
 
 
 def _rel_change(old: Mapping[str, torch.Tensor],
@@ -425,15 +443,6 @@ class FederationEngine:
         self._transforms = build_transforms(names, fed)
         # the flat (K, D) message slab's columns, one segment per leaf
         self.layout = flat_layout(self.params)
-        # transform state (the topk error memory, one row per GLOBAL
-        # client), kept on the params' device, under both exec modes
-        self._tstate: Dict[str, Any] = {}
-        dev = next(iter(self.params.values())).device
-        for name, t in self._transforms:
-            st = t.init_state(self.layout, len(self.clients), dev)
-            if st is not None:
-                self._tstate[name] = st
-
         # -- local-update stage ------------------------------------------
         self._epochs = _cycle_per_client(self.rc.local_epochs_by_client,
                                          len(self.clients),
@@ -468,6 +477,34 @@ class FederationEngine:
         self._check_secure_compat()
         # fixed-K stacking: shrunken cohorts padded with zero-weight rows
         self._pad = vmap and self.rc.pad_cohorts and len(self.clients) > 0
+        # -- device mesh (RoundConfig.mesh_data / execution.mesh) ----------
+        # a ("data",) mesh row-sharding the stacked (K, ...) cohort, the
+        # (L, ...) transform state and the (C, ...) straggler ring; None =
+        # unsharded.  Accepted and inert under loop mode, as in the
+        # reference: the host loop stays the unsharded path
+        dev = next(iter(self.params.values())).device
+        self._mesh = None
+        mesh_data = int(self.rc.mesh_data or 0)
+        if mesh_data and vmap and len(self.clients):
+            k_fix = self.scheduler.clients_per_round
+            n_state = len(self.clients)
+            if k_fix % mesh_data or n_state % mesh_data:
+                raise ValueError(
+                    f"execution.mesh data={mesh_data} does not divide the "
+                    f"cohort width K={k_fix} and the client count "
+                    f"L={n_state} — cohorts and per-client state are "
+                    "never silently repartitioned; resize the federation "
+                    "or the mesh")
+            self._mesh = fed_mesh(mesh_data, dev)
+        # transform state (the topk error memory, one row per GLOBAL
+        # client), on the params' device under both exec modes, its rows
+        # sharded over the mesh
+        self._tstate: Dict[str, Any] = {}
+        for name, t in self._transforms:
+            st = t.init_state(self.layout, len(self.clients), dev,
+                              self._mesh)
+            if st is not None:
+                self._tstate[name] = st
 
         # -- combine / staleness stage -----------------------------------
         # both knobs on: the batched path routes rounds through the ring
@@ -625,13 +662,17 @@ class FederationEngine:
         default all).  One call per transform for the whole slab — one B3
         launch for ``dp`` or ``secure``, one B4 call for ``topk`` — with
         the ``topk`` error memory updated in place.  The host loop hands
-        a round's cohort, the service one upload as a ``(1, D)`` slab."""
+        a round's cohort, the service one upload as a ``(1, D)`` slab;
+        under a mesh the batched path hands a list of row shards, and each
+        transform runs once per shard."""
         ids = np.asarray(client_ids, np.int64)
+        sharded = isinstance(msgs, list)
         ctx = StackedTransformCtx(
             round_seed, ids,
             np.ones(len(ids), bool) if valid is None else valid,
-            weights.to(msgs.device, torch.float32), self._nmask,
-            self.layout)
+            weights.to(self._mesh.first if sharded else msgs.device,
+                       torch.float32), self._nmask,
+            self.layout, self._mesh if sharded else None)
         for name, t in self._transforms:
             msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
             if name in self._tstate:
@@ -694,25 +735,27 @@ class FederationEngine:
 
     # -- the batched cohort path --------------------------------------------
     def _stacked_messages(self, stacked: Mapping[str, torch.Tensor],
-                          e_counts: np.ndarray
+                          e_counts: np.ndarray,
+                          params: Optional[Params] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """All K clients' messages at once: returns the flat ``(K, D)``
-        slab and the ``(K, E)`` per-epoch mean losses.  A ``"grad"``
-        message is the epoch-0 gradient; a ``"delta"`` the E-epoch local
-        update, where under heterogeneous E the epochs beyond a client's
-        count leave its parameters as they are (the loop client never
-        runs them)."""
+        """All K clients' messages at once from ``params`` (default the
+        server's): returns the flat ``(K, D)`` slab and the ``(K, E)``
+        per-epoch mean losses.  A ``"grad"`` message is the epoch-0
+        gradient; a ``"delta"`` the E-epoch local update, where under
+        heterogeneous E the epochs beyond a client's count leave its
+        parameters as they are (the loop client never runs them)."""
+        params = self.params if params is None else params
         k = len(e_counts)
         if self.message == "grad":
             grads, loss = self._stacked_grad(
                 {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
-                 for n, p in self.params.items()},
+                 for n, p in params.items()},
                 {n: v[:, 0] for n, v in stacked.items()})
             return torch.cat([grads[n].reshape(k, -1)
-                              for n in self.params], dim=1), loss[:, None]
+                              for n in params], dim=1), loss[:, None]
         lr = self.fed.learning_rate
         local = {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
-                 for n, p in self.params.items()}
+                 for n, p in params.items()}
         losses = []
         for s in range(self._e_max):
             grads, loss = self._stacked_grad(
@@ -728,8 +771,31 @@ class FederationEngine:
             local = stepped
             losses.append(loss)
         msgs = torch.cat([(local[n] - p).reshape(k, -1)
-                          for n, p in self.params.items()], dim=1)
+                          for n, p in params.items()], dim=1)
         return msgs, torch.stack(losses, dim=1)
+
+    def _sharded_messages(self, stacked: Mapping[str, torch.Tensor],
+                          e_counts: np.ndarray
+                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """:meth:`_stacked_messages` once per shard of the mesh, on the
+        shard's device, from its copy of the replicated params and its
+        row block of the cohort: the row-sharded ``(K, D)`` slab (a list
+        of shards) and the ``(K, E)`` losses on the mesh's first
+        device."""
+        mesh = self._mesh
+        blocks = {n: mesh.split(v) for n, v in stacked.items()}
+        out = []
+        for d, (e_d, p_d) in enumerate(zip(mesh.split(e_counts),
+                                           mesh.replicate(self.params))):
+            with mesh.on(d):
+                out.append(self._stacked_messages(
+                    {n: b[d] for n, b in blocks.items()}, e_d, p_d))
+        return [m for m, _ in out], mesh.merge([l for _, l in out])
+
+    def _whole(self, slab):
+        """A row-sharded slab merged in global row order (as it is when
+        unsharded)."""
+        return self._mesh.merge(slab) if isinstance(slab, list) else slab
 
     def _unflatten(self, vec: torch.Tensor) -> Params:
         return {name: vec[off:off + n].view(shape)
@@ -742,7 +808,8 @@ class FederationEngine:
         most ``max_staleness`` rounds."""
         c = max(1, self.scheduler.clients_per_round * self.rc.max_staleness)
         return init_delta_buffer(self.params, c,
-                                 int_fields={"due": -1, "age": 0})
+                                 int_fields={"due": -1, "age": 0},
+                                 mesh=self._mesh)
 
     def _ring_deliver(self, r: int, fresh=None
                       ) -> Tuple[Optional[torch.Tensor], int, int]:
@@ -753,9 +820,11 @@ class FederationEngine:
         through the staleness-discounted Eq. (2) combine and the server
         step, gated on any positive weight.  The numerator is at most two
         B2 calls, one over the ring slab and one over the fresh slab,
-        each skipped when it has no positive coefficient.  Delivered and
-        superseded slots leave the ring.  Returns ``(rel_change or None,
-        delivered slots, superseded slots)``."""
+        each skipped when it has no positive coefficient (under a mesh,
+        one B2 call per shard for each, partials added by the port's
+        ``psum``).  Delivered and superseded slots leave the ring.
+        Returns ``(rel_change or None, delivered slots, superseded
+        slots)``."""
         ring = self._ring
         wt, cl, age = ring["weight"], ring["client"], ring["age"]
         idx = np.arange(len(wt))
@@ -782,9 +851,10 @@ class FederationEngine:
             coef = due_w * np.power(np.float32(self.rc.staleness_decay),
                                     age.astype(np.float32))
             acc = ops.fed_weighted_sum(ring["delta"], torch.from_numpy(
-                coef.astype(np.float32)))
+                coef.astype(np.float32)), mesh=self._mesh)
         if fresh is not None and (fresh_w > 0).any():
-            part = ops.fed_weighted_sum(msgs, torch.from_numpy(fresh_w))
+            part = ops.fed_weighted_sum(msgs, torch.from_numpy(fresh_w),
+                                        mesh=self._mesh)
             acc = part if acc is None else acc + part
         rel = None
         if total > 0:
@@ -812,9 +882,12 @@ class FederationEngine:
                 f"{len(free)} free slots of {len(ring['weight'])}")
         if not len(strag):
             return
-        dev = msgs.device
-        ring["delta"][torch.from_numpy(free).to(dev)] = \
-            msgs[torch.from_numpy(strag).to(dev)]
+        if self._mesh is not None:
+            self._mesh.scatter_rows(ring["delta"], free, msgs, strag)
+        else:
+            dev = msgs.device
+            ring["delta"][torch.from_numpy(free).to(dev)] = \
+                msgs[torch.from_numpy(strag).to(dev)]
         ring["weight"][free] = weights[strag]
         ring["due"][free] = r + delays[strag]
         ring["age"][free] = delays[strag]
@@ -834,6 +907,7 @@ class FederationEngine:
                     "rel_change": 0.0 if rel is None else float(rel),
                     "participants": 0, "arrived": arrived,
                     "superseded": superseded, "in_flight": in_flight}
+        mesh = self._mesh
         k_fix = self.scheduler.clients_per_round if self._pad \
             else len(cohort)
         stacked, counts = stacked_round_batches(
@@ -841,7 +915,8 @@ class FederationEngine:
             [self.clients[l].num_docs for l in cohort],
             prng.PRNGKey(round_seed), cohort,
             batch_size=self.batch_size, local_epochs=self._e_max,
-            pad_to=k_fix)
+            pad_to=k_fix,
+            shard_multiple=mesh.size if mesh is not None else None)
         e_counts = np.zeros((k_fix,), np.int64)
         e_counts[:len(cohort)] = self._epochs[cohort]
         ids = np.zeros((k_fix,), np.int64)
@@ -852,13 +927,18 @@ class FederationEngine:
         weights = counts.sum(axis=1).astype(np.float32)
         valid = weights > 0
 
-        msgs, losses = self._stacked_messages(stacked, e_counts)
-        w = torch.from_numpy(weights).to(msgs.device)
+        if mesh is None:
+            msgs, losses = self._stacked_messages(stacked, e_counts)
+        else:
+            msgs, losses = self._sharded_messages(stacked, e_counts)
+        w = torch.from_numpy(weights).to(losses.device)
         if self._transforms:
             msgs = self.transform_messages(msgs, ids, w, round_seed, valid)
         # padded rows are absent: re-zeroed after the transform stage
-        keep = torch.from_numpy(valid).to(msgs.device)[:, None]
-        msgs = torch.where(keep, msgs, torch.zeros((), device=msgs.device))
+        if mesh is None:
+            msgs = _zero_rows(msgs, valid)
+        else:
+            msgs = [_zero_rows(m, v) for m, v in zip(msgs, mesh.split(valid))]
         rel, arrived, superseded, in_flight = 0.0, len(cohort), 0, 0
         if self._stale_enabled:
             if self._ring is None:
@@ -873,7 +953,7 @@ class FederationEngine:
             arrived = int(((delays == 0) & valid).sum()) + n_due
             in_flight = int((self._ring["weight"] > 0).sum())
         elif weights.sum() > 0:
-            bar = ops.fed_weighted_combine(msgs, w)
+            bar = ops.fed_weighted_combine(msgs, w, mesh=mesh)
             old = self.params
             self.params, self.server_state = self.server_opt.apply(
                 self.params, self._unflatten(bar), self.server_state, r)
@@ -962,7 +1042,7 @@ class FederationEngine:
         topk = self._tstate.get("topk")
         if topk is not None:
             if self.exec_mode == "vmap":
-                tstate["topk"] = self._slab_tree(topk)
+                tstate["topk"] = self._slab_tree(self._whole(topk))
             else:
                 mems = [self._row_tree(row) if bool(row.any()) else None
                         for row in topk]
@@ -970,10 +1050,11 @@ class FederationEngine:
 
     def _import_error_memory(self, tstate: Mapping[str, Any],
                              mems: Sequence[Any]) -> None:
-        topk = self._tstate.get("topk")
-        if topk is None:
+        shards = self._tstate.get("topk")
+        if shards is None:
             return
-        topk.zero_()
+        # a row-sharded memory is filled whole, then written to its shards
+        topk = torch.zeros_like(self._whole(shards))
         if "topk" in tstate:
             self._fill_slab(topk, tstate["topk"])
         for l, mem in enumerate(mems):
@@ -981,6 +1062,10 @@ class FederationEngine:
                 topk[l, off:off + n] = torch.from_numpy(np.array(
                     tree_get(mem, name), np.float32).reshape(n)) \
                     .to(topk.device)
+        if isinstance(shards, list):
+            self._mesh.assign(shards, topk)
+        else:
+            shards.copy_(topk)
 
     def state_dict(self) -> Dict[str, Any]:
         """Host snapshot of everything the next round depends on, in the
@@ -997,7 +1082,7 @@ class FederationEngine:
         tstate, mems = self._export_error_memory()
         ring = None
         if self._ring is not None:
-            ring = {"delta": self._slab_tree(self._ring["delta"])}
+            ring = {"delta": self._slab_tree(self._whole(self._ring["delta"]))}
             ring.update({k: np.array(v) for k, v in self._ring.items()
                          if k != "delta"})
         return {
@@ -1050,7 +1135,12 @@ class FederationEngine:
         if state["ring"] is not None:
             snap = state["ring"]
             self._ring = self._init_ring()
-            self._fill_slab(self._ring["delta"], snap["delta"])
+            delta = torch.zeros_like(self._whole(self._ring["delta"]))
+            self._fill_slab(delta, snap["delta"])
+            if self._mesh is not None:
+                self._mesh.assign(self._ring["delta"], delta)
+            else:
+                self._ring["delta"] = delta
             for k in ("weight", "client", "due", "age"):
                 self._ring[k][:] = np.asarray(snap[k])
         self.pending = [

@@ -19,8 +19,11 @@ Port of ``repro/core/protocol.py``:
 Minibatches and the train-mode loss's keys follow the reference's
 threefry schedule (``core/prng.py``, ``data/federated_split.py``), so a
 card run, a CPU run and the reference see the same documents and draws.
-The in-graph ``shard_map`` step waits for the mesh layer (ROADMAP.md
-A17).
+
+:func:`make_federated_train_step` is the reference's in-graph
+``shard_map`` step over a ``("data",)`` mesh (``parallel/sharding.py``):
+each shard is one client, its gradient computed on its own device, and
+Eq. (2) is the per-shard partials plus the port's ``psum``.
 """
 from __future__ import annotations
 
@@ -46,12 +49,74 @@ def weighted_global_loss(loss_sum_fn: Callable[..., Tuple[torch.Tensor,
     return loss
 
 
-def make_federated_train_step(*args, **kwargs):
-    """The in-graph federated step over a device mesh."""
-    raise NotImplementedError(
-        "make_federated_train_step (the shard_map protocol step over a "
-        "device mesh) is not ported to repro_torch yet (ROADMAP.md A17); "
-        "run FederatedTrainer, or the JAX reference package")
+def make_federated_train_step(loss_sum_fn, optimizer: Optimizer, mesh, *,
+                               client_axes: Tuple[str, ...] = ("data",),
+                               fed: Optional[FederatedConfig] = None):
+    """The explicit federated step for replicated-parameter models over a
+    ``("data",)`` mesh (``parallel.sharding.fed_mesh``).
+
+    ``step(params, opt_state, batch, step_idx, rng) -> (params,
+    opt_state, mean_loss)``: every batch leaf's leading axis is split over
+    the mesh's shards, and shard ``d`` is client ``d``.  On its device the
+    client folds its id into ``rng`` (the batch's ``"rng"``, if any,
+    becomes that key), takes ``value_and_grad`` of its local mean loss
+    ``loss_sum / max(count, 1)``, then, when ``fed`` asks, local DP
+    (``dp_privatize`` on ``fold_in(local_rng, 7)``) and the pairwise
+    secure mask (``secure_mask_grads`` on ``fold_in(rng, step_idx)``).
+    The server side is Eq. (2) (:func:`aggregate.aggregate_psum`), the
+    optimizer update and the sample-weighted mean loss, on the mesh's
+    first device, where params and optimizer state live."""
+    client_axes = tuple(client_axes)
+    if len(client_axes) > 1:
+        raise NotImplementedError(
+            f"make_federated_train_step over client_axes={client_axes} "
+            "needs the reference's 2-D host mesh (repro/launch/mesh.py), "
+            "which belongs to the launch-sizing half of ROADMAP.md A17 "
+            "and is not ported; the port's mesh has the one axis "
+            "('data',)")
+    if client_axes[0] not in mesh.axis_names:
+        raise ValueError(f"client axis {client_axes[0]!r} is not an axis of "
+                         f"the mesh {mesh.axis_names}")
+    fed = fed or FederatedConfig()
+
+    def step(params, opt_state, batch, step_idx, rng):
+        blocks = {k: mesh.split(v) for k, v in batch.items()}
+        grads, counts, losses = [], [], []
+        for cid, p in enumerate(mesh.replicate(params)):
+            dev = mesh.devices[cid]
+            local_rng = prng.fold_in(rng, cid)
+            lbatch = {k: b[cid] for k, b in blocks.items()}
+            if "rng" in lbatch:
+                lbatch["rng"] = local_rng.to(dev)
+
+            def local_mean_loss(q):
+                s, n = loss_sum_fn(q, lbatch)
+                loss = s / torch.clamp(n, min=1.0)
+                return loss, (loss.detach(), n.detach())
+
+            with mesh.on(cid):
+                g, (loss, n) = torch.func.grad(local_mean_loss,
+                                               has_aux=True)(p)
+                if fed.dp_noise_multiplier > 0:
+                    g = agg.dp_privatize(
+                        g, prng.fold_in(local_rng, 7),
+                        clip_norm=fed.dp_clip_norm,
+                        noise_multiplier=fed.dp_noise_multiplier)
+                if fed.secure_aggregation:
+                    g = agg.secure_mask_grads(
+                        g, prng.fold_in(rng, int(step_idx)), cid,
+                        mesh.size, n)
+            grads.append(g)
+            counts.append(n)
+            losses.append(loss)
+        gbar = agg.aggregate_psum(grads, counts, mesh)
+        new_params, new_opt = optimizer.update(params, gbar, opt_state,
+                                               step_idx)
+        mean_loss = mesh.psum([l * n for l, n in zip(losses, counts)]) \
+            / mesh.psum(counts)
+        return new_params, new_opt, mean_loss
+
+    return step
 
 
 def _wrap_client_optimizer(optimizer: Optimizer) -> agg.ServerOptimizer:

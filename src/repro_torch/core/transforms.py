@@ -86,6 +86,16 @@ class StackedTransformCtx:
     weights: torch.Tensor
     num_clients: int        # mask population
     layout: Sequence[Tuple[str, Any, int, int]]
+    # the engine's ``parallel.sharding.FedMesh``, or None.  With a mesh
+    # the slab (and the ``topk`` state) is a list of row shards, each
+    # transform runs per shard on the shard's device and hands the mesh
+    # to its kernel's wrapper; ``weights`` stays the whole (n,) vector
+    mesh: Any = None
+
+    def shard_rows(self, x: np.ndarray) -> List[np.ndarray]:
+        """A host ``(n,)`` vector over the slab's rows, one block a shard
+        (the whole vector, unsharded)."""
+        return [x] if self.mesh is None else self.mesh.split(x)
 
     @property
     def segments(self) -> List[Tuple[int, int]]:
@@ -95,8 +105,8 @@ class StackedTransformCtx:
 @dataclass(frozen=True)
 class MessageTransform:
     """One named transform over the stacked slab: ``stacked(msgs, ctx,
-    state) -> (msgs, state)``; ``init_state(layout, num_clients, device)``
-    builds its device state or None."""
+    state) -> (msgs, state)``; ``init_state(layout, num_clients, device,
+    mesh)`` builds its device state (row-sharded over a mesh) or None."""
     name: str
     _stacked: Callable[..., Tuple[torch.Tensor, Any]]
     _init_state: Optional[Callable[..., Any]] = None
@@ -105,10 +115,10 @@ class MessageTransform:
                 state) -> Tuple[torch.Tensor, Any]:
         return self._stacked(msgs, ctx, state)
 
-    def init_state(self, layout, num_clients: int, device):
+    def init_state(self, layout, num_clients: int, device, mesh=None):
         if self._init_state is None:
             return None
-        return self._init_state(layout, num_clients, device)
+        return self._init_state(layout, num_clients, device, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -145,11 +155,16 @@ def dp_apply(msgs: torch.Tensor, layout, noise: torch.Tensor, *,
     coefficient ``min(1, clip / max(global_norm(row), 1e-12))`` (the
     reference's ``clip_by_global_norm`` scale over the row's leaves),
     through kernel B3 on a CUDA slab."""
+    return ops.fed_dp_secure_apply(msgs, noise=noise,
+                                   clip_coef=dp_clip_coef(msgs, layout, clip),
+                                   noise_scale=mult * clip)
+
+
+def dp_clip_coef(msgs: torch.Tensor, layout, clip: float) -> torch.Tensor:
+    """Per-row ``min(1, clip / max(global_norm(row), 1e-12))``."""
     views = {name: msgs[:, off:off + n] for name, _, off, n in layout}
     norms = torch.func.vmap(global_norm)(views)
-    coef = torch.clamp(clip / torch.clamp(norms, min=1e-12), max=1.0)
-    return ops.fed_dp_secure_apply(msgs, noise=noise,
-                                   clip_coef=coef, noise_scale=mult * clip)
+    return torch.clamp(clip / torch.clamp(norms, min=1e-12), max=1.0)
 
 
 def _dp_transform(fed: FederatedConfig) -> MessageTransform:
@@ -161,10 +176,19 @@ def _dp_transform(fed: FederatedConfig) -> MessageTransform:
     clip, mult = fed.dp_clip_norm, fed.dp_noise_multiplier
 
     def stacked(msgs, ctx: StackedTransformCtx, state):
-        noise = dp_noise(ctx.round_seed, ctx.client_ids, ctx.valid,
-                         ctx.layout, msgs.device)
-        return dp_apply(msgs, ctx.layout, noise, clip=clip,
-                        mult=mult), state
+        if ctx.mesh is None:
+            noise = dp_noise(ctx.round_seed, ctx.client_ids, ctx.valid,
+                             ctx.layout, msgs.device)
+            return dp_apply(msgs, ctx.layout, noise, clip=clip,
+                            mult=mult), state
+        # per row: each shard draws its rows' noise on its own device
+        noise = [dp_noise(ctx.round_seed, ids, ok, ctx.layout, m.device)
+                 for m, ids, ok in zip(msgs, ctx.shard_rows(ctx.client_ids),
+                                       ctx.shard_rows(ctx.valid))]
+        coef = [dp_clip_coef(m, ctx.layout, clip) for m in msgs]
+        return ops.fed_dp_secure_apply(msgs, noise=noise, clip_coef=coef,
+                                       noise_scale=mult * clip,
+                                       mesh=ctx.mesh), state
 
     return MessageTransform("dp", stacked)
 
@@ -181,19 +205,26 @@ def _topk_transform(fed: FederatedConfig) -> MessageTransform:
     def stacked(msgs, ctx: StackedTransformCtx, state):
         # state: the (L, D) error memory, one row per GLOBAL client id,
         # updated in place; the row count comes from the state itself
-        n = state.shape[0]
+        # (with a mesh: a list of row shards; rows move by global id)
+        mesh = ctx.mesh
+        n = state.shape[0] if mesh is None else \
+            sum(s.shape[0] for s in state)
         ids = np.clip(ctx.client_ids, 0, n - 1)
         sent, new_err = ops.fed_topk_ef(
             msgs, state, torch.as_tensor(ids, dtype=torch.int32),
-            frac=frac, segments=ctx.segments)
+            frac=frac, segments=ctx.segments, mesh=mesh)
         rows = np.flatnonzero(ctx.valid)
-        if len(rows):
+        if len(rows) and mesh is not None:
+            mesh.scatter_rows(state, ctx.client_ids[rows], new_err, rows)
+        elif len(rows):
             state[torch.as_tensor(ctx.client_ids[rows], device=state.device)] \
                 = new_err[torch.as_tensor(rows, device=new_err.device)]
         return sent, state
 
-    def init_state(layout, num_clients, device):
+    def init_state(layout, num_clients, device, mesh=None):
         d = sum(n for _, _, _, n in layout)
+        if mesh is not None:
+            return mesh.zeros(num_clients, d)
         return torch.zeros((num_clients, d), dtype=torch.float32,
                            device=device)
 
@@ -256,13 +287,22 @@ def pairwise_mask_stack(round_seed: int, layout, num_clients: int,
 
 def _secure_transform(fed: FederatedConfig) -> MessageTransform:
     def stacked(msgs, ctx: StackedTransformCtx, state):
-        stack = pairwise_mask_stack(ctx.round_seed, ctx.layout,
-                                    ctx.num_clients, msgs.device)
-        rows = stack[torch.as_tensor(ctx.client_ids, dtype=torch.int64,
-                                     device=msgs.device)]
+        if ctx.mesh is None:
+            stack = pairwise_mask_stack(ctx.round_seed, ctx.layout,
+                                        ctx.num_clients, msgs.device)
+            rows = stack[torch.as_tensor(ctx.client_ids, dtype=torch.int64,
+                                         device=msgs.device)]
+        else:
+            # the stack is drawn once, replicated on the mesh's first
+            # device; each shard takes its rows' masks to its own device
+            stack = pairwise_mask_stack(ctx.round_seed, ctx.layout,
+                                        ctx.num_clients, ctx.mesh.first)
+            rows = [stack[torch.as_tensor(ids, dtype=torch.int64,
+                                          device=stack.device)].to(m.device)
+                    for m, ids in zip(msgs, ctx.shard_rows(ctx.client_ids))]
         # masks cancel in the Eq. (2) NUMERATOR: each row adds mask / n
-        return ops.fed_dp_secure_apply(msgs, masks=rows,
-                                       weights=ctx.weights), state
+        return ops.fed_dp_secure_apply(msgs, masks=rows, weights=ctx.weights,
+                                       mesh=ctx.mesh), state
 
     return MessageTransform("secure", stacked)
 

@@ -217,7 +217,8 @@ def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
                           num_docs: Sequence[int], round_key: torch.Tensor,
                           client_ids: Sequence[int], *, batch_size: int,
                           local_epochs: int = 1,
-                          pad_to: Optional[int] = None
+                          pad_to: Optional[int] = None,
+                          shard_multiple: Optional[int] = None
                           ) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
     """One round's cohort minibatches on a leading client axis.
 
@@ -238,7 +239,9 @@ def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
     sizes on the host (the Eq. (2) weights are ``counts.sum(axis=1)``).
     ``pad_to`` (>= the cohort) widens the client axis to a fixed K with
     all-zero rows (data, mask, keys, counts): zero-weight padding, the
-    real rows unchanged.
+    real rows unchanged.  ``shard_multiple`` (the engine's mesh width)
+    refuses a stacked width the mesh's data axis does not divide: cohorts
+    are never silently repartitioned.
     """
     k_clients = len(datas)
     k_stack = k_clients if pad_to is None else int(pad_to)
@@ -246,6 +249,12 @@ def stacked_round_batches(datas: Sequence[Dict[str, torch.Tensor]],
         raise ValueError(f"pad_to={pad_to} is smaller than the cohort "
                          f"({k_clients} clients); the stacked axis cannot "
                          "drop cohort members")
+    if shard_multiple and k_stack % shard_multiple:
+        raise ValueError(
+            f"stacked cohort width {k_stack} is not divisible by the "
+            f"device-mesh data axis ({shard_multiple}) — cohorts are "
+            "never silently repartitioned; enable execution.pad_cohorts "
+            "(fixed-K padding) or resize the cohort/mesh")
     if k_clients == 0:
         raise ValueError("stacked_round_batches needs at least one cohort "
                          "member (an empty round runs no local update)")

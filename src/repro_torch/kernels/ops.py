@@ -18,11 +18,19 @@ into the batch axis (one launch a cohort), B6 and its backward run once
 per client (each client has its own decay ``a``).  B1 is forward-only on
 the card: a CUDA call that needs a gradient raises rather than return an
 output autograd cannot see through.
+
+The four federated wrappers take ``mesh`` (a ``parallel.sharding.
+FedMesh``): their row operands are then row-sharded, each shard's rows go
+through the kernel (or its plain version) on the shard's own device, and
+a cross-row sum is the per-shard partials added in shard order on the
+mesh's first device — the port's counterparts of the reference's
+``shard_map`` islands.
 """
 from __future__ import annotations
 
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -74,22 +82,38 @@ def _weighted_sum_leaf(leaf: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                                  ).reshape(leaf.shape[1:])
 
 
-def fed_weighted_sum(stacked: Stacked, coefs) -> Stacked:
+def fed_weighted_sum(stacked: Stacked, coefs, *, mesh=None) -> Stacked:
     """NUMERATOR-only ``sum_k where(c_k > 0, c_k x_k, 0)`` over a stacked
     ``(K, ...)`` tensor, or per leaf over a dict of them — the
-    staleness-discounted combine's numerator (the caller divides)."""
+    staleness-discounted combine's numerator (the caller divides).
+
+    With ``mesh`` (a ``parallel.sharding.FedMesh``) the K axis is
+    row-sharded: ``stacked`` is a list of shards (or a whole tensor,
+    split), each shard's partial numerator is B2 on its own device (the
+    plain version on a CPU shard), and the partials are added in shard
+    order on the mesh's first device (the port's ``psum``)."""
     c = torch.as_tensor(coefs, dtype=torch.float32)
+    if mesh is not None:
+        return mesh.psum([_weighted_sum_leaf(x, cd) for x, cd in
+                          zip(mesh.rows(stacked), mesh.split(c))])
     if isinstance(stacked, torch.Tensor):
         return _weighted_sum_leaf(stacked, c)
     return {k: _weighted_sum_leaf(v, c) for k, v in stacked.items()}
 
 
-def fed_weighted_combine(stacked: Stacked, weights) -> Stacked:
+def fed_weighted_combine(stacked: Stacked, weights, *, mesh=None) -> Stacked:
     """Eq. (2): ``sum_k w_k x_k / max(sum w, 1e-12)`` with zero-weight rows
-    masked out (tensor or per leaf over a dict of stacked leaves)."""
+    masked out (tensor or per leaf over a dict of stacked leaves).  With
+    ``mesh``, the numerator as in :func:`fed_weighted_sum` and the
+    denominator the ``psum`` of the per-shard weight sums, then the
+    replicated division on the mesh's first device."""
     w = torch.as_tensor(weights, dtype=torch.float32)
-    total = torch.clamp(torch.sum(w), min=1e-12)
-    num = fed_weighted_sum(stacked, w)
+    if mesh is not None:
+        total = torch.clamp(mesh.psum([torch.sum(p) for p in mesh.split(w)]),
+                            min=1e-12)
+    else:
+        total = torch.clamp(torch.sum(w), min=1e-12)
+    num = fed_weighted_sum(stacked, w, mesh=mesh)
     if isinstance(num, torch.Tensor):
         return num / total.to(num.device)
     return {k: v / total.to(v.device) for k, v in num.items()}
@@ -107,13 +131,24 @@ def topic_decoder_loss(theta, beta, bow,
         None if dec_scale is None else dec_scale.contiguous())
 
 
-def fed_dp_secure_apply(x: torch.Tensor, *, noise=None, masks=None,
-                        clip_coef=None, weights=None,
-                        noise_scale: float = 0.0) -> torch.Tensor:
+def fed_dp_secure_apply(x, *, noise=None, masks=None, clip_coef=None,
+                        weights=None, noise_scale: float = 0.0, mesh=None):
     """``x * clip_coef + noise_scale * noise + masks / max(weights, 1e-9)``
     over a flat ``(K, D)`` message slab, terms present only when given:
     ``dp`` passes (noise, clip_coef), ``secure`` passes (masks, weights).
-    Kernel B3 on a CUDA tensor; bitwise the plain version either way."""
+    Kernel B3 on a CUDA tensor; bitwise the plain version either way.
+
+    Strictly per row, so with ``mesh`` every operand is row-sharded (a
+    list of shards, or a whole tensor, split) and each shard runs B3 on
+    its own rows with no cross-shard term: the result, a list of shards,
+    is bitwise the rows the unsharded call gives."""
+    if mesh is not None:
+        nz, mk, cc, wt = [[None] * mesh.size if t is None else mesh.rows(t)
+                          for t in (noise, masks, clip_coef, weights)]
+        return [fed_dp_secure_apply(xd, noise=nz[d], masks=mk[d],
+                                    clip_coef=cc[d], weights=wt[d],
+                                    noise_scale=noise_scale)
+                for d, xd in enumerate(mesh.rows(x))]
     if not _on_cuda(x):
         return ref.fed_dp_secure_apply_ref(x, noise, masks, clip_coef,
                                            weights, noise_scale)
@@ -131,10 +166,8 @@ def topk_segments(segments: Sequence[Tuple[int, int]], frac: float
     return [(int(off), int(n), max(int(frac * n), 1)) for off, n in segments]
 
 
-def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
-                ids: torch.Tensor, *, frac: float,
-                segments: Sequence[Tuple[int, int]]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def fed_topk_ef(msgs, err_state, ids, *, frac: float,
+                segments: Sequence[Tuple[int, int]], mesh=None):
     """Top-k with error feedback over a flat ``(K, D)`` message slab whose
     columns are the ``(offset, size)`` leaf segments: per row and
     segment, ``corrected = msg + err_state[ids]`` keeps exactly
@@ -142,7 +175,24 @@ def fed_topk_ef(msgs: torch.Tensor, err_state: torch.Tensor,
     ``(K,)`` rows of the ``(L, D)`` error memory, pre-clipped to
     ``[0, L)``.  Returns ``(sent, new_err)``; scattering ``new_err`` back
     (padded rows dropped) stays with the caller.  Kernel B4 on a CUDA
-    tensor, one call for every segment; bitwise the plain version."""
+    tensor, one call for every segment; bitwise the plain version.
+
+    With ``mesh`` the K rows and the L rows of the error memory are both
+    row-sharded (lists of shards, or whole tensors, split): the cohort's
+    error rows are gathered by global id across the shards first, then
+    each shard runs B4 on its own rows and their gathered memory, as the
+    reference gathers outside its shard_map island.  Same math, no
+    cross-row term; ``sent`` and ``new_err`` come back as lists of
+    shards."""
+    if mesh is not None:
+        gathered = mesh.gather_rows(mesh.rows(err_state),
+                                    np.asarray(ids, np.int64))
+        pairs = [fed_topk_ef(m, e, torch.arange(m.shape[0],
+                                                device=m.device),
+                             frac=frac, segments=segments)
+                 for m, e in zip(mesh.rows(msgs), gathered)]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    ids = torch.as_tensor(ids)
     table = topk_segments(segments, frac)
     if not _on_cuda(msgs):
         err_rows = err_state[ids.to(torch.int64)]

@@ -11,10 +11,11 @@ participation, one minibatch step per client, the Eq. (2) combine
 (kernel B2 on the card) and server SGD, on the host loop.
 ``--transforms`` runs under both exec modes (kernel B3 for ``dp`` and
 ``secure``, B4 for ``topk``, once a round), and every registry
-``--partition`` runs.  Flags that reach what the port does not run yet
-fail with the spec's labelled refusals: ``--mesh`` (ROADMAP.md A17)
-and stragglers under ``--exec-mode vmap`` (A10).  ``--stochastic-loss``
-trains with the train-mode ELBO on the reference's threefry draws.
+``--partition`` runs.  ``--mesh data=N`` shards the batched cohort
+path (``--exec-mode vmap``) over N shards: the first N cards, or N CPU
+shards under ``--device cpu``; K and L must divide N.
+``--stochastic-loss`` trains with the train-mode ELBO on the
+reference's threefry draws.
 
 Usage:
 
@@ -29,6 +30,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.simulate --rounds 5 \\
         --transforms topk --topk 0.25 --partition 'dirichlet(0.3)' \\
         --device cpu
+
+    # the batched cohort path over a two-shard mesh on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.simulate --rounds 5 \\
+        --exec-mode vmap --mesh data=2 --num-clients 4 --device cpu
 
     # compile a flag combination into a reusable spec file
     PYTHONPATH=src python -m repro_torch.launch.simulate \\
@@ -45,8 +50,8 @@ import time
 
 from repro_torch.api import Federation, FederationSpec, scenario_names, \
     scenario_spec
-from repro_torch.api.spec import (DataSpec, ExecutionSpec, ModelSpec,
-                                  PartitionSpec, ScheduleSpec,
+from repro_torch.api.spec import (DataSpec, ExecutionSpec, MeshSpec,
+                                  ModelSpec, PartitionSpec, ScheduleSpec,
                                   ServerOptSpec, TransformsSpec,
                                   parse_int_tuple)
 from repro_torch.core.aggregation import SERVER_OPTIMIZERS
@@ -101,7 +106,8 @@ def spec_from_args(args) -> FederationSpec:
                                 rel_tol=args.rel_tol,
                                 stochastic_loss=args.stochastic_loss,
                                 seed=args.seed,
-                                mesh=args.mesh or None))
+                                mesh=(MeshSpec.from_value(args.mesh)
+                                      if args.mesh else None)))
 
 
 # flags that control I/O or select the spec source, not the scenario —
@@ -256,8 +262,11 @@ def main(argv=None):
                          "literal); vmap = all K local updates in one "
                          "batched call, then combine + server step")
     ap.add_argument("--mesh", default="",
-                    help="device-mesh axis spec 'data=N': not ported yet "
-                         "(ROADMAP.md A17), refused; empty = one device")
+                    help="device-mesh axis spec 'data=N': shard the "
+                         "batched cohort path's cohort/state/ring rows "
+                         "over N shards (the first N cards, or N CPU "
+                         "shards under --device cpu; K and L must divide "
+                         "N); empty = unsharded")
     ap.add_argument("--clients-per-round", type=int, default=0,
                     help="K; 0 = all clients (paper Alg. 1)")
     ap.add_argument("--sampling", default="uniform",

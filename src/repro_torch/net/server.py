@@ -419,7 +419,7 @@ class BackgroundServer:
     async def _main(self) -> None:
         try:
             await self.server.start()
-        except Exception as e:          # bind failures surface in start()
+        except BaseException as e:      # bind failures surface in start()
             self._error = e
             self._ready.set()
             return

@@ -13,8 +13,13 @@ import threading
 import time
 
 import pytest
+import torch
 
 from repro_torch.kernels import _build
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 
 class _FakeNvcc:

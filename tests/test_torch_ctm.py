@@ -12,6 +12,7 @@ batches are smaller than the client corpora, so the port must select
 the reference's documents and noise; everything agrees within 1e-5.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,10 @@ from repro_torch.data.synthetic_lda import fake_contextual_embeddings
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import optimizers as topt
 from repro_torch.serve import FederationService
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 V, K, H, C = 64, 4, 16, 8

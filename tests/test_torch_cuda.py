@@ -19,6 +19,8 @@ hymba-1.5b prefill + decode and its ``train_loss`` gradients on the card
 are held against the same runs on the CPU.  ``chip_smoke.py``
 repeats these checks at the full ProdLDA and hymba-1.5b widths.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import grid, topic_decoder_cuda
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import FederationService, run_traffic
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 pytestmark = pytest.mark.cuda
 
@@ -1466,3 +1472,79 @@ def test_kernel_load_from_two_threads_on_a_fresh_build(cuda_device,
     assert got[0] is got[1] and hasattr(got[0], "fed_weighted_sum")
     assert list(_build.BUILD_LOG) == ["fed_aggregate"]
     assert [p.suffix for p in (tmp_path / "build").iterdir()] == [".so"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh (execution.mesh) on the card
+# ---------------------------------------------------------------------------
+# L = K = 5: the mesh-* scenarios resolve the data axis to 1 shard
+_MESH_SPEC = {"model": {"vocab": 400, "topics": 10, "hidden": 32},
+              "data": {"num_clients": 5, "docs_per_node": 80,
+                       "val_docs_per_node": 10},
+              "schedule": {"rounds": 4},
+              "execution": {"batch_size": 32, "exec_mode": "vmap"}}
+
+
+@pytest.mark.parametrize("name", ["mesh-sync", "mesh-topk"])
+def test_mesh_data1_on_card_equals_unsharded(cuda_device, name):
+    """A one-shard mesh on the card runs the sharded path: bitwise the
+    unsharded run on the card (one shard computes what the unsharded path
+    computes, in the same order), one B2 launch a round (and one B4 for
+    top-k), and within 1e-5 of the CPU's run of the same spec."""
+    spec = scenario_spec(name, FederationSpec.from_dict(_MESH_SPEC))
+    assert spec.execution.mesh.data == 1
+    plain = Federation.from_spec(spec_replace(spec, {"execution.mesh": None}),
+                                 device=cuda_device)
+    card = Federation.from_spec(spec, device=cuda_device)
+    cpu = Federation.from_spec(spec, device="cpu")
+    per_round = []
+    for _ in range(4):
+        plain.step()
+        cpu.step()
+        fed_aggregate.launches = fed_aggregate.topk_ef_launches = 0
+        card.step()
+        per_round.append((fed_aggregate.launches,
+                          fed_aggregate.topk_ef_launches))
+    assert card.mesh_shape == {"data": 1} and plain.mesh_shape is None
+    assert per_round == [(1, int("topk" in name))] * 4
+    for k, v in plain.params.items():
+        assert torch.equal(v, card.params[k]), k
+    assert plain.history == card.history
+    assert max_param_dev(cpu.params, card.params) <= 1e-5
+
+
+def test_mesh_refuses_more_shards_than_cards(cuda_device):
+    """``data`` one more than the visible cards is refused, by the mesh
+    and by a ``Federation`` whose spec asks for it."""
+    from repro_torch.parallel import fed_mesh
+    n = torch.cuda.device_count()
+    want = f"needs {n + 1} devices but only {n} are visible"
+    with pytest.raises(ValueError, match=want):
+        fed_mesh(n + 1, cuda_device)
+    spec = spec_replace(FederationSpec.from_dict(_MESH_SPEC), {
+        "data.num_clients": n + 1, "execution.mesh": {"data": n + 1}})
+    with pytest.raises(ValueError, match=want):
+        Federation.from_spec(spec, device=cuda_device)
+
+
+@pytest.mark.parametrize("fed", [{}, {"dp_noise_multiplier": 0.3},
+                                 {"secure_aggregation": True}],
+                         ids=["plain", "dp", "secure"])
+def test_mesh_protocol_step_on_card_matches_cpu(cuda_device, fed):
+    """``make_federated_train_step`` over a one-card mesh against the same
+    step over one CPU shard: params and loss within 1e-5."""
+    from repro_torch.core.protocol import make_federated_train_step
+    from repro_torch.parallel import fed_mesh
+    cfg = get_config("prodlda-synthetic").reduced()
+    bow = torch.from_numpy(np.random.default_rng(0).poisson(
+        0.5, (32, cfg.vocab_size)).astype(np.float32))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        init = prodlda.init_params(prng.PRNGKey(0, device=dev), cfg)
+        step = make_federated_train_step(
+            lambda p, b: prodlda.elbo_loss_sum(p, cfg, b, train=False),
+            sgd(1e-2), fed_mesh(1, dev), fed=FederatedConfig(**fed))
+        p, _, loss = step(init, {}, {"bow": bow.to(dev)}, 3, prng.PRNGKey(1))
+        out[dev.type] = ({k: v.cpu() for k, v in p.items()}, float(loss))
+    assert max_param_dev(out["cuda"][0], out["cpu"][0]) <= 1e-5
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])

@@ -1,4 +1,6 @@
 """Port data layer against the JAX package: corpora, split, draws."""
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +22,10 @@ from repro_torch.data.federated_split import (PARTITIONERS,
                                               round_minibatches,
                                               split_corpus_across_clients)
 from repro_torch.data.synthetic_lda import generate_lda_corpus as tgen
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 _SIZE = dict(vocab_size=80, num_topics=6, num_nodes=3, shared_topics=2,
              docs_per_node=20, val_docs_per_node=5)

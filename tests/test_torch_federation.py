@@ -10,6 +10,8 @@ order, and every round's parameters must agree within 1e-5.  The secure
 masks differ in value (threefry against CPU generators) but cancel
 exactly in both, so secure runs agree too.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -26,6 +28,10 @@ from repro_torch.api import (Federation, FederationSpec, max_param_dev,
 from repro_torch.core import prng
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.data.federated_split import stacked_round_batches
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 ROUNDS = 3

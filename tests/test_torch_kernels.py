@@ -8,6 +8,7 @@ versions on a card, and ``chip_smoke.py`` at the service's shapes.
 """
 import functools
 import hashlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,10 @@ from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 # the reference's grids (tests/test_kernels.py)
 COMBINE_CASES = [

@@ -11,6 +11,7 @@ card holds the kernels against those (``tests/test_torch_cuda.py``,
 """
 import argparse
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,10 @@ from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import hymba as thymba
 from repro_torch.models.layers import mamba2 as tmamba
 from repro_torch.models.layers.rope import rope_angles as trope_angles
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 ARCHS = ["hymba-1.5b", "mamba2-1.3b", "phi3-mini-3.8b"]
 # longer than the reduced window (64) and than one reduced SSD chunk (64)

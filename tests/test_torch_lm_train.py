@@ -12,6 +12,8 @@ sgd and adam (2e-4), and the launcher.  The reference's init trees are
 carried into the port with ``params_from_reference``.  Run with ``-s``
 to print every measured deviation.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,10 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as ttfm
 from repro_torch.optim import optimizers as toptim
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 ARCHS = ["hymba-1.5b", "mamba2-1.3b", "phi3-mini-3.8b"]
 

@@ -12,6 +12,7 @@ superseded, in flight) are equal.  The straggler delays are numpy draws,
 the reference's bit for bit.
 """
 import json
+import os
 
 import jax
 import numpy as np
@@ -28,6 +29,10 @@ from repro_torch.api import (Federation, FederationSpec, max_param_dev,
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.kernels import ops
 from repro_torch.launch import simulate
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 INTS = ("round", "participants", "arrived", "superseded", "in_flight")
@@ -199,7 +204,9 @@ def test_straggler_registry_entries_round_trip(name):
 
 def test_simulate_cli_matches_reference_keys(tmp_path, capsys):
     """``python -m repro_torch.launch.simulate --device cpu`` runs the
-    paper regime, and its JSON has the reference launcher's keys."""
+    paper regime, and its JSON has the reference launcher's keys;
+    ``--mesh data=2`` runs the batched path over two CPU shards as the
+    reference's unsharded ``--exec-mode vmap`` run."""
     flags = ["--rounds", "2", "--vocab", "64", "--topics", "4",
              "--hidden", "16", "--num-clients", "3", "--docs-per-node",
              "40", "--val-docs", "8", "--lr", "2e-4"]
@@ -221,8 +228,20 @@ def test_simulate_cli_matches_reference_keys(tmp_path, capsys):
         jscenario("straggler").to_dict()
     with pytest.raises(ValueError, match="silently ignored"):
         simulate.main(["--scenario", "paper", "--rounds", "3"])
-    with pytest.raises(NotImplementedError, match="A17"):
-        simulate.main(flags + ["--mesh", "data=2", "--device", "cpu"])
+    # --mesh runs: the batched cohort path over two CPU shards (K = L =
+    # 4), held to the reference's unsharded --exec-mode vmap JSON: the
+    # spec aside from the mesh, the history's integers, the losses
+    vmap4 = flags + ["--exec-mode", "vmap", "--num-clients", "4"]
+    meshed = simulate.main(vmap4 + ["--mesh", "data=2", "--device", "cpu"])
+    jvmap = jsimulate.main(vmap4)
+    assert meshed["spec"]["execution"].pop("mesh") == {"data": 2}
+    assert jvmap["spec"]["execution"].pop("mesh") is None
+    assert meshed["spec"] == jvmap["spec"]
+    assert meshed["config"]["exec_mode"] == "vmap"
+    assert [{k: h[k] for k in INTS} for h in meshed["history"]] == \
+        [{k: h[k] for k in INTS} for h in jvmap["history"]]
+    for a, b in zip(meshed["history"], jvmap["history"]):
+        assert abs(a["loss"] - b["loss"]) <= TOL * abs(b["loss"])
     topk = ["--transforms", "topk", "--topk", "0.25", "--partition",
             "dirichlet(0.3)"]
     got = simulate.main(flags + topk + ["--device", "cpu"])

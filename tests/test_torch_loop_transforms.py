@@ -13,6 +13,8 @@ within 1e-5 and the round records' integers are equal.  Both packages
 draw the secure masks (bitwise) and the dp noise from the reference's
 threefry keys, so the reference's own ``dp`` entry runs here.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -35,6 +37,10 @@ from repro_torch.core.ntm import prodlda
 from repro_torch.core.ntm.prodlda import params_from_reference
 from repro_torch.kernels import ops
 from repro_torch.serve import FederationService, run_traffic
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 ROUNDS = 6
@@ -279,23 +285,27 @@ def test_service_transforms_track_reference(monkeypatch, which):
 
 
 def test_bench_scenarios_run_under_the_default_loop_base():
-    """The reference's scenario sweep without its mesh-* cells (A17):
-    every cell's spec is the reference's dict and runs two rounds on the
-    port, the transform and partition cells on the host loop."""
+    """The reference's scenario sweep, all 19 cells: every cell's spec is
+    the reference's dict and runs two rounds on the port, the transform
+    and partition cells on the host loop under the default base, the
+    ``mesh-*`` cells on the batched path over a one-shard mesh under the
+    vmap base (L = 3 clients: ``_mesh_overrides`` resolves data to 1)."""
     from repro.api.registry import BENCH_SCENARIOS as JBENCH
     from repro_torch.api.registry import BENCH_SCENARIOS
-    assert BENCH_SCENARIOS == tuple(n for n in JBENCH
-                                    if not n.startswith("mesh-"))
+    assert BENCH_SCENARIOS == tuple(JBENCH)
     jbase = JSpec.from_dict(_SMALL)
-    base = FederationSpec.from_dict(jbase.to_dict())
+    jvbase = jspec_replace(jbase, {"execution.exec_mode": "vmap"})
     for name in BENCH_SCENARIOS:
-        spec = scenario_spec(name, base)
-        assert spec.to_dict() == jscenario(name, jbase).to_dict()
+        jb = jvbase if name.startswith("mesh-") else jbase
+        spec = scenario_spec(name, FederationSpec.from_dict(jb.to_dict()))
+        assert spec.to_dict() == jscenario(name, jb).to_dict()
         fed = Federation.from_spec(spec, device="cpu")
         fed.run(rounds=2)
         assert fed.round_index == 2 and np.isfinite(fed.history[0]["loss"])
-        want = "vmap" if name.startswith("pallas-") else "loop"
+        want = "vmap" if name.startswith(("pallas-", "mesh-")) else "loop"
         assert fed.engine.exec_mode == want, name
+        assert fed.mesh_shape == ({"data": 1} if name.startswith("mesh-")
+                                  else None), name
 
 
 def test_federate_serve_cli_takes_transform_flags(tmp_path):

@@ -5,14 +5,21 @@ Twins of ``tests/test_metrics.py:65-109`` on the port's functions, and
 the port's numbers against the reference's on the same seeded inputs
 within 1e-9 (both are the same float64 numpy).
 """
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from repro.metrics import amwmd as jamwmd
 from repro.metrics import topic_diversity as jdiversity
 from repro.metrics import wmd as jwmd
 from repro_torch.metrics import (amwmd, npmi_coherence, topic_descriptions,
                                  topic_diversity, wmd)
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 
 @pytest.fixture

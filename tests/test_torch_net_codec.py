@@ -11,11 +11,13 @@ reference's bits on the edge cases: ties, signed zeros, infinities,
 NaNs with payloads, subnormals and the largest finite values.
 """
 import json
+import os
 import struct
 
 import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 import repro.net.codec as jcodec
 from repro_torch.net import (WIRE_VERSION, WireError, WireFormatError,
@@ -23,6 +25,10 @@ from repro_torch.net import (WIRE_VERSION, WireError, WireFormatError,
                              encode_message)
 from repro_torch.net import codec
 from repro_torch.net.codec import MAGIC, delta_nbytes
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 _BF16 = np.dtype(ml_dtypes.bfloat16)
 _PREFIX = struct.Struct(">4sBI")

@@ -22,7 +22,11 @@ sizes (V=64, K=4, hidden 16, 3 clients).  Pins, each within the repo's
   service; an LM service generates over the wire what it generates in
   process; the load driver runs on the CPU.
 """
+import asyncio
 import json
+import os
+import time
+import types
 
 import jax
 import numpy as np
@@ -45,6 +49,10 @@ from repro_torch.net import BackgroundServer, HttpClient, ServiceClient
 from repro_torch.net.codec import decode_message, encode_message
 from repro_torch.serve import (REJECT_REASONS, FederationService,
                                run_traffic, sync_twin_spec)
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 _BINARY = "application/x-repro-wire"
@@ -509,3 +517,24 @@ def test_load_driver_without_device_needs_a_card():
         pytest.skip("a CUDA device is visible: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         federate_load.main(["--procs", "1", "--anchor-sweeps", "0"])
+
+
+@pytest.mark.parametrize("exc", [KeyboardInterrupt, asyncio.CancelledError])
+def test_background_server_surfaces_base_exceptions_at_once(monkeypatch,
+                                                            exc):
+    """A ``BaseException`` raised while the server binds (an interrupt, a
+    cancelled start) comes out of ``BackgroundServer.start()`` at once,
+    as the reference's does, not after the 60 s wait for the server."""
+    from repro_torch.net import server as tserver
+
+    async def interrupted(self):
+        raise exc("bind interrupted")
+    monkeypatch.setattr(tserver.NetServer, "start", interrupted)
+    bg = BackgroundServer(types.SimpleNamespace(
+        spec=types.SimpleNamespace(serving=None)))
+    t0 = time.perf_counter()
+    with pytest.raises(exc, match="bind interrupted"):
+        bg.start()
+    assert time.perf_counter() - t0 < 2.0
+    bg._thread.join(5)
+    assert not bg._thread.is_alive()

@@ -8,6 +8,8 @@ normals and truncated normals may differ by the rounding of ``log1p`` in
 the float32 ``erfinv`` (measured: at most 3 ulps on 2e6 draws, the
 bound here is 4).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,10 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 SEEDS = [0, 1, 7, 42, 1234, 99991, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 + 3,
          -1, -77]

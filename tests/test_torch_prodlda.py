@@ -7,6 +7,8 @@ sides: no dropout, the posterior mean), and every output, loss and
 gradient must agree within 1e-5.  The train mode and the other input
 modes are held against the reference in ``tests/test_torch_ctm.py``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,10 @@ from repro.core.ntm import prodlda as jp
 from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.core import prng
 from repro_torch.core.ntm import prodlda as tp
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 
 def _cfgs(learn_priors=True):

@@ -11,6 +11,8 @@ the whole client corpus (``batch_size >= num_docs``).  The two then
 differ in fp32 summation order alone, and trajectories must agree
 within 1e-5 every round.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -35,6 +37,11 @@ from repro_torch.core.rounds import RoundEngine
 from repro_torch.data.synthetic_lda import generate_lda_corpus
 from repro_torch.metrics import dss, tss_baseline
 from repro_torch.optim import optimizers as opt
+from repro_torch.parallel import fed_mesh
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 V, K, H = 64, 4, 16
@@ -419,7 +426,8 @@ def test_federated_trainer_loop_equals_vmap(setup, optimizer):
 def test_federated_trainer_transforms_by_exec_mode(setup):
     """dp/topk/secure/precision knobs become grad transforms, in the
     reference's order, under both exec modes, and the two agree within
-    1e-5 (topk error memory included); the mesh step is A17."""
+    1e-5 (topk error memory included); the mesh protocol step equals
+    Eq. (2) over the clients' gradients."""
     fed = FederatedConfig(num_clients=3, learning_rate=2e-3,
                           compression_topk=0.25, secure_aggregation=True)
     trs = [protocol.FederatedTrainer(
@@ -436,8 +444,18 @@ def test_federated_trainer_transforms_by_exec_mode(setup):
     assert max_param_dev(trs[0].params, trs[1].params) <= TOL
     assert float(torch.max(torch.abs(trs[0]._tstate["topk"]
                                      - trs[1]._tstate["topk"]))) <= TOL
-    with pytest.raises(NotImplementedError, match="A17"):
-        protocol.make_federated_train_step(None, opt.sgd(1e-2), None)
+    # the mesh protocol step runs: one CPU shard a client, Eq. (2) over
+    # the shards, one SGD step from the init
+    step = protocol.make_federated_train_step(
+        lambda p, b: prodlda.elbo_loss_sum(p, setup["cfg"], b, train=False),
+        opt.sgd(1e-2), fed_mesh(3, "cpu"))
+    new, _, _ = step(setup["init"], {}, {"bow": torch.cat(
+        [c.data["bow"] for c in setup["clients"]])}, 0, prng.PRNGKey(1))
+    grads = [torch.func.grad(setup["loss"])(setup["init"], c.data)
+             for c in setup["clients"]]
+    gbar = aggregate_host(grads, [c.num_docs for c in setup["clients"]])
+    assert max_param_dev(new, {k: v - 1e-2 * gbar[k] for k, v in
+                               setup["init"].items()}) <= TOL
     with pytest.raises(ValueError, match="explicit server stage"):
         protocol.FederationEngine(setup["loss"], setup["init"],
                                   setup["clients"], FederatedConfig(),

@@ -17,6 +17,8 @@ builds its weights and runs its rounds from the seed alone, with no
 * ``repro_torch.launch.simulate --device cpu`` reproduces
   ``repro.launch.simulate``'s history and evaluation.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,10 @@ from repro_torch.core.ntm import prodlda as tp
 from repro_torch.launch import simulate
 from repro_torch.models import transformer as ttfm
 from repro_torch.serve import FederationService
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 TOL = 1e-5
 ULPS = 4

@@ -8,6 +8,8 @@ docs_per_node`` makes every draw the whole client corpus, so the two
 differ only in fp32 summation order, and every trajectory must agree
 within 1e-5.
 """
+import ast
+import glob
 import json
 import os
 import pickle
@@ -33,6 +35,10 @@ from repro_torch.launch import federate_serve
 from repro_torch.metrics import npmi_coherence, tss
 from repro_torch.serve import (REJECT_REASONS, FederationService,
                                UploadTimeout, run_traffic)
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -361,7 +367,10 @@ def test_registry_specs_round_trip_to_the_reference_dict(name):
     pytest.param({"execution.exec_mode": "vmap", "schedule.mode": "sync",
                   "schedule.straggler_prob": 0.3,
                   "schedule.max_staleness": 2}, None, id="overrides1-A10"),
-    ({"execution.mesh": {"data": 2}}, "A17"),
+    # the mesh runs on the batched path since the eleventh slice; the
+    # service refuses it as the reference's does
+    pytest.param({"execution.mesh": {"data": 2}}, "drop the mesh",
+                 id="overrides2-A17"),
     # an LM arch whose layers the port lacks (LM federation runs since
     # the seventh slice; the rest of the zoo is A16b)
     ({"model.family": "lm", "model.arch": "granite-34b",
@@ -379,7 +388,8 @@ def test_sections_outside_the_slice_raise(overrides, item):
     """The sections of later slices raise naming their ROADMAP item;
     upload transforms and non-``topic`` partitions now run (item None):
     the service builds and accepts an upload; a sync spec with
-    stragglers runs on the batched path (the straggler ring)."""
+    stragglers runs on the batched path (the straggler ring).  A mesh on
+    the service is refused with the reference's ``ValueError``."""
     if item is None and overrides.get("schedule.mode") == "sync":
         fed = Federation.from_spec(spec_replace(_specs()[1], overrides),
                                    device="cpu")
@@ -392,7 +402,8 @@ def test_sections_outside_the_slice_raise(overrides, item):
             spec_replace(_specs()[1], overrides), device="cpu")
         assert svc.upload(0)["accepted"] and svc.buffer.count == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
+    exc = ValueError if item == "drop the mesh" else NotImplementedError
+    with pytest.raises(exc, match=item):
         spec_replace(_specs()[1], overrides)
 
 
@@ -493,11 +504,25 @@ def test_port_imports_neither_jax_nor_the_reference():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert {'repro_torch.net.codec', 'repro_torch.net.server', "
-        "'repro_torch.net.client', 'repro_torch.launch.federate_load'} "
-        "<= set(sys.modules)\n"
+        "'repro_torch.net.client', 'repro_torch.launch.federate_load', "
+        "'repro_torch.parallel.sharding'} <= set(sys.modules)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+    # chip_smoke.py and the examples' twins import neither, by their source
+    root = os.path.dirname(SRC)
+    paths = [os.path.join(root, "chip_smoke.py")] + sorted(glob.glob(
+        os.path.join(root, "examples", "torch_*.py")))
+    assert len(paths) >= 5
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names} | {
+            n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.module}
+        bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "repro"))
+        assert not bad, (path, bad)

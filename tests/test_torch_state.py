@@ -41,6 +41,10 @@ from repro_torch.kernels import ops
 from repro_torch.launch import federate_serve
 from repro_torch.serve import FederationService
 
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
+
 TOL = 1e-5
 ROUNDS = 8
 INTS = ("round", "participants", "arrived", "superseded", "in_flight")
@@ -95,9 +99,9 @@ def ring_runs():
         for _ in range(ROUNDS):
             seen = []
 
-            def counted(x, c, _seen=seen):
+            def counted(x, c, _seen=seen, **kw):
                 _seen.append(tuple(x.shape))
-                return real(x, c)
+                return real(x, c, **kw)
             ops.fed_weighted_sum = counted
             try:
                 b = tf.step()
@@ -457,13 +461,18 @@ def test_spec_files_round_trip_and_run(path):
 
 def test_example_twins_run_on_the_cpu():
     """``examples/torch_quickstart.py`` (Algorithm 1, DSS/TSS, federated
-    == centralized) and ``examples/torch_resume_demo.py`` (bitwise
-    resume of a straggler + top-k run on the batched path)."""
+    == centralized), ``examples/torch_resume_demo.py`` (bitwise resume of
+    a straggler + top-k run on the batched path) and, at a reduced size,
+    ``examples/torch_privacy_features.py`` (the four clients' pairwise
+    masks cancel; every variant trains to a finite loss; secure
+    aggregation lands on the baseline's losses)."""
     import importlib.util
     here = os.path.join(os.path.dirname(__file__), "..", "examples")
     out = {}
     for name, argv in (("torch_quickstart", ["--rounds", "20"]),
-                       ("torch_resume_demo", [])):
+                       ("torch_resume_demo", []),
+                       ("torch_privacy_features", ["--rounds", "2",
+                                                   "--docs", "40"])):
         spec = importlib.util.spec_from_file_location(
             name, os.path.join(here, f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
@@ -472,3 +481,9 @@ def test_example_twins_run_on_the_cpu():
     assert out["torch_quickstart"]["fed_vs_central"] <= TOL
     assert out["torch_resume_demo"]["resume_dev"] == 0.0
     assert any(out["torch_resume_demo"]["in_flight"])
+    priv = out["torch_privacy_features"]
+    assert priv["mask_sum"] <= 1e-4 < priv["mask_magnitude"]
+    assert len(priv["loss"]) == 5
+    base = priv["loss"]["baseline SyncOpt (paper)"]
+    sec = priv["loss"]["secure aggregation"]
+    assert abs(sec[1] - base[1]) <= TOL * abs(base[1])

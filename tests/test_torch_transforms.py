@@ -6,6 +6,8 @@ stays within 1e-6 of the reference's transform; the secure masks are
 bitwise the reference's and cancel to exactly +0.0 at every K up to
 1024; the secure refusals raise the reference's errors.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,10 @@ from repro_torch.core import aggregation as tagg
 from repro_torch.core import transforms as ttr
 from repro_torch.core.engine import ClientState, FederationEngine
 from repro_torch.kernels import ops
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
+                                                "1"))))
 
 SHAPES = {"a": (4, 3), "b": (5,), "c": (2, 2, 2)}   # jax's (sorted) order
 
