@@ -12,8 +12,12 @@ Phases, each fatal on failure (no phase catches and carries on):
 3. kernels: each kernel against its plain PyTorch version on the card,
    over a shape grid (B3 and B4 bitwise; B5 and B6 at the hymba-1.5b
    prefill's shapes in bf16 and fp32, B5's bf16 route at every head
-   dim, B6's bf16 route also at mamba2-1.3b's width), and timed at the shapes its path gives it beside its plain
-   version, a library call (or, for B4, a yardstick) where one exists
+   dim, B6's bf16 route also at mamba2-1.3b's width; B5 also at the
+   dense zoo's head-dim pairs (80, 80), (96, 64), (80, 64) in both
+   dtypes, timed in bf16 at the minicpm3-4b, hubert-xlarge, qwen2-vl-7b
+   and granite-34b prefill shapes beside the library call), and timed
+   at the shapes its path gives it beside its plain version, a library
+   call (or, for B4, a yardstick) where one exists
    (B3 and its library call also with the L2 evicted before each call;
    B4 also over its chunk edges and edge rows, with the device time of
    each of its device operations),
@@ -24,7 +28,9 @@ Phases, each fatal on failure (no phase catches and carries on):
    backward passes over a grid (B5: causal, windowed and full masks, GQA,
    ragged S, D = 32, 64, 96, 128, fp32 and bf16, bf16 on the tensor
    cores; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
-   on h_last, fp32 and bf16, bf16 on the tensor cores)
+   on h_last, fp32 and bf16, bf16 on the tensor cores, and its ragged
+   bf16 case on the saved draw where ``da`` once left its bound, beside a
+   float64 plain backward, and over 40 draws of its own)
    and timed at the LM training path's shapes (B5's beside the backward
    of ``F.scaled_dot_product_attention``), each fp32 route at its grid
    case; then B5, B6 and their backward kernels on their fp32 routes,
@@ -128,6 +134,17 @@ Phases, each fatal on failure (no phase catches and carries on):
    run and read just after; each kernel must have launched once per
    aggregation / round / held-out batch / layer, and params, the
    held-out ELBO and the logits must be finite;
+   LM zoo (``phase_lm_zoo``): ``repro_torch.launch.serve`` at full width
+   (bf16 over the reference's init from seed 0, drawn on the card; 4 x
+   2048-token prompts, 32 greedy tokens, after a warm-up call) for
+   minicpm3-4b (MLA) and qwen2-vl-7b whole, then minicpm3-4b with the
+   absorbed decode (its tokens against the expanded decode's, or its
+   teacher-forced logits within a stated bound) and qwen2-vl-7b's
+   prefill of a VLM batch; hubert-xlarge's whole 48-layer encoder over 4
+   x 2048 frames; granite-34b at 8 of its 88 layers and qwen1.5-110b at
+   2 of 80 (full width, cut in depth for one card); B5 once per layer of
+   each prefill or forward, nothing else, never in decode; the five
+   reduced configs card against CPU in fp32 within 2e-4;
 10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
@@ -262,9 +279,12 @@ def per_call_ops(events, calls: int) -> dict:
 
 def launches_per_call(fn) -> int:
     """Device operations (kernels, copies, fills) one call of ``fn``
-    launches, from a trace of 3 calls (:func:`per_call_ops`)."""
-    return sum(k for k, _ in per_call_ops(
-        _trace(lambda: [fn(), fn(), fn()]), 3).values())
+    launches: the larger count of two traces of 3 calls
+    (:func:`per_call_ops`), since a trace may lose events but never gains
+    one (a count from one partial trace once left every later trace of
+    the plain B4 at the federated LM shape 4 events over it)."""
+    return max(sum(k for k, _ in per_call_ops(
+        _trace(lambda: [fn(), fn(), fn()]), 3).values()) for _ in range(2))
 
 
 def traced_ops(fn, calls: int, exclude=()) -> dict:
@@ -353,9 +373,11 @@ def phase_build():
                 f"static smem, spill stores/loads {spill[0]}/{spill[1]} "
                 f"bytes")
     smem = _build.load("flash_attention").flash_attention_tc_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     log("  flash_fwd_tc_kernel dynamic shared memory a block: " + ", ".join(
-        f"D={d} {smem(d)} bytes" for d in (32, 64, 96, 128)))
+        f"(Dqk, Dv)=({dq}, {dv}) {smem(dq, dv)} bytes" for dq, dv in
+        ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128), (96, 64),
+         (80, 64))))
     log("  ssd_scan bf16 route dynamic shared memory a block (the larger of "
         "its kernels): " + ", ".join(
             f"P={p} N={n} chunk {q} {b} bytes" for (p, n, q), b in
@@ -539,6 +561,9 @@ def phase_kernels():
                _kernel_b5(g, dev), _kernel_b6(g, dev),
                _kernel_b5_bwd(g, dev), _kernel_b6_bwd(g, dev)]
     _kernel_fed_lm(g, dev, records)
+    # a stream of its own, so that the checks above draw their inputs as
+    # they did before these cases were added
+    _kernel_b5_zoo(torch.Generator().manual_seed(27), dev, records[4])
     return records
 
 
@@ -939,6 +964,98 @@ def _kernel_b5(g, dev):
     return rec
 
 
+# B5 at the dense zoo's head dims: (b, hq, hkv, s, dqk, dv, causal, window)
+# in both dtypes; hubert's 80 (full mask), MLA's (96, 64) and reduced
+# (80, 64), GQA 7:1 (qwen2-vl's 28/4) and MQA 48:1 (granite's 48/1)
+B5_ZOO_CASES = [
+    (2, 4, 4, 300, 80, 80, False, 0), (1, 7, 1, 257, 80, 80, True, 0),
+    (1, 4, 2, 200, 80, 80, True, 64),
+    (2, 8, 8, 257, 96, 64, True, 0), (1, 48, 1, 130, 96, 64, True, 40),
+    (1, 4, 4, 193, 96, 64, False, 0),
+    (2, 4, 4, 100, 80, 64, True, 0), (1, 7, 1, 200, 80, 64, False, 24),
+    (1, 28, 4, 160, 128, 128, True, 0), (1, 48, 1, 160, 128, 128, True, 0),
+]
+# the zoo's bf16 prefill shapes, timed: (label, b, hq, hkv, s, dqk, dv,
+# causal); launches a prefill (one per layer) beside each
+B5_ZOO_TIMED = [
+    ("minicpm3-4b", LM_BATCH, 40, 40, LM_PROMPT, 96, 64, True, 62),
+    ("hubert-xlarge", LM_BATCH, 16, 16, LM_PROMPT, 80, 80, False, 48),
+    ("qwen2-vl-7b", LM_BATCH, 28, 4, LM_PROMPT, 128, 128, True, 28),
+    ("granite-34b", LM_BATCH, 48, 1, LM_PROMPT, 128, 128, True, 88),
+]
+
+
+def _kernel_b5_zoo(g, dev, rec):
+    """B5 at head dim 80 and with a value head dim of its own: against the
+    plain version over :data:`B5_ZOO_CASES` (k and v the column slices of
+    one projection, v the strided view MLA gives), then the bf16 route
+    timed at the zoo's prefill shapes beside the plain version and
+    ``F.scaled_dot_product_attention`` (which takes Dv != Dqk), with
+    each shape's bound; into ``rec["zoo"]``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    errs = {}
+    for b, hq, hkv, s, dqk, dv, causal, window in B5_ZOO_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, s, hq, dqk, generator=g).to(dev, dtype)
+            kv = torch.randn(b, s, hkv, dqk + dv, generator=g).to(dev, dtype)
+            k, v = kv[..., :dqk], kv[..., dqk:]
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       scale=dqk ** -0.5).float()
+            want = ref.flash_attention_fwd_ref(
+                q, k, v, causal=causal, window=window)[0].float()
+            torch.cuda.synchronize()
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            e = float((got - want).abs().max())
+            if got.shape != (b, s, hq, dv) or not bool(
+                    ((got - want).abs() <= tol + tol * want.abs()).all()):
+                raise AssertionError(
+                    f"B5 {(b, hq, hkv, s, dqk, dv, causal, window)} {dtype}: "
+                    f"{tuple(got.shape)}, |kernel - plain| {e} beyond {tol} "
+                    f"+ {tol}|plain|")
+            key = str(dtype).replace("torch.", "")
+            errs[key] = max(errs.get(key, 0.0), e)
+            del q, kv, k, v, got, want
+    log(f"B5 flash_attention at the zoo's head dims: {len(B5_ZOO_CASES)} "
+        f"shapes x fp32, bf16 ((Dqk, Dv) = (80, 80), (96, 64), (80, 64), "
+        f"(128, 128); causal, window, full; GQA 7:1, MQA 48:1; v the "
+        f"strided view of a fused projection): max |kernel - plain| {errs} "
+        f"(bounds 2e-5 fp32, 2e-2 bf16, abs + rel)")
+    rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
+    for key, e in errs.items():
+        rec["max_abs_err_by_dtype"][key] = max(
+            rec["max_abs_err_by_dtype"].get(key, 0.0), e)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec["zoo"] = {}
+    for label, b, hq, hkv, s, dqk, dv, causal, per_prefill in B5_ZOO_TIMED:
+        q = torch.randn(b, s, hq, dqk, generator=g).to(dev, torch.bfloat16)
+        kv = torch.randn(b, s, hkv, dqk + dv, generator=g).to(dev,
+                                                             torch.bfloat16)
+        k, v = kv[..., :dqk], kv[..., dqk:]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = b * hq * _window_pairs(s, causal, 0)
+        r = {"name": f"flash_attention ({label} prefill, ({dqk}, {dv}))",
+             "shape": [b, s, hq, hkv, dqk, dv], "causal": causal,
+             "launches_per_prefill": per_prefill}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2 * b * s * (hq * dqk + hkv * dqk + hkv * dv + hq * dv),
+            2 * (dqk + dv) * pairs, H100_BF16_FLOPS)
+        _time_record(r,
+                     lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                  window=0,
+                                                  scale=dqk ** -0.5),
+                     lambda: ref.flash_attention_ref(
+                         q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal, window=0),
+                     lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                  enable_gqa=hkv != hq))
+        rec["zoo"][label] = {x: r[x] for x in (
+            "shape", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "launches_per_prefill")}
+        del q, kv, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
 def _ssd_inputs(g, dev, b, s, h, p, n, dtype):
     """x, B, C as column slices of one conv output (strided, as the
     model path gives them), dt and a as mamba2_apply makes them."""
@@ -1180,6 +1297,38 @@ def _kernel_b6_bwd(g, dev):
         f"mamba2-1.3b's width; a cotangent on h_last but at the path's "
         f"shape): max |kernel - plain| {errs}, of max|plain| {worst:.3e} "
         f"(bounds 1e-4 fp32, 2e-2 bf16, of each gradient's max|plain|)")
+    # the ragged bf16 case on the saved draw where ``da`` (one sum a head
+    # over terms that cancel) read 0.106 of max|plain| before its state
+    # values became hi + lo pairs, and over 40 draws of its own (seeds
+    # 0-39)
+    saved = _b6_bwd_saved_draw(dev)
+    if not max(saved["kernel_vs_plain"]) <= 2e-2:
+        raise AssertionError(f"B6 backward on the saved draw: (dx, ddt, da, "
+                             f"db, dc) {saved['kernel_vs_plain']}; bound "
+                             f"2e-2")
+    da = []
+    for seed in range(40):
+        gs = torch.Generator().manual_seed(seed)
+        x, dt, a, bb, cc = _ssd_inputs(gs, dev, 1, 100, 2, 32, 16, BF16)
+        dy = torch.randn(1, 100, 2, 32, generator=gs).to(dev, BF16)
+        dh = torch.randn(1, 2, 32, 16, generator=gs).to(dev)
+        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=48, keep_states=True)
+        rel = [_rel_err(u, w) for u, w in zip(
+            ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=48),
+            ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, 48))]
+        if not max(rel) <= 2e-2:
+            raise AssertionError(f"B6 backward (1, 100, 2, 32, 16, 48) bf16 "
+                                 f"draw {seed}: (dx, ddt, da, db, dc) "
+                                 f"{rel}; bound 2e-2")
+        da.append(rel[2])
+    da.sort()
+    log(f"  B6 backward (1, 100, 2, 32, 16, 48) bf16 over 40 draws: da of "
+        f"max|plain| min {da[0]:.3e}, median {da[20]:.3e}, max {da[-1]:.3e} "
+        f"(bound 2e-2)")
+    rec_saved = {"da_of_max_plain": saved["kernel_vs_plain"][2],
+                 "da_of_max_fp64": saved["kernel_vs_fp64"][2],
+                 "plain_da_of_max_fp64": saved["plain_vs_fp64"][2],
+                 "draws_40_da_max": da[-1]}
     b, s, h, p, n, chunk, dtype = B6_BWD_CASES[0]
     x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
     dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
@@ -1204,7 +1353,7 @@ def _kernel_b6_bwd(g, dev):
                                     "fp32_hymba": (p, n, chunk, 0)},
                                    backward=True),
            "library": "none: no single PyTorch call computes the SSD scan's "
-                      "gradient"}
+                      "gradient", "saved_draw": rec_saved}
     # x, B, C, dy (bf16), dt, a and the kept states (fp32) read once; dx,
     # dB, dC (bf16), ddt, da (fp32) written once; per (batch, head, chunk)
     # the pairs j <= i take G, D and the dx, dB, dC updates (6N + 4P
@@ -1247,6 +1396,47 @@ def _kernel_b6_bwd(g, dev):
         f"{rec['fp32_ms'] * 1e3:.2f} us/call")
     del x, dt, a, bb, cc, dy, st
     return rec
+
+
+# B6-bwd's grid case (1, 100, 2, 32, 16, 48) in bf16 on the one draw known
+# to have put its ``da`` at 0.106 of max|plain|, replayed and saved by
+# tools/replay_b6_bwd_draw.py
+B6_BWD_DRAW = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "ssd_scan_bwd_da_draw.pt")
+
+
+def _b6_bwd_saved_draw(dev) -> dict:
+    """B6-bwd on the saved draw against the fp32 plain backward and a
+    float64 plain backward of the same bf16 inputs: per gradient (dx,
+    ddt, da, db, dc) the max |difference| of kernel and plain, kernel and
+    float64, plain and float64, each over the latter's max |value|; and
+    the two heads' da from all three."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    d = torch.load(B6_BWD_DRAW, weights_only=True)
+    b, s, h, p, n = d["shape"]
+    chunk = d["chunk"]
+    xs, bb, cc = d["conv"].to(dev).split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt, dy, dh = d["dt"].to(dev), d["dy"].to(dev), d["dh"].to(dev)
+    a = -torch.arange(1, h + 1, dtype=torch.float32).to(dev)
+    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
+    got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=chunk)
+    plain = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, chunk)
+    exact = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dt, a, bb, cc,
+                                                        dy, dh)), chunk)
+
+    def rel(u, w):
+        return float((u.double() - w).abs().max()) \
+            / max(float(w.abs().max()), 1e-300)
+    out = {"kernel_vs_plain": [_rel_err(u, w) for u, w in zip(got, plain)],
+           "kernel_vs_fp64": [rel(u, w) for u, w in zip(got, exact)],
+           "plain_vs_fp64": [rel(u, w) for u, w in zip(plain, exact)],
+           "da": {"kernel": got[2].tolist(), "plain": plain[2].tolist(),
+                  "fp64": exact[2].tolist()}}
+    log(f"  B6 backward on the saved draw {(b, s, h, p, n, chunk)} bf16: "
+        f"(dx, ddt, da, db, dc) of max|.|: {json.dumps(out)}")
+    return out
 
 
 # federated LM training at hymba-1.5b's full width (2 of its 32 layers):
@@ -3175,14 +3365,6 @@ def phase_agreement():
             raise AssertionError(f"{name}: card and CPU training disagree")
 
 
-def _tree_to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_to(v, dev) for v in tree]
-    return tree.to(dev)
-
-
 def phase_lm_serve(records):
     """hymba-1.5b at full width through ``repro_torch.launch.serve``:
     batch 4 x 2048-token prompts (past the window of 1024, so the ring
@@ -3676,6 +3858,274 @@ def phase_lm_federation(records):
         r["launches_by_path"]["lm_federation"] = totals[r["name"]]
 
 
+# the dense zoo on one card: served whole where the fp32 masters, their
+# bf16 copy, the cache and the fp32 logits fit in 80 GB, cut in depth
+# (full width) where they do not
+ZOO_WHOLE = ("minicpm3-4b", "qwen2-vl-7b")
+ZOO_DEPTH = {"granite-34b": 8, "qwen1.5-110b": 2}
+# teacher-forced steps of the absorbed-vs-expanded MLA decode check, and
+# its bound on |logits difference| / max |logits| in bf16
+MLA_TF_STEPS, MLA_TF_BOUND = 8, 5e-2
+
+
+def _zoo_serve(records, arch, cfg, cut: str):
+    """``repro_torch.launch.serve`` at full width (bf16 activations over
+    the reference's init from seed 0, drawn on the card), after a warm-up
+    call: prefill time, decode tokens/s, peak memory; B5 once per layer
+    of the prefill and nothing else.  Returns the fp32 masters and the
+    serve's output."""
+    import argparse
+    from repro_torch.core import prng
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as tfm
+    log(f"LM zoo: {arch} ({cfg.kind}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}"
+        + (f", MLA kv rank {cfg.mla_kv_lora_rank}, q rank "
+           f"{cfg.mla_q_lora_rank}, rope {cfg.mla_rope_head_dim}"
+           if cfg.use_mla else "")
+        + (f", M-RoPE {cfg.mrope_sections}" if cfg.use_mrope else "")
+        + (", q/k/v biases" if cfg.qkv_bias else "")
+        + f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_params()} "
+        f"parameters), batch {LM_BATCH} x prompt {LM_PROMPT}, {LM_NEW} new "
+        f"tokens; cut: {cut}")
+    t0 = time.perf_counter()
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    args = argparse.Namespace(arch=arch, reduced=False, batch=LM_BATCH,
+                              prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
+                              device="cuda")
+    t0 = time.perf_counter()
+    lm_serve.serve(argparse.Namespace(**{**vars(args), "max_new": 2}),
+                   params=params, cfg=cfg)
+    t_warm = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = lm_serve.serve(args, params=params, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gen = out["generated"]
+    log(f"  init {t_init:.2f} s; warm-up serve (2 new tokens) {t_warm:.2f} "
+        f"s; serve (warm): prefill {out['prefill_s']:.4f} s; decode "
+        f"{LM_NEW - 1} steps in {out['decode_s']:.4f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(counts)}")
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"LM zoo {arch}: kernel launches {counts} != "
+                             f"one B5 per layer of the prefill {want}")
+    if gen.shape != (LM_BATCH, LM_NEW) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"LM zoo {arch}: generated {gen.shape} tokens "
+                             f"in [{gen.min()}, {gen.max()}]")
+    for r in records:
+        r["launches_by_path"]["lm_zoo"] = \
+            r["launches_by_path"].get("lm_zoo", 0) + counts[r["name"]]
+    return params, out
+
+
+def _mla_absorbed_check(params, cfg, gen):
+    """minicpm3-4b with ``mla_absorb``: the serve's greedy tokens beside
+    the expanded decode's, and the logits of MLA_TF_STEPS teacher-forced
+    decode steps (the expanded run's tokens fed to both) within
+    MLA_TF_BOUND of the logits' scale."""
+    import dataclasses
+    import argparse
+    import numpy as np
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as tfm
+    absorbed = dataclasses.replace(cfg, mla_absorb=True)
+    args = argparse.Namespace(arch=cfg.name, reduced=False, batch=LM_BATCH,
+                              prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
+                              device="cuda")
+    zero_counts()
+    out = lm_serve.serve(args, params=params, cfg=absorbed)
+    if read_counts()["flash_attention"] != cfg.num_layers:
+        raise AssertionError("LM zoo absorbed MLA: B5 launches != layers")
+    same = int((out["generated"] == gen).sum())
+    act = tfm.activation_copy(params, cfg, torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to("cuda")
+    feed = torch.from_numpy(gen).to("cuda", torch.int64)
+    devs = []
+    with torch.no_grad():
+        caches = [tfm.prefill(act, c, {"tokens": prompts},
+                              max_len=LM_PROMPT + MLA_TF_STEPS)[1]
+                  for c in (cfg, absorbed)]
+        for i in range(MLA_TF_STEPS):
+            le, caches[0] = tfm.decode_step(act, cfg, caches[0],
+                                            feed[:, i:i + 1])
+            la, caches[1] = tfm.decode_step(act, absorbed, caches[1],
+                                            feed[:, i:i + 1])
+            devs.append(float((la - le).abs().max())
+                        / float(le.abs().max()))
+    log(f"  mla_absorb=True: prefill {out['prefill_s']:.4f} s, decode "
+        f"{out['tokens_per_s']:.1f} tokens/s; greedy tokens equal to the "
+        f"expanded decode's: {same}/{gen.size}; teacher-forced logits "
+        f"max |absorbed - expanded| / max |expanded| over {MLA_TF_STEPS} "
+        f"steps: " + ", ".join(f"{d:.2e}" for d in devs)
+        + f" (bound {MLA_TF_BOUND})")
+    if same != gen.size and not max(devs) <= MLA_TF_BOUND:
+        raise AssertionError("absorbed MLA decode: tokens differ and the "
+                             "logits break their bound")
+    del act, caches
+
+
+def _zoo_vlm_prefill(params, cfg):
+    """qwen2-vl-7b's prefill with a ``synthetic_lm_batch`` VLM batch (one
+    patch per 16 tokens, merged at its positions, and the M-RoPE
+    streams): B5 once per layer, finite logits, its time."""
+    from repro_torch.data.lm_data import synthetic_lm_batch
+    from repro_torch.models import transformer as tfm
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             synthetic_lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0).items()}
+    act = tfm.activation_copy(params, cfg, torch.bfloat16)
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):      # the first call warms up
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = tfm.prefill(act, cfg, batch,
+                                    max_len=LM_PROMPT + LM_NEW)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    ok = bool(torch.isfinite(logits).all())
+    log(f"  VLM batch prefill ({batch['patch_embeds'].shape[1]} patches a "
+        f"row merged, M-RoPE streams): {walls[1]:.4f} s warm; logits "
+        f"{tuple(logits.shape)} finite {ok}; launches "
+        f"{json.dumps(counts)}")
+    if not ok or counts["flash_attention"] != cfg.num_layers \
+            or sum(counts.values()) != cfg.num_layers:
+        raise AssertionError(f"LM zoo VLM prefill: finite {ok}, launches "
+                             f"{counts}")
+    del act, logits
+
+
+def _zoo_encoder(records, cfg):
+    """hubert-xlarge's encoder forward at full width (bf16 activations)
+    over LM_BATCH x LM_PROMPT stub frames with 8% masked: finite logits,
+    B5 once per layer (bidirectional), its time and peak memory."""
+    from repro_torch.core import prng
+    from repro_torch.data.lm_data import synthetic_lm_batch
+    from repro_torch.models import transformer as tfm
+    log(f"LM zoo: hubert-xlarge ({cfg.kind}, encoder-only, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} GELU, "
+        f"LayerNorm, vocab {cfg.vocab_size}, {cfg.num_params()} "
+        f"parameters), forward over {LM_BATCH} x {LM_PROMPT} frames; cut: "
+        f"none")
+    t0 = time.perf_counter()
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    act = tfm.activation_copy(params, cfg, torch.bfloat16)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             synthetic_lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0).items()}
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = tfm.forward_train(act, cfg, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ok = bool(torch.isfinite(logits).all())
+    log(f"  init {t_init:.2f} s; forward {walls[0]:.4f} s cold, "
+        f"{walls[1]:.4f} s warm; logits {tuple(logits.shape)} finite {ok}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{json.dumps(counts)}")
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers
+    if not ok or counts != want \
+            or logits.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size):
+        raise AssertionError(f"LM zoo hubert: finite {ok}, launches "
+                             f"{counts}, logits {tuple(logits.shape)}")
+    for r in records:
+        r["launches_by_path"]["lm_zoo"] = \
+            r["launches_by_path"].get("lm_zoo", 0) + counts[r["name"]]
+    del params, act, logits
+
+
+def _zoo_agreement():
+    """Each of the five reduced configs in fp32 from the same weights on
+    the card (B5) and on the CPU (its plain version), through
+    ``repro_torch.models.agreement.card_vs_cpu``: prefill over 96 tokens
+    and 4 teacher-forced decode steps (hubert: the forward over 96
+    frames), logits within 2e-4; B5 launches once per layer of the
+    prefill or forward on the card, never in decode, and never on the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.agreement import card_vs_cpu
+    report = {}
+    for arch in ("granite-34b", "qwen1.5-110b", "qwen2-vl-7b",
+                 "minicpm3-4b", "hubert-xlarge"):
+        cfg = get_config(arch).reduced()
+        got = card_vs_cpu(cfg, "cuda")
+        devs, n = got["devs"], got["launches"]
+        report[arch] = max(devs)
+        if n["cpu"] != (0, 0) or n["dev"] != (cfg.num_layers, 0):
+            raise AssertionError(f"LM zoo agreement {arch}: B5 launches "
+                                 f"(prefill, decode) CPU {n['cpu']}, card "
+                                 f"{n['dev']}; want none and "
+                                 f"({cfg.num_layers}, 0)")
+        if not max(devs) <= 2e-4:
+            raise AssertionError(f"LM zoo agreement {arch}: card vs CPU "
+                                 f"{devs} beyond 2e-4")
+    log("agreement LM zoo (reduced, fp32, 2 x 96 + 4 decode steps; hubert "
+        "the forward over 96 frames): card vs CPU logits, max |diff| / "
+        "max(|cpu|, 1): " + ", ".join(f"{a} {d:.3e}"
+                                      for a, d in report.items())
+        + " (bound 2e-4); B5 once per layer of each prefill, 0 in decode")
+
+
+def phase_lm_zoo(records):
+    """The dense half of the LM zoo on the card: minicpm3-4b (MLA, then
+    again with the absorbed decode) and qwen2-vl-7b (M-RoPE, q/k/v
+    biases, then a VLM-batch prefill) served whole through
+    ``repro_torch.launch.serve``; hubert-xlarge's whole encoder forward;
+    granite-34b (MQA) and qwen1.5-110b (q/k/v biases) served at full
+    width, cut in depth for one card's 80 GB; then the five reduced
+    configs card against CPU.  Every run zeroes the launch counts just
+    before and reads them just after."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for arch in ZOO_WHOLE:
+        cfg = get_config(arch)
+        params, out = _zoo_serve(records, arch, cfg, "none (served whole)")
+        if cfg.use_mla:
+            _mla_absorbed_check(params, cfg, out["generated"])
+        if cfg.use_mrope:
+            _zoo_vlm_prefill(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+    _zoo_encoder(records, get_config("hubert-xlarge"))
+    torch.cuda.empty_cache()
+    for arch, depth in ZOO_DEPTH.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        params, _ = _zoo_serve(
+            records, arch, cfg,
+            f"depth {depth} of {full.num_layers} layers (full width; "
+            f"{full.num_params()} parameters whole, beyond one card's 80 GB "
+            f"in fp32 masters)")
+        del params
+        torch.cuda.empty_cache()
+    _zoo_agreement()
+    log(f"LM zoo phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -3687,12 +4137,13 @@ def phase_lm_agreement():
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.agreement import tree_to
     cfg = get_config("hymba-1.5b").reduced()
     cpu = tfm.init_params(prng.PRNGKey(0), cfg)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 100)))
     runs = {}
-    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, "cuda"))):
+    for dev, params in (("cpu", cpu), ("cuda", tree_to(cpu, "cuda"))):
         before = (flash_attention.launches, ssd_scan.launches)
         logits, cache = tfm.prefill(params, cfg,
                                     {"tokens": toks[:, :96].to(dev)},
@@ -3724,7 +4175,7 @@ def phase_lm_agreement():
     from repro_torch.optim.optimizers import tree_leaves
     batch = {"tokens": toks[:, :96], "labels": toks[:, 1:97]}
     grads = {}
-    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, "cuda"))):
+    for dev, params in (("cpu", cpu), ("cuda", tree_to(cpu, "cuda"))):
         leaves = tree_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
@@ -3769,6 +4220,7 @@ def main() -> int:
     phase_wire(records, corpus)
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)
+    phase_lm_zoo(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)
@@ -3784,7 +4236,7 @@ def main() -> int:
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
-             "routes", "fp32_case", "fp32_ms", "fed_lm")
+             "routes", "fp32_case", "fp32_ms", "fed_lm", "zoo", "saved_draw")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

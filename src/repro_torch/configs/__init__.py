@@ -1,27 +1,39 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures whose layers the port has: ``hybrid``
-(hymba-1.5b), ``ssm`` (mamba2-1.3b), dense GQA without MoE, MLA or
-M-RoPE (phi3-mini-3.8b), and the paper's own NTMs (prodlda-synthetic,
-ctm-s2orc).  :data:`ARCH_KIND_OF` keeps the kind of every
-id of the reference's registry, so that a spec check can refuse an
-unknown id or a modality kind with the reference's wording; the ids not
-ported yet raise ``NotImplementedError`` naming ROADMAP.md A16b (the
-rest of the LM zoo).
+Every architecture whose layers the port has: ``hybrid`` (hymba-1.5b),
+``ssm`` (mamba2-1.3b), dense GQA (phi3-mini-3.8b; granite-34b with one kv
+head; qwen1.5-110b with q/k/v biases), dense MLA (minicpm3-4b), the VLM
+backbone with M-RoPE (qwen2-vl-7b), the audio encoder (hubert-xlarge),
+and the paper's own NTMs (prodlda-synthetic, ctm-s2orc).
+:data:`ARCH_KIND_OF` keeps the kind of every id of the reference's
+registry, so that a spec check can refuse an unknown id or a modality
+kind with the reference's wording; the two MoE ids, not ported yet,
+raise ``NotImplementedError`` naming ROADMAP.md A16b (the MoE half of
+the LM zoo).
 """
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_KINDS, AUDIO, DENSE, HYBRID, MOE, NTM, SSM, VLM, FederatedConfig,
     ModelConfig, MoEConfig, RoundConfig, SSMConfig)
 from repro_torch.configs.ctm_s2orc import CONFIG as _ctm
+from repro_torch.configs.granite_34b import CONFIG as _granite
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
+from repro_torch.configs.minicpm3_4b import CONFIG as _minicpm3
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.prodlda_synthetic import CONFIG as _prodlda
+from repro_torch.configs.qwen1_5_110b import CONFIG as _qwen15
+from repro_torch.configs.qwen2_vl_7b import CONFIG as _qwen2vl
 
 ARCHS = {
+    "granite-34b": _granite,
+    "qwen2-vl-7b": _qwen2vl,
+    "hubert-xlarge": _hubert,
     "hymba-1.5b": _hymba,
-    "mamba2-1.3b": _mamba2,
+    "qwen1.5-110b": _qwen15,
     "phi3-mini-3.8b": _phi3,
+    "minicpm3-4b": _minicpm3,
+    "mamba2-1.3b": _mamba2,
     "prodlda-synthetic": _prodlda,
     "ctm-s2orc": _ctm,
 }

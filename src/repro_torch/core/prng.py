@@ -123,6 +123,46 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
+# flat entries one key's elementwise draw hashes at once: the hash keeps
+# about ten int64 temporaries of its input's size alive, ~50 GB for a
+# full-width embedding (152 064 x 8192) at once against ~5 GB a chunk
+_CHUNK = 1 << 26
+
+
+def _elementwise(key: torch.Tensor, shape: Sequence[int], of_bits):
+    """``of_bits(random_bits(key, shape))`` for an elementwise
+    ``of_bits``.  One key hashes the flat iota ``_CHUNK`` entries at a
+    time, written into the output (a draw of one chunk is returned as it
+    is); each entry hashes its own flat index (the partitionable layout),
+    so the values are those of the one-piece draw.  A stack of keys draws
+    through :func:`random_bits`."""
+    if key.dim() != 1:
+        return of_bits(random_bits(key, shape))
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out = None
+    for start in range(0, max(n, 1), _CHUNK):
+        idx = torch.arange(start, min(n, start + _CHUNK), dtype=torch.int64,
+                           device=key.device)
+        b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
+        part = of_bits(b1 ^ b2)
+        if idx.numel() == n:
+            return part.reshape(shape)
+        if out is None:
+            out = torch.empty(n, dtype=part.dtype, device=key.device)
+        out[start:start + idx.numel()] = part
+    return out.reshape(shape)
+
+
+def _uniform_of_bits(bits: torch.Tensor, minval: float,
+                     maxval: float) -> torch.Tensor:
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    u = (bits >> 9).to(torch.float64) * 2.0 ** -23
+    return torch.clamp((u * span + float(lo)).to(torch.float32),
+                       min=float(lo))
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform on ``[minval, maxval)``: the top 23 bits as the
@@ -131,11 +171,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     fma; in float64 the product and the sum are exact (at most 48
     significant bits), so one rounding to float32 gives the fma's
     value."""
-    lo = np.float32(minval)
-    span = float(np.float32(maxval) - lo)
-    u = (random_bits(key, shape) >> 9).to(torch.float64) * 2.0 ** -23
-    return torch.clamp((u * span + float(lo)).to(torch.float32),
-                       min=float(lo))
+    return _elementwise(key, shape,
+                        lambda b: _uniform_of_bits(b, minval, maxval))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -166,7 +203,8 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Standard normal float32 draws (the inverse-CDF form of
     ``jax.random.normal``)."""
-    return _SQRT2 * _erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+    return _elementwise(key, shape, lambda b: _SQRT2 * _erfinv(
+        _uniform_of_bits(b, _NORMAL_LO, 1.0)))
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
@@ -177,9 +215,10 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     sqrt2 = np.float32(np.sqrt(2))
     a = float(np.float32(math.erf(float(lo / sqrt2))))
     b = float(np.float32(math.erf(float(hi / sqrt2))))
-    out = _SQRT2 * _erfinv(uniform(key, shape, a, b))
-    return torch.clamp(out, min=float(np.nextafter(lo, np.float32(np.inf))),
-                       max=float(np.nextafter(hi, np.float32(-np.inf))))
+    return _elementwise(key, shape, lambda bits: torch.clamp(
+        _SQRT2 * _erfinv(_uniform_of_bits(bits, a, b)),
+        min=float(np.nextafter(lo, np.float32(np.inf))),
+        max=float(np.nextafter(hi, np.float32(-np.inf)))))
 
 
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1

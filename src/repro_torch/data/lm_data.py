@@ -4,8 +4,9 @@ numpy only, and the same draws in the same order as the reference
 (``repro/data/lm_data.py``), so one seed gives bitwise-equal batches and
 corpora in both packages: Zipfian token marginals, per-client shifted
 token windows (the paper's "topic diversity across nodes"), and loss
-masks.  The audio and VLM batches (frame or patch embeddings) raise:
-their frontends join with ROADMAP.md A16b.
+masks; audio batches carry stub frame embeddings, masked frames and
+their cluster targets, VLM batches stub patch embeddings, their
+positions and the M-RoPE streams.
 """
 from __future__ import annotations
 
@@ -32,19 +33,35 @@ def synthetic_lm_batch(cfg: ModelConfig, batch: int, seq: int, *,
     """One training batch (``tokens``, next-token ``labels``,
     ``loss_mask``).  Clients draw from overlapping-but-shifted Zipf
     token windows, the non-IID across-client structure of the federated
-    experiments."""
-    if cfg.kind in (AUDIO, VLM):
-        raise NotImplementedError(
-            f"{cfg.kind} batches (frame or patch embeddings) are not in "
-            f"the port yet (ROADMAP.md A16b)")
+    experiments.  Audio: ``frame_embeds``, a HuBERT-style 8% ``frame_mask``
+    and Zipf ``targets``; VLM adds ``patch_embeds`` (one patch per 16
+    tokens), distinct ``patch_positions`` in the first half and the
+    text-ramp ``mrope_positions`` (3, B, S)."""
     rng = np.random.default_rng(seed * 1009 + client_id)
+    if cfg.kind == AUDIO:
+        frames = rng.standard_normal(
+            (batch, seq, cfg.frontend_embed_dim)).astype(np.float32)
+        mask = rng.random((batch, seq)) < 0.08
+        targets = _zipf_tokens(rng, cfg.vocab_size, (batch, seq))
+        return {"frame_embeds": frames, "frame_mask": mask,
+                "targets": targets}
     span = cfg.vocab_size
     lo = (client_id * span) // max(2 * num_clients, 1)
     hi = min(span, lo + max(span // 2, 1024))
     toks = _zipf_tokens(rng, cfg.vocab_size, (batch, seq + 1), lo=lo, hi=hi)
-    return {"tokens": toks[:, :-1],
-            "labels": toks[:, 1:],
-            "loss_mask": np.ones((batch, seq), np.float32)}
+    out = {"tokens": toks[:, :-1],
+           "labels": toks[:, 1:],
+           "loss_mask": np.ones((batch, seq), np.float32)}
+    if cfg.kind == VLM:
+        n_patch = max(seq // 16, 1)
+        out["patch_embeds"] = rng.standard_normal(
+            (batch, n_patch, cfg.d_model)).astype(np.float32)
+        out["patch_positions"] = np.stack(
+            [rng.choice(seq // 2, size=n_patch, replace=False)
+             for _ in range(batch)]).astype(np.int32)
+        out["mrope_positions"] = np.broadcast_to(
+            np.arange(seq, dtype=np.int32), (3, batch, seq)).copy()
+    return out
 
 
 @dataclass

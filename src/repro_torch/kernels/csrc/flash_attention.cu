@@ -6,9 +6,12 @@
 // gqa_full runs (src/repro/models/layers/attention.py):
 //
 //   out[b,q,h,:] = sum_k p[q,k] v[b,k,h/(H/Hkv),:] / sum_k p[q,k]
-//   s = (q . k) * scale, masked to NEG_INF = -1e30 where the key is
-//   outside the mask; p = mask ? exp(s - m) : 0 (online over key tiles);
-//   a row with l == 0 (fully masked) gives 0.
+//   s = (q . k) * scale over the query/key head dim DQK, while v and the
+//   output have a head dim DV of their own (MLA: q and k carry the
+//   decoupled rope channels on top of v's, (96, 64) at minicpm3-4b
+//   width); s masked to NEG_INF = -1e30 where the key is outside the
+//   mask; p = mask ? exp(s - m) : 0 (online over key tiles); a row with
+//   l == 0 (fully masked) gives 0.
 //
 // Mask: causal k <= q, sliding window k > q - window, both, or none; keys
 // and queries past the sequence end are masked (the ragged tail).
@@ -66,9 +69,14 @@
 // Both: GQA by index (query head h reads kv head h / (H / Hkv); 5 at
 // hymba width is no power of two; K/V are never repeated); strided
 // operands (the wrapper passes the (b, s, h) strides of each of q, k, v
-// and out, so (B,S,H,D) projections are read in place); head dims 32,
-// 64, 96 and 128.  The wgmma building blocks are in wgmma.cuh (shared with
-// ssd_scan.cu).
+// and out, so (B,S,H,D) projections are read in place); the head-dim
+// pairs (DQK, DV) (32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
+// (96, 64) and (80, 64).  Head dim 80 (hubert-xlarge's 1280 / 16) needs no
+// layout of its own on the tensor cores: a row is stored as column atoms of
+// 64 entries, so 80 is one full atom and 16 columns of a second, as 96 is
+// one and a half; the swizzle works within each 128-byte atom row and the
+// descriptors step from atom to atom, never across a 160-byte row.  The
+// wgmma building blocks are in wgmma.cuh (shared with ssd_scan.cu).
 //
 // Both also write, when given a non-null lse (B, H, S) fp32, each row's
 // log-sum-exp of its masked scaled scores, lse = m + log(l), from the m
@@ -116,18 +124,20 @@ __device__ __forceinline__ bool allowed(int kp, int qp, int seq, int causal,
   return ok;
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
                  Strides os, int seq, int heads, int kv_heads, int causal,
                  int window, float scale) {
-  constexpr int kDpt = D / kTpr;  // head-dim entries per thread
-  constexpr int kVec = kDpt / 4;  // float4 groups per thread
+  constexpr int kDpt = DQK / kTpr;  // q/k head-dim entries per thread
+  constexpr int kVec = kDpt / 4;    // their float4 groups per thread
+  constexpr int kDptV = DV / kTpr;  // v/out head-dim entries per thread
+  constexpr int kVecV = kDptV / 4;
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [kBlockK][D]
-  float* v_s = k_s + kBlockK * D;                 // [kBlockK][D]
+  float* k_s = reinterpret_cast<float*>(smem4);  // [kBlockK][DQK]
+  float* v_s = k_s + kBlockK * DQK;               // [kBlockK][DV]
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
@@ -138,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // this thread's head-dim entries: float4 group g = i * kTpr + part, so
   // the two threads of a row read neighbouring 16-byte words
-  float qr[kDpt], acc[kDpt];
+  float qr[kDpt], acc[kDptV];
   const T* qrow = q + b * qs.b + (int64_t)qpos * qs.s + h * qs.h;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -146,9 +156,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) {
       const int d = (i * kTpr + part) * 4 + e;
       qr[i * 4 + e] = qpos < seq ? to_f32(qrow[d]) : 0.0f;
-      acc[i * 4 + e] = 0.0f;
     }
   }
+#pragma unroll
+  for (int d = 0; d < kDptV; ++d) acc[d] = 0.0f;
   float m = kNegInf, l = 0.0f;
 
   // the key tiles the mask can reach from rows [q0, q0 + kBlockQ)
@@ -160,23 +171,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D, c = idx - r * D;
+    // rows past the end stay finite zeros
+    for (int idx = tid; idx < kBlockK * DQK; idx += kThreads) {
+      const int r = idx / DQK, c = idx - r * DQK;
       const int kp = k0 + r;
-      float kv = 0.0f, vv = 0.0f;  // rows past the end stay finite zeros
-      if (kp < seq) {
-        kv = to_f32(kbase[(int64_t)kp * ks.s + c]);
-        vv = to_f32(vbase[(int64_t)kp * vs.s + c]);
-      }
-      k_s[idx] = kv;
-      v_s[idx] = vv;
+      k_s[idx] = kp < seq ? to_f32(kbase[(int64_t)kp * ks.s + c]) : 0.0f;
+    }
+    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
+      const int r = idx / DV, c = idx - r * DV;
+      const int kp = k0 + r;
+      v_s[idx] = kp < seq ? to_f32(vbase[(int64_t)kp * vs.s + c]) : 0.0f;
     }
     __syncthreads();
 
     float s[kBlockK];
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
-      const float4* krow = reinterpret_cast<const float4*>(k_s + j * D);
+      const float4* krow = reinterpret_cast<const float4*>(k_s + j * DQK);
       float dot = 0.0f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
@@ -208,13 +219,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int d = 0; d < kDpt; ++d) acc[d] *= alpha;
+    for (int d = 0; d < kDptV; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
-      const float4* vrow = reinterpret_cast<const float4*>(v_s + j * D);
+      const float4* vrow = reinterpret_cast<const float4*>(v_s + j * DV);
       const float p = s[j];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
+      for (int i = 0; i < kVecV; ++i) {
         const float4 vv = vrow[i * kTpr + part];
         acc[i * 4 + 0] = fmaf(p, vv.x, acc[i * 4 + 0]);
         acc[i * 4 + 1] = fmaf(p, vv.y, acc[i * 4 + 1]);
@@ -232,7 +243,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           l == 0.0f ? kNegInf : m + logf(l);
     T* orow = o + b * os.b + (int64_t)qpos * os.s + h * os.h;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
+    for (int i = 0; i < kVecV; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = (i * kTpr + part) * 4 + e;
@@ -242,13 +253,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides qs, Strides ks, Strides vs, Strides os, int batch,
            int seq, int heads, int kv_heads, int causal, int window,
            float scale, cudaStream_t stream) {
-  const int smem = 2 * kBlockK * D * (int)sizeof(float);
-  auto kern = flash_fwd_kernel<T, D>;
+  const int smem = kBlockK * (DQK + DV) * (int)sizeof(float);
+  auto kern = flash_fwd_kernel<T, DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -271,47 +282,78 @@ constexpr int kStages = 3;       // K/V ring: tile t+1 loads while tile t
                                  // multiplies and P V of t-1 drains
 constexpr float kLog2e = 1.4426950408889634f;
 
-// one 64-key tile of K and of V into a ring stage; keys past the end read
-// as zeros
-template <int D>
+// `rows` rows of D entries (16-byte chunks) into a swizzled tile, by
+// cp.async from rows `stride` entries apart starting at row r0; rows past
+// the end read as zeros.  D / 8 chunks a row need not divide evenly among
+// the threads (D = 80: 10 chunks a row).
+template <int D, int Rows>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+                                          int64_t stride, int r0, int seq,
+                                          int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kTotal = Rows * kChunks;
+#pragma unroll
+  for (int i = 0; i < (kTotal + kTcThreads - 1) / kTcThreads; ++i) {
+    const int idx = tid + i * kTcThreads;
+    if (kTotal % kTcThreads != 0 && idx >= kTotal) break;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = r0 + r < seq;
+    const int64_t row = ok ? r0 + r : 0;
+    cp_async16(dst + swz(Rows, r, c), src + row * stride + c * 8, ok);
+  }
+}
+
+// one 64-key tile of K and of V into their ring stages.  With one head dim
+// whose chunks divide evenly among the threads, one loop issues both
+// copies of a chunk, its index arithmetic and bounds test once: two loops
+// cost hymba-1.5b's prefill shape ~3% (201-205 against 196-198 us a
+// call on an H100, tools/time_kernel.py); otherwise K and V load apart.
+template <int DQK, int DV>
 __device__ __forceinline__ void load_kv(uint32_t sk, uint32_t sv,
                                         const bf16* kb, const bf16* vb,
                                         int64_t kss, int64_t vss, int k0,
                                         int seq, int tid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = DQK / 8;
+  if constexpr (DQK == DV && kTcKeys * kChunks % kTcThreads == 0) {
 #pragma unroll
-  for (int i = 0; i < kTcKeys * kChunks / kTcThreads; ++i) {
-    const int idx = tid + i * kTcThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = k0 + r < seq;
-    const int64_t kp = ok ? k0 + r : 0;
-    cp_async16(sk + swz(kTcKeys, r, c), kb + kp * kss + c * 8, ok);
-    cp_async16(sv + swz(kTcKeys, r, c), vb + kp * vss + c * 8, ok);
+    for (int i = 0; i < kTcKeys * kChunks / kTcThreads; ++i) {
+      const int idx = tid + i * kTcThreads;
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool ok = k0 + r < seq;
+      const int64_t kp = ok ? k0 + r : 0;
+      cp_async16(sk + swz(kTcKeys, r, c), kb + kp * kss + c * 8, ok);
+      cp_async16(sv + swz(kTcKeys, r, c), vb + kp * vss + c * 8, ok);
+    }
+  } else {
+    load_rows<DQK, kTcKeys>(sk, kb, kss, k0, seq, tid);
+    load_rows<DV, kTcKeys>(sv, vb, vss, k0, seq, tid);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int tc_smem_bytes() {
-  // Q, then the K and the V ring (kStages tiles each); 1024 bytes of slack
-  // to align the base to the swizzle's 1024-byte period
-  return ((D + 63) / 64) * (kTcRows + 2 * kStages * kTcKeys) * (int)kSwRow
+  // Q, then the K ring and the V ring (kStages tiles each), each in column
+  // atoms of 64 entries; 1024 bytes of slack to align the base to the
+  // swizzle's 1024-byte period
+  return (((DQK + 63) / 64) * (kTcRows + kStages * kTcKeys) +
+          ((DV + 63) / 64) * kStages * kTcKeys) * (int)kSwRow
          + 1024;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kTcThreads, DQK <= 64 && DV <= 64 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, Strides qs, Strides ks,
                     Strides vs, Strides os, int seq, int heads, int kv_heads,
                     int causal, int window, float scale_log2) {
-  constexpr int kAtoms = (D + 63) / 64;
-  constexpr int kChunks = D / 8;
+  constexpr uint32_t kAtoms = (DQK + 63) / 64;
   constexpr uint32_t kQBytes = kAtoms * kTcRows * kSwRow;
-  constexpr uint32_t kTileBytes = kAtoms * kTcKeys * kSwRow;
+  constexpr uint32_t kKTile = kAtoms * kTcKeys * kSwRow;
+  constexpr uint32_t kVTile = ((DV + 63) / 64) * kTcKeys * kSwRow;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + kQBytes, sv = sk + kStages * kTileBytes;
+  const uint32_t sk = sq + kQBytes, sv = sk + kStages * kKTile;
 
   // the longest query tiles (most key tiles under a causal mask) first:
   // blocks start in index order, so the short ones fill the last wave
@@ -324,15 +366,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qa = w0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
   const int cq = 2 * (lane & 3);  // its first column of each 8-column block
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-#pragma unroll
-  for (int i = 0; i < kTcRows * kChunks / kTcThreads; ++i) {
-    const int idx = tid + i * kTcThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = q0 + r < seq;
-    cp_async16(sq + swz(kTcRows, r, c),
-               qb + (ok ? (int64_t)(q0 + r) * qs.s : 0) + c * 8, ok);
-  }
+  load_rows<DQK, kTcRows>(sq, q + b * qs.b + h * qs.h, qs.s, q0, seq, tid);
 
   // the key tiles the mask can reach from the block's rows, and from this
   // warpgroup's
@@ -348,12 +382,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int first = lo / kTcKeys, last = hi / kTcKeys;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  load_kv<D>(sk, sv, kb, vb, ks.s, vs.s, first * kTcKeys, seq, tid);
+  load_kv<DQK, DV>(sk, sv, kb, vb, ks.s, vs.s, first * kTcKeys, seq, tid);
   cp_async_commit();
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   // running max (in units of scale * log2(e)) and this thread's part of
   // the row sum, for rows qa and qa + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
@@ -363,15 +397,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // its P V of t-2 at iteration t-1, before this iteration's barrier, so
   // P V of t-1 may still run while tile t+1 loads and S of t multiplies.
   for (int t = first; t <= last; ++t) {
-    const uint32_t st = (uint32_t)((t - first) % kStages) * kTileBytes;
+    const uint32_t stage = (uint32_t)((t - first) % kStages);
+    const uint32_t stk = stage * kKTile, stv = stage * kVTile;
     cp_async_wait_all();
     fence_proxy_async();
     __syncthreads();  // tile t is in; every warpgroup has waited for the
                       // P V of tile t-2
     if (t < last) {
-      const uint32_t nx = (uint32_t)((t + 1 - first) % kStages) * kTileBytes;
-      load_kv<D>(sk + nx, sv + nx, kb, vb, ks.s, vs.s, (t + 1) * kTcKeys,
-                 seq, tid);
+      const uint32_t nx = (uint32_t)((t + 1 - first) % kStages);
+      load_kv<DQK, DV>(sk + nx * kKTile, sv + nx * kVTile, kb, vb, ks.s,
+                       vs.s, (t + 1) * kTcKeys, seq, tid);
       cp_async_commit();
     }
     const int k0 = t * kTcKeys;
@@ -380,18 +415,18 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       continue;
     }
 
-    // S = Q K^T over the head dim, 16 columns a wgmma
+    // S = Q K^T over the query/key head dim, 16 columns a wgmma
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t col = (kk & 3) * 32;  // 16 entries = 32 bytes
       const uint32_t a = sq + (kk >> 2) * kTcRows * kSwRow + wg * 64 * kSwRow
                          + col;
-      const uint32_t bk = sk + st + (kk >> 2) * kTcKeys * kSwRow + col;
+      const uint32_t bk = sk + stk + (kk >> 2) * kTcKeys * kSwRow + col;
       wgmma_ss(s, kmajor_desc(a), kmajor_desc(bk), kk > 0);
     }
     wgmma_commit();
@@ -438,10 +473,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V, 16 keys a wgmma: P's registers for keys 16j..16j+15 are
-    // pa[4j..4j+3]; V's rows 16j.. start 16 * 128 bytes further
+    // O += P V over v's head dim (wgmma N = DV), 16 keys a wgmma: P's
+    // registers for keys 16j..16j+15 are pa[4j..4j+3]; V's rows 16j..
+    // start 16 * 128 bytes further
     pin(acc);
     wgmma_fence();
 #pragma unroll
@@ -449,7 +485,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t a[4] = {pa[4 * j], pa[4 * j + 1], pa[4 * j + 2],
                              pa[4 * j + 3]};
       wgmma_rs(acc, a,
-               sw128_desc(sv + st + j * 16 * kSwRow, kTcKeys * kSwRow,
+               sw128_desc(sv + stv + j * 16 * kSwRow, kTcKeys * kSwRow,
                           8 * kSwRow));
     }
     wgmma_commit();  // left in flight: waited for with the next S
@@ -474,7 +510,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l[r] == 0.0f ? kNegInf : m[r] * kLn2 + logf(l[r]);
     bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
                                 acc[4 * j + 2 * r + 1] / denom);
@@ -482,13 +518,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, Strides qs, Strides ks, Strides vs, Strides os,
               int batch, int seq, int heads, int kv_heads, int causal,
               int window, float scale, cudaStream_t stream) {
-  const int smem = tc_smem_bytes<D>();
-  auto kern = flash_fwd_tc_kernel<D>;
+  const int smem = tc_smem_bytes<DQK, DV>();
+  auto kern = flash_fwd_tc_kernel<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -500,29 +536,31 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// route by dtype, then head dim
-int dispatch(int is_bf16, int head_dim, const void* q, const void* k,
-             const void* v, void* o, float* lse, Strides qs, Strides ks,
-             Strides vs, Strides os, int batch, int seq, int heads,
-             int kv_heads, int causal, int window, float scale,
+// the instantiated (DQK, DV) pairs, as one key
+constexpr int pair(int dqk, int dv) { return dqk * 1000 + dv; }
+
+// route by dtype, then head-dim pair
+int dispatch(int is_bf16, int head_dim, int v_head_dim, const void* q,
+             const void* k, const void* v, void* o, float* lse, Strides qs,
+             Strides ks, Strides vs, Strides os, int batch, int seq,
+             int heads, int kv_heads, int causal, int window, float scale,
              cudaStream_t s) {
 #define FLASH_ARGS q, k, v, o, lse, qs, ks, vs, os, batch, seq, heads, \
                    kv_heads, causal, window, scale, s
-  if (is_bf16) {
-    switch (head_dim) {
-      case 32: return launch_tc<32>(FLASH_ARGS);
-      case 64: return launch_tc<64>(FLASH_ARGS);
-      case 96: return launch_tc<96>(FLASH_ARGS);
-      case 128: return launch_tc<128>(FLASH_ARGS);
-    }
-  } else {
-    switch (head_dim) {
-      case 32: return launch<float, 32>(FLASH_ARGS);
-      case 64: return launch<float, 64>(FLASH_ARGS);
-      case 96: return launch<float, 96>(FLASH_ARGS);
-      case 128: return launch<float, 128>(FLASH_ARGS);
-    }
+#define FLASH_PAIR(DQK, DV)                                       \
+  case pair(DQK, DV):                                             \
+    return is_bf16 ? launch_tc<DQK, DV>(FLASH_ARGS)               \
+                   : launch<float, DQK, DV>(FLASH_ARGS);
+  switch (pair(head_dim, v_head_dim)) {
+    FLASH_PAIR(32, 32)
+    FLASH_PAIR(64, 64)
+    FLASH_PAIR(80, 80)
+    FLASH_PAIR(96, 96)
+    FLASH_PAIR(128, 128)
+    FLASH_PAIR(96, 64)
+    FLASH_PAIR(80, 64)
   }
+#undef FLASH_PAIR
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -535,20 +573,24 @@ bool aligned16(const void* p, const Strides& st) {
 }  // namespace
 
 // dynamic shared memory a block of the bf16 (tensor-core) kernel asks for
-// at head_dim, or -1 for a head dim it does not take
-extern "C" int flash_attention_tc_smem_bytes(int head_dim) {
-  switch (head_dim) {
-    case 32: return tc_smem_bytes<32>();
-    case 64: return tc_smem_bytes<64>();
-    case 96: return tc_smem_bytes<96>();
-    case 128: return tc_smem_bytes<128>();
+// at the head-dim pair (DQK, DV), or -1 for a pair it does not take
+extern "C" int flash_attention_tc_smem_bytes(int head_dim, int v_head_dim) {
+  switch (pair(head_dim, v_head_dim)) {
+    case pair(32, 32): return tc_smem_bytes<32, 32>();
+    case pair(64, 64): return tc_smem_bytes<64, 64>();
+    case pair(80, 80): return tc_smem_bytes<80, 80>();
+    case pair(96, 96): return tc_smem_bytes<96, 96>();
+    case pair(128, 128): return tc_smem_bytes<128, 128>();
+    case pair(96, 64): return tc_smem_bytes<96, 64>();
+    case pair(80, 64): return tc_smem_bytes<80, 64>();
     default: return -1;
   }
 }
 
-// q, o: (B, S, H, D); k, v: (B, S, Hkv, D); each with its (b, s, h)
-// strides in elements and a contiguous head dim.  head_dim in
-// {32, 64, 96, 128}; H a multiple of Hkv.  bf16 (is_bf16 = 1) runs on the
+// q: (B, S, H, DQK); k: (B, S, Hkv, DQK); v: (B, S, Hkv, DV); o: (B, S, H,
+// DV); each with its (b, s, h) strides in elements and a contiguous head
+// dim.  (head_dim, v_head_dim) = (DQK, DV) one of the pairs of dispatch;
+// H a multiple of Hkv.  bf16 (is_bf16 = 1) runs on the
 // tensor cores and needs 16-byte aligned q, k, v with (b, s, h) strides
 // that are multiples of 8 (else cudaErrorMisalignedAddress); fp32 on the
 // CUDA cores.  lse: null, or (B, H, S) fp32 for the backward.
@@ -557,14 +599,14 @@ extern "C" int flash_attention_fwd(
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
     int64_t o_sh, int batch, int seq, int heads, int kv_heads, int head_dim,
-    int causal, int window, float scale, int is_bf16, float* lse,
-    void* stream) {
+    int v_head_dim, int causal, int window, float scale, int is_bf16,
+    float* lse, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   if (is_bf16 && !(aligned16(q, qs) && aligned16(k, ks) &&
                    aligned16(v, vs)))
     return (int)cudaErrorMisalignedAddress;
-  return dispatch(is_bf16, head_dim, q, k, v, o, lse, qs, ks, vs, os, batch,
-                  seq, heads, kv_heads, causal, window, scale,
+  return dispatch(is_bf16, head_dim, v_head_dim, q, k, v, o, lse, qs, ks, vs,
+                  os, batch, seq, heads, kv_heads, causal, window, scale,
                   static_cast<cudaStream_t>(stream));
 }

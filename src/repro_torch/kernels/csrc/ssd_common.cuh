@@ -188,6 +188,13 @@ __device__ __forceinline__ unsigned own_tiles(int wgi, int nt, bool rows) {
 template <int P, int THREADS>
 constexpr int kStateChunks = P * 16 / THREADS;
 
+// a pair packed to bf16 or, with REST, what that rounding leaves of it
+template <bool REST>
+__device__ __forceinline__ uint32_t pack_part(float a, float b) {
+  if constexpr (REST) return wg::pack_bf16_rest(a, b);
+  else return wg::pack_bf16(a, b);
+}
+
 // the (P, n) fp32 state at st into registers, zero past n; issued before
 // the chunk's copies, so they lead the queue
 template <int P, int THREADS>
@@ -208,21 +215,21 @@ __device__ __forceinline__ void load_state(
 }
 
 // ... then rounded to bf16 for its products, as NP/16 blocks of P rows
-// of 32 bytes under the 32-byte swizzle at dst
-template <int P, int THREADS>
+// of 32 bytes under the 32-byte swizzle at dst; with REST, what that
+// rounding leaves (the "lo" half of a hi + lo split, wg::bf16_rest)
+template <int P, int THREADS, bool REST = false>
 __device__ __forceinline__ void store_state(
     uint8_t* dst, const float4 (&hv)[kStateChunks<P, THREADS>][2],
     int nch) {
-  using wg::pack_bf16;
 #pragma unroll
   for (int i = 0; i < kStateChunks<P, THREADS>; ++i) {
     const int idx = threadIdx.x + i * THREADS, p = idx / nch, c = idx % nch;
     if (idx < P * nch)
       *reinterpret_cast<uint4*>(dst + wg::swz32(P, p, c)) = make_uint4(
-          pack_bf16(hv[i][0].x, hv[i][0].y), pack_bf16(hv[i][0].z,
-                                                       hv[i][0].w),
-          pack_bf16(hv[i][1].x, hv[i][1].y), pack_bf16(hv[i][1].z,
-                                                       hv[i][1].w));
+          pack_part<REST>(hv[i][0].x, hv[i][0].y),
+          pack_part<REST>(hv[i][0].z, hv[i][0].w),
+          pack_part<REST>(hv[i][1].x, hv[i][1].y),
+          pack_part<REST>(hv[i][1].z, hv[i][1].w));
   }
 }
 

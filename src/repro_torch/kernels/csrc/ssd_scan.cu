@@ -29,10 +29,11 @@
 //   1. ssd_chunk_state_kernel, one warpgroup per (batch, head, chunk):
 //      dt's loads first, then B's and x's rows by 16-byte cp.async; cum by
 //      one warp while they land; B scaled in place to B o w with
-//      w_j = exp(cum_Q - cum_j) dt_j, rounded to bf16 once; the chunk's
-//      own state X^T (B o w) as m64nNk16 wgmmas over the chunk's rows
-//      (X^T read as an M-major A, P <= 64 of its 64 rows kept; B o w as
-//      an N-major B).  The fp32 state and cum_Q go to a scratch the
+//      w_j = exp(cum_Q - cum_j) dt_j, rounded to bf16, and what the
+//      rounding leaves into a second tile; the chunk's own state X^T
+//      (B o w) as m64nNk16 wgmmas over the chunk's rows, once with each
+//      tile (X^T read as an M-major A, P <= 64 of its 64 rows kept; B o w
+//      as an N-major B).  The fp32 state and cum_Q go to a scratch the
 //      wrapper allocates (B*H*chunks*P*N + B*H*chunks floats).
 //   2. ssd_state_pass_kernel, one thread per state entry of a (batch,
 //      head): h <- exp(cum_Q) h + state over the chunks in order (eight
@@ -62,9 +63,11 @@
 //   or 128.  The wgmma building blocks are in wgmma.cuh; cum, the loads
 //   and the decay factors in ssd_common.cuh, shared with the backward.
 //   Arithmetic: products of bf16 values are exact in fp32, so C B^T
-//   differs from the reference only in summation order; W, the carried
-//   state in its product and B o w are each rounded to bf16 once (2^-9
-//   relative); every sum is fp32 and the carried state stays fp32.  Bound:
+//   differs from the reference only in summation order; W and the carried
+//   state in its product are each rounded to bf16 once (2^-9 relative),
+//   B o w is a hi + lo pair (~2^-16: B6-bwd's da, a sum that cancels,
+//   reads the states kept here); every sum is fp32 and the carried state
+//   stays fp32.  Bound:
 //   2e-2 of max|plain| for y and h_last, the reference's own bf16 bound.
 //   Operands: 16-byte aligned x, B, C with (b, s, h) strides that are
 //   multiples of 8 elements (the wrapper raises otherwise); P in
@@ -358,7 +361,7 @@ constexpr int kStateThreads = 128;  // chunk_state: one warpgroup
 constexpr int kScanThreads = 256;   // chunk_scan: two warpgroups
 
 size_t state_smem_bytes(int np, int rows) {
-  return 1024 + (size_t)rows * (kSwRow + 2 * np) + 2 * sizeof(float) * rows
+  return 1024 + (size_t)rows * (kSwRow + 4 * np) + 2 * sizeof(float) * rows
          + 64;
 }
 
@@ -368,7 +371,10 @@ size_t scan_smem_bytes(int p, int np, int rows) {
          + 64;
 }
 
-// 1. the chunk's own state X^T (B o w) and cum_Q, into the scratch
+// 1. the chunk's own state X^T (B o w) and cum_Q, into the scratch; B o w
+// as a hi + lo pair of bf16 tiles, so the state carries ~16 bits (the
+// backward's da, one sum a head over terms that cancel, reads the kept
+// states)
 template <int NP>
 __global__ void __launch_bounds__(kStateThreads)
 ssd_chunk_state_kernel(const bf16* __restrict__ x,
@@ -383,7 +389,8 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
                             smem_addr(smem_raw));
   const uint32_t s_x = smem_addr(sm);              // [rows][128 B]
   const uint32_t o_bw = rows * kSwRow;             // [NP / 16][rows][32 B]
-  float* dt_s = reinterpret_cast<float*>(sm + o_bw + rows * 2 * NP);
+  const uint32_t o_lo = o_bw + rows * 2 * NP;      // the same, its lo half
+  float* dt_s = reinterpret_cast<float*>(sm + o_lo + rows * 2 * NP);
   float* cum_s = dt_s + rows;
   float* tmax_s = cum_s + rows;  // [12]: see warp_chunk_cumsum
 
@@ -402,8 +409,9 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
   chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
   const float cum_last = cum_s[rows - 1];
 
-  // B o w with w_j = exp(cum_Q - cum_j) dt_j, rounded to bf16 once, in
-  // place: each thread scales the chunks it copied
+  // B o w with w_j = exp(cum_Q - cum_j) dt_j, rounded to bf16 in place and
+  // what the rounding leaves into the lo tile: each thread scales the
+  // chunks it copied
   cp_async_wait_one();
   for (int idx = tid; idx < rows * kCh; idx += kStateThreads) {
     const int r = idx / kCh, c = idx - r * kCh;
@@ -411,14 +419,17 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
     const uint4 raw = *q;
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float w = expf(cum_last - cum_s[r]) * dt_s[r];
-    uint4 out;
+    uint4 out, rest;
     uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+    uint32_t* l = reinterpret_cast<uint32_t*>(&rest);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 f = __bfloat1622float2(h2[e]);
       o[e] = pack_bf16(f.x * w, f.y * w);
+      l[e] = pack_bf16_rest(f.x * w, f.y * w);
     }
     *q = out;
+    *reinterpret_cast<uint4*>(sm + o_lo + swz32(rows, r, c)) = rest;
   }
   cp_async_wait_all();
   fence_proxy_async();
@@ -438,6 +449,10 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
                                 8 * kSwRow),
                 mnmajor32_desc(s_x + o_bw + kk * 16 * 32, rows * 32),
                 kk > 0);
+  for (int kk = 0; kk < ksteps; ++kk)
+    wgmma_ss_tt(acc, sw128_desc(s_x + kk * 16 * kSwRow, rows * kSwRow,
+                                8 * kSwRow),
+                mnmajor32_desc(s_x + o_lo + kk * 16 * 32, rows * 32), true);
   wgmma_commit();
   wgmma_wait_all();
   pin(acc);

@@ -80,8 +80,10 @@
 //      (k = P), both K-major; W_D = D o L o dt_j on the fragments, factored
 //      as the forward factors its W (ssd::decay_factors); M = W_D o G
 //      summed along the rows; dC_i += W_D B_j (wgmma_rs, B_j N-major).
-//      Then U = dY^T (C o exp(cum)): C o exp(cum) rounded to bf16 once into
-//      B's place, dY^T read as an M-major A (the forward's chunk state).
+//      Before that pass, a pass of Z with h0's lo half adds its share to
+//      dcum.  Then U = dY^T (C o exp(cum)): C o exp(cum) as a hi + lo pair
+//      into B's and C's places, dY^T read as an M-major A (the forward's
+//      chunk state).
 //   3. ssd_bwd_cols_tc_kernel: per owned column tile j, T = B_j dh1^T (k =
 //      N, dh1 K-major) and X_j dh1 (k = P, dh1 N-major) give the state
 //      terms w_j T_j, w_j X_j dh1 and s_j = x_j . T_j; per row tile i >=
@@ -90,20 +92,26 @@
 //      tile or 16-row group), dx_j += W_G^T dY_i and dB_j += W_D^T C_i
 //      (wgmma_rs, dY_i and C_i N-major), and the row sums of D^T o G^T o
 //      L^T for the direct ddt and the column part of dcum.  dx leaves
-//      through X_j's own rows in 16-byte stores of whole rows.
+//      through X_j's own rows in 16-byte stores of whole rows.  Before
+//      that pass, a pass of T with dh1's lo half adds its share to s_j.
 //   M's diagonal enters dcum_i once from each side with opposite signs:
 //   both kernels leave it out, so it cancels exactly (ddt keeps it).
 //   Arithmetic: products of bf16 values accumulate in fp32, so G and D
-//   differ from the reference only in summation order; W_D, W_G and C o
-//   exp(cum) are each rounded to bf16 once, h0 and dh1 for their products
-//   only (the plain emulation in tests/test_torch_kernels.py holds this
-//   within 6e-3 of each gradient's max against jax.vjp, so no hi + lo
-//   split is needed); dcum, ddt, g and da are summed from fp32 fragments;
-//   dC and dB per head are fp32.  Bound: 2e-2 of each gradient's
-//   max|plain|.  Operands: 16-byte aligned x, B, C, dy with (b, s, h)
-//   strides of x, B, C that are multiples of 8 elements, N a multiple of
-//   8 (the wrapper raises otherwise).  Shared memory: the whole chunk,
-//   93 KB a block at P=64, N=16, chunk 256 and 222 KB at mamba2-1.3b's
+//   differ from the reference only in summation order; W_D and W_G are
+//   each rounded to bf16 once, h0 and dh1 for dC's, dx's and dB's state
+//   terms.  da is one sum a head over terms that cancel, so each state
+//   value it reads carries ~16 bits: the kept states (ssd_scan.cu's B o
+//   w), C o exp(cum) in U, and h0 and dh1 where they reach dcum and s_j,
+//   each a hi + lo pair of bf16 (wg::bf16_rest).  Rounding those to bf16
+//   once put da at 0.106 of max|plain| on one draw of (1, 100, 2, 32, 16,
+//   48) (tests/data/ssd_scan_bwd_da_draw.pt); the plain emulation in
+//   tests/test_torch_kernels.py holds the design against jax.vjp there,
+//   tests/test_torch_cuda.py the kernel against a float64 backward.  dcum, ddt, g and da are summed from fp32
+//   fragments; dC and dB per head are fp32.  Bound: 2e-2 of each
+//   gradient's max|plain|.  Operands: 16-byte aligned x, B, C, dy with
+//   (b, s, h) strides of x, B, C that are multiples of 8 elements, N a
+//   multiple of 8 (the wrapper raises otherwise).  Shared memory: the whole chunk,
+//   90 KiB a block at P=64, N=16, chunk 256 and 216 KiB at mamba2-1.3b's
 //   N=128.  The cum of the chunk, the loads and the decay factors are the
 //   forward's own code (ssd_common.cuh), so cum is the forward's to the
 //   bit.
@@ -611,7 +619,7 @@ ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
 // ---------------------------------------------------------------------------
 using ssd::kTile;
 constexpr int kTcThreads = 256;  // two warpgroups
-constexpr int kSide = 6;         // fp32 side values a row (see tc_smem)
+constexpr int kSide = 7;         // fp32 side values a row (see tc_smem)
 
 // Shared memory of both chunk kernels, from a 1024-byte aligned base: dY
 // and X (rows x 128 B each, 128-byte swizzle), C and B (NP/16 blocks of
@@ -668,6 +676,7 @@ ssd_bwd_rows_tc_kernel(const bf16* __restrict__ x,
   float* cum_s = dt_s + rows;
   float* vl_s = cum_s + rows;   // exp(cum at the tile's last row - cum) dt
   float* vg_s = vl_s + rows;    // exp(cum at the group's last row - cum) dt
+  float* zl_s = vg_s + rows;    // exp(cum_i) (dY_i h0_lo) . C_i
   float* tmax_s = sm.f + kSide * rows;  // [12]: see warp_chunk_cumsum
 
   const int tid = threadIdx.x;
@@ -685,7 +694,8 @@ ssd_bwd_rows_tc_kernel(const bf16* __restrict__ x,
               (int64_t)g.heads * P, g, c0, rows, P);
   ssd::load_x(sm.x, x + bi * g.x_sb + hh * g.x_sh, g.x_ss, g, c0, rows, P);
   cp_async_commit();
-  ssd::store_state<P, kTcThreads>(sm.at(sm.h), hv, kNch);
+  // h0's lo half first: its share of dcum before the main pass
+  ssd::store_state<P, kTcThreads, true>(sm.at(sm.h), hv, kNch);
   ssd::chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
   ssd::decay_factors(cum_s, dt_s, vl_s, vg_s, rows);
   cp_async_wait_all();
@@ -697,6 +707,42 @@ ssd_bwd_rows_tc_kernel(const bf16* __restrict__ x,
   const uint8_t* c_tile = sm.at(sm.c);
   const int nt = rows / kTile;
   const unsigned mine = ssd::own_tiles(wgi, nt, true);
+  for (int t = nt - 1; t >= 0; --t) {
+    if (!((mine >> t) & 1u)) continue;
+    const int row0 = t * kTile;
+    const int ra = row0 + warp * 16 + (lane >> 2), rb = ra + 8;
+    float acc[NP / 2];
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] = 0.0f;
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk)
+      wgmma_ss_nt(acc, kmajor_desc(sm.dy + row0 * kSwRow + kk * 32),
+                  mnmajor32_desc(sm.h + kk * 16 * 32, P * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    float za = 0.0f, zb = 0.0f;
+#pragma unroll
+    for (int jb = 0; jb < NP / 8; ++jb) {
+      const float2 ca = ld_bf2(c_tile + swz32(rows, ra, jb) + 2 * cq);
+      const float2 cb = ld_bf2(c_tile + swz32(rows, rb, jb) + 2 * cq);
+      za = fmaf(acc[4 * jb], ca.x, fmaf(acc[4 * jb + 1], ca.y, za));
+      zb = fmaf(acc[4 * jb + 2], cb.x, fmaf(acc[4 * jb + 3], cb.y, zb));
+    }
+    za = quad_sum(za);
+    zb = quad_sum(zb);
+    if ((lane & 3) == 0) {
+      zl_s[ra] = za * expf(cum_s[ra]);
+      zl_s[rb] = zb * expf(cum_s[rb]);
+    }
+  }
+  __syncthreads();  // every product reading the lo half has retired
+  ssd::store_state<P, kTcThreads>(sm.at(sm.h), hv, kNch);
+  fence_proxy_async();
+  __syncthreads();
+
   for (int t = nt - 1; t >= 0; --t) {
     if (!((mine >> t) & 1u)) continue;
     const int row0 = t * kTile;
@@ -840,30 +886,35 @@ ssd_bwd_rows_tc_kernel(const bf16* __restrict__ x,
         }
       }
       if ((lane & 3) == 0)
-        dcum[(bh * g.nc + ci) * q + row] = half ? dcb : dca;
+        dcum[(bh * g.nc + ci) * q + row] = (half ? dcb : dca) + zl_s[row];
     }
   }
 
   // U = dY^T (C o exp(cum)), the chunk's own part of dh0: C o exp(cum)
-  // rounded to bf16 once into B's place (every product reading B has
-  // retired), then dY^T read as an M-major A and C o exp(cum) N-major, as
-  // the forward's chunk state reads X^T and B o w
+  // as a hi + lo pair, hi into B's place and lo into C's own (every
+  // product reading B or C has retired), then dY^T read as an M-major A
+  // and each half N-major, as the forward's chunk state reads X^T and
+  // B o w
   __syncthreads();
   uint8_t* ce_tile = sm.at(sm.b);
+  uint8_t* ce_rest = sm.at(sm.c);
   for (int idx = tid; idx < rows * kNch; idx += kTcThreads) {
     const int r = idx / kNch, c = idx - r * kNch;
     const uint32_t off = swz32(rows, r, c);
     const uint4 raw = *reinterpret_cast<const uint4*>(c_tile + off);
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float er = expf(cum_s[r]);
-    uint4 out;
+    uint4 out, rest;
     uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+    uint32_t* l = reinterpret_cast<uint32_t*>(&rest);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 f = __bfloat1622float2(h2[e]);
       o[e] = pack_bf16(f.x * er, f.y * er);
+      l[e] = pack_bf16_rest(f.x * er, f.y * er);
     }
     *reinterpret_cast<uint4*>(ce_tile + off) = out;
+    *reinterpret_cast<uint4*>(ce_rest + off) = rest;
   }
   fence_proxy_async();
   __syncthreads();
@@ -878,6 +929,10 @@ ssd_bwd_rows_tc_kernel(const bf16* __restrict__ x,
     wgmma_ss_tt(u, sw128_desc(sm.dy + kk * 16 * kSwRow, rows * kSwRow,
                               8 * kSwRow),
                 mnmajor32_desc(sm.b + kk * 16 * 32, rows * 32), kk > 0);
+  for (int kk = 0; kk < ksteps; ++kk)
+    wgmma_ss_tt(u, sw128_desc(sm.dy + kk * 16 * kSwRow, rows * kSwRow,
+                              8 * kSwRow),
+                mnmajor32_desc(sm.c + kk * 16 * 32, rows * 32), true);
   wgmma_commit();
   wgmma_wait_all();
   pin(u);
@@ -921,6 +976,7 @@ ssd_bwd_cols_tc_kernel(const bf16* __restrict__ x,
   float* nu_s = mu_s + rows;
   float* ddt_s = nu_s + rows;   // direct ddt
   float* dcm_s = ddt_s + rows;  // column part of dcum
+  float* sl_s = dcm_s + rows;   // x_j . (B_j dh1_lo^T)
   float* tmax_s = sm.f + kSide * rows;  // [12]: see warp_chunk_cumsum
   float* warp_tot = tmax_s + 12;        // [kThreads / 32]
   float* red = warp_tot + 8;            // [kThreads / 32]
@@ -941,7 +997,8 @@ ssd_bwd_cols_tc_kernel(const bf16* __restrict__ x,
               (int64_t)g.heads * P, g, c0, rows, P);
   ssd::load_x(sm.x, x + bi * g.x_sb + hh * g.x_sh, g.x_ss, g, c0, rows, P);
   cp_async_commit();
-  ssd::store_state<P, kTcThreads>(sm.at(sm.h), hv, kNch);
+  // dh1's lo half first: its share of s_j before the main pass
+  ssd::store_state<P, kTcThreads, true>(sm.at(sm.h), hv, kNch);
   ssd::chunk_cum(dtv, a_h, rows, dt_s, cum_s, tmax_s);
   // The decay exp(cum_i - cum_j) of a row j and a later column i, where
   // cum never rises, factors through the row before the column's tile
@@ -968,6 +1025,42 @@ ssd_bwd_cols_tc_kernel(const bf16* __restrict__ x,
   uint8_t* x_tile = sm.at(sm.x);
   const int nt = rows / kTile;
   const unsigned mine = ssd::own_tiles(wgi, nt, false);
+  for (int t = 0; t < nt; ++t) {
+    if (!((mine >> t) & 1u)) continue;
+    const int row0 = t * kTile;
+    const int ja = row0 + warp * 16 + (lane >> 2), jb = ja + 8;
+    float tl[P / 2];
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) tl[i] = 0.0f;
+    pin(tl);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < kNkb; ++kb)
+      wgmma_ss(tl, kmajor32_desc(sm.b + (kb * rows + row0) * 32),
+               kmajor32_desc(sm.h + kb * P * 32), kb > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(tl);
+    float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+    for (int pb = 0; pb < P / 8; ++pb) {
+      const float2 xa = ld_bf2(x_tile + swz(rows, ja, pb) + 2 * cq);
+      const float2 xb = ld_bf2(x_tile + swz(rows, jb, pb) + 2 * cq);
+      sa = fmaf(tl[4 * pb], xa.x, fmaf(tl[4 * pb + 1], xa.y, sa));
+      sb = fmaf(tl[4 * pb + 2], xb.x, fmaf(tl[4 * pb + 3], xb.y, sb));
+    }
+    sa = quad_sum(sa);
+    sb = quad_sum(sb);
+    if ((lane & 3) == 0) {
+      sl_s[ja] = sa;
+      sl_s[jb] = sb;
+    }
+  }
+  __syncthreads();  // every product reading the lo half has retired
+  ssd::store_state<P, kTcThreads>(sm.at(sm.h), hv, kNch);
+  fence_proxy_async();
+  __syncthreads();
+
   float tsum = 0.0f;  // this thread's part of sum_j w_j s_j
   for (int t = 0; t < nt; ++t) {
     if (!((mine >> t) & 1u)) continue;
@@ -1008,8 +1101,8 @@ ssd_bwd_cols_tc_kernel(const bf16* __restrict__ x,
       sa = fmaf(dxa[4 * pb], xa.x, fmaf(dxa[4 * pb + 1], xa.y, sa));
       sb = fmaf(dxa[4 * pb + 2], xb.x, fmaf(dxa[4 * pb + 3], xb.y, sb));
     }
-    sa = quad_sum(sa);
-    sb = quad_sum(sb);
+    sa = quad_sum(sa) + sl_s[ja];
+    sb = quad_sum(sb) + sl_s[jb];
 #pragma unroll
     for (int i = 0; i < P / 2; ++i) dxa[i] *= (i & 2) ? wb : wa;
 #pragma unroll

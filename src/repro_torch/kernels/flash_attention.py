@@ -16,6 +16,11 @@ on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of fp32
 models needs (TF32 or bf16 products would not hold its bounds).  A bf16
 call the tensor-core kernels cannot take raises; it never goes to the
 fp32 kernels or to the plain version.
+
+The forward takes a value head dim of its own (MLA's q and k carry the
+decoupled rope channels on top of v's): the (DQK, DV) pairs of
+:data:`HEAD_DIM_PAIRS`.  The backward takes DQK == DV in
+:data:`BWD_HEAD_DIMS`; any other pair raises.
 """
 from __future__ import annotations
 
@@ -30,7 +35,13 @@ from repro_torch.kernels import _build
 launches = 0
 bwd_launches = 0
 
-HEAD_DIMS = (32, 64, 96, 128)
+# the (q/k head dim, v head dim) pairs the forward kernels instantiate:
+# the diagonal, MLA's prefill at minicpm3-4b width (96, 64) and at its
+# reduced config (80, 64); 80 is hubert-xlarge's head dim
+HEAD_DIM_PAIRS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
+                  (96, 64), (80, 64))
+# the head dims of the backward kernels (DQK == DV)
+BWD_HEAD_DIMS = (32, 64, 96, 128)
 
 _fns = {}
 
@@ -41,7 +52,7 @@ def _kernel(name: str):
         if name == "fwd":
             fn = _build.load("flash_attention").flash_attention_fwd
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12 \
-                + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_void_p]
         else:
             fn = _build.load("flash_attention_bwd").flash_attention_bwd
@@ -64,9 +75,10 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError(f"{fn} takes fp32 or bf16 q, k, v "
                          f"of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{fn} needs q (B,S,H,D) and k, v "
-                         f"(B,S,Hkv,D), got {tuple(q.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{fn} needs q (B,S,H,D), k (B,S,Hkv,D) and v "
+                         f"(B,S,Hkv,Dv), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -74,9 +86,9 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             or hkv == 0 or h % hkv:
         raise ValueError(f"{fn}: k/v {tuple(k.shape)} do "
                          f"not fit q {tuple(q.shape)} (H a multiple of Hkv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{fn} takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    if (d, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{fn} takes (q/k, v) head dims in "
+                         f"{HEAD_DIM_PAIRS}, got {(d, v.shape[3])}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError(f"{fn} needs a contiguous head dim")
     if b > 65535 or h > 65535:
@@ -97,9 +109,10 @@ def _check_aligned(fn: str, **operands: torch.Tensor):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, scale: float,
                          want_lse: bool = False):
-    """q (B,S,H,D), k/v (B,S,Hkv,D) CUDA tensors of one dtype (fp32 or
-    bf16), read in place through their strides (the head dim must be
-    contiguous) -> (B,S,H,D) contiguous in q's dtype, and with
+    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) CUDA tensors of one
+    dtype (fp32 or bf16), (D, Dv) in :data:`HEAD_DIM_PAIRS`, read in place
+    through their strides (the head dim must be contiguous) -> (B,S,H,Dv)
+    contiguous in q's dtype, and with
     ``want_lse`` also each row's log-sum-exp (B,H,S) fp32 for the
     backward.  ``window`` 0 means no sliding window.  bf16 operands must
     start on 16 bytes and have (b, s, h) strides that are multiples of 8
@@ -108,12 +121,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("flash_attention_cuda", q, k, v)
     dev = q.device
     b, s, h, d = q.shape
-    hkv = k.shape[2]
+    hkv, dv = k.shape[2], v.shape[3]
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention_cuda", q=q, k=k, v=v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
         if want_lse else None
     if b == 0 or s == 0 or h == 0:
@@ -122,7 +135,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel("fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), *strides, b, s, h, hkv, d,
+                             out.data_ptr(), *strides, b, s, h, hkv, d, dv,
                              int(bool(causal)), int(window), float(scale),
                              int(q.dtype == torch.bfloat16),
                              lse.data_ptr() if want_lse else None, stream)
@@ -145,11 +158,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dk and dv as fp32 partials per query head, their sum over each kv
     head's group) and takes operands as the forward's bf16 route does.
     fp32 runs on the CUDA cores in two launches (dq, then dk and
-    dv).  No atomics, so repeated calls give the same bits."""
+    dv).  No atomics, so repeated calls give the same bits.  Takes one
+    head dim for q, k and v, in :data:`BWD_HEAD_DIMS`: any other pair
+    raises ``NotImplementedError`` (ROADMAP.md names the slice that adds
+    head dim 80 and DQK != DV), with no plain fallback."""
     global bwd_launches
     _check("flash_attention_bwd_cuda", q, k, v)
     dev = q.device
     b, s, h, d = q.shape
+    if v.shape[3] != d or d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd_cuda takes one head dim for q, k and v "
+            f"in {BWD_HEAD_DIMS}, got (q/k, v) {(d, v.shape[3])}: B5's "
+            f"backward at head dim 80 and DQK != DV is the next kernel "
+            f"slice (ROADMAP.md, B5-bwd)")
     hkv = k.shape[2]
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     if out.shape != q.shape or dout.shape != q.shape \

@@ -330,9 +330,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,S,Hq,D), k/v (B,S,Hkv,D) -> (B,S,Hq,D) in q's dtype: softmax
-    attention with a causal, sliding-window (``window`` > 0) or full
-    mask, GQA by index, fp32 accumulation.  Kernel B5 on a CUDA tensor
+    """q (B,S,Hq,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (B,S,Hq,Dv) in q's
+    dtype: softmax attention with a causal, sliding-window (``window`` >
+    0) or full mask, GQA by index, fp32 accumulation; v's head dim may
+    differ from q's and k's (MLA's prefill).  Kernel B5 on a CUDA tensor
     (read in place through its strides); a call that needs a gradient
     also keeps the row log-sum-exp for B5's backward kernel."""
     if scale is None:

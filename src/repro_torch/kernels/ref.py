@@ -93,8 +93,10 @@ def _attention_mask(q_pos, k_pos, causal: bool, window: int):
 
 
 def _softmax_attention(q, k, v, causal: bool, window: int, scale):
-    """q (B,S,H,D), k/v (B,S,Hkv,D) -> (out (B,S,H,D) in q's dtype, the
-    masked fp32 scores (B,Hkv,H/Hkv,S,S)).
+    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (out (B,S,H,Dv) in
+    q's dtype, the masked fp32 scores (B,Hkv,H/Hkv,S,S)); v's head dim
+    may differ from q's and k's (MLA), as in the reference's
+    ``chunked_attention``.
 
     Materialized fp32 softmax over the (S, S) scores; GQA by index (query
     head h reads kv head ``h // (H/Hkv)``, no repeat); the mask is causal
@@ -114,7 +116,8 @@ def _softmax_attention(q, k, v, causal: bool, window: int, scale):
                          NEG_INF)
     out = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(scores, dim=-1),
                        v.transpose(1, 2).to(torch.float32))
-    return out.reshape(b, h, s, d).transpose(1, 2).to(q.dtype), scores
+    return out.reshape(b, h, s, v.shape[3]).transpose(1, 2).to(q.dtype), \
+        scores
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,8 +132,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
                             window: int = 0, scale=None):
-    """q (B,S,H,D), k/v (B,S,Hkv,D) -> (out (B,S,H,D) in q's dtype, lse
-    (B,H,S) fp32): :func:`_softmax_attention` plus the row log-sum-exp
+    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (out (B,S,H,Dv) in
+    q's dtype, lse (B,H,S) fp32): :func:`_softmax_attention` plus the row
+    log-sum-exp
     the backward recomputes from, over the same scores.  The reference's
     ``_flash_fwd_scan`` takes ``lse = m + log(l_safe)`` with ``l_safe =
     1`` where a row is fully masked: a masked score adds exp(NEG_INF - m)
@@ -144,22 +148,23 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             window: int = 0, scale=None, chunk: int = 512):
     """The reference's ``_flash_vjp_bwd`` (``models/layers/attention.py``)
-    line for line, in the kernels' layout: q, out, dout (B,S,H,D), k/v
-    (B,S,Hkv,D), lse (B,H,S) -> (dq, dk, dv) in the inputs' dtypes.
+    line for line, in the kernels' layout: q (B,S,H,D), k (B,S,Hkv,D), v
+    (B,S,Hkv,Dv), out and dout (B,S,H,Dv), lse (B,H,S) -> (dq, dk, dv) in
+    the inputs' dtypes (v's head dim may differ, as MLA's does).
 
     Recomputes ``p = exp(s - lse)`` chunk by chunk over the keys, with
     ``delta = rowsum(dout * out)``, ``ds = p (dp - delta) scale``; GQA by
     index, so dk and dv sum over the ``H/Hkv`` query heads that read each
     kv head.  A fully masked row gives zero gradients."""
     b, s, h, d = q.shape
-    hkv = k.shape[2]
+    hkv, dv = k.shape[2], v.shape[3]
     g = h // hkv
     if scale is None:
         scale = d ** -0.5
     f32 = torch.float32
     qf = q.to(f32).reshape(b, s, hkv, g, d)
-    d_out = dout.to(f32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
-    o = out.to(f32).reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4)
+    d_out = dout.to(f32).reshape(b, s, hkv, g, dv).permute(0, 2, 3, 1, 4)
+    o = out.to(f32).reshape(b, s, hkv, g, dv).permute(0, 2, 3, 1, 4)
     delta = torch.sum(d_out * o, dim=-1)                 # (B,Hkv,g,Sq)
     lse_r = lse.to(f32).reshape(b, hkv, g, s)
     pos = torch.arange(s, device=q.device)
@@ -197,8 +202,9 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int):
     ``models/layers/mamba2.py:ssd_chunked`` in torch, chunk by chunk.
 
     x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,N) [ngroups=1] -> (y
-    (B,S,H,P) in x's dtype, h_last (B,H,P,N) fp32).  Per chunk, with
-    ``cum = cumsum(dt*a)``:
+    (B,S,H,P) in x's dtype, h_last (B,H,P,N) fp32, or fp64 for an fp64
+    x, which gives a float64 reference to measure rounding by).  Per
+    chunk, with ``cum = cumsum(dt*a)``:
 
         y      = ((C B^T) o exp(segsum(dt a)) o dt_j) X + exp(cum) C h^T
         h_new  = exp(cum_Q) h + (B o dt exp(cum_Q - cum))^T X
@@ -214,7 +220,7 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int):
     bs, sp, h, p = x.shape
     n = b.shape[-1]
     nc = sp // chunk
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)  # fp64 stays fp64
     xc = x.to(f32).reshape(bs, nc, chunk, h, p)
     dtc = dt.to(f32).reshape(bs, nc, chunk, h)
     bc = b.to(f32).reshape(bs, nc, chunk, n)

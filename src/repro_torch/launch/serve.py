@@ -35,14 +35,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(args, params=None) -> dict:
+def serve(args, params=None, cfg=None) -> dict:
     """Prefill ``args.batch`` prompts, then decode ``args.max_new`` tokens
     greedily in lock-step.  ``params`` (the port's tree, e.g. from
     :func:`repro_torch.models.transformer.params_from_reference`) replaces
-    the seeded init."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    the seeded init, and ``cfg`` the arch's config (a variant cut in
+    depth, for one card).  An encoder-only arch exits, as the reference's
+    launcher does."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path "
+                         f"(DESIGN.md §7)")
     tfm.check_supported(cfg)
     device = resolve_device(args.device)
     dtype = torch.float32 if args.reduced else getattr(torch, cfg.dtype)

@@ -2,7 +2,9 @@
 arch.
 
 The port of the reference's ``models/registry.py`` for the LM kinds the
-port has (``dense``, ``ssm``, ``hybrid``); the NTM runs through
+port has (``dense``, ``ssm``, ``hybrid``, ``vlm``, ``audio``; an
+encoder-only config's ``prefill``, ``decode_step`` and ``init_cache``
+raise, as it has no decode path); the NTM runs through
 ``repro_torch.api``.  ``loss`` is the mean token loss and ``loss_sum``
 its mask-aware ``(sum, count)`` form, which the federated stacked path
 weights by (Eq. (2) sample counts).

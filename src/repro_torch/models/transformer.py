@@ -1,18 +1,27 @@
-"""Decoder transformer assembly for the port's LM families.
+"""Decoder/encoder transformer assembly for the port's LM families.
 
 The port of the reference's ``models/transformer.py`` for the kinds
-``dense`` (GQA + SwiGLU), ``ssm`` (Mamba-2) and ``hybrid`` (Hymba); MoE,
-MLA, M-RoPE, the audio and VLM frontends raise ``NotImplementedError``
-naming ROADMAP.md A16.  Parameters keep the reference tree's names and
-per-layer layout: ``{"embed": {"table"}, "lm_head": {"w"}, "final_norm":
-{"scale"}, "layers": [...]}``, where the reference stacks the layers on
-a leading ``num_layers`` axis for ``lax.scan`` and the port keeps a list
-of per-layer dicts and loops over it in Python.  There is no mesh, so
-the reference's ``constrain_batch`` is the identity here (ROADMAP.md
-A17).  Positions are the implicit ``arange(S)`` of the serve path: a
-``positions`` entry in the batch raises.  ``cfg.remat_layers`` recomputes
-each layer in the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` per layer).  Training differentiates the fp32
+``dense`` (GQA with optional q/k/v biases, or MLA; SwiGLU), ``ssm``
+(Mamba-2), ``hybrid`` (Hymba), ``vlm`` (the language backbone with
+M-RoPE and the patch-embedding merge) and ``audio`` (the encoder-only
+HuBERT stack: frame projection, masked-frame and position embeddings,
+LayerNorm, GELU MLP, bidirectional attention, the prediction head); the
+``moe`` kind raises ``NotImplementedError`` naming ROADMAP.md A16b.  The
+ViT and the audio feature extractor are stubs, as in the reference:
+batches carry precomputed ``patch_embeds`` or ``frame_embeds``.
+Parameters keep the reference tree's names and per-layer layout:
+``{"embed": {"table"}, "lm_head": {"w"}, "final_norm": {"scale"},
+"layers": [...]}`` (audio: ``frontend_proj``, ``mask_embed``,
+``pos_embed``, ``pred_head`` in place of the token embedding and head),
+where the reference stacks the layers on a leading ``num_layers`` axis
+for ``lax.scan`` and the port keeps a list of per-layer dicts and loops
+over it in Python.  There is no mesh, so the reference's
+``constrain_batch`` is the identity here (ROADMAP.md A17).  Positions
+are the implicit ``arange(S)`` of the serve path (M-RoPE's streams may
+come with the batch): a ``positions`` entry in the batch raises.
+``cfg.remat_layers`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
+layer).  Training differentiates the fp32
 masters: the layers cast each weight at its use (``w.to(x.dtype)``), and
 ``activation_copy`` (bf16 copies for serving) is not for training.
 
@@ -21,7 +30,9 @@ Public entry points:
                            key, the reference's values
   * ``forward_train``    — full-sequence logits
   * ``xent_loss``, ``train_loss``, ``train_loss_sum`` — the training
-                           objective (no MoE aux: no MoE kind is ported)
+                           objective (next-token labels, or audio's
+                           masked-frame ``targets``; no MoE aux: no MoE
+                           kind is ported)
   * ``prefill``          — logits + populated decode cache
   * ``decode_step``      — ONE token against the cache (updated in place)
   * ``init_cache``       — zeroed decode cache for a given batch/seq
@@ -38,36 +49,39 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.core import prng
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import hymba as hymba_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
-from repro_torch.models.layers.embedding import (embed, embedding_init,
-                                                 lm_head, lm_head_init,
-                                                 lm_head_tied)
-from repro_torch.models.layers.mlp import swiglu, swiglu_init
-from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
-from repro_torch.models.layers.rope import rope_angles
+from repro_torch.models.layers.embedding import (
+    embed, embedding_init, lm_head, lm_head_init, lm_head_tied,
+    masked_prediction_embed, merge_patch_embeds)
+from repro_torch.models.layers.init import dense_init
+from repro_torch.models.layers.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
+                                           swiglu_init)
+from repro_torch.models.layers.norms import (layernorm, layernorm_init,
+                                             rmsnorm, rmsnorm_init)
+from repro_torch.models.layers.rope import (mrope_angles, rope_angles,
+                                            text_mrope_positions)
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for every kind or field of ``cfg`` the port has no layer
-    for yet."""
-    missing = []
-    if cfg.kind not in (DENSE, SSM, HYBRID):
-        missing.append(f"kind {cfg.kind!r}")
-    for flag in ("use_mla", "use_mrope", "encoder_only", "qkv_bias"):
-        if getattr(cfg, flag):
-            missing.append(flag)
-    if cfg.kind != SSM and cfg.activation != "swiglu":
-        missing.append(f"activation {cfg.activation!r}")
-    if missing:
+    """Raise for a kind of ``cfg`` the port has no layer for yet (MoE,
+    and the NTMs, which run through ``repro_torch.api``)."""
+    if cfg.kind not in (DENSE, SSM, HYBRID, VLM, AUDIO):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not in the port yet "
-            f"(ROADMAP.md A16)")
+            f"{cfg.name}: kind {cfg.kind!r} not in the port yet "
+            f"(ROADMAP.md A16b)")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode path "
+                         f"(DESIGN.md §7)")
 
 
 def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
@@ -77,26 +91,49 @@ def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+def _norm_init(cfg, dim: int, dev) -> Params:
+    if cfg.kind == AUDIO:
+        return layernorm_init(dim, device=dev)
+    return rmsnorm_init(dim, device=dev)
+
+
+def _apply_norm(cfg, p, x):
+    if cfg.kind == AUDIO:
+        return layernorm(p, x, cfg.norm_eps)
+    return rmsnorm(p, x, cfg.norm_eps)
+
+
+def _ffn(cfg, p, x):
+    return gelu_mlp(p, x) if cfg.activation == "gelu" else swiglu(p, x)
+
+
 def _layer_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
     d, dev = cfg.d_model, key.device
     k1, k2 = prng.split(key)
     if cfg.kind == SSM:
-        return {"norm": rmsnorm_init(d, device=dev),
+        return {"norm": _norm_init(cfg, d, dev),
                 "mixer": mamba_lib.mamba2_init(k1, cfg)}
-    mixer = hymba_lib.hymba_init(k1, cfg) if cfg.kind == HYBRID \
-        else attn_lib.gqa_init(k1, cfg)
-    return {"attn_norm": rmsnorm_init(d, device=dev), "mixer": mixer,
-            "ffn_norm": rmsnorm_init(d, device=dev),
-            "ffn": swiglu_init(k2, d, cfg.d_ff)}
+    if cfg.kind == HYBRID:
+        mixer = hymba_lib.hymba_init(k1, cfg)
+    elif cfg.use_mla:
+        mixer = attn_lib.mla_init(k1, cfg)
+    else:
+        mixer = attn_lib.gqa_init(k1, cfg)
+    ffn = gelu_mlp_init(k2, d, cfg.d_ff) if cfg.activation == "gelu" \
+        else swiglu_init(k2, d, cfg.d_ff)
+    return {"attn_norm": _norm_init(cfg, d, dev), "mixer": mixer,
+            "ffn_norm": _norm_init(cfg, d, dev), "ffn": ffn}
 
 
 def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
     """Fresh fp32 weights from the threefry ``key``
     (``prng.PRNGKey(seed)``) on the reference's key tree: ``split(key,
     8)``, layer i from ``split(keys[0], num_layers)[i]``, the embedding
-    from ``keys[1]`` and the head from ``keys[2]``.  Drawn on the key's
-    device, leaf by leaf, so each hash's int64 temporaries are one
-    leaf's; the values are the reference's (``core/prng.py``)."""
+    from ``keys[1]`` and the head from ``keys[2]`` (audio: the frame
+    projection, mask embedding, position embedding and prediction head
+    from ``keys[1..4]``).  Drawn on the key's device, leaf by leaf, so
+    each hash's int64 temporaries are one leaf's; the values are the
+    reference's (``core/prng.py``)."""
     check_supported(cfg)
     dev = key.device
     keys = prng.split(key, 8)
@@ -104,9 +141,18 @@ def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
     params: Params = {
         "layers": [_layer_init(unit_keys[i], cfg)
                    for i in range(cfg.num_layers)],
-        "final_norm": rmsnorm_init(cfg.d_model, device=dev),
-        "embed": embedding_init(keys[1], cfg.vocab_size, cfg.d_model),
+        "final_norm": _norm_init(cfg, cfg.d_model, dev),
     }
+    if cfg.kind == AUDIO:
+        d = cfg.d_model
+        params["frontend_proj"] = {
+            "w": dense_init(keys[1], (cfg.frontend_embed_dim, d))}
+        params["mask_embed"] = 0.02 * prng.normal(keys[2], (d,))
+        params["pos_embed"] = 0.02 * prng.normal(keys[3],
+                                                 (cfg.max_seq_len, d))
+        params["pred_head"] = lm_head_init(keys[4], d, cfg.vocab_size)
+        return params
+    params["embed"] = embedding_init(keys[1], cfg.vocab_size, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = lm_head_init(keys[2], cfg.d_model,
                                          cfg.vocab_size)
@@ -114,8 +160,10 @@ def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
 
 
 # weights the layers read only through a cast to the activation dtype
-_CAST_ONLY = ("wq", "wk", "wv", "wo", "in_proj", "out_proj", "w_gate",
-              "w_up", "w_down", "beta_attn")
+_CAST_ONLY = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "in_proj",
+              "out_proj", "w_gate", "w_up", "w_down", "b_up", "b_down",
+              "beta_attn", "w_dq", "w_uq", "w_dkv", "w_kr", "w_ukv",
+              "mask_embed", "pos_embed")
 
 
 def activation_copy(params: Params, cfg: ModelConfig, dtype) -> Params:
@@ -132,31 +180,36 @@ def activation_copy(params: Params, cfg: ModelConfig, dtype) -> Params:
                     walk(v) if isinstance(v, (dict, list)) else v)
                 for k, v in node.items()}
     out = walk(params)
-    if not cfg.tie_embeddings:
+    if "embed" in params and not cfg.tie_embeddings:
         out["embed"] = {"table": params["embed"]["table"].to(dtype)}
+    if "frontend_proj" in params:
+        out["frontend_proj"] = {"w": params["frontend_proj"]["w"].to(dtype)}
     return out
 
 
 # ---------------------------------------------------------------------------
 # full-sequence application (forward / prefill)
 # ---------------------------------------------------------------------------
-def _block_full(cfg, lp, x, angles):
+def _block_full(cfg, lp, x, angles, causal: bool):
     """One layer over the full sequence.  Returns (x, cache entry)."""
     if cfg.kind == SSM:
-        h = rmsnorm(lp["norm"], x, cfg.norm_eps)
+        h = _apply_norm(cfg, lp["norm"], x)
         y, state = mamba_lib.mamba2_apply(lp["mixer"], cfg, h)
         return x + y.to(x.dtype), state
-    h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    h = _apply_norm(cfg, lp["attn_norm"], x)
     if cfg.kind == HYBRID:
         y, ((k, v), (cs, ss)) = hymba_lib.hymba_full(lp["mixer"], cfg, h,
                                                      angles)
         cache = (k, v, cs, ss)
+    elif cfg.use_mla:
+        y, cache = attn_lib.mla_full(lp["mixer"], cfg, h, angles,
+                                     causal=causal)
     else:
         y, cache = attn_lib.gqa_full(lp["mixer"], cfg, h, angles,
-                                     causal=True)
+                                     causal=causal)
     x = x + y.to(x.dtype)
-    h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
-    return x + swiglu(lp["ffn"], h).to(x.dtype), cache
+    h = _apply_norm(cfg, lp["ffn_norm"], x)
+    return x + _ffn(cfg, lp["ffn"], h).to(x.dtype), cache
 
 
 def _positions(cfg, batch, b: int, s: int, device) -> torch.Tensor:
@@ -167,45 +220,81 @@ def _positions(cfg, batch, b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def _angles_for(cfg, positions):
-    if cfg.kind == SSM:
-        return None          # no attention branch reads them
+def _seq_shape(cfg, batch):
+    """(B, S) and the device of the batch's input."""
+    x = batch["frame_embeds"] if cfg.kind == AUDIO else batch["tokens"]
+    return x.shape[0], x.shape[1], x.device
+
+
+def _embed_input(params, cfg, batch, dtype):
+    """The input embedding per modality: audio frames through the
+    frontend projection, the masked-frame and position embeddings;
+    tokens, with a VLM batch's patch embeddings merged in."""
+    if cfg.kind == AUDIO:
+        x = torch.matmul(batch["frame_embeds"].to(dtype),
+                         params["frontend_proj"]["w"].to(dtype))
+        x = masked_prediction_embed({"mask_embed": params["mask_embed"]}, x,
+                                    batch["frame_mask"])
+        return x + params["pos_embed"][:x.shape[1]].to(dtype)
+    x = embed(params["embed"], batch["tokens"], dtype)
+    if cfg.kind == VLM and "patch_embeds" in batch:
+        x = merge_patch_embeds(x, batch["patch_embeds"],
+                               batch["patch_positions"])
+    return x
+
+
+def _angles_for(cfg, batch, positions):
+    if cfg.kind in (SSM, AUDIO):
+        return None          # no rotary branch reads them
+    if cfg.use_mla:
+        return rope_angles(positions, cfg.mla_rope_head_dim, cfg.rope_theta)
+    if cfg.use_mrope:
+        mpos = batch.get("mrope_positions")
+        if mpos is None:
+            mpos = text_mrope_positions(positions)
+        return mrope_angles(mpos, cfg.resolved_head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _run_layers_full(params, cfg, x, angles, *, want_cache: bool):
+def _run_layers_full(params, cfg, x, angles, *, causal: bool,
+                     want_cache: bool):
     caches: List[Any] = []
     remat = cfg.remat_layers and not want_cache and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:
-            x = checkpoint(lambda x, lp: _block_full(cfg, lp, x, angles)[0],
-                           x, lp, use_reentrant=False)
+            x = checkpoint(
+                lambda x, lp: _block_full(cfg, lp, x, angles, causal)[0],
+                x, lp, use_reentrant=False)
             continue
-        x, cache = _block_full(cfg, lp, x, angles)
+        x, cache = _block_full(cfg, lp, x, angles, causal)
         if want_cache:
             caches.append(cache)
     return x, caches
 
 
 def _logits(params, cfg, x):
+    if cfg.kind == AUDIO:
+        return lm_head(params["pred_head"], x)
     if cfg.tie_embeddings:
         return lm_head_tied(params["embed"], x)
     return lm_head(params["lm_head"], x)
 
 
 def forward_train(params, cfg: ModelConfig, batch, *, dtype=None):
-    """Full-sequence forward.  Returns (logits fp32, aux fp32 zero — the
-    reference's MoE aux term, always 0 for the ported kinds)."""
+    """Full-sequence forward (bidirectional for an encoder-only config).
+    Returns (logits fp32, aux fp32 zero — the reference's MoE aux term,
+    always 0 for the ported kinds)."""
     check_supported(cfg)
     dtype = _dtype(cfg, dtype)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = _positions(cfg, batch, b, s, tokens.device)
-    x = embed(params["embed"], tokens, dtype)
-    x, _ = _run_layers_full(params, cfg, x, _angles_for(cfg, positions),
-                            want_cache=False)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), torch.zeros((), device=tokens.device)
+    b, s, device = _seq_shape(cfg, batch)
+    positions = _positions(cfg, batch, b, s, device)
+    x = _embed_input(params, cfg, batch, dtype)
+    x, _ = _run_layers_full(params, cfg, x,
+                            _angles_for(cfg, batch, positions),
+                            causal=not cfg.encoder_only, want_cache=False)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return _logits(params, cfg, x), torch.zeros((), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -221,11 +310,19 @@ def xent_loss(logits, labels, mask=None):
     return -torch.sum(ll * mask), torch.sum(mask)
 
 
+def _labels_and_mask(cfg, batch):
+    """Next-token ``labels`` and the optional ``loss_mask``; audio's
+    masked-frame ``targets`` under its ``frame_mask``."""
+    if cfg.kind == AUDIO:
+        return batch["targets"], batch["frame_mask"]
+    return batch["labels"], batch.get("loss_mask")
+
+
 def train_loss(params, cfg: ModelConfig, batch, *, dtype=None):
     """Scalar mean token loss of a batch (``labels``, optional
-    ``loss_mask``)."""
+    ``loss_mask``; audio: ``targets`` under ``frame_mask``)."""
     logits, _ = forward_train(params, cfg, batch, dtype=dtype)
-    s, n = xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    s, n = xent_loss(logits, *_labels_and_mask(cfg, batch))
     return s / torch.clamp(n, min=1.0)
 
 
@@ -235,7 +332,7 @@ def train_loss_sum(params, cfg: ModelConfig, batch, *, dtype=None):
     token mask, so padded documents stay out of the objective and its
     gradient."""
     logits, _ = forward_train(params, cfg, batch, dtype=dtype)
-    labels, mask = batch["labels"], batch.get("loss_mask")
+    labels, mask = _labels_and_mask(cfg, batch)
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device) if mask is None \
         else mask.to(torch.float32)
@@ -254,13 +351,20 @@ def _cache_len(cfg, seq_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype=None,
                *, device) -> Dict[str, Any]:
-    """Zeroed decode cache covering ``seq_len`` positions."""
+    """Zeroed decode cache covering ``seq_len`` positions (MLA: the
+    latent ``ckv`` and the rope key ``kr``)."""
     check_supported(cfg)
+    _check_decoder(cfg)
     dtype = _dtype(cfg, dtype)
     nl = cfg.num_layers
     c = _cache_len(cfg, seq_len)
     out: Dict[str, Any] = {"pos": 0}
-    if cfg.kind != SSM:
+    if cfg.use_mla:
+        for key, width in (("ckv", cfg.mla_kv_lora_rank),
+                           ("kr", cfg.mla_rope_head_dim)):
+            out[key] = torch.zeros((nl, batch_size, c, width), dtype=dtype,
+                                   device=device)
+    elif cfg.kind != SSM:
         shape = (nl, batch_size, c, cfg.num_kv_heads, cfg.resolved_head_dim)
         out["k"] = torch.zeros(shape, dtype=dtype, device=device)
         out["v"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -300,8 +404,9 @@ def _cache_from_full(cfg, caches, seq_len: int, dtype,
         out["conv"] = torch.stack([cs for cs, _ in caches])
         out["ssm"] = torch.stack([ss for _, ss in caches])
         return out
-    out["k"] = torch.stack([_fit(e[0].to(dtype), c) for e in caches])
-    out["v"] = torch.stack([_fit(e[1].to(dtype), c) for e in caches])
+    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
+    for j, key in enumerate(names):
+        out[key] = torch.stack([_fit(e[j].to(dtype), c) for e in caches])
     if cfg.kind == HYBRID:
         out["conv"] = torch.stack([e[2] for e in caches])
         out["ssm"] = torch.stack([e[3] for e in caches])
@@ -314,14 +419,15 @@ def prefill(params, cfg: ModelConfig, batch, *, dtype=None,
     ``max_len`` (>= seq_len) sets the cache capacity (default: the
     prefill length, no decode headroom)."""
     check_supported(cfg)
+    _check_decoder(cfg)
     dtype = _dtype(cfg, dtype)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = _positions(cfg, batch, b, s, tokens.device)
-    x = embed(params["embed"], tokens, dtype)
-    x, caches = _run_layers_full(params, cfg, x, _angles_for(cfg, positions),
-                                 want_cache=True)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    b, s, device = _seq_shape(cfg, batch)
+    positions = _positions(cfg, batch, b, s, device)
+    x = _embed_input(params, cfg, batch, dtype)
+    x, caches = _run_layers_full(params, cfg, x,
+                                 _angles_for(cfg, batch, positions),
+                                 causal=True, want_cache=True)
+    x = _apply_norm(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x)
     return logits, _cache_from_full(cfg, caches, s, dtype, max_len=max_len)
 
@@ -329,14 +435,20 @@ def prefill(params, cfg: ModelConfig, batch, *, dtype=None,
 def _block_decode(cfg, lp, x, angles, cache, i: int, pos: int):
     """One layer, one token; writes layer ``i`` of ``cache`` in place."""
     if cfg.kind == SSM:
-        h = rmsnorm(lp["norm"], x, cfg.norm_eps)
+        h = _apply_norm(cfg, lp["norm"], x)
         y, (cs, ss) = mamba_lib.mamba2_decode(
             lp["mixer"], cfg, h, conv_state=cache["conv"][i],
             ssm_state=cache["ssm"][i])
         cache["conv"][i], cache["ssm"][i] = cs, ss
         return x + y.to(x.dtype)
-    h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    if cfg.kind == HYBRID:
+    h = _apply_norm(cfg, lp["attn_norm"], x)
+    if cfg.use_mla:
+        decode = attn_lib.mla_decode_absorbed if cfg.mla_absorb \
+            else attn_lib.mla_decode
+        y, _ = decode(lp["mixer"], cfg, h, angles,
+                      cache_ckv=cache["ckv"][i], cache_kr=cache["kr"][i],
+                      pos=pos)
+    elif cfg.kind == HYBRID:
         y, (_, _, cs, ss) = hymba_lib.hymba_decode(
             lp["mixer"], cfg, h, angles, cache_k=cache["k"][i],
             cache_v=cache["v"][i], pos=pos, conv_state=cache["conv"][i],
@@ -347,25 +459,29 @@ def _block_decode(cfg, lp, x, angles, cache, i: int, pos: int):
                                    cache_k=cache["k"][i],
                                    cache_v=cache["v"][i], pos=pos)
     x = x + y.to(x.dtype)
-    h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
-    return x + swiglu(lp["ffn"], h).to(x.dtype)
+    h = _apply_norm(cfg, lp["ffn_norm"], x)
+    return x + _ffn(cfg, lp["ffn"], h).to(x.dtype)
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, *, dtype=None):
+def decode_step(params, cfg: ModelConfig, cache, tokens, *, batch=None,
+                dtype=None):
     """Decode ONE token.  tokens (B, 1).  Returns (logits, cache): the
     cache's tensors are updated in place (the reference returns new
     arrays; the port saves a copy of every layer's cache per token) and
-    the returned dict carries ``pos + 1``."""
+    the returned dict carries ``pos + 1``.  ``batch`` is the reference's:
+    the angles read its ``mrope_positions`` if it has them (M-RoPE),
+    else the step's text position."""
     check_supported(cfg)
+    _check_decoder(cfg)
     dtype = _dtype(cfg, dtype)
     b = tokens.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, device=tokens.device)
     x = embed(params["embed"], tokens, dtype)
-    angles = _angles_for(cfg, positions)
+    angles = _angles_for(cfg, batch or {}, positions)
     for i, lp in enumerate(params["layers"]):
         x = _block_decode(cfg, lp, x, angles, cache, i, pos)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _apply_norm(cfg, params["final_norm"], x)
     out = dict(cache)
     out["pos"] = pos + 1
     return _logits(params, cfg, x), out

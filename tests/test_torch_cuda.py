@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.topic_decoder import grid, topic_decoder_cuda
 from repro_torch.models import transformer as tfm
+from repro_torch.models.agreement import tree_to
 from repro_torch.serve import FederationService, run_traffic
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1)
@@ -682,14 +683,6 @@ def test_ssd_bwd_kernel_bf16_refuses_misaligned(cuda_device, fault):
     assert ssd_scan.bwd_launches == before
 
 
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
-
-
 def rng_tokens(vocab, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s))
 
@@ -701,7 +694,7 @@ def test_lm_prefill_decode_on_card_matches_cpu(cuda_device):
     the prefill and never in decode."""
     cfg = get_config("hymba-1.5b").reduced()
     cpu = tfm.init_params(prng.PRNGKey(0), cfg)
-    gpu = _to(cpu, cuda_device)
+    gpu = tree_to(cpu, cuda_device)
     toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 100))
     runs = []
     for params, dev in ((cpu, "cpu"), (gpu, cuda_device)):
@@ -749,7 +742,7 @@ def test_train_loss_grads_on_card_match_cpu(cuda_device):
     of each leaf's scale; each backward kernel runs once per layer."""
     cfg = get_config("hymba-1.5b").reduced()
     cpu = tfm.init_params(prng.PRNGKey(0), cfg)
-    gpu = _to(cpu, cuda_device)
+    gpu = tree_to(cpu, cuda_device)
     toks = rng_tokens(cfg.vocab_size, 2, 97)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]),
              "labels": torch.from_numpy(toks[:, 1:])}
@@ -895,6 +888,33 @@ def test_ssd_bwd_kernel_bf16_rising_cum_matches_plain(cuda_device, rng):
     beside decaying heads', within 2e-2 of each gradient's scale."""
     _ssd_bwd_check((1, 300, 4, 64, 16, 256), torch.bfloat16, True, rng,
                    cuda_device, a=[-1.0, 0.1, -0.5, 0.02])
+
+
+def test_ssd_bwd_kernel_bf16_on_the_cancelling_draw(cuda_device):
+    """The saved draw of (1, 100, 2, 32, 16, 48) bf16 on which ``da`` (one
+    sum a head over terms that cancel) read 0.106 of max|plain| when the
+    kernels rounded their state values to bf16 once: every gradient within
+    2e-2 of its max|plain|, da within 2e-3 of a float64 backward's."""
+    d = torch.load(os.path.join(os.path.dirname(__file__), "data",
+                                "ssd_scan_bwd_da_draw.pt"), weights_only=True)
+    b, s, h, p, n = d["shape"]
+    chunk = d["chunk"]
+    xs, bb, cc = d["conv"].to(cuda_device).split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt, dy, dh = (d[k].to(cuda_device) for k in ("dt", "dy", "dh"))
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda_device)
+    _, _, states = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                 keep_states=True)
+    got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, states, dh, chunk=chunk)
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, chunk)
+    for g_, w in zip(got, want):
+        w = w.float()
+        assert float((g_.float() - w).abs().max()) \
+            <= 2e-2 * float(w.abs().max())
+    exact = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dt, a, bb, cc,
+                                                        dy, dh)), chunk)[2]
+    assert float((got[2].double() - exact).abs().max()) \
+        <= 2e-3 * float(exact.abs().max())
 
 
 def _ssd_bwd_check(case, dtype, with_h_last, rng, dev, a=None):
@@ -1548,3 +1568,106 @@ def test_mesh_protocol_step_on_card_matches_cpu(cuda_device, fed):
         out[dev.type] = ({k: v.cpu() for k, v in p.items()}, float(loss))
     assert max_param_dev(out["cuda"][0], out["cpu"][0]) <= 1e-5
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+
+
+# ---------------------------------------------------------------------------
+# the dense half of the LM zoo: B5 at head dim 80 and with a value head dim
+# of its own, and the five reduced configs card against CPU
+# ---------------------------------------------------------------------------
+# (b, hq, hkv, s, dqk, dv, causal, window): hubert's 80 with a full mask,
+# MQA 7:1 and 48:1, minicpm3's MLA pair (96, 64) and its reduced (80, 64),
+# qwen2-vl's 28/4 heads
+FLASH_DV_CASES = [
+    (2, 4, 4, 200, 80, 80, False, 0), (1, 7, 1, 300, 80, 80, True, 0),
+    (1, 4, 2, 130, 80, 80, True, 40),
+    (2, 4, 4, 257, 96, 64, True, 0), (1, 48, 1, 130, 96, 64, True, 40),
+    (2, 4, 2, 100, 80, 64, True, 0), (1, 4, 4, 193, 80, 64, False, 24),
+    (1, 28, 4, 160, 128, 128, True, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,dqk,dv,causal,window", FLASH_DV_CASES)
+def test_flash_kernel_dv_matches_plain(cuda_device, b, hq, hkv, s, dqk, dv,
+                                       causal, window, dtype, rng):
+    """k and v as the two column slices of one projection, as MLA's
+    expansion gives them (v the strided view ``kv[..., dqk:]``); 2e-5 in
+    fp32, 2e-2 in bf16 (abs + rel)."""
+    q = torch.from_numpy(rng.standard_normal((b, s, hq, dqk)).astype(
+        np.float32)).to(cuda_device, dtype)
+    kv = torch.from_numpy(rng.standard_normal((b, s, hkv, dqk + dv)).astype(
+        np.float32)).to(cuda_device, dtype)
+    k, v = kv[..., :dqk], kv[..., dqk:]
+    before = flash_attention.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=dqk ** -0.5)
+    assert flash_attention.launches == before + 1
+    want, _ = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                          window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.shape == (b, s, hq, dv) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_dv_refusals(cuda_device):
+    """A pair the kernels do not instantiate, and a bf16 v that starts off
+    16 bytes, raise before any launch."""
+    q = torch.zeros(1, 64, 2, 96, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 2, 96 + 72, device=cuda_device,
+                     dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q, kv[..., :96], kv[..., 96:128], causal=True,
+                             window=0, scale=0.1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, kv[..., :96], kv[..., 100:164], causal=True,
+                             window=0, scale=0.1)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dqk,dv", [(96, 64), (80, 80), (80, 64)])
+def test_flash_bwd_refuses_the_new_pairs_under_backward(cuda_device, dqk,
+                                                        dv):
+    """B5's backward kernels take one head dim in 32/64/96/128: a gradient
+    through the forward at a new pair raises, and nothing falls back."""
+    q = torch.randn(1, 64, 2, dqk, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 64, 2, dqk, device=cuda_device, requires_grad=True)
+    v = torch.randn(1, 64, 2, dv, device=cuda_device, requires_grad=True)
+    out = ops.flash_attention(q, k, v, causal=True)
+    before = flash_attention.bwd_launches
+    with pytest.raises(NotImplementedError, match="next kernel slice"):
+        out.sum().backward()
+    assert flash_attention.bwd_launches == before
+
+
+ZOO = ["granite-34b", "qwen1.5-110b", "qwen2-vl-7b", "minicpm3-4b",
+       "hubert-xlarge"]
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_reduced_on_card_matches_cpu(cuda_device, arch):
+    """The reduced config in fp32 from the same weights on both: prefill
+    over 96 tokens and 4 teacher-forced decode steps (hubert: the encoder
+    forward over 96 frames), logits within 2e-4; B5 launches once per
+    layer of the prefill or forward and never in decode."""
+    import dataclasses
+    from repro_torch.models.agreement import card_vs_cpu
+    cfg = get_config(arch).reduced()
+    got = card_vs_cpu(cfg, cuda_device, seed=2 if cfg.encoder_only else 0)
+    assert got["launches"] == {"cpu": (0, 0), "dev": (cfg.num_layers, 0)}
+    assert max(got["devs"]) <= 2e-4
+    gpu = got["params"]
+    if cfg.use_mla:     # the absorbed decode on the card as well
+        absorbed = dataclasses.replace(cfg, mla_absorb=True)
+        toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 20)).to(
+            cuda_device)
+        full, _ = tfm.forward_train(gpu, cfg, {"tokens": toks},
+                                    dtype=torch.float32)
+        _, cache = tfm.prefill(gpu, absorbed, {"tokens": toks[:, :17]},
+                               dtype=torch.float32, max_len=20)
+        for i in range(3):
+            step, cache = tfm.decode_step(gpu, absorbed, cache,
+                                          toks[:, 17 + i:18 + i],
+                                          dtype=torch.float32)
+            torch.testing.assert_close(step[:, 0], full[:, 17 + i],
+                                       rtol=2e-4, atol=2e-4)

@@ -832,13 +832,20 @@ def test_ssd_scan_plain_keeps_bf16_and_the_padding_state(rng):
     np.testing.assert_allclose(h_pad.numpy(), h_ref.numpy(), atol=1e-6)
 
 
+def _hi_lo(t):
+    """fp32 ``t`` as the kernels' hi + lo pair of bf16 carries it."""
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    return hi + (t - hi).to(torch.bfloat16).to(torch.float32)
+
+
 def _ssd_tensor_core_emulation(x, dt, a, b, c, chunk):
     """The arithmetic of B6's bf16 tensor-core route, in plain PyTorch on
     bf16 x (B,S,H,P), b/c (B,S,N) and fp32 dt, a: fp32 products of the
-    bf16 operands and fp32 sums; B o w (the chunk's own state), the
-    carried state in its product and W = (C B^T) o decay o dt are each
-    rounded to bf16 once; the carried state stays fp32; y is cast once.
-    Test-only: the kernels' numeric design, checked on the CPU."""
+    bf16 operands and fp32 sums; the carried state in its product and
+    W = (C B^T) o decay o dt are each rounded to bf16 once, B o w (the
+    chunk's own state) is a hi + lo pair of bf16; the carried state stays
+    fp32; y is cast once.  Test-only: the kernels' numeric design,
+    checked on the CPU."""
     f32, bf = torch.float32, torch.bfloat16
     s = x.shape[1]
     pad = -s % chunk
@@ -860,7 +867,7 @@ def _ssd_tensor_core_emulation(x, dt, a, b, c, chunk):
         xb, dtb, bb, cb = xc[:, i], dtc[:, i], bc[:, i], cc[:, i]
         cum = torch.cumsum(dtb * a.to(f32), dim=1)                # (B,Q,H)
         w = torch.exp(cum[:, -1:] - cum) * dtb
-        bw = (bb[:, :, None, :] * w[..., None]).to(bf).to(f32)    # (B,Q,H,N)
+        bw = _hi_lo(bb[:, :, None, :] * w[..., None])            # (B,Q,H,N)
         own = torch.einsum("bjhp,bjhn->bhpn", xb, bw)
         y = torch.exp(cum)[..., None] * torch.einsum(
             "bin,bhpn->bihp", cb, hst.to(bf).to(f32))
@@ -907,19 +914,22 @@ def test_ssd_tensor_core_arithmetic_matches_pallas(b, s, h, p, n, chunk,
     assert max(devs) <= 2e-2
 
 
-def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk):
+def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk,
+                                   dh_last=None):
     """The arithmetic of B6's backward on its bf16 tensor-core route, in
     plain PyTorch on bf16 x, dy (B,S,H,P), b/c (B,S,N) and fp32 dt, a,
-    from a zero state and no cotangent on h_last (the training path's
-    case).  The states entering the chunks are the forward route's (B o w
-    rounded to bf16 for the chunk's own state, fp32 carried).  Per chunk,
-    fp32 G = C B^T, D = dY X^T and M = D o G o L o dt_j from the bf16
-    operands; W_D = D o L o dt_j, W_G = G o L o dt_j and C o exp(cum)
-    rounded to bf16 before their products; h0 and dh1 rounded to bf16
-    for their products only; M's diagonal left out of dcum (it enters
-    once from each side with opposite signs); dcum, g, ddt and da summed
-    in fp32; dx, db, dc cast once.  Test-only: the kernels' numeric
-    design, checked on the CPU."""
+    from a zero state and a cotangent ``dh_last`` (B,H,P,N) on h_last
+    (``None``: zero, the training path's case).  The states entering the
+    chunks are the forward route's (B o w a hi + lo pair for the chunk's
+    own state, fp32 carried).  Per chunk, fp32 G = C B^T, D = dY X^T and
+    M = D o G o L o dt_j from the bf16 operands; W_D = D o L o dt_j and
+    W_G = G o L o dt_j rounded to bf16 before their products; C o
+    exp(cum) in U a hi + lo pair; h0 and dh1 rounded to bf16 for dC's,
+    dx's and dB's state terms and a hi + lo pair where they reach dcum
+    and s_j; M's diagonal left out of dcum (it enters once from each side
+    with opposite signs); dcum, g, ddt and da summed in fp32; dx, db, dc
+    cast once.  Test-only: the kernels' numeric design, checked on the
+    CPU."""
     f32, bf = torch.float32, torch.bfloat16
     rb = lambda t: t.to(bf).to(f32)  # noqa: E731
     s = x.shape[1]
@@ -946,7 +956,7 @@ def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk):
     ldt = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
                       0.0) * dtc[..., None, :]                 # L o dt_j
     # the forward's states entering each chunk
-    own = torch.einsum("bhcjp,bhcjn->bhcpn", xc, rb(bc * w[..., None]))
+    own = torch.einsum("bhcjp,bhcjn->bhcpn", xc, _hi_lo(bc * w[..., None]))
     h0 = [torch.zeros(bs, h, p, n)]
     for i in range(nc - 1):
         h0.append(torch.exp(cq[..., i])[..., None, None] * h0[-1]
@@ -961,10 +971,13 @@ def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk):
     z = torch.einsum("bhcip,bhcpn->bhcin", dyc, rb(h0))
     dc_h = torch.einsum("bhcij,bhcjn->bhcin", rb(d_m * ldt), bc) \
         + e[..., None] * z
+    z = torch.einsum("bhcip,bhcpn->bhcin", dyc, _hi_lo(h0))
     dcum = torch.where(off, m, 0.0).sum(-1) + e * (z * cc).sum(-1)
-    u = torch.einsum("bhcip,bhcin->bhcpn", dyc, rb(cc * e[..., None]))
+    u = torch.einsum("bhcip,bhcin->bhcpn", dyc, _hi_lo(cc * e[..., None]))
     # 2. the state pass, from the last chunk back
     dh1, carry = [None] * nc, torch.zeros(bs, h, p, n)
+    if dh_last is not None:
+        carry = dh_last.to(f32)
     for i in reversed(range(nc)):
         dh1[i] = carry
         carry = torch.exp(cq[..., i])[..., None, None] * carry + u[:, :, i]
@@ -974,7 +987,9 @@ def _ssd_bwd_tensor_core_emulation(x, dt, a, b, c, dy, chunk):
                      rb(dh1))
     dx = torch.einsum("bhcij,bhcip->bhcjp", rb(g_m * ldt), dyc) \
         + w[..., None] * t
-    sj = (xc * t).sum(-1)
+    t_hl = torch.einsum("bhcjn,bhcpn->bhcjp", bc.expand(-1, h, -1, -1, -1),
+                        _hi_lo(dh1))
+    sj = (xc * t_hl).sum(-1)
     db_h = torch.einsum("bhcij,bhcin->bhcjn", rb(d_m * ldt), cc) \
         + w[..., None] * torch.einsum("bhcjp,bhcpn->bhcjn", xc, rb(dh1))
     r_all = (d_m * g_m * torch.where(tril, torch.exp(
@@ -1004,9 +1019,10 @@ SSD_BWD_TC_CASES = [(2, 64, 3, 8, 4, 16), (1, 40, 2, 16, 8, 16),
 
 @pytest.mark.parametrize("case", SSD_BWD_TC_CASES)
 def test_ssd_bwd_tensor_core_arithmetic_matches_jax_vjp(case, rng):
-    """B6's backward on its bf16 route rounds W_D, W_G, C o exp(cum), h0
-    and dh1 to bf16 before their products: its arithmetic, in plain
-    PyTorch, against ``jax.vjp`` of the reference's ``ssd_chunked`` on
+    """B6's backward on its bf16 route rounds W_D, W_G, and h0 and dh1
+    where they do not reach da, to bf16 before their products: its
+    arithmetic, in plain PyTorch, against ``jax.vjp`` of the reference's
+    ``ssd_chunked`` on
     the same bf16-rounded inputs (held in fp32, a ragged tail padded with
     zero steps as mamba2_apply pads), within 2e-2 of each gradient's
     max|reference| for all five gradients."""
@@ -1039,6 +1055,43 @@ def test_ssd_bwd_tensor_core_arithmetic_matches_jax_vjp(case, rng):
                     / float(np.max(np.abs(w))))
     print(f"B6 backward tensor-core arithmetic vs jax.vjp {case} bf16: dx, "
           f"ddt, da, db, dc {['%.3e' % d for d in devs]} of max|reference|")
+    assert max(devs) <= 2e-2
+
+
+SSD_BWD_DRAW = os.path.join(os.path.dirname(__file__), "data",
+                            "ssd_scan_bwd_da_draw.pt")
+
+
+def test_ssd_bwd_tensor_core_arithmetic_on_the_cancelling_draw():
+    """The one draw of (1, 100, 2, 32, 16, 48) with a cotangent on h_last
+    on which B6-bwd's bf16 ``da`` read 0.106 of max|plain| while its
+    states, U and the state terms of dcum and s_j were rounded to bf16
+    once (da there is ~1/50 of its terms' size): the route's arithmetic,
+    with those as hi + lo pairs, against ``jax.vjp`` of the reference's
+    ``ssd_chunked`` (y and h_last) within 2e-2 of each gradient's max."""
+    d = torch.load(SSD_BWD_DRAW, weights_only=True)
+    b, s, h, p, n = d["shape"]
+    chunk = d["chunk"]
+    xs, bm, cm = d["conv"].split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    a = -torch.arange(1, h + 1, dtype=torch.float32)
+    dt, dy, dh = d["dt"], d["dy"], d["dh"]
+    pad = -s % chunk
+
+    def f(x, dt, a, bm, cm):
+        padt = lambda t: jnp.pad(t, [(0, 0), (0, pad)]  # noqa: E731
+                                 + [(0, 0)] * (t.ndim - 2))
+        y, h_last = ssd_chunked(padt(x), padt(dt), a, padt(bm), padt(cm),
+                                chunk)
+        return y[:, :s], h_last
+    f32 = lambda t: jnp.asarray(t.float().numpy())  # noqa: E731
+    _, vjp = jax.vjp(f, *(f32(t) for t in (x, dt, a, bm, cm)))
+    want = vjp((f32(dy), f32(dh)))
+    got = _ssd_bwd_tensor_core_emulation(x, dt, a, bm, cm, dy, chunk, dh)
+    devs = [float(np.max(np.abs(g.float().numpy() - np.asarray(w))))
+            / float(np.max(np.abs(np.asarray(w)))) for g, w in zip(got, want)]
+    print(f"B6 backward tensor-core arithmetic on the saved draw: dx, ddt, "
+          f"da, db, dc {['%.3e' % x for x in devs]} of max|reference|")
     assert max(devs) <= 2e-2
 
 

@@ -134,10 +134,7 @@ def test_unknown_arch_id_raises():
         tconfigs.get_config("gpt-17")
 
 
-@pytest.mark.parametrize("change", [
-    {"kind": tbase.MOE}, {"kind": tbase.VLM}, {"kind": tbase.AUDIO},
-    {"kind": tbase.NTM}, {"use_mla": True}, {"use_mrope": True},
-    {"encoder_only": True}, {"qkv_bias": True}, {"activation": "gelu"}])
+@pytest.mark.parametrize("change", [{"kind": tbase.MOE}, {"kind": tbase.NTM}])
 def test_kinds_outside_the_slice_raise(change):
     cfg = dataclasses.replace(tconfigs.get_config("phi3-mini-3.8b").reduced(),
                               **change)

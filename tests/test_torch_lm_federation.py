@@ -129,9 +129,8 @@ def test_lm_spec_validation_refusals():
         _lm_spec(**{"model.width": 100})
     with pytest.raises(ValueError, match=">= 2"):
         _lm_spec(**{"model.seq_len": 1})
-    # token-causal ids whose layers the port lacks
-    for arch in ("granite-34b", "qwen1.5-110b", "llama4-maverick-400b-a17b",
-                 "qwen3-moe-235b-a22b", "minicpm3-4b"):
+    # token-causal ids whose layers the port lacks: the two MoE archs
+    for arch in ("llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b"):
         with pytest.raises(NotImplementedError, match="A16b"):
             _lm_spec(**{"model.arch": arch})
     # the NTM family runs the stochastic loss (the train-mode ELBO)
@@ -150,6 +149,28 @@ def test_lm_spec_roundtrips_and_sizes_model():
     for f in ("num_layers", "d_model", "d_ff", "num_heads", "num_kv_heads",
               "head_dim", "vocab_size", "max_seq_len", "name", "dtype"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "qwen1.5-110b",
+                                  "minicpm3-4b"])
+@pytest.mark.parametrize("sizes", [{}, {"model.layers": 1,
+                                        "model.width": 128}])
+def test_lm_spec_sizes_the_zoo_archs_as_the_reference(arch, sizes):
+    """The dense zoo ids the port now has: the spec accepts them and
+    sizes their ``reduced()`` config as the reference's
+    ``FederationSpec`` does, field for field, and the bundle builds."""
+    spec = _lm_spec(**{"model.arch": arch, **sizes})
+    assert FederationSpec.from_dict(spec.to_dict()) == spec
+    cfg = spec.to_model_config()
+    jcfg = JSpec.from_dict(spec.to_dict()).to_model_config()
+    for f in dataclasses.fields(cfg):
+        got, want = getattr(cfg, f.name), getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(want):
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
+    assert cfg.num_params() == jcfg.num_params()
+    bundle = build_model(cfg)
+    assert bundle.cfg is cfg
 
 
 @pytest.mark.parametrize("name", ["lm_fedavg", "lm_dirichlet_topk"])

@@ -148,12 +148,24 @@ def test_lm_corpus_bitwise(seed, nodes):
             tdata.lm_client_data(got.node_tokens[0])[k], v)
 
 
-def test_lm_batch_for_audio_or_vlm_raises():
-    import dataclasses
-    tc = dataclasses.replace(tconfigs.get_config("hymba-1.5b").reduced(),
-                             kind="vlm")
-    with pytest.raises(NotImplementedError, match="A16b"):
-        tdata.synthetic_lm_batch(tc, 1, 8)
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b"])
+@pytest.mark.parametrize("seed,client_id,num_clients", [(0, 0, 1), (5, 2, 3)])
+def test_lm_batch_for_audio_and_vlm_bitwise(arch, seed, client_id,
+                                            num_clients):
+    """The audio batch (frame embeddings, the masked frames, their
+    targets) and the VLM batch (patch embeddings, their positions, the
+    M-RoPE streams) are the reference's, bitwise."""
+    jc, tc = _reduced(arch)
+    want = jdata.synthetic_lm_batch(jc, 3, 40, seed=seed,
+                                    client_id=client_id,
+                                    num_clients=num_clients)
+    got = tdata.synthetic_lm_batch(tc, 3, 40, seed=seed,
+                                   client_id=client_id,
+                                   num_clients=num_clients)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v)
 
 
 # ---------------------------------------------------------------------------

@@ -202,3 +202,27 @@ def test_randint_bitwise(span):
         want = jax.random.randint(jax.random.fold_in(
             jax.random.PRNGKey(4), m), (2, 5), lo, hi)
         assert np.array_equal(got[m], np.asarray(want))
+
+
+@pytest.mark.parametrize("draw", ["uniform", "normal", "truncated_normal",
+                                  "bernoulli"])
+def test_chunked_draws_equal_one_piece_draws(draw, monkeypatch):
+    """A draw larger than ``prng._CHUNK`` hashes its flat iota in chunks
+    (a full-width embedding's init would otherwise hold ~50 GB of int64
+    temporaries): bitwise the one-piece draw, also across a ragged last
+    chunk, and jax's bits for the uniform."""
+    fns = {"uniform": lambda k, s: prng.uniform(k, s, -0.5, 3.0),
+           "normal": prng.normal,
+           "truncated_normal": lambda k, s: prng.truncated_normal(
+               k, -2.0, 2.0, s),
+           "bernoulli": lambda k, s: prng.bernoulli(k, 0.3, s)}
+    key, shape = prng.PRNGKey(5), (37, 29)
+    whole = fns[draw](key, shape)
+    monkeypatch.setattr(prng, "_CHUNK", 100)
+    chunked = fns[draw](key, shape)
+    assert chunked.shape == whole.shape and chunked.dtype == whole.dtype
+    assert torch.equal(chunked, whole)
+    if draw == "uniform":
+        want = np.asarray(jax.random.uniform(jax.random.PRNGKey(5), shape,
+                                             jnp.float32, -0.5, 3.0))
+        np.testing.assert_array_equal(chunked.numpy(), want)

@@ -1,0 +1,110 @@
+"""Device time of one of the port's kernels (bf16) at one shape, in the
+tree given by ``--root``, so that two revisions of its CUDA source can be
+compared on one card.
+
+Builds only the kernel's own source of that tree (into its own
+``kernels/build/``), times ``--calls`` back-to-back calls between two CUDA
+events ``--reps`` times after a warm-up, and prints one JSON line: the
+tree, the kernel, the shape, the per-call median and every rep.  Run each
+revision in a process of its own, interleaved (A, B, B, A), in one
+machine session:
+
+    python tools/time_kernel.py --root checkout/parent flash_attention
+    python tools/time_kernel.py --root . flash_attention
+
+Kernels and their default shapes:
+
+- ``flash_attention`` (B5): hymba-1.5b's prefill, ``b,s,hq,hkv,dqk,dv``
+  = 4,2048,25,5,64,64, causal with a 1024-token window;
+- ``ssd_scan`` (B6): hymba-1.5b's prefill, ``b,s,h,p,n,chunk`` =
+  4,2048,50,64,16,256;
+- ``ssd_scan_bwd`` (B6-bwd, from the states the forward kept): hymba's
+  training step, 1,4096,50,64,16,256.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+SHAPES = {"flash_attention": "4,2048,25,5,64,64",
+          "ssd_scan": "4,2048,50,64,16,256",
+          "ssd_scan_bwd": "1,4096,50,64,16,256"}
+# the sources each kernel's call builds (the backward reads the states
+# the forward kept)
+SOURCES = {"flash_attention": ("flash_attention",), "ssd_scan": ("ssd_scan",),
+           "ssd_scan_bwd": ("ssd_scan", "ssd_scan_bwd")}
+
+
+def _call(kernel, shape, args, torch, dev):
+    """The kernel's call on inputs drawn from seed 0."""
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*s):
+        return torch.randn(*s, generator=g).to(dev, bf)
+    if kernel == "flash_attention":
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        b, s, hq, hkv, dqk, dv = shape
+        q, k, v = randn(b, s, hq, dqk), randn(b, s, hkv, dqk), \
+            randn(b, s, hkv, dv)
+        return lambda: flash_attention_cuda(
+            q, k, v, causal=bool(args.causal), window=args.window,
+            scale=dqk ** -0.5)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    b, s, h, p, n, chunk = shape
+    conv = randn(b, s, h * p + 2 * n)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt = (0.001 + 0.099 * torch.rand(b, s, h, generator=g)).to(dev)
+    a = -torch.arange(1, h + 1, dtype=torch.float32).to(dev)
+    if kernel == "ssd_scan":
+        return lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+    dy = randn(b, s, h, p)
+    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
+    return lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
+                                     chunk=chunk)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=sorted(SHAPES))
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--shape", default=None, help="see the module docstring")
+    ap.add_argument("--causal", type=int, default=1)
+    ap.add_argument("--window", type=int, default=1024)
+    ap.add_argument("--calls", type=int, default=50)
+    ap.add_argument("--reps", type=int, default=7)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    shape = [int(v) for v in (args.shape or SHAPES[args.kernel]).split(",")]
+    _build.SOURCES = SOURCES[args.kernel]
+    call = _call(args.kernel, shape, args, torch, torch.device("cuda"))
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(args.reps):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(args.calls):
+            call()
+        t1.record()
+        t1.synchronize()
+        reps.append(t0.elapsed_time(t1) * 1e3 / args.calls)
+    print(json.dumps({"root": args.root, "kernel": args.kernel,
+                      "shape": shape, "us_per_call": statistics.median(reps),
+                      "reps_us": reps,
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
