@@ -13,9 +13,11 @@ Phases, each fatal on failure (no phase catches and carries on):
    over a shape grid (B3 and B4 bitwise; B5 and B6 at the hymba-1.5b
    prefill's shapes in bf16 and fp32, B5's bf16 route at every head
    dim, B6's bf16 route also at mamba2-1.3b's width; B5 also at the
-   dense zoo's head-dim pairs (80, 80), (96, 64), (80, 64) in both
-   dtypes, timed in bf16 at the minicpm3-4b, hubert-xlarge, qwen2-vl-7b
-   and granite-34b prefill shapes beside the library call), and timed
+   dense zoo's head-dim pairs (80, 80), (96, 64), (80, 64) and the MoE
+   archs' GQA groups in both dtypes, timed in bf16 at the minicpm3-4b,
+   hubert-xlarge, qwen2-vl-7b, granite-34b, qwen3-moe-235b-a22b and
+   llama4-maverick-400b-a17b prefill shapes beside the library call),
+   and timed
    at the shapes its path gives it beside its plain version, a library
    call (or, for B4, a yardstick) where one exists
    (B3 and its library call also with the L2 evicted before each call;
@@ -145,6 +147,19 @@ Phases, each fatal on failure (no phase catches and carries on):
    2 of 80 (full width, cut in depth for one card); B5 once per layer of
    each prefill or forward, nothing else, never in decode; the five
    reduced configs card against CPU in fp32 within 2e-4;
+   LM MoE (``phase_lm_moe``): ``repro_torch.launch.serve`` at full width
+   (the weights read through a cast drawn straight into bf16 on the card
+   from seed 0; 4 x 2048-token prompts, 32 greedy tokens, after a
+   warm-up call) for qwen3-moe-235b-a22b at 8 of its 94 layers and
+   llama4-maverick-400b-a17b at 2 of 48 (one dense + MoE unit), with
+   the share of routed (token, slot) pairs the capacity dropped in the
+   prefill; B5 once per layer of each prefill, nothing else, never in
+   decode; one full-width qwen3-moe MoE layer in fp32 over 1 x 256
+   tokens at capacity factor 64 against the plain dense top-k mixture;
+   the two reduced MoE configs card against CPU in fp32 (expert sets
+   first: a differing set is a counted flip only at a near-tie of the
+   k-th and (k+1)-th probabilities, its row then left out; logits within
+   2e-4);
 10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
@@ -974,6 +989,8 @@ B5_ZOO_CASES = [
     (1, 4, 4, 193, 96, 64, False, 0),
     (2, 4, 4, 100, 80, 64, True, 0), (1, 7, 1, 200, 80, 64, False, 24),
     (1, 28, 4, 160, 128, 128, True, 0), (1, 48, 1, 160, 128, 128, True, 0),
+    # the MoE archs' GQA 16:1 (qwen3-moe's 64/4) and 5:1 (llama4's 40/8)
+    (1, 64, 4, 160, 128, 128, True, 0), (1, 40, 8, 200, 128, 128, True, 0),
 ]
 # the zoo's bf16 prefill shapes, timed: (label, b, hq, hkv, s, dqk, dv,
 # causal); launches a prefill (one per layer) beside each
@@ -982,6 +999,10 @@ B5_ZOO_TIMED = [
     ("hubert-xlarge", LM_BATCH, 16, 16, LM_PROMPT, 80, 80, False, 48),
     ("qwen2-vl-7b", LM_BATCH, 28, 4, LM_PROMPT, 128, 128, True, 28),
     ("granite-34b", LM_BATCH, 48, 1, LM_PROMPT, 128, 128, True, 88),
+    # the MoE phase's depth cuts: 8 of 94 layers, 2 of 48
+    ("qwen3-moe-235b-a22b", LM_BATCH, 64, 4, LM_PROMPT, 128, 128, True, 8),
+    ("llama4-maverick-400b-a17b", LM_BATCH, 40, 8, LM_PROMPT, 128, 128,
+     True, 2),
 ]
 
 
@@ -1018,9 +1039,9 @@ def _kernel_b5_zoo(g, dev, rec):
             del q, kv, k, v, got, want
     log(f"B5 flash_attention at the zoo's head dims: {len(B5_ZOO_CASES)} "
         f"shapes x fp32, bf16 ((Dqk, Dv) = (80, 80), (96, 64), (80, 64), "
-        f"(128, 128); causal, window, full; GQA 7:1, MQA 48:1; v the "
-        f"strided view of a fused projection): max |kernel - plain| {errs} "
-        f"(bounds 2e-5 fp32, 2e-2 bf16, abs + rel)")
+        f"(128, 128); causal, window, full; GQA 7:1, 16:1, 5:1, MQA 48:1; "
+        f"v the strided view of a fused projection): max |kernel - plain| "
+        f"{errs} (bounds 2e-5 fp32, 2e-2 bf16, abs + rel)")
     rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
     for key, e in errs.items():
         rec["max_abs_err_by_dtype"][key] = max(
@@ -3868,17 +3889,23 @@ ZOO_DEPTH = {"granite-34b": 8, "qwen1.5-110b": 2}
 MLA_TF_STEPS, MLA_TF_BOUND = 8, 5e-2
 
 
-def _zoo_serve(records, arch, cfg, cut: str):
+def _zoo_serve(records, arch, cfg, cut: str, path: str = "lm_zoo",
+               dtype=None):
     """``repro_torch.launch.serve`` at full width (bf16 activations over
-    the reference's init from seed 0, drawn on the card), after a warm-up
-    call: prefill time, decode tokens/s, peak memory; B5 once per layer
-    of the prefill and nothing else.  Returns the fp32 masters and the
-    serve's output."""
+    the reference's init from seed 0, drawn on the card: fp32 masters, or
+    with ``dtype`` the weights the layers read through a cast drawn
+    straight into it), after a warm-up call: prefill time, decode
+    tokens/s, peak memory, and for a MoE config the share of the
+    prefill's routed (token, slot) pairs that capacity dropped; B5 once
+    per layer of the prefill and nothing else, counted under ``path``.
+    Returns the weights and the serve's output."""
     import argparse
     from repro_torch.core import prng
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import transformer as tfm
-    log(f"LM zoo: {arch} ({cfg.kind}, {cfg.num_layers} layers, d_model "
+    from repro_torch.models.layers import moe
+    label = "LM MoE" if cfg.kind == "moe" else "LM zoo"
+    log(f"{label}: {arch} ({cfg.kind}, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"{cfg.resolved_head_dim}"
         + (f", MLA kv rank {cfg.mla_kv_lora_rank}, q rank "
@@ -3886,11 +3913,16 @@ def _zoo_serve(records, arch, cfg, cut: str):
            if cfg.use_mla else "")
         + (f", M-RoPE {cfg.mrope_sections}" if cfg.use_mrope else "")
         + (", q/k/v biases" if cfg.qkv_bias else "")
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} (capacity "
+           f"factor {cfg.moe.capacity_factor}), {cfg.moe.num_shared_experts}"
+           f" shared, MoE every {cfg.moe.moe_every} layers"
+           if cfg.kind == "moe" else "")
         + f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_params()} "
         f"parameters), batch {LM_BATCH} x prompt {LM_PROMPT}, {LM_NEW} new "
         f"tokens; cut: {cut}")
     t0 = time.perf_counter()
-    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg,
+                             dtype=dtype)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     args = argparse.Namespace(arch=arch, reduced=False, batch=LM_BATCH,
@@ -3903,28 +3935,40 @@ def _zoo_serve(records, arch, cfg, cut: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    out = lm_serve.serve(args, params=params, cfg=cfg)
-    torch.cuda.synchronize()
+    with moe.record_routes() as routes:
+        out = lm_serve.serve(args, params=params, cfg=cfg)
+        torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     gen = out["generated"]
+    # the prefill's MoE calls: one a MoE layer, over all the prompt tokens
+    kept = [float(r["kept"].float().mean()) for r in routes
+            if r["kept"].shape[1] == LM_PROMPT]
+    dropped = "" if not kept else (
+        f"; capacity dropped {1 - sum(kept) / len(kept):.4%} of the "
+        f"prefill's routed (token, slot) pairs ({len(kept)} MoE layers; by "
+        f"layer " + ", ".join(f"{1 - k:.2%}" for k in kept) + ")")
     log(f"  init {t_init:.2f} s; warm-up serve (2 new tokens) {t_warm:.2f} "
         f"s; serve (warm): prefill {out['prefill_s']:.4f} s; decode "
         f"{LM_NEW - 1} steps in {out['decode_s']:.4f} s = "
         f"{out['tokens_per_s']:.1f} tokens/s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; launches {json.dumps(counts)}")
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(counts)}{dropped}")
     want = {k: 0 for k in counts}
     want["flash_attention"] = cfg.num_layers
     if counts != want:
-        raise AssertionError(f"LM zoo {arch}: kernel launches {counts} != "
+        raise AssertionError(f"{label} {arch}: kernel launches {counts} != "
                              f"one B5 per layer of the prefill {want}")
     if gen.shape != (LM_BATCH, LM_NEW) or gen.min() < 0 \
             or gen.max() >= cfg.vocab_size:
-        raise AssertionError(f"LM zoo {arch}: generated {gen.shape} tokens "
-                             f"in [{gen.min()}, {gen.max()}]")
+        raise AssertionError(f"{label} {arch}: generated {gen.shape} "
+                             f"tokens in [{gen.min()}, {gen.max()}]")
+    if cfg.kind == "moe" and len(kept) != cfg.num_layers \
+            // cfg.moe.moe_every:
+        raise AssertionError(f"{label} {arch}: {len(kept)} MoE calls in "
+                             f"the prefill")
     for r in records:
-        r["launches_by_path"]["lm_zoo"] = \
-            r["launches_by_path"].get("lm_zoo", 0) + counts[r["name"]]
+        r["launches_by_path"][path] = \
+            r["launches_by_path"].get(path, 0) + counts[r["name"]]
     return params, out
 
 
@@ -4126,6 +4170,196 @@ def phase_lm_zoo(records):
     log(f"LM zoo phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the MoE archs on one card: full width, cut in depth (layers kept)
+MOE_DEPTH = {"qwen3-moe-235b-a22b": 8, "llama4-maverick-400b-a17b": 2}
+# a routing flip, card against CPU: the token's k-th and (k+1)-th
+# probabilities within this of each other
+MOE_FLIP_GAP = 1e-5
+# the full-width MoE layer against its plain version: 1 x 256 tokens in
+# fp32 at capacity factor 64 (nothing drops), |layer - plain| within
+# this of max |plain|
+MOE_LAYER_TOKENS, MOE_LAYER_BOUND = 256, 1e-5
+
+
+def _moe_layer_check():
+    """One qwen3-moe-235b-a22b MoE layer at full width (128 experts of
+    4096 x 1536, top-8; drawn on the card from seed 0) in fp32 over 1 x
+    MOE_LAYER_TOKENS tokens at capacity factor 64: the grouped capacity
+    dispatch against ``agreement.dense_mixture``, every expert on every
+    token weighted by the renormalized gates (one routing group, so the
+    router's product is the plain version's, bit for bit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models.agreement import dense_mixture
+    from repro_torch.models.layers import moe
+    cfg = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+    params = moe.moe_init(prng.PRNGKey(0, device="cuda"), cfg)
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model,
+                    generator=torch.Generator().manual_seed(28)).to("cuda")
+    with torch.no_grad(), moe.record_routes() as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply(params, cfg, x)
+        torch.cuda.synchronize()
+        t_layer = time.perf_counter() - t0
+        plain = dense_mixture(params, cfg, x)
+    dev = float((y - plain).abs().max()) / max(float(plain.abs().max()), 1.0)
+    kept = bool(routes[0]["kept"].all())
+    log(f"  one qwen3-moe MoE layer at full width, fp32, 1 x "
+        f"{MOE_LAYER_TOKENS} tokens, capacity factor 64 "
+        f"({'none' if kept else 'some'} dropped; {t_layer * 1e3:.2f} ms, "
+        f"first call): max |dispatch - "
+        f"dense top-k mixture| / max |mixture| {dev:.3e} (bound "
+        f"{MOE_LAYER_BOUND}); aux {float(aux):.6f}")
+    if not (kept and dev <= MOE_LAYER_BOUND and torch.isfinite(aux)):
+        raise AssertionError(f"MoE layer: all kept {kept}, dev {dev}, aux "
+                             f"{float(aux)}")
+    del params, x, y, plain
+
+
+def _moe_profile(params, cfg):
+    """One traced prefill of the serve's prompts and one traced decode
+    step after it (bf16, the serve's weights): wall, device busy share
+    and the device operations that take the most time."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to("cuda")
+    traced = {}
+
+    def prefill():
+        t0 = time.perf_counter()
+        traced["out"] = tfm.prefill(params, cfg, {"tokens": prompts},
+                                    max_len=LM_PROMPT + 2)
+        torch.cuda.synchronize()
+        traced["wall"] = time.perf_counter() - t0
+
+    def decode():
+        t0 = time.perf_counter()
+        tfm.decode_step(params, cfg, traced["cache"], traced["tok"])
+        torch.cuda.synchronize()
+        traced["wall"] = time.perf_counter() - t0
+    with torch.no_grad():
+        for label, run in (("prefill", prefill), ("decode step", decode)):
+            by_name, n = {}, 0
+            for e in _trace(run, cpu=True):
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us()
+                n += 1
+            if "out" in traced:
+                logits, traced["cache"] = traced.pop("out")
+                traced["tok"] = torch.argmax(logits[:, -1:], dim=-1)
+                del logits
+            busy, wall = sum(by_name.values()) / 1e6, traced["wall"]
+            log(f"  profile {cfg.name} {label} (traced, warm): wall "
+                f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms = "
+                f"{100 * busy / wall:.1f}% of wall, {n} device operations; "
+                f"top: " + "; ".join(
+                    f"{us / 1e3:.3f} ms {(_short_name(k) or k)[:48]}"
+                    for k, us in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:6]))
+    del traced
+
+
+def _bf16_init_check():
+    """``init_params(key, cfg, dtype=bf16)`` on the card, bitwise
+    ``activation_copy`` of the fp32 init, for every reduced LM config,
+    with the hash's chunk cut to 4096 entries so every weight is drawn
+    and cast in several chunks."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tfm
+    chunk, prng._CHUNK = prng._CHUNK, 4096
+    try:
+        n = 0
+        for arch, full in ARCHS.items():
+            if full.kind == "ntm":
+                continue
+            cfg = full.reduced()
+            key = prng.PRNGKey(3, device="cuda")
+            want = tfm.stack_layers(tfm.activation_copy(
+                tfm.init_params(key, cfg), cfg, torch.bfloat16))
+            got = tfm.stack_layers(tfm.init_params(key, cfg,
+                                                   dtype=torch.bfloat16))
+            bad = [k for k in want if got[k].dtype != want[k].dtype
+                   or not torch.equal(got[k], want[k])]
+            if list(got) != list(want) or bad:
+                raise AssertionError(f"bf16 init {arch}: leaves {bad} differ "
+                                     f"from the cast of the fp32 init")
+            n += 1
+    finally:
+        prng._CHUNK = chunk
+    log(f"  bf16 init on the card: bitwise the cast of the fp32 init for "
+        f"the {n} reduced LM configs (chunks of 4096 entries)")
+
+
+def _moe_agreement():
+    """Both reduced MoE configs in fp32 from the same weights on the card
+    and on the CPU (``agreement.card_vs_cpu``): prefill over 96
+    tokens and 4 teacher-forced decode steps.  Expert sets compared
+    first: a token whose set differs counts as a flip only where its
+    k-th and (k+1)-th probabilities are within MOE_FLIP_GAP, and its row
+    leaves the logits bound from there on; any other difference fails.
+    The other rows' logits within 2e-4; B5 once per layer of the
+    prefill, never in decode, never on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.agreement import card_vs_cpu
+    for arch in MOE_DEPTH:
+        cfg = get_config(arch).reduced()
+        got = card_vs_cpu(cfg, "cuda", seed=0, gap_tol=MOE_FLIP_GAP)
+        n = got["launches"]
+        log(f"agreement LM MoE {arch} (reduced, fp32, 2 x 96 + 4 decode "
+            f"steps): routing flips {got['flips']} (gap <= {MOE_FLIP_GAP}; "
+            f"rows left out {got['rows_left_out']}), other differing "
+            f"expert sets {len(got['strays'])}; card vs CPU logits, max "
+            f"|diff| / max(|cpu|, 1): " + (", ".join(
+                f"{d:.3e}" for d in got["devs"]) or "no row left")
+            + f" (bound 2e-4); B5 (prefill, decode) card {n['dev']}, CPU "
+            f"{n['cpu']}")
+        if got["strays"]:
+            raise AssertionError(f"LM MoE agreement {arch}: expert sets "
+                                 f"differ without a near-tie: "
+                                 f"{got['strays'][:5]}")
+        if n["cpu"] != (0, 0) or n["dev"] != (cfg.num_layers, 0):
+            raise AssertionError(f"LM MoE agreement {arch}: B5 launches "
+                                 f"{n}")
+        if not all(d <= 2e-4 for d in got["devs"]):
+            raise AssertionError(f"LM MoE agreement {arch}: card vs CPU "
+                                 f"{got['devs']} beyond 2e-4")
+
+
+def phase_lm_moe(records):
+    """The MoE half of the zoo on the card: qwen3-moe-235b-a22b (8 of
+    94 layers) and llama4-maverick-400b-a17b (2 of 48: one dense + MoE
+    unit) served at full width through ``repro_torch.launch.serve``, the
+    cast weights drawn straight into bf16 on the card; one full-width
+    MoE layer against its plain version; the two reduced configs card
+    against CPU with routing flips counted.  Every serve zeroes the
+    launch counts just before and reads them just after."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for arch, depth in MOE_DEPTH.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        params, _ = _zoo_serve(
+            records, arch, cfg,
+            f"depth {depth} of {full.num_layers} layers (full width; "
+            f"{full.num_params()} parameters whole by the reference's count, "
+            f"{full.num_params() * 2 / 1e9:.0f} GB even in bf16, beyond one "
+            f"card's 80 GB)", path="lm_moe", dtype=torch.bfloat16)
+        _moe_profile(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+    _moe_layer_check()
+    torch.cuda.empty_cache()
+    _bf16_init_check()
+    _moe_agreement()
+    log(f"LM MoE phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -4221,6 +4455,7 @@ def main() -> int:
     phase_lm_train(records, [phase_lm_serve(records)])
     phase_lm_federation(records)
     phase_lm_zoo(records)
+    phase_lm_moe(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)

@@ -13,9 +13,8 @@ accepts round-trips to the identical dict in both packages:
       ├── execution    exec mode, batch, client lr, seeds
       └── serving      optional wire front-end
 
-Specs validate at construction, with the reference's messages.  What
-the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: an LM arch whose layers the port lacks (A16b).
+Specs validate at construction, with the reference's messages.  Every
+LM arch of the reference's registry runs.
 ``execution.mesh`` (:class:`MeshSpec`) shards the batched cohort path.  The ``serving`` section configures the wire front-end
 of the buffered-async service (``repro_torch.net``).  The NTM's
 ``execution.stochastic_loss`` (the train-mode ELBO) runs.  Rounds of
@@ -143,8 +142,7 @@ class ModelSpec:
     ``reduced()`` config: ``arch`` picks it (a token-causal kind:
     dense/moe/ssm/hybrid), ``layers``/``width``/``seq_len`` override the
     reduced sizing (``0`` keeps it), and ``topics``/``hidden`` stay at
-    their defaults.  A registered id whose layers the port lacks raises
-    ``NotImplementedError`` naming ROADMAP.md A16b.
+    their defaults.
     """
     family: str = "ntm"
     vocab: int = 400
@@ -196,7 +194,6 @@ class ModelSpec:
         if self.seq_len:
             _require(self.seq_len >= 2,
                      f"model.seq_len must be >= 2, got {self.seq_len}")
-        get_config(self.arch)       # A16b: the ids the port lacks raise
 
 
 @dataclass(frozen=True)

@@ -2,12 +2,12 @@
 ``configs/base.py`` that the port's paths read.
 
 Same names and defaults as the reference dataclasses.  ``ModelConfig``
-carries the LM fields of the reference (for the serving slice:
-``dense``, ``ssm`` and ``hybrid`` kinds) beside the ProdLDA/CTM ones
-(``contextual_dim``, ``ntm_dropout``); ``num_params()`` and
-``reduced()`` are the reference's.  Fields no ported path reads (the
-lowering knobs ``scan_layers`` / ``unroll_chunks``, the mesh) join with
-the slices that read them (ROADMAP.md §A).
+carries the LM fields of the reference (every kind of its zoo) beside
+the ProdLDA/CTM ones (``contextual_dim``, ``ntm_dropout``);
+``num_params()``, ``num_active_params()`` and ``reduced()`` are the
+reference's.  Fields no ported path reads (the lowering knobs
+``scan_layers`` / ``unroll_chunks``, the mesh) join with the slices
+that read them (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -28,8 +28,13 @@ ARCH_KINDS = (DENSE, MOE, SSM, HYBRID, VLM, AUDIO, NTM)
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts block configuration (read by ``num_params`` and
-    ``reduced``; no MoE layer is ported yet, ROADMAP.md A16)."""
+    """Mixture-of-experts block configuration (``models/layers/moe.py``):
+    ``num_experts`` routed experts, ``top_k`` of them a token, each with
+    ``capacity_factor`` x its even share of a routing group's slots
+    (``num_groups`` groups along the batch, halved until they divide
+    it); ``router_aux_weight`` weighs the load-balance term in the loss;
+    ``moe_every=2`` interleaves dense and MoE layers (llama4);
+    ``num_shared_experts`` run on every token."""
 
     num_experts: int = 0
     top_k: int = 1
@@ -172,6 +177,16 @@ class ModelConfig:
             per_layer += 2 * d  # norms
         n += self.num_layers * per_layer + d
         return n
+
+    def num_active_params(self) -> int:
+        """Parameters a token reads (the reference's formula: every layer
+        of a MoE config counted as MoE, ``moe_every`` aside, as
+        :meth:`num_params` counts it)."""
+        if self.kind != MOE or not self.moe.num_experts:
+            return self.num_params()
+        inactive = self.num_layers * (self.moe.num_experts - self.moe.top_k) \
+            * 3 * self.d_model * self.d_ff
+        return self.num_params() - inactive
 
     def reduced(self) -> "ModelConfig":
         """CPU smoke-test variant: same family, tiny dimensions (the

@@ -129,28 +129,42 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 _CHUNK = 1 << 26
 
 
-def _elementwise(key: torch.Tensor, shape: Sequence[int], of_bits):
+def flat_bits(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The uint32 words (int64 values) of entries ``[start, stop)`` of a
+    flat draw under the 1-D ``key``: each entry hashes its own 64-bit
+    flat index, high word and low word (jax's ``iota_2x32_shape``), so a
+    chunk at an offset past 2^32 is hashed without the entries before
+    it."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
+    return b1 ^ b2
+
+
+def _elementwise(key: torch.Tensor, shape: Sequence[int], of_bits,
+                 dtype=None):
     """``of_bits(random_bits(key, shape))`` for an elementwise
-    ``of_bits``.  One key hashes the flat iota ``_CHUNK`` entries at a
-    time, written into the output (a draw of one chunk is returned as it
-    is); each entry hashes its own flat index (the partitionable layout),
-    so the values are those of the one-piece draw.  A stack of keys draws
-    through :func:`random_bits`."""
+    ``of_bits``, cast to ``dtype`` if given.  One key hashes the flat
+    iota ``_CHUNK`` entries at a time (:func:`flat_bits`), each chunk
+    cast as it is written into the output (a draw of one chunk is
+    returned as it is), so no float32 copy of a whole draw in another
+    dtype is alive; the values are those of the one-piece draw, cast.
+    A stack of keys draws through :func:`random_bits`."""
     if key.dim() != 1:
-        return of_bits(random_bits(key, shape))
+        out = of_bits(random_bits(key, shape))
+        return out if dtype is None else out.to(dtype)
     shape = tuple(shape)
     n = math.prod(shape)
     out = None
     for start in range(0, max(n, 1), _CHUNK):
-        idx = torch.arange(start, min(n, start + _CHUNK), dtype=torch.int64,
-                           device=key.device)
-        b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
-        part = of_bits(b1 ^ b2)
-        if idx.numel() == n:
-            return part.reshape(shape)
+        stop = min(n, start + _CHUNK)
+        part = of_bits(flat_bits(key, start, stop))
+        if stop - start == n:
+            part = part.reshape(shape)
+            return part if dtype is None else part.to(dtype)
         if out is None:
-            out = torch.empty(n, dtype=part.dtype, device=key.device)
-        out[start:start + idx.numel()] = part
+            out = torch.empty(n, dtype=dtype or part.dtype,
+                              device=key.device)
+        out[start:stop] = part
     return out.reshape(shape)
 
 
@@ -200,25 +214,34 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
                        x * torch.finfo(torch.float32).max, p * x)
 
 
-def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def _scaled(x: torch.Tensor, scale) -> torch.Tensor:
+    return x if scale is None else scale * x
+
+
+def normal(key: torch.Tensor, shape: Sequence[int], *, scale=None,
+           dtype=None) -> torch.Tensor:
     """Standard normal float32 draws (the inverse-CDF form of
-    ``jax.random.normal``)."""
-    return _elementwise(key, shape, lambda b: _SQRT2 * _erfinv(
-        _uniform_of_bits(b, _NORMAL_LO, 1.0)))
+    ``jax.random.normal``), times the Python float ``scale`` if given
+    (``scale * draw``, in float32) and cast to ``dtype`` if given, chunk
+    by chunk."""
+    return _elementwise(key, shape, lambda b: _scaled(_SQRT2 * _erfinv(
+        _uniform_of_bits(b, _NORMAL_LO, 1.0)), scale), dtype)
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
-                     shape: Sequence[int]) -> torch.Tensor:
+                     shape: Sequence[int], *, scale=None, dtype=None
+                     ) -> torch.Tensor:
     """float32 standard normal draws truncated to ``(lower, upper)``
-    (``jax.random.truncated_normal``'s inverse-CDF form)."""
+    (``jax.random.truncated_normal``'s inverse-CDF form), scaled and cast
+    as :func:`normal`'s."""
     lo, hi = np.float32(lower), np.float32(upper)
     sqrt2 = np.float32(np.sqrt(2))
     a = float(np.float32(math.erf(float(lo / sqrt2))))
     b = float(np.float32(math.erf(float(hi / sqrt2))))
-    return _elementwise(key, shape, lambda bits: torch.clamp(
+    return _elementwise(key, shape, lambda bits: _scaled(torch.clamp(
         _SQRT2 * _erfinv(_uniform_of_bits(bits, a, b)),
         min=float(np.nextafter(lo, np.float32(np.inf))),
-        max=float(np.nextafter(hi, np.float32(-np.inf)))))
+        max=float(np.nextafter(hi, np.float32(-np.inf)))), scale), dtype)
 
 
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1

@@ -5,8 +5,9 @@
 The prompts are ``--batch`` seeded integer sequences of ``--prompt-len``
 tokens (the reference draws equal-length prompts, not left-padded
 ones); the weights are the port's own seeded init.  The full configs run
-with bf16 activations over fp32 masters; ``--reduced`` runs in fp32, as
-the reference does.
+with bf16 activations (the weights the layers read through a cast drawn
+in bf16, the rest in fp32); ``--reduced`` runs in fp32, as the reference
+does.
 
 Example (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
@@ -53,9 +54,11 @@ def serve(args, params=None, cfg=None) -> dict:
     device = resolve_device(args.device)
     dtype = torch.float32 if args.reduced else getattr(torch, cfg.dtype)
     if params is None:
+        # the weights read through a cast drawn straight into ``dtype``:
+        # the bits of activation_copy of the fp32 init, without its peak
         params = tfm.init_params(prng.PRNGKey(args.seed, device=device),
-                                 cfg)
-    if dtype != torch.float32:
+                                 cfg, dtype=dtype)
+    elif dtype != torch.float32:
         params = tfm.activation_copy(params, cfg, dtype)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(

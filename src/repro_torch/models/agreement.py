@@ -8,6 +8,17 @@ leaves (biases, LayerNorm shifts) drawn anew so that they act; a prefill
 over 96 tokens and 4 teacher-forced decode steps (an encoder-only config:
 the forward over 96 frames); B5's launches counted over the prefill (or
 forward) and over the decode steps.
+
+A MoE config routes each token to its top-k experts, and a token whose
+k-th and (k+1)-th probabilities nearly tie may pick another expert on
+the card than on the CPU, so :func:`card_vs_cpu` compares the expert
+sets first (:func:`routing_flips`): a token whose set differs is a
+documented flip only where that gap is within ``gap_tol`` on either
+device, and its row (one routing group, and the row its attention
+carries the change along) is left out of the logits bound from then on;
+any other difference is reported.  :func:`dense_mixture` is the plain
+version of a MoE layer: every expert on every token, weighted by the
+renormalized top-k gates.
 """
 from __future__ import annotations
 
@@ -15,12 +26,14 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.data.lm_data import synthetic_lm_batch
 from repro_torch.kernels import flash_attention
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import moe
 
 # the leaves the reference initializes to a constant
 CONSTANT_LEAVES = ("bq", "bk", "bv", "b_up", "b_down", "bias")
@@ -74,17 +87,80 @@ def run(params: dict, cfg: ModelConfig, dev, seed: int = 1
     return outs, (c1 - c0, flash_attention.launches - c1)
 
 
-def card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1
-                ) -> Dict[str, object]:
+def card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
+                gap_tol: float = 1e-5) -> Dict[str, object]:
     """``cfg`` on the CPU and on ``dev`` from the same weights, on tokens
     or frames drawn from ``seed``: each output's max |dev - cpu| /
-    max(|cpu|, 1) (``devs``), B5's launches on each (``launches``), and the
-    weights on ``dev`` (``params``)."""
+    max(|cpu|, 1) (``devs``) over the rows no routing flip reached (all
+    rows without MoE layers; empty if flips reached every row), the
+    flips and the rows left out, ``strays`` (expert sets that differ
+    without a near-tie: a fault), B5's launches on each (``launches``),
+    and the weights on ``dev`` (``params``)."""
     cpu = init_acting(cfg)
     on_dev = tree_to(cpu, dev)
-    (out_c, n_c), (out_d, n_d) = (run(cpu, cfg, "cpu", seed),
-                                  run(on_dev, cfg, dev, seed))
-    devs = [float((d - c).abs().max()) / max(float(c.abs().max()), 1.0)
-            for c, d in zip(out_c, out_d)]
-    return {"devs": devs, "launches": {"cpu": n_c, "dev": n_d},
+    with moe.record_routes() as routes_c:
+        out_c, n_c = run(cpu, cfg, "cpu", seed)
+    with moe.record_routes() as routes_d:
+        out_d, n_d = run(on_dev, cfg, dev, seed)
+    flips, rows, strays = routing_flips(routes_c, routes_d, gap_tol)
+    keep = [r for r in range(out_c[0].shape[0]) if r not in rows]
+    devs = [float((d[keep] - c[keep]).abs().max())
+            / max(float(c[keep].abs().max()), 1.0)
+            for c, d in zip(out_c, out_d)] if keep else []
+    return {"devs": devs, "flips": flips, "rows_left_out": sorted(rows),
+            "strays": strays, "launches": {"cpu": n_c, "dev": n_d},
             "params": on_dev}
+
+def dense_mixture(params: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """A MoE layer's plain version, with no groups and no capacity:
+    ``silu(x W_g) * (x W_u) W_d`` of every expert on every token, weighted
+    by the token's top-k gates (renormalized when k > 1, zero outside its
+    top k), plus the shared expert.  ``moe.moe_apply`` gives this when
+    nothing drops."""
+    d, k = x.shape[-1], cfg.moe.top_k
+    xt = x.reshape(-1, d)
+    probs = F.softmax(torch.matmul(xt.to(torch.float32),
+                                   params["router"].to(torch.float32)), -1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = ranked[:, :k], order[:, :k]
+    if k > 1:
+        gates = gates / gates.sum(-1, keepdim=True)
+    y = torch.zeros_like(xt)
+    for e in range(cfg.moe.num_experts):
+        h = F.silu(xt @ params["w_gate"][e].to(x.dtype)) \
+            * (xt @ params["w_up"][e].to(x.dtype))
+        w = torch.where(ids == e, gates, 0.0).sum(-1)
+        y = y + w[:, None].to(x.dtype) * (h @ params["w_down"][e].to(x.dtype))
+    if "shared" in params:
+        sp = params["shared"]
+        y = y + (F.silu(xt @ sp["w_gate"].to(x.dtype))
+                 * (xt @ sp["w_up"].to(x.dtype))) @ sp["w_down"].to(x.dtype)
+    return y.reshape(x.shape)
+
+
+def routing_flips(ref_routes, dev_routes, gap_tol: float):
+    """Walk two runs' routes (``moe.record_routes``, the same calls in the
+    same order, one routing group a row): ``(flips, rows, strays)`` — the
+    tokens whose expert sets differ where their k-th and (k+1)-th
+    probabilities are within ``gap_tol`` on either device, the rows such a
+    flip reached (left out from then on: their hidden states and drops
+    may differ after it), and the differing tokens of untouched rows
+    without such a tie, as ``(call, row, position, gap)``."""
+    flips, rows, strays = 0, set(), []
+    for call, (a, b) in enumerate(zip(ref_routes, dev_routes)):
+        sets_a = torch.sort(a["experts"].cpu(), dim=-1).values
+        sets_b = torch.sort(b["experts"].cpu(), dim=-1).values
+        gap = torch.minimum(a["gap"].cpu(), b["gap"].cpu())
+        new = set()
+        for row, pos in (sets_a != sets_b).any(-1).nonzero().tolist():
+            if row in rows:
+                continue
+            if float(gap[row, pos]) <= gap_tol:
+                flips += 1
+                new.add(row)
+            else:
+                strays.append((call, row, pos, float(gap[row, pos])))
+        rows |= new
+    return flips, rows, strays
+

@@ -1,22 +1,26 @@
 """Decoder/encoder transformer assembly for the port's LM families.
 
-The port of the reference's ``models/transformer.py`` for the kinds
-``dense`` (GQA with optional q/k/v biases, or MLA; SwiGLU), ``ssm``
-(Mamba-2), ``hybrid`` (Hymba), ``vlm`` (the language backbone with
-M-RoPE and the patch-embedding merge) and ``audio`` (the encoder-only
-HuBERT stack: frame projection, masked-frame and position embeddings,
-LayerNorm, GELU MLP, bidirectional attention, the prediction head); the
-``moe`` kind raises ``NotImplementedError`` naming ROADMAP.md A16b.  The
-ViT and the audio feature extractor are stubs, as in the reference:
-batches carry precomputed ``patch_embeds`` or ``frame_embeds``.
-Parameters keep the reference tree's names and per-layer layout:
-``{"embed": {"table"}, "lm_head": {"w"}, "final_norm": {"scale"},
-"layers": [...]}`` (audio: ``frontend_proj``, ``mask_embed``,
-``pos_embed``, ``pred_head`` in place of the token embedding and head),
-where the reference stacks the layers on a leading ``num_layers`` axis
-for ``lax.scan`` and the port keeps a list of per-layer dicts and loops
-over it in Python.  There is no mesh, so the reference's
-``constrain_batch`` is the identity here (ROADMAP.md A17).  Positions
+The port of the reference's ``models/transformer.py`` for every kind
+of its zoo: ``dense`` (GQA with optional q/k/v biases, or MLA; SwiGLU),
+``moe`` (the same attention, the FFN a mixture of experts,
+``models/layers/moe.py``; with ``moe.moe_every == 2`` a dense and a MoE
+layer alternate), ``ssm`` (Mamba-2), ``hybrid`` (Hymba), ``vlm`` (the
+language backbone with M-RoPE and the patch-embedding merge) and
+``audio`` (the encoder-only HuBERT stack: frame projection, masked-frame
+and position embeddings, LayerNorm, GELU MLP, bidirectional attention,
+the prediction head).  The ViT and the audio feature extractor are
+stubs, as in the reference: batches carry precomputed ``patch_embeds``
+or ``frame_embeds``.  Parameters keep the reference tree's names and
+per-unit layout: ``{"embed": {"table"}, "lm_head": {"w"},
+"final_norm": {"scale"}, "layers": [...]}`` (audio: ``frontend_proj``,
+``mask_embed``, ``pos_embed``, ``pred_head`` in place of the token
+embedding and head), where the reference stacks the units on a leading
+axis for ``lax.scan`` and the port keeps a list of per-unit dicts and
+loops over it in Python.  A unit is a layer, or with ``moe_every == 2``
+the pair ``{"dense_sub", "moe_sub"}``, so a llama4 tree holds
+``num_layers // 2`` units (the reference's ``_unit_layout``).  There is
+no mesh, so the reference's ``constrain_batch`` is the identity here
+(ROADMAP.md A17).  Positions
 are the implicit ``arange(S)`` of the serve path (M-RoPE's streams may
 come with the batch): a ``positions`` entry in the batch raises.
 ``cfg.remat_layers`` recomputes each layer in the backward
@@ -26,13 +30,14 @@ masters: the layers cast each weight at its use (``w.to(x.dtype)``), and
 ``activation_copy`` (bf16 copies for serving) is not for training.
 
 Public entry points:
-  * ``init_params``      — parameter tree (fp32 masters) from a threefry
-                           key, the reference's values
-  * ``forward_train``    — full-sequence logits
+  * ``init_params``      — parameter tree (fp32 masters, or the serving
+                           dtype for the weights read through a cast)
+                           from a threefry key, the reference's values
+  * ``forward_train``    — full-sequence logits and the summed MoE aux
   * ``xent_loss``, ``train_loss``, ``train_loss_sum`` — the training
                            objective (next-token labels, or audio's
-                           masked-frame ``targets``; no MoE aux: no MoE
-                           kind is ported)
+                           masked-frame ``targets``; plus
+                           ``router_aux_weight`` x aux for MoE)
   * ``prefill``          — logits + populated decode cache
   * ``decode_step``      — ONE token against the cache (updated in place)
   * ``init_cache``       — zeroed decode cache for a given batch/seq
@@ -49,16 +54,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, SSM, VLM,
+from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.core import prng
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import hymba as hymba_lib
 from repro_torch.models.layers import mamba2 as mamba_lib
+from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers.embedding import (
     embed, embedding_init, lm_head, lm_head_init, lm_head_tied,
     masked_prediction_embed, merge_patch_embeds)
-from repro_torch.models.layers.init import dense_init
+from repro_torch.models.layers.init import (Draw, deferred, dense_init,
+                                            embed_init)
 from repro_torch.models.layers.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
                                            swiglu_init)
 from repro_torch.models.layers.norms import (layernorm, layernorm_init,
@@ -70,9 +77,9 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a kind of ``cfg`` the port has no layer for yet (MoE,
-    and the NTMs, which run through ``repro_torch.api``)."""
-    if cfg.kind not in (DENSE, SSM, HYBRID, VLM, AUDIO):
+    """Raise for a kind of ``cfg`` that is no transformer (the NTMs run
+    through ``repro_torch.api``)."""
+    if cfg.kind not in (DENSE, MOE, SSM, HYBRID, VLM, AUDIO):
         raise NotImplementedError(
             f"{cfg.name}: kind {cfg.kind!r} not in the port yet "
             f"(ROADMAP.md A16b)")
@@ -104,10 +111,41 @@ def _apply_norm(cfg, p, x):
 
 
 def _ffn(cfg, p, x):
-    return gelu_mlp(p, x) if cfg.activation == "gelu" else swiglu(p, x)
+    """The layer's FFN output and its MoE aux (None for a dense FFN)."""
+    if "router" in p:
+        return moe_lib.moe_apply(p, cfg, x)
+    return (gelu_mlp(p, x) if cfg.activation == "gelu" else swiglu(p, x)), \
+        None
 
 
-def _layer_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+def _interleaved(cfg: ModelConfig) -> bool:
+    """A unit is a dense and a MoE layer (``moe_every == 2``, llama4;
+    the reference's ``_unit_layout``), else one layer."""
+    if cfg.kind != MOE or cfg.moe.moe_every == 1:
+        return False
+    if cfg.moe.moe_every != 2:
+        raise ValueError("moe_every in {1, 2} supported")
+    return True
+
+
+def num_units(cfg: ModelConfig) -> int:
+    """Entries of ``params["layers"]`` (and of the decode cache)."""
+    return cfg.num_layers // (2 if _interleaved(cfg) else 1)
+
+
+def _kv_names(cfg: ModelConfig):
+    """The K/V cache entries of each layer of a unit, in order."""
+    return (("k", "v"), ("k2", "v2")) if _interleaved(cfg) else (("k", "v"),)
+
+
+def _sub_layers(cfg, lp):
+    """A unit's layers in order, each with its K/V cache entries."""
+    subs = (lp["dense_sub"], lp["moe_sub"]) if _interleaved(cfg) else (lp,)
+    return zip(subs, _kv_names(cfg))
+
+
+def _layer_init(key: torch.Tensor, cfg: ModelConfig,
+                moe_layer: bool = False) -> Params:
     d, dev = cfg.d_model, key.device
     k1, k2 = prng.split(key)
     if cfg.kind == SSM:
@@ -119,37 +157,40 @@ def _layer_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
         mixer = attn_lib.mla_init(k1, cfg)
     else:
         mixer = attn_lib.gqa_init(k1, cfg)
-    ffn = gelu_mlp_init(k2, d, cfg.d_ff) if cfg.activation == "gelu" \
-        else swiglu_init(k2, d, cfg.d_ff)
+    if moe_layer:
+        ffn = moe_lib.moe_init(k2, cfg)
+    elif cfg.activation == "gelu":
+        ffn = gelu_mlp_init(k2, d, cfg.d_ff)
+    else:
+        ffn = swiglu_init(k2, d, cfg.d_ff)
     return {"attn_norm": _norm_init(cfg, d, dev), "mixer": mixer,
             "ffn_norm": _norm_init(cfg, d, dev), "ffn": ffn}
 
 
-def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
-    """Fresh fp32 weights from the threefry ``key``
-    (``prng.PRNGKey(seed)``) on the reference's key tree: ``split(key,
-    8)``, layer i from ``split(keys[0], num_layers)[i]``, the embedding
-    from ``keys[1]`` and the head from ``keys[2]`` (audio: the frame
-    projection, mask embedding, position embedding and prediction head
-    from ``keys[1..4]``).  Drawn on the key's device, leaf by leaf, so
-    each hash's int64 temporaries are one leaf's; the values are the
-    reference's (``core/prng.py``)."""
-    check_supported(cfg)
+def _unit_init(key: torch.Tensor, cfg: ModelConfig) -> Params:
+    if _interleaved(cfg):
+        ka, kb = prng.split(key)
+        return {"dense_sub": _layer_init(ka, cfg),
+                "moe_sub": _layer_init(kb, cfg, moe_layer=True)}
+    return _layer_init(key, cfg, moe_layer=cfg.kind == MOE)
+
+
+def _init_tree(key: torch.Tensor, cfg: ModelConfig) -> Params:
     dev = key.device
     keys = prng.split(key, 8)
-    unit_keys = prng.split(keys[0], cfg.num_layers)
+    unit_keys = prng.split(keys[0], num_units(cfg))
     params: Params = {
-        "layers": [_layer_init(unit_keys[i], cfg)
-                   for i in range(cfg.num_layers)],
+        "layers": [_unit_init(unit_keys[i], cfg)
+                   for i in range(num_units(cfg))],
         "final_norm": _norm_init(cfg, cfg.d_model, dev),
     }
     if cfg.kind == AUDIO:
         d = cfg.d_model
         params["frontend_proj"] = {
             "w": dense_init(keys[1], (cfg.frontend_embed_dim, d))}
-        params["mask_embed"] = 0.02 * prng.normal(keys[2], (d,))
-        params["pos_embed"] = 0.02 * prng.normal(keys[3],
-                                                 (cfg.max_seq_len, d))
+        params["mask_embed"] = embed_init(keys[2], (d,), scale=0.02)
+        params["pos_embed"] = embed_init(keys[3], (cfg.max_seq_len, d),
+                                         scale=0.02)
         params["pred_head"] = lm_head_init(keys[4], d, cfg.vocab_size)
         return params
     params["embed"] = embedding_init(keys[1], cfg.vocab_size, cfg.d_model)
@@ -159,6 +200,37 @@ def init_params(key: torch.Tensor, cfg: ModelConfig) -> Params:
     return params
 
 
+def init_params(key: torch.Tensor, cfg: ModelConfig, dtype=None) -> Params:
+    """Fresh weights from the threefry ``key`` (``prng.PRNGKey(seed)``)
+    on the reference's key tree: ``split(key, 8)``, unit i from
+    ``split(keys[0], num_units)[i]`` (a llama4 unit: its dense and MoE
+    layers from ``split`` of that key), the embedding from ``keys[1]``
+    and the head from ``keys[2]`` (audio: the frame projection, mask
+    embedding, position embedding and prediction head from
+    ``keys[1..4]``).  Drawn on the key's device, leaf by leaf, so each
+    hash's int64 temporaries are one leaf's; the values are the
+    reference's (``core/prng.py``).
+
+    fp32 masters by default.  With ``dtype``, every weight that
+    :func:`activation_copy` casts is drawn straight into ``dtype``, each
+    chunk of its hash cast as it is written: bitwise
+    ``activation_copy(init_params(key, cfg), cfg, dtype)`` without a
+    float32 copy of a whole weight (a llama4 expert tensor is 21.5 GB of
+    fp32)."""
+    check_supported(cfg)
+    if dtype is None or dtype == torch.float32:
+        return _init_tree(key, cfg)
+    with deferred():
+        tree = _init_tree(key, cfg)
+
+    def draw(path, leaf):
+        cast = dtype if _read_through_cast(cfg, path) else None
+        if isinstance(leaf, Draw):
+            return leaf(cast)
+        return leaf if cast is None else leaf.to(cast)
+    return _map_leaves(tree, draw)
+
+
 # weights the layers read only through a cast to the activation dtype
 _CAST_ONLY = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "in_proj",
               "out_proj", "w_gate", "w_up", "w_down", "b_up", "b_down",
@@ -166,36 +238,43 @@ _CAST_ONLY = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "in_proj",
               "mask_embed", "pos_embed")
 
 
+def _read_through_cast(cfg: ModelConfig, path) -> bool:
+    """The leaf at ``path`` (its keys from the root, list indices left
+    out) is read only through a cast to the activation dtype."""
+    return path[-1] in _CAST_ONLY or path[0] == "frontend_proj" \
+        or (path[0] == "embed" and not cfg.tie_embeddings)
+
+
+def _map_leaves(node, fn, path=()):
+    if isinstance(node, list):
+        return [_map_leaves(v, fn, path) for v in node]
+    if isinstance(node, dict):
+        return {k: _map_leaves(v, fn, path + (k,)) for k, v in node.items()}
+    return fn(path, node)
+
+
 def activation_copy(params: Params, cfg: ModelConfig, dtype) -> Params:
     """The tree with every weight that the layers only read cast to
     ``dtype`` (``x @ w.to(x.dtype)``) stored once in ``dtype``: the
     products see the same bits as the per-use casts of the fp32 masters,
     without a cast at every call.  Norm scales, the SSM's fp32 vectors,
-    ``beta_ssm`` (it meets an fp32 branch) and a tied embedding (the head
-    reads it in fp32) stay as they are."""
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        return {k: (v.to(dtype) if k in _CAST_ONLY else
-                    walk(v) if isinstance(v, (dict, list)) else v)
-                for k, v in node.items()}
-    out = walk(params)
-    if "embed" in params and not cfg.tie_embeddings:
-        out["embed"] = {"table": params["embed"]["table"].to(dtype)}
-    if "frontend_proj" in params:
-        out["frontend_proj"] = {"w": params["frontend_proj"]["w"].to(dtype)}
-    return out
+    ``beta_ssm`` (it meets an fp32 branch), the MoE router (it runs in
+    fp32) and a tied embedding (the head reads it in fp32) stay as they
+    are."""
+    return _map_leaves(params, lambda path, v: v.to(dtype)
+                       if _read_through_cast(cfg, path) else v)
 
 
 # ---------------------------------------------------------------------------
 # full-sequence application (forward / prefill)
 # ---------------------------------------------------------------------------
 def _block_full(cfg, lp, x, angles, causal: bool):
-    """One layer over the full sequence.  Returns (x, cache entry)."""
+    """One layer over the full sequence.  Returns (x, cache entry, MoE
+    aux or None)."""
     if cfg.kind == SSM:
         h = _apply_norm(cfg, lp["norm"], x)
         y, state = mamba_lib.mamba2_apply(lp["mixer"], cfg, h)
-        return x + y.to(x.dtype), state
+        return x + y.to(x.dtype), state, None
     h = _apply_norm(cfg, lp["attn_norm"], x)
     if cfg.kind == HYBRID:
         y, ((k, v), (cs, ss)) = hymba_lib.hymba_full(lp["mixer"], cfg, h,
@@ -209,7 +288,20 @@ def _block_full(cfg, lp, x, angles, causal: bool):
                                      causal=causal)
     x = x + y.to(x.dtype)
     h = _apply_norm(cfg, lp["ffn_norm"], x)
-    return x + _ffn(cfg, lp["ffn"], h).to(x.dtype), cache
+    y, aux = _ffn(cfg, lp["ffn"], h)
+    return x + y.to(x.dtype), cache, aux
+
+
+def _unit_full(cfg, lp, x, angles, causal: bool):
+    """One unit over the full sequence: (x, its layers' cache entries,
+    the sum of their MoE aux terms or None)."""
+    caches, aux = [], None
+    for sub, _ in _sub_layers(cfg, lp):
+        x, cache, a = _block_full(cfg, sub, x, angles, causal)
+        caches.append(cache)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, caches, aux
 
 
 def _positions(cfg, batch, b: int, s: int, device) -> torch.Tensor:
@@ -259,18 +351,23 @@ def _angles_for(cfg, batch, positions):
 
 def _run_layers_full(params, cfg, x, angles, *, causal: bool,
                      want_cache: bool):
+    """(x, each unit's cache entries, the summed MoE aux: fp32, zero
+    without MoE layers)."""
     caches: List[Any] = []
+    aux = torch.zeros((), device=x.device)
     remat = cfg.remat_layers and not want_cache and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:
-            x = checkpoint(
-                lambda x, lp: _block_full(cfg, lp, x, angles, causal)[0],
+            x, a = checkpoint(
+                lambda x, lp: _unit_full(cfg, lp, x, angles, causal)[::2],
                 x, lp, use_reentrant=False)
-            continue
-        x, cache = _block_full(cfg, lp, x, angles, causal)
-        if want_cache:
-            caches.append(cache)
-    return x, caches
+        else:
+            x, cache, a = _unit_full(cfg, lp, x, angles, causal)
+            if want_cache:
+                caches.append(cache)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def _logits(params, cfg, x):
@@ -283,18 +380,19 @@ def _logits(params, cfg, x):
 
 def forward_train(params, cfg: ModelConfig, batch, *, dtype=None):
     """Full-sequence forward (bidirectional for an encoder-only config).
-    Returns (logits fp32, aux fp32 zero — the reference's MoE aux term,
-    always 0 for the ported kinds)."""
+    Returns (logits fp32, the MoE aux summed over the layers, fp32; zero
+    without MoE layers)."""
     check_supported(cfg)
     dtype = _dtype(cfg, dtype)
     b, s, device = _seq_shape(cfg, batch)
     positions = _positions(cfg, batch, b, s, device)
     x = _embed_input(params, cfg, batch, dtype)
-    x, _ = _run_layers_full(params, cfg, x,
-                            _angles_for(cfg, batch, positions),
-                            causal=not cfg.encoder_only, want_cache=False)
+    x, _, aux = _run_layers_full(params, cfg, x,
+                                 _angles_for(cfg, batch, positions),
+                                 causal=not cfg.encoder_only,
+                                 want_cache=False)
     x = _apply_norm(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x), torch.zeros((), device=device)
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -320,18 +418,24 @@ def _labels_and_mask(cfg, batch):
 
 def train_loss(params, cfg: ModelConfig, batch, *, dtype=None):
     """Scalar mean token loss of a batch (``labels``, optional
-    ``loss_mask``; audio: ``targets`` under ``frame_mask``)."""
-    logits, _ = forward_train(params, cfg, batch, dtype=dtype)
+    ``loss_mask``; audio: ``targets`` under ``frame_mask``), plus
+    ``router_aux_weight`` x the MoE aux for a MoE config."""
+    logits, aux = forward_train(params, cfg, batch, dtype=dtype)
     s, n = xent_loss(logits, *_labels_and_mask(cfg, batch))
-    return s / torch.clamp(n, min=1.0)
+    loss = s / torch.clamp(n, min=1.0)
+    if cfg.kind == MOE:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 def train_loss_sum(params, cfg: ModelConfig, batch, *, dtype=None):
     """``(sum_loss, num_tokens)`` form of :func:`train_loss`: a
     ``doc_mask`` row mask (zero-padded cohort rows) multiplies into the
     token mask, so padded documents stay out of the objective and its
-    gradient."""
-    logits, _ = forward_train(params, cfg, batch, dtype=dtype)
+    gradient.  The MoE aux folds in as ``aux * n``, so ``sum / count`` is
+    :func:`train_loss` of the unpadded batch, except that the aux, as the
+    reference's, is computed over the padded rows too."""
+    logits, aux = forward_train(params, cfg, batch, dtype=dtype)
     labels, mask = _labels_and_mask(cfg, batch)
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device) if mask is None \
@@ -339,7 +443,10 @@ def train_loss_sum(params, cfg: ModelConfig, batch, *, dtype=None):
     doc_mask = batch.get("doc_mask")
     if doc_mask is not None:
         mask = mask * doc_mask.to(torch.float32)[..., None]
-    return xent_loss(logits, labels, mask)
+    s, n = xent_loss(logits, labels, mask)
+    if cfg.kind == MOE:
+        s = s + cfg.moe.router_aux_weight * aux * n
+    return s, n
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +463,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype=None,
     check_supported(cfg)
     _check_decoder(cfg)
     dtype = _dtype(cfg, dtype)
-    nl = cfg.num_layers
+    nl = num_units(cfg)
     c = _cache_len(cfg, seq_len)
     out: Dict[str, Any] = {"pos": 0}
     if cfg.use_mla:
@@ -366,8 +473,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype=None,
                                    device=device)
     elif cfg.kind != SSM:
         shape = (nl, batch_size, c, cfg.num_kv_heads, cfg.resolved_head_dim)
-        out["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        out["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        for names in _kv_names(cfg):
+            for key in names:
+                out[key] = torch.zeros(shape, dtype=dtype, device=device)
     if cfg.kind in (SSM, HYBRID):
         _, nh, conv_ch = mamba_lib.mamba2_dims(cfg)
         out["conv"] = torch.zeros((nl, batch_size, cfg.ssm.conv_width - 1,
@@ -395,21 +503,24 @@ def _fit(arr: torch.Tensor, c: int) -> torch.Tensor:
 
 def _cache_from_full(cfg, caches, seq_len: int, dtype,
                      max_len: Optional[int] = None) -> Dict[str, Any]:
-    """Per-layer prefill outputs -> the decode cache (layers stacked on a
-    leading axis, as the reference's).  ``max_len`` (>= seq_len) sets the
+    """Per-unit prefill outputs -> the decode cache (units stacked on a
+    leading axis, as the reference's; a llama4 unit's dense and MoE layers
+    under ``k, v`` and ``k2, v2``).  ``max_len`` (>= seq_len) sets the
     capacity, so decode has headroom past the prefill."""
     c = _cache_len(cfg, max_len or seq_len)
     out: Dict[str, Any] = {"pos": seq_len}
     if cfg.kind == SSM:
-        out["conv"] = torch.stack([cs for cs, _ in caches])
-        out["ssm"] = torch.stack([ss for _, ss in caches])
+        out["conv"] = torch.stack([u[0][0] for u in caches])
+        out["ssm"] = torch.stack([u[0][1] for u in caches])
         return out
-    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
-    for j, key in enumerate(names):
-        out[key] = torch.stack([_fit(e[j].to(dtype), c) for e in caches])
+    for i, kv in enumerate(_kv_names(cfg)):
+        names = ("ckv", "kr") if cfg.use_mla else kv
+        for j, key in enumerate(names):
+            out[key] = torch.stack([_fit(u[i][j].to(dtype), c)
+                                    for u in caches])
     if cfg.kind == HYBRID:
-        out["conv"] = torch.stack([e[2] for e in caches])
-        out["ssm"] = torch.stack([e[3] for e in caches])
+        out["conv"] = torch.stack([u[0][2] for u in caches])
+        out["ssm"] = torch.stack([u[0][3] for u in caches])
     return out
 
 
@@ -424,16 +535,18 @@ def prefill(params, cfg: ModelConfig, batch, *, dtype=None,
     b, s, device = _seq_shape(cfg, batch)
     positions = _positions(cfg, batch, b, s, device)
     x = _embed_input(params, cfg, batch, dtype)
-    x, caches = _run_layers_full(params, cfg, x,
-                                 _angles_for(cfg, batch, positions),
-                                 causal=True, want_cache=True)
+    x, caches, _ = _run_layers_full(params, cfg, x,
+                                    _angles_for(cfg, batch, positions),
+                                    causal=True, want_cache=True)
     x = _apply_norm(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x)
     return logits, _cache_from_full(cfg, caches, s, dtype, max_len=max_len)
 
 
-def _block_decode(cfg, lp, x, angles, cache, i: int, pos: int):
-    """One layer, one token; writes layer ``i`` of ``cache`` in place."""
+def _block_decode(cfg, lp, x, angles, cache, i: int, pos: int,
+                  kv=("k", "v")):
+    """One layer, one token; writes unit ``i`` of ``cache`` in place (its
+    K/V under the names ``kv``)."""
     if cfg.kind == SSM:
         h = _apply_norm(cfg, lp["norm"], x)
         y, (cs, ss) = mamba_lib.mamba2_decode(
@@ -456,11 +569,11 @@ def _block_decode(cfg, lp, x, angles, cache, i: int, pos: int):
         cache["conv"][i], cache["ssm"][i] = cs, ss
     else:
         y, _ = attn_lib.gqa_decode(lp["mixer"], cfg, h, angles,
-                                   cache_k=cache["k"][i],
-                                   cache_v=cache["v"][i], pos=pos)
+                                   cache_k=cache[kv[0]][i],
+                                   cache_v=cache[kv[1]][i], pos=pos)
     x = x + y.to(x.dtype)
     h = _apply_norm(cfg, lp["ffn_norm"], x)
-    return x + _ffn(cfg, lp["ffn"], h).to(x.dtype)
+    return x + _ffn(cfg, lp["ffn"], h)[0].to(x.dtype)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, *, batch=None,
@@ -480,7 +593,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, batch=None,
     x = embed(params["embed"], tokens, dtype)
     angles = _angles_for(cfg, batch or {}, positions)
     for i, lp in enumerate(params["layers"]):
-        x = _block_decode(cfg, lp, x, angles, cache, i, pos)
+        for sub, kv in _sub_layers(cfg, lp):
+            x = _block_decode(cfg, sub, x, angles, cache, i, pos, kv)
     x = _apply_norm(cfg, params["final_norm"], x)
     out = dict(cache)
     out["pos"] = pos + 1
@@ -494,9 +608,9 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ModelConfig, *,
                           device="cpu") -> Params:
     """The reference's transformer tree (``repro.models.transformer.
     init_params`` layout, numpy or array leaves, ``layers`` stacked on a
-    leading ``num_layers`` axis) -> the port's tree (a list of per-layer
-    dicts).  Bitwise: every leaf is copied as float32 without
-    arithmetic."""
+    leading axis of :func:`num_units` units) -> the port's tree (a list
+    of per-unit dicts).  Bitwise: every leaf is copied as float32
+    without arithmetic."""
     check_supported(cfg)
 
     def conv(node, i=None):
@@ -507,7 +621,7 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ModelConfig, *,
             .to(device)
 
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [conv(tree["layers"], i) for i in range(cfg.num_layers)]
+    out["layers"] = [conv(tree["layers"], i) for i in range(num_units(cfg))]
     return out
 
 
@@ -521,8 +635,9 @@ def _leaf_paths(node, prefix=()):
 
 def stack_layers(params: Params) -> Dict[str, torch.Tensor]:
     """The port's tree -> one flat dict of the reference's leaves: dotted
-    paths in the reference's (sorted-key) order, each per-layer leaf
-    stacked on a leading ``num_layers`` axis as the reference stacks it.
+    paths in the reference's (sorted-key) order, each per-unit leaf
+    stacked on a leading axis as the reference stacks it (a llama4 unit's
+    ``layers.dense_sub.*`` and ``layers.moe_sub.*``).
     The federation engine holds this form, so each of its per-leaf
     segments (top-k's count, the secure masks) is a leaf of the
     reference's tree."""

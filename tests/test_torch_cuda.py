@@ -1671,3 +1671,66 @@ def test_zoo_reduced_on_card_matches_cpu(cuda_device, arch):
                                           dtype=torch.float32)
             torch.testing.assert_close(step[:, 0], full[:, 17 + i],
                                        rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_reduced_on_card_matches_cpu(cuda_device, arch):
+    """A reduced MoE config in fp32 from the same weights on both:
+    prefill over 96 tokens and 4 teacher-forced decode steps.  Each
+    token's expert set on the card is the CPU's, except where its k-th
+    and (k+1)-th probabilities are within 1e-5 (a documented flip, whose
+    row leaves the logits bound); the other rows' logits within 2e-4; B5
+    once per layer of the prefill, never in decode."""
+    from repro_torch.models.agreement import card_vs_cpu
+    cfg = get_config(arch).reduced()
+    got = card_vs_cpu(cfg, cuda_device, seed=0)
+    print(f"{arch}: flips {got['flips']}, rows left out "
+          f"{got['rows_left_out']}, devs {got['devs']}")
+    assert got["strays"] == []
+    assert got["launches"] == {"cpu": (0, 0), "dev": (cfg.num_layers, 0)}
+    assert all(d <= 2e-4 for d in got["devs"])
+
+
+def test_moe_layer_at_full_width_matches_dense_mixture(cuda_device):
+    """One qwen3-moe-235b-a22b MoE layer at full width (128 experts of
+    4096 x 1536, top-8) in fp32 on the card over 1 x 64 tokens at
+    capacity_factor 64, where nothing drops: the grouped dispatch within
+    1e-5 of the plain dense top-k mixture's scale."""
+    import dataclasses
+    from repro_torch.models.agreement import dense_mixture
+    from repro_torch.models.layers import moe
+    cfg = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+    params = moe.moe_init(prng.PRNGKey(0, device=cuda_device), cfg)
+    x = torch.randn(1, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0)).to(cuda_device)
+    with torch.no_grad(), moe.record_routes() as routes:
+        y, aux = moe.moe_apply(params, cfg, x)
+        plain = dense_mixture(params, cfg, x)
+    assert bool(routes[0]["kept"].all()) and torch.isfinite(aux)
+    assert float((y - plain).abs().max()) \
+        <= 1e-5 * max(float(plain.abs().max()), 1.0)
+
+
+def test_bf16_init_on_card_is_the_cast_of_the_fp32_init(cuda_device,
+                                                        monkeypatch):
+    """The weights drawn straight into bf16 on the card (chunks of 4096
+    entries) are bitwise ``activation_copy`` of the fp32 init, for every
+    reduced LM config."""
+    from repro_torch.configs import ARCHS
+    monkeypatch.setattr(prng, "_CHUNK", 4096)
+    for arch, full in ARCHS.items():
+        if full.kind == "ntm":
+            continue
+        cfg = full.reduced()
+        key = prng.PRNGKey(3, device=cuda_device)
+        want = tfm.stack_layers(tfm.activation_copy(
+            tfm.init_params(key, cfg), cfg, torch.bfloat16))
+        got = tfm.stack_layers(tfm.init_params(key, cfg,
+                                               dtype=torch.bfloat16))
+        assert list(got) == list(want)
+        for name in want:
+            assert got[name].dtype == want[name].dtype, (arch, name)
+            assert torch.equal(got[name], want[name]), (arch, name)

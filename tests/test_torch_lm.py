@@ -123,10 +123,21 @@ def test_config_defaults_match_reference():
     assert tconfigs.get_config("hymba-1.5b").num_params() == 1_718_382_400
 
 
-@pytest.mark.parametrize("arch", tconfigs.NOT_PORTED)
+# the two MoE ids, refused until the MoE slice ported them (the test
+# keeps its name; every id of the reference's registry is ported)
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "qwen3-moe-235b-a22b"])
 def test_unported_arch_ids_raise(arch):
-    with pytest.raises(NotImplementedError, match="A16"):
-        tconfigs.get_config(arch)
+    assert tconfigs.NOT_PORTED == ()
+    jc, tc = jget_config(arch), tconfigs.get_config(arch)
+    for cfg_j, cfg_t in ((jc, tc), (jc.reduced(), tc.reduced())):
+        for f in dataclasses.fields(cfg_t):
+            want, got = getattr(cfg_j, f.name), getattr(cfg_t, f.name)
+            if dataclasses.is_dataclass(want):
+                want, got = dataclasses.asdict(want), dataclasses.asdict(got)
+            assert got == want, (arch, f.name)
+        assert cfg_t.num_params() == cfg_j.num_params()
+        assert cfg_t.num_active_params() == cfg_j.num_active_params()
 
 
 def test_unknown_arch_id_raises():
@@ -136,6 +147,19 @@ def test_unknown_arch_id_raises():
 
 @pytest.mark.parametrize("change", [{"kind": tbase.MOE}, {"kind": tbase.NTM}])
 def test_kinds_outside_the_slice_raise(change):
+    """The NTM kind is no transformer and raises; the MoE kind, refused
+    until the MoE slice, builds (reduced qwen3-moe: every layer's FFN a
+    mixture of 4 experts) and its forward gives logits and a positive
+    aux."""
+    if change["kind"] == tbase.MOE:
+        cfg = tconfigs.get_config("qwen3-moe-235b-a22b").reduced()
+        params = ttfm.init_params(prng.PRNGKey(0), cfg)
+        assert all(lp["ffn"]["w_gate"].shape == (4, cfg.d_model, cfg.d_ff)
+                   for lp in params["layers"])
+        logits, aux = treg.build_model(cfg, dtype=torch.float32).forward(
+            params, {"tokens": torch.zeros((2, 8), dtype=torch.int64)})
+        assert logits.shape == (2, 8, cfg.vocab_size) and float(aux) > 0
+        return
     cfg = dataclasses.replace(tconfigs.get_config("phi3-mini-3.8b").reduced(),
                               **change)
     with pytest.raises(NotImplementedError, match="A16"):
@@ -397,3 +421,23 @@ def test_serve_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--arch", "hymba-1.5b", "--reduced", "--batch", "1",
                      "--prompt-len", "4", "--max-new", "2"])
+
+
+def test_serve_demo_twin_runs_on_the_cpu():
+    """``examples/torch_serve_demo.py``'s ring-buffer case (reduced
+    granite with a 32-token window under a 48-token prompt and 16 new
+    tokens): the greedy tokens of ``examples/serve_demo.py``'s same call,
+    each package from its own seeded init."""
+    import importlib.util
+    here = os.path.join(os.path.dirname(__file__), "..", "examples")
+    mods = {}
+    for name in ("serve_demo", "torch_serve_demo"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    got = mods["torch_serve_demo"].demo("granite-34b", window=32,
+                                        device="cpu")
+    want = mods["serve_demo"].demo("granite-34b", window=32)
+    assert got.shape == (2, 16)
+    np.testing.assert_array_equal(got, want)

@@ -51,7 +51,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import build_model
 from repro_torch.serve import FederationService, run_traffic
 from torch_lm_federation_common import (  # noqa: F401
-    _REF_MODES, _WHOLE, _dev_to_ref, _lm_spec, _specs,
+    _BASE, _REF_MODES, _WHOLE, _dev_to_ref, _lm_spec, _specs,
     check_port_loop_equals_port_vmap, check_port_matches_reference, runs)
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1)
@@ -129,10 +129,16 @@ def test_lm_spec_validation_refusals():
         _lm_spec(**{"model.width": 100})
     with pytest.raises(ValueError, match=">= 2"):
         _lm_spec(**{"model.seq_len": 1})
-    # token-causal ids whose layers the port lacks: the two MoE archs
+    # the two MoE archs, refused until the MoE slice, size their model
+    # as the reference's spec does
     for arch in ("llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b"):
-        with pytest.raises(NotImplementedError, match="A16b"):
-            _lm_spec(**{"model.arch": arch})
+        got = _lm_spec(**{"model.arch": arch}).to_model_config()
+        want = jspec_replace(jspec_replace(JSpec(), _BASE),
+                             {"model.arch": arch}).to_model_config()
+        assert got.kind == "moe" and got.num_params() == want.num_params()
+        assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+        assert (got.num_layers, got.d_model, got.vocab_size) \
+            == (want.num_layers, want.d_model, want.vocab_size)
     # the NTM family runs the stochastic loss (the train-mode ELBO)
     ntm = spec_replace(FederationSpec(), {"execution.stochastic_loss": True})
     assert ntm.execution.stochastic_loss and ntm.model.family == "ntm"

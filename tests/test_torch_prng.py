@@ -226,3 +226,24 @@ def test_chunked_draws_equal_one_piece_draws(draw, monkeypatch):
         want = np.asarray(jax.random.uniform(jax.random.PRNGKey(5), shape,
                                              jnp.float32, -0.5, 3.0))
         np.testing.assert_array_equal(chunked.numpy(), want)
+
+
+@pytest.mark.parametrize("start", [2 ** 32 - 3, 2 ** 32, 5_368_709_120 - 7])
+def test_flat_bits_past_two_to_the_32(start):
+    """A draw of more than 2^32 entries (one of llama4-maverick's expert
+    tensors, 128 x 5120 x 8192 = 5.37 G) hashes the high word of each
+    64-bit flat index beside its low word, as jax's ``iota_2x32_shape``
+    does: the port's chunk at ``start`` is jax's threefry of those
+    counters, computed without the entries before it."""
+    from jax._src import prng as jprng
+    key = prng.PRNGKey(9)
+    got = prng.flat_bits(key, start, start + 1000).numpy()
+    idx = np.arange(start, start + 1000, dtype=np.uint64)
+    hi, lo = (idx >> 32).astype(np.uint32), (idx & 0xFFFFFFFF).astype(
+        np.uint32)
+    out = np.asarray(jprng.threefry_2x32(
+        jnp.asarray(np.array(key.tolist(), np.uint32)),
+        jnp.asarray(np.concatenate([hi, lo]))))
+    want = out[:1000] ^ out[1000:]
+    assert (hi > 0).any()
+    np.testing.assert_array_equal(got, want.astype(np.int64))
