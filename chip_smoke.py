@@ -29,7 +29,10 @@ Phases, each fatal on failure (no phase catches and carries on):
    limit); then the backward kernels of B5 and B6 against their plain
    backward passes over a grid (B5: causal, windowed and full masks, GQA,
    ragged S, D = 32, 64, 96, 128, fp32 and bf16, bf16 on the tensor
-   cores; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
+   cores, and at the zoo's pairs (80, 80), (96, 64), (80, 64) in both
+   dtypes, timed at minicpm3-4b's and hubert-xlarge's 1 x 4096 training
+   shapes and at the minicpm3-4b round's fp32 one beside the library's
+   backward; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
    on h_last, fp32 and bf16, bf16 on the tensor cores, and its ragged
    bf16 case on the saved draw where ``da`` once left its bound, beside a
    float64 plain backward, and over 40 draws of its own)
@@ -160,6 +163,19 @@ Phases, each fatal on failure (no phase catches and carries on):
    first: a differing set is a counted flip only at a near-tie of the
    k-th and (k+1)-th probabilities, its row then left out; logits within
    2e-4);
+   LM zoo training (``phase_lm_zoo_train``): ``repro_torch.launch.train``'s
+   ``main`` at full width, 3 sgd steps of 1 x 4096 from the seeded init
+   on the card (bf16 activations over fp32 masters): hubert-xlarge and
+   minicpm3-4b (``remat="layer"``) whole, qwen2-vl-7b at 8 of 28 layers,
+   granite-34b at 4 of 88, qwen1.5-110b at 1 of 80, qwen3-moe-235b-a22b
+   at 1 of 94; per step B5 once per layer (twice under remat) and its
+   backward once per layer, nothing else; step times, peak memory, the
+   last step traced (busy share, B5 and B5-bwd device time; the MoE
+   dispatch's backward by autograd node); then one minicpm3-4b federated
+   round on each exec mode (``lm_fedavg``, fp32, 2 of 62 layers, 4
+   clients x 2 x 2048 tokens; B5-bwd's fp32 route at (96, 64) folded
+   over the cohort); then the seven reduced zoo configs' ``train_loss``
+   and every gradient leaf card against CPU within 2e-4;
 10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
@@ -393,12 +409,26 @@ def phase_build():
         f"(Dqk, Dv)=({dq}, {dv}) {smem(dq, dv)} bytes" for dq, dv in
         ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128), (96, 64),
          (80, 64))))
+    log("  flash_bwd_dq_tc_kernel / flash_bwd_dkdv_tc_kernel dynamic shared "
+        "memory a block: " + ", ".join(
+            f"(Dqk, Dv)={pair} {dq} / {kv} bytes"
+            for pair, (dq, kv) in _b5_bwd_smem().items()))
     log("  ssd_scan bf16 route dynamic shared memory a block (the larger of "
         "its kernels): " + ", ".join(
             f"P={p} N={n} chunk {q} {b} bytes" for (p, n, q), b in
             zip(((64, 16, 256), (64, 128, 256)),
                 _ssd_smem({"a": (64, 16, 256, 1),
                            "b": (64, 128, 256, 1)}).values())))
+
+
+def _b5_bwd_smem() -> dict:
+    """Dynamic shared memory a block of B5-bwd's dq and dk/dv tensor-core
+    kernels asks for, at each head-dim pair."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return {str(p): [fn(*p, 0), fn(*p, 1)] for p in HEAD_DIM_PAIRS}
 
 
 def ptxas_resources(text: str):
@@ -579,6 +609,7 @@ def phase_kernels():
     # a stream of its own, so that the checks above draw their inputs as
     # they did before these cases were added
     _kernel_b5_zoo(torch.Generator().manual_seed(27), dev, records[4])
+    _kernel_b5_bwd_zoo(torch.Generator().manual_seed(29), dev, records[6])
     return records
 
 
@@ -1233,7 +1264,8 @@ def _kernel_b5_bwd(g, dev):
            "design": "bf16: wgmma in three launches (flash_bwd_dq_tc_kernel"
                      ", flash_bwd_dkdv_tc_kernel per query head, "
                      "flash_bwd_group_sum_kernel); fp32: flash_bwd_dq_kernel"
-                     " and flash_bwd_dkdv_kernel on the CUDA cores",
+                     " and flash_bwd_dkdv_kernel on the CUDA cores; both "
+                     "templated on the forward's (Dqk, Dv) pairs",
            "ptxas": _ptxas_record("flash_attention_bwd", ("flash_bwd_",)),
            "library": "backward of F.scaled_dot_product_attention(boolean "
                       "window mask, enable_gqa=True) on (B,H,S,D) copies"}
@@ -1280,6 +1312,143 @@ def _kernel_b5_bwd(g, dev):
         f"device {rec['fp32_ms'] * 1e3:.2f} us/call")
     del q, k, v, out, lse, dout
     return rec
+
+
+# B5's backward at the zoo's head-dim pairs: (b, hq, hkv, s, dqk, dv,
+# causal, window), each in both dtypes: hubert's (80, 80) with a full
+# mask, MLA's (96, 64) and its reduced config's (80, 64) causal; causal
+# and non-causal windows, GQA, MQA 7:1 and 48:1, ragged tails
+B5_BWD_ZOO_CASES = [
+    (2, 4, 4, 200, 80, 80, False, 0), (1, 7, 1, 257, 80, 80, True, 0),
+    (1, 4, 2, 130, 80, 80, True, 40),
+    (2, 8, 8, 257, 96, 64, True, 0), (1, 48, 1, 130, 96, 64, True, 40),
+    (1, 4, 4, 193, 96, 64, False, 0),
+    (2, 4, 4, 100, 80, 64, True, 0), (1, 7, 1, 200, 80, 64, False, 24),
+    (1, 4, 2, 129, 80, 64, True, 0),
+]
+# the zoo's training shapes (1 x 4096, the launcher's sgd step), timed:
+# (label, b, hq, hkv, s, dqk, dv, causal, dtype, launches a step or a
+# round on the training or federation path, None where no path takes
+# the shape); the fp32 row is the minicpm3-4b federated round's folded
+# batch (ZOO_FED_CLIENTS x ZOO_FED_BATCH documents of ZOO_FED_SEQ tokens)
+ZOO_FED_LAYERS, ZOO_FED_CLIENTS, ZOO_FED_BATCH, ZOO_FED_SEQ = 2, 4, 2, 2048
+B5_BWD_ZOO_TIMED = [
+    ("minicpm3-4b train step", 1, 40, 40, TRAIN_LM_SEQ, 96, 64, True, BF16,
+     62),
+    ("hubert-xlarge train step", 1, 16, 16, TRAIN_LM_SEQ, 80, 80, False,
+     BF16, 48),
+    ("(80, 64) at minicpm3-4b's shape (the reduced config's pair)", 1, 40,
+     40, TRAIN_LM_SEQ, 80, 64, True, BF16, None),
+    ("minicpm3-4b federated round (fp32, clients folded)",
+     ZOO_FED_CLIENTS * ZOO_FED_BATCH, 40, 40, ZOO_FED_SEQ, 96, 64, True,
+     FP32, ZOO_FED_LAYERS),
+]
+
+
+def _b5_bwd_pair_inputs(g, dev, b, hq, hkv, s, dqk, dv, causal, window,
+                        dtype):
+    """q (B,S,H,Dqk), k and v the column slices of one (B,S,Hkv,Dqk+Dv)
+    projection (v the strided view MLA's expansion gives), dout, and the
+    forward kernel's out and lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.randn(b, s, hq, dqk, generator=g).to(dev, dtype)
+    kv = torch.randn(b, s, hkv, dqk + dv, generator=g).to(dev, dtype)
+    k, v = kv[..., :dqk], kv[..., dqk:]
+    dout = torch.randn(b, s, hq, dv, generator=g).to(dev, dtype)
+    kw = dict(causal=causal, window=window, scale=dqk ** -0.5)
+    out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+    return q, k, v, out, lse, dout, kw
+
+
+def _kernel_b5_bwd_zoo(g, dev, rec):
+    """B5's backward at the zoo's head-dim pairs (80, 80), (96, 64) and
+    (80, 64): against ``ref.flash_attention_bwd_ref`` over
+    :data:`B5_BWD_ZOO_CASES` in both dtypes (bf16 on the tensor cores,
+    fp32 on the CUDA cores), then timed at the training and federation
+    paths' shapes (:data:`B5_BWD_ZOO_TIMED`) beside the plain backward
+    and the backward of ``F.scaled_dot_product_attention`` (which takes
+    Dv != Dqk), with each shape's bound (6 Dqk + 4 Dv flops a (q, k)
+    pair) and the device operations a call; into ``rec["zoo"]``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    errs, worst = {}, 0.0
+    for case in B5_BWD_ZOO_CASES:
+        for dtype in (FP32, BF16):
+            q, k, v, out, lse, dout, kw = _b5_bwd_pair_inputs(
+                g, dev, *case, dtype)
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+            _, lse_w = ref.flash_attention_fwd_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = 2e-5 if dtype == FP32 else 2e-2
+            rel = [_rel_err(a, w) for a, w in zip(got, want)]
+            e_lse = float((lse - lse_w).abs().max())
+            shapes = [tuple(a.shape) for a in got] == \
+                [tuple(w.shape) for w in want]
+            if not (shapes and max(rel) <= tol and e_lse <= tol * max(
+                    float(lse_w.abs().max()), 1.0)):
+                raise AssertionError(
+                    f"B5 backward {case} {dtype}: shapes "
+                    f"{[tuple(a.shape) for a in got]}, (dq, dk, dv) |kernel "
+                    f"- plain| / max|plain| {rel}, lse {e_lse}; bound {tol}")
+            key = str(dtype).replace("torch.", "")
+            errs[key] = max([errs.get(key, 0.0)]
+                            + [float((a.float() - w.float()).abs().max())
+                               for a, w in zip(got, want)])
+            worst = max(worst, max(rel))
+            del q, k, v, out, lse, dout, got, want
+    log(f"B5 flash_attention backward at the zoo's head dims: "
+        f"{len(B5_BWD_ZOO_CASES)} shapes x fp32, bf16 ((Dqk, Dv) = (80, 80), "
+        f"(96, 64), (80, 64); causal, full, causal and non-causal windows; "
+        f"GQA, MQA 7:1 and 48:1; ragged S down to a one-row tail; v the "
+        f"strided view of a fused projection): max |kernel - plain| "
+        f"{errs}, of max|plain| {worst:.3e} (bounds 2e-5 fp32, 2e-2 bf16, "
+        f"of each gradient's max|plain|)")
+    rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
+    for key, e in errs.items():
+        rec["max_abs_err_by_dtype"][key] = max(
+            rec["max_abs_err_by_dtype"].get(key, 0.0), e)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec["smem_bytes"] = _b5_bwd_smem()
+    rec["zoo"] = {}
+    for label, b, hq, hkv, s, dqk, dv, causal, dtype, per_path in \
+            B5_BWD_ZOO_TIMED:
+        q, k, v, out, lse, dout, kw = _b5_bwd_pair_inputs(
+            g, dev, b, hq, hkv, s, dqk, dv, causal, 0, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=hkv != hq)
+        dout_t = dout.transpose(1, 2).contiguous()
+        pairs = b * hq * _window_pairs(s, causal, 0)
+        isz = 2 if dtype == BF16 else 4
+        r = {"name": f"flash_attention_bwd ({label}, ({dqk}, {dv}), "
+                     f"{str(dtype).replace('torch.', '')})",
+             "shape": [b, s, hq, hkv, dqk, dv], "causal": causal,
+             "dtype": str(dtype).replace("torch.", ""),
+             "launches_on_path": per_path}
+        # q, k, v, out, dout read once and dq, dk, dv written once in the
+        # operands' dtype, lse read (fp32); 6 Dqk + 4 Dv flops a pair at
+        # the dtype's peak
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            isz * (2 * b * s * (hq * dqk + hkv * dqk + hkv * dv)
+                   + 2 * b * s * hq * dv) + 4 * b * hq * s,
+            (6 * dqk + 4 * dv) * pairs,
+            H100_BF16_FLOPS if dtype == BF16 else H100_FP32_FLOPS)
+        kern = lambda: flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, out, lse, dout, **kw)
+        _time_record(r, kern,
+                     lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                         dout, **kw),
+                     lambda: torch.autograd.grad(lib_out, (qt, kt, vt),
+                                                 dout_t, retain_graph=True))
+        r["launches_per_call"] = launches_per_call(kern)
+        log(f"  {r['name']}: {r['launches_per_call']} device operations a "
+            f"call; {per_path} calls a step or round on its path")
+        rec["zoo"][label] = {x: r[x] for x in (
+            "shape", "causal", "dtype", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "launches_per_call", "launches_on_path")}
+        del q, k, v, out, lse, dout, qt, kt, vt, lib_out, dout_t
+        torch.cuda.empty_cache()
 
 
 def _kernel_b6_bwd(g, dev):
@@ -4360,6 +4529,316 @@ def phase_lm_moe(records):
     log(f"LM MoE phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the zoo's training on one card: the launcher's sgd steps at 1 x 4096
+# (the reference's train_4k shape, its global batch of 256 cut to 1) at
+# full width, bf16 activations over fp32 masters; (arch, layers kept or
+# None for the whole model, remat="layer").  Cut in depth where the fp32
+# masters, their gradients and the update's new leaves (12 bytes a
+# weight) and the activations pass 80 GB; minicpm3-4b whole (4.26 G
+# weights) recomputes each layer in the backward.
+ZOO_TRAIN = (("hubert-xlarge", None, False), ("minicpm3-4b", None, True),
+             ("qwen2-vl-7b", 8, False), ("granite-34b", 4, False),
+             ("qwen1.5-110b", 1, False), ("qwen3-moe-235b-a22b", 1, False))
+ZOO_TRAIN_STEPS = 3
+# the minicpm3-4b federated round (lm_fedavg on both exec modes, fp32, 2
+# of 62 layers at full width): documents a node and rounds a mode
+ZOO_FED_DOCS, ZOO_FED_ROUNDS = 8, 2
+# the MoE grouped dispatch's autograd nodes: the scatter into the expert
+# buffer (out-of-place index_add), the gather of the experts' outputs
+# (``expert_out[dest]``), the router's top-k sort
+MOE_DISPATCH_NODES = ("IndexAddBackward0", "IndexBackward0",
+                      "SortBackward0")
+# the seven reduced zoo configs whose train_loss gradients are held card
+# against CPU
+ZOO_TRAIN_AGREE = ("granite-34b", "qwen1.5-110b", "qwen2-vl-7b",
+                   "minicpm3-4b", "hubert-xlarge", "qwen3-moe-235b-a22b",
+                   "llama4-maverick-400b-a17b")
+
+
+def _node_device_us(prof) -> dict:
+    """Device time by autograd node in a trace of host and device
+    activity: ``{node: (calls, device us, {kernel: device us})}`` from
+    the host events ``autograd::engine::evaluate_function: <node>``, the
+    kernels named from the ops under each."""
+    tag = "autograd::engine::evaluate_function: "
+    out = {}
+    for e in prof.events():
+        if not e.name.startswith(tag):
+            continue
+        node = e.name[len(tag):]
+        calls, us, kern = out.get(node, (0, 0.0, {}))
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            for k in getattr(x, "kernels", None) or []:
+                name = _short_name(k.name) or k.name
+                kern[name] = kern.get(name, 0.0) + k.duration
+            stack.extend(x.cpu_children)
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = e.cuda_time_total
+        out[node] = (calls + 1, us + total, kern)
+    return out
+
+
+def _zoo_train(records, arch, depth, remat, totals):
+    """``repro_torch.launch.train.main`` for ``arch`` at full width (cut
+    to ``depth`` layers, each recomputed in the backward with ``remat``):
+    ZOO_TRAIN_STEPS sgd steps of 1 x 4096 from the launcher's seeded init
+    on the card.  Per step, the counts zeroed just before and read just
+    after: B5 once per layer (twice with ``remat``: the recomputation)
+    and its backward once per layer, nothing else; every loss finite.
+    Step times (the first is the warm-up), peak memory over the later
+    steps, the last step traced (busy share, device time by kernel; for
+    a MoE config also by autograd node, the grouped dispatch's
+    backward named)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import transformer as tfm
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         num_layers=depth)
+    if remat:
+        cfg = dataclasses.replace(cfg, remat_layers=True)
+    layers = cfg.num_layers
+    cut = f"{layers}/{full.num_layers} layers" + (
+        ", remat=\"layer\"" if remat else "")
+    argv = ["--arch", arch, "--steps", str(ZOO_TRAIN_STEPS), "--batch",
+            str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ),
+            "--num-clients", "1", "--log-every", str(ZOO_TRAIN_STEPS)]
+    dv = cfg.resolved_head_dim
+    dqk = dv + (cfg.mla_rope_head_dim if cfg.use_mla else 0)
+    log(f"LM zoo train: {arch} ({cfg.kind}, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, B5 at (Dqk, Dv) = "
+        f"({dqk}, {dv}), {cfg.num_params()} weights kept of "
+        f"{full.num_params()}); repro_torch.launch.train {' '.join(argv)}; "
+        f"cut: {cut}")
+    want = {k: 0 for k in read_counts()}
+    want.update(flash_attention=layers * (2 if remat else 1),
+                flash_attention_bwd=layers)
+    moe = cfg.kind == "moe"
+    st = {"losses": [], "walls": [], "counts": [], "prof": None}
+
+    def init():
+        t0 = time.perf_counter()
+        params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+        torch.cuda.synchronize()
+        st["init_s"] = time.perf_counter() - t0
+        zero_counts()
+        st["t"] = time.perf_counter()
+        return params
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        st["counts"].append(read_counts())
+        st["losses"].append(float(loss))
+        st["walls"].append(now - st["t"])
+        if step == 0:        # after the warm-up step
+            torch.cuda.reset_peak_memory_stats()
+        if step == ZOO_TRAIN_STEPS - 1:
+            st["prof"].__exit__(None, None, None)
+        if step == ZOO_TRAIN_STEPS - 2:
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            if moe:
+                acts.append(torch.profiler.ProfilerActivity.CPU)
+            st["prof"] = torch.profiler.profile(activities=acts)
+            st["prof"].__enter__()
+        zero_counts()
+        st["t"] = time.perf_counter()
+
+    torch.cuda.empty_cache()
+    final = lm_train.main(argv, init=init, on_step=on_step, cfg=cfg)
+    peak = torch.cuda.max_memory_allocated()
+    for i, c in enumerate(st["counts"]):
+        if c != want:
+            raise AssertionError(f"LM zoo train {arch} step {i}: kernel "
+                                 f"launches {c} != {want}")
+    if len(st["losses"]) != ZOO_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in st["losses"] + [final]):
+        raise AssertionError(f"LM zoo train {arch}: losses {st['losses']}")
+    from torch.autograd import DeviceType
+    prof = st["prof"]
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy, wall = sum(by_name.values()) / 1e6, st["walls"][-1]
+    if busy <= 0:
+        raise AssertionError(f"LM zoo train {arch}: torch.profiler recorded "
+                             f"no device time in the traced step")
+    b5 = {lab: sum(us for k, us in by_name.items() if key in k) / 1e3
+          for lab, key in (("B5", "flash_fwd"), ("B5-bwd", "flash_bwd"))}
+    log(f"  init {st['init_s']:.2f} s; losses "
+        + ", ".join(f"{x:.4f}" for x in st["losses"])
+        + "; steps " + ", ".join(f"{w:.4f}" for w in st["walls"])
+        + f" s (the first warms up, the last traced: device busy "
+        f"{busy:.4f} s = {100 * busy / wall:.1f}% of its wall, B5 "
+        f"{b5['B5']:.3f} ms, B5-bwd {b5['B5-bwd']:.3f} ms of device time); "
+        f"peak device memory over steps 1-{ZOO_TRAIN_STEPS - 1} "
+        f"{peak / 2**30:.2f} GiB; launches a step: B5 "
+        f"{st['counts'][0]['flash_attention']}, B5-bwd "
+        f"{st['counts'][0]['flash_attention_bwd']}, others 0")
+    log("    top device operations of the traced step: " + "; ".join(
+        f"{us / 1e3:.3f} ms {(_short_name(k) or k)[:60]}"
+        for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+    if moe:
+        nodes = _node_device_us(prof)
+        disp = {n: v for n, v in nodes.items() if n in MOE_DISPATCH_NODES}
+        log(f"    MoE grouped dispatch backward in the traced step "
+            f"(plain PyTorch): {sum(v[1] for v in disp.values()) / 1e3:.3f} "
+            f"ms of device time over " + "; ".join(
+                f"{n} x{c} {us / 1e3:.3f} ms ("
+                + ", ".join(f"{k} {t / 1e3:.3f} ms" for k, t in sorted(
+                    kern.items(), key=lambda kv: -kv[1])[:3]) + ")"
+                for n, (c, us, kern) in sorted(disp.items())))
+        log("    autograd nodes by device time in the traced step: "
+            + "; ".join(f"{n} x{c} {us / 1e3:.3f} ms" for n, (c, us, _)
+                        in sorted(nodes.items(),
+                                  key=lambda kv: -kv[1][1])[:10]))
+    for c in st["counts"]:
+        for k_, v_ in c.items():
+            totals[k_] += v_
+    del prof, st
+
+
+def _zoo_fed_round(totals):
+    """One minicpm3-4b federated round on each exec mode at full width,
+    fp32, cut in depth to ZOO_FED_LAYERS of 62 layers (the bundle's
+    ``init``, ``loss`` and ``loss_sum`` through ``from_spec``'s
+    overrides): ``lm_fedavg`` with ZOO_FED_CLIENTS clients of
+    ZOO_FED_BATCH x ZOO_FED_SEQ-token documents, on the batched path
+    (B5 and its fp32 backward at (96, 64) once per layer, the clients
+    folded into the batch axis) and on the host loop (once per layer and
+    client); ZOO_FED_ROUNDS rounds each, the last traced: wall, busy
+    share, peak memory, finite losses, and the two paths' parameters
+    after the rounds."""
+    from repro_torch.api import Federation, scenario_spec, spec_replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models.registry import build_model
+    full = get_config("minicpm3-4b")
+    cfg = dataclasses.replace(full, num_layers=ZOO_FED_LAYERS)
+    bundle = build_model(cfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    init = bundle.init(prng.PRNGKey(0, device="cuda"))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = {"model.arch": "minicpm3-4b", "model.vocab": cfg.vocab_size,
+             "model.layers": ZOO_FED_LAYERS, "model.seq_len": ZOO_FED_SEQ,
+             "data.num_clients": ZOO_FED_CLIENTS,
+             "data.docs_per_node": ZOO_FED_DOCS,
+             "data.val_docs_per_node": 1,
+             "schedule.rounds": ZOO_FED_ROUNDS,
+             "execution.batch_size": ZOO_FED_BATCH,
+             "execution.learning_rate": FED_LM_LR}
+    log(f"LM zoo federated round: minicpm3-4b at full width (MLA, B5 and "
+        f"its fp32 backward at (96, 64)), fp32 as the reference federates, "
+        f"the seeded init ({t_init:.1f} s); lm_fedavg, {ZOO_FED_CLIENTS} "
+        f"clients of {ZOO_FED_DOCS} documents, batch {ZOO_FED_BATCH} x "
+        f"{ZOO_FED_SEQ} tokens, client sgd lr {FED_LM_LR}; cut: "
+        f"{ZOO_FED_LAYERS}/{full.num_layers} layers ({cfg.num_params()} "
+        f"parameters), {ZOO_FED_ROUNDS} rounds a mode")
+    feds = {}
+    for mode in ("vmap", "loop"):
+        spec = spec_replace(scenario_spec("lm_fedavg"),
+                            {**sizes, "execution.exec_mode": mode})
+        fed = Federation.from_spec(spec, device="cuda", loss_fn=bundle.loss,
+                                   loss_sum_fn=bundle.loss_sum,
+                                   init_params=init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, counts, by_name = _fed_lm_rounds(
+            fed, ZOO_FED_ROUNDS, f"minicpm3-4b lm_fedavg {mode}",
+            traced_last=True)
+        peak = torch.cuda.max_memory_allocated()
+        for c in counts:
+            for k_, v_ in c.items():
+                totals[k_] += v_
+        losses = [h["loss"] for h in fed.history]
+        busy = sum(by_name.values()) / 1e6
+        if busy <= 0 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"minicpm3-4b federated {mode}: busy "
+                                 f"{busy}, losses {losses}")
+        b5 = {lab: sum(us for k, us in by_name.items() if key in k) / 1e3
+              for lab, key in (("B5", "flash_fwd"), ("B5-bwd", "flash_bwd"),
+                               ("B2", "weighted_sum"))}
+        log(f"  {mode}: clients {[c.num_docs for c in fed.engine.clients]} "
+            f"documents; rounds " + ", ".join(f"{w:.4f}" for w in walls)
+            + f" s (the last traced: device busy {busy:.4f} s = "
+            f"{100 * busy / walls[-1]:.1f}% of its wall; B5 {b5['B5']:.3f} "
+            f"ms, B5-bwd {b5['B5-bwd']:.3f} ms, B2 {b5['B2']:.3f} ms); peak "
+            f"device memory {peak / 2**30:.2f} GiB; losses {losses}; "
+            f"launches a round: {_short_counts(counts[0])}")
+        feds[mode] = fed
+    devs = _fed_lm_devs(feds["loop"].params, feds["vmap"].params)
+    log(f"  loop vs vmap after {ZOO_FED_ROUNDS} rounds: max |diff| "
+        f"{devs.max():.3e} over {devs.size} parameters")
+    del feds, init
+    torch.cuda.empty_cache()
+
+
+def _zoo_train_agreement():
+    """Each reduced zoo config in fp32 from the same weights on the card
+    and on the CPU (``agreement.grads_card_vs_cpu``): ``train_loss`` and
+    every gradient leaf within 2e-4 (of |loss| and of each leaf's
+    max|cpu|), over 2 x 96 tokens or frames; B5 and its backward once per
+    layer on the card, never on the CPU; a MoE row a routing flip at a
+    near-tie reached is left out on both, any other differing expert set
+    fails, and so does a batch left with no row.  These launches are a
+    check's, not the training paths', and are not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.agreement import grads_card_vs_cpu
+    for arch in ZOO_TRAIN_AGREE:
+        cfg = get_config(arch).reduced()
+        got = grads_card_vs_cpu(cfg, "cuda", gap_tol=MOE_FLIP_GAP)
+        worst = max(got["grad_devs"].values()) if got["grad_devs"] else None
+        log(f"agreement LM zoo train {arch} (reduced, fp32, 2 x 96): card "
+            f"vs CPU train_loss "
+            + ("-" if got["loss_dev"] is None else f"{got['loss_dev']:.3e}")
+            + f", gradients max |diff| / max|cpu| over "
+            f"{len(got['grad_devs'])} leaves "
+            + ("-" if worst is None else f"{worst:.3e}")
+            + f" (bound 2e-4); routing flips {got['flips']}, rows left out "
+            f"{got['rows_left_out']}; B5, B5-bwd launches {got['launches']}")
+        if got["strays"]:
+            raise AssertionError(f"LM zoo train agreement {arch}: expert "
+                                 f"sets differ without a near-tie: "
+                                 f"{got['strays'][:5]}")
+        if got["loss_dev"] is None:
+            raise AssertionError(f"LM zoo train agreement {arch}: routing "
+                                 f"flips left no row of the batch")
+        n = got["launches"]
+        if n["cpu"] != (0, 0) or n["dev"] != (cfg.num_layers,
+                                              cfg.num_layers):
+            raise AssertionError(f"LM zoo train agreement {arch}: B5 "
+                                 f"launches {n}")
+        if not (got["loss_dev"] <= 2e-4 and worst <= 2e-4):
+            raise AssertionError(f"LM zoo train agreement {arch}: card vs "
+                                 f"CPU beyond 2e-4")
+
+
+def phase_lm_zoo_train(records):
+    """The zoo trains on the card: every arch of :data:`ZOO_TRAIN`
+    through the training launcher (:func:`_zoo_train`), the minicpm3-4b
+    federated round on both exec modes (:func:`_zoo_fed_round`), then the
+    seven reduced configs' gradients card against CPU
+    (:func:`_zoo_train_agreement`)."""
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in read_counts()}
+    for arch, depth, remat in ZOO_TRAIN:
+        _zoo_train(records, arch, depth, remat, totals)
+        torch.cuda.empty_cache()
+    _zoo_fed_round(totals)
+    _zoo_train_agreement()
+    for r in records:
+        r["launches_by_path"]["lm_zoo_train"] = totals[r["name"]]
+    log(f"  launches on the zoo's training paths: {json.dumps(totals)}")
+    log(f"LM zoo train phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -4456,6 +4935,7 @@ def main() -> int:
     phase_lm_federation(records)
     phase_lm_zoo(records)
     phase_lm_moe(records)
+    phase_lm_zoo_train(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)

@@ -6,24 +6,31 @@
 // recomputes the probabilities chunk by chunk from (q, k, v, out, lse):
 //
 //   p[q,k]   = mask ? exp(s[q,k] - lse[q]) : 0,   s = (q . k) * scale
-//   delta[q] = sum_d dout[q,d] out[q,d]
+//   delta[q] = sum_d dout[q,d] out[q,d]       (over v's head dim)
 //   ds[q,k]  = p[q,k] (dout[q] . v[k] - delta[q]) * scale
 //   dq[q]    = sum_k ds[q,k] k[k]
 //   dk[k]    = sum_{h in group} sum_q ds[q,k] q[q]
 //   dv[k]    = sum_{h in group} sum_q p[q,k] dout[q]
 //
 // GQA by index: kv head hk is read by the H/Hkv query heads
-// [hk * H/Hkv, (hk + 1) * H/Hkv), and dk, dv sum over them.
+// [hk * H/Hkv, (hk + 1) * H/Hkv), and dk, dv sum over them.  q and k
+// have a head dim DQK, v, out and dout one of their own, DV (MLA's q and
+// k carry the decoupled rope channels on top of v's: (96, 64) at
+// minicpm3-4b width), so dq and dk have DQK columns and dv has DV.
 //
-// Bound on this card: operations.  At the hymba-1.5b training shape (B=1,
-// S=4096, H=25, Hkv=5, D=64, window 1024, bf16) the window reaches ~92M
-// (q, k) pairs, 10 * D flops each (s and dp, dv, dq, dk): ~59 GFLOP, 59.4
-// us at the bf16 tensor cores' 989 TFLOP/s, against ~58 MB of
-// q/k/v/out/dout/lse and gradients read and written once, 17.3 us at 3.35
-// TB/s (H100 SXM data-sheet peaks at 700 W; chip_smoke.py works the same
-// count out).  FA2's split into two kernels recomputes s and dp in both,
-// 14 * D flops a pair: at least 1.4x the bound, the price of no atomics
-// (every call gives the same bits).
+// Bound on this card: operations.  A (q, k) pair the mask allows costs
+// 6 DQK + 4 DV flops (s, dq and dk over DQK; dp and dv over DV), 10 D
+// when DQK = DV = D.  At the hymba-1.5b training shape (B=1, S=4096,
+// H=25, Hkv=5, D=64, window 1024, bf16) the window reaches ~92M (q, k)
+// pairs: ~59 GFLOP, 59.4 us at the bf16 tensor cores' 989 TFLOP/s,
+// against ~58 MB of q/k/v/out/dout/lse and gradients read and written
+// once, 17.3 us at 3.35 TB/s (H100 SXM data-sheet peaks at 700 W;
+// chip_smoke.py works the same count out).  FA2's split into two
+// kernels recomputes s and dp in both, 14 * D flops a pair: at least 1.4x
+// the bound, the price of no atomics (every call gives the same bits).  Registers bound the tensor-core
+// kernels (one block an SM): the dk/dv kernel keeps DQK/2 + DV/2 fp32
+// accumulators a thread beside the 64 of S^T and dP^T, which spills at
+// DQK = DV = 128 (chip_smoke.py prints ptxas' count for every instance).
 //
 // Two routes, chosen by dtype (a rule, not a fallback), as the forward:
 //
@@ -75,7 +82,7 @@
 //   card-vs-CPU bound for fp32 models, 2e-5, which bf16 or TF32 products
 //   cannot hold), in two launches:
 //   1. flash_bwd_dq_kernel, one block per (64 query rows, head, batch):
-//      four threads per row split the head dim into 16-byte groups, so
+//      four threads per row split each head dim into 16-byte groups, so
 //      q, dout and the dq accumulator of a row live in registers; the
 //      row's delta is computed first (and stored for launch 2); K and V
 //      tiles of 64 keys are staged in shared memory as fp32 and read as
@@ -92,8 +99,19 @@
 // past the sequence end are masked (a ragged tail).  A fully masked row
 // has p = 0 and gets zero gradients.  Operands are read through their
 // (b, s, h) strides (the head dim contiguous); dq, dk, dv are written
-// contiguous; lse and delta are (B, H, S) fp32.  Head dims 32, 64, 96,
-// 128.  The wgmma building blocks are in wgmma.cuh.
+// contiguous; lse and delta are (B, H, S) fp32.  The (DQK, DV) pairs
+// are the forward's: (32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
+// (96, 64) and (80, 64).  On the tensor cores a head dim of 80 or 96 needs
+// no layout of its own, as in the forward: a row is stored as column
+// atoms of 64 entries under the 128-byte swizzle, so 80 is one full atom
+// and 16 columns of a second (a 160-byte row, which no power-of-two
+// swizzle covers, is never laid out whole); the k16 steps of S and dP
+// walk the atoms (80 = 5 x 16), and the N = 80 or 96 products (dQ and dK
+// at N = DQK, dV at N = DV) read their B tile MN-major with the atoms LBO
+// apart, the form the forward's P V takes at DV = 80.  So the backward
+// uses the wgmma forms the forward does: m64n64k16 with both operands in
+// shared memory and m64nNk16 with A in registers.  The wgmma building
+// blocks are in wgmma.cuh.
 //
 // Plain C interface (bound with ctypes): returns a CUDA error code (0 on
 // success) after the launches, each checked; launches on the caller's
@@ -197,7 +215,7 @@ __device__ __forceinline__ void stage(float* dst, const float* base,
 }
 
 // 1. dq (and delta) per query tile
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ o,
@@ -208,10 +226,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     Strides ks, Strides vs, Strides os, Strides ds,
                     int seq, int heads, int kv_heads, int causal, int window,
                     float scale) {
-  constexpr int kG = D / 16;  // float4 groups per thread
+  constexpr int kGq = DQK / 16, kGv = DV / 16;  // float4 groups per thread
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [kRows][D]
-  float* v_s = k_s + kRows * D;                   // [kRows][D]
+  float* k_s = reinterpret_cast<float*>(smem4);  // [kRows][DQK]
+  float* v_s = k_s + kRows * DQK;                 // [kRows][DV]
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
@@ -220,22 +238,25 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qpos = q0 + row;
   const bool live = qpos < seq;
 
-  float qr[kG * 4], dor[kG * 4], acc[kG * 4];
-  load_row<D>(qr, q + b * qs.b + (int64_t)qpos * qs.s + h * qs.h, live,
-              part);
-  load_row<D>(dor, dout + b * ds.b + (int64_t)qpos * ds.s + h * ds.h, live,
-              part);
-  load_row<D>(acc, o + b * os.b + (int64_t)qpos * os.s + h * os.h, live,
-              part);
+  float qr[kGq * 4], dor[kGv * 4], acc[kGq * 4];
+  load_row<DQK>(qr, q + b * qs.b + (int64_t)qpos * qs.s + h * qs.h, live,
+                part);
+  load_row<DV>(dor, dout + b * ds.b + (int64_t)qpos * ds.s + h * ds.h, live,
+               part);
   float dl = 0.0f;
+  {
+    float orow[kGv * 4];
+    load_row<DV>(orow, o + b * os.b + (int64_t)qpos * os.s + h * os.h, live,
+                 part);
 #pragma unroll
-  for (int i = 0; i < kG * 4; ++i) dl = fmaf(dor[i], acc[i], dl);
+    for (int i = 0; i < kGv * 4; ++i) dl = fmaf(dor[i], orow[i], dl);
+  }
   dl = quad_sum(dl);
   const int64_t rix = ((int64_t)b * heads + h) * seq + qpos;
   const float lse_r = live ? lse[rix] : 0.0f;
   if (live && part == 0) delta[rix] = dl;
 #pragma unroll
-  for (int i = 0; i < kG * 4; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kGq * 4; ++i) acc[i] = 0.0f;
 
   // the key tiles the mask can reach from rows [q0, q0 + kRows)
   int lo = 0, hi = seq - 1;
@@ -246,27 +267,27 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = (lo / kRows) * kRows; k0 <= hi; k0 += kRows) {
     __syncthreads();  // every thread is done with the previous tile
-    stage<D>(k_s, kbase, ks.s, k0, seq, tid);
-    stage<D>(v_s, vbase, vs.s, k0, seq, tid);
+    stage<DQK>(k_s, kbase, ks.s, k0, seq, tid);
+    stage<DV>(v_s, vbase, vs.s, k0, seq, tid);
     __syncthreads();
     for (int j = 0; j < kRows; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * D);
-      const float4* vr = reinterpret_cast<const float4*>(v_s + j * D);
-      const float s = quad_sum(dot_part<kG>(qr, kr, part));
-      const float dp = quad_sum(dot_part<kG>(dor, vr, part));
+      const float4* kr = reinterpret_cast<const float4*>(k_s + j * DQK);
+      const float4* vr = reinterpret_cast<const float4*>(v_s + j * DV);
+      const float s = quad_sum(dot_part<kGq>(qr, kr, part));
+      const float dp = quad_sum(dot_part<kGv>(dor, vr, part));
       const float p = allowed(k0 + j, qpos, seq, causal, window)
                           ? expf(s * scale - lse_r)
                           : 0.0f;
-      axpy_part<kG>(acc, p * (dp - dl) * scale, kr, part);
+      axpy_part<kGq>(acc, p * (dp - dl) * scale, kr, part);
     }
   }
   if (live)
-    store_row<D>(dq + (((int64_t)b * seq + qpos) * heads + h) * D, acc,
-                 part);
+    store_row<DQK>(dq + (((int64_t)b * seq + qpos) * heads + h) * DQK, acc,
+                   part);
 }
 
 // 2. dk, dv per key tile, summed over the query heads of the kv head
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -278,11 +299,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       Strides qs, Strides ks, Strides vs, Strides ds,
                       int seq, int heads, int kv_heads, int causal,
                       int window, float scale) {
-  constexpr int kG = D / 16;
+  constexpr int kGq = DQK / 16, kGv = DV / 16;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][D]
-  float* do_s = q_s + kRows * D;                  // [kRows][D]
-  float* lse_s = do_s + kRows * D;                // [kRows]
+  float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][DQK]
+  float* do_s = q_s + kRows * DQK;                // [kRows][DV]
+  float* lse_s = do_s + kRows * DV;               // [kRows]
   float* dl_s = lse_s + kRows;                    // [kRows]
 
   const int b = blockIdx.z, hk = blockIdx.y;
@@ -292,13 +313,15 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
   const int kpos = k0 + row;
   const bool live = kpos < seq;
 
-  float kr[kG * 4], vr[kG * 4], dka[kG * 4], dva[kG * 4];
-  load_row<D>(kr, k + b * ks.b + (int64_t)kpos * ks.s + hk * ks.h, live,
-              part);
-  load_row<D>(vr, v + b * vs.b + (int64_t)kpos * vs.s + hk * vs.h, live,
-              part);
+  float kr[kGq * 4], vr[kGv * 4], dka[kGq * 4], dva[kGv * 4];
+  load_row<DQK>(kr, k + b * ks.b + (int64_t)kpos * ks.s + hk * ks.h, live,
+                part);
+  load_row<DV>(vr, v + b * vs.b + (int64_t)kpos * vs.s + hk * vs.h, live,
+               part);
 #pragma unroll
-  for (int i = 0; i < kG * 4; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < kGq * 4; ++i) dka[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kGv * 4; ++i) dva[i] = 0.0f;
 
   // the query tiles whose rows can see keys [k0, k0 + kRows)
   int lo = 0, hi = seq - 1;
@@ -311,8 +334,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
     const int64_t rbase = ((int64_t)b * heads + h) * seq;
     for (int q0 = (lo / kRows) * kRows; q0 <= hi; q0 += kRows) {
       __syncthreads();  // every thread is done with the previous tile
-      stage<D>(q_s, qbase, qs.s, q0, seq, tid);
-      stage<D>(do_s, dbase, ds.s, q0, seq, tid);
+      stage<DQK>(q_s, qbase, qs.s, q0, seq, tid);
+      stage<DV>(do_s, dbase, ds.s, q0, seq, tid);
       if (tid < kRows) {
         const bool ok = q0 + tid < seq;
         lse_s[tid] = ok ? lse[rbase + q0 + tid] : 0.0f;
@@ -320,36 +343,36 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
       }
       __syncthreads();
       for (int i = 0; i < kRows; ++i) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s + i * D);
-        const float4* dr = reinterpret_cast<const float4*>(do_s + i * D);
-        const float s = quad_sum(dot_part<kG>(kr, qr, part));
-        const float dp = quad_sum(dot_part<kG>(vr, dr, part));
+        const float4* qr = reinterpret_cast<const float4*>(q_s + i * DQK);
+        const float4* dr = reinterpret_cast<const float4*>(do_s + i * DV);
+        const float s = quad_sum(dot_part<kGq>(kr, qr, part));
+        const float dp = quad_sum(dot_part<kGv>(vr, dr, part));
         const float p = allowed(kpos, q0 + i, seq, causal, window)
                             ? expf(s * scale - lse_s[i])
                             : 0.0f;
-        axpy_part<kG>(dva, p, dr, part);
-        axpy_part<kG>(dka, p * (dp - dl_s[i]) * scale, qr, part);
+        axpy_part<kGv>(dva, p, dr, part);
+        axpy_part<kGq>(dka, p * (dp - dl_s[i]) * scale, qr, part);
       }
     }
   }
   if (live) {
-    const int64_t off = (((int64_t)b * seq + kpos) * kv_heads + hk) * D;
-    store_row<D>(dk + off, dka, part);
-    store_row<D>(dv + off, dva, part);
+    const int64_t row_off = ((int64_t)b * seq + kpos) * kv_heads + hk;
+    store_row<DQK>(dk + row_off * DQK, dka, part);
+    store_row<DV>(dv + row_off * DV, dva, part);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* dq,
            float* dk, float* dv, Strides qs, Strides ks, Strides vs,
            Strides os, Strides ds, int batch, int seq, int heads,
            int kv_heads, int causal, int window, float scale,
            cudaStream_t stream) {
-  const int smem_dq = 2 * kRows * D * (int)sizeof(float);
+  const int smem_dq = kRows * (DQK + DV) * (int)sizeof(float);
   const int smem_kv = smem_dq + 2 * kRows * (int)sizeof(float);
-  auto kdq = flash_bwd_dq_kernel<D>;
-  auto kkv = flash_bwd_dkdv_kernel<D>;
+  auto kdq = flash_bwd_dq_kernel<DQK, DV>;
+  auto kkv = flash_bwd_dkdv_kernel<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (e != cudaSuccess) return (int)e;
@@ -385,22 +408,51 @@ __device__ __forceinline__ float lse_log2(float lse) {
   return lse <= 0.5f * kNegInf ? INFINITY : lse * kLog2e;
 }
 
-// rows [r0, r0 + ROWS) of two (B, S, H, D) operands at one (b, h) into
-// swizzled tiles; rows past the end read as zeros
+// rows [r0, r0 + ROWS) of a (B, S, H, D) operand at one (b, h) into a
+// swizzled tile; rows past the end read as zeros.  D / 8 chunks a row
+// need not divide evenly among the threads (D = 80, 64 rows: 640 chunks).
 template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t sa, uint32_t sb,
-                                          const bf16* a, const bf16* b,
-                                          int64_t ass, int64_t bss, int r0,
-                                          int seq, int tid) {
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+                                          int64_t ss, int r0, int seq,
+                                          int tid) {
   constexpr int kChunks = D / 8;
+  constexpr int kTotal = ROWS * kChunks;
 #pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kTcThreads; ++i) {
+  for (int i = 0; i < (kTotal + kTcThreads - 1) / kTcThreads; ++i) {
     const int idx = tid + i * kTcThreads;
+    if (kTotal % kTcThreads != 0 && idx >= kTotal) break;
     const int r = idx / kChunks, c = idx % kChunks;
     const bool ok = r0 + r < seq;
     const int64_t p = ok ? r0 + r : 0;
-    cp_async16(sa + swz(ROWS, r, c), a + p * ass + c * 8, ok);
-    cp_async16(sb + swz(ROWS, r, c), b + p * bss + c * 8, ok);
+    cp_async16(dst + swz(ROWS, r, c), src + p * ss + c * 8, ok);
+  }
+}
+
+// rows [r0, r0 + ROWS) of two operands, the first at head dim DA, the
+// second at DB.  With one head dim whose chunks divide evenly among the
+// threads, one loop issues both copies of a chunk, its index arithmetic
+// and bounds test once (as the forward's load_kv); otherwise one loop each.
+// Two loops for the first case too made the whole backward 4% slower at
+// hymba's training shape on an H100 (tools/time_kernel.py).
+template <int DA, int DB, int ROWS>
+__device__ __forceinline__ void load_pair(uint32_t sa, uint32_t sb,
+                                          const bf16* a, const bf16* b,
+                                          int64_t ass, int64_t bss, int r0,
+                                          int seq, int tid) {
+  constexpr int kChunks = DA / 8;
+  if constexpr (DA == DB && ROWS * kChunks % kTcThreads == 0) {
+#pragma unroll
+    for (int i = 0; i < ROWS * kChunks / kTcThreads; ++i) {
+      const int idx = tid + i * kTcThreads;
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool ok = r0 + r < seq;
+      const int64_t p = ok ? r0 + r : 0;
+      cp_async16(sa + swz(ROWS, r, c), a + p * ass + c * 8, ok);
+      cp_async16(sb + swz(ROWS, r, c), b + p * bss + c * 8, ok);
+    }
+  } else {
+    load_rows<DA, ROWS>(sa, a, ass, r0, seq, tid);
+    load_rows<DB, ROWS>(sb, b, bss, r0, seq, tid);
   }
 }
 
@@ -412,23 +464,32 @@ template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes() {  // one 64-row tile
   return ((D + 63) / 64) * kTcTile * kSwRow;
 }
-// two own tiles, two rings of kStages tiles, then `extra` bytes of fp32
-// side values; 1024 bytes of slack to align the base to the swizzle's
-// 1024-byte period
-template <int D>
+// two own tiles (one at DQK, one at DV), a ring of kStages tiles at each
+// head dim, then `extra` bytes of fp32 side values; 1024 bytes of slack
+// to align the base to the swizzle's 1024-byte period
+template <int DQK, int DV>
 constexpr int tc_smem_bytes(int extra) {
-  return (int)(2 * own_bytes<D>() + 2 * kStages * tile_bytes<D>()) + extra
-         + 1024;
+  return (int)(own_bytes<DQK>() + own_bytes<DV>()
+               + kStages * (tile_bytes<DQK>() + tile_bytes<DV>()))
+         + extra + 1024;
 }
-template <int D>
-constexpr int dq_smem_bytes() { return tc_smem_bytes<D>(kTcRows * 4); }
-template <int D>
+template <int DQK, int DV>
+constexpr int dq_smem_bytes() { return tc_smem_bytes<DQK, DV>(kTcRows * 4); }
+template <int DQK, int DV>
 constexpr int dkdv_smem_bytes() {
-  return tc_smem_bytes<D>(2 * kStages * kTcTile * 4);
+  return tc_smem_bytes<DQK, DV>(2 * kStages * kTcTile * 4);
+}
+
+// k16 steps of the S and dP products: the longer head dim's; the shorter
+// product skips the steps past its own (the loop is unrolled, so the test
+// is resolved at compile time)
+template <int DQK, int DV>
+__host__ __device__ constexpr int k_steps() {
+  return (DQK > DV ? DQK : DV) / 16;
 }
 
 // 1. dq (and delta) per 128 query rows of one (batch, head)
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -439,13 +500,13 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        Strides ds, int seq, int heads, int kv_heads,
                        int causal, int window, float scale,
                        float scale_log2) {
-  constexpr uint32_t kOwn = own_bytes<D>(), kTile = tile_bytes<D>();
+  constexpr uint32_t kTileK = tile_bytes<DQK>(), kTileV = tile_bytes<DV>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base, sdo = sq + kOwn, sk = sdo + kOwn,
-                 sv = sk + kStages * kTile;
+  const uint32_t sq = base, sdo = sq + own_bytes<DQK>(),
+                 sk = sdo + own_bytes<DV>(), sv = sk + kStages * kTileK;
   float* dl_s = reinterpret_cast<float*>(
-      smem_raw + (sv + kStages * kTile - smem_addr(smem_raw)));
+      smem_raw + (sv + kStages * kTileV - smem_addr(smem_raw)));
 
   // the longest query tiles (most key tiles under a causal mask) first
   const int h = blockIdx.x, b = blockIdx.y;
@@ -457,9 +518,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qa = w0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
   const int cq = 2 * (lane & 3);
 
-  load_rows<D, kTcRows>(sq, sdo, q + b * qs.b + h * qs.h,
-                        dout + b * ds.b + h * ds.h, qs.s, ds.s, q0, seq,
-                        tid);
+  load_pair<DQK, DV, kTcRows>(sq, sdo, q + b * qs.b + h * qs.h,
+                              dout + b * ds.b + h * ds.h, qs.s, ds.s, q0,
+                              seq, tid);
   cp_async_commit();
 
   // the key tiles the mask can reach from the block's rows, and from this
@@ -476,22 +537,22 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int first = lo / kTcTile, last = hi / kTcTile;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  load_rows<D, kTcTile>(sk, sv, kb, vb, ks.s, vs.s, first * kTcTile, seq,
-                        tid);
+  load_pair<DQK, DV, kTcTile>(sk, sv, kb, vb, ks.s, vs.s, first * kTcTile,
+                              seq, tid);
   cp_async_commit();
 
-  // delta = rowsum(dO o O) in fp32 while the tiles load: two threads a
-  // row, D/2 entries each by 16-byte loads
+  // delta = rowsum(dO o O) over DV in fp32 while the tiles load: two
+  // threads a row, DV/2 entries each by 16-byte loads
   {
     const int r = tid >> 1, half = tid & 1, row = q0 + r;
     float acc = 0.0f;
     if (row < seq) {
       const bf16* dr = dout + b * ds.b + (int64_t)row * ds.s + h * ds.h
-                       + half * (D / 2);
+                       + half * (DV / 2);
       const bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h
-                         + half * (D / 2);
+                         + half * (DV / 2);
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < DV / 16; ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(dr + 8 * c);
         const uint4 y = *reinterpret_cast<const uint4*>(orow + 8 * c);
         const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -521,23 +582,24 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       : INFINITY;
   }
 
-  float acc[D / 2];
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.0f;
 
   // Ring stage of tile t: (t - first) % 3.  At iteration t the block
   // loads tile t+1 into the stage tile t-2 used; each warpgroup waited for
   // its dQ product of t-2 at iteration t-1, before this iteration's
   // barrier, so the product of t-1 may still run while tile t+1 loads.
   for (int t = first; t <= last; ++t) {
-    const uint32_t st = (uint32_t)((t - first) % kStages) * kTile;
+    const uint32_t stage = (uint32_t)((t - first) % kStages);
+    const uint32_t stk = stage * kTileK, stv = stage * kTileV;
     cp_async_wait_all();
     fence_proxy_async();
     __syncthreads();
     if (t < last) {
-      const uint32_t nx = (uint32_t)((t + 1 - first) % kStages) * kTile;
-      load_rows<D, kTcTile>(sk + nx, sv + nx, kb, vb, ks.s, vs.s,
-                            (t + 1) * kTcTile, seq, tid);
+      const uint32_t nx = (uint32_t)((t + 1 - first) % kStages);
+      load_pair<DQK, DV, kTcTile>(sk + nx * kTileK, sv + nx * kTileV, kb, vb,
+                                  ks.s, vs.s, (t + 1) * kTcTile, seq, tid);
       cp_async_commit();
     }
     const int k0 = t * kTcTile;
@@ -546,7 +608,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       continue;
     }
 
-    // S = Q K^T and dP = dO V^T over the head dim, 16 columns a wgmma
+    // S = Q K^T over DQK and dP = dO V^T over DV, 16 columns a wgmma
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
@@ -554,13 +616,17 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < k_steps<DQK, DV>(); ++kk) {
       const uint32_t col = (kk & 3) * 32;
       const uint32_t own = (kk >> 2) * kTcRows * kSwRow + wg * 64 * kSwRow
                            + col;
-      const uint32_t tile = st + (kk >> 2) * kTcTile * kSwRow + col;
-      wgmma_ss(s, kmajor_desc(sq + own), kmajor_desc(sk + tile), kk > 0);
-      wgmma_ss(dp, kmajor_desc(sdo + own), kmajor_desc(sv + tile), kk > 0);
+      const uint32_t tile = (kk >> 2) * kTcTile * kSwRow + col;
+      if (kk < DQK / 16)
+        wgmma_ss(s, kmajor_desc(sq + own), kmajor_desc(sk + stk + tile),
+                 kk > 0);
+      if (kk < DV / 16)
+        wgmma_ss(dp, kmajor_desc(sdo + own), kmajor_desc(sv + stv + tile),
+                 kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();  // S and dP of t, and the dQ product of t-1
@@ -589,7 +655,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       da[i >> 1] = pack_bf16(d[0], d[1]);
     }
 
-    // dQ += dS K, 16 keys a wgmma: K's rows 16j.. read MN-major
+    // dQ += dS K (wgmma N = DQK), 16 keys a wgmma: K's rows 16j.. read
+    // MN-major
     pin(acc);
     wgmma_fence();
 #pragma unroll
@@ -597,7 +664,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t a[4] = {da[4 * j], da[4 * j + 1], da[4 * j + 2],
                              da[4 * j + 3]};
       wgmma_rs(acc, a,
-               sw128_desc(sk + st + j * 16 * kSwRow, kTcTile * kSwRow,
+               sw128_desc(sk + stk + j * 16 * kSwRow, kTcTile * kSwRow,
                           8 * kSwRow));
     }
     wgmma_commit();  // left in flight: waited for with the next S
@@ -610,16 +677,16 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = qa + 8 * r;
     if (row >= seq) continue;
-    bf16* drow = dq + (((int64_t)b * seq + row) * heads + h) * D + cq;
+    bf16* drow = dq + (((int64_t)b * seq + row) * heads + h) * DQK + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
 // 2. dk, dv per 128 keys and one query head, as fp32 partials
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -632,12 +699,12 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
                          Strides ks, Strides vs, Strides ds, int seq,
                          int heads, int kv_heads, int causal, int window,
                          float scale, float scale_log2) {
-  constexpr uint32_t kOwn = own_bytes<D>(), kTile = tile_bytes<D>();
+  constexpr uint32_t kTileQ = tile_bytes<DQK>(), kTileO = tile_bytes<DV>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = base, sv = sk + kOwn, sq = sv + kOwn,
-                 sdo = sq + kStages * kTile;
-  const uint32_t sside = sdo + kStages * kTile;  // lse, then delta
+  const uint32_t sk = base, sv = sk + own_bytes<DQK>(),
+                 sq = sv + own_bytes<DV>(), sdo = sq + kStages * kTileQ;
+  const uint32_t sside = sdo + kStages * kTileO;  // lse, then delta
   const float* side = reinterpret_cast<const float*>(
       smem_raw + (sside - smem_addr(smem_raw)));
 
@@ -652,8 +719,9 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   const int ka = w0 + warp * 16 + (lane >> 2);   // this thread's: ka, ka+8
   const int cq = 2 * (lane & 3);
 
-  load_rows<D, kTcRows>(sk, sv, k + b * ks.b + hk * ks.h,
-                        v + b * vs.b + hk * vs.h, ks.s, vs.s, k0, seq, tid);
+  load_pair<DQK, DV, kTcRows>(sk, sv, k + b * ks.b + hk * ks.h,
+                              v + b * vs.b + hk * vs.h, ks.s, vs.s, k0, seq,
+                              tid);
   cp_async_commit();
 
   // the query tiles whose rows see the block's keys, and this
@@ -672,10 +740,11 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   // query tile t's Q and dO, and its 64 lse and delta values, into a ring
   // stage
   auto load_tile = [&](int t, int stage) {
-    const uint32_t nx = (uint32_t)stage * kTile;
-    load_rows<D, kTcTile>(sq + nx, sdo + nx, q + b * qs.b + h * qs.h,
-                          dout + b * ds.b + h * ds.h, qs.s, ds.s,
-                          t * kTcTile, seq, tid);
+    load_pair<DQK, DV, kTcTile>(sq + (uint32_t)stage * kTileQ,
+                                sdo + (uint32_t)stage * kTileO,
+                                q + b * qs.b + h * qs.h,
+                                dout + b * ds.b + h * ds.h, qs.s, ds.s,
+                                t * kTcTile, seq, tid);
     if (tid < 2 * kTcTile) {
       const int c = tid % kTcTile, which = tid / kTcTile;
       const bool ok = t * kTcTile + c < seq;
@@ -688,15 +757,18 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   load_tile(first, 0);
   cp_async_commit();
 
-  float dka[D / 2], dva[D / 2];
+  float dka[DQK / 2], dva[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < DQK / 2; ++i) dka[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.0f;
 
   // the ring as in launch 1: the dK, dV products of t-1 may still run
   // while t+1 loads
   for (int t = first; t <= last; ++t) {
     const int stage = (t - first) % kStages;
-    const uint32_t st = (uint32_t)stage * kTile;
+    const uint32_t stq = (uint32_t)stage * kTileQ,
+                   sto = (uint32_t)stage * kTileO;
     cp_async_wait_all();
     fence_proxy_async();
     __syncthreads();
@@ -710,7 +782,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
       continue;
     }
 
-    // S^T = K Q^T and dP^T = V dO^T over the head dim
+    // S^T = K Q^T over DQK and dP^T = V dO^T over DV
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
@@ -718,13 +790,17 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
     pin(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < k_steps<DQK, DV>(); ++kk) {
       const uint32_t col = (kk & 3) * 32;
       const uint32_t own = (kk >> 2) * kTcRows * kSwRow + wg * 64 * kSwRow
                            + col;
-      const uint32_t tile = st + (kk >> 2) * kTcTile * kSwRow + col;
-      wgmma_ss(s, kmajor_desc(sk + own), kmajor_desc(sq + tile), kk > 0);
-      wgmma_ss(dp, kmajor_desc(sv + own), kmajor_desc(sdo + tile), kk > 0);
+      const uint32_t tile = (kk >> 2) * kTcTile * kSwRow + col;
+      if (kk < DQK / 16)
+        wgmma_ss(s, kmajor_desc(sk + own), kmajor_desc(sq + stq + tile),
+                 kk > 0);
+      if (kk < DV / 16)
+        wgmma_ss(dp, kmajor_desc(sv + own), kmajor_desc(sdo + sto + tile),
+                 kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();  // S^T and dP^T of t, and the products of t-1
@@ -764,8 +840,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q, 16 queries a wgmma: the streamed
-    // tiles' rows 16j.. read MN-major
+    // dV += P^T dO (N = DV) and dK += dS^T Q (N = DQK), 16 queries a
+    // wgmma: the streamed tiles' rows 16j.. read MN-major
     pin(dka);
     pin(dva);
     wgmma_fence();
@@ -776,10 +852,10 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
       const uint32_t ad[4] = {da[4 * j], da[4 * j + 1], da[4 * j + 2],
                               da[4 * j + 3]};
       wgmma_rs(dva, ap,
-               sw128_desc(sdo + st + j * 16 * kSwRow, kTcTile * kSwRow,
+               sw128_desc(sdo + sto + j * 16 * kSwRow, kTcTile * kSwRow,
                           8 * kSwRow));
       wgmma_rs(dka, ad,
-               sw128_desc(sq + st + j * 16 * kSwRow, kTcTile * kSwRow,
+               sw128_desc(sq + stq + j * 16 * kSwRow, kTcTile * kSwRow,
                           8 * kSwRow));
     }
     wgmma_commit();  // left in flight: waited for with the next S^T
@@ -793,80 +869,87 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = ka + 8 * r;
     if (row >= seq) continue;
-    const int64_t off =
-        (((int64_t)b * seq + row) * heads + h) * D + cq;
+    const int64_t prow = ((int64_t)b * seq + row) * heads + h;
+    float* krow = dk_part + prow * DQK + cq;
+    float* vrow = dv_part + prow * DV + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(dk_part + off + 8 * j) =
+    for (int j = 0; j < DQK / 8; ++j)
+      *reinterpret_cast<float2*>(krow + 8 * j) =
           make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
-      *reinterpret_cast<float2*>(dv_part + off + 8 * j) =
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<float2*>(vrow + 8 * j) =
           make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
-    }
   }
 }
 
-// 3. dk, dv (B, S, Hkv, D) bf16 = the partials (B, S, H, D) fp32 summed
-// over each kv head's group of query heads, in order; `n` float4 groups
-// of the output
+// 3. dk (B, S, Hkv, DQK) and dv (B, S, Hkv, DV) bf16 = the partials
+// (B, S, H, DQK) and (B, S, H, DV) fp32 summed over each kv head's group
+// of query heads, in order: `nk` float4 groups of dk, then `nv` of dv
 __global__ void __launch_bounds__(256)
 flash_bwd_group_sum_kernel(const float4* __restrict__ dk_part,
                            const float4* __restrict__ dv_part,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int64_t n, int group, int d4) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    // output row (b, s, hk) = i / d4 reads partial rows row * group + g
-    const int64_t src = (i / d4) * group * d4 + i % d4;
-    float4 a = dk_part[src], c = dv_part[src];
+                           int64_t nk, int64_t nv, int group, int dk4,
+                           int dv4) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       i < nk + nv; i += (int64_t)gridDim.x * blockDim.x) {
+    const bool is_k = i < nk;
+    const int64_t j = is_k ? i : i - nk;
+    const int64_t d4 = is_k ? dk4 : dv4;
+    const float4* part = is_k ? dk_part : dv_part;
+    // output row (b, s, hk) = j / d4 reads partial rows row * group + g
+    const int64_t src = (j / d4) * group * d4 + j % d4;
+    float4 a = part[src];
     for (int g = 1; g < group; ++g) {
-      const float4 x = dk_part[src + (int64_t)g * d4];
-      const float4 y = dv_part[src + (int64_t)g * d4];
+      const float4 x = part[src + g * d4];
       a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
     }
-    __nv_bfloat162* ko = reinterpret_cast<__nv_bfloat162*>(dk + 4 * i);
-    __nv_bfloat162* vo = reinterpret_cast<__nv_bfloat162*>(dv + 4 * i);
-    ko[0] = __floats2bfloat162_rn(a.x, a.y);
-    ko[1] = __floats2bfloat162_rn(a.z, a.w);
-    vo[0] = __floats2bfloat162_rn(c.x, c.y);
-    vo[1] = __floats2bfloat162_rn(c.z, c.w);
+    __nv_bfloat162* out =
+        reinterpret_cast<__nv_bfloat162*>((is_k ? dk : dv) + 4 * j);
+    out[0] = __floats2bfloat162_rn(a.x, a.y);
+    out[1] = __floats2bfloat162_rn(a.z, a.w);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
               const bf16* dout, const float* lse, float* delta, bf16* dq,
               bf16* dk, bf16* dv, float* part, Strides qs, Strides ks,
               Strides vs, Strides os, Strides ds, int batch, int seq,
               int heads, int kv_heads, int causal, int window, float scale,
               cudaStream_t stream) {
-  auto kdq = flash_bwd_dq_tc_kernel<D>;
-  auto kkv = flash_bwd_dkdv_tc_kernel<D>;
+  auto kdq = flash_bwd_dq_tc_kernel<DQK, DV>;
+  auto kkv = flash_bwd_dkdv_tc_kernel<DQK, DV>;
+  constexpr int smem_dq = dq_smem_bytes<DQK, DV>();
+  constexpr int smem_kv = dkdv_smem_bytes<DQK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<D>());
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           dkdv_smem_bytes<D>());
+                           smem_kv);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(heads, batch, (seq + kTcRows - 1) / kTcRows);
   const float scale_log2 = scale * kLog2e;
-  kdq<<<grid, kTcThreads, dq_smem_bytes<D>(), stream>>>(
+  kdq<<<grid, kTcThreads, smem_dq, stream>>>(
       q, k, v, o, dout, lse, delta, dq, qs, ks, vs, os, ds, seq, heads,
       kv_heads, causal, window, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t parts = (int64_t)batch * seq * heads * D;
-  kkv<<<grid, kTcThreads, dkdv_smem_bytes<D>(), stream>>>(
-      q, k, v, dout, lse, delta, part, part + parts, qs, ks, vs, ds, seq,
-      heads, kv_heads, causal, window, scale, scale_log2);
+  const int64_t rows = (int64_t)batch * seq * heads;
+  kkv<<<grid, kTcThreads, smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, part, part + rows * DQK, qs, ks, vs, ds,
+      seq, heads, kv_heads, causal, window, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t n = (int64_t)batch * seq * kv_heads * (D / 4);
-  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
+  const int64_t out_rows = (int64_t)batch * seq * kv_heads;
+  const int64_t nk = out_rows * (DQK / 4), nv = out_rows * (DV / 4);
+  const int64_t want = (nk + nv + 255) / 256;
+  const int blocks = (int)(want < 8192 ? want : 8192);
   flash_bwd_group_sum_kernel<<<blocks, 256, 0, stream>>>(
       reinterpret_cast<const float4*>(part),
-      reinterpret_cast<const float4*>(part + parts), dk, dv, n,
-      heads / kv_heads, D / 4);
+      reinterpret_cast<const float4*>(part + rows * DQK), dk, dv, nk, nv,
+      heads / kv_heads, DQK / 4, DV / 4);
   return (int)cudaGetLastError();
 }
 
@@ -875,18 +958,43 @@ bool aligned16(const void* p, const Strides& st) {
          st.s % 8 == 0 && st.h % 8 == 0;
 }
 
+// the instantiated (DQK, DV) pairs, as one key (the forward's)
+constexpr int pair(int dqk, int dv) { return dqk * 1000 + dv; }
+
 }  // namespace
 
-// q, out, dout: (B, S, H, D); k, v: (B, S, Hkv, D); each with its (b, s, h)
-// strides in elements and a contiguous head dim, all of one dtype; lse
-// (B, H, S) fp32 from the forward; delta a (B, H, S) fp32 scratch.
-// Writes dq (B, S, H, D) and dk, dv (B, S, Hkv, D) contiguous in the
-// inputs' dtype.  head_dim in {32, 64, 96, 128}; H a multiple of Hkv.
-// bf16 (is_bf16 = 1) runs on the tensor cores in three launches, needs
-// 16-byte aligned q, k, v, out, dout with (b, s, h) strides that are
-// multiples of 8 (else cudaErrorMisalignedAddress), and `part`, an fp32
-// scratch of 2 * B * S * H * D entries; fp32 runs on the CUDA cores in two
-// launches and reads no `part`.
+// dynamic shared memory a block of the bf16 (tensor-core) dq and dk/dv
+// kernels asks for at the head-dim pair (DQK, DV) (`which` 0 and 1), or -1
+// for a pair they do not take
+extern "C" int flash_attention_bwd_tc_smem_bytes(int head_dim,
+                                                 int v_head_dim, int which) {
+#define SMEM_PAIR(DQK, DV)                                        \
+  case pair(DQK, DV):                                             \
+    return which ? dkdv_smem_bytes<DQK, DV>() : dq_smem_bytes<DQK, DV>();
+  switch (pair(head_dim, v_head_dim)) {
+    SMEM_PAIR(32, 32)
+    SMEM_PAIR(64, 64)
+    SMEM_PAIR(80, 80)
+    SMEM_PAIR(96, 96)
+    SMEM_PAIR(128, 128)
+    SMEM_PAIR(96, 64)
+    SMEM_PAIR(80, 64)
+  }
+#undef SMEM_PAIR
+  return -1;
+}
+
+// q: (B, S, H, DQK); k: (B, S, Hkv, DQK); v: (B, S, Hkv, DV); out, dout:
+// (B, S, H, DV); each with its (b, s, h) strides in elements and a
+// contiguous head dim, all of one dtype; lse (B, H, S) fp32 from the
+// forward; delta a (B, H, S) fp32 scratch.  Writes dq (B, S, H, DQK), dk
+// (B, S, Hkv, DQK) and dv (B, S, Hkv, DV) contiguous in the inputs' dtype.
+// (head_dim, v_head_dim) = (DQK, DV) one of the forward's pairs; H a
+// multiple of Hkv.  bf16 (is_bf16 = 1) runs on the tensor cores in three
+// launches, needs 16-byte aligned q, k, v, out, dout with (b, s, h)
+// strides that are multiples of 8 (else cudaErrorMisalignedAddress), and
+// `part`, an fp32 scratch of B * S * H * (DQK + DV) entries; fp32 runs on
+// the CUDA cores in two launches and reads no `part`.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -894,8 +1002,8 @@ extern "C" int flash_attention_bwd(
     int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t d_sb, int64_t d_ss,
     int64_t d_sh, int batch, int seq, int heads, int kv_heads, int head_dim,
-    int causal, int window, float scale, int is_bf16, float* part,
-    void* stream) {
+    int v_head_dim, int causal, int window, float scale, int is_bf16,
+    float* part, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -904,31 +1012,32 @@ extern "C" int flash_attention_bwd(
     if (!(aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs) &&
           aligned16(o, os) && aligned16(dout, ds)))
       return (int)cudaErrorMisalignedAddress;
+  }
 #define TC_ARGS static_cast<const bf16*>(q), static_cast<const bf16*>(k),    \
     static_cast<const bf16*>(v), static_cast<const bf16*>(o),                \
     static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),      \
     static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, qs, ks, vs, os,    \
     ds, batch, seq, heads, kv_heads, causal, window, scale, s
-    switch (head_dim) {
-      case 32: return launch_tc<32>(TC_ARGS);
-      case 64: return launch_tc<64>(TC_ARGS);
-      case 96: return launch_tc<96>(TC_ARGS);
-      case 128: return launch_tc<128>(TC_ARGS);
-    }
-#undef TC_ARGS
-    return (int)cudaErrorInvalidValue;
-  }
 #define SIMT_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
     static_cast<const float*>(v), static_cast<const float*>(o),              \
     static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),    \
     static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, os, ds,    \
     batch, seq, heads, kv_heads, causal, window, scale, s
-  switch (head_dim) {
-    case 32: return launch<32>(SIMT_ARGS);
-    case 64: return launch<64>(SIMT_ARGS);
-    case 96: return launch<96>(SIMT_ARGS);
-    case 128: return launch<128>(SIMT_ARGS);
+#define BWD_PAIR(DQK, DV)                                         \
+  case pair(DQK, DV):                                             \
+    return is_bf16 ? launch_tc<DQK, DV>(TC_ARGS)                  \
+                   : launch<DQK, DV>(SIMT_ARGS);
+  switch (pair(head_dim, v_head_dim)) {
+    BWD_PAIR(32, 32)
+    BWD_PAIR(64, 64)
+    BWD_PAIR(80, 80)
+    BWD_PAIR(96, 96)
+    BWD_PAIR(128, 128)
+    BWD_PAIR(96, 64)
+    BWD_PAIR(80, 64)
   }
+#undef BWD_PAIR
 #undef SIMT_ARGS
+#undef TC_ARGS
   return (int)cudaErrorInvalidValue;
 }

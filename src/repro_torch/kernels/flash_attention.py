@@ -17,10 +17,10 @@ models needs (TF32 or bf16 products would not hold its bounds).  A bf16
 call the tensor-core kernels cannot take raises; it never goes to the
 fp32 kernels or to the plain version.
 
-The forward takes a value head dim of its own (MLA's q and k carry the
+Both take a value head dim of its own (MLA's q and k carry the
 decoupled rope channels on top of v's): the (DQK, DV) pairs of
-:data:`HEAD_DIM_PAIRS`.  The backward takes DQK == DV in
-:data:`BWD_HEAD_DIMS`; any other pair raises.
+:data:`HEAD_DIM_PAIRS`, the same set forward and backward; any other
+pair raises before a launch.
 """
 from __future__ import annotations
 
@@ -35,13 +35,11 @@ from repro_torch.kernels import _build
 launches = 0
 bwd_launches = 0
 
-# the (q/k head dim, v head dim) pairs the forward kernels instantiate:
-# the diagonal, MLA's prefill at minicpm3-4b width (96, 64) and at its
-# reduced config (80, 64); 80 is hubert-xlarge's head dim
+# the (q/k head dim, v head dim) pairs the forward and backward kernels
+# instantiate: the diagonal, MLA's prefill at minicpm3-4b width (96, 64)
+# and at its reduced config (80, 64); 80 is hubert-xlarge's head dim
 HEAD_DIM_PAIRS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
                   (96, 64), (80, 64))
-# the head dims of the backward kernels (DQK == DV)
-BWD_HEAD_DIMS = (32, 64, 96, 128)
 
 _fns = {}
 
@@ -57,7 +55,7 @@ def _kernel(name: str):
         else:
             fn = _build.load("flash_attention_bwd").flash_attention_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 15 \
-                + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -151,36 +149,31 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool, window: int, scale: float):
     """The gradient of :func:`flash_attention_cuda`: q, k, v as the
-    forward took them, its ``out`` and ``lse``, and ``dout`` (B,S,H,D) ->
-    (dq (B,S,H,D), dk, dv (B,S,Hkv,D)) contiguous in q's dtype, dk and dv
-    summed over the query heads of each kv head.  bf16 runs on the tensor
-    cores in three launches (dq with each row's ``rowsum(dout * out)``,
-    dk and dv as fp32 partials per query head, their sum over each kv
-    head's group) and takes operands as the forward's bf16 route does.
-    fp32 runs on the CUDA cores in two launches (dq, then dk and
-    dv).  No atomics, so repeated calls give the same bits.  Takes one
-    head dim for q, k and v, in :data:`BWD_HEAD_DIMS`: any other pair
-    raises ``NotImplementedError`` (ROADMAP.md names the slice that adds
-    head dim 80 and DQK != DV), with no plain fallback."""
+    forward took them, its ``out`` and ``lse``, and ``dout`` (B,S,H,Dv) ->
+    (dq (B,S,H,D), dk (B,S,Hkv,D), dv (B,S,Hkv,Dv)) contiguous in q's
+    dtype, dk and dv summed over the query heads of each kv head.  bf16
+    runs on the tensor cores in three launches (dq with each row's
+    ``rowsum(dout * out)``, dk and dv as fp32 partials per query head,
+    their sum over each kv head's group) and takes operands as the
+    forward's bf16 route does.  fp32 runs on the CUDA cores in two
+    launches (dq, then dk and dv).  No atomics, so repeated calls give the
+    same bits.  Takes the forward's (D, Dv) pairs,
+    :data:`HEAD_DIM_PAIRS`: any other raises ``ValueError`` before a
+    launch, with no plain fallback."""
     global bwd_launches
     _check("flash_attention_bwd_cuda", q, k, v)
     dev = q.device
     b, s, h, d = q.shape
-    if v.shape[3] != d or d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd_cuda takes one head dim for q, k and v "
-            f"in {BWD_HEAD_DIMS}, got (q/k, v) {(d, v.shape[3])}: B5's "
-            f"backward at head dim 80 and DQK != DV is the next kernel "
-            f"slice (ROADMAP.md, B5-bwd)")
-    hkv = k.shape[2]
+    hkv, d_v = k.shape[2], v.shape[3]
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
-    if out.shape != q.shape or dout.shape != q.shape \
+    want = (b, s, h, d_v)
+    if out.shape != want or dout.shape != want \
             or out.dtype != q.dtype or out.device != dev \
             or dout.device != dev:
         raise ValueError(f"flash_attention_bwd_cuda: out "
                          f"{tuple(out.shape)} {out.dtype} and dout "
-                         f"{tuple(dout.shape)} must match q "
-                         f"{tuple(q.shape)} {q.dtype} on {dev}")
+                         f"{tuple(dout.shape)} must be {want} "
+                         f"{q.dtype} on {dev}")
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
             or lse.device != dev:
         raise ValueError(f"flash_attention_bwd_cuda: lse must be (B,H,S) "
@@ -195,12 +188,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lse = lse.contiguous()
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=dev)
-    dv = torch.empty((b, s, hkv, d), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, s, hkv, d_v), dtype=q.dtype, device=dev)
     if b == 0 or s == 0 or h == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    # the bf16 route's dk, dv partials, one per query head
-    part = torch.empty((2, b, s, h, d),
+    # the bf16 route's dk (B,S,H,D) then dv (B,S,H,Dv) partials, one per
+    # query head
+    part = torch.empty((b * s * h * (d + d_v),),
                        dtype=torch.float32, device=dev) if bf16 else None
     strides = [t.stride(i) for t in (q, k, v, out, dout) for i in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -209,7 +203,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                              dv.data_ptr(), *strides, b, s, h, hkv, d,
-                             int(bool(causal)), int(window), float(scale),
+                             d_v, int(bool(causal)), int(window),
+                             float(scale),
                              int(bf16), part.data_ptr() if bf16 else None,
                              stream)
     if err:

@@ -57,15 +57,18 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import get_optimizer
 
 
-def train_lm(args, init=None, on_step=None) -> float:
+def train_lm(args, init=None, on_step=None, cfg=None) -> float:
     """``args.steps`` steps; returns the last step's loss.  ``init()``,
     when given, returns the starting weights (the port's tree) in place
     of the seeded init; it is called once, so no caller's frame holds
     them while the steps replace them.  ``on_step(step, loss)`` is
-    called after each step with the step's loss tensor."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    called after each step with the step's loss tensor.  ``cfg``, when
+    given, is trained in place of ``args.arch``'s (a depth-cut config, or
+    one with ``remat_layers``), as ``serve`` takes one."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     tfm.check_supported(cfg)
     device = resolve_device(args.device)
     opt = get_optimizer(args.optimizer, args.lr)
@@ -175,10 +178,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, init=None, on_step=None):
+def main(argv=None, init=None, on_step=None, cfg=None):
     """Parse ``argv`` and train; ``init`` and ``on_step`` go to
-    ``train_ntm`` (``--ntm`` or an NTM arch) or ``train_lm``.  Returns
-    the last step's loss."""
+    ``train_ntm`` (``--ntm`` or an NTM arch) or ``train_lm``, ``cfg`` (an
+    LM config in place of ``--arch``'s) to ``train_lm``.  Returns the last
+    step's loss."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.ntm or get_config(args.arch).kind == NTM:
@@ -188,7 +192,7 @@ def main(argv=None, init=None, on_step=None):
     if given:
         ap.error(f"{', '.join(given)} configure the NTM trainer; add --ntm "
                  "(the LM path would ignore them)")
-    return train_lm(args, init=init, on_step=on_step)
+    return train_lm(args, init=init, on_step=on_step, cfg=cfg)
 
 
 if __name__ == "__main__":

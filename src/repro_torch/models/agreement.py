@@ -16,9 +16,12 @@ sets first (:func:`routing_flips`): a token whose set differs is a
 documented flip only where that gap is within ``gap_tol`` on either
 device, and its row (one routing group, and the row its attention
 carries the change along) is left out of the logits bound from then on;
-any other difference is reported.  :func:`dense_mixture` is the plain
-version of a MoE layer: every expert on every token, weighted by the
-renormalized top-k gates.
+any other difference is reported.  :func:`grads_card_vs_cpu` holds the
+training objective the same way: ``train_loss`` and every gradient leaf
+over a 2 x 96 training batch, through B5's backward kernel on the card,
+the rows a flip reached left out of the batch on both devices.
+:func:`dense_mixture` is the plain version of a MoE layer: every expert
+on every token, weighted by the renormalized top-k gates.
 """
 from __future__ import annotations
 
@@ -110,6 +113,67 @@ def card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
     return {"devs": devs, "flips": flips, "rows_left_out": sorted(rows),
             "strays": strays, "launches": {"cpu": n_c, "dev": n_d},
             "params": on_dev}
+
+def _rows(name: str, v: np.ndarray, keep: List[int]) -> np.ndarray:
+    """Batch entry ``name`` at rows ``keep`` (M-RoPE's positions are
+    (3, B, S))."""
+    return np.ascontiguousarray(v[:, keep] if name == "mrope_positions"
+                                else v[keep])
+
+
+def grads_card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
+                      gap_tol: float = 1e-5) -> Dict[str, object]:
+    """``train_loss`` and its gradient with respect to every leaf of
+    ``cfg``'s fp32 weights (:func:`init_acting`) on the CPU and on
+    ``dev``, over ``synthetic_lm_batch(cfg, 2, 96, seed=seed)``.  A
+    forward pass on each device first finds the routing flips
+    (:func:`routing_flips`); the rows they reached leave the batch on
+    both devices.  Returns the loss's |dev - cpu| / |cpu| (``loss_dev``),
+    each leaf's max |dev - cpu| / max |cpu| (``grad_devs``, by the
+    layer-stacked name of ``tfm.stack_layers``), the flips, the rows left
+    out, the ``strays``, and B5's forward and backward launches on each
+    (``launches``: (forward, backward))."""
+    cpu = init_acting(cfg)
+    batch = synthetic_lm_batch(cfg, 2, PROMPT, seed=seed)
+    routes = []
+    for where in ("cpu", dev):
+        params = cpu if where == "cpu" else tree_to(cpu, dev)
+        with torch.no_grad(), moe.record_routes() as r:
+            tfm.forward_train(params, cfg, {
+                k: torch.from_numpy(v).to(where) for k, v in batch.items()},
+                dtype=torch.float32)
+        routes.append(r)
+    flips, rows, strays = routing_flips(routes[0], routes[1], gap_tol)
+    keep = [r for r in range(2) if r not in rows]
+    out = {"flips": flips, "rows_left_out": sorted(rows), "strays": strays,
+           "loss_dev": None, "grad_devs": {}, "launches": {}}
+    if not keep:
+        return out
+    got = {}
+    for where in ("cpu", dev):
+        params = tfm.stack_layers(cpu if where == "cpu"
+                                  else tree_to(cpu, dev))
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        c0 = (flash_attention.launches, flash_attention.bwd_launches)
+        with torch.enable_grad():
+            loss = tfm.train_loss(
+                tfm.unstack_layers(leaves), cfg,
+                {k: torch.from_numpy(_rows(k, v, keep)).to(where)
+                 for k, v in batch.items()}, dtype=torch.float32)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        out["launches"][where if where == "cpu" else "dev"] = (
+            flash_attention.launches - c0[0],
+            flash_attention.bwd_launches - c0[1])
+        got[where] = (float(loss.detach()), {k: g.cpu() for k, g
+                                     in zip(leaves, grads)})
+    (lc, gc), (ld, gd) = got["cpu"], got[dev]
+    out["loss_dev"] = abs(ld - lc) / max(abs(lc), 1e-30)
+    out["grad_devs"] = {k: float((gd[k] - g).abs().max())
+                        / max(float(g.abs().max()), 1e-30)
+                        for k, g in gc.items()}
+    return out
+
 
 def dense_mixture(params: dict, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:

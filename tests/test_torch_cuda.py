@@ -782,25 +782,45 @@ def test_forward_only_kernels_refuse_grad(cuda_device, call, rng):
 
 
 # (b, hq, hkv, s, d, causal, window): causal, windowed (causal and not)
-# and full masks, GQA and MQA, ragged S, every head dim
+# and full masks, GQA and MQA, ragged S, every head dim; then (b, hq, hkv,
+# s, dqk, dv, causal, window) at the zoo's pairs: hubert's (80, 80) full,
+# MLA's (96, 64) and its reduced (80, 64), causal, windowed and full
 FLASH_BWD_CASES = [
     (2, 4, 2, 70, 32, True, 16), (1, 5, 1, 130, 64, True, 0),
     (1, 3, 3, 100, 96, False, 0), (1, 4, 2, 77, 128, False, 20),
     (1, 25, 5, 300, 64, True, 128), (2, 2, 1, 64, 64, True, 64),
     (1, 4, 2, 256, 64, True, 40),   # the window's edge inside a 128-row tile
     (1, 5, 1, 129, 96, True, 0),    # a ragged tail of one row
+    (2, 4, 4, 200, 80, 80, False, 0), (1, 7, 1, 257, 80, 80, True, 0),
+    (1, 4, 2, 130, 80, 80, True, 40),
+    (2, 8, 8, 257, 96, 64, True, 0), (1, 48, 1, 130, 96, 64, True, 40),
+    (1, 4, 4, 193, 96, 64, False, 0),
+    (2, 4, 4, 100, 80, 64, True, 0), (1, 7, 1, 200, 80, 64, False, 24),
+    (1, 4, 2, 129, 80, 64, True, 0),
 ]
 # the LM training path's shape (hymba-1.5b, 1 x 4096)
 FLASH_BWD_PATH = (1, 25, 5, 4096, 64, True, 1024)
 
 
 def _flash_bwd_inputs(case, dtype, rng, dev):
-    b, hq, hkv, s, d, causal, window = case
-    fused = torch.from_numpy(rng.standard_normal(
-        (b, s, hq + 2 * hkv, d)).astype(np.float32)).to(dev, dtype)
-    q, k, v = fused.split([hq, hkv, hkv], dim=2)
-    dout = torch.from_numpy(rng.standard_normal((b, s, hq, d)).astype(
-        np.float32)).to(dev, dtype)
+    """q, k, v as strided slices of one projection (at a pair, k and v
+    the column slices of one kv projection, v the view MLA's expansion
+    gives), dout, and the forward kernel's out and lse."""
+    if len(case) == 7:
+        b, hq, hkv, s, d, causal, window = case
+        dv = d
+    else:
+        b, hq, hkv, s, d, dv, causal, window = case
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    if dv == d:
+        q, k, v = draw(b, s, hq + 2 * hkv, d).split([hq, hkv, hkv], dim=2)
+    else:
+        q, kv = draw(b, s, hq, d), draw(b, s, hkv, d + dv)
+        k, v = kv[..., :d], kv[..., d:]
+    dout = draw(b, s, hq, dv)
     kw = dict(causal=causal, window=window, scale=d ** -0.5)
     out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
     return q, k, v, out, lse, dout, kw
@@ -1626,18 +1646,75 @@ def test_flash_kernel_dv_refusals(cuda_device):
 
 
 @pytest.mark.parametrize("dqk,dv", [(96, 64), (80, 80), (80, 64)])
-def test_flash_bwd_refuses_the_new_pairs_under_backward(cuda_device, dqk,
-                                                        dv):
-    """B5's backward kernels take one head dim in 32/64/96/128: a gradient
-    through the forward at a new pair raises, and nothing falls back."""
-    q = torch.randn(1, 64, 2, dqk, device=cuda_device, requires_grad=True)
-    k = torch.randn(1, 64, 2, dqk, device=cuda_device, requires_grad=True)
-    v = torch.randn(1, 64, 2, dv, device=cuda_device, requires_grad=True)
-    out = ops.flash_attention(q, k, v, causal=True)
+def test_flash_bwd_at_the_new_pairs_under_backward(cuda_device, dqk, dv):
+    """A gradient through ``ops.flash_attention`` at a zoo pair, by
+    ``backward()`` in fp32 on the card: one backward launch sequence a
+    call, the gradients within 2e-5 of each one's scale of the plain
+    backward (``ref.flash_attention_bwd_ref``) on the same out and lse."""
+    g = torch.Generator().manual_seed(dqk + dv)
+    q, k, v = (torch.randn(1, 96, 2, d, generator=g).to(cuda_device)
+               .requires_grad_(True) for d in (dqk, dqk, dv))
+    cot = torch.randn(1, 96, 2, dv, generator=g).to(cuda_device)
     before = flash_attention.bwd_launches
-    with pytest.raises(NotImplementedError, match="next kernel slice"):
-        out.sum().backward()
-    assert flash_attention.bwd_launches == before
+    out = ops.flash_attention(q, k, v, causal=True)
+    (out * cot).sum().backward()
+    assert flash_attention.bwd_launches == before + 1
+    kw = dict(causal=True, window=0, scale=dqk ** -0.5)
+    o, lse = ref.flash_attention_fwd_ref(q.detach(), k.detach(), v.detach(),
+                                         **kw)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o, lse, cot, **kw)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert got.shape == w.shape
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((got - w).abs().max()) / scale <= 2e-5
+
+
+def test_flash_bwd_refuses_a_pair_outside_the_set(cuda_device):
+    """The backward takes the forward's pairs only: (64, 32) raises
+    before any launch, on both routes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 64, 2, 64, device=cuda_device, dtype=dtype)
+        v = torch.zeros(1, 64, 2, 32, device=cuda_device, dtype=dtype)
+        lse = torch.zeros(1, 2, 64, device=cuda_device)
+        before = flash_attention.bwd_launches
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_bwd_cuda(q, q, v, v, lse, v, causal=True,
+                                     window=0, scale=0.125)
+        assert flash_attention.bwd_launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vmap_grad_flash_at_a_pair_matches_a_loop(cuda_device, dtype, rng):
+    """``vmap(grad)`` through B5 at (96, 64) on the card (the batched
+    cohort path of an MLA arch) against a loop of per-client
+    ``torch.func.grad``, within 1e-6 of each gradient's scale: the clients
+    fold into the batch axis at Dv != Dqk too, one forward and one
+    backward launch for the cohort."""
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dt)
+    kc = 3
+    args = (t(kc, 2, 130, 8, 96), t(kc, 2, 130, 8, 96), t(2, 130, 8, 64),
+            t(kc, 2, 130, 8, 64, dt=torch.float32))
+
+    def f(q, k, v, w):
+        return torch.sum(ops.flash_attention(q, k, v).float() * w)
+    in_dims = (0, 0, None, 0)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)),
+                          in_dims=in_dims)(*args)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention.bwd_launches - before[1]) == (1, 1)
+    for i in range(kc):
+        one = [a if d is None else a[i] for a, d in zip(args, in_dims)]
+        want = torch.func.grad(f, argnums=(0, 1, 2))(*one)
+        for g, w in zip(got, want):
+            assert g[i].shape == w.shape
+            scale = max(float(w.float().abs().max()), 1e-30)
+            assert float((g[i].float() - w.float()).abs().max()) / scale \
+                <= 1e-6
 
 
 ZOO = ["granite-34b", "qwen1.5-110b", "qwen2-vl-7b", "minicpm3-4b",
@@ -1690,6 +1767,29 @@ def test_moe_reduced_on_card_matches_cpu(cuda_device, arch):
     assert got["strays"] == []
     assert got["launches"] == {"cpu": (0, 0), "dev": (cfg.num_layers, 0)}
     assert all(d <= 2e-4 for d in got["devs"])
+
+
+@pytest.mark.parametrize("arch", ZOO + ["qwen3-moe-235b-a22b",
+                                        "llama4-maverick-400b-a17b"])
+def test_zoo_train_grads_on_card_match_cpu(cuda_device, arch):
+    """``train_loss`` and every gradient leaf of the reduced config in
+    fp32 from the same weights, card (B5 and its backward kernel) against
+    CPU, over 2 x 96 tokens or frames: within 2e-4 of |loss| and of each
+    leaf's max|cpu|; B5 and its backward once per layer on the card.  A
+    MoE row that a routing flip at a near-tie reached leaves the batch on
+    both (the rule of ``test_moe_reduced_on_card_matches_cpu``)."""
+    from repro_torch.models.agreement import grads_card_vs_cpu
+    cfg = get_config(arch).reduced()
+    got = grads_card_vs_cpu(cfg, cuda_device)
+    print(f"{arch}: loss {got['loss_dev']}, grads "
+          f"{max(got['grad_devs'].values(), default=None)}, flips "
+          f"{got['flips']}, rows left out {got['rows_left_out']}")
+    assert got["strays"] == []
+    assert got["loss_dev"] is not None
+    assert got["launches"] == {"cpu": (0, 0),
+                               "dev": (cfg.num_layers, cfg.num_layers)}
+    assert got["loss_dev"] <= 2e-4
+    assert max(got["grad_devs"].values()) <= 2e-4
 
 
 def test_moe_layer_at_full_width_matches_dense_mixture(cuda_device):

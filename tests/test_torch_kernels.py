@@ -628,9 +628,10 @@ def _flash_tensor_core_emulation(q, k, v, *, causal, window, scale):
     (B,S,H,D) bf16 tensors: 64-key tiles, fp32 scores from the bf16 q and
     k, the online softmax in exp2 with ``scale * log2(e)`` folded in, P
     rounded to bf16 before P V, l summed from the fp32 p, one cast of the
-    output.  Test-only: the kernel's numeric design, checked on the CPU."""
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
+    output; v and the output at v's head dim.  Test-only: the kernel's
+    numeric design, checked on the CPU."""
+    b, s, h, _ = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
     qf = q.float().transpose(1, 2)                          # (B,H,S,D)
     kf = k.float().transpose(1, 2).repeat_interleave(h // hkv, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(h // hkv, dim=1)
@@ -638,7 +639,7 @@ def _flash_tensor_core_emulation(q, k, v, *, causal, window, scale):
     qpos = torch.arange(s)[:, None]
     m = torch.full((b, h, s, 1), -1e30)
     l = torch.zeros((b, h, s, 1))
-    acc = torch.zeros((b, h, s, d))
+    acc = torch.zeros((b, h, s, dv))
     for k0 in range(0, s, 64):
         kpos = torch.arange(k0, min(k0 + 64, s))[None, :]
         mask = torch.ones(s, kpos.shape[1], dtype=torch.bool)
@@ -689,9 +690,9 @@ def _flash_bwd_tensor_core_emulation(q, k, v, out, lse, dout, *, causal,
     exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta) scale; P and
     dS rounded to bf16 before their products; dQ, dK, dV (dK and dV per
     query head, then summed over each kv head's group) accumulated in
-    fp32 and cast once.  Test-only: the kernels' numeric design, checked
-    on the CPU."""
-    b, s, h, d = q.shape
+    fp32 and cast once; v, out, dout and dv at v's head dim.  Test-only:
+    the kernels' numeric design, checked on the CPU."""
+    b, s, h, _ = q.shape
     hkv = k.shape[2]
     log2e = 1.4426950408889634
     qf, dof, of = (t.float().transpose(1, 2) for t in (q, dout, out))
@@ -711,7 +712,8 @@ def _flash_bwd_tensor_core_emulation(q, k, v, out, lse, dout, *, causal,
     dq = torch.matmul(dsb, kf)
     dk = torch.matmul(dsb.transpose(-1, -2), qf)
     dv = torch.matmul(pb.transpose(-1, -2), dof)
-    group = lambda x: x.reshape(b, hkv, h // hkv, s, d).sum(2)  # noqa: E731
+    group = lambda x: x.reshape(  # noqa: E731
+        b, hkv, h // hkv, s, x.shape[-1]).sum(2)
     return (dq.transpose(1, 2).to(torch.bfloat16),
             group(dk).transpose(1, 2).to(torch.bfloat16),
             group(dv).transpose(1, 2).to(torch.bfloat16))
@@ -735,16 +737,41 @@ def test_flash_bwd_tensor_core_arithmetic_matches_jax_vjp(case, rng):
     ``chunked_attention`` on the same seeded bf16 inputs, within 2e-2 of
     each gradient's max|reference|."""
     b, s, hq, hkv, d, causal, window = case
-    q, k, v = (jnp.asarray(a, jnp.bfloat16)
-               for a in _qkv(b, hq, hkv, s, d, rng))
-    dout = jnp.asarray(rng.standard_normal((b, s, hq, d)), jnp.bfloat16)
+    _flash_bwd_emulation_check((b, s, hq, hkv, d, d, causal, window), rng)
+
+
+# the zoo's pairs: (b, s, hq, hkv, dqk, dv, causal, window)
+FLASH_BWD_PAIR_CASES = [
+    (2, 70, 4, 4, 80, 80, False, 0),    # hubert's, full, ragged
+    (1, 65, 6, 2, 80, 80, True, 16),    # causal window, GQA
+    (2, 70, 4, 2, 96, 64, True, 0),     # minicpm3's MLA pair, causal
+    (1, 50, 3, 1, 96, 64, False, 8),    # MQA, bidirectional window
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_PAIR_CASES)
+def test_flash_bwd_tensor_core_arithmetic_at_the_zoo_pairs(case, rng):
+    """The same rounding plan at head dim 80 and with v at a head dim
+    of its own (dq and dk at Dqk columns, dv at Dv), against ``jax.vjp``
+    of ``chunked_attention`` with v at Dv, within 2e-2 of each
+    gradient's max|reference|."""
+    _flash_bwd_emulation_check(case, rng)
+
+
+def _flash_bwd_emulation_check(case, rng):
+    b, s, hq, hkv, dqk, dv, causal, window = case
+    q, k, v = (jnp.asarray(rng.standard_normal(shape).astype(np.float32),
+                           jnp.bfloat16)
+               for shape in ((b, s, hq, dqk), (b, s, hkv, dqk),
+                             (b, s, hkv, dv)))
+    dout = jnp.asarray(rng.standard_normal((b, s, hq, dv)), jnp.bfloat16)
     pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
     _, vjp = jax.vjp(lambda q, k, v: chunked_attention(
-        q, k, v, pos, pos, causal=causal, window=window, scale=d ** -0.5,
+        q, k, v, pos, pos, causal=causal, window=window, scale=dqk ** -0.5,
         chunk=16), q, k, v)
     want = vjp(dout)
     qt, kt, vt, dt = (_t(a, torch.bfloat16) for a in (q, k, v, dout))
-    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    kw = dict(causal=causal, window=window, scale=dqk ** -0.5)
     out = _flash_tensor_core_emulation(qt, kt, vt, **kw)
     _, lse = ref.flash_attention_fwd_ref(qt, kt, vt, **kw)
     got = _flash_bwd_tensor_core_emulation(qt, kt, vt, out, lse, dt, **kw)

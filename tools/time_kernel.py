@@ -16,6 +16,8 @@ Kernels and their default shapes:
 
 - ``flash_attention`` (B5): hymba-1.5b's prefill, ``b,s,hq,hkv,dqk,dv``
   = 4,2048,25,5,64,64, causal with a 1024-token window;
+- ``flash_attention_bwd`` (B5-bwd, from the forward's ``out`` and
+  ``lse``): hymba's training step, 1,4096,25,5,64,64, the same mask;
 - ``ssd_scan`` (B6): hymba-1.5b's prefill, ``b,s,h,p,n,chunk`` =
   4,2048,50,64,16,256;
 - ``ssd_scan_bwd`` (B6-bwd, from the states the forward kept): hymba's
@@ -30,11 +32,14 @@ import statistics
 import sys
 
 SHAPES = {"flash_attention": "4,2048,25,5,64,64",
+          "flash_attention_bwd": "1,4096,25,5,64,64",
           "ssd_scan": "4,2048,50,64,16,256",
           "ssd_scan_bwd": "1,4096,50,64,16,256"}
 # the sources each kernel's call builds (the backward reads the states
 # the forward kept)
-SOURCES = {"flash_attention": ("flash_attention",), "ssd_scan": ("ssd_scan",),
+SOURCES = {"flash_attention": ("flash_attention",),
+           "flash_attention_bwd": ("flash_attention", "flash_attention_bwd"),
+           "ssd_scan": ("ssd_scan",),
            "ssd_scan_bwd": ("ssd_scan", "ssd_scan_bwd")}
 
 
@@ -45,14 +50,20 @@ def _call(kernel, shape, args, torch, dev):
 
     def randn(*s):
         return torch.randn(*s, generator=g).to(dev, bf)
-    if kernel == "flash_attention":
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
+    if kernel.startswith("flash_attention"):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_bwd_cuda, flash_attention_cuda)
         b, s, hq, hkv, dqk, dv = shape
         q, k, v = randn(b, s, hq, dqk), randn(b, s, hkv, dqk), \
             randn(b, s, hkv, dv)
-        return lambda: flash_attention_cuda(
-            q, k, v, causal=bool(args.causal), window=args.window,
-            scale=dqk ** -0.5)
+        mask = dict(causal=bool(args.causal), window=args.window,
+                    scale=dqk ** -0.5)
+        if kernel == "flash_attention":
+            return lambda: flash_attention_cuda(q, k, v, **mask)
+        out, lse = flash_attention_cuda(q, k, v, want_lse=True, **mask)
+        dout = randn(b, s, hq, dv)
+        return lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                **mask)
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
     b, s, h, p, n, chunk = shape
     conv = randn(b, s, h * p + 2 * n)
