@@ -26,10 +26,16 @@ Phases, each fatal on failure (no phase catches and carries on):
    and its bound (bytes over 3.35 TB/s, or
    flops over 67 TFLOP/s fp32 for B1-B4 and 989 TFLOP/s bf16 for B5-B6,
    whichever is larger: the H100 SXM data-sheet peaks at its 700 W power
-   limit); then the backward kernels of B5 and B6 against their plain
+   limit; B5's and B5-bwd's fp32 routes, split TF32 on the tensor cores,
+   at three TF32 products an fp32 product over 494.7 TFLOP/s, with the
+   67 TFLOP/s fp32 bound beside); B5's fp32 route also at (32, 32),
+   misaligned fp32 operands refused, and the forward timed at the
+   minicpm3-4b round's fp32 shape; then the backward kernels of B5 and
+   B6 against their plain
    backward passes over a grid (B5: causal, windowed and full masks, GQA,
-   ragged S, D = 32, 64, 96, 128, fp32 and bf16, bf16 on the tensor
-   cores, and at the zoo's pairs (80, 80), (96, 64), (80, 64) in both
+   ragged S, D = 32, 64, 96, 128, fp32 and bf16, both on the tensor
+   cores, two fp32 calls bitwise over several flushes of dK and dV, and
+   at the zoo's pairs (80, 80), (96, 64), (80, 64) in both
    dtypes, timed at minicpm3-4b's and hubert-xlarge's 1 x 4096 training
    shapes and at the minicpm3-4b round's fp32 one beside the library's
    backward; B6: chunk edges, a ragged tail, N = 16, 64, 128, a cotangent
@@ -209,6 +215,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12        # HBM3
 H100_FP32_FLOPS = 67e12           # fp32 outside the tensor cores
 H100_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
+H100_TF32_FLOPS = 494.7e12        # TF32 on the tensor cores, dense
 
 # the paper's corpus depth (10 000 train + 1 000 validation docs per
 # node); training depth is cut to a few traffic sweeps; widths never are
@@ -313,9 +320,16 @@ def launches_per_call(fn) -> int:
     launches: the larger count of two traces of 3 calls
     (:func:`per_call_ops`), since a trace may lose events but never gains
     one (a count from one partial trace once left every later trace of
-    the plain B4 at the federated LM shape 4 events over it)."""
-    return max(sum(k for k, _ in per_call_ops(
-        _trace(lambda: [fn(), fn(), fn()]), 3).values()) for _ in range(2))
+    the plain B4 at the federated LM shape 4 events over it).  While both
+    read 0 (two traces of 3 large B2 calls at the federated LM shape
+    each kept one event on an H100, so that the trace of 10 calls was
+    held to 0), up to two more traces are taken: every call measured
+    here launches something."""
+    counts = []
+    while len(counts) < 2 or (max(counts) == 0 and len(counts) < 4):
+        counts.append(sum(k for k, _ in per_call_ops(
+            _trace(lambda: [fn(), fn(), fn()]), 3).values()))
+    return max(counts)
 
 
 def traced_ops(fn, calls: int, exclude=()) -> dict:
@@ -370,6 +384,16 @@ def bound_ms(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def split_tf32_bounds(rec: dict, nbytes: float, flops: float) -> None:
+    """An fp32 route of B5 or B5-bwd: ``bound_ms`` at the split-TF32
+    rate (three TF32 products an fp32 product, at the TF32 tensor-core
+    peak), and beside it the bound at the fp32 CUDA-core peak."""
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                H100_TF32_FLOPS)
+    rec["bound_cuda_core_ms"], rec["bound_cuda_core_by"] = bound_ms(
+        nbytes, flops)
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     try:
@@ -404,15 +428,20 @@ def phase_build():
                 f"static smem, spill stores/loads {spill[0]}/{spill[1]} "
                 f"bytes")
     smem = _build.load("flash_attention").flash_attention_tc_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    log("  flash_fwd_tc_kernel dynamic shared memory a block: " + ", ".join(
-        f"(Dqk, Dv)=({dq}, {dv}) {smem(dq, dv)} bytes" for dq, dv in
-        ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128), (96, 64),
-         (80, 64))))
-    log("  flash_bwd_dq_tc_kernel / flash_bwd_dkdv_tc_kernel dynamic shared "
-        "memory a block: " + ", ".join(
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for is_bf16, fwd, bwd in ((1, "flash_fwd_tc_kernel",
+                               "flash_bwd_dq_tc_kernel / "
+                               "flash_bwd_dkdv_tc_kernel"),
+                              (0, "flash_fwd_f32_kernel",
+                               "flash_bwd_dq_f32_kernel / "
+                               "flash_bwd_dkdv_f32_kernel")):
+        log(f"  {fwd} dynamic shared memory a block: " + ", ".join(
+            f"(Dqk, Dv)=({dq}, {dv}) {smem(dq, dv, is_bf16)} bytes"
+            for dq, dv in ((32, 32), (64, 64), (80, 80), (96, 96),
+                           (128, 128), (96, 64), (80, 64))))
+        log(f"  {bwd} dynamic shared memory a block: " + ", ".join(
             f"(Dqk, Dv)={pair} {dq} / {kv} bytes"
-            for pair, (dq, kv) in _b5_bwd_smem().items()))
+            for pair, (dq, kv) in _b5_bwd_smem(is_bf16).items()))
     log("  ssd_scan bf16 route dynamic shared memory a block (the larger of "
         "its kernels): " + ", ".join(
             f"P={p} N={n} chunk {q} {b} bytes" for (p, n, q), b in
@@ -421,14 +450,15 @@ def phase_build():
                            "b": (64, 128, 256, 1)}).values())))
 
 
-def _b5_bwd_smem() -> dict:
-    """Dynamic shared memory a block of B5-bwd's dq and dk/dv tensor-core
-    kernels asks for, at each head-dim pair."""
+def _b5_bwd_smem(is_bf16: int = 1) -> dict:
+    """Dynamic shared memory a block of B5-bwd's dq and dk/dv kernels of
+    the bf16 (or fp32) route asks for, at each head-dim pair."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_tc_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return {str(p): [fn(*p, 0), fn(*p, 1)] for p in HEAD_DIM_PAIRS}
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return {str(p): [fn(*p, 0, is_bf16), fn(*p, 1, is_bf16)]
+            for p in HEAD_DIM_PAIRS}
 
 
 def ptxas_resources(text: str):
@@ -610,6 +640,8 @@ def phase_kernels():
     # they did before these cases were added
     _kernel_b5_zoo(torch.Generator().manual_seed(27), dev, records[4])
     _kernel_b5_bwd_zoo(torch.Generator().manual_seed(29), dev, records[6])
+    _kernel_b5_f32(torch.Generator().manual_seed(30), dev, records[4],
+                   records[6])
     return records
 
 
@@ -992,6 +1024,8 @@ def _kernel_b5(g, dev):
            "replaces": "src/repro/kernels/flash_attention.py:79",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
            "pairs": pairs,
+           "routes": {"bfloat16": "wgmma", "float32": "split_tf32_wgmma"},
+           "ptxas": _ptxas_record("flash_attention", ("flash_fwd_",)),
            "library": "F.scaled_dot_product_attention(boolean window mask, "
                       "enable_gqa=True) on (B,H,S,D) copies"}
     # q, k, v read once, out written once (bf16); QK^T and PV over the
@@ -1106,6 +1140,116 @@ def _kernel_b5_zoo(g, dev, rec):
             "bound_by", "launches_per_prefill")}
         del q, kv, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+
+
+def _kernel_b5_f32(g, dev, rec, rec_bwd):
+    """B5's and B5-bwd's fp32 routes (split TF32 on the tensor cores) past
+    the grids above: the forward at (Dqk, Dv) = (32, 32), so that the
+    kernel phase holds every pair in fp32; two backward calls bitwise over
+    key tiles whose dK and dV leave the accumulators more than once;
+    misaligned fp32 operands refused before any launch; the forward timed
+    at the minicpm3-4b federated round's folded batch beside the plain
+    version and ``F.scaled_dot_product_attention`` (fp32), with its
+    split-TF32 and CUDA-core bounds; into ``rec["zoo"]`` and
+    ``rec_bwd["fp32_repeat"]``."""
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    b, hq, hkv, s, d = 1, 8, 2, 100, 32
+    fused = torch.randn(b, s, hq + 2 * hkv, d, generator=g).to(dev)
+    q, k, v = fused.split([hq, hkv, hkv], dim=2)
+    got = flash_attention_cuda(q, k, v, causal=True, window=0,
+                               scale=d ** -0.5)
+    want = ref.flash_attention_fwd_ref(q, k, v, causal=True, window=0)[0]
+    e32 = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()):
+        raise AssertionError(f"B5 fp32 at (32, 32): |kernel - plain| {e32}")
+    # two backward calls, bitwise, over four flushes of dK and dV
+    case = (1, 4, 4, 1100, 96, 64, True, 0)
+    q, k, v, out, lse, dout, kw = _b5_bwd_pair_inputs(g, dev, *case, FP32)
+    first, second = (flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+                     for _ in range(2))
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    rel = [_rel_err(a, w) for a, w in zip(first, want)]
+    same = all(same_bits(a, c) for a, c in zip(first, second))
+    if not (same and max(rel) <= 2e-5):
+        raise AssertionError(f"B5 backward fp32 {case}: repeat bitwise "
+                             f"{same}, (dq, dk, dv) |kernel - plain| / "
+                             f"max|plain| {rel}")
+    rec_bwd["fp32_repeat"] = {"case": list(case), "bitwise": same,
+                              "max_rel_err": max(rel)}
+    del q, k, v, out, lse, dout, first, second, want
+    # misaligned fp32 operands: a q 4 bytes off 16, (b, s, h) strides of
+    # 66 elements; nothing launches
+    refused, before = 0, (flash_attention.launches,
+                          flash_attention.bwd_launches)
+    kk = torch.zeros(2, 64, 1, 64, device=dev)
+    out = torch.zeros(2, 64, 2, 64, device=dev)
+    lse = torch.zeros(2, 2, 64, device=dev)
+    for qq in (torch.zeros(2 * 64 * 2 * 64 + 1, device=dev)[1:].view(
+            2, 64, 2, 64),
+               torch.zeros(2, 64, 2, 66, device=dev)[..., :64]):
+        for call in (lambda: flash_attention_cuda(
+                qq, kk, kk, causal=True, window=0, scale=0.125),
+                     lambda: flash_attention_bwd_cuda(
+                qq, kk, kk, out, lse, out, causal=True, window=0,
+                scale=0.125)):
+            try:
+                call()
+            except ValueError as e:
+                refused += "16-byte aligned" in str(e)
+    after = (flash_attention.launches, flash_attention.bwd_launches)
+    if refused != 4 or after != before:
+        raise AssertionError(f"B5 fp32: {refused} of 4 misaligned calls "
+                             f"refused, launches {before} -> {after}")
+    log(f"B5 fp32 (split TF32): (32, 32) |kernel - plain| {e32:.3e} (bound "
+        f"2e-5 abs + rel); backward at {case} two calls bitwise {same}, "
+        f"{max(rel):.3e} of max|plain|; misaligned fp32 operands refused "
+        f"by the forward and the backward ({refused} of 4), no launch")
+    # the forward at the minicpm3-4b round's folded batch
+    b, s, hq, hkv, dqk, dv = (ZOO_FED_CLIENTS * ZOO_FED_BATCH, ZOO_FED_SEQ,
+                              40, 40, 96, 64)
+    q = torch.randn(b, s, hq, dqk, generator=g).to(dev)
+    kv = torch.randn(b, s, hkv, dqk + dv, generator=g).to(dev)
+    k, v = kv[..., :dqk], kv[..., dqk:]
+    got = flash_attention_cuda(q, k, v, causal=True, window=0,
+                               scale=dqk ** -0.5)
+    want = ref.flash_attention_fwd_ref(q, k, v, causal=True, window=0)[0]
+    e_fed = _rel_err(got, want)
+    if not e_fed <= 2e-5:
+        raise AssertionError(f"B5 fp32 at the minicpm3-4b round's shape: "
+                             f"|kernel - plain| / max|plain| {e_fed}")
+    del got, want
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = b * hq * _window_pairs(s, True, 0)
+    label = "minicpm3-4b federated round (fp32, clients folded)"
+    r = {"name": f"flash_attention ({label}, ({dqk}, {dv}))"}
+    # q, k, v read and out written once (fp32); QK^T over Dqk and PV over
+    # Dv, in split TF32 (the fp32 CUDA-core bound beside)
+    split_tf32_bounds(r, 4 * b * s * (hq * dqk + hkv * dqk + hkv * dv
+                                      + hq * dv), 2 * (dqk + dv) * pairs)
+    kern = lambda: flash_attention_cuda(  # noqa: E731
+        q, k, v, causal=True, window=0, scale=dqk ** -0.5)
+    _time_record(r, kern,
+                 lambda: ref.flash_attention_ref(
+                     q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), causal=True, window=0),
+                 lambda: sdpa(qt, kt, vt, is_causal=True))
+    rec.setdefault("zoo", {})[label] = {
+        "shape": [b, s, hq, hkv, dqk, dv], "causal": True,
+        "dtype": "float32", "max_rel_err": e_fed,
+        "launches_per_call": launches_per_call(kern),
+        "launches_on_path": ZOO_FED_LAYERS,
+        **{x: r[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by", "bound_cuda_core_ms")}}
+    log(f"  {r['name']}: |kernel - plain| / max|plain| {e_fed:.3e}; "
+        f"{rec['zoo'][label]['launches_per_call']} device operations a "
+        f"call, {ZOO_FED_LAYERS} a round (batched); CUDA-core bound "
+        f"{r['bound_cuda_core_ms'] * 1e3:.2f} us")
+    del q, kv, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
 
 
 def _ssd_inputs(g, dev, b, s, h, p, n, dtype):
@@ -1247,9 +1391,9 @@ def _kernel_b5_bwd(g, dev):
         f"(1, 1024, 25/5, 64, window 256) fp32; causal, windowed and full "
         f"masks, GQA and MQA, ragged S down to a one-row tail, a window "
         f"edge inside a tile, D=32, 64, 96, 128 in both dtypes; bf16 on "
-        f"the tensor cores, fp32 on the CUDA cores): max |kernel - plain| "
-        f"{errs}, of max|plain| {worst:.3e} (bounds 2e-5 fp32, 2e-2 bf16, "
-        f"of each gradient's max|plain|)")
+        f"the tensor cores, fp32 on them in split TF32): max |kernel - "
+        f"plain| {errs}, of max|plain| {worst:.3e} (bounds 2e-5 fp32, 2e-2 "
+        f"bf16, of each gradient's max|plain|)")
     b, hq, hkv, s, d, causal, window, dtype = B5_BWD_CASES[0]
     q, k, v, out, lse, dout, kw = inputs(*B5_BWD_CASES[0])
     pairs = b * hq * _window_pairs(s, causal, window)
@@ -1260,12 +1404,15 @@ def _kernel_b5_bwd(g, dev):
                             "_flash_vjp_bwd of B5",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
            "pairs": pairs,
-           "routes": {"bfloat16": "wgmma", "float32": "simt"},
+           "routes": {"bfloat16": "wgmma", "float32": "split_tf32_wgmma"},
            "design": "bf16: wgmma in three launches (flash_bwd_dq_tc_kernel"
                      ", flash_bwd_dkdv_tc_kernel per query head, "
-                     "flash_bwd_group_sum_kernel); fp32: flash_bwd_dq_kernel"
-                     " and flash_bwd_dkdv_kernel on the CUDA cores; both "
-                     "templated on the forward's (Dqk, Dv) pairs",
+                     "flash_bwd_group_sum_kernel); fp32: split-TF32 wgmma "
+                     "in two launches (flash_bwd_dq_f32_kernel, "
+                     "flash_bwd_dkdv_f32_kernel summing the GQA group in "
+                     "registers), two warpgroups a block sharing the own "
+                     "tiles; both templated on the forward's (Dqk, Dv) "
+                     "pairs",
            "ptxas": _ptxas_record("flash_attention_bwd", ("flash_bwd_",)),
            "library": "backward of F.scaled_dot_product_attention(boolean "
                       "window mask, enable_gqa=True) on (B,H,S,D) copies"}
@@ -1308,7 +1455,7 @@ def _kernel_b5_bwd(g, dev):
     rec["fp32_case"] = list(case[:-1])
     rec["fp32_ms"] = device_ms(
         lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw))
-    log(f"  flash_attention backward fp32 (CUDA cores) at {case[:-1]}: "
+    log(f"  flash_attention backward fp32 (split TF32) at {case[:-1]}: "
         f"device {rec['fp32_ms'] * 1e3:.2f} us/call")
     del q, k, v, out, lse, dout
     return rec
@@ -1363,8 +1510,8 @@ def _b5_bwd_pair_inputs(g, dev, b, hq, hkv, s, dqk, dv, causal, window,
 def _kernel_b5_bwd_zoo(g, dev, rec):
     """B5's backward at the zoo's head-dim pairs (80, 80), (96, 64) and
     (80, 64): against ``ref.flash_attention_bwd_ref`` over
-    :data:`B5_BWD_ZOO_CASES` in both dtypes (bf16 on the tensor cores,
-    fp32 on the CUDA cores), then timed at the training and federation
+    :data:`B5_BWD_ZOO_CASES` in both dtypes (both on the tensor cores,
+    fp32 in split TF32), then timed at the training and federation
     paths' shapes (:data:`B5_BWD_ZOO_TIMED`) beside the plain backward
     and the backward of ``F.scaled_dot_product_attention`` (which takes
     Dv != Dqk), with each shape's bound (6 Dqk + 4 Dv flops a (q, k)
@@ -1409,7 +1556,8 @@ def _kernel_b5_bwd_zoo(g, dev, rec):
         rec["max_abs_err_by_dtype"][key] = max(
             rec["max_abs_err_by_dtype"].get(key, 0.0), e)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec["smem_bytes"] = _b5_bwd_smem()
+    rec["smem_bytes"] = {"bfloat16": _b5_bwd_smem(1),
+                         "float32": _b5_bwd_smem(0)}
     rec["zoo"] = {}
     for label, b, hq, hkv, s, dqk, dv, causal, dtype, per_path in \
             B5_BWD_ZOO_TIMED:
@@ -1428,12 +1576,14 @@ def _kernel_b5_bwd_zoo(g, dev, rec):
              "launches_on_path": per_path}
         # q, k, v, out, dout read once and dq, dk, dv written once in the
         # operands' dtype, lse read (fp32); 6 Dqk + 4 Dv flops a pair at
-        # the dtype's peak
-        r["bound_ms"], r["bound_by"] = bound_ms(
-            isz * (2 * b * s * (hq * dqk + hkv * dqk + hkv * dv)
-                   + 2 * b * s * hq * dv) + 4 * b * hq * s,
-            (6 * dqk + 4 * dv) * pairs,
-            H100_BF16_FLOPS if dtype == BF16 else H100_FP32_FLOPS)
+        # the bf16 peak, or in split TF32 (with the CUDA-core bound beside)
+        nbytes = isz * (2 * b * s * (hq * dqk + hkv * dqk + hkv * dv)
+                        + 2 * b * s * hq * dv) + 4 * b * hq * s
+        if dtype == BF16:
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                nbytes, (6 * dqk + 4 * dv) * pairs, H100_BF16_FLOPS)
+        else:
+            split_tf32_bounds(r, nbytes, (6 * dqk + 4 * dv) * pairs)
         kern = lambda: flash_attention_bwd_cuda(  # noqa: E731
             q, k, v, out, lse, dout, **kw)
         _time_record(r, kern,
@@ -1447,6 +1597,8 @@ def _kernel_b5_bwd_zoo(g, dev, rec):
         rec["zoo"][label] = {x: r[x] for x in (
             "shape", "causal", "dtype", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "launches_per_call", "launches_on_path")}
+        if "bound_cuda_core_ms" in r:
+            rec["zoo"][label]["bound_cuda_core_ms"] = r["bound_cuda_core_ms"]
         del q, k, v, out, lse, dout, qt, kt, vt, lib_out, dout_t
         torch.cuda.empty_cache()
 
@@ -1729,11 +1881,12 @@ def _kernel_fed_lm(g, dev, records):
     mask = make_mask(pos, pos, causal=True, window=window)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = {"shape": [b, s, hq, hkv, d, window], "dtype": "float32",
-           "route": "simt", "max_rel_err": e5}
+           "route": "split_tf32_wgmma", "max_rel_err": e5}
     # q, k, v read and out written once (fp32); QK^T and PV over the
-    # pairs the window reaches, at the fp32 CUDA-core peak
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        4 * (2 * b * s * hq * d + 2 * b * s * hkv * d), 4 * d * pairs)
+    # pairs the window reaches, in split TF32 (the fp32 CUDA-core bound
+    # beside)
+    split_tf32_bounds(rec, 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+                      4 * d * pairs)
     _fed_lm_time(rec, lambda: flash_attention_cuda(q, k, v, **kw),
                  lambda: ref.flash_attention_fwd_ref(q, k, v, **kw),
                  lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
@@ -1742,12 +1895,12 @@ def _kernel_fed_lm(g, dev, records):
     lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     dout_t = dout.transpose(1, 2).contiguous()
     rec = {"shape": [b, s, hq, hkv, d, window], "dtype": "float32",
-           "route": "simt", "max_rel_err": e5b}
+           "route": "split_tf32_wgmma", "max_rel_err": e5b}
     # q, k, v, out, dout, lse read and dq, dk, dv written once (fp32); 10 D
-    # flops a pair, at the fp32 CUDA-core peak
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        4 * (3 * b * s * hq * d + 2 * b * s * hkv * d + b * hq * s
-             + b * s * hq * d + 2 * b * s * hkv * d), 10 * d * pairs)
+    # flops a pair, in split TF32 (the fp32 CUDA-core bound beside)
+    split_tf32_bounds(rec, 4 * (3 * b * s * hq * d + 2 * b * s * hkv * d
+                                + b * hq * s + b * s * hq * d
+                                + 2 * b * s * hkv * d), 10 * d * pairs)
     _fed_lm_time(rec, lambda: flash_attention_bwd_cuda(q, k, v, o, lse, dout,
                                                        **kw),
                  lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
@@ -1856,10 +2009,12 @@ def _kernel_fed_lm(g, dev, records):
         by_name[name]["fed_lm"] = rec
         lib = "none" if rec["library_ms"] is None \
             else f"{rec['library_ms'] * 1e3:.2f} us"
+        core = "" if "bound_cuda_core_ms" not in rec else \
+            f", CUDA-core bound {rec['bound_cuda_core_ms'] * 1e3:.2f} us"
         log(f"{name} at the federated LM path's shape {rec['shape']} "
             f"{rec['dtype']}: device {rec['ms'] * 1e3:.2f} us/call, plain "
             f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
-            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']})")
+            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}){core}")
     log(f"  fed LM kernels against their plain versions: B5 fp32 {e5:.3e}, "
         f"B5-bwd {e5b:.3e} (bound 2e-5), B6 {e6:.3e}, B6-bwd {e6b:.3e} "
         f"(bound 1e-4), of max|plain|; B2 "
@@ -4951,7 +5106,8 @@ def main() -> int:
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
-             "routes", "fp32_case", "fp32_ms", "fed_lm", "zoo", "saved_draw")
+             "routes", "fp32_case", "fp32_ms", "fed_lm", "zoo", "saved_draw",
+             "fp32_repeat")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

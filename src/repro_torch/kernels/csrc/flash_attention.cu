@@ -23,7 +23,8 @@
 // against 3.35 TB/s, H100 SXM data-sheet peaks at 700 W) stop waiting on
 // memory.
 //
-// Two routes, chosen by dtype (a rule, not a fallback):
+// Two routes, chosen by dtype (a rule, not a fallback), both on the
+// tensor cores:
 //
 // bf16 -> flash_fwd_tc_kernel, on the tensor cores (wgmma, sm_90a).
 //   * One block takes 128 query rows of one (batch, query head): two
@@ -58,13 +59,55 @@
 //   Operands: 16-byte aligned data pointers and (b, s, h) strides that
 //   are multiples of 8 elements (the wrapper raises otherwise).
 //
-// fp32 -> flash_fwd_kernel, the port's first design, IEEE fp32 on the
-//   CUDA cores: the card-vs-CPU agreement holds fp32 inputs to 2e-5 per
-//   kernel case and 2e-4 end to end, which TF32 or bf16 products cannot.
-//   One block per (query tile of 64 rows, head, batch); two threads per
-//   query row split the head dim, so q, (m, l, acc) and the 64 scores of
-//   a tile live in registers; K and V tiles staged in shared memory as
-//   fp32, read back as broadcast float4 loads.
+// fp32 -> flash_fwd_f32_kernel, on the tensor cores in split TF32 (wgmma,
+//   sm_90a): ~4.8 ms at the federated hymba-1.5b round's (16, 2048,
+//   25/5, 64, window 1024), where IEEE fp32 on the CUDA cores took
+//   13.3-15.0, and ~6.7 ms at the minicpm3-4b round's (8, 2048, 40/40,
+//   (96, 64)), under the library's fp32 7.0 (PERF.md).
+//   * Split TF32 (wgmma.cuh): each fp32 operand is carried as hi =
+//     tf32(x) and lo = tf32(x - hi); a product is lo hi + hi lo + hi hi.
+//     S takes lo_q hi_k as one product of N = T and hi_q [hi_k | lo_k]
+//     as one of N = 2T (K staged as a pair tile, a k8 slice's hi rows
+//     then its lo rows), so Q's hi tile is read once for two terms; the
+//     three sums are added small terms first.  P V takes its three
+//     products into one accumulator, the small ones of every k8 slice
+//     first.  The split is made once per tile, as threads stage it into
+//     shared memory; P is split in registers.  Softmax and exp stay on
+//     the CUDA cores in fp32 (exp2f, scale * log2(e) folded in).
+//     Measured against the plain version on an H100: max |kernel -
+//     plain| 6.6e-7 to 5.0e-6 over the card checks' grid (at most 0.17 of
+//     the 2e-5 abs + rel bound), 1.4e-6 to 2.2e-6 of max|plain| at the
+//     two federated rounds' shapes; one TF32 product alone reads ~1e-3
+//     (tests/test_torch_kernels.py emulates both).
+//   * TF32 wgmma reads both operands K-major only, so V is staged
+//     transposed (V^T, the B operand of P V) and P's accumulator is the
+//     A-register operand without a shuffle: its 8 columns of a k8 slice
+//     are taken in the order 0 2 4 6 1 3 5 7 and V^T's rows staged in the
+//     same order (frag_tf32).
+//   * One block takes 64 query rows of one (batch, query head): one
+//     warpgroup, Q's hi and lo staged once.  K and V tiles of T keys come
+//     by cp.async (16 bytes a thread, zero-fill past the end) into a raw
+//     fp32 ring of two stages, two tiles ahead of their use; S = Q K^T
+//     multiplies while V^T is split from the ring, P V while the next K
+//     is split.  Every tile is fp32 under the 32-byte swizzle, one block
+//     of 8 columns a k8 slice, so 80 and 96 need no padding.  Longest
+//     query tiles first; only the key tiles the mask reaches; the mask
+//     only on edge tiles.
+//   * T and the budget: two blocks an SM (4 warps each) where a block's
+//     shared memory allows (at most 113 KB), the widest T of 64, 32, 16
+//     that fits; else one.  (Dqk, Dv): T, shared memory a block, blocks
+//     an SM, registers (ptxas): (32, 32) 64, 85 248 B, 2, 221; (64, 64)
+//     32, 100 096 B, 2, 182; (80, 80) 16, 82 944 B, 2, 168; (96, 96) 16,
+//     99 328 B, 2, 167; (128, 128) 32, 198 400 B, 1, 255; (96, 64) 16,
+//     91 136 B, 2, 159; (80, 64) 16, 78 848 B, 2, 159; no spills.
+//     At (96, 64) two blocks of T = 16 took 7.54 ms against one block
+//     of T = 64's 10.93 (the minicpm3-4b round's shape, H100), and the
+//     N = 2T product 6.7 against three N = T ones' 7.4; the ring and
+//     staging by threads from device memory measured within 5% of each
+//     other at both rounds' shapes (the ring is kept as the backward's,
+//     where it paid).
+//   Operands: 16-byte aligned data pointers and (b, s, h) strides that
+//   are multiples of 4 elements (the wrapper raises otherwise).
 //
 // Both: GQA by index (query head h reads kv head h / (H / Hkv); 5 at
 // hymba width is no power of two; K/V are never repeated); strided
@@ -100,17 +143,7 @@ using namespace wg;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// fp32 route: CUDA cores
-// ---------------------------------------------------------------------------
-constexpr int kBlockQ = 64;                 // query rows per block
-constexpr int kBlockK = 64;                 // keys per shared-memory tile
-constexpr int kTpr = 2;                     // threads per query row
-constexpr int kThreads = kBlockQ * kTpr;    // 128
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   int64_t b, s, h;  // in elements; the head dim is contiguous
@@ -124,150 +157,249 @@ __device__ __forceinline__ bool allowed(int kp, int qp, int seq, int causal,
   return ok;
 }
 
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
-                 Strides os, int seq, int heads, int kv_heads, int causal,
-                 int window, float scale) {
-  constexpr int kDpt = DQK / kTpr;  // q/k head-dim entries per thread
-  constexpr int kVec = kDpt / 4;    // their float4 groups per thread
-  constexpr int kDptV = DV / kTpr;  // v/out head-dim entries per thread
-  constexpr int kVecV = kDptV / 4;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [kBlockK][DQK]
-  float* v_s = k_s + kBlockK * DQK;               // [kBlockK][DV]
+// ---------------------------------------------------------------------------
+// fp32 route: tensor cores, split TF32 (wgmma, sm_90a)
+// ---------------------------------------------------------------------------
+constexpr int kF32Rows = 64;     // query rows per block: one warpgroup
+constexpr int kF32Threads = 128;
+constexpr int kSmemMax = 232448;   // a block's dynamic shared memory, sm_90
+constexpr int kSmemHalf = 115712;  // each of two blocks on an SM (228 KB,
+                                   // 1 KB reserved a block)
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
+// Q, a K tile and a V^T tile of T keys, each as TF32 hi and lo, and two
+// raw stages of T keys' K and V; 256 bytes of slack to align the base to
+// the 32-byte swizzle's 256-byte period
+template <int DQK, int DV, int T>
+__host__ __device__ constexpr int f32_bytes() {
+  return 2 * 4 * (kF32Rows * DQK + T * DQK + DV * T)
+         + 2 * 4 * raw_floats<DQK, DV, T>() + 256;
+}
+// keys a tile: the most (64, 32, 16) with which two blocks share an SM,
+// else the most a block's shared memory holds
+template <int DQK, int DV>
+__host__ __device__ constexpr int f32_keys() {
+  if (f32_bytes<DQK, DV, 64>() <= kSmemHalf) return 64;
+  if (f32_bytes<DQK, DV, 32>() <= kSmemHalf) return 32;
+  if (f32_bytes<DQK, DV, 16>() <= kSmemHalf) return 16;
+  if (f32_bytes<DQK, DV, 64>() <= kSmemMax) return 64;
+  return f32_bytes<DQK, DV, 32>() <= kSmemMax ? 32 : 16;
+}
+template <int DQK, int DV>
+constexpr int f32_smem_bytes() {
+  return f32_bytes<DQK, DV, f32_keys<DQK, DV>()>();
+}
+
+__device__ __forceinline__ uint8_t* align256(uint8_t* p) {
+  return p + ((256u - (smem_addr(p) & 255u)) & 255u);
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides qs, Strides ks,
+                     Strides vs, Strides os, int seq, int heads,
+                     int kv_heads, int causal, int window,
+                     float scale_log2) {
+  constexpr int T = f32_keys<DQK, DV>();
+  constexpr uint32_t kQ = kF32Rows * DQK * 4, kK = T * DQK * 4,
+                     kV = DV * T * 4;
+  constexpr int kRaw = raw_floats<DQK, DV, T>(), kStride = DQK + DV + 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qh = align256(smem_raw);
+  uint8_t* const ql = qh + kQ;
+  uint8_t* const kp = ql + kQ;   // K's hi and lo rows a k8 slice
+  uint8_t* const vh = kp + 2 * kK;
+  uint8_t* const vl = vh + kV;
+  float* const raw = reinterpret_cast<float*>(vl + kV);  // two stages
+  const uint32_t sqh = smem_addr(qh), sql = sqh + kQ, skp = sql + kQ,
+                 svh = skp + 2 * kK, svl = svh + kV, sraw = svl + kV;
+
+  // the longest query tiles (most key tiles under a causal mask) first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kF32Rows;
   const int hk = h / (heads / kv_heads);
-  const int tid = threadIdx.x;
-  const int row = tid / kTpr, part = tid % kTpr;
-  const int qpos = q0 + row;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qa = q0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
+  const int cq = 2 * (lane & 3);
 
-  // this thread's head-dim entries: float4 group g = i * kTpr + part, so
-  // the two threads of a row read neighbouring 16-byte words
-  float qr[kDpt], acc[kDptV];
-  const T* qrow = q + b * qs.b + (int64_t)qpos * qs.s + h * qs.h;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = (i * kTpr + part) * 4 + e;
-      qr[i * 4 + e] = qpos < seq ? to_f32(qrow[d]) : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < kDptV; ++d) acc[d] = 0.0f;
-  float m = kNegInf, l = 0.0f;
-
-  // the key tiles the mask can reach from rows [q0, q0 + kBlockQ)
+  // the key tiles the mask can reach from the block's rows
   int lo = 0, hi = seq - 1;
   if (window > 0) lo = max(0, q0 - window + 1);
-  if (causal) hi = min(hi, q0 + kBlockQ - 1);
-  const T* kbase = k + b * ks.b + hk * ks.h;
-  const T* vbase = v + b * vs.b + hk * vs.h;
+  if (causal) hi = min(hi, q0 + kF32Rows - 1);
+  const int first = lo / T, last = hi / T;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  // K and V of tile t come by cp.async into raw stage (t - first) % 2,
+  // two tiles ahead of their use; their hi and lo tiles are split from it
+  auto fetch = [&](int t) {
+    fetch_rows<DQK, DV, T>(sraw + (uint32_t)(((t - first) & 1) * kRaw) * 4u,
+                           kb, ks.s, vb, vs.s, t * T, seq, tid);
+  };
+  fetch(first);
+  cp_async_commit();
+  if (first < last) fetch(first + 1);
+  cp_async_commit();
+  stage_tf32<DQK, kF32Rows>(qh, ql, q + b * qs.b + h * qs.h, qs.s, q0, seq,
+                            tid);
+  cp_async_wait_all();
+  __syncthreads();
+  split_raw<DQK, T, kStride, 0>(kp, raw, tid);
+  fence_proxy_async();
+  __syncthreads();
 
-  for (int k0 = (lo / kBlockK) * kBlockK; k0 <= hi; k0 += kBlockK) {
-    __syncthreads();  // every thread is done with the previous tile
-    // rows past the end stay finite zeros
-    for (int idx = tid; idx < kBlockK * DQK; idx += kThreads) {
-      const int r = idx / DQK, c = idx - r * DQK;
-      const int kp = k0 + r;
-      k_s[idx] = kp < seq ? to_f32(kbase[(int64_t)kp * ks.s + c]) : 0.0f;
-    }
-    for (int idx = tid; idx < kBlockK * DV; idx += kThreads) {
-      const int r = idx / DV, c = idx - r * DV;
-      const int kp = k0 + r;
-      v_s[idx] = kp < seq ? to_f32(vbase[(int64_t)kp * vs.s + c]) : 0.0f;
-    }
-    __syncthreads();
+  float acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
+  // running max (in units of scale * log2(e)) and this thread's part of
+  // the row sum, for rows qa and qa + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-    float s[kBlockK];
+  // Per key tile: S's products run while V^T is split, P V's while the
+  // next K is split and tile t+2 is fetched; each waits for its products
+  // before the barrier that hands its tiles over.
+  for (int t = first; t <= last; ++t) {
+    const int k0 = t * T;
+    const float* rst = raw + ((t - first) & 1) * kRaw;
+    // S = Q K^T over DQK: lo_q hi_k into s, and hi_q [hi_k | lo_k] into
+    // s2 as one N = 2T product (Q's hi tile read once for both), summed
+    // small terms first once the products are in
+    float s[T / 2], s2[T];
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float4* krow = reinterpret_cast<const float4*>(k_s + j * DQK);
-      float dot = 0.0f;
+    for (int i = 0; i < T / 2; ++i) s[i] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float4 kk = krow[i * kTpr + part];
-        dot = fmaf(qr[i * 4 + 0], kk.x, dot);
-        dot = fmaf(qr[i * 4 + 1], kk.y, dot);
-        dot = fmaf(qr[i * 4 + 2], kk.z, dot);
-        dot = fmaf(qr[i * 4 + 3], kk.w, dot);
+    for (int i = 0; i < T; ++i) s2[i] = 0.0f;
+    pin(s);
+    pin(s2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQK / 8; ++kk) {
+      const uint32_t qo = kk * kF32Rows * 32, ko = kk * 2 * T * 32;
+      wgmma_tf32(s, kmajor32_desc(sql + qo), kmajor32_desc(skp + ko),
+                 kk > 0);
+      wgmma_tf32(s2, kmajor32_desc(sqh + qo), kmajor32_desc(skp + ko),
+                 kk > 0);
+    }
+    wgmma_commit();
+    split_raw_t<DV, T, kStride, DQK>(vh, vl, rst, tid);
+    fence_proxy_async();
+    wgmma_wait_all();
+    pin(s);
+    pin(s2);
+    __syncthreads();  // V^T of t is in; K of t is read
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) s[i] = (s[i] + s2[i + T / 2]) + s2[i];
+
+    // online softmax on the fragments: s[4j + e] is row qa + 8 (e >> 1),
+    // key k0 + 8j + cq + (e & 1); the mask only on tiles that cross the
+    // diagonal, the window's edge or the sequence end
+    const bool edge = (causal && k0 + T - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kF32Rows - 1 - window) ||
+                      k0 + T > seq;
+    uint32_t keep = 0xffffffffu;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge && !allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
+                           qa + 8 * ((i >> 1) & 1), seq, causal, window)) {
+        x = kNegInf;
+        keep &= ~(1u << i);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      s[j] = dot;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
-    float m_new = m;
+    float alpha[2], psum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      s[j] = allowed(k0 + j, qpos, seq, causal, window) ? s[j] * scale
-                                                        : kNegInf;
-      m_new = fmaxf(m_new, s[j]);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
     }
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = allowed(k0 + j, qpos, seq, causal, window)
-                          ? expf(s[j] - m_new)
-                          : 0.0f;
-      s[j] = p;
-      psum += p;
+    for (int i = 0; i < T / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = (keep >> i) & 1u ? exp2f(s[i] - mx[r]) : 0.0f;
+      psum[r] += p;
+      s[i] = p;
     }
-    l = l * alpha + psum;
 #pragma unroll
-    for (int d = 0; d < kDptV; ++d) acc[d] *= alpha;
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float4* vrow = reinterpret_cast<const float4*>(v_s + j * DV);
-      const float p = s[j];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    uint32_t ph[T / 8][4], pl[T / 8][4];
 #pragma unroll
-      for (int i = 0; i < kVecV; ++i) {
-        const float4 vv = vrow[i * kTpr + part];
-        acc[i * 4 + 0] = fmaf(p, vv.x, acc[i * 4 + 0]);
-        acc[i * 4 + 1] = fmaf(p, vv.y, acc[i * 4 + 1]);
-        acc[i * 4 + 2] = fmaf(p, vv.z, acc[i * 4 + 2]);
-        acc[i * 4 + 3] = fmaf(p, vv.w, acc[i * 4 + 3]);
-      }
+    for (int j = 0; j < T / 8; ++j) frag_tf32(s + 4 * j, ph[j], pl[j]);
+
+    // O += P V over DV, 8 keys a product, V^T's block j the B operand
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      wgmma_tf32(acc, pl[j], kmajor32_desc(svh + j * DV * 32));
+      wgmma_tf32(acc, ph[j], kmajor32_desc(svl + j * DV * 32));
     }
-    m = m_new;
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j)
+      wgmma_tf32(acc, ph[j], kmajor32_desc(svh + j * DV * 32));
+    wgmma_commit();
+    if (t < last) {
+      cp_async_wait_all();
+      __syncthreads();  // tile t+1 is in; tile t's stage and S are read
+      if (t + 2 <= last) fetch(t + 2);
+      cp_async_commit();
+      split_raw<DQK, T, kStride, 0>(kp, raw + ((t + 1 - first) & 1) * kRaw,
+                                    tid);
+      fence_proxy_async();
+    }
+    wgmma_wait_all();
+    pin(acc);
+    __syncthreads();  // K of t+1 is in; V^T of t is read
   }
 
-  if (qpos < seq) {
-    const float denom = l == 0.0f ? 1.0f : l;  // fully masked rows give 0
-    if (lse != nullptr && part == 0)
-      lse[((int64_t)b * heads + h) * seq + qpos] =
-          l == 0.0f ? kNegInf : m + logf(l);
-    T* orow = o + b * os.b + (int64_t)qpos * os.s + h * os.h;
 #pragma unroll
-    for (int i = 0; i < kVecV; ++i) {
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = (i * kTpr + part) * 4 + e;
-        store_val(orow + d, acc[i * 4 + e] / denom);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int row = qa + 8 * r;
+    if (row >= seq) continue;
+    const float denom = l[r] == 0.0f ? 1.0f : l[r];  // fully masked -> 0
+    // m is in units of scale * log2(e): lse = m ln 2 + log(l)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * heads + h) * seq + row] =
+          l[r] == 0.0f ? kNegInf : m[r] * kLn2 + logf(l[r]);
+    float* orow = o + b * os.b + (int64_t)row * os.s + h * os.h + cq;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(acc[4 * j + 2 * r] / denom,
+                      acc[4 * j + 2 * r + 1] / denom);
   }
 }
 
-template <typename T, int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           Strides qs, Strides ks, Strides vs, Strides os, int batch,
-           int seq, int heads, int kv_heads, int causal, int window,
-           float scale, cudaStream_t stream) {
-  const int smem = kBlockK * (DQK + DV) * (int)sizeof(float);
-  auto kern = flash_fwd_kernel<T, DQK, DV>;
+template <int DQK, int DV>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+               int batch, int seq, int heads, int kv_heads, int causal,
+               int window, float scale, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<DQK, DV>();
+  auto kern = flash_fwd_f32_kernel<DQK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os,
-      seq, heads, kv_heads, causal, window, scale);
+  e = cudaFuncSetAttribute(kern,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(heads, batch, (seq + kF32Rows - 1) / kF32Rows);
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
+      os, seq, heads, kv_heads, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -280,7 +412,6 @@ constexpr int kTcKeys = 64;      // keys per K/V tile
 constexpr int kTcThreads = 256;
 constexpr int kStages = 3;       // K/V ring: tile t+1 loads while tile t
                                  // multiplies and P V of t-1 drains
-constexpr float kLog2e = 1.4426950408889634f;
 
 // `rows` rows of D entries (16-byte chunks) into a swizzled tile, by
 // cp.async from rows `stride` entries apart starting at row r0; rows past
@@ -550,7 +681,7 @@ int dispatch(int is_bf16, int head_dim, int v_head_dim, const void* q,
 #define FLASH_PAIR(DQK, DV)                                       \
   case pair(DQK, DV):                                             \
     return is_bf16 ? launch_tc<DQK, DV>(FLASH_ARGS)               \
-                   : launch<float, DQK, DV>(FLASH_ARGS);
+                   : launch_f32<DQK, DV>(FLASH_ARGS);
   switch (pair(head_dim, v_head_dim)) {
     FLASH_PAIR(32, 32)
     FLASH_PAIR(64, 64)
@@ -565,35 +696,44 @@ int dispatch(int is_bf16, int head_dim, int v_head_dim, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
-bool aligned16(const void* p, const Strides& st) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 8 == 0 &&
-         st.s % 8 == 0 && st.h % 8 == 0;
+// a 16-byte aligned data pointer and (b, s, h) strides of whole 16-byte
+// chunks (`per16` entries of the dtype)
+bool aligned16(const void* p, const Strides& st, int per16) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % per16 == 0 &&
+         st.s % per16 == 0 && st.h % per16 == 0;
 }
 
 }  // namespace
 
-// dynamic shared memory a block of the bf16 (tensor-core) kernel asks for
-// at the head-dim pair (DQK, DV), or -1 for a pair it does not take
-extern "C" int flash_attention_tc_smem_bytes(int head_dim, int v_head_dim) {
+// dynamic shared memory a block of the bf16 (is_bf16 = 1) or fp32 kernel
+// asks for at the head-dim pair (DQK, DV), or -1 for a pair it does not
+// take
+extern "C" int flash_attention_tc_smem_bytes(int head_dim, int v_head_dim,
+                                             int is_bf16) {
+#define SMEM_PAIR(DQK, DV)                                        \
+  case pair(DQK, DV):                                             \
+    return is_bf16 ? tc_smem_bytes<DQK, DV>() : f32_smem_bytes<DQK, DV>();
   switch (pair(head_dim, v_head_dim)) {
-    case pair(32, 32): return tc_smem_bytes<32, 32>();
-    case pair(64, 64): return tc_smem_bytes<64, 64>();
-    case pair(80, 80): return tc_smem_bytes<80, 80>();
-    case pair(96, 96): return tc_smem_bytes<96, 96>();
-    case pair(128, 128): return tc_smem_bytes<128, 128>();
-    case pair(96, 64): return tc_smem_bytes<96, 64>();
-    case pair(80, 64): return tc_smem_bytes<80, 64>();
-    default: return -1;
+    SMEM_PAIR(32, 32)
+    SMEM_PAIR(64, 64)
+    SMEM_PAIR(80, 80)
+    SMEM_PAIR(96, 96)
+    SMEM_PAIR(128, 128)
+    SMEM_PAIR(96, 64)
+    SMEM_PAIR(80, 64)
   }
+#undef SMEM_PAIR
+  return -1;
 }
 
 // q: (B, S, H, DQK); k: (B, S, Hkv, DQK); v: (B, S, Hkv, DV); o: (B, S, H,
 // DV); each with its (b, s, h) strides in elements and a contiguous head
 // dim.  (head_dim, v_head_dim) = (DQK, DV) one of the pairs of dispatch;
-// H a multiple of Hkv.  bf16 (is_bf16 = 1) runs on the
-// tensor cores and needs 16-byte aligned q, k, v with (b, s, h) strides
-// that are multiples of 8 (else cudaErrorMisalignedAddress); fp32 on the
-// CUDA cores.  lse: null, or (B, H, S) fp32 for the backward.
+// H a multiple of Hkv.  Both dtypes run on the tensor cores
+// and need 16-byte aligned q, k, v with (b, s, h) strides of whole 16-byte
+// chunks, multiples of 8 (bf16) or 4 (fp32) entries (else
+// cudaErrorMisalignedAddress).  lse: null, or (B, H, S) fp32 for the
+// backward.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -603,8 +743,9 @@ extern "C" int flash_attention_fwd(
     float* lse, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  if (is_bf16 && !(aligned16(q, qs) && aligned16(k, ks) &&
-                   aligned16(v, vs)))
+  const int per16 = is_bf16 ? 8 : 4;
+  if (!(aligned16(q, qs, per16) && aligned16(k, ks, per16) &&
+        aligned16(v, vs, per16)))
     return (int)cudaErrorMisalignedAddress;
   return dispatch(is_bf16, head_dim, v_head_dim, q, k, v, o, lse, qs, ks, vs,
                   os, batch, seq, heads, kv_heads, causal, window, scale,

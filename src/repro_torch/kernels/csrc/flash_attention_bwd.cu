@@ -32,7 +32,8 @@
 // accumulators a thread beside the 64 of S^T and dP^T, which spills at
 // DQK = DV = 128 (chip_smoke.py prints ptxas' count for every instance).
 //
-// Two routes, chosen by dtype (a rule, not a fallback), as the forward:
+// Two routes, chosen by dtype (a rule, not a fallback), as the forward,
+// both on the tensor cores:
 //
 // bf16 -> three launches on the tensor cores (wgmma, sm_90a), oriented so
 //   that the probabilities and their gradient never go through shared
@@ -78,21 +79,59 @@
 //   strides that are multiples of 8 elements (the wrapper raises
 //   otherwise).
 //
-// fp32 -> the port's first design, IEEE fp32 on the CUDA cores (the
-//   card-vs-CPU bound for fp32 models, 2e-5, which bf16 or TF32 products
-//   cannot hold), in two launches:
-//   1. flash_bwd_dq_kernel, one block per (64 query rows, head, batch):
-//      four threads per row split each head dim into 16-byte groups, so
-//      q, dout and the dq accumulator of a row live in registers; the
-//      row's delta is computed first (and stored for launch 2); K and V
-//      tiles of 64 keys are staged in shared memory as fp32 and read as
-//      broadcast float4 loads; s and dout . v are quad-shuffle sums.
-//      Only the key tiles the mask can reach are visited.
-//   2. flash_bwd_dkdv_kernel, one block per (64 keys, kv head, batch): the
-//      same shape with the roles swapped: k, v, dk and dv of a key live in
-//      registers; for each query head of the group, in order, the query
-//      tiles the mask can reach stage q, dout, lse and delta in shared
-//      memory.  dk and dv are summed over the group in registers.
+// fp32 -> two launches on the tensor cores in split TF32 (wgmma, sm_90a;
+//   wgmma.cuh: hi = tf32(x), lo = tf32(x - hi), a product lo hi + hi lo +
+//   hi hi, the small products first; S and dP (or S^T and dP^T) take
+//   lo_a hi_b as one product of N = T and hi_a [hi_b | lo_b] as one of
+//   N = 2T from a pair tile, as the forward's S): ~16.2 and ~21.6 ms at
+//   the federated hymba-1.5b and minicpm3-4b rounds' (16, 2048, 25/5, 64,
+//   window 1024) and (8, 2048, 40/40, (96, 64)), where IEEE fp32 on the
+//   CUDA cores took 31.7-33.5 and 49.1-49.5 (PERF.md; the library's fp32
+//   backward 22.2 ms at the latter).  FA2's split, not the bf16 route's three
+//   launches: at these folded batches the grids are large (12 800 and
+//   2 560 blocks at hymba's shape), so dK and dV are summed over the GQA
+//   group in registers and no partials go to memory.
+//   1. flash_bwd_dq_f32_kernel, one block per (64 query rows, head,
+//      batch); Q and dO split once.  S = Q K^T and dP = dO V^T (both
+//      operands in shared memory), dS = P (dP - delta) scale split in
+//      registers as dQ += dS K's A operand, K staged transposed (TF32
+//      wgmma reads K-major only); the accumulator's columns are taken in
+//      the order 0 2 4 6 1 3 5 7 and K^T's rows staged in that order, so
+//      no shuffle (frag_tf32).  delta = rowsum(dO o O) is stored for
+//      launch 2.
+//   2. flash_bwd_dkdv_f32_kernel, one block per (64 keys, kv head,
+//      batch), over the query tiles of each query head of the group in
+//      order: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK +=
+//      dS^T Q with Q^T and dO^T staged transposed.  Every 256 queries
+//      the sums leave the accumulators for dk and dv in fp32 (each block
+//      owns its rows), and the accumulators restart at 0: a wgmma
+//      accumulator drifts over a long chain (dK 4.3e-5 of its scale over
+//      hymba's five heads of 1024 queries, 5.3e-5 at (1, 2048, 25/5, 64,
+//      window 1024), against 2e-5 allowed; 5.0e-6 and 5.2e-6 with the
+//      flush; H100).
+//   Both: the streamed rows (K and V, or Q, dO, lse and delta) come by
+//   cp.async into a raw fp32 ring of two stages, two tiles ahead of their
+//   use, and are split from it: the products of a tile run while its
+//   transposed operand is split, the next products' while the next tile
+//   is.  Two warpgroups a block where shared memory holds them: they
+//   share the own tiles (Q and dO, or K and V, split once) and take
+//   alternate stream tiles, each with its own stages, barriers (named, a
+//   warpgroup's 128 threads) and accumulators; their sums reach dq, dk
+//   and dv in order, so the bits do not depend on timing.  Budget (Dqk,
+//   Dv): warpgroups and tile rows T of launch 1, of launch 2; shared
+//   memory a block; registers (ptxas): (32, 32) 2 x 32, 2 x 32; 118 272
+//   and 134 400 B; 227 and 207.  (64, 64) 2 x 16, 2 x 16; 149 504 and
+//   165 632 B; 194 and 201.  (80, 80) 2 x 16, 2 x 16; 186 368 and 206 592
+//   B; 200 and 228.  (96, 96) 2 x 16, 1 x 16; 223 232 and 173 056 B; 233
+//   and 240.  (128, 128) 1 x 16, 1 x 16; 214 272 and 230 400 B; 255 and
+//   255 (124 bytes of spill stores in launch 2: off the main paths).
+//   (96, 64) 2 x 16, 2 x 16; 190 464 and 206 592 B; 194 and 226.  (80,
+//   64) 2 x 16, 2 x 16; 169 984 and 186 112 B; 181 and 208.  One block an
+//   SM.  At (96, 64) two warpgroups took the backward from 41.2 ms (one,
+//   T = 32 and 64) to 23.6 ms, the N = 2T products to 21.6 (H100).
+//   Measured against the plain backward: 6e-7 to 5.7e-6 of each
+//   gradient's max|plain| (bound 2e-5).  Operands: 16-byte aligned data
+//   pointers and (b, s, h) strides that are multiples of 4 elements.
 //
 // Both: no atomics, so every call gives the same bits.  Masks: causal
 // k <= q, sliding window k > q - window, both, or none; keys and queries
@@ -101,7 +140,7 @@
 // (b, s, h) strides (the head dim contiguous); dq, dk, dv are written
 // contiguous; lse and delta are (B, H, S) fp32.  The (DQK, DV) pairs
 // are the forward's: (32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
-// (96, 64) and (80, 64).  On the tensor cores a head dim of 80 or 96 needs
+// (96, 64) and (80, 64).  On the bf16 route a head dim of 80 or 96 needs
 // no layout of its own, as in the forward: a row is stored as column
 // atoms of 64 entries under the 128-byte swizzle, so 80 is one full atom
 // and 16 columns of a second (a 160-byte row, which no power-of-two
@@ -110,8 +149,9 @@
 // at N = DQK, dV at N = DV) read their B tile MN-major with the atoms LBO
 // apart, the form the forward's P V takes at DV = 80.  So the backward
 // uses the wgmma forms the forward does: m64n64k16 with both operands in
-// shared memory and m64nNk16 with A in registers.  The wgmma building
-// blocks are in wgmma.cuh.
+// shared memory and m64nNk16 with A in registers (and their m64nNk8 TF32
+// forms on the fp32 route, whose 32-byte swizzle needs no atoms).  The
+// wgmma building blocks are in wgmma.cuh.
 //
 // Plain C interface (bound with ctypes): returns a CUDA error code (0 on
 // success) after the launches, each checked; launches on the caller's
@@ -127,16 +167,12 @@ namespace {
 
 using namespace wg;
 
-// ---------------------------------------------------------------------------
-// fp32 route: CUDA cores
-// ---------------------------------------------------------------------------
-constexpr int kRows = 64;                 // query rows / keys per block
-constexpr int kTpr = 4;                   // threads per row
-constexpr int kThreads = kRows * kTpr;    // 256
-
 struct Strides {
   int64_t b, s, h;  // in elements; the head dim is contiguous
 };
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ bool allowed(int kp, int qp, int seq, int causal,
                                         int window) {
@@ -146,248 +182,632 @@ __device__ __forceinline__ bool allowed(int kp, int qp, int seq, int causal,
   return ok;
 }
 
-// sum over the four threads of a row (lanes 4r .. 4r+3)
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
+// lse in units of log2(e), or +inf for a fully masked row (lse = NEG_INF),
+// so that its p = exp2(s - inf) = 0 on every branch
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse <= 0.5f * kNegInf ? INFINITY : lse * kLog2e;
 }
 
-// this thread's D/4 entries of a row, as float4 group i * 4 + part (the
-// four threads of a row read four neighbouring 16-byte words)
-template <int D>
-__device__ __forceinline__ void load_row(float* r, const float* src, bool ok,
-                                         int part) {
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      r[i * 4 + e] = ok ? src[(i * 4 + part) * 4 + e] : 0.0f;
+// ---------------------------------------------------------------------------
+// fp32 route: tensor cores, split TF32 (wgmma, sm_90a)
+// ---------------------------------------------------------------------------
+constexpr int kF32Rows = 64;      // the block's own rows
+constexpr int kSmemMax = 232448;  // a block's dynamic shared memory, sm_90
+// dK and dV leave the accumulators for their outputs every 256 queries
+constexpr int kFlushQueries = 256;
+
+// bytes of a tile of `rows` x `cols` fp32 entries as TF32 hi and lo
+__host__ __device__ constexpr int split_bytes(int rows, int cols) {
+  return 2 * 4 * rows * cols;
 }
 
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float* r,
-                                          int part) {
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[(i * 4 + part) * 4 + e] = r[i * 4 + e];
+// launch 1 with W warpgroups: Q and dO (own, shared by the warpgroups),
+// the rows' delta; for each warpgroup K and V tiles of T keys, K^T and two
+// raw stages of T keys' K and V; 256 bytes of slack to align the base to
+// the 256-byte period of the 32-byte swizzle
+template <int DQK, int DV, int T, int W>
+__host__ __device__ constexpr int dq_f32_bytes() {
+  return split_bytes(kF32Rows, DQK + DV) + kF32Rows * 4
+         + W * (split_bytes(T, DQK + DV) + split_bytes(DQK, T)
+                + 2 * 4 * raw_floats<DQK, DV, T>()) + 256;
 }
-
-template <int G>
-__device__ __forceinline__ float dot_part(const float* r, const float4* row,
-                                          int part) {
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const float4 v = row[i * 4 + part];
-    s = fmaf(r[i * 4 + 0], v.x, s);
-    s = fmaf(r[i * 4 + 1], v.y, s);
-    s = fmaf(r[i * 4 + 2], v.z, s);
-    s = fmaf(r[i * 4 + 3], v.w, s);
-  }
-  return s;
+// launch 2: K and V (own, shared); for each warpgroup Q and dO tiles of T
+// queries, Q^T and dO^T, and two raw stages of T queries' Q, dO, lse and
+// delta
+template <int DQK, int DV, int T, int W>
+__host__ __device__ constexpr int dkdv_f32_bytes() {
+  return split_bytes(kF32Rows, DQK + DV)
+         + W * (2 * split_bytes(T, DQK + DV)
+                + 2 * 4 * raw_floats<DQK, DV, T>()) + 256;
 }
-
-template <int G>
-__device__ __forceinline__ void axpy_part(float* acc, float c,
-                                          const float4* row, int part) {
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const float4 v = row[i * 4 + part];
-    acc[i * 4 + 0] = fmaf(c, v.x, acc[i * 4 + 0]);
-    acc[i * 4 + 1] = fmaf(c, v.y, acc[i * 4 + 1]);
-    acc[i * 4 + 2] = fmaf(c, v.z, acc[i * 4 + 2]);
-    acc[i * 4 + 3] = fmaf(c, v.w, acc[i * 4 + 3]);
-  }
-}
-
-// rows [r0, r0 + kRows) of a (B, S, H, D) operand at (b, h) into shared
-// memory; rows past the end read as zeros
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* base,
-                                      int64_t s_stride, int r0, int seq,
-                                      int tid) {
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    dst[idx] = r0 + r < seq ? base[(int64_t)(r0 + r) * s_stride + c] : 0.0f;
-  }
-}
-
-// 1. dq (and delta) per query tile
+// Warpgroups a block: two, which share the own tiles and take alternate
+// tiles of the stream (each with its own stages and accumulators), where
+// a block's shared memory holds them at 16 rows a tile; else one
 template <int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    float* __restrict__ delta, float* __restrict__ dq,
-                    Strides qs,
-                    Strides ks, Strides vs, Strides os, Strides ds,
-                    int seq, int heads, int kv_heads, int causal, int window,
-                    float scale) {
-  constexpr int kGq = DQK / 16, kGv = DV / 16;  // float4 groups per thread
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [kRows][DQK]
-  float* v_s = k_s + kRows * DQK;                 // [kRows][DV]
+__host__ __device__ constexpr int dq_wgs() {
+  return dq_f32_bytes<DQK, DV, 16, 2>() <= kSmemMax ? 2 : 1;
+}
+template <int DQK, int DV>
+__host__ __device__ constexpr int dkdv_wgs() {
+  return dkdv_f32_bytes<DQK, DV, 16, 2>() <= kSmemMax ? 2 : 1;
+}
+// keys a tile in launch 1: 32 where the block holds them, else 16 (the
+// registers of S and dP, 3 T / 2 a thread each, bound it)
+template <int DQK, int DV>
+__host__ __device__ constexpr int dq_f32_keys() {
+  return dq_f32_bytes<DQK, DV, 32, dq_wgs<DQK, DV>()>() <= kSmemMax ? 32
+                                                                    : 16;
+}
+// queries a tile in launch 2: as many (the registers of S^T and dP^T,
+// and of P^T and dS^T as hi and lo, beside dK and dV's DQK / 2 + DV / 2
+// bound it at 32)
+template <int DQK, int DV>
+__host__ __device__ constexpr int dkdv_f32_queries() {
+  constexpr int W = dkdv_wgs<DQK, DV>();
+  return dkdv_f32_bytes<DQK, DV, 32, W>() <= kSmemMax ? 32 : 16;
+}
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
+__device__ __forceinline__ uint8_t* align256(uint8_t* p) {
+  return p + ((256u - (smem_addr(p) & 255u)) & 255u);
+}
+
+// a barrier of warpgroup wg's 128 threads alone (named barrier wg + 1)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");
+}
+
+// 1. dq (and delta) per 64 query rows of one (batch, head)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(dq_wgs<DQK, DV>() * 128)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, float* __restrict__ dq,
+                        Strides qs, Strides ks, Strides vs, Strides os,
+                        Strides ds, int seq, int heads, int kv_heads,
+                        int causal, int window, float scale,
+                        float scale_log2) {
+  constexpr int W = dq_wgs<DQK, DV>(), T = dq_f32_keys<DQK, DV>();
+  constexpr uint32_t kQ = kF32Rows * DQK * 4, kO = kF32Rows * DV * 4,
+                     kK = T * DQK * 4, kV = T * DV * 4;
+  constexpr int kRaw = raw_floats<DQK, DV, T>(), kStride = DQK + DV + 4;
+  constexpr uint32_t kWg = 2 * kK + 2 * kV + 2 * kK + 2 * kRaw * 4;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qh = align256(smem_raw);
+  uint8_t* const ql = qh + kQ;
+  uint8_t* const oh = ql + kQ;   // dO
+  uint8_t* const ol = oh + kO;
+  float* const dl_s = reinterpret_cast<float*>(ol + kO);
+  // K and V as pair tiles (a k8 slice's hi rows, then its lo rows)
+  uint8_t* const kp = reinterpret_cast<uint8_t*>(dl_s + kF32Rows) + wg * kWg;
+  uint8_t* const vp = kp + 2 * kK;
+  uint8_t* const kth = vp + 2 * kV;  // K^T: [T / 8][DQK][32 B]
+  uint8_t* const ktl = kth + kK;
+  float* const raw = reinterpret_cast<float*>(ktl + kK);  // two stages
+  const uint32_t sqh = smem_addr(qh), sql = sqh + kQ, soh = sql + kQ,
+                 sol = soh + kO, skp = smem_addr(kp), svp = skp + 2 * kK,
+                 skth = svp + 2 * kV, sktl = skth + kK, sraw = smem_addr(raw);
+
+  // the longest query tiles (most key tiles under a causal mask) first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kF32Rows;
   const int hk = h / (heads / kv_heads);
-  const int tid = threadIdx.x, row = tid / kTpr, part = tid % kTpr;
-  const int qpos = q0 + row;
-  const bool live = qpos < seq;
+  const int warp = wt >> 5, lane = wt & 31;
+  const int qa = q0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
+  const int cq = 2 * (lane & 3);
 
-  float qr[kGq * 4], dor[kGv * 4], acc[kGq * 4];
-  load_row<DQK>(qr, q + b * qs.b + (int64_t)qpos * qs.s + h * qs.h, live,
-                part);
-  load_row<DV>(dor, dout + b * ds.b + (int64_t)qpos * ds.s + h * ds.h, live,
-               part);
-  float dl = 0.0f;
-  {
-    float orow[kGv * 4];
-    load_row<DV>(orow, o + b * os.b + (int64_t)qpos * os.s + h * os.h, live,
-                 part);
-#pragma unroll
-    for (int i = 0; i < kGv * 4; ++i) dl = fmaf(dor[i], orow[i], dl);
-  }
-  dl = quad_sum(dl);
-  const int64_t rix = ((int64_t)b * heads + h) * seq + qpos;
-  const float lse_r = live ? lse[rix] : 0.0f;
-  if (live && part == 0) delta[rix] = dl;
-#pragma unroll
-  for (int i = 0; i < kGq * 4; ++i) acc[i] = 0.0f;
-
-  // the key tiles the mask can reach from rows [q0, q0 + kRows)
+  // the key tiles the mask can reach; warpgroup wg takes tiles first + wg,
+  // first + wg + W, ...
   int lo = 0, hi = seq - 1;
   if (window > 0) lo = max(0, q0 - window + 1);
-  if (causal) hi = min(hi, q0 + kRows - 1);
-  const float* kbase = k + b * ks.b + hk * ks.h;
-  const float* vbase = v + b * vs.b + hk * vs.h;
-
-  for (int k0 = (lo / kRows) * kRows; k0 <= hi; k0 += kRows) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage<DQK>(k_s, kbase, ks.s, k0, seq, tid);
-    stage<DV>(v_s, vbase, vs.s, k0, seq, tid);
-    __syncthreads();
-    for (int j = 0; j < kRows; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * DQK);
-      const float4* vr = reinterpret_cast<const float4*>(v_s + j * DV);
-      const float s = quad_sum(dot_part<kGq>(qr, kr, part));
-      const float dp = quad_sum(dot_part<kGv>(dor, vr, part));
-      const float p = allowed(k0 + j, qpos, seq, causal, window)
-                          ? expf(s * scale - lse_r)
-                          : 0.0f;
-      axpy_part<kGq>(acc, p * (dp - dl) * scale, kr, part);
+  if (causal) hi = min(hi, q0 + kF32Rows - 1);
+  const int first = lo / T, last = hi / T;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  // K and V of the warpgroup's i-th tile t come by cp.async into its raw
+  // stage i % 2, two tiles ahead of their use; their hi and lo tiles are
+  // split from it
+  auto fetch = [&](int t) {
+    const int i = (t - first) / W;
+    fetch_rows<DQK, DV, T>(sraw + (uint32_t)((i & 1) * kRaw) * 4u, kb, ks.s,
+                           vb, vs.s, t * T, seq, wt);
+  };
+  if (first + wg <= last) fetch(first + wg);
+  cp_async_commit();
+  if (first + wg + W <= last) fetch(first + wg + W);
+  cp_async_commit();
+  if (W == 1 || wg == 0)
+    stage_tf32<DQK, kF32Rows>(qh, ql, q + b * qs.b + h * qs.h, qs.s, q0,
+                              seq, wt);
+  if (W == 1 || wg == 1) {
+    stage_tf32<DV, kF32Rows>(oh, ol, dout + b * ds.b + h * ds.h, ds.s, q0,
+                             seq, wt);
+    // delta = rowsum(dO o O) over DV in fp32: two threads a row, DV / 2
+    // entries each by 16-byte loads
+    const int r = wt >> 1, half = wt & 1, row = q0 + r;
+    float acc = 0.0f;
+    if (row < seq) {
+      const float* dr = dout + b * ds.b + (int64_t)row * ds.s + h * ds.h
+                        + half * (DV / 2);
+      const float* orow = o + b * os.b + (int64_t)row * os.s + h * os.h
+                          + half * (DV / 2);
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(dr) + c);
+        const float4 y = __ldg(reinterpret_cast<const float4*>(orow) + c);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      dl_s[r] = acc;
+      if (row < seq) delta[((int64_t)b * heads + h) * seq + row] = acc;
     }
   }
-  if (live)
-    store_row<DQK>(dq + (((int64_t)b * seq + qpos) * heads + h) * DQK, acc,
-                   part);
+  cp_async_wait_all();
+  __syncthreads();
+  if (first + wg <= last) {
+    split_raw<DQK, T, kStride, 0>(kp, raw, wt);
+    split_raw<DV, T, kStride, DQK>(vp, raw, wt);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  float dl[2], l2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qa + 8 * r;
+    dl[r] = dl_s[row - q0];
+    l2[r] = row < seq ? lse_log2(lse[((int64_t)b * heads + h) * seq + row])
+                      : INFINITY;
+  }
+
+  float acc[DQK / 2];
+#pragma unroll
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.0f;
+
+  // Per key tile: S's and dP's products run while K^T is split, dQ's
+  // while the next K and V are split and the tile after is fetched; each
+  // waits for its products before the warpgroup's barrier that hands its
+  // tiles over.
+  for (int t = first + wg, i = 0; t <= last; t += W, ++i) {
+    const int k0 = t * T;
+    const float* rst = raw + (i & 1) * kRaw;
+    // S = Q K^T over DQK and dP = dO V^T over DV: lo_a hi_b into s and
+    // dp, hi_a [hi_b | lo_b] into s2 and dp2 as N = 2T products (the own
+    // hi tile read once for both), summed small terms first once in
+    float s[T / 2], dp[T / 2], s2[T], dp2[T];
+#pragma unroll
+    for (int j = 0; j < T / 2; ++j) s[j] = dp[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < T; ++j) s2[j] = dp2[j] = 0.0f;
+    pin(s);
+    pin(dp);
+    pin(s2);
+    pin(dp2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQK / 8; ++kk) {
+      const uint32_t a = kk * kF32Rows * 32, bo = kk * 2 * T * 32;
+      wgmma_tf32(s, kmajor32_desc(sql + a), kmajor32_desc(skp + bo), kk > 0);
+      wgmma_tf32(s2, kmajor32_desc(sqh + a), kmajor32_desc(skp + bo),
+                 kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DV / 8; ++kk) {
+      const uint32_t a = kk * kF32Rows * 32, bo = kk * 2 * T * 32;
+      wgmma_tf32(dp, kmajor32_desc(sol + a), kmajor32_desc(svp + bo),
+                 kk > 0);
+      wgmma_tf32(dp2, kmajor32_desc(soh + a), kmajor32_desc(svp + bo),
+                 kk > 0);
+    }
+    wgmma_commit();
+    split_raw_t<DQK, T, kStride, 0>(kth, ktl, rst, wt);
+    fence_proxy_async();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+    pin(s2);
+    pin(dp2);
+    wg_sync(wg);  // K^T of t is in; K and V of t are read
+#pragma unroll
+    for (int j = 0; j < T / 2; ++j) {
+      s[j] = (s[j] + s2[j + T / 2]) + s2[j];
+      dp[j] = (dp[j] + dp2[j + T / 2]) + dp2[j];
+    }
+
+    // dS = P (dP - delta) scale on the fragments: s[j] is row qa + 8
+    // ((j >> 1) & 1), key k0 + 8 (j >> 2) + cq + (j & 1)
+    const bool edge = (causal && k0 + T - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kF32Rows - 1 - window) ||
+                      k0 + T > seq;
+#pragma unroll
+    for (int j = 0; j < T / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      float p = exp2f(fmaf(s[j], scale_log2, -l2[r]));
+      if (edge && !allowed(k0 + 8 * (j >> 2) + cq + (j & 1), qa + 8 * r, seq,
+                           causal, window))
+        p = 0.0f;
+      s[j] = p * (dp[j] - dl[r]) * scale;
+    }
+    uint32_t dh[T / 8][4], dlo[T / 8][4];
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) frag_tf32(s + 4 * j, dh[j], dlo[j]);
+
+    // dQ += dS K over DQK, 8 keys a product, K^T's block j the B operand
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j) {
+      wgmma_tf32(acc, dlo[j], kmajor32_desc(skth + j * DQK * 32));
+      wgmma_tf32(acc, dh[j], kmajor32_desc(sktl + j * DQK * 32));
+    }
+#pragma unroll
+    for (int j = 0; j < T / 8; ++j)
+      wgmma_tf32(acc, dh[j], kmajor32_desc(skth + j * DQK * 32));
+    wgmma_commit();
+    if (t + W <= last) {
+      cp_async_wait_all();
+      wg_sync(wg);  // tile t+W is in; tile t's stage is read
+      if (t + 2 * W <= last) fetch(t + 2 * W);
+      cp_async_commit();
+      const float* nx = raw + ((i + 1) & 1) * kRaw;
+      split_raw<DQK, T, kStride, 0>(kp, nx, wt);
+      split_raw<DV, T, kStride, DQK>(vp, nx, wt);
+      fence_proxy_async();
+    }
+    wgmma_wait_all();
+    pin(acc);
+    wg_sync(wg);  // K and V of t+W are in; K^T of t is read
+  }
+
+  // the warpgroups' sums, in order
+#pragma unroll
+  for (int g = 0; g < W; ++g) {
+    if (W > 1) __syncthreads();
+    if (wg != g) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qa + 8 * r;
+      if (row >= seq) continue;
+      float2* drow = reinterpret_cast<float2*>(
+          dq + (((int64_t)b * seq + row) * heads + h) * DQK + cq);
+#pragma unroll
+      for (int j = 0; j < DQK / 8; ++j) {
+        float2 x = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        if (g > 0) {
+          const float2 y = drow[4 * j];
+          x.x += y.x;
+          x.y += y.y;
+        }
+        drow[4 * j] = x;
+      }
+    }
+  }
 }
 
-// 2. dk, dv per key tile, summed over the query heads of the kv head
+// 2. dk, dv per 64 keys of one kv head, summed over its query heads
 template <int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv,
-                      Strides qs, Strides ks, Strides vs, Strides ds,
-                      int seq, int heads, int kv_heads, int causal,
-                      int window, float scale) {
-  constexpr int kGq = DQK / 16, kGv = DV / 16;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][DQK]
-  float* do_s = q_s + kRows * DQK;                // [kRows][DV]
-  float* lse_s = do_s + kRows * DV;               // [kRows]
-  float* dl_s = lse_s + kRows;                    // [kRows]
+__global__ void __launch_bounds__(dkdv_wgs<DQK, DV>() * 128)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Strides qs, Strides ks, Strides vs, Strides ds,
+                          int seq, int heads, int kv_heads, int causal,
+                          int window, float scale, float scale_log2) {
+  constexpr int W = dkdv_wgs<DQK, DV>(), T = dkdv_f32_queries<DQK, DV>();
+  constexpr uint32_t kK = kF32Rows * DQK * 4, kV = kF32Rows * DV * 4,
+                     kQ = T * DQK * 4, kO = T * DV * 4;
+  constexpr int kRaw = raw_floats<DQK, DV, T>(), kStride = DQK + DV + 4;
+  constexpr uint32_t kWg = 4 * kQ + 4 * kO + 2 * kRaw * 4;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const kh = align256(smem_raw);
+  uint8_t* const kl = kh + kK;
+  uint8_t* const vh = kl + kK;
+  uint8_t* const vl = vh + kV;
+  // Q and dO as pair tiles (a k8 slice's hi rows, then its lo rows)
+  uint8_t* const qp = vl + kV + wg * kWg;
+  uint8_t* const op = qp + 2 * kQ;  // dO
+  uint8_t* const qth = op + 2 * kO;  // Q^T: [T / 8][DQK][32 B]
+  uint8_t* const qtl = qth + kQ;
+  uint8_t* const oth = qtl + kQ;   // dO^T: [T / 8][DV][32 B]
+  uint8_t* const otl = oth + kO;
+  // two raw stages: a step's Q and dO rows, then its lse and delta
+  float* const raw = reinterpret_cast<float*>(otl + kO);
+  const uint32_t skh = smem_addr(kh), skl = skh + kK, svh = skl + kK,
+                 svl = svh + kV, sqp = smem_addr(qp), sop = sqp + 2 * kQ,
+                 sqth = sop + 2 * kO, sqtl = sqth + kQ, soth = sqtl + kQ,
+                 sotl = soth + kO, sraw = smem_addr(raw);
 
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;
+  // key tiles in order: under a causal mask the first see the most
+  // queries
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kF32Rows;
   const int group = heads / kv_heads;
-  const int tid = threadIdx.x, row = tid / kTpr, part = tid % kTpr;
-  const int kpos = k0 + row;
-  const bool live = kpos < seq;
+  const int warp = wt >> 5, lane = wt & 31;
+  const int ka = k0 + warp * 16 + (lane >> 2);   // this thread's: ka, ka+8
+  const int cq = 2 * (lane & 3);
 
-  float kr[kGq * 4], vr[kGv * 4], dka[kGq * 4], dva[kGv * 4];
-  load_row<DQK>(kr, k + b * ks.b + (int64_t)kpos * ks.s + hk * ks.h, live,
-                part);
-  load_row<DV>(vr, v + b * vs.b + (int64_t)kpos * vs.s + hk * vs.h, live,
-               part);
-#pragma unroll
-  for (int i = 0; i < kGq * 4; ++i) dka[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kGv * 4; ++i) dva[i] = 0.0f;
-
-  // the query tiles whose rows can see keys [k0, k0 + kRows)
+  // the query tiles whose rows see the block's keys, for each query head
+  // of the group in order: step it is head hk * group + it / nt, tile
+  // first + it % nt; warpgroup wg takes steps wg, wg + W, ...
   int lo = 0, hi = seq - 1;
   if (causal) lo = k0;
-  if (window > 0) hi = min(hi, k0 + kRows - 1 + window - 1);
-
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const float* qbase = q + b * qs.b + h * qs.h;
-    const float* dbase = dout + b * ds.b + h * ds.h;
-    const int64_t rbase = ((int64_t)b * heads + h) * seq;
-    for (int q0 = (lo / kRows) * kRows; q0 <= hi; q0 += kRows) {
-      __syncthreads();  // every thread is done with the previous tile
-      stage<DQK>(q_s, qbase, qs.s, q0, seq, tid);
-      stage<DV>(do_s, dbase, ds.s, q0, seq, tid);
-      if (tid < kRows) {
-        const bool ok = q0 + tid < seq;
-        lse_s[tid] = ok ? lse[rbase + q0 + tid] : 0.0f;
-        dl_s[tid] = ok ? delta[rbase + q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-      for (int i = 0; i < kRows; ++i) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s + i * DQK);
-        const float4* dr = reinterpret_cast<const float4*>(do_s + i * DV);
-        const float s = quad_sum(dot_part<kGq>(kr, qr, part));
-        const float dp = quad_sum(dot_part<kGv>(vr, dr, part));
-        const float p = allowed(kpos, q0 + i, seq, causal, window)
-                            ? expf(s * scale - lse_s[i])
-                            : 0.0f;
-        axpy_part<kGv>(dva, p, dr, part);
-        axpy_part<kGq>(dka, p * (dp - dl_s[i]) * scale, qr, part);
-      }
+  if (window > 0) hi = min(hi, k0 + kF32Rows - 1 + window - 1);
+  const int first = lo / T, nt = hi / T - first + 1, steps = group * nt;
+  // the warpgroup's i-th step's Q and dO rows, lse and delta by cp.async
+  // into its raw stage i % 2, two steps ahead of their use (zeros past
+  // the end, where the mask holds p at 0)
+  auto fetch = [&](int it) {
+    const int h = hk * group + it / nt, q0 = (first + it % nt) * T;
+    const uint32_t dst = sraw + (uint32_t)((((it - wg) / W) & 1) * kRaw) * 4u;
+    fetch_rows<DQK, DV, T>(dst, q + b * qs.b + h * qs.h, qs.s,
+                           dout + b * ds.b + h * ds.h, ds.s, q0, seq, wt);
+    if (wt < 2 * T) {
+      const int c = wt % T, which = wt / T;
+      const bool ok = q0 + c < seq;
+      const int64_t rix = ((int64_t)b * heads + h) * seq + (ok ? q0 + c : 0);
+      cp_async4(dst + (uint32_t)(T * kStride + wt) * 4u,
+                (which ? delta : lse) + rix, ok);
     }
+  };
+  if (wg < steps) fetch(wg);
+  cp_async_commit();
+  if (wg + W < steps) fetch(wg + W);
+  cp_async_commit();
+  if (W == 1 || wg == 0)
+    stage_tf32<DQK, kF32Rows>(kh, kl, k + b * ks.b + hk * ks.h, ks.s, k0,
+                              seq, wt);
+  if (W == 1 || wg == 1)
+    stage_tf32<DV, kF32Rows>(vh, vl, v + b * vs.b + hk * vs.h, vs.s, k0,
+                             seq, wt);
+  cp_async_wait_all();
+  __syncthreads();
+  if (wg < steps) {
+    split_raw<DQK, T, kStride, 0>(qp, raw, wt);
+    split_raw<DV, T, kStride, DQK>(op, raw, wt);
   }
-  if (live) {
-    const int64_t row_off = ((int64_t)b * seq + kpos) * kv_heads + hk;
-    store_row<DQK>(dk + row_off * DQK, dka, part);
-    store_row<DV>(dv + row_off * DV, dva, part);
+  fence_proxy_async();
+  __syncthreads();
+
+  float dka[DQK / 2], dva[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DQK / 2; ++i) dka[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.0f;
+
+  // Per step: S^T's and dP^T's products run while Q^T and dO^T are
+  // split, dK's and dV's while the next Q and dO are split and the step
+  // after is fetched.  In round r the warpgroups take steps r W .. r W +
+  // W - 1.
+  const int rounds = (steps + W - 1) / W;
+  constexpr int kFlushRounds = kFlushQueries / T;
+  for (int r = 0; r < rounds; ++r) {
+    const int it = r * W + wg;
+    if (it < steps) {
+      const int q0 = (first + it % nt) * T;
+      const float* rst = raw + (r & 1) * kRaw;
+      // S^T = K Q^T over DQK and dP^T = V dO^T over DV: lo_a hi_b into s
+      // and dp, hi_a [hi_b | lo_b] into s2 and dp2 as N = 2T products
+      float s[T / 2], dp[T / 2], s2[T], dp2[T];
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) s[i] = dp[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < T; ++i) s2[i] = dp2[i] = 0.0f;
+      pin(s);
+      pin(dp);
+      pin(s2);
+      pin(dp2);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        const uint32_t a = kk * kF32Rows * 32, bo = kk * 2 * T * 32;
+        wgmma_tf32(s, kmajor32_desc(skl + a), kmajor32_desc(sqp + bo),
+                   kk > 0);
+        wgmma_tf32(s2, kmajor32_desc(skh + a), kmajor32_desc(sqp + bo),
+                   kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 8; ++kk) {
+        const uint32_t a = kk * kF32Rows * 32, bo = kk * 2 * T * 32;
+        wgmma_tf32(dp, kmajor32_desc(svl + a), kmajor32_desc(sop + bo),
+                   kk > 0);
+        wgmma_tf32(dp2, kmajor32_desc(svh + a), kmajor32_desc(sop + bo),
+                   kk > 0);
+      }
+      wgmma_commit();
+      split_raw_t<DQK, T, kStride, 0>(qth, qtl, rst, wt);
+      split_raw_t<DV, T, kStride, DQK>(oth, otl, rst, wt);
+      fence_proxy_async();
+      wgmma_wait_all();
+      pin(s);
+      pin(dp);
+      pin(s2);
+      pin(dp2);
+      wg_sync(wg);  // Q^T and dO^T of this step are in; Q and dO read
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) {
+        s[i] = (s[i] + s2[i + T / 2]) + s2[i];
+        dp[i] = (dp[i] + dp2[i + T / 2]) + dp2[i];
+      }
+
+      // P^T and dS^T on the fragments: s[4 jb + 2 r + e] is key ka + 8 r,
+      // query q0 + 8 jb + cq + e, whose lse and delta are in the stage
+      const bool edge = (causal && k0 + kF32Rows - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + T - 1 - window) ||
+                        q0 + T > seq || k0 + kF32Rows > seq;
+      const float* ls = rst + T * kStride;
+      const float* dls = ls + T;
+#pragma unroll
+      for (int jb = 0; jb < T / 8; ++jb) {
+        const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * jb + cq);
+        const float2 lc = make_float2(lse_log2(lv.x), lse_log2(lv.y));
+        const float2 dc =
+            *reinterpret_cast<const float2*>(dls + 8 * jb + cq);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jb + 2 * rr + e;
+            float p = exp2f(fmaf(s[i], scale_log2, e ? -lc.y : -lc.x));
+            if (edge && !allowed(ka + 8 * rr, q0 + 8 * jb + cq + e, seq,
+                                 causal, window))
+              p = 0.0f;
+            dp[i] = p * (dp[i] - (e ? dc.y : dc.x)) * scale;
+            s[i] = p;
+          }
+        }
+      }
+      uint32_t ph[T / 8][4], pl[T / 8][4], dh[T / 8][4], dlo[T / 8][4];
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) {
+        frag_tf32(s + 4 * j, ph[j], pl[j]);
+        frag_tf32(dp + 4 * j, dh[j], dlo[j]);
+      }
+
+      // dV += P^T dO over DV and dK += dS^T Q over DQK, 8 queries a
+      // product, the transposed tiles' block j the B operand
+      pin(dka);
+      pin(dva);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) {
+        wgmma_tf32(dva, pl[j], kmajor32_desc(soth + j * DV * 32));
+        wgmma_tf32(dva, ph[j], kmajor32_desc(sotl + j * DV * 32));
+        wgmma_tf32(dka, dlo[j], kmajor32_desc(sqth + j * DQK * 32));
+        wgmma_tf32(dka, dh[j], kmajor32_desc(sqtl + j * DQK * 32));
+      }
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) {
+        wgmma_tf32(dva, ph[j], kmajor32_desc(soth + j * DV * 32));
+        wgmma_tf32(dka, dh[j], kmajor32_desc(sqth + j * DQK * 32));
+      }
+      wgmma_commit();
+      if (it + W < steps) {
+        cp_async_wait_all();
+        wg_sync(wg);  // step it+W is in; step it's stage is read
+        if (it + 2 * W < steps) fetch(it + 2 * W);
+        cp_async_commit();
+        const float* nx = raw + ((r + 1) & 1) * kRaw;
+        split_raw<DQK, T, kStride, 0>(qp, nx, wt);
+        split_raw<DV, T, kStride, DQK>(op, nx, wt);
+        fence_proxy_async();
+      }
+      wgmma_wait_all();
+      pin(dka);
+      pin(dva);
+      wg_sync(wg);  // the next Q and dO are in; Q^T and dO^T are read
+    }
+    // every kFlushQueries queries of each warpgroup and at the end, the
+    // sums so far into dk and dv in fp32, warpgroup by warpgroup (each
+    // block owns its rows: no atomics), and the accumulators restart from
+    // 0: a wgmma accumulator drifts over a long chain of additions (dK
+    // 4.3e-5 of its scale over hymba-1.5b's five heads of 1024 queries on
+    // an H100, against ~1e-6 for dQ's 1024 keys)
+    if ((r + 1) % kFlushRounds == 0 || r + 1 == rounds) {
+#pragma unroll
+      for (int g = 0; g < W; ++g) {
+        if (W > 1) __syncthreads();
+        if (wg != g) continue;
+        const bool add = g > 0 || r >= kFlushRounds;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = ka + 8 * rr;
+          if (row >= seq) continue;
+          const int64_t off = ((int64_t)b * seq + row) * kv_heads + hk;
+          float2* krow = reinterpret_cast<float2*>(dk + off * DQK + cq);
+          float2* vrow = reinterpret_cast<float2*>(dv + off * DV + cq);
+#pragma unroll
+          for (int j = 0; j < DQK / 8; ++j) {
+            float2 x = make_float2(dka[4 * j + 2 * rr],
+                                   dka[4 * j + 2 * rr + 1]);
+            if (add) {
+              const float2 y = krow[4 * j];
+              x.x += y.x;
+              x.y += y.y;
+            }
+            krow[4 * j] = x;
+          }
+#pragma unroll
+          for (int j = 0; j < DV / 8; ++j) {
+            float2 x = make_float2(dva[4 * j + 2 * rr],
+                                   dva[4 * j + 2 * rr + 1]);
+            if (add) {
+              const float2 y = vrow[4 * j];
+              x.x += y.x;
+              x.y += y.y;
+            }
+            vrow[4 * j] = x;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < DQK / 2; ++i) dka[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) dva[i] = 0.0f;
+    }
   }
 }
 
 template <int DQK, int DV>
-int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dout, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, Strides qs, Strides ks, Strides vs,
-           Strides os, Strides ds, int batch, int seq, int heads,
-           int kv_heads, int causal, int window, float scale,
-           cudaStream_t stream) {
-  const int smem_dq = kRows * (DQK + DV) * (int)sizeof(float);
-  const int smem_kv = smem_dq + 2 * kRows * (int)sizeof(float);
-  auto kdq = flash_bwd_dq_kernel<DQK, DV>;
-  auto kkv = flash_bwd_dkdv_kernel<DQK, DV>;
+constexpr int f32_dq_smem() {
+  return dq_f32_bytes<DQK, DV, dq_f32_keys<DQK, DV>(), dq_wgs<DQK, DV>()>();
+}
+template <int DQK, int DV>
+constexpr int f32_dkdv_smem() {
+  return dkdv_f32_bytes<DQK, DV, dkdv_f32_queries<DQK, DV>(),
+                        dkdv_wgs<DQK, DV>()>();
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, int bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int DQK, int DV>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* o, const float* dout, const float* lse,
+               float* delta, float* dq, float* dk, float* dv, Strides qs,
+               Strides ks, Strides vs, Strides os, Strides ds, int batch,
+               int seq, int heads, int kv_heads, int causal, int window,
+               float scale, cudaStream_t stream) {
+  constexpr int smem_dq = f32_dq_smem<DQK, DV>();
+  constexpr int smem_kv = f32_dkdv_smem<DQK, DV>();
+  static_assert(smem_dq <= kSmemMax && smem_kv <= kSmemMax, "smem");
+  auto kdq = flash_bwd_dq_f32_kernel<DQK, DV>;
+  auto kkv = flash_bwd_dkdv_f32_kernel<DQK, DV>;
+  cudaError_t e = allow_smem(kdq, smem_dq);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_kv);
+  e = allow_smem(kkv, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (seq + kRows - 1) / kRows;
-  kdq<<<dim3(tiles, heads, batch), kThreads, smem_dq, stream>>>(
+  const int tiles = (seq + kF32Rows - 1) / kF32Rows;
+  const float scale_log2 = scale * kLog2e;
+  constexpr int threads_dq = dq_wgs<DQK, DV>() * 128;
+  constexpr int threads_kv = dkdv_wgs<DQK, DV>() * 128;
+  kdq<<<dim3(heads, batch, tiles), threads_dq, smem_dq, stream>>>(
       q, k, v, o, dout, lse, delta, dq, qs, ks, vs, os, ds, seq, heads,
-      kv_heads, causal, window, scale);
+      kv_heads, causal, window, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  kkv<<<dim3(tiles, kv_heads, batch), kThreads, smem_kv, stream>>>(
+  kkv<<<dim3(kv_heads, batch, tiles), threads_kv, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, ds, seq, heads,
-      kv_heads, causal, window, scale);
+      kv_heads, causal, window, scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -399,15 +819,6 @@ constexpr int kTcTile = 64;     // rows of a streamed tile
 constexpr int kTcThreads = 256;
 constexpr int kStages = 3;      // ring: tile t+1 loads while tile t
                                 // multiplies and the products of t-1 drain
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// lse in units of log2(e), or +inf for a fully masked row (lse = NEG_INF),
-// so that its p = exp2(s - inf) = 0 on every branch
-__device__ __forceinline__ float lse_log2(float lse) {
-  return lse <= 0.5f * kNegInf ? INFINITY : lse * kLog2e;
-}
-
 // rows [r0, r0 + ROWS) of a (B, S, H, D) operand at one (b, h) into a
 // swizzled tile; rows past the end read as zeros.  D / 8 chunks a row
 // need not divide evenly among the threads (D = 80, 64 rows: 640 chunks).
@@ -953,9 +1364,11 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p, const Strides& st) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % 8 == 0 &&
-         st.s % 8 == 0 && st.h % 8 == 0;
+// a 16-byte aligned data pointer and (b, s, h) strides of whole 16-byte
+// chunks (`per16` entries of the dtype)
+bool aligned16(const void* p, const Strides& st, int per16) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && st.b % per16 == 0 &&
+         st.s % per16 == 0 && st.h % per16 == 0;
 }
 
 // the instantiated (DQK, DV) pairs, as one key (the forward's)
@@ -963,14 +1376,17 @@ constexpr int pair(int dqk, int dv) { return dqk * 1000 + dv; }
 
 }  // namespace
 
-// dynamic shared memory a block of the bf16 (tensor-core) dq and dk/dv
-// kernels asks for at the head-dim pair (DQK, DV) (`which` 0 and 1), or -1
-// for a pair they do not take
+// dynamic shared memory a block of the dq and dk/dv kernels (`which` 0
+// and 1) of the bf16 (is_bf16 = 1) or fp32 route asks for at the head-dim
+// pair (DQK, DV), or -1 for a pair they do not take
 extern "C" int flash_attention_bwd_tc_smem_bytes(int head_dim,
-                                                 int v_head_dim, int which) {
-#define SMEM_PAIR(DQK, DV)                                        \
-  case pair(DQK, DV):                                             \
-    return which ? dkdv_smem_bytes<DQK, DV>() : dq_smem_bytes<DQK, DV>();
+                                                 int v_head_dim, int which,
+                                                 int is_bf16) {
+#define SMEM_PAIR(DQK, DV)                                            \
+  case pair(DQK, DV):                                                 \
+    if (is_bf16)                                                      \
+      return which ? dkdv_smem_bytes<DQK, DV>() : dq_smem_bytes<DQK, DV>(); \
+    return which ? f32_dkdv_smem<DQK, DV>() : f32_dq_smem<DQK, DV>();
   switch (pair(head_dim, v_head_dim)) {
     SMEM_PAIR(32, 32)
     SMEM_PAIR(64, 64)
@@ -990,11 +1406,12 @@ extern "C" int flash_attention_bwd_tc_smem_bytes(int head_dim,
 // forward; delta a (B, H, S) fp32 scratch.  Writes dq (B, S, H, DQK), dk
 // (B, S, Hkv, DQK) and dv (B, S, Hkv, DV) contiguous in the inputs' dtype.
 // (head_dim, v_head_dim) = (DQK, DV) one of the forward's pairs; H a
-// multiple of Hkv.  bf16 (is_bf16 = 1) runs on the tensor cores in three
-// launches, needs 16-byte aligned q, k, v, out, dout with (b, s, h)
-// strides that are multiples of 8 (else cudaErrorMisalignedAddress), and
-// `part`, an fp32 scratch of B * S * H * (DQK + DV) entries; fp32 runs on
-// the CUDA cores in two launches and reads no `part`.
+// multiple of Hkv.  Both dtypes run on the tensor cores and need 16-byte
+// aligned q, k, v, out, dout with (b, s, h) strides of whole 16-byte
+// chunks, multiples of 8 (bf16) or 4 (fp32) entries (else
+// cudaErrorMisalignedAddress).  bf16 (is_bf16 = 1) runs in three
+// launches and needs `part`, an fp32 scratch of B * S * H * (DQK + DV)
+// entries; fp32 runs in two launches and reads no `part`.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1007,18 +1424,18 @@ extern "C" int flash_attention_bwd(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (part == nullptr) return (int)cudaErrorInvalidValue;
-    if (!(aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs) &&
-          aligned16(o, os) && aligned16(dout, ds)))
-      return (int)cudaErrorMisalignedAddress;
-  }
+  if (is_bf16 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const int per16 = is_bf16 ? 8 : 4;
+  if (!(aligned16(q, qs, per16) && aligned16(k, ks, per16) &&
+        aligned16(v, vs, per16) && aligned16(o, os, per16) &&
+        aligned16(dout, ds, per16)))
+    return (int)cudaErrorMisalignedAddress;
 #define TC_ARGS static_cast<const bf16*>(q), static_cast<const bf16*>(k),    \
     static_cast<const bf16*>(v), static_cast<const bf16*>(o),                \
     static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),      \
     static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, qs, ks, vs, os,    \
     ds, batch, seq, heads, kv_heads, causal, window, scale, s
-#define SIMT_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
+#define F32_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
     static_cast<const float*>(v), static_cast<const float*>(o),              \
     static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),    \
     static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, os, ds,    \
@@ -1026,7 +1443,7 @@ extern "C" int flash_attention_bwd(
 #define BWD_PAIR(DQK, DV)                                         \
   case pair(DQK, DV):                                             \
     return is_bf16 ? launch_tc<DQK, DV>(TC_ARGS)                  \
-                   : launch<DQK, DV>(SIMT_ARGS);
+                   : launch_f32<DQK, DV>(F32_ARGS);
   switch (pair(head_dim, v_head_dim)) {
     BWD_PAIR(32, 32)
     BWD_PAIR(64, 64)
@@ -1037,7 +1454,7 @@ extern "C" int flash_attention_bwd(
     BWD_PAIR(80, 64)
   }
 #undef BWD_PAIR
-#undef SIMT_ARGS
+#undef F32_ARGS
 #undef TC_ARGS
   return (int)cudaErrorInvalidValue;
 }

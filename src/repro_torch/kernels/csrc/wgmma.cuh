@@ -2,7 +2,8 @@
 // (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu,
 // ssd_scan_bwd.cu): cp.async loads into shared memory, the swizzled tile
 // layouts and the shared-memory matrix descriptors that wgmma reads, and
-// the wgmma instructions themselves (sm_90a).
+// the wgmma instructions themselves (sm_90a): bf16 products, and the TF32
+// products and split-TF32 staging of B5's fp32 routes.
 //
 // Layouts (bf16 tiles; "row" is the strided dim of the tile):
 //   * 128-byte swizzle: column atoms of 64 entries, [atom][row][128 B];
@@ -559,5 +560,442 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+
+// ---------------------------------------------------------------------------
+// fp32 operands as split TF32 pairs (B5's fp32 routes)
+// ---------------------------------------------------------------------------
+// An fp32 value x is carried as hi = tf32(x) and lo = tf32(x - hi), each
+// rounded to nearest (ties away) with the low 13 mantissa bits zero, the
+// form wgmma's .tf32 operands read: x = hi + lo to ~2^-22 |x|.  A product
+// a b is then lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b, ~2^-22, is
+// dropped), three TF32 products into one fp32 accumulator.  TF32 wgmma
+// reads both operands K-major only (no transpose), so an operand read
+// along its rows is staged transposed.
+//
+// Tiles are fp32 under the 32-byte swizzle: [D / 8 blocks][rows][32 B],
+// one block a k8 slice (kmajor32_desc of block kk at + kk * rows * 32),
+// so no head dim needs padding (80 is ten blocks).
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The A fragment of an m64nNk8 TF32 product from 8 columns of an fp32
+// accumulator (d[4 jb .. 4 jb + 3], see above): the fragment wants columns
+// t % 4 and t % 4 + 4 of the thread's two rows, the accumulator holds
+// 2 (t % 4) and 2 (t % 4) + 1.  Taking the latter as the former permutes
+// the 8 columns as 0 2 4 6 1 3 5 7; the B operand's rows are staged in that
+// order (split_raw_t), so the product is unchanged and no shuffle is
+// needed.
+__device__ __forceinline__ void frag_tf32(const float* d, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split_tf32(d[0], hi[0], lo[0]);  // row g,     column 2 (t % 4)
+  split_tf32(d[2], hi[1], lo[1]);  // row g + 8, column 2 (t % 4)
+  split_tf32(d[1], hi[2], lo[2]);  // row g,     column 2 (t % 4) + 1
+  split_tf32(d[3], hi[3], lo[3]);  // row g + 8, column 2 (t % 4) + 1
+}
+
+// The 16-byte chunks of a rows x D fp32 tile, as the 128 threads of a
+// warpgroup take them: a warp takes 4 neighbouring chunks of 8
+// neighbouring rows, so that 8 threads that store together fall in
+// distinct banks.
+template <int D, int ROWS>
+__device__ __forceinline__ void chunk_of(int idx, int& r, int& c) {
+  constexpr int kChunks = D / 4;
+  c = (idx >> 3) % kChunks;
+  r = (idx & 7) + 8 * (idx / (8 * kChunks));
+}
+
+// ROWS rows of D fp32 entries, chunk (r, c) given by load(r, c), split
+// into hi and lo tiles [D / 8][RS][32 B] (rows [0, ROWS) of each k8
+// block): the K-major operand of a product over the D entries.  Loads B
+// chunks a thread ahead of their stores.
+template <int D, int ROWS, int B, int RS, typename Load>
+__device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo,
+                                           Load load, int tid) {
+  constexpr int kTotal = ROWS * D / 4;
+  static_assert(D % 8 == 0 && ROWS % 8 == 0 && (D / 4) % 4 == 0, "tile");
+#pragma unroll
+  for (int i0 = 0; i0 < kTotal; i0 += B * 128) {
+    float4 x[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int idx = i0 + i * 128 + tid;
+      int r, c;
+      chunk_of<D, ROWS>(idx, r, c);
+      x[i] = idx < kTotal ? load(r, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int idx = i0 + i * 128 + tid;
+      if (idx >= kTotal) break;
+      int r, c;
+      chunk_of<D, ROWS>(idx, r, c);
+      uint4 h, l;
+      split_tf32(x[i].x, h.x, l.x);
+      split_tf32(x[i].y, h.y, l.y);
+      split_tf32(x[i].z, h.z, l.z);
+      split_tf32(x[i].w, h.w, l.w);
+      const uint32_t off = swz32(RS, r, c);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of an fp32 operand in device memory (rows `stride`
+// entries apart, the head dim contiguous and 16-byte aligned; rows at or
+// past `seq` read as zeros) into hi and lo tiles, as split_rows, 8
+// chunks a thread in flight.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_tf32(uint8_t* hi, uint8_t* lo,
+                                           const float* __restrict__ src,
+                                           int64_t stride, int r0, int seq,
+                                           int tid) {
+  split_rows<D, ROWS, 8, ROWS>(hi, lo, [&](int r, int c) {
+    return r0 + r < seq ? __ldg(reinterpret_cast<const float4*>(
+                              src + (int64_t)(r0 + r) * stride + 4 * c))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }, tid);
+}
+
+// A raw stage of two fp32 operands in shared memory: ROWS rows of
+// [DA entries of the first | DB of the second | 4 of padding], so that
+// 8 rows' chunks at one column fall in distinct banks, then 2 * ROWS
+// fp32 side values.
+template <int DA, int DB, int ROWS>
+__host__ __device__ constexpr int raw_floats() {
+  return ROWS * (DA + DB + 4) + 2 * ROWS;
+}
+
+// Rows [r0, r0 + ROWS) of two operands (a: DA entries a row, b: DB; rows
+// `as` and `bs` entries apart) into the raw stage at shared address dst
+// by cp.async, 16 bytes a thread, zero-filled past `seq`; waited for with
+// cp_async_wait_all.
+template <int DA, int DB, int ROWS>
+__device__ __forceinline__ void fetch_rows(uint32_t dst,
+                                           const float* __restrict__ a,
+                                           int64_t as,
+                                           const float* __restrict__ b,
+                                           int64_t bs, int r0, int seq,
+                                           int tid) {
+  constexpr int kCa = DA / 4, kC = (DA + DB) / 4, kStride = DA + DB + 4;
+#pragma unroll 2
+  for (int idx = tid; idx < ROWS * kC; idx += 128) {
+    const int r = idx / kC, c = idx - r * kC;
+    const bool ok = r0 + r < seq;
+    const int64_t row = ok ? r0 + r : 0;
+    const float* src = c < kCa ? a + row * as + 4 * c
+                               : b + row * bs + 4 * (c - kCa);
+    cp_async16(dst + (uint32_t)(r * kStride + 4 * c) * 4u, src, ok);
+  }
+}
+
+// Columns [OFF, OFF + D) of a raw stage (rows STRIDE entries apart) into
+// a pair tile [D / 8][hi: ROWS rows, lo: ROWS rows][32 B], 4 chunks a
+// thread at a time: a k8 slice's hi rows are the B operand of an N = ROWS
+// product, its hi and lo rows together that of an N = 2 ROWS product,
+// which reads A once for hi_a hi_b and hi_a lo_b.
+template <int D, int ROWS, int STRIDE, int OFF>
+__device__ __forceinline__ void split_raw(uint8_t* pair, const float* raw,
+                                          int tid) {
+  split_rows<D, ROWS, 4, 2 * ROWS>(pair, pair + ROWS * 32, [&](int r, int c) {
+    return *reinterpret_cast<const float4*>(raw + r * STRIDE + OFF + 4 * c);
+  }, tid);
+}
+
+// The same columns transposed: hi and lo tiles [ROWS / 8][D][32 B] whose
+// row d holds entry d of each raw row, the K-major B operand of a product
+// over the ROWS rows whose A operand is an accumulator (frag_tf32):
+// within each block of 8, position j holds raw row 2 j (j < 4) or
+// 2 (j - 4) + 1.  The 4 threads of a warp that hold one row's 4 chunks
+// store their entries in a rotated order, so that a warp's 32 stores fall
+// in distinct banks.
+template <int D, int ROWS, int STRIDE, int OFF>
+__device__ __forceinline__ void split_raw_t(uint8_t* hi, uint8_t* lo,
+                                            const float* raw, int tid) {
+  constexpr int kTotal = ROWS * D / 4;
+  static_assert(D % 8 == 0 && ROWS % 8 == 0 && (D / 4) % 4 == 0, "tile");
+#pragma unroll
+  for (int i0 = 0; i0 < kTotal; i0 += 4 * 128) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = i0 + i * 128 + tid;
+      int r, c;
+      chunk_of<D, ROWS>(idx, r, c);
+      if (idx < kTotal)
+        x[i] = *reinterpret_cast<const float4*>(raw + r * STRIDE + OFF
+                                                + 4 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = i0 + i * 128 + tid;
+      if (idx >= kTotal) break;
+      int r, c;
+      chunk_of<D, ROWS>(idx, r, c);
+      const int a = r & 7;
+      const int key = (r & ~7) | ((a & 1) << 2) | (a >> 1);
+      const uint32_t base = (uint32_t)(key >> 3) * D * 32u
+                            + (uint32_t)(key & 3) * 4u;
+      const uint32_t half = (uint32_t)(key >> 2) & 1u;
+#pragma unroll
+      for (int e0 = 0; e0 < 4; ++e0) {
+        const int e = (e0 + c) & 3;
+        const float val = e == 0 ? x[i].x : e == 1 ? x[i].y
+                          : e == 2 ? x[i].z : x[i].w;
+        const int d = 4 * c + e;
+        const uint32_t off = base + (uint32_t)d * 32u
+                             + ((half ^ (((uint32_t)d >> 2) & 1u)) << 4);
+        uint32_t h, l;
+        split_tf32(val, h, l);
+        *reinterpret_cast<uint32_t*>(hi + off) = h;
+        *reinterpret_cast<uint32_t*>(lo + off) = l;
+      }
+    }
+  }
+}
+
+// D (64 x 16, fp32) (+)= A (64 x 8, tf32, shared, K-major) x
+// B (8 x 16, tf32, shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) (+)= A (64 x 8, tf32, shared, K-major) x
+// B (8 x 32, tf32, shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 8, tf32, shared, K-major) x
+// B (8 x 64, tf32, shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 8, tf32, shared, K-major) x
+// B (8 x 128, tf32, shared, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 8, tf32, registers) x B (8 x 32, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 8, tf32, registers) x B (8 x 64, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 80, fp32) += A (64 x 8, tf32, registers) x B (8 x 80, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[40],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 96, fp32) += A (64 x 8, tf32, registers) x B (8 x 96, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 8, tf32, registers) x B (8 x 128, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 }  // namespace wg

@@ -9,13 +9,19 @@ card), and of the reference's jnp VJP ``_flash_vjp_bwd``
 Model code calls ``ops.flash_attention``, which routes a CUDA tensor
 here and a CPU tensor to the plain versions in ``ref.py``.
 
-Two routes, by dtype, in the forward and in the backward alike: bf16
-runs on the tensor cores (``wgmma``; the backward in three launches:
-dq, dk/dv partials per query head, their sum over each GQA group), fp32
-on the CUDA cores in IEEE fp32, which the card-vs-CPU agreement of fp32
-models needs (TF32 or bf16 products would not hold its bounds).  A bf16
-call the tensor-core kernels cannot take raises; it never goes to the
-fp32 kernels or to the plain version.
+Two routes, by dtype, in the forward and in the backward alike, both on
+the tensor cores (``wgmma``).  bf16: products of bf16 values (the
+backward in three launches: dq, dk/dv partials per query head, their
+sum over each GQA group).  fp32: split TF32, each operand carried as
+``hi = tf32(x)`` and ``lo = tf32(x - hi)`` and each product taken as
+``lo hi + hi lo + hi hi``, three TF32 products summed in fp32 (the
+backward in two launches: dq, then dk/dv summed over each GQA group),
+which holds fp32 models' card-vs-CPU bounds where one TF32 product would
+not: in ``tests/test_torch_kernels.py``'s emulation one TF32 product
+misses by 9.1e-4 where the split reads 8.3e-7, and on an H100 the
+kernels read 1.4e-6 to 5.7e-6 of each output's max|plain|.  Both read
+16-byte aligned operands; a call the kernels cannot take raises: it
+never goes to the other route or to the plain version.
 
 Both take a value head dim of its own (MLA's q and k carry the
 decoupled rope channels on top of v's): the (DQK, DV) pairs of
@@ -94,13 +100,16 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _check_aligned(fn: str, **operands: torch.Tensor):
-    """The tensor-core routes read 16-byte aligned operands whose (b, s,
-    h) strides are multiples of 8 elements; raise on any other."""
+    """Both routes read 16-byte aligned operands whose (b, s, h) strides
+    are whole 16-byte chunks (multiples of 8 bf16 or 4 fp32 elements);
+    raise on any other."""
     for name, t in operands.items():
-        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) % per16 for i in range(3)):
             raise ValueError(
-                f"{fn} on bf16 takes 16-byte aligned operands with (b, s, "
-                f"h) strides that are multiples of 8: {name} starts at "
+                f"{fn} on {str(t.dtype).replace('torch.', '')} takes "
+                f"16-byte aligned operands with (b, s, h) strides that are "
+                f"multiples of {per16}: {name} starts at "
                 f"{t.data_ptr() % 16} mod 16 with strides {t.stride()[:3]}")
 
 
@@ -112,16 +121,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through their strides (the head dim must be contiguous) -> (B,S,H,Dv)
     contiguous in q's dtype, and with
     ``want_lse`` also each row's log-sum-exp (B,H,S) fp32 for the
-    backward.  ``window`` 0 means no sliding window.  bf16 operands must
-    start on 16 bytes and have (b, s, h) strides that are multiples of 8
-    elements."""
+    backward.  ``window`` 0 means no sliding window.  Operands must start
+    on 16 bytes and have (b, s, h) strides that are whole 16-byte chunks
+    (multiples of 8 bf16 or 4 fp32 elements)."""
     global launches
     _check("flash_attention_cuda", q, k, v)
     dev = q.device
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[3]
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash_attention_cuda", q=q, k=k, v=v)
+    _check_aligned("flash_attention_cuda", q=q, k=k, v=v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
@@ -151,13 +159,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The gradient of :func:`flash_attention_cuda`: q, k, v as the
     forward took them, its ``out`` and ``lse``, and ``dout`` (B,S,H,Dv) ->
     (dq (B,S,H,D), dk (B,S,Hkv,D), dv (B,S,Hkv,Dv)) contiguous in q's
-    dtype, dk and dv summed over the query heads of each kv head.  bf16
-    runs on the tensor cores in three launches (dq with each row's
-    ``rowsum(dout * out)``, dk and dv as fp32 partials per query head,
-    their sum over each kv head's group) and takes operands as the
-    forward's bf16 route does.  fp32 runs on the CUDA cores in two
-    launches (dq, then dk and dv).  No atomics, so repeated calls give the
-    same bits.  Takes the forward's (D, Dv) pairs,
+    dtype, dk and dv summed over the query heads of each kv head.  Both
+    dtypes run on the tensor cores: bf16 in three launches (dq with each
+    row's ``rowsum(dout * out)``, dk and dv as fp32 partials per query
+    head, their sum over each kv head's group); fp32 in split TF32 in
+    two launches (dq, then dk and dv summed over the group in
+    registers).  Both take operands as the forward does.  No atomics, so repeated
+    calls give the same bits.  Takes the forward's (D, Dv) pairs,
     :data:`HEAD_DIM_PAIRS`: any other raises ``ValueError`` before a
     launch, with no plain fallback."""
     global bwd_launches
@@ -182,9 +190,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_aligned("flash_attention_bwd_cuda", q=q, k=k, v=v, out=out,
-                       dout=dout)
+    _check_aligned("flash_attention_bwd_cuda", q=q, k=k, v=v, out=out,
+                   dout=dout)
     lse = lse.contiguous()
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=dev)

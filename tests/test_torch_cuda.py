@@ -981,6 +981,54 @@ def test_backward_kernels_repeat_bitwise(cuda_device, kernel, rng):
             assert torch.equal(g1, g2)
 
 
+# fp32 backward cases whose key tiles see more than 256 queries of a head
+# (so dk and dv leave the accumulators more than once) on both warpgroups:
+# GQA 5:1 with a window, the MLA pair, MQA 7:1 full
+FLASH_BWD_F32_LONG = [(1, 25, 5, 1100, 64, True, 300),
+                      (1, 4, 4, 1100, 96, 64, True, 0),
+                      (1, 7, 1, 600, 80, 64, False, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_F32_LONG)
+def test_flash_bwd_kernel_fp32_repeats_bitwise_over_flushes(cuda_device, case,
+                                                            rng):
+    """B5-bwd's fp32 route over long query ranges: within 2e-5 of each
+    gradient's scale of the plain backward, and two calls give the same
+    bits (each block sums its warpgroups' partial dK and dV in a fixed
+    order, no atomics)."""
+    q, k, v, out, lse, dout, kw = _flash_bwd_inputs(case, torch.float32, rng,
+                                                    cuda_device)
+    first, second = (flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+                     for _ in range(2))
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g1, g2, w in zip(first, second, want):
+        assert torch.equal(g1, g2)
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g1 - w).abs().max()) / scale <= 2e-5
+
+
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_flash_kernels_fp32_refuse_misaligned(cuda_device, fault):
+    """The fp32 route reads 16-byte chunks too: an fp32 q that starts off
+    16 bytes, or whose (b, s, h) strides are not multiples of 4 elements,
+    raises before any launch of the forward or the backward."""
+    if fault == "pointer":
+        q = torch.zeros(2 * 64 * 2 * 64 + 1, device=cuda_device)[1:].view(
+            2, 64, 2, 64)
+    else:
+        q = torch.zeros(2, 64, 2, 66, device=cuda_device)[..., :64]
+    k = torch.zeros(2, 64, 1, 64, device=cuda_device)
+    out = torch.zeros(2, 64, 2, 64, device=cuda_device)
+    lse = torch.zeros(2, 2, 64, device=cuda_device)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, k, k, causal=True, window=0, scale=0.125)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd_cuda(q, k, k, out, lse, out, causal=True,
+                                 window=0, scale=0.125)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == before
+
+
 @pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
 @pytest.mark.parametrize("mode", ["backward", "func_grad"])
 def test_bf16_function_grads_on_card_match_plain(cuda_device, kernel, mode,

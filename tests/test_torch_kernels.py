@@ -786,6 +786,195 @@ def _flash_bwd_emulation_check(case, rng):
     assert max(devs) <= 2e-2
 
 
+def _tf32(x):
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: 10 explicit mantissa
+    bits, to nearest with ties away from zero, by integer ops on the fp32
+    bits (the low 13 bits cleared)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = (u & 0x80000000) | mag
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+        torch.int32).view(torch.float32)
+
+
+def _mm3(a, b, *, single=False):
+    """``a @ b`` as B5's fp32 routes take it on the tensor cores: each
+    operand split as hi = tf32(x), lo = tf32(x - hi) and the product
+    (lo_a hi_b + hi_a lo_b) + hi_a hi_b, the small terms first (the
+    kernels' S and dP sum the three as separate products; P V, dQ, dK
+    and dV in one accumulator); with ``single`` one TF32 product, hi_a
+    hi_b."""
+    ah, bh = _tf32(a), _tf32(b)
+    if single:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+# the tiles of B5's fp32 kernels at each (Dqk, Dv) pair: keys a forward
+# tile, keys a dq tile, queries a dk/dv tile (16 elsewhere)
+F32_TILES = {(32, 32): (64, 32, 32), (64, 64): (32, 16, 16),
+             (128, 128): (32, 16, 16)}
+
+
+def _flash_split_tf32_emulation(q, k, v, *, causal, window, scale,
+                                single=False):
+    """The arithmetic of B5's fp32 route, in plain PyTorch on (B,S,H,D)
+    fp32 tensors: key tiles of the kernel's size, S and P V in split TF32
+    (P split as it leaves the softmax), the online softmax in fp32 exp2
+    with ``scale * log2(e)`` folded in, l summed from the fp32 p; with
+    ``single`` one TF32 product in place of the three.  Test-only: the
+    kernel's numeric design, checked on the CPU."""
+    b, s, h, dqk = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    tile = F32_TILES.get((dqk, dv), (16,))[0]
+    qf = q.transpose(1, 2)
+    kf = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    vf = v.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    c = scale * 1.4426950408889634
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, dv))
+    for k0 in range(0, s, tile):
+        kpos = torch.arange(k0, min(k0 + tile, s))[None, :]
+        mask = torch.ones(s, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        t = _mm3(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2),
+                 single=single) * c
+        t = torch.where(mask, t, -1e30)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(mask, torch.exp2(t - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3(p, vf[:, :, k0:k0 + tile], single=single)
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).transpose(1, 2)
+
+
+def _flash_bwd_split_tf32_emulation(q, k, v, out, lse, dout, *, causal,
+                                    window, scale):
+    """The arithmetic of B5's backward on its fp32 route, in plain
+    PyTorch on (B,S,H,D) fp32 tensors and the (B,H,S) lse: S and dP in
+    split TF32, delta = rowsum(dO o O), P = exp2(S scale log2(e) - lse
+    log2(e)), dS = P (dP - delta) scale, split as they leave the
+    registers; dQ summed over key tiles of the kernel's size, dK and dV
+    over query tiles of each query head of a kv head's group in order,
+    their sums leaving the accumulator every 256 queries.  Test-only."""
+    b, s, h, dqk = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    _, keys, queries = F32_TILES.get((dqk, dv), (16, 16, 16))
+    log2e = 1.4426950408889634
+    qf, dof, of = (t.transpose(1, 2) for t in (q, dout, out))
+    kf, vf = (t.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+              for t in (k, v))
+    pos = torch.arange(s)
+    mask = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    t = _mm3(qf, kf.transpose(-1, -2)) * (scale * log2e)
+    p = torch.where(mask, torch.exp2(t - lse[..., None] * log2e), 0.0)
+    delta = torch.sum(dof * of, dim=-1, keepdim=True)
+    ds = p * (_mm3(dof, vf.transpose(-1, -2)) - delta) * scale
+    dq = sum(_mm3(ds[..., k0:k0 + keys], kf[:, :, k0:k0 + keys])
+             for k0 in range(0, s, keys))
+    grads = []
+    for a, x in ((ds, qf), (p, dof)):      # dK from dS^T Q, dV from P^T dO
+        a = a.reshape(b, hkv, h // hkv, s, s)
+        x = x.reshape(b, hkv, h // hkv, s, x.shape[-1])
+        total = torch.zeros(b, hkv, s, x.shape[-1])
+        part = torch.zeros_like(total)
+        for g in range(h // hkv):
+            for q0 in range(0, s, queries):
+                part = part + _mm3(a[:, :, g, q0:q0 + queries].transpose(
+                    -1, -2), x[:, :, g, q0:q0 + queries])
+                if (q0 + queries) % 256 == 0:
+                    total, part = total + part, torch.zeros_like(part)
+        grads.append((total + part).transpose(1, 2))
+    return dq.transpose(1, 2), grads[0], grads[1]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+def test_flash_split_tf32_arithmetic_matches_pallas(b, hq, hkv, s, d,
+                                                    causal, window, rng):
+    """B5's fp32 route takes its products in split TF32: its arithmetic,
+    in plain PyTorch, against the Pallas kernel in interpret mode on fp32
+    inputs within the reference's fp32 bound, 2e-5 abs + rel."""
+    q, k, v = _qkv(b, hq, hkv, s, d, rng)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, interpret=True))
+    got = _flash_split_tf32_emulation(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, window=window, scale=d ** -0.5).numpy()
+    print(f"B5 split-TF32 arithmetic vs pallas "
+          f"{(b, hq, hkv, s, d, causal, window)} fp32: "
+          f"{float(np.max(np.abs(got - want))):.3e}")
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_one_tf32_product_breaks_the_fp32_bound(rng):
+    """The witness for the split: the same route with one TF32 product
+    (hi x hi) in place of three misses the 2e-5 bound by ~50x on the
+    reference grid's first case, where the split holds it."""
+    b, hq, hkv, s, d, causal, window = FLASH_CASES[0]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, hq, hkv, s, d, rng))
+    want = ref.flash_attention_fwd_ref(q.double(), k.double(), v.double(),
+                                       causal=causal, window=window,
+                                       scale=d ** -0.5)[0]
+    devs = [float((_flash_split_tf32_emulation(
+        q, k, v, causal=causal, window=window, scale=d ** -0.5,
+        single=single).double() - want).abs().max())
+        for single in (False, True)]
+    print(f"B5 fp32 route against float64: split TF32 {devs[0]:.3e}, one "
+          f"TF32 product {devs[1]:.3e}")
+    assert devs[0] <= 2e-5 < 2e-4 <= devs[1]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES + [
+    (b, s, hq, hkv, dqk, dv, causal, window)
+    for b, s, hq, hkv, dqk, dv, causal, window in FLASH_BWD_PAIR_CASES])
+def test_flash_bwd_split_tf32_arithmetic_matches_jax_vjp(case, rng):
+    """B5's backward on its fp32 route: its arithmetic, in plain PyTorch
+    from the split-TF32 forward's output, against ``jax.vjp`` of the
+    reference's ``chunked_attention`` on the same seeded fp32 inputs,
+    within 2e-5 of each gradient's max|reference|; the reference grid and
+    the zoo's pairs (head dim 80, v at a head dim of its own)."""
+    if len(case) == 7:
+        b, s, hq, hkv, d, causal, window = case
+        dqk = dv = d
+    else:
+        b, s, hq, hkv, dqk, dv, causal, window = case
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, hq, dqk), (b, s, hkv, dqk),
+                             (b, s, hkv, dv)))
+    dout = rng.standard_normal((b, s, hq, dv)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    _, vjp = jax.vjp(lambda q, k, v: chunked_attention(
+        q, k, v, pos, pos, causal=causal, window=window, scale=dqk ** -0.5,
+        chunk=64), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    qt, kt, vt, dt = (torch.from_numpy(a) for a in (q, k, v, dout))
+    kw = dict(causal=causal, window=window, scale=dqk ** -0.5)
+    out = _flash_split_tf32_emulation(qt, kt, vt, **kw)
+    _, lse = ref.flash_attention_fwd_ref(qt, kt, vt, **kw)
+    got = _flash_bwd_split_tf32_emulation(qt, kt, vt, out, lse, dt, **kw)
+    devs = []
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        devs.append(float(np.max(np.abs(g.numpy() - w)))
+                    / float(np.max(np.abs(w))))
+    print(f"B5 backward split-TF32 arithmetic vs jax.vjp {case} fp32: dq, "
+          f"dk, dv {['%.3e' % e for e in devs]} of max|reference|")
+    assert max(devs) <= 2e-5
+
+
 # ---------------------------------------------------------------------------
 # B6: the SSD scan (the reference's grid, tests/test_kernels.py)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Device time of one of the port's kernels (bf16) at one shape, in the
-tree given by ``--root``, so that two revisions of its CUDA source can be
-compared on one card.
+"""Device time of one of the port's kernels at one shape and dtype, in
+the tree given by ``--root``, so that two revisions of its CUDA source can
+be compared on one card.
 
 Builds only the kernel's own source of that tree (into its own
 ``kernels/build/``), times ``--calls`` back-to-back calls between two CUDA
@@ -12,7 +12,7 @@ machine session:
     python tools/time_kernel.py --root checkout/parent flash_attention
     python tools/time_kernel.py --root . flash_attention
 
-Kernels and their default shapes:
+Kernels and their default shapes (bf16, the default ``--dtype``):
 
 - ``flash_attention`` (B5): hymba-1.5b's prefill, ``b,s,hq,hkv,dqk,dv``
   = 4,2048,25,5,64,64, causal with a 1024-token window;
@@ -22,6 +22,12 @@ Kernels and their default shapes:
   4,2048,50,64,16,256;
 - ``ssd_scan_bwd`` (B6-bwd, from the states the forward kept): hymba's
   training step, 1,4096,50,64,16,256.
+
+With ``--dtype float32`` B5 and B5-bwd default to the federated
+hymba-1.5b round's folded batch (4 clients x 4 documents), 16,2048,25,5,
+64,64 with the 1024-token window; the minicpm3-4b round's (4 clients x 2
+documents, MLA's pair, causal) is ``--shape 8,2048,40,40,96,64 --window
+0``.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ SHAPES = {"flash_attention": "4,2048,25,5,64,64",
           "flash_attention_bwd": "1,4096,25,5,64,64",
           "ssd_scan": "4,2048,50,64,16,256",
           "ssd_scan_bwd": "1,4096,50,64,16,256"}
+SHAPES_F32 = {"flash_attention": "16,2048,25,5,64,64",
+              "flash_attention_bwd": "16,2048,25,5,64,64"}
 # the sources each kernel's call builds (the backward reads the states
 # the forward kept)
 SOURCES = {"flash_attention": ("flash_attention",),
@@ -46,10 +54,10 @@ SOURCES = {"flash_attention": ("flash_attention",),
 def _call(kernel, shape, args, torch, dev):
     """The kernel's call on inputs drawn from seed 0."""
     g = torch.Generator().manual_seed(0)
-    bf = torch.bfloat16
+    dtype = getattr(torch, args.dtype)
 
     def randn(*s):
-        return torch.randn(*s, generator=g).to(dev, bf)
+        return torch.randn(*s, generator=g).to(dev, dtype)
     if kernel.startswith("flash_attention"):
         from repro_torch.kernels.flash_attention import (
             flash_attention_bwd_cuda, flash_attention_cuda)
@@ -84,6 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("kernel", choices=sorted(SHAPES))
     ap.add_argument("--root", default=".")
     ap.add_argument("--shape", default=None, help="see the module docstring")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     ap.add_argument("--causal", type=int, default=1)
     ap.add_argument("--window", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=50)
@@ -95,7 +105,10 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    shape = [int(v) for v in (args.shape or SHAPES[args.kernel]).split(",")]
+    default = SHAPES_F32.get(args.kernel) if args.dtype == "float32" \
+        else None
+    shape = [int(v) for v in (args.shape or default
+                              or SHAPES[args.kernel]).split(",")]
     _build.SOURCES = SOURCES[args.kernel]
     call = _call(args.kernel, shape, args, torch, torch.device("cuda"))
     for _ in range(10):
@@ -111,7 +124,9 @@ def main(argv=None) -> int:
         t1.synchronize()
         reps.append(t0.elapsed_time(t1) * 1e3 / args.calls)
     print(json.dumps({"root": args.root, "kernel": args.kernel,
-                      "shape": shape, "us_per_call": statistics.median(reps),
+                      "shape": shape, "dtype": args.dtype,
+                      "causal": args.causal, "window": args.window,
+                      "us_per_call": statistics.median(reps),
                       "reps_us": reps,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
