@@ -935,9 +935,11 @@ B6_CASES = [  # (b, s, h, p, n, chunk, dtype)
     (2, 96, 16, 32, 16, 64, torch.float32),         # reduced hymba
     (1, 100, 2, 16, 8, 32, torch.float32),          # ragged tail
     (1, 64, 1, 64, 128, 64, torch.bfloat16),        # N > 16
-    # mamba2-1.3b's width (64 heads of P=64, N=128, chunk 256): the
-    # tensor-core route only (the fp32 kernel has not the shared memory)
+    # mamba2-1.3b's width (64 heads of P=64, N=128, chunk 256) on both
+    # routes, and N=128 at chunk 256 with a ragged tail in fp32
     (1, LM_PROMPT, 64, 64, 128, 256, torch.bfloat16),
+    (1, LM_PROMPT, 64, 64, 128, 256, torch.float32),
+    (2, 520, 8, 32, 128, 256, torch.float32),
 ]
 # hymba-1.5b training at the reference's train_4k shape (sequence 4096),
 # its global batch of 256 cut to 1 for one card; 4 sgd steps
@@ -966,6 +968,8 @@ B6_BWD_CASES = [  # (b, s, h, p, n, chunk, dtype); h_last gets a cotangent
     (1, 128, 2, 64, 64, 64, FP32), (1, 128, 2, 64, 64, 64, BF16),
     (1, 200, 2, 64, 128, 128, BF16),
     (1, LM_PROMPT, 64, 64, 128, 256, BF16),   # mamba2-1.3b's width
+    (1, LM_PROMPT, 64, 64, 128, 256, FP32),
+    (2, 520, 8, 16, 128, 256, FP32),          # N=128 at chunk 256, ragged
 ]
 
 
@@ -1287,9 +1291,9 @@ def _kernel_b6(g, dev):
     log(f"B6 ssd_scan: {len(B6_CASES)} shapes (the hymba prefill's (4, 2048, "
         f"50 heads, P=64, N=16, chunk 256) in bf16 and fp32, reduced hymba, "
         f"ragged, N=128, mamba2-1.3b's (2048, 64 heads, P=64, N=128, chunk "
-        f"256) in bf16; x/B/C strided; bf16 on the tensor cores, fp32 on "
-        f"the CUDA cores): max |kernel - plain| {errs} (bounds 1e-4 fp32, "
-        f"2e-2 bf16, of max|plain|)")
+        f"256) in both; x/B/C strided; bf16 on the tensor cores, fp32 on "
+        f"them in split TF32): max |kernel - plain| {errs} (bounds 1e-4 "
+        f"fp32, 2e-2 bf16, of max|plain|)")
     b, s, h, p, n, chunk, dtype = B6_CASES[0]
     x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
     rec = {"name": "ssd_scan", "route": "cuda",
@@ -1298,10 +1302,14 @@ def _kernel_b6(g, dev):
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
            "design": "bf16: wgmma in three launches (ssd_chunk_state_kernel,"
                      " ssd_state_pass_kernel, ssd_chunk_scan_kernel); fp32: "
-                     "ssd_scan_kernel on the CUDA cores",
+                     "split TF32 on wgmma in three launches "
+                     "(ssd_chunk_state_f32_kernel, ssd_state_pass_kernel, "
+                     "ssd_chunk_scan_f32_kernel)",
            "ptxas": _ptxas_record("ssd_scan", ("ssd_chunk_", "ssd_state_")),
            "smem_bytes": _ssd_smem({"hymba": (p, n, chunk, 1),
-                                    "mamba2": (64, 128, 256, 1)}),
+                                    "mamba2": (64, 128, 256, 1),
+                                    "fp32_hymba": (p, n, chunk, 0),
+                                    "fp32_mamba2": (64, 128, 256, 0)}),
            "library": "none: no single PyTorch call computes the SSD scan"}
     # x, B, C (bf16) and dt, a (fp32) read once, y (bf16) and h_last (fp32)
     # written once; per (batch, head, chunk) the lower triangle of C B^T
@@ -1324,13 +1332,15 @@ def _kernel_b6(g, dev):
     log(f"  ssd_scan bf16 launches at the path's shape (device us/call): "
         + ", ".join(f"{k} {v:.2f}" for k, v in by.items()))
     del x, dt, a, bb, cc
-    x, dt, a, bb, cc = _ssd_inputs(g, dev, 1, LM_PROMPT, 64, 64, 128,
-                                   torch.bfloat16)
-    rec["mamba2_ms"] = device_ms(lambda: ssd_scan_cuda(x, dt, a, bb, cc,
-                                                       chunk=256))
-    log(f"  ssd_scan at mamba2-1.3b's width (1, 2048, 64 heads, P=64, "
-        f"N=128, chunk 256, bf16): device {rec['mamba2_ms'] * 1e3:.2f} "
-        f"us/call")
+    for key, dtype in (("mamba2_ms", BF16), ("mamba2_fp32_ms", FP32)):
+        x, dt, a, bb, cc = _ssd_inputs(g, dev, 1, LM_PROMPT, 64, 64, 128,
+                                       dtype)
+        rec[key] = device_ms(lambda: ssd_scan_cuda(x, dt, a, bb, cc,
+                                                   chunk=256))
+        log(f"  ssd_scan at mamba2-1.3b's width (1, 2048, 64 heads, P=64, "
+            f"N=128, chunk 256, {str(dtype).replace('torch.', '')}): device "
+            f"{rec[key] * 1e3:.2f} us/call")
+        del x, dt, a, bb, cc
     return rec
 
 
@@ -1648,29 +1658,41 @@ def _kernel_b6_bwd(g, dev):
         raise AssertionError(f"B6 backward on the saved draw: (dx, ddt, da, "
                              f"db, dc) {saved['kernel_vs_plain']}; bound "
                              f"2e-2")
-    da = []
-    for seed in range(40):
-        gs = torch.Generator().manual_seed(seed)
-        x, dt, a, bb, cc = _ssd_inputs(gs, dev, 1, 100, 2, 32, 16, BF16)
-        dy = torch.randn(1, 100, 2, 32, generator=gs).to(dev, BF16)
-        dh = torch.randn(1, 2, 32, 16, generator=gs).to(dev)
-        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=48, keep_states=True)
-        rel = [_rel_err(u, w) for u, w in zip(
-            ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=48),
-            ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, 48))]
-        if not max(rel) <= 2e-2:
-            raise AssertionError(f"B6 backward (1, 100, 2, 32, 16, 48) bf16 "
-                                 f"draw {seed}: (dx, ddt, da, db, dc) "
-                                 f"{rel}; bound 2e-2")
-        da.append(rel[2])
-    da.sort()
-    log(f"  B6 backward (1, 100, 2, 32, 16, 48) bf16 over 40 draws: da of "
-        f"max|plain| min {da[0]:.3e}, median {da[20]:.3e}, max {da[-1]:.3e} "
-        f"(bound 2e-2)")
+    da = {}
+    for dtype, tol in ((BF16, 2e-2), (FP32, 1e-4)):
+        key = str(dtype).replace("torch.", "")
+        da[key] = []
+        for seed in range(40):
+            gs = torch.Generator().manual_seed(seed)
+            x, dt, a, bb, cc = _ssd_inputs(gs, dev, 1, 100, 2, 32, 16, dtype)
+            dy = torch.randn(1, 100, 2, 32, generator=gs).to(dev, dtype)
+            dh = torch.randn(1, 2, 32, 16, generator=gs).to(dev)
+            _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=48,
+                                     keep_states=True)
+            rel = [_rel_err(u, w) for u, w in zip(
+                ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=48),
+                ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, 48))]
+            if not max(rel) <= tol:
+                raise AssertionError(f"B6 backward (1, 100, 2, 32, 16, 48) "
+                                     f"{key} draw {seed}: (dx, ddt, da, db, "
+                                     f"dc) {rel}; bound {tol}")
+            da[key].append(rel[2])
+        da[key].sort()
+        log(f"  B6 backward (1, 100, 2, 32, 16, 48) {key} over 40 draws: da "
+            f"of max|plain| min {da[key][0]:.3e}, median {da[key][20]:.3e}, "
+            f"max {da[key][-1]:.3e} (bound {tol})")
+    # the saved draw read in fp32, against a float64 plain backward
+    saved32 = _b6_bwd_saved_draw(dev, FP32)
+    if not max(saved32["kernel_vs_fp64"]) <= 1e-4:
+        raise AssertionError(f"B6 backward fp32 on the saved draw: (dx, ddt,"
+                             f" da, db, dc) of max|fp64| "
+                             f"{saved32['kernel_vs_fp64']}; bound 1e-4")
     rec_saved = {"da_of_max_plain": saved["kernel_vs_plain"][2],
                  "da_of_max_fp64": saved["kernel_vs_fp64"][2],
                  "plain_da_of_max_fp64": saved["plain_vs_fp64"][2],
-                 "draws_40_da_max": da[-1]}
+                 "draws_40_da_max": da["bfloat16"][-1],
+                 "fp32_of_max_fp64": saved32["kernel_vs_fp64"],
+                 "fp32_draws_40_da_max": da["float32"][-1]}
     b, s, h, p, n, chunk, dtype = B6_BWD_CASES[0]
     x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
     dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
@@ -1682,17 +1704,18 @@ def _kernel_b6_bwd(g, dev):
            "replaces_note": "no TPU kernel: jax.grad of the reference's "
                             "ssd_chunked (B6's backward)",
            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
-           "routes": {"bfloat16": "wgmma", "float32": "simt"},
+           "routes": {"bfloat16": "wgmma", "float32": "split_tf32_wgmma"},
            "design": "bf16: wgmma in four launches (ssd_bwd_rows_tc_kernel, "
                      "ssd_bwd_state_pass_kernel, ssd_bwd_cols_tc_kernel, "
-                     "ssd_bwd_reduce_kernel); fp32: ssd_bwd_rows_kernel and "
-                     "ssd_bwd_cols_kernel on the CUDA cores, with the same "
-                     "state pass and head sums",
-           "ptxas": _ptxas_record("ssd_scan_bwd", ("ssd_bwd_rows_tc",
-                                                   "ssd_bwd_cols_tc")),
+                     "ssd_bwd_reduce_kernel); fp32: split TF32 on wgmma, "
+                     "ssd_bwd_rows_f32_kernel and ssd_bwd_cols_f32_kernel "
+                     "with the same state pass and head sums",
+           "ptxas": _ptxas_record("ssd_scan_bwd", ("ssd_bwd_rows_",
+                                                   "ssd_bwd_cols_")),
            "smem_bytes": _ssd_smem({"hymba": (p, n, chunk, 1),
                                     "mamba2": (64, 128, 256, 1),
-                                    "fp32_hymba": (p, n, chunk, 0)},
+                                    "fp32_hymba": (p, n, chunk, 0),
+                                    "fp32_mamba2": (64, 128, 256, 0)},
                                    backward=True),
            "library": "none: no single PyTorch call computes the SSD scan's "
                       "gradient", "saved_draw": rec_saved}
@@ -1734,7 +1757,7 @@ def _kernel_b6_bwd(g, dev):
     rec["fp32_ms"] = device_ms(
         lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
                                   chunk=chunk))
-    log(f"  ssd_scan backward fp32 (CUDA cores) at {case[:-1]}: device "
+    log(f"  ssd_scan backward fp32 (split TF32) at {case[:-1]}: device "
         f"{rec['fp32_ms'] * 1e3:.2f} us/call")
     del x, dt, a, bb, cc, dy, st
     return rec
@@ -1747,9 +1770,10 @@ B6_BWD_DRAW = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "data", "ssd_scan_bwd_da_draw.pt")
 
 
-def _b6_bwd_saved_draw(dev) -> dict:
-    """B6-bwd on the saved draw against the fp32 plain backward and a
-    float64 plain backward of the same bf16 inputs: per gradient (dx,
+def _b6_bwd_saved_draw(dev, dtype=BF16) -> dict:
+    """B6-bwd on the saved draw (its bf16 inputs, or read in ``dtype``)
+    against the fp32 plain backward and a
+    float64 plain backward of the same inputs: per gradient (dx,
     ddt, da, db, dc) the max |difference| of kernel and plain, kernel and
     float64, plain and float64, each over the latter's max |value|; and
     the two heads' da from all three."""
@@ -1758,9 +1782,9 @@ def _b6_bwd_saved_draw(dev) -> dict:
     d = torch.load(B6_BWD_DRAW, weights_only=True)
     b, s, h, p, n = d["shape"]
     chunk = d["chunk"]
-    xs, bb, cc = d["conv"].to(dev).split([h * p, n, n], dim=-1)
+    xs, bb, cc = d["conv"].to(dev, dtype).split([h * p, n, n], dim=-1)
     x = xs.reshape(b, s, h, p)
-    dt, dy, dh = d["dt"].to(dev), d["dy"].to(dev), d["dh"].to(dev)
+    dt, dy, dh = d["dt"].to(dev), d["dy"].to(dev, dtype), d["dh"].to(dev)
     a = -torch.arange(1, h + 1, dtype=torch.float32).to(dev)
     _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
     got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh, chunk=chunk)
@@ -1776,8 +1800,9 @@ def _b6_bwd_saved_draw(dev) -> dict:
            "plain_vs_fp64": [rel(u, w) for u, w in zip(plain, exact)],
            "da": {"kernel": got[2].tolist(), "plain": plain[2].tolist(),
                   "fp64": exact[2].tolist()}}
-    log(f"  B6 backward on the saved draw {(b, s, h, p, n, chunk)} bf16: "
-        f"(dx, ddt, da, db, dc) of max|.|: {json.dumps(out)}")
+    log(f"  B6 backward on the saved draw {(b, s, h, p, n, chunk)} "
+        f"{str(dtype).replace('torch.', '')}: (dx, ddt, da, db, dc) of "
+        f"max|.|: {json.dumps(out)}")
     return out
 
 
@@ -1891,7 +1916,7 @@ def _kernel_fed_lm(g, dev, records):
                  lambda: ref.flash_attention_fwd_ref(q, k, v, **kw),
                  lambda: sdpa(qt.detach(), kt.detach(), vt.detach(),
                               attn_mask=mask, enable_gqa=True))
-    out["flash_attention"] = rec
+    out["fed_lm"] = {"flash_attention": rec}
     lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     dout_t = dout.transpose(1, 2).contiguous()
     rec = {"shape": [b, s, hq, hkv, d, window], "dtype": "float32",
@@ -1907,53 +1932,71 @@ def _kernel_fed_lm(g, dev, records):
                                                      **kw),
                  lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
                                              retain_graph=True))
-    out["flash_attention_bwd"] = rec
+    out["fed_lm"]["flash_attention_bwd"] = rec
     del q, k, v, dout, o, lse, qt, kt, vt, lib_out, dout_t
-    # -- B6 and its backward, fp32, one client's batch ---------------------
+    # -- B6 and its backward, fp32, one client's batch: hymba's, and a
+    # mamba2-1.3b round's at its full width (N=128) ---------------------
+    from repro_torch.configs import get_config
     _, h, _ = mamba2_dims(cfg)
-    bs, p, n, chunk = FED_LM_BATCH, cfg.ssm.head_dim, cfg.ssm.state_dim, \
-        cfg.ssm.chunk_size
-    x, dt, a, bb, cc = _ssd_inputs(g, dev, bs, s, h, p, n, torch.float32)
-    dy = torch.randn(bs, s, h, p, generator=g).to(dev)
-    y, hl, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
-                              keep_states=True)
-    y_w, hl_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
-    grads = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None, chunk=chunk)
-    grads_w = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None, chunk)
-    torch.cuda.synchronize()
-    e6 = max(_rel_err(y, y_w), _rel_err(hl, hl_w))
-    e6b = max(_rel_err(u, w) for u, w in zip(grads, grads_w))
-    if not (e6 <= 1e-4 and e6b <= 1e-4):
-        raise AssertionError(f"B6 fp32 at the federated LM shape: |kernel - "
-                             f"plain| / max|plain| forward {e6}, backward "
-                             f"{e6b} > 1e-4")
-    del y, hl, y_w, hl_w, grads, grads_w
-    nc = s // chunk
-    tri = chunk * (chunk + 1) // 2
-    rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
-           "route": "simt", "max_rel_err": e6}
-    # x, B, C, dt, a read, y and h_last written once (fp32); the scan's
-    # products as B6's record counts them, at the fp32 CUDA-core peak
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        4 * (2 * bs * s * h * p + 2 * bs * s * n + bs * s * h + h
-             + bs * h * p * n),
-        bs * h * nc * (tri * (2 * n + 2 * p + 2) + chunk * 4 * p * n))
-    _fed_lm_time(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
-                                            keep_states=True),
-                 lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
-    out["ssd_scan"] = rec
-    rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
-           "route": "simt", "max_rel_err": e6b}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        4 * (3 * bs * s * h * p + 4 * bs * s * n + 2 * bs * s * h + 2 * h
-             + bs * h * nc * p * n),
-        bs * h * nc * (tri * (6 * n + 4 * p) + chunk * 8 * p * n))
-    _fed_lm_time(rec, lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st,
-                                                None, chunk=chunk),
-                 lambda: ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None,
-                                              chunk), None)
-    out["ssd_scan_bwd"] = rec
-    del x, dt, a, bb, cc, dy, st
+    m2 = get_config("mamba2-1.3b")
+    _, h2, _ = mamba2_dims(m2)
+    e6s = {}
+    for key, (bs, h, cfg_) in (("fed_lm", (FED_LM_BATCH, h, cfg)),
+                               ("fed_lm_mamba2", (ZOO_FED_BATCH, h2, m2))):
+        p, n, chunk = cfg_.ssm.head_dim, cfg_.ssm.state_dim, \
+            cfg_.ssm.chunk_size
+        x, dt, a, bb, cc = _ssd_inputs(g, dev, bs, s, h, p, n, torch.float32)
+        dy = torch.randn(bs, s, h, p, generator=g).to(dev)
+        y, hl, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                  keep_states=True)
+        y_w, hl_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+        grads = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None, chunk=chunk)
+        grads_w = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None, chunk)
+        torch.cuda.synchronize()
+        e6 = max(_rel_err(y, y_w), _rel_err(hl, hl_w))
+        e6b = max(_rel_err(u, w) for u, w in zip(grads, grads_w))
+        e6s[key] = (e6, e6b)
+        if not (e6 <= 1e-4 and e6b <= 1e-4):
+            raise AssertionError(f"B6 fp32 at {key}'s shape: |kernel - "
+                                 f"plain| / max|plain| forward {e6}, "
+                                 f"backward {e6b} > 1e-4")
+        del y, hl, y_w, hl_w, grads, grads_w
+        nc = s // chunk
+        tri = chunk * (chunk + 1) // 2
+        rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
+               "route": "split_tf32_wgmma", "max_rel_err": e6}
+        # x, B, C, dt, a read, y and h_last written once (fp32); the scan's
+        # products as B6's record counts them, in split TF32 (the fp32
+        # CUDA-core bound beside)
+        split_tf32_bounds(
+            rec, 4 * (2 * bs * s * h * p + 2 * bs * s * n + bs * s * h + h
+                      + bs * h * p * n),
+            bs * h * nc * (tri * (2 * n + 2 * p + 2) + chunk * 4 * p * n))
+        _fed_lm_time(rec, lambda: ssd_scan_cuda(x, dt, a, bb, cc,
+                                                chunk=chunk,
+                                                keep_states=True),
+                     lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk), None)
+        rec["launch_us"] = _device_ops(
+            lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                  keep_states=True))
+        out.setdefault(key, {})["ssd_scan"] = rec
+        rec = {"shape": [bs, s, h, p, n, chunk], "dtype": "float32",
+               "route": "split_tf32_wgmma", "max_rel_err": e6b}
+        # x, dy, dx, B, C, dB, dC, dt, ddt, a, da and the kept states once;
+        # the products as B6-bwd's record counts them, in split TF32
+        split_tf32_bounds(
+            rec, 4 * (3 * bs * s * h * p + 4 * bs * s * n + 2 * bs * s * h
+                      + 2 * h + bs * h * nc * p * n),
+            bs * h * nc * (tri * (6 * n + 4 * p) + chunk * 8 * p * n))
+        _fed_lm_time(rec, lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st,
+                                                    None, chunk=chunk),
+                     lambda: ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None,
+                                                  chunk), None)
+        rec["launch_us"] = _device_ops(
+            lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
+                                      chunk=chunk))
+        out[key]["ssd_scan_bwd"] = rec
+        del x, dt, a, bb, cc, dy, st
     # -- B2 and B4 over the (4, D) message slab -------------------------
     leaves = _fed_lm_leaf_sizes(cfg)
     sizes, names = list(leaves.values()), list(leaves)
@@ -1973,7 +2016,7 @@ def _kernel_fed_lm(g, dev, records):
     if not rec["max_abs_err"] <= 2e-6 * float(w.sum()):
         raise AssertionError(f"B2 at (4, {dm}): |kernel - plain| "
                              f"{rec['max_abs_err']}")
-    out["fed_weighted_sum"] = rec
+    out["fed_lm"]["fed_weighted_sum"] = rec
     del got
     err = torch.randn(kc, dm, generator=torch.Generator(
         device=dev).manual_seed(2), device=dev) * 1e-4
@@ -2002,24 +2045,33 @@ def _kernel_fed_lm(g, dev, records):
     _fed_lm_time(rec, lambda: fed_topk_ef_cuda(msgs, err, ids, table),
                  lambda: topk_plain(msgs, err, ids, table), None,
                  plain_iters=2)
-    out["fed_topk_ef"] = rec
+    out["fed_lm"]["fed_topk_ef"] = rec
     del msgs, err
     torch.cuda.empty_cache()
-    for name, rec in out.items():
-        by_name[name]["fed_lm"] = rec
-        lib = "none" if rec["library_ms"] is None \
-            else f"{rec['library_ms'] * 1e3:.2f} us"
-        core = "" if "bound_cuda_core_ms" not in rec else \
-            f", CUDA-core bound {rec['bound_cuda_core_ms'] * 1e3:.2f} us"
-        log(f"{name} at the federated LM path's shape {rec['shape']} "
-            f"{rec['dtype']}: device {rec['ms'] * 1e3:.2f} us/call, plain "
-            f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
-            f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}){core}")
+    for key, recs in out.items():
+        where = "the federated LM path's shape" if key == "fed_lm" \
+            else "a mamba2-1.3b round's client shape"
+        for name, rec in recs.items():
+            by_name[name][key] = rec
+            lib = "none" if rec["library_ms"] is None \
+                else f"{rec['library_ms'] * 1e3:.2f} us"
+            core = "" if "bound_cuda_core_ms" not in rec else \
+                f", CUDA-core bound {rec['bound_cuda_core_ms'] * 1e3:.2f} us"
+            by = "" if "launch_us" not in rec else "; device us/call by " \
+                "launch: " + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in
+                                      rec["launch_us"].items())
+            log(f"{name} at {where} {rec['shape']} {rec['dtype']}: device "
+                f"{rec['ms'] * 1e3:.2f} us/call, plain "
+                f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}){core}"
+                f"{by}")
     log(f"  fed LM kernels against their plain versions: B5 fp32 {e5:.3e}, "
-        f"B5-bwd {e5b:.3e} (bound 2e-5), B6 {e6:.3e}, B6-bwd {e6b:.3e} "
-        f"(bound 1e-4), of max|plain|; B2 "
-        f"{out['fed_weighted_sum']['max_abs_err']:.3e}; "
-        f"B4 bitwise on segments of {out['fed_topk_ef']['bitwise_segments']}"
+        f"B5-bwd {e5b:.3e} (bound 2e-5); B6, B6-bwd fp32 "
+        + ", ".join(f"{k} {f:.3e}, {b_:.3e}" for k, (f, b_) in e6s.items())
+        + f" (bound 1e-4), of max|plain|; B2 "
+        f"{out['fed_lm']['fed_weighted_sum']['max_abs_err']:.3e}; "
+        f"B4 bitwise on segments of "
+        f"{out['fed_lm']['fed_topk_ef']['bitwise_segments']}"
         f"; {time.perf_counter() - t_start:.1f} s for these checks")
 
 
@@ -2041,8 +2093,13 @@ def _ptxas_record(lib: str, prefixes) -> list:
 def _ssd_smem(shapes: dict, backward: bool = False) -> dict:
     """Dynamic shared memory a block of B6 (or of its backward) asks for,
     the larger of its kernels, at each (P, N, chunk, is_bf16)."""
-    from repro_torch.kernels import ssd_scan
-    smem = (ssd_scan._bwd_kernels if backward else ssd_scan._kernels)()[1]
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.load("ssd_scan_bwd" if backward else "ssd_scan")
+    smem = lib.ssd_scan_bwd_smem_bytes if backward \
+        else lib.ssd_scan_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_int64
     return {k: int(smem(*shape)) for k, shape in shapes.items()}
 
 
@@ -4859,29 +4916,28 @@ def _zoo_train(records, arch, depth, remat, totals):
     del prof, st
 
 
-def _zoo_fed_round(totals):
-    """One minicpm3-4b federated round on each exec mode at full width,
-    fp32, cut in depth to ZOO_FED_LAYERS of 62 layers (the bundle's
-    ``init``, ``loss`` and ``loss_sum`` through ``from_spec``'s
-    overrides): ``lm_fedavg`` with ZOO_FED_CLIENTS clients of
-    ZOO_FED_BATCH x ZOO_FED_SEQ-token documents, on the batched path
-    (B5 and its fp32 backward at (96, 64) once per layer, the clients
-    folded into the batch axis) and on the host loop (once per layer and
-    client); ZOO_FED_ROUNDS rounds each, the last traced: wall, busy
-    share, peak memory, finite losses, and the two paths' parameters
-    after the rounds."""
+def _arch_fed_round(arch, what, kernels, totals, bound=None):
+    """One ``arch`` federated round on each exec mode at full width, fp32,
+    cut in depth to ZOO_FED_LAYERS layers (the bundle's ``init``, ``loss``
+    and ``loss_sum`` through ``from_spec``'s overrides): ``lm_fedavg``
+    with ZOO_FED_CLIENTS clients of ZOO_FED_BATCH x ZOO_FED_SEQ-token
+    documents, on the batched path and on the host loop; ZOO_FED_ROUNDS
+    rounds each, the last traced: wall, busy share, peak memory, finite
+    losses, the device ms of each of ``kernels`` ((label, fragments of
+    its kernels' names)), and the two paths' parameters after the rounds
+    (within ``bound`` where one is given)."""
     from repro_torch.api import Federation, scenario_spec, spec_replace
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.models.registry import build_model
-    full = get_config("minicpm3-4b")
+    full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=ZOO_FED_LAYERS)
     bundle = build_model(cfg, dtype=torch.float32)
     t0 = time.perf_counter()
     init = bundle.init(prng.PRNGKey(0, device="cuda"))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    sizes = {"model.arch": "minicpm3-4b", "model.vocab": cfg.vocab_size,
+    sizes = {"model.arch": arch, "model.vocab": cfg.vocab_size,
              "model.layers": ZOO_FED_LAYERS, "model.seq_len": ZOO_FED_SEQ,
              "data.num_clients": ZOO_FED_CLIENTS,
              "data.docs_per_node": ZOO_FED_DOCS,
@@ -4889,14 +4945,13 @@ def _zoo_fed_round(totals):
              "schedule.rounds": ZOO_FED_ROUNDS,
              "execution.batch_size": ZOO_FED_BATCH,
              "execution.learning_rate": FED_LM_LR}
-    log(f"LM zoo federated round: minicpm3-4b at full width (MLA, B5 and "
-        f"its fp32 backward at (96, 64)), fp32 as the reference federates, "
-        f"the seeded init ({t_init:.1f} s); lm_fedavg, {ZOO_FED_CLIENTS} "
-        f"clients of {ZOO_FED_DOCS} documents, batch {ZOO_FED_BATCH} x "
-        f"{ZOO_FED_SEQ} tokens, client sgd lr {FED_LM_LR}; cut: "
-        f"{ZOO_FED_LAYERS}/{full.num_layers} layers ({cfg.num_params()} "
-        f"parameters), {ZOO_FED_ROUNDS} rounds a mode")
-    feds = {}
+    log(f"LM federated round: {arch} at full width ({what}), fp32 as the "
+        f"reference federates, the seeded init ({t_init:.1f} s); "
+        f"lm_fedavg, {ZOO_FED_CLIENTS} clients of {ZOO_FED_DOCS} documents,"
+        f" batch {ZOO_FED_BATCH} x {ZOO_FED_SEQ} tokens, client sgd lr "
+        f"{FED_LM_LR}; cut: {ZOO_FED_LAYERS}/{full.num_layers} layers "
+        f"({cfg.num_params()} parameters), {ZOO_FED_ROUNDS} rounds a mode")
+    feds, out = {}, {}
     for mode in ("vmap", "loop"):
         spec = spec_replace(scenario_spec("lm_fedavg"),
                             {**sizes, "execution.exec_mode": mode})
@@ -4906,7 +4961,7 @@ def _zoo_fed_round(totals):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         walls, counts, by_name = _fed_lm_rounds(
-            fed, ZOO_FED_ROUNDS, f"minicpm3-4b lm_fedavg {mode}",
+            fed, ZOO_FED_ROUNDS, f"{arch} lm_fedavg {mode}",
             traced_last=True)
         peak = torch.cuda.max_memory_allocated()
         for c in counts:
@@ -4915,24 +4970,82 @@ def _zoo_fed_round(totals):
         losses = [h["loss"] for h in fed.history]
         busy = sum(by_name.values()) / 1e6
         if busy <= 0 or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"minicpm3-4b federated {mode}: busy "
-                                 f"{busy}, losses {losses}")
-        b5 = {lab: sum(us for k, us in by_name.items() if key in k) / 1e3
-              for lab, key in (("B5", "flash_fwd"), ("B5-bwd", "flash_bwd"),
-                               ("B2", "weighted_sum"))}
+            raise AssertionError(f"{arch} federated {mode}: busy {busy}, "
+                                 f"losses {losses}")
+        ms = {lab: sum(us for k, us in by_name.items()
+                       if any(f in k for f in frags)) / 1e3
+              for lab, frags in kernels}
         log(f"  {mode}: clients {[c.num_docs for c in fed.engine.clients]} "
             f"documents; rounds " + ", ".join(f"{w:.4f}" for w in walls)
             + f" s (the last traced: device busy {busy:.4f} s = "
-            f"{100 * busy / walls[-1]:.1f}% of its wall; B5 {b5['B5']:.3f} "
-            f"ms, B5-bwd {b5['B5-bwd']:.3f} ms, B2 {b5['B2']:.3f} ms); peak "
-            f"device memory {peak / 2**30:.2f} GiB; losses {losses}; "
-            f"launches a round: {_short_counts(counts[0])}")
+            f"{100 * busy / walls[-1]:.1f}% of its wall; "
+            + ", ".join(f"{lab} {v:.3f} ms" for lab, v in ms.items())
+            + f"); peak device memory {peak / 2**30:.2f} GiB; losses "
+            f"{losses}; launches a round: {_short_counts(counts[0])}")
+        out[mode] = {"walls_s": walls, "busy_s": busy, "peak_gib":
+                     peak / 2**30, "kernel_ms": ms, "losses": losses}
         feds[mode] = fed
     devs = _fed_lm_devs(feds["loop"].params, feds["vmap"].params)
     log(f"  loop vs vmap after {ZOO_FED_ROUNDS} rounds: max |diff| "
-        f"{devs.max():.3e} over {devs.size} parameters")
+        f"{devs.max():.3e} over {devs.size} parameters"
+        + ("" if bound is None else f" (bound {bound})"))
+    if bound is not None and not devs.max() <= bound:
+        raise AssertionError(f"{arch} federated: loop and vmap differ by "
+                             f"{devs.max()} > {bound}")
     del feds, init
     torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_fed_round(totals):
+    """The minicpm3-4b round (:func:`_arch_fed_round`): B5 and its fp32
+    backward at (96, 64) once per layer on the batched path (the clients
+    folded into the batch axis), once per layer and client on the loop."""
+    _arch_fed_round("minicpm3-4b", "MLA, B5 and its fp32 backward at "
+                    "(96, 64)", (("B5", ("flash_fwd",)),
+                                 ("B5-bwd", ("flash_bwd",)),
+                                 ("B2", ("weighted_sum",))), totals)
+
+
+def _mamba2_fed_round(totals):
+    """The mamba2-1.3b round at its full width (d_model 2048, 64 heads of
+    P=64, N=128, chunk 256, vocab 50 280; :func:`_arch_fed_round`): B6 and
+    its fp32 backward (split TF32 on the tensor cores) once per layer and
+    client on both paths, B2 once a round; loop and vmap within 1e-5
+    after the rounds."""
+    return _arch_fed_round(
+        "mamba2-1.3b", "B6 and its fp32 backward at N=128, chunk 256",
+        (("B6", ("ssd_chunk_", "ssd_state_pass")), ("B6-bwd", ("ssd_bwd_",)),
+         ("B2", ("weighted_sum",))), totals, bound=1e-5)
+
+
+def _mamba2_agreement():
+    """A narrow mamba2-1.3b at its real state width and chunk (N=128,
+    chunk 256; 2 layers at d_model 256, 8 heads of P=64) in fp32 from the
+    same weights on the card and on the CPU
+    (``agreement.grads_card_vs_cpu``, 2 x 96 tokens): ``train_loss`` and
+    every gradient leaf within 2e-4; B6 and its backward once per layer
+    on the card, never on the CPU.  A check's launches, not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.agreement import grads_card_vs_cpu
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
+                              d_model=256)
+    c0 = (ssd_scan.launches, ssd_scan.bwd_launches)
+    got = grads_card_vs_cpu(cfg, "cuda")
+    launched = (ssd_scan.launches - c0[0], ssd_scan.bwd_launches - c0[1])
+    worst = max(got["grad_devs"].values())
+    log(f"agreement LM train mamba2-1.3b (2 layers, d_model 256, N=128, "
+        f"chunk 256, fp32, 2 x 96): card vs CPU train_loss "
+        f"{got['loss_dev']:.3e}, gradients max |diff| / max|cpu| over "
+        f"{len(got['grad_devs'])} leaves {worst:.3e} (bound 2e-4); B6, "
+        f"B6-bwd launches {launched}")
+    if launched != (2 * cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"mamba2 agreement: B6 launches {launched}, "
+                             f"want a forward per layer on each of two "
+                             f"passes and a backward per layer")
+    if not (got["loss_dev"] <= 2e-4 and worst <= 2e-4):
+        raise AssertionError("mamba2 agreement: card vs CPU beyond 2e-4")
 
 
 def _zoo_train_agreement():
@@ -4978,16 +5091,20 @@ def _zoo_train_agreement():
 def phase_lm_zoo_train(records):
     """The zoo trains on the card: every arch of :data:`ZOO_TRAIN`
     through the training launcher (:func:`_zoo_train`), the minicpm3-4b
-    federated round on both exec modes (:func:`_zoo_fed_round`), then the
-    seven reduced configs' gradients card against CPU
-    (:func:`_zoo_train_agreement`)."""
+    and mamba2-1.3b federated rounds on both exec modes
+    (:func:`_zoo_fed_round`, :func:`_mamba2_fed_round`), then the seven
+    reduced configs' gradients card against CPU
+    (:func:`_zoo_train_agreement`) and a narrow mamba2-1.3b's at N=128,
+    chunk 256 (:func:`_mamba2_agreement`)."""
     t_phase = time.perf_counter()
     totals = {name: 0 for name in read_counts()}
     for arch, depth, remat in ZOO_TRAIN:
         _zoo_train(records, arch, depth, remat, totals)
         torch.cuda.empty_cache()
     _zoo_fed_round(totals)
+    _mamba2_fed_round(totals)
     _zoo_train_agreement()
+    _mamba2_agreement()
     for r in records:
         r["launches_by_path"]["lm_zoo_train"] = totals[r["name"]]
     log(f"  launches on the zoo's training paths: {json.dumps(totals)}")
@@ -5106,8 +5223,8 @@ def main() -> int:
              "max_abs_err_by_dtype", "pairs", "library", "design", "ptxas",
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
-             "routes", "fp32_case", "fp32_ms", "fed_lm", "zoo", "saved_draw",
-             "fp32_repeat")
+             "routes", "fp32_case", "fp32_ms", "fed_lm", "fed_lm_mamba2",
+             "zoo", "saved_draw", "fp32_repeat", "mamba2_fp32_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

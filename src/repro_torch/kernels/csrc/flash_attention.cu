@@ -189,10 +189,6 @@ constexpr int f32_smem_bytes() {
   return f32_bytes<DQK, DV, f32_keys<DQK, DV>()>();
 }
 
-__device__ __forceinline__ uint8_t* align256(uint8_t* p) {
-  return p + ((256u - (smem_addr(p) & 255u)) & 255u);
-}
-
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,

@@ -247,10 +247,6 @@ __host__ __device__ constexpr int dkdv_f32_queries() {
   return dkdv_f32_bytes<DQK, DV, 32, W>() <= kSmemMax ? 32 : 16;
 }
 
-__device__ __forceinline__ uint8_t* align256(uint8_t* p) {
-  return p + ((256u - (smem_addr(p) & 255u)) & 255u);
-}
-
 // a barrier of warpgroup wg's 128 threads alone (named barrier wg + 1)
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(wg + 1) : "memory");

@@ -1,8 +1,9 @@
-// Shared by the bf16 tensor-core routes of B6's forward (ssd_scan.cu) and
-// its backward (ssd_scan_bwd.cu): the chunk's row tiles and their split
-// over two warpgroups, the loads of dt, x-like and B/C-like rows and of
-// a carried state into the swizzled layouts of wgmma.cuh, the cumulative
-// sum cum = cumsum(dt a) of a chunk, and the decay's monotone factors.
+// Shared by the tensor-core routes of B6's forward (ssd_scan.cu) and its
+// backward (ssd_scan_bwd.cu), bf16 and fp32: the chunk's row tiles and
+// their split over two warpgroups, the loads of dt, x-like and B/C-like
+// rows and of a carried state into the swizzled layouts of wgmma.cuh, the
+// fp32 routes' row loads and held tiles, the cumulative sum cum =
+// cumsum(dt a) of a chunk, and the decay's monotone factors.
 // Every kernel of both routes computes cum here, by the same warp in the
 // same order, so the backward sees the forward's cum to the bit.
 //
@@ -231,6 +232,107 @@ __device__ __forceinline__ void store_state(
           pack_part<REST>(hv[i][1].x, hv[i][1].y),
           pack_part<REST>(hv[i][1].z, hv[i][1].w));
   }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 routes: split TF32 tiles (wgmma.cuh) of one warpgroup's kernels
+// ---------------------------------------------------------------------------
+constexpr int kF32Threads = 128;  // one warpgroup a block
+constexpr int kF32Keys = 32;      // rows of a streamed tile
+
+// Rows [r0, r0 + ROWS) of a chunk's rows of an fp32 operand (row 0 at
+// base, rows `stride` entries apart) as 16-byte chunks (r, c), entries
+// 4c..4c+3, times scale(r): zero at or past `width` entries or `lim` rows
+// (the chunk's end or the sequence's).  The loader of wgmma::split_rows
+// and split_rows_t.
+template <typename Scale>
+struct RowLoad {
+  const float* base;
+  int64_t stride;
+  int r0, lim, width;
+  Scale scale;
+  __device__ __forceinline__ float4 operator()(int r, int c) const {
+    if (r0 + r >= lim || 4 * c >= width)
+      return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 v = __ldg(reinterpret_cast<const float4*>(
+        base + (int64_t)(r0 + r) * stride + 4 * c));
+    const float s = scale(r0 + r);
+    v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+    return v;
+  }
+};
+struct Unit {
+  __device__ __forceinline__ float operator()(int) const { return 1.0f; }
+};
+template <typename Scale = Unit>
+__device__ __forceinline__ RowLoad<Scale> rows_of(const float* base,
+                                                  int64_t stride, int r0,
+                                                  int lim, int width,
+                                                  Scale scale = Scale()) {
+  return RowLoad<Scale>{base, stride, r0, lim, width, scale};
+}
+
+// A streamed tile of ROWS rows of D fp32 entries held in a warpgroup's
+// registers between its load and its split, so that the next tile's loads
+// are in flight while the current tile's products run: chunk i of a
+// thread is the tile's chunk i * 128 + tid (wg::chunk_of).  At N = 128
+// the kernels have no registers to spare for it (the held tiles pushed
+// them to spill: B6 at mamba2-1.3b's width 2.93 -> 3.07 ms, its backward
+// 11.46 -> 11.92 ms, on an H100), so there a tile is loaded just before
+// its split (kHeldAhead).
+template <int NP>
+constexpr bool kHeldAhead = NP <= 64;
+template <int D, int ROWS>
+struct Held {
+  static constexpr int kTotal = ROWS * D / 4, kN = (kTotal + 127) / 128;
+  float4 v[kN];
+
+  template <typename Load>
+  __device__ __forceinline__ void fetch(Load load, int tid) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = i * 128 + tid;
+      int r, c;
+      wg::chunk_of<D, ROWS>(idx, r, c);
+      v[i] = idx < kTotal ? load(r, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  // split into hi and lo tiles [D / 8][RS][32 B] (wg::split_rows's layout)
+  template <int RS>
+  __device__ __forceinline__ void put(uint8_t* hi, uint8_t* lo,
+                                      int tid) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = i * 128 + tid;
+      if (idx >= kTotal) break;
+      int r, c;
+      wg::chunk_of<D, ROWS>(idx, r, c);
+      wg::store_split(hi, lo, RS, r, c, v[i]);
+    }
+  }
+  // split and transposed into [ROWS / 8][D][32 B] (wg::split_rows_t's)
+  template <bool PERM>
+  __device__ __forceinline__ void put_t(uint8_t* hi, uint8_t* lo,
+                                        int tid) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int idx = i * 128 + tid;
+      if (idx >= kTotal) break;
+      int r, c;
+      wg::chunk_of<D, ROWS>(idx, r, c);
+      wg::store_split_t<D, PERM>(hi, lo, r, c, v[i]);
+    }
+  }
+};
+
+// Entry e of row r of a K-major pair of split tiles [D / 8][R][32 B] (hi
+// and lo, as wg::split_rows stages them): the fp32 value to ~2^-22
+__device__ __forceinline__ float tile_value(const uint8_t* hi,
+                                            const uint8_t* lo, int R, int r,
+                                            int e) {
+  const uint32_t off = wg::swz32(R, r, e >> 2) + 4u * (e & 3);
+  return *reinterpret_cast<const float*>(hi + off) +
+         *reinterpret_cast<const float*>(lo + off);
 }
 
 }  // namespace ssd

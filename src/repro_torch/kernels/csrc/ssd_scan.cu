@@ -19,7 +19,9 @@
 // 3.35 TB/s), while the chunked form is ~10 GFLOP, ~10 us at the bf16
 // tensor-core peak (989 TFLOP/s; H100 SXM data-sheet peaks at 700 W).
 //
-// Two routes, chosen by dtype (a rule, not a fallback):
+// Two routes, chosen by dtype (a rule, not a fallback), both on the tensor
+// cores; the backward reads the state entering each chunk from the
+// scratch either leaves (keep_states):
 //
 // bf16 -> three launches on the tensor cores (wgmma, sm_90a), Mamba-2's
 //   own chunk-parallel split (arXiv:2405.21060: chunk_state, state_passing,
@@ -74,24 +76,50 @@
 //   {16, 32, 64}, N a multiple of 8 up to 128 (mamba2-1.3b's N=128 with
 //   chunk 256 needs 197 KB of shared memory a block), chunk <= 256.
 //
-// fp32 -> ssd_scan_kernel, the port's first design, IEEE fp32 on the CUDA
-//   cores: the card-vs-CPU agreement holds fp32 inputs to 1e-4 per kernel
-//   case and 2e-4 end to end, which TF32 or bf16 products cannot.
-//   * one block per (batch, head): the loop over chunks runs inside the
-//     block, in order, and carries the (P, N) fp32 state in shared memory
-//     - the translation of the TPU's sequential chunk axis;
-//   * the (Q, Q) decay matrix (256 KB at Q = 256, more than the 227 KB a
-//     block may hold) is never stored: each thread owns one query row i
-//     and computes L[i, j] = exp(cum_i - cum_j) on the fly against every
-//     earlier column j, with x[j, :] and B_j read as broadcast loads;
-//   * the cumsum of dt * a is a block scan (warp shuffles, then the warp
-//     totals);
-//   * B and C are shared across heads (ngroups = 1) and re-read per head;
-//     C_i sits in registers when N <= 16;
-//   * given a non-null states (B, H, chunks, P, N) fp32, it also writes the
-//     state entering each chunk there, for the backward (ssd_scan_bwd.cu);
-//     a null pointer (the serve path) skips the store.  The bf16 route
-//     leaves the same in its scratch.
+// fp32 -> the same three launches in split TF32 on the tensor cores
+//   (wgmma, sm_90a), which holds the card-vs-CPU agreement of fp32 models
+//   (1e-4 of max|plain| per kernel case, 2e-4 end to end) as IEEE fp32 on
+//   the CUDA cores did (ssd_scan_kernel, one block a (batch, head) walking
+//   the chunks in order: 1.20 ms at one hymba client's (4, 2048, 50, 64,
+//   16, 256), and N=128 at chunk 256 needed 356 KB a block).  Now 486 us
+//   there and 2.84 ms at mamba2-1.3b's (4, 2048, 64, 64, 128, 256) on an
+//   H100 (PERF.md; split-TF32 bounds ~64 us and ~260 us):
+//   1. ssd_chunk_state_f32_kernel, one warpgroup per (batch, head, chunk):
+//      dt, cum and w_j = exp(cum_Q - cum_j) dt_j of the chunk, then its rows
+//      kF32Keys (32) at a time: X^T and (B o w)^T split as they are staged
+//      (both transposed in frag_tf32's order, so the product is
+//      unchanged), state += X^T (B o w) (M = 64 rows of p, P kept; N = NP;
+//      k8 over the rows).  The state and cum_Q go to the scratch, as the
+//      bf16 route's.
+//   2. ssd_state_pass_kernel, as above (fp32 already).
+//   3. ssd_chunk_scan_f32_kernel, one warpgroup per (batch, head, chunk,
+//      64-row query tile), the longest tiles first: C_i and the entering
+//      state h split once (h in the place the key tiles take after it),
+//      the carried term exp(cum_i) C_i h^T (k = N), then per key tile j of
+//      32 keys up to the tile's last row S = C_i B_j^T (k = N), W = S o
+//      exp(cum_i - cum_j) o dt_j on the accumulator (one expf an entry in
+//      fp32, so a rising cum needs no branch of its own), and y += W X_j
+//      with W's accumulator as the A-register operand (X_j^T staged in
+//      frag_tf32's order: TF32 wgmma reads both operands K-major only).
+//   The streamed tiles are loaded by the threads from device memory into
+//   registers (ssd::Held) a tile ahead where N <= 64, so that their loads
+//   run under the current tile's products, and split into shared memory
+//   at the top of the next step (at hymba's shape 543 -> 486 us).
+//   Arithmetic (wgmma.cuh): each fp32 operand is hi = tf32(x), lo = tf32(x
+//   - hi), a product lo_a hi_b + hi_a lo_b + hi_a hi_b in one fp32
+//   accumulator, the small terms first; cum, the decay and the carried
+//   state stay fp32.  Tiles are fp32 under the 32-byte swizzle, one block
+//   of 8 columns a k8 slice; N is zero-padded to 16, 32, 64 or 128.
+//   tests/test_torch_ssd_split_tf32.py emulates it against the reference
+//   (3e-7-9e-7 of max|y|; one TF32 product instead of three reads 6e-4).
+//   Shared memory a block (state / scan kernel, bytes) and registers
+//   (ptxas, sm_90a) by (P, NP): (64, 16) 23 872 / 31 040, 126 / 167;
+//   (64, 128) 52 544 / 133 440, 206 / 255 (the scan kernel spills 20
+//   bytes); (32, 128) 52 544 / 108 864, 206 / 255 (48 bytes); (16, 16)
+//   23 872 / 18 752, 128 / 80: every (P <= 64, N <= 128, chunk <= 256)
+//   fits one block.  Operands: 16-byte aligned x, B, C with (b, s, h)
+//   strides that are multiples of 4 elements, N a multiple of 4 (the
+//   wrapper raises otherwise).
 //
 // Both: strided operands (x, dt, B and C are read in place through their
 // strides: they are column slices of the conv output on the model path;
@@ -113,16 +141,6 @@ namespace {
 using namespace wg;
 using namespace ssd;
 
-// ---------------------------------------------------------------------------
-// fp32 route: CUDA cores
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 256;   // one query row per thread
-constexpr int kMaxChunk = 256;  // Q <= kThreads
-constexpr int kSmallN = 16;     // N <= 16: C_i in registers, B rows padded
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-
 struct Args {
   int64_t x_sb, x_ss, x_sh;    // x (B, S, H, P)
   int64_t dt_sb, dt_ss, dt_sh; // dt (B, S, H)
@@ -131,228 +149,7 @@ struct Args {
   int seq, heads, n, chunk;
 };
 
-// inclusive block scan of one value per thread (kThreads threads)
-__device__ float block_inclusive_scan(float v, float* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kThreads / 32 ? warp_tot[lane] : 0.0f;
-#pragma unroll
-    for (int off = 1; off < kThreads / 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t += u;
-    }
-    if (lane < kThreads / 32) warp_tot[lane] = t;  // inclusive totals
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_tot[warp - 1];
-  return v;
-}
-
-template <typename T, int P, bool SMALL_N>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bmat,
-                const T* __restrict__ cmat, T* __restrict__ y,
-                float* __restrict__ h_last, float* __restrict__ states,
-                Args g) {
-  const int n = g.n, q = g.chunk;
-  const int nb = SMALL_N ? kSmallN : n;      // B row pitch (zero padded)
-  const int cp = SMALL_N ? kSmallN : n + 1;  // C row pitch
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);  // [q][P]
-  float* b_s = x_s + q * P;                       // [q][nb]
-  float* c_s = b_s + q * nb;                      // [q][cp]
-  float* h_s = c_s + q * cp;                      // [P][n]
-  float* cum_s = h_s + P * n;                     // [q]
-  float* dt_s = cum_s + q;                        // [q]
-  float* w_s = dt_s + q;                          // [q]
-  float* warp_tot = w_s + q;                      // [kThreads / 32]
-
-  const int tid = threadIdx.x;
-  const int bi = blockIdx.x / g.heads, hh = blockIdx.x % g.heads;
-  const float a_h = a[hh];
-  const T* xb = x + bi * g.x_sb + hh * g.x_sh;
-  const float* dtb = dt + bi * g.dt_sb + hh * g.dt_sh;
-  const T* bb = bmat + bi * g.b_sb;
-  const T* cb = cmat + bi * g.c_sb;
-  T* yb = y + ((int64_t)bi * g.seq * g.heads + hh) * P;
-  const int64_t y_ss = (int64_t)g.heads * P;
-
-  for (int o = tid; o < P * n; o += kThreads) h_s[o] = 0.0f;
-
-  const int nc = (g.seq + q - 1) / q;
-  for (int c0 = 0; c0 < g.seq; c0 += q) {
-    __syncthreads();  // the previous chunk's state update is done
-    if (states != nullptr) {  // the state entering this chunk
-      float* st = states + (((int64_t)bi * g.heads + hh) * nc + c0 / q) *
-                               P * n;
-      for (int o = tid; o < P * n; o += kThreads) st[o] = h_s[o];
-    }
-    for (int idx = tid; idx < q * P; idx += kThreads) {
-      const int r = idx / P, col = idx - r * P;
-      x_s[idx] = c0 + r < g.seq
-                     ? to_f32(xb[(int64_t)(c0 + r) * g.x_ss + col])
-                     : 0.0f;
-    }
-    for (int idx = tid; idx < q * nb; idx += kThreads) {
-      const int r = idx / nb, col = idx - r * nb;
-      b_s[idx] = (c0 + r < g.seq && col < n)
-                     ? to_f32(bb[(int64_t)(c0 + r) * g.b_ss + col])
-                     : 0.0f;
-    }
-    for (int idx = tid; idx < q * cp; idx += kThreads) {
-      const int r = idx / cp, col = idx - r * cp;
-      c_s[idx] = (c0 + r < g.seq && col < n)
-                     ? to_f32(cb[(int64_t)(c0 + r) * g.c_ss + col])
-                     : 0.0f;
-    }
-    const float dt_t = (tid < q && c0 + tid < g.seq)
-                           ? dtb[(int64_t)(c0 + tid) * g.dt_ss]
-                           : 0.0f;
-    const float cum_t = block_inclusive_scan(dt_t * a_h, warp_tot);
-    if (tid < q) {
-      cum_s[tid] = cum_t;
-      dt_s[tid] = dt_t;
-    }
-    __syncthreads();
-    const float cum_last = cum_s[q - 1];
-    if (tid < q) w_s[tid] = expf(cum_last - cum_t) * dt_t;
-    __syncthreads();
-
-    // ---- outputs: thread i owns query row i of the chunk ---------------
-    if (tid < q) {
-      const int i = tid;
-      const float cum_i = cum_s[i];
-      float ci[SMALL_N ? kSmallN : 1];
-      if constexpr (SMALL_N) {
-#pragma unroll
-        for (int nn = 0; nn < kSmallN; ++nn) ci[nn] = c_s[i * cp + nn];
-      }
-      float acc[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) acc[p] = 0.0f;
-      for (int j = 0; j <= i; ++j) {
-        float gij = 0.0f;  // C_i . B_j
-        if constexpr (SMALL_N) {
-          const float4* br = reinterpret_cast<const float4*>(b_s + j * nb);
-#pragma unroll
-          for (int v4 = 0; v4 < kSmallN / 4; ++v4) {
-            const float4 bv = br[v4];
-            gij = fmaf(ci[4 * v4 + 0], bv.x, gij);
-            gij = fmaf(ci[4 * v4 + 1], bv.y, gij);
-            gij = fmaf(ci[4 * v4 + 2], bv.z, gij);
-            gij = fmaf(ci[4 * v4 + 3], bv.w, gij);
-          }
-        } else {
-          for (int nn = 0; nn < n; ++nn)
-            gij = fmaf(c_s[i * cp + nn], b_s[j * nb + nn], gij);
-        }
-        const float wgt = gij * expf(cum_i - cum_s[j]) * dt_s[j];
-        const float4* xr = reinterpret_cast<const float4*>(x_s + j * P);
-#pragma unroll
-        for (int v4 = 0; v4 < P / 4; ++v4) {
-          const float4 xv = xr[v4];
-          acc[4 * v4 + 0] = fmaf(wgt, xv.x, acc[4 * v4 + 0]);
-          acc[4 * v4 + 1] = fmaf(wgt, xv.y, acc[4 * v4 + 1]);
-          acc[4 * v4 + 2] = fmaf(wgt, xv.z, acc[4 * v4 + 2]);
-          acc[4 * v4 + 3] = fmaf(wgt, xv.w, acc[4 * v4 + 3]);
-        }
-      }
-      // the carried state's term, then the row out
-      const float e_i = expf(cum_i);
-      if (c0 + i < g.seq) {
-        T* yrow = yb + (int64_t)(c0 + i) * y_ss;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          float hc = 0.0f;
-          if constexpr (SMALL_N) {
-#pragma unroll
-            for (int nn = 0; nn < kSmallN; ++nn)
-              if (nn < n) hc = fmaf(ci[nn], h_s[p * n + nn], hc);
-          } else {
-            for (int nn = 0; nn < n; ++nn)
-              hc = fmaf(c_s[i * cp + nn], h_s[p * n + nn], hc);
-          }
-          store_val(yrow + p, acc[p] + e_i * hc);
-        }
-      }
-    }
-    __syncthreads();  // every row has read h before it moves on
-
-    // ---- state update: h <- exp(cum_Q) h + X^T (B o w) -----------------
-    const float e_last = expf(cum_last);
-    for (int o = tid; o < P * n; o += kThreads) {
-      const int p = o / n, nn = o - p * n;
-      float s = 0.0f;
-      for (int j = 0; j < q; ++j)
-        s = fmaf(b_s[j * nb + nn] * w_s[j], x_s[j * P + p], s);
-      h_s[o] = e_last * h_s[o] + s;
-    }
-  }
-  __syncthreads();
-  float* hl = h_last + ((int64_t)bi * g.heads + hh) * P * n;
-  for (int o = tid; o < P * n; o += kThreads) hl[o] = h_s[o];
-}
-
-size_t smem_bytes(int p, int n, int q) {
-  const int nb = n <= kSmallN ? kSmallN : n;
-  const int cp = n <= kSmallN ? kSmallN : n + 1;
-  return sizeof(float) * ((size_t)q * (p + nb + cp + 3) + (size_t)p * n +
-                          kThreads / 32);
-}
-
-template <typename T, int P, bool SMALL_N>
-int launch(const void* x, const float* dt, const float* a, const void* b,
-           const void* c, void* y, float* h_last, float* states,
-           const Args& g, int batch, cudaStream_t stream) {
-  const int smem = (int)smem_bytes(P, g.n, g.chunk);
-  auto kern = ssd_scan_kernel<T, P, SMALL_N>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<batch * g.heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), h_last, states, g);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int P>
-int dispatch_n(const void* x, const float* dt, const float* a, const void* b,
-               const void* c, void* y, float* h_last, float* states,
-               const Args& g, int batch, cudaStream_t stream) {
-  if (g.n <= kSmallN)
-    return launch<T, P, true>(x, dt, a, b, c, y, h_last, states, g, batch,
-                              stream);
-  return launch<T, P, false>(x, dt, a, b, c, y, h_last, states, g, batch,
-                             stream);
-}
-
-template <typename T>
-int dispatch_p(int p, const void* x, const float* dt, const float* a,
-               const void* b, const void* c, void* y, float* h_last,
-               float* states, const Args& g, int batch, cudaStream_t stream) {
-  switch (p) {
-    case 16:
-      return dispatch_n<T, 16>(x, dt, a, b, c, y, h_last, states, g, batch,
-                               stream);
-    case 32:
-      return dispatch_n<T, 32>(x, dt, a, b, c, y, h_last, states, g, batch,
-                               stream);
-    case 64:
-      return dispatch_n<T, 64>(x, dt, a, b, c, y, h_last, states, g, batch,
-                               stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
+constexpr int kMaxChunk = 256;
 
 // ---------------------------------------------------------------------------
 // bf16 route: tensor cores (wgmma), three launches
@@ -706,6 +503,234 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 route: tensor cores, split TF32 (wgmma, sm_90a), three launches
+// ---------------------------------------------------------------------------
+// 1. chunk state: X^T and (B o w)^T tiles of kF32Keys rows, hi and lo,
+// then dt, cum and w of the chunk and cum's tile extremes
+__host__ __device__ constexpr size_t f32_state_bytes(int np) {
+  return 256 + 2 * 4 * kF32Keys * (kTile + np) + 4 * (3 * kMaxChunk + 16);
+}
+
+// 3. chunk scan: C_i (64 rows, hi and lo), then either the carried state
+// h (P rows, hi and lo) or a key tile's B_j (hi and lo) and X_j^T (hi and
+// lo) in the same place, then dt and cum of the chunk
+__host__ __device__ constexpr size_t f32_scan_area(int p, int np) {
+  return p * np > kF32Keys * (np + p) ? 2 * 4 * p * np
+                                      : 2 * 4 * kF32Keys * (np + p);
+}
+__host__ __device__ constexpr size_t f32_scan_bytes(int p, int np) {
+  return 256 + 2 * 4 * kTile * np + f32_scan_area(p, np) +
+         4 * (2 * kMaxChunk + 16);
+}
+
+// 1. the chunk's own state X^T (B o w), w_j = exp(cum_Q - cum_j) dt_j, and
+// cum_Q, into the scratch, as the bf16 route's ssd_chunk_state_kernel: the
+// chunk's rows kF32Keys at a time, X^T and (B o w)^T split as they are
+// staged (both transposed in frag_tf32's order, so the product is
+// unchanged), M = 64 rows of p (P of them kept), N = NP
+template <int P, int NP>
+__global__ void __launch_bounds__(kF32Threads)
+ssd_chunk_state_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ a,
+                           const float* __restrict__ bmat,
+                           float* __restrict__ states,
+                           float* __restrict__ tot, Args g) {
+  constexpr int K = kF32Keys;
+  constexpr uint32_t kXT = K * kTile * 4, kBT = K * NP * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const xh = align256(smem_raw);
+  uint8_t* const xl = xh + kXT;
+  uint8_t* const bh = xl + kXT;
+  uint8_t* const bl = bh + kBT;
+  float* const dt_s = reinterpret_cast<float*>(bl + kBT);
+  float* const cum_s = dt_s + kMaxChunk;
+  float* const w_s = cum_s + kMaxChunk;
+  float* const tmax_s = w_s + kMaxChunk;  // [12]: see warp_chunk_cumsum
+  const uint32_t sxh = smem_addr(xh), sxl = sxh + kXT, sbh = sxl + kXT,
+                 sbl = sbh + kBT;
+
+  const int tid = threadIdx.x;
+  const int hh = blockIdx.x, ci = blockIdx.y, bi = blockIdx.z;
+  const int c0 = ci * g.chunk, rows = tile_rows(g.chunk);
+  const int lim = min(g.chunk, g.seq - c0);
+  float dtv[2];
+  load_dt(dtv, dt, g, bi, hh, c0);
+  chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
+  const float cum_last = cum_s[rows - 1];
+  for (int r = tid; r < rows; r += kF32Threads)
+    w_s[r] = expf(cum_last - cum_s[r]) * dt_s[r];
+  __syncthreads();
+
+  const float* xb = x + bi * g.x_sb + hh * g.x_sh + (int64_t)c0 * g.x_ss;
+  const float* bb = bmat + bi * g.b_sb + (int64_t)c0 * g.b_ss;
+  // X and B o w of the chunk's rows, K at a time: the next tile's loads
+  // are in flight while the current one's products run
+  auto weight = [=](int r) { return w_s[r]; };
+  Held<kTile, K> hx;
+  Held<NP, K> hb;
+  auto fetch = [&](int k0) {
+    hx.fetch(rows_of(xb, g.x_ss, k0, lim, P), tid);
+    hb.fetch(rows_of(bb, g.b_ss, k0, lim, g.n, weight), tid);
+  };
+  if (kHeldAhead<NP>) fetch(0);
+  float acc[NP / 2];
+  zero(acc);
+  for (int k0 = 0; k0 < lim; k0 += K) {
+    __syncthreads();  // the previous tile's products have retired
+    if (!kHeldAhead<NP>) fetch(k0);
+    hx.template put_t<true>(xh, xl, tid);
+    hb.template put_t<true>(bh, bl, tid);
+    fence_proxy_async();
+    __syncthreads();
+    if (kHeldAhead<NP> && k0 + K < lim) fetch(k0 + K);
+    pin(acc);
+    wgmma_fence();
+    mma3<K>(acc, sxh, sxl, kTile * 32, sbh, sbl, NP * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int64_t bhd = (int64_t)bi * g.heads + hh;
+  float* st = states + (bhd * gridDim.y + ci) * P * g.n;
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int jb = 0; jb < NP / 8; ++jb) {
+    const int col = 8 * jb + cq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (col < g.n && row < P)
+        *reinterpret_cast<float2*>(st + row * g.n + col) =
+            make_float2(acc[4 * jb + 2 * half], acc[4 * jb + 2 * half + 1]);
+    }
+  }
+  if (tid == 0) tot[bhd * gridDim.y + ci] = cum_last;
+}
+
+// 3. the outputs of one 64-row query tile i of a chunk: the carried
+// state's term exp(cum_i) C_i h^T (k = N), then for each key tile j of
+// kF32Keys keys up to the tile's last row S = C_i B_j^T (k = N), W = S o
+// exp(cum_i - cum_j) o dt_j on the accumulator (the decay per entry, in
+// fp32, so a rising cum needs no branch of its own) and y += W X_j with
+// W's accumulator as the A operand (X_j^T staged in frag_tf32's order).
+// Blocks (head, (tile, chunk), batch), the longest tiles first.
+template <int P, int NP>
+__global__ void __launch_bounds__(kF32Threads)
+ssd_chunk_scan_f32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ a,
+                          const float* __restrict__ bmat,
+                          const float* __restrict__ cmat,
+                          const float* __restrict__ states,
+                          float* __restrict__ y, Args g, int nc) {
+  constexpr int K = kF32Keys;
+  constexpr uint32_t kC = kTile * NP * 4, kH = P * NP * 4, kB = K * NP * 4,
+                     kX = K * P * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const ch = align256(smem_raw);
+  uint8_t* const cl = ch + kC;
+  uint8_t* const area = cl + kC;  // h, then B_j and X_j^T
+  float* const dt_s = reinterpret_cast<float*>(area +
+                                               f32_scan_area(P, NP));
+  float* const cum_s = dt_s + kMaxChunk;
+  float* const tmax_s = cum_s + kMaxChunk;  // [12]: see warp_chunk_cumsum
+  const uint32_t sch = smem_addr(ch), scl = sch + kC, sa = scl + kC;
+  const uint32_t shh = sa, shl = sa + kH;
+  const uint32_t sbh = sa, sbl = sa + kB, sxh = sbl + kB, sxl = sxh + kX;
+
+  const int tid = threadIdx.x;
+  const int hh = blockIdx.x, bi = blockIdx.z;
+  const int nqt = gridDim.y / nc;
+  const int t = nqt - 1 - (int)blockIdx.y / nc, ci = blockIdx.y % nc;
+  const int c0 = ci * g.chunk, row0 = t * kTile;
+  const int lim = min(g.chunk, g.seq - c0);
+  if (row0 >= lim) return;
+  float dtv[2];
+  load_dt(dtv, dt, g, bi, hh, c0);
+  const float* st =
+      states + (((int64_t)bi * g.heads + hh) * nc + ci) * P * g.n;
+  const float* xb = x + bi * g.x_sb + hh * g.x_sh + (int64_t)c0 * g.x_ss;
+  const float* bb = bmat + bi * g.b_sb + (int64_t)c0 * g.b_ss;
+  const float* cb = cmat + bi * g.c_sb + (int64_t)c0 * g.c_ss;
+  split_rows<NP, kTile, 4, kTile>(ch, cl, rows_of(cb, g.c_ss, row0, lim, g.n),
+                                  tid);
+  split_rows<NP, P, 4, P>(area, area + kH, rows_of(st, g.n, 0, P, g.n), tid);
+  chunk_cum(dtv, a[hh], tile_rows(g.chunk), dt_s, cum_s, tmax_s);
+  fence_proxy_async();
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, cq = 2 * (lane & 3);
+  const int ra = row0 + warp * 16 + (lane >> 2), rb = ra + 8;
+  // B_j and X_j of the key tiles, K at a time: the next tile's loads are
+  // in flight while the current one's products run
+  Held<NP, K> hb;
+  Held<P, K> hx;
+  auto fetch = [&](int k0) {
+    hb.fetch(rows_of(bb, g.b_ss, k0, lim, g.n), tid);
+    hx.fetch(rows_of(xb, g.x_ss, k0, lim, P), tid);
+  };
+  if (kHeldAhead<NP>) fetch(0);
+  float acc[P / 2];
+  zero(acc);
+  pin(acc);
+  wgmma_fence();
+  mma3<NP>(acc, sch, scl, kTile * 32, shh, shl, P * 32);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(acc);
+  const float ea = expf(cum_s[ra]), eb = expf(cum_s[rb]);
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) acc[i] *= (i & 2) ? eb : ea;
+
+  const int nk = min(row0 + kTile, lim);
+  for (int k0 = 0; k0 < nk; k0 += K) {
+    __syncthreads();  // the previous products have retired
+    if (!kHeldAhead<NP>) fetch(k0);
+    hb.template put<K>(area, area + kB, tid);
+    hx.template put_t<true>(area + 2 * kB, area + 2 * kB + kX, tid);
+    fence_proxy_async();
+    __syncthreads();
+    if (kHeldAhead<NP> && k0 + K < nk) fetch(k0 + K);
+    float s[K / 2];
+    zero(s);
+    pin(s);
+    wgmma_fence();
+    mma3<NP>(s, sch, scl, kTile * 32, sbh, sbl, K * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    // W on the fragments: s[4 jb + e] is row ra + 8 (e >> 1), key k0 +
+    // 8 jb + cq + (e & 1)
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+      const int row = (i & 2) ? rb : ra;
+      s[i] = key <= row
+                 ? s[i] * expf(cum_s[row] - cum_s[key]) * dt_s[key] : 0.0f;
+    }
+    wgmma_fence();
+    mma3_rs<K>(acc, s, sxh, sxl, P * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= lim) continue;
+    float* yr = y + (((int64_t)bi * g.seq + c0 + row) * g.heads + hh) * P + cq;
+#pragma unroll
+    for (int jb = 0; jb < P / 8; ++jb)
+      *reinterpret_cast<float2*>(yr + 8 * jb) =
+          make_float2(acc[4 * jb + 2 * half], acc[4 * jb + 2 * half + 1]);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(
@@ -774,6 +799,65 @@ int run_tc(int p, const void* x, const float* dt, const float* a,
   }
 }
 
+template <int P, int NP>
+int run_f32_pn(const void* x, const float* dt, const float* a, const void* b,
+               const void* c, void* y, float* h_last, float* states,
+               float* tot, const Args& g, int batch, cudaStream_t stream) {
+  const int nc = (g.seq + g.chunk - 1) / g.chunk;
+  const int nqt = tile_rows(g.chunk) / kTile;
+  const float* xf = static_cast<const float*>(x);
+  const float* bf = static_cast<const float*>(b);
+  auto k1 = ssd_chunk_state_f32_kernel<P, NP>;
+  auto k3 = ssd_chunk_scan_f32_kernel<P, NP>;
+  const size_t sm1 = f32_state_bytes(NP), sm3 = f32_scan_bytes(P, NP);
+  cudaError_t e = set_smem(k1, sm1);
+  if (e == cudaSuccess) e = set_smem(k3, sm3);
+  if (e != cudaSuccess) return (int)e;
+  k1<<<dim3(g.heads, nc, batch), kF32Threads, sm1, stream>>>(
+      xf, dt, a, bf, states, tot, g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int pn = P * g.n;
+  ssd_state_pass_kernel<<<dim3(batch * g.heads, (pn + 255) / 256), 256, 0,
+                          stream>>>(states, tot, h_last, pn, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  k3<<<dim3(g.heads, nc * nqt, batch), kF32Threads, sm3, stream>>>(
+      xf, dt, a, bf, static_cast<const float*>(c), states,
+      static_cast<float*>(y), g, nc);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int run_f32_p(const void* x, const float* dt, const float* a, const void* b,
+              const void* c, void* y, float* h_last, float* states,
+              float* tot, const Args& g, int batch, cudaStream_t stream) {
+  switch (padded_state(g.n)) {
+    case 16: return run_f32_pn<P, 16>(x, dt, a, b, c, y, h_last, states, tot,
+                                      g, batch, stream);
+    case 32: return run_f32_pn<P, 32>(x, dt, a, b, c, y, h_last, states, tot,
+                                      g, batch, stream);
+    case 64: return run_f32_pn<P, 64>(x, dt, a, b, c, y, h_last, states, tot,
+                                      g, batch, stream);
+  }
+  return run_f32_pn<P, 128>(x, dt, a, b, c, y, h_last, states, tot, g, batch,
+                            stream);
+}
+
+int run_f32(int p, const void* x, const float* dt, const float* a,
+            const void* b, const void* c, void* y, float* h_last,
+            float* states, float* tot, const Args& g, int batch,
+            cudaStream_t stream) {
+  switch (p) {
+    case 16: return run_f32_p<16>(x, dt, a, b, c, y, h_last, states, tot, g,
+                                  batch, stream);
+    case 32: return run_f32_p<32>(x, dt, a, b, c, y, h_last, states, tot, g,
+                                  batch, stream);
+  }
+  return run_f32_p<64>(x, dt, a, b, c, y, h_last, states, tot, g, batch,
+                       stream);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -784,23 +868,24 @@ bool aligned16(const void* p) {
 // wrapper refuses what exceeds the card's per-block limit).
 extern "C" int64_t ssd_scan_smem_bytes(int head_dim, int state_dim,
                                        int chunk, int is_bf16) {
-  if (!is_bf16) return (int64_t)smem_bytes(head_dim, state_dim, chunk);
   const int np = padded_state(state_dim), rows = tile_rows(chunk);
-  const size_t st = state_smem_bytes(np, rows);
-  const size_t sc = scan_smem_bytes(head_dim, np, rows);
+  const size_t st = is_bf16 ? state_smem_bytes(np, rows)
+                            : f32_state_bytes(np);
+  const size_t sc = is_bf16 ? scan_smem_bytes(head_dim, np, rows)
+                            : f32_scan_bytes(head_dim, np);
   return (int64_t)(st > sc ? st : sc);
 }
 
 // x (B, S, H, P) and B, C (B, S, N) in one dtype (fp32 or bf16), dt
 // (B, S, H) and a (H,) fp32, each with its strides in elements and a
 // contiguous last dim; y (B, S, H, P) contiguous in x's dtype, h_last
-// (B, H, P, N) contiguous fp32.  P in {16, 32, 64}, 1 <= chunk <= 256.
-// bf16 (is_bf16 = 1) runs on the tensor cores: N a multiple of 8 up to
-// 128, 16-byte aligned x, B, C with strides that are multiples of 8
-// (else cudaErrorMisalignedAddress), and a scratch of B*H*chunks*P*N
-// (states) and B*H*chunks (tot) fp32, which leaves in states the state
-// entering each chunk; fp32 on the CUDA cores (tot unused; states null, or
-// B*H*chunks*P*N fp32 to keep the states entering the chunks).
+// (B, H, P, N) contiguous fp32.  P in {16, 32, 64}, 1 <= chunk <= 256,
+// and a scratch of B*H*chunks*P*N (states) and B*H*chunks (tot) fp32,
+// which leaves in states the state entering each chunk.  bf16 (is_bf16 =
+// 1) takes N a multiple of 8 up to 128 and 16-byte aligned x, B, C with
+// strides that are multiples of 8; fp32 N a multiple of 4 up to 128 and
+// 16-byte aligned x, B, C with strides that are multiples of 4 (else
+// cudaErrorMisalignedAddress).
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
                             const void* b, const void* c, void* y,
                             float* h_last, float* states, float* tot,
@@ -811,19 +896,20 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
                             int head_dim, int state_dim, int chunk,
                             int is_bf16, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+  if (head_dim != 16 && head_dim != 32 && head_dim != 64)
+    return (int)cudaErrorInvalidValue;
+  const int unit = is_bf16 ? 8 : 4;
+  if (state_dim < unit || state_dim > 128 || state_dim % unit)
+    return (int)cudaErrorInvalidValue;
+  if (!(aligned16(x) && aligned16(b) && aligned16(c)) ||
+      (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % unit)
+    return (int)cudaErrorMisalignedAddress;
   const Args g{x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss,
                c_sb, c_ss, seq,  heads, state_dim, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return dispatch_p<float>(head_dim, x, dt, a, b, c, y, h_last, states, g,
-                             batch, s);
-  if (head_dim != 16 && head_dim != 32 && head_dim != 64)
-    return (int)cudaErrorInvalidValue;
-  if (state_dim < 8 || state_dim > 128 || state_dim % 8)
-    return (int)cudaErrorInvalidValue;
-  if (!(aligned16(x) && aligned16(b) && aligned16(c)) ||
-      (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % 8)
-    return (int)cudaErrorMisalignedAddress;
+    return run_f32(head_dim, x, dt, a, b, c, y, h_last, states, tot, g,
+                   batch, s);
   return run_tc(head_dim, x, dt, a, b, c, y, h_last, states, tot, g, batch,
                 s);
 }

@@ -32,7 +32,8 @@
 // over the heads (B and C are shared by all of them).
 //
 // Four launches in either route, in order on the caller's stream, each
-// checked; no atomics, so every call gives the same bits:
+// checked; no atomics, so every call gives the same bits (either route's
+// rows and columns kernels below, the state pass and head sums shared):
 //   1. a rows kernel, one block per (head, chunk, batch): dC_i and the row
 //      part of dcum_i over the key tiles j <= i, with the carried-state
 //      terms from h0 (the states the forward kept), and U = sum_i
@@ -62,7 +63,8 @@
 // in launch 3 (G, D, dx, dB), 8N + 6P = 512 at P=64, N=16 against the
 // bound's 352: ~16 us of flops, still below the bytes' 25.1 us.
 //
-// Two routes, chosen by dtype (a rule, not a fallback), as the forward:
+// Two routes, chosen by dtype (a rule, not a fallback), as the forward,
+// both on the tensor cores:
 //
 // bf16 -> the tensor cores (wgmma, sm_90a), in Mamba-2's chunk-parallel
 //   split as the forward's ssd_chunk_scan_kernel: two warpgroups a block,
@@ -116,13 +118,52 @@
 //   forward's own code (ssd_common.cuh), so cum is the forward's to the
 //   bit.
 //
-// fp32 -> the port's first design, IEEE fp32 on the CUDA cores (the
-//   card-vs-CPU bound for fp32 models, 1e-4, which bf16 or TF32 products
-//   cannot hold): ssd_bwd_rows_kernel and ssd_bwd_cols_kernel, 64-row
-//   tiles with four threads per row i (or column j) holding its C_i and
-//   dy_i (B_j and x_j) split over N and P in registers; the other side's
-//   tiles staged in shared memory as fp32, G and D as quad-shuffle sums,
-//   the carried-state terms as scalar loops over P x N.
+// fp32 -> the same four launches, the rows and columns kernels in split
+//   TF32 on the tensor cores (wgmma, sm_90a), which holds the fp32 bound
+//   of 1e-4 of each gradient's max|plain| as IEEE fp32 on the CUDA cores
+//   did (ssd_bwd_rows_kernel and ssd_bwd_cols_kernel, quad-shuffle dot
+//   products: 3.06-3.08 ms at one hymba client's (4, 2048, 50, 64, 16,
+//   256), 1.80 ms now, and 10.98 ms at mamba2-1.3b's (4, 2048, 64, 64,
+//   128, 256) on an H100; PERF.md).  One warpgroup a block, (head, chunk,
+//   batch) as the bf16 route; the block's own 64-row tile resident in
+//   shared memory (hi and lo), the other side's tiles streamed 32 rows at
+//   a time, loaded into registers a tile ahead where N <= 64 (ssd::Held)
+//   and split into shared memory at the top of the next step:
+//   1. ssd_bwd_rows_f32_kernel, per 64-row tile i: Z = dY_i h0 (k = P,
+//      h0^T staged) gives dC_i = exp(cum_i) Z_i and dcum_i = exp(cum_i)
+//      Z_i . C_i; per key tile j up to the tile's last row, G = C_i B_j^T
+//      (k = N) and D = dY_i X_j^T (k = P), both operands K-major as they
+//      lie; W_D = D o L o dt_j on the fragments (one expf an entry); M =
+//      W_D o G summed along the rows without its diagonal; dC_i += W_D B_j
+//      (W_D's accumulator the A operand, B_j^T staged in frag_tf32's
+//      order from the same loaded rows).  Then U = dY^T (C o exp(cum))
+//      over the chunk's rows, dY^T and (C o exp(cum))^T both staged
+//      transposed in one order.
+//   3. ssd_bwd_cols_f32_kernel, per 64-row tile j: T = B_j dh1^T (k = N,
+//      dh1 staged as it lies) and X_j dh1 (k = P, dh1^T staged after it in
+//      the same place) give w_j T_j, w_j X_j dh1 and s_j = x_j . T_j; per
+//      row tile i of 32 rows from j's tile on, G^T = B_j C_i^T and D^T =
+//      X_j dY_i^T, W_G^T and W_D^T on the fragments, the row sums of D^T o
+//      G^T o L^T, then dx_j += W_G^T dY_i and dB_j += W_D^T C_i (dY_i^T
+//      and C_i^T staged in frag_tf32's order), one after the other so
+//      that one set of split fragments is live; then finish_chunk_f32
+//      (two rows a thread).
+//   Arithmetic: every product split TF32 (wgmma.cuh), three TF32
+//   products into one fp32 accumulator, ~2^-21 relative where bf16's hi +
+//   lo pairs carried ~2^-16, so da, the sum that cancels, needs no pass
+//   of its own; M's diagonal cancels as in the bf16 route; dcum, g, ddt,
+//   da, dB and dC per head are fp32.  tests/test_torch_ssd_split_tf32.py
+//   emulates it against jax.vjp (at most 5.3e-6 of a gradient's max; da
+//   2.6e-5 on the saved draw read in fp32).  Shared memory a block (rows
+//   / columns kernel, bytes) and registers (ptxas) by (P, NP): (64, 16)
+//   68 928 / 86 400, 183 / 255; (64, 128) 183 616 / 201 088, 255 / 255,
+//   spilling 64 and 388 bytes; (16, 128) 146 752 / 151 936, 255 / 255 (the
+//   columns kernel spills 120); (16, 16) 40 256 / 37 248, 121 / 168: every
+//   (P <= 64, N <= 128, chunk <= 256) fits one block.  The columns kernel
+//   also spills at (64, 64) 160 and (32, 128) 172 bytes: its dx and dB
+//   accumulators (P / 2 + NP / 2 registers) stay live over the row loop.
+//   Operands: 16-byte aligned x, B, C, dy with (b, s, h) strides of x, B,
+//   C that are multiples of 4, N a multiple of 4.
 //
 // Inputs: x (B, S, H, P) and B, C (B, S, N) in one dtype (bf16 or fp32),
 // read in place through their strides (last dims contiguous); dt (B, S, H)
@@ -151,12 +192,9 @@ using namespace wg;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;   // 64 rows x 4 threads; the block scan's width
-constexpr int kRows = 64;       // rows (or columns) of a tile
-constexpr int kTpr = 4;         // threads per row
-constexpr int kMaxChunk = 256;  // Q <= kThreads
+constexpr int kThreads = 256;   // the bf16 kernels' two warpgroups
+constexpr int kMaxChunk = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_val(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -202,6 +240,7 @@ __device__ float block_inclusive_scan(float v, float* warp_tot) {
 }
 
 // sum over the block, in a fixed order (every thread gets the total)
+template <int THREADS = kThreads>
 __device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -211,72 +250,9 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   float t = 0.0f;
 #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
+  for (int w = 0; w < THREADS / 32; ++w) t += red[w];
   __syncthreads();  // red may be reused
   return t;
-}
-
-// dt and cum = cumsum(dt * a) of the chunk into shared memory, for all
-// kMaxChunk entries (steps past the chunk or the sequence read dt = 0)
-__device__ __forceinline__ void chunk_cum(const float* __restrict__ dt,
-                                          float a_h, const Args& g, int bi,
-                                          int hh, int c0, float* dt_s,
-                                          float* cum_s, float* warp_tot) {
-  const int tid = threadIdx.x;
-  const float dt_t = (tid < g.chunk && c0 + tid < g.seq)
-                         ? dt[bi * g.dt_sb + (int64_t)(c0 + tid) * g.dt_ss +
-                              hh * g.dt_sh]
-                         : 0.0f;
-  const float cum_t = block_inclusive_scan(dt_t * a_h, warp_tot);
-  cum_s[tid] = cum_t;
-  dt_s[tid] = dt_t;
-  __syncthreads();
-}
-
-// chunk rows [r0, r0 + kRows) of a row-major operand (row stride s_stride,
-// `width` valid columns) into shared memory as fp32 with row pitch `pitch`,
-// zero-padded to `wpad` columns and past the chunk or the sequence
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, int pitch, int width,
-                                           int wpad, const T* base,
-                                           int64_t s_stride, int c0, int r0,
-                                           const Args& g) {
-  for (int idx = threadIdx.x; idx < kRows * wpad; idx += kThreads) {
-    const int r = idx / wpad, col = idx - r * wpad;
-    const int i = r0 + r;
-    const bool ok = i < g.chunk && c0 + i < g.seq && col < width;
-    dst[r * pitch + col] =
-        ok ? to_f32(base[(int64_t)(c0 + i) * s_stride + col]) : 0.0f;
-  }
-}
-
-// this thread's entries k * 4 + part of a staged row
-template <int K>
-__device__ __forceinline__ float dot_part(const float* r, const float* row,
-                                          int part) {
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) s = fmaf(r[k], row[k * 4 + part], s);
-  return s;
-}
-
-template <int K>
-__device__ __forceinline__ void axpy_part(float* acc, float c,
-                                          const float* row, int part) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = fmaf(c, row[k * 4 + part], acc[k]);
-}
-
-template <int P, int NPT>
-constexpr int rows_smem_floats() {
-  return P * (4 * NPT + 1) + 2 * kRows * (4 * NPT + 1) + 2 * kRows * (P + 1) +
-         3 * kMaxChunk + kThreads / 32;
-}
-
-template <int P, int NPT>
-constexpr int cols_smem_floats() {
-  return P * (4 * NPT + 1) + 2 * kRows * (4 * NPT + 1) + 2 * kRows * (P + 1) +
-         4 * kMaxChunk + 2 * (kThreads / 32);
 }
 
 // The end of launch 3, over the whole chunk (kThreads threads): with the
@@ -315,129 +291,6 @@ __device__ void finish_chunk(const float* __restrict__ dcum,
   if (tid == 0) da_part[bh * g.nc + ci] = dap;
 }
 
-// 1. dC (per head), the row part of dcum, U and cum_Q
-template <typename T, int P, int NPT>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ a, const T* __restrict__ bmat,
-                    const T* __restrict__ cmat, const T* __restrict__ dy,
-                    const float* __restrict__ states,
-                    float* __restrict__ dc_part, float* __restrict__ dcum,
-                    float* __restrict__ u_out, float* __restrict__ cum_q,
-                    Args g) {
-  constexpr int NP = 4 * NPT, PPT = P / 4, NPP = NP + 1, PP = P + 1;
-  constexpr int kU = (P * NP + kThreads - 1) / kThreads;
-  extern __shared__ float4 smem4[];
-  float* h0_s = reinterpret_cast<float*>(smem4);  // [P][NPP]
-  float* c_s = h0_s + P * NPP;                     // [kRows][NPP] rows i
-  float* dy_s = c_s + kRows * NPP;                 // [kRows][PP]
-  float* b_s = dy_s + kRows * PP;                  // [kRows][NPP] keys j
-  float* x_s = b_s + kRows * NPP;                  // [kRows][PP]
-  float* cum_s = x_s + kRows * PP;                 // [kMaxChunk]
-  float* dt_s = cum_s + kMaxChunk;                 // [kMaxChunk]
-  float* e_s = dt_s + kMaxChunk;                   // [kMaxChunk] exp(cum)
-  float* warp_tot = e_s + kMaxChunk;               // [kThreads / 32]
-
-  const int tid = threadIdx.x, row = tid / kTpr, part = tid % kTpr;
-  const int hh = blockIdx.x, ci = blockIdx.y, bi = blockIdx.z;
-  const int q = g.chunk, c0 = ci * q, n = g.n;
-  const int64_t bh = (int64_t)bi * g.heads + hh;
-  chunk_cum(dt, a[hh], g, bi, hh, c0, dt_s, cum_s, warp_tot);
-  e_s[tid] = expf(cum_s[tid]);
-  const float* h0 = states + (bh * g.nc + ci) * P * n;
-  for (int o = tid; o < P * NP; o += kThreads) {
-    const int p = o / NP, nn = o - p * NP;
-    h0_s[p * NPP + nn] = nn < n ? h0[p * n + nn] : 0.0f;
-  }
-  float uacc[kU];
-#pragma unroll
-  for (int u = 0; u < kU; ++u) uacc[u] = 0.0f;
-
-  const T* xb = x + bi * g.x_sb + hh * g.x_sh;
-  const T* bb = bmat + bi * g.b_sb;
-  const T* cb = cmat + bi * g.c_sb;
-  const T* dyb = dy + ((int64_t)bi * g.seq * g.heads + hh) * P;
-  const int64_t dy_ss = (int64_t)g.heads * P;
-  const int tiles = (q + kRows - 1) / kRows;
-
-  for (int rt = 0; rt < tiles; ++rt) {
-    const int r0 = rt * kRows;
-    __syncthreads();  // every thread is done with the previous tile
-    stage_rows(c_s, NPP, n, NP, cb, g.c_ss, c0, r0, g);
-    stage_rows(dy_s, PP, P, P, dyb, dy_ss, c0, r0, g);
-    __syncthreads();
-    const int i = r0 + row;
-    const float cum_i = cum_s[i], e_i = e_s[i];
-    float cr[NPT], dyr[PPT], dca[NPT];
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) cr[k] = c_s[row * NPP + k * 4 + part];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) dyr[k] = dy_s[row * PP + k * 4 + part];
-    // the carried state's terms: exp(cum_i) h0^T dy_i into dC_i, and
-    // exp(cum_i) dy_i . h0 C_i into dcum_i
-    float sd = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) {
-      const int nn = k * 4 + part;
-      float s = 0.0f;
-#pragma unroll 8
-      for (int p = 0; p < P; ++p)
-        s = fmaf(h0_s[p * NPP + nn], dy_s[row * PP + p], s);
-      dca[k] = e_i * s;
-      sd = fmaf(cr[k], s, sd);
-    }
-    float dcm = e_i * quad_sum(sd);
-
-    for (int kt = 0; kt <= rt; ++kt) {
-      __syncthreads();
-      stage_rows(b_s, NPP, n, NP, bb, g.b_ss, c0, kt * kRows, g);
-      stage_rows(x_s, PP, P, P, xb, g.x_ss, c0, kt * kRows, g);
-      __syncthreads();
-      for (int jj = 0; jj < kRows; ++jj) {
-        const float* brow = b_s + jj * NPP;
-        const float gij = quad_sum(dot_part<NPT>(cr, brow, part));
-        const float dij = quad_sum(dot_part<PPT>(dyr, x_s + jj * PP, part));
-        if (kt < rt || jj <= row) {  // j <= i
-          const int j = kt * kRows + jj;
-          const float coef = dij * expf(cum_i - cum_s[j]) * dt_s[j];
-          axpy_part<NPT>(dca, coef, brow, part);
-          dcm = fmaf(coef, gij, dcm);
-        }
-      }
-    }
-    if (i < q && c0 + i < g.seq) {
-      float* dst = dc_part + (bh * g.seq + c0 + i) * n;
-#pragma unroll
-      for (int k = 0; k < NPT; ++k)
-        if (k * 4 + part < n) dst[k * 4 + part] = dca[k];
-    }
-    if (i < q && part == 0) dcum[(bh * g.nc + ci) * q + i] = dcm;
-
-    // U += sum over the tile's rows of exp(cum_i) dy_i C_i^T
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int o = tid + u * kThreads;
-      if (o < P * NP) {
-        const int p = o / NP, nn = o - p * NP;
-        float s = 0.0f;
-        for (int r = 0; r < kRows && r0 + r < q; ++r)
-          s = fmaf(e_s[r0 + r] * dy_s[r * PP + p], c_s[r * NPP + nn], s);
-        uacc[u] += s;
-      }
-    }
-  }
-  float* uo = u_out + (bh * g.nc + ci) * P * n;
-#pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int o = tid + u * kThreads;
-    if (o < P * NP) {
-      const int p = o / NP, nn = o - p * NP;
-      if (nn < n) uo[p * n + nn] = uacc[u];
-    }
-  }
-  if (tid == 0) cum_q[bh * g.nc + ci] = cum_s[q - 1];
-}
-
 // 2. the state gradients, from the last chunk back: on entry du holds each
 // chunk's U, on exit the gradient of the state leaving the chunk
 __global__ void __launch_bounds__(256)
@@ -455,134 +308,6 @@ ssd_bwd_state_pass_kernel(float* __restrict__ du,
     d[(int64_t)c * pn] = carry;
     carry = fmaf(expf(cq[c]), carry, u);
   }
-}
-
-// 3. dx, dB (per head), ddt and the chunk's part of da
-template <typename T, int P, int NPT>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_cols_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ a, const T* __restrict__ bmat,
-                    const T* __restrict__ cmat, const T* __restrict__ dy,
-                    const float* __restrict__ states,
-                    const float* __restrict__ dh1_all,
-                    const float* __restrict__ dcum, T* __restrict__ dx,
-                    float* __restrict__ ddt, float* __restrict__ db_part,
-                    float* __restrict__ da_part, Args g) {
-  constexpr int NP = 4 * NPT, PPT = P / 4, NPP = NP + 1, PP = P + 1;
-  extern __shared__ float4 smem4[];
-  float* dh_s = reinterpret_cast<float*>(smem4);  // [P][NPP]
-  float* b_s = dh_s + P * NPP;                     // [kRows][NPP] columns j
-  float* x_s = b_s + kRows * NPP;                  // [kRows][PP]
-  float* c_s = x_s + kRows * PP;                   // [kRows][NPP] rows i
-  float* dy_s = c_s + kRows * NPP;                 // [kRows][PP]
-  float* cum_s = dy_s + kRows * PP;                // [kMaxChunk]
-  float* dt_s = cum_s + kMaxChunk;                 // [kMaxChunk]
-  float* ddt_s = dt_s + kMaxChunk;                 // [kMaxChunk] direct ddt
-  float* dcm_s = ddt_s + kMaxChunk;                // [kMaxChunk] column dcum
-  float* warp_tot = dcm_s + kMaxChunk;             // [kThreads / 32]
-  float* red = warp_tot + kThreads / 32;           // [kThreads / 32]
-
-  const int tid = threadIdx.x, row = tid / kTpr, part = tid % kTpr;
-  const int hh = blockIdx.x, ci = blockIdx.y, bi = blockIdx.z;
-  const int q = g.chunk, c0 = ci * q, n = g.n;
-  const int64_t bh = (int64_t)bi * g.heads + hh;
-  const float a_h = a[hh];
-  chunk_cum(dt, a_h, g, bi, hh, c0, dt_s, cum_s, warp_tot);
-  const float cq = cum_s[q - 1];
-  const float* dh1 = dh1_all + (bh * g.nc + ci) * P * n;
-  const float* h0 = states + (bh * g.nc + ci) * P * n;
-  float dot_h = 0.0f;  // this thread's part of <dh1, h0>
-  for (int o = tid; o < P * NP; o += kThreads) {
-    const int p = o / NP, nn = o - p * NP;
-    const float v = nn < n ? dh1[p * n + nn] : 0.0f;
-    dh_s[p * NPP + nn] = v;
-    if (nn < n) dot_h = fmaf(v, h0[p * n + nn], dot_h);
-  }
-  float tsum = 0.0f;  // this thread's part of sum_j w_j s_j
-
-  const T* xb = x + bi * g.x_sb + hh * g.x_sh;
-  const T* bb = bmat + bi * g.b_sb;
-  const T* cb = cmat + bi * g.c_sb;
-  const T* dyb = dy + ((int64_t)bi * g.seq * g.heads + hh) * P;
-  const int64_t dy_ss = (int64_t)g.heads * P;
-  const int tiles = (q + kRows - 1) / kRows;
-
-  for (int ct = 0; ct < tiles; ++ct) {
-    __syncthreads();  // every thread is done with the previous tiles
-    stage_rows(b_s, NPP, n, NP, bb, g.b_ss, c0, ct * kRows, g);
-    stage_rows(x_s, PP, P, P, xb, g.x_ss, c0, ct * kRows, g);
-    __syncthreads();
-    const int j = ct * kRows + row;
-    const float dt_j = dt_s[j], cum_j = cum_s[j];
-    const float e_j = expf(cq - cum_j), w_j = e_j * dt_j;
-    float br[NPT], xr[PPT], dxa[PPT], dba[NPT];
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) br[k] = b_s[row * NPP + k * 4 + part];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) xr[k] = x_s[row * PP + k * 4 + part];
-    // the state-update terms: w_j dh1 B_j into dx_j, w_j dh1^T x_j into
-    // dB_j, and s_j = x_j . dh1 B_j
-    float sp = 0.0f;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const int p = k * 4 + part;
-      float t = 0.0f;
-#pragma unroll 8
-      for (int nn = 0; nn < NP; ++nn)
-        t = fmaf(dh_s[p * NPP + nn], b_s[row * NPP + nn], t);
-      dxa[k] = w_j * t;
-      sp = fmaf(xr[k], t, sp);
-    }
-#pragma unroll
-    for (int k = 0; k < NPT; ++k) {
-      const int nn = k * 4 + part;
-      float t = 0.0f;
-#pragma unroll 8
-      for (int p = 0; p < P; ++p)
-        t = fmaf(dh_s[p * NPP + nn], x_s[row * PP + p], t);
-      dba[k] = w_j * t;
-    }
-    const float s_j = quad_sum(sp);
-    float dd = e_j * s_j, dcm = -w_j * s_j;
-    if (part == 0 && j < q) tsum = fmaf(w_j, s_j, tsum);
-
-    for (int rt = ct; rt < tiles; ++rt) {
-      __syncthreads();
-      stage_rows(c_s, NPP, n, NP, cb, g.c_ss, c0, rt * kRows, g);
-      stage_rows(dy_s, PP, P, P, dyb, dy_ss, c0, rt * kRows, g);
-      __syncthreads();
-      for (int ii = 0; ii < kRows; ++ii) {
-        const float* crow = c_s + ii * NPP;
-        const float* dyrow = dy_s + ii * PP;
-        const float gij = quad_sum(dot_part<NPT>(br, crow, part));
-        const float dij = quad_sum(dot_part<PPT>(xr, dyrow, part));
-        const int i = rt * kRows + ii;
-        if ((rt > ct || ii >= row) && i < q) {  // i >= j
-          const float l = expf(cum_s[i] - cum_j);
-          const float dl = dij * l;
-          axpy_part<PPT>(dxa, gij * l * dt_j, dyrow, part);
-          axpy_part<NPT>(dba, dl * dt_j, crow, part);
-          dd = fmaf(dl, gij, dd);
-          dcm = fmaf(-dl * gij, dt_j, dcm);
-        }
-      }
-    }
-    if (j < q && c0 + j < g.seq) {
-      T* dxr = dx + (((int64_t)bi * g.seq + c0 + j) * g.heads + hh) * P;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) store_val(dxr + k * 4 + part, dxa[k]);
-      float* dbr = db_part + (bh * g.seq + c0 + j) * n;
-#pragma unroll
-      for (int k = 0; k < NPT; ++k)
-        if (k * 4 + part < n) dbr[k * 4 + part] = dba[k];
-    }
-    if (j < q && part == 0) {
-      ddt_s[j] = dd;
-      dcm_s[j] = dcm;
-    }
-  }
-  finish_chunk(dcum, dcm_s, ddt_s, dt_s, a_h, cq, tsum, dot_h, g, bi, hh, ci,
-               ddt, da_part, warp_tot, red);
 }
 
 // 4. dB, dC over the heads; da over batch and chunks
@@ -1279,6 +1004,545 @@ ssd_bwd_cols_tc_kernel(const bf16* __restrict__ x,
                ci, ddt, da_part, warp_tot, red);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 route: tensor cores, split TF32 (wgmma, sm_90a)
+// ---------------------------------------------------------------------------
+using ssd::kF32Keys;
+using ssd::kF32Threads;
+using ssd::Held;
+using ssd::kHeldAhead;
+using ssd::rows_of;
+using ssd::tile_value;
+
+// Shared memory of the fp32 chunk kernels, from a 256-byte aligned base.
+// Rows: dY_i and C_i (64 rows, hi and lo), then in one place h0^T, or a
+// key tile's B_j, X_j and B_j^T, or the U pass's dY^T and (C o exp(cum))^T
+// (kF32Keys rows, hi and lo); then dt, cum, exp(cum) and cum's tile
+// extremes.  Columns: B_j and X_j (64 rows, hi and lo), then in one place
+// dh1 or dh1^T, or a row tile's C_i, dY_i, dY_i^T and C_i^T; then dt,
+// cum, the direct ddt, the column part of dcum and the block sums' slots.
+__host__ __device__ constexpr size_t f32_max3(size_t a, size_t b, size_t c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+__host__ __device__ constexpr size_t f32_rows_area(int p, int np) {
+  return 8 * f32_max3((size_t)p * np, (size_t)kF32Keys * (2 * np + p),
+                      (size_t)kF32Keys * (ssd::kTile + np));
+}
+__host__ __device__ constexpr size_t f32_rows_bytes(int p, int np) {
+  return 256 + 8 * ssd::kTile * (p + np) + f32_rows_area(p, np) +
+         4 * (3 * kMaxChunk + 16);
+}
+__host__ __device__ constexpr size_t f32_cols_area(int p, int np) {
+  return 8 * f32_max3((size_t)p * np, (size_t)kF32Keys * (2 * np + 2 * p), 0);
+}
+__host__ __device__ constexpr size_t f32_cols_bytes(int p, int np) {
+  return 256 + 8 * ssd::kTile * (p + np) + f32_cols_area(p, np) +
+         4 * (4 * kMaxChunk + 32);
+}
+
+// 1. dC (per head), the row part of dcum, U and cum_Q, one 64-row tile i
+// after another: Z = dY_i h0 (k = P, h0^T staged) gives dC_i = exp(cum_i)
+// Z_i and dcum_i = exp(cum_i) Z_i . C_i; per key tile j of kF32Keys keys
+// up to the tile's last row, G = C_i B_j^T (k = N) and D = dY_i X_j^T (k =
+// P), W_D = D o L o dt_j on the fragments (the decay per entry), M = W_D o
+// G summed along the rows without its diagonal, dC_i += W_D B_j (B_j^T
+// staged in frag_tf32's order).  Then U = dY^T (C o exp(cum)) over the
+// chunk's rows, kF32Keys at a time (both transposed in one order).
+template <int P, int NP>
+__global__ void __launch_bounds__(kF32Threads)
+ssd_bwd_rows_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ a,
+                        const float* __restrict__ bmat,
+                        const float* __restrict__ cmat,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ states,
+                        float* __restrict__ dc_part, float* __restrict__ dcum,
+                        float* __restrict__ u_out, float* __restrict__ cum_q,
+                        Args g) {
+  constexpr int K = kF32Keys, kT = ssd::kTile;
+  constexpr uint32_t kDY = kT * P * 4, kC = kT * NP * 4, kH = P * NP * 4,
+                     kB = K * NP * 4, kX = K * P * 4, kU = K * kT * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const dyh = align256(smem_raw);
+  uint8_t* const dyl = dyh + kDY;
+  uint8_t* const ch = dyl + kDY;
+  uint8_t* const cl = ch + kC;
+  uint8_t* const area = cl + kC;
+  float* const dt_s = reinterpret_cast<float*>(area + f32_rows_area(P, NP));
+  float* const cum_s = dt_s + kMaxChunk;
+  float* const e_s = cum_s + kMaxChunk;    // exp(cum)
+  float* const tmax_s = e_s + kMaxChunk;  // [12]: see warp_chunk_cumsum
+  const uint32_t sdyh = smem_addr(dyh), sdyl = sdyh + kDY, sch = sdyl + kDY,
+                 scl = sch + kC, sa = scl + kC;
+
+  const int tid = threadIdx.x;
+  const int hh = blockIdx.x, ci = blockIdx.y, bi = blockIdx.z;
+  const int q = g.chunk, c0 = ci * q, rows = ssd::tile_rows(q);
+  const int lim = min(q, g.seq - c0);
+  const int64_t bh = (int64_t)bi * g.heads + hh;
+  float dtv[2];
+  ssd::load_dt(dtv, dt, g, bi, hh, c0);
+  const float* xb = x + bi * g.x_sb + hh * g.x_sh + (int64_t)c0 * g.x_ss;
+  const float* bb = bmat + bi * g.b_sb + (int64_t)c0 * g.b_ss;
+  const float* cb = cmat + bi * g.c_sb + (int64_t)c0 * g.c_ss;
+  const int64_t dy_ss = (int64_t)g.heads * P;
+  const float* dyb = dy + ((int64_t)bi * g.seq + c0) * dy_ss + hh * P;
+  const float* h0 = states + (bh * g.nc + ci) * P * g.n;
+  ssd::chunk_cum(dtv, a[hh], rows, dt_s, cum_s, tmax_s);
+  for (int r = tid; r < rows; r += kF32Threads) e_s[r] = expf(cum_s[r]);
+
+  const int warp = tid >> 5, lane = tid & 31, cq = 2 * (lane & 3);
+  for (int t = 0; t < rows / kT; ++t) {
+    const int row0 = t * kT;
+    const int ra = row0 + warp * 16 + (lane >> 2), rb = ra + 8;
+    __syncthreads();  // the previous tile's products have retired
+    split_rows<P, kT, 4, kT>(dyh, dyl, rows_of(dyb, dy_ss, row0, lim, P),
+                             tid);
+    split_rows<NP, kT, 4, kT>(ch, cl, rows_of(cb, g.c_ss, row0, lim, g.n),
+                              tid);
+    split_rows_t<NP, P, 4, false>(area, area + kH,
+                                  rows_of(h0, g.n, 0, P, g.n), tid);
+    fence_proxy_async();
+    __syncthreads();
+    // B_j and X_j of the key tiles, K at a time: the next tile's loads
+    // are in flight while the current one's products run
+    const int nk = min(row0 + kT, lim);
+    Held<NP, K> hb;
+    Held<P, K> hx;
+    auto fetch = [&](int k0) {
+      hb.fetch(rows_of(bb, g.b_ss, k0, lim, g.n), tid);
+      hx.fetch(rows_of(xb, g.x_ss, k0, lim, P), tid);
+    };
+    if (kHeldAhead<NP>) fetch(0);
+    // the carried state: Z = dY_i h0; dC_i gets exp(cum_i) Z_i and
+    // dcum_i exp(cum_i) Z_i . C_i
+    float acc[NP / 2];
+    zero(acc);
+    pin(acc);
+    wgmma_fence();
+    mma3<P>(acc, sdyh, sdyl, kT * 32, sa, sa + kH, NP * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    float dca = 0.0f, dcb = 0.0f;  // this thread's part of the rows' dcum
+#pragma unroll
+    for (int jb = 0; jb < NP / 8; ++jb) {
+      const int col = 8 * jb + cq;
+      dca = fmaf(acc[4 * jb], tile_value(ch, cl, kT, ra - row0, col),
+                 fmaf(acc[4 * jb + 1],
+                      tile_value(ch, cl, kT, ra - row0, col + 1), dca));
+      dcb = fmaf(acc[4 * jb + 2], tile_value(ch, cl, kT, rb - row0, col),
+                 fmaf(acc[4 * jb + 3],
+                      tile_value(ch, cl, kT, rb - row0, col + 1), dcb));
+    }
+    const float ea = e_s[ra], eb = e_s[rb];
+    dca *= ea;
+    dcb *= eb;
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] *= (i & 2) ? eb : ea;
+
+    for (int k0 = 0; k0 < nk; k0 += K) {
+      __syncthreads();
+      if (!kHeldAhead<NP>) fetch(k0);
+      hb.template put<K>(area, area + kB, tid);
+      hx.template put<K>(area + 2 * kB, area + 2 * kB + kX, tid);
+      hb.template put_t<true>(area + 2 * kB + 2 * kX,
+                              area + 3 * kB + 2 * kX, tid);
+      fence_proxy_async();
+      __syncthreads();
+      if (kHeldAhead<NP> && k0 + K < nk) fetch(k0 + K);
+      // G = C_i B_j^T (k = N) and D = dY_i X_j^T (k = P)
+      float s[K / 2], d[K / 2];
+      zero(s);
+      zero(d);
+      pin(s);
+      pin(d);
+      wgmma_fence();
+      mma3<NP>(s, sch, scl, kT * 32, sa, sa + kB, K * 32);
+      mma3<P>(d, sdyh, sdyl, kT * 32, sa + 2 * kB, sa + 2 * kB + kX, K * 32);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(d);
+      // W_D = D o L o dt_j on the fragments (s[4 jb + e] and d[4 jb + e]
+      // are row ra + 8 (e >> 1), key k0 + 8 jb + cq + (e & 1)); M = W_D o
+      // G without its diagonal (it enters launch 3's column part too,
+      // with the opposite sign)
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int row = (i & 2) ? rb : ra;
+        const float w = key <= row
+            ? d[i] * expf(cum_s[row] - cum_s[key]) * dt_s[key] : 0.0f;
+        const float m = key < row ? w * s[i] : 0.0f;
+        if (i & 2) dcb += m; else dca += m;
+        d[i] = w;
+      }
+      // dC_i += W_D B_j
+      wgmma_fence();
+      mma3_rs<K>(acc, d, sa + 2 * kB + 2 * kX, sa + 3 * kB + 2 * kX,
+                 NP * 32);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+    }
+
+    dca = quad_sum(dca);
+    dcb = quad_sum(dcb);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? rb : ra;
+      if (row >= q) continue;
+      if (row < lim) {
+        float* dst = dc_part + (bh * g.seq + c0 + row) * g.n;
+#pragma unroll
+        for (int jb = 0; jb < NP / 8; ++jb) {
+          const int col = 8 * jb + cq;
+          if (col < g.n)
+            *reinterpret_cast<float2*>(dst + col) = make_float2(
+                acc[4 * jb + 2 * half], acc[4 * jb + 2 * half + 1]);
+        }
+      }
+      if ((lane & 3) == 0)
+        dcum[(bh * g.nc + ci) * q + row] = half ? dcb : dca;
+    }
+  }
+
+  // U = dY^T (C o exp(cum)), the chunk's own part of dh0: M = 64 rows of p
+  // (P of them kept), k = the chunk's rows
+  auto expcum = [=](int r) { return e_s[r]; };
+  Held<kT, K> hy;
+  Held<NP, K> hc;
+  auto fetch_u = [&](int k0) {
+    hy.fetch(rows_of(dyb, dy_ss, k0, lim, P), tid);
+    hc.fetch(rows_of(cb, g.c_ss, k0, lim, g.n, expcum), tid);
+  };
+  if (kHeldAhead<NP>) fetch_u(0);
+  float u[NP / 2];
+  zero(u);
+  for (int k0 = 0; k0 < lim; k0 += K) {
+    __syncthreads();
+    if (!kHeldAhead<NP>) fetch_u(k0);
+    hy.template put_t<true>(area, area + kU, tid);
+    hc.template put_t<true>(area + 2 * kU, area + 2 * kU + kB, tid);
+    fence_proxy_async();
+    __syncthreads();
+    if (kHeldAhead<NP> && k0 + K < lim) fetch_u(k0 + K);
+    pin(u);
+    wgmma_fence();
+    mma3<K>(u, sa, sa + kU, kT * 32, sa + 2 * kU, sa + 2 * kU + kB, NP * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(u);
+  }
+  float* uo = u_out + (bh * g.nc + ci) * P * g.n;
+  const int p0 = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int jb = 0; jb < NP / 8; ++jb) {
+    const int col = 8 * jb + cq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = p0 + 8 * half;
+      if (col < g.n && p < P)
+        *reinterpret_cast<float2*>(uo + p * g.n + col) =
+            make_float2(u[4 * jb + 2 * half], u[4 * jb + 2 * half + 1]);
+    }
+  }
+  if (tid == 0) cum_q[bh * g.nc + ci] = cum_s[rows - 1];
+}
+
+// exclusive block scan of one value per thread (THREADS threads)
+template <int THREADS>
+__device__ float block_exclusive_scan(float v, float* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float t = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, t, off);
+    if (lane >= off) t += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, t, 1);
+  if (lane == 0) excl = 0.0f;
+  if (lane == 31) warp_tot[warp] = t;
+  __syncthreads();
+  float pre = 0.0f;
+  for (int w = 0; w < warp; ++w) pre += warp_tot[w];
+  __syncthreads();  // warp_tot may be reused
+  return pre + excl;
+}
+
+// The end of launch 3 for the fp32 route's kF32Threads threads, as
+// finish_chunk: each thread takes two rows, q - 1 - 2 tid and the one
+// before it.
+__device__ void finish_chunk_f32(const float* __restrict__ dcum,
+                                 const float* dcm_s, const float* ddt_s,
+                                 const float* dt_s, float a_h, float cq,
+                                 float tsum, float dot_h, const Args& g,
+                                 int bi, int hh, int ci,
+                                 float* __restrict__ ddt,
+                                 float* __restrict__ da_part,
+                                 float* warp_tot, float* red) {
+  constexpr int T = kF32Threads;
+  const int tid = threadIdx.x, q = g.chunk, c0 = ci * q;
+  const int64_t bh = (int64_t)bi * g.heads + hh;
+  const float tq = block_sum<T>(tsum, red);
+  const float eh = expf(cq) * block_sum<T>(dot_h, red);
+  float v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = 2 * tid + e, r = q - 1 - k;
+    v[e] = 0.0f;
+    if (k < q) {
+      v[e] = dcum[(bh * g.nc + ci) * q + r] + dcm_s[r];
+      if (r == q - 1) v[e] += eh + tq;
+    }
+  }
+  // g_r = sum_{i >= r} dcum_i
+  float gr[2];
+  gr[0] = block_exclusive_scan<T>(v[0] + v[1], warp_tot) + v[0];
+  gr[1] = gr[0] + v[1];
+  float dap = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = 2 * tid + e, r = q - 1 - k;
+    if (k >= q) continue;
+    if (c0 + r < g.seq)
+      ddt[((int64_t)bi * g.seq + c0 + r) * g.heads + hh] =
+          fmaf(a_h, gr[e], ddt_s[r]);
+    dap = fmaf(dt_s[r], gr[e], dap);
+  }
+  dap = block_sum<T>(dap, red);
+  if (tid == 0) da_part[bh * g.nc + ci] = dap;
+}
+
+// 3. dx, dB (per head), ddt and the chunk's part of da, one 64-row column
+// tile j after another: T = B_j dh1^T (k = N, dh1 staged) and X_j dh1 (k
+// = P, dh1^T staged) give the state terms w_j T_j, w_j X_j dh1 and s_j =
+// x_j . T_j; per row tile i of kF32Keys rows from the tile's first row on,
+// G^T = B_j C_i^T and D^T = X_j dY_i^T, W_G^T and W_D^T on the fragments
+// (the decay per entry), the row sums of D^T o G^T o L^T, then dx_j +=
+// W_G^T dY_i and dB_j += W_D^T C_i (dY_i^T and C_i^T staged in frag_tf32's
+// order); then finish_chunk_f32.
+template <int P, int NP>
+__global__ void __launch_bounds__(kF32Threads)
+ssd_bwd_cols_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ a,
+                        const float* __restrict__ bmat,
+                        const float* __restrict__ cmat,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ states,
+                        const float* __restrict__ dh1_all,
+                        const float* __restrict__ dcum,
+                        float* __restrict__ dx, float* __restrict__ ddt,
+                        float* __restrict__ db_part,
+                        float* __restrict__ da_part, Args g) {
+  constexpr int K = kF32Keys, kT = ssd::kTile;
+  constexpr uint32_t kBj = kT * NP * 4, kXj = kT * P * 4, kH = P * NP * 4,
+                     kC = K * NP * 4, kY = K * P * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const bjh = align256(smem_raw);
+  uint8_t* const bjl = bjh + kBj;
+  uint8_t* const xjh = bjl + kBj;
+  uint8_t* const xjl = xjh + kXj;
+  uint8_t* const area = xjl + kXj;
+  float* const dt_s = reinterpret_cast<float*>(area + f32_cols_area(P, NP));
+  float* const cum_s = dt_s + kMaxChunk;
+  float* const ddt_s = cum_s + kMaxChunk;  // direct ddt
+  float* const dcm_s = ddt_s + kMaxChunk;  // column part of dcum
+  float* const tmax_s = dcm_s + kMaxChunk;  // [12]: see warp_chunk_cumsum
+  float* const warp_tot = tmax_s + 16;     // [kF32Threads / 32]
+  float* const red = warp_tot + 8;         // [kF32Threads / 32]
+  const uint32_t sbjh = smem_addr(bjh), sbjl = sbjh + kBj,
+                 sxjh = sbjl + kBj, sxjl = sxjh + kXj, sa = sxjl + kXj;
+  // a row tile's C_i, dY_i, dY_i^T and C_i^T, each hi then lo
+  const uint32_t oc = 0, oy = 2 * kC, oyt = oy + 2 * kY, oct = oyt + 2 * kY;
+
+  const int tid = threadIdx.x;
+  const int hh = blockIdx.x, ci = blockIdx.y, bi = blockIdx.z;
+  const int q = g.chunk, c0 = ci * q, rows = ssd::tile_rows(q);
+  const int lim = min(q, g.seq - c0);
+  const int64_t bh = (int64_t)bi * g.heads + hh;
+  const float a_h = a[hh];
+  float dtv[2];
+  ssd::load_dt(dtv, dt, g, bi, hh, c0);
+  const float* xb = x + bi * g.x_sb + hh * g.x_sh + (int64_t)c0 * g.x_ss;
+  const float* bb = bmat + bi * g.b_sb + (int64_t)c0 * g.b_ss;
+  const float* cb = cmat + bi * g.c_sb + (int64_t)c0 * g.c_ss;
+  const int64_t dy_ss = (int64_t)g.heads * P;
+  const float* dyb = dy + ((int64_t)bi * g.seq + c0) * dy_ss + hh * P;
+  const float* dh1 = dh1_all + (bh * g.nc + ci) * P * g.n;
+  const float* h0 = states + (bh * g.nc + ci) * P * g.n;
+  for (int r = tid; r < kMaxChunk; r += kF32Threads)
+    ddt_s[r] = dcm_s[r] = 0.0f;  // rows past the sequence's end
+  ssd::chunk_cum(dtv, a_h, rows, dt_s, cum_s, tmax_s);
+  float dot_h = 0.0f;  // this thread's part of <dh1, h0>
+  for (int o = tid; o < P * g.n; o += kF32Threads)
+    dot_h = fmaf(dh1[o], h0[o], dot_h);
+
+  const int warp = tid >> 5, lane = tid & 31, cq = 2 * (lane & 3);
+  const float cqv = cum_s[rows - 1];
+  float tsum = 0.0f;  // this thread's part of sum_j w_j s_j
+  for (int t = 0; t * kT < lim; ++t) {
+    const int row0 = t * kT;
+    const int ja = row0 + warp * 16 + (lane >> 2), jb = ja + 8;
+    __syncthreads();  // the previous tile's products have retired
+    split_rows<NP, kT, 4, kT>(bjh, bjl, rows_of(bb, g.b_ss, row0, lim, g.n),
+                              tid);
+    split_rows<P, kT, 4, kT>(xjh, xjl, rows_of(xb, g.x_ss, row0, lim, P),
+                             tid);
+    split_rows<NP, P, 4, P>(area, area + kH, rows_of(dh1, g.n, 0, P, g.n),
+                            tid);
+    fence_proxy_async();
+    __syncthreads();
+    // C_i and dY_i of the row tiles, K at a time: the next tile's loads
+    // are in flight while the current one's products run
+    Held<NP, K> hc;
+    Held<P, K> hy;
+    auto fetch = [&](int i0) {
+      hc.fetch(rows_of(cb, g.c_ss, i0, lim, g.n), tid);
+      hy.fetch(rows_of(dyb, dy_ss, i0, lim, P), tid);
+    };
+    if (kHeldAhead<NP>) fetch(row0);
+    // the state terms: T = B_j dh1^T into dx_j, then X_j dh1 into dB_j
+    float dxa[P / 2], dba[NP / 2];
+    zero(dxa);
+    zero(dba);
+    pin(dxa);
+    wgmma_fence();
+    mma3<NP>(dxa, sbjh, sbjl, kT * 32, sa, sa + kH, P * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dxa);
+    __syncthreads();
+    split_rows_t<NP, P, 4, false>(area, area + kH,
+                                  rows_of(dh1, g.n, 0, P, g.n), tid);
+    fence_proxy_async();
+    __syncthreads();
+    pin(dba);
+    wgmma_fence();
+    mma3<P>(dba, sxjh, sxjl, kT * 32, sa, sa + kH, NP * 32);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dba);
+    float sa_ = 0.0f, sb_ = 0.0f;  // s_j = x_j . T_j
+#pragma unroll
+    for (int pb = 0; pb < P / 8; ++pb) {
+      const int col = 8 * pb + cq;
+      sa_ = fmaf(dxa[4 * pb], tile_value(xjh, xjl, kT, ja - row0, col),
+                 fmaf(dxa[4 * pb + 1],
+                      tile_value(xjh, xjl, kT, ja - row0, col + 1), sa_));
+      sb_ = fmaf(dxa[4 * pb + 2], tile_value(xjh, xjl, kT, jb - row0, col),
+                 fmaf(dxa[4 * pb + 3],
+                      tile_value(xjh, xjl, kT, jb - row0, col + 1), sb_));
+    }
+    sa_ = quad_sum(sa_);
+    sb_ = quad_sum(sb_);
+    const float dta = dt_s[ja], dtb = dt_s[jb];
+    const float eja = expf(cqv - cum_s[ja]), ejb = expf(cqv - cum_s[jb]);
+    const float wa = eja * dta, wb = ejb * dtb;
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) dxa[i] *= (i & 2) ? wb : wa;
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) dba[i] *= (i & 2) ? wb : wa;
+
+    // sum_{i >= j} D_ij G_ij L_ij (all) and without i = j (off)
+    float ra_all = 0.0f, rb_all = 0.0f, ra_off = 0.0f, rb_off = 0.0f;
+    for (int i0 = row0; i0 < lim; i0 += K) {
+      __syncthreads();
+      if (!kHeldAhead<NP>) fetch(i0);
+      hc.template put<K>(area + oc, area + oc + kC, tid);
+      hy.template put<K>(area + oy, area + oy + kY, tid);
+      hy.template put_t<true>(area + oyt, area + oyt + kY, tid);
+      hc.template put_t<true>(area + oct, area + oct + kC, tid);
+      fence_proxy_async();
+      __syncthreads();
+      if (kHeldAhead<NP> && i0 + K < lim) fetch(i0 + K);
+      // G^T = B_j C_i^T (k = N) and D^T = X_j dY_i^T (k = P)
+      float s[K / 2], d[K / 2];
+      zero(s);
+      zero(d);
+      pin(s);
+      pin(d);
+      wgmma_fence();
+      mma3<NP>(s, sbjh, sbjl, kT * 32, sa + oc, sa + oc + kC, K * 32);
+      mma3<P>(d, sxjh, sxjl, kT * 32, sa + oy, sa + oy + kY, K * 32);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(d);
+      // W_G^T = G^T o L^T o dt_j and W_D^T = D^T o L^T o dt_j on the
+      // fragments (s[4 ib + e] is row ja + 8 (e >> 1), column i0 + 8 ib +
+      // cq + (e & 1)), and the row sums of D^T o G^T o L^T
+#pragma unroll
+      for (int i = 0; i < K / 2; ++i) {
+        const int col = i0 + 8 * (i >> 2) + cq + (i & 1);
+        const int h = (i >> 1) & 1, row = h ? jb : ja;
+        const float l = col >= row ? expf(cum_s[col] - cum_s[row]) : 0.0f;
+        const float r = d[i] * s[i] * l;
+        const float off = col != row ? r : 0.0f;
+        if (h) {
+          rb_all += r;
+          rb_off += off;
+        } else {
+          ra_all += r;
+          ra_off += off;
+        }
+        const float f = l * (h ? dtb : dta);
+        s[i] *= f;
+        d[i] *= f;
+      }
+      // dx_j += W_G^T dY_i, then dB_j += W_D^T C_i
+      wgmma_fence();
+      mma3_rs<K>(dxa, s, sa + oyt, sa + oyt + kY, P * 32);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dxa);
+      wgmma_fence();
+      mma3_rs<K>(dba, d, sa + oct, sa + oct + kC, NP * 32);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dba);
+    }
+
+    ra_all = quad_sum(ra_all);
+    rb_all = quad_sum(rb_all);
+    ra_off = quad_sum(ra_off);
+    rb_off = quad_sum(rb_off);
+    if ((lane & 3) == 0) {
+      ddt_s[ja] = fmaf(eja, sa_, ra_all);
+      ddt_s[jb] = fmaf(ejb, sb_, rb_all);
+      dcm_s[ja] = -dta * ra_off - wa * sa_;
+      dcm_s[jb] = -dtb * rb_off - wb * sb_;
+      if (ja < q) tsum = fmaf(wa, sa_, tsum);
+      if (jb < q) tsum = fmaf(wb, sb_, tsum);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? jb : ja;
+      if (row >= lim) continue;
+      float* dst = db_part + (bh * g.seq + c0 + row) * g.n;
+#pragma unroll
+      for (int nb = 0; nb < NP / 8; ++nb) {
+        const int col = 8 * nb + cq;
+        if (col < g.n)
+          *reinterpret_cast<float2*>(dst + col) = make_float2(
+              dba[4 * nb + 2 * half], dba[4 * nb + 2 * half + 1]);
+      }
+      float* dxr = dx + (((int64_t)bi * g.seq + c0 + row) * g.heads + hh) * P
+                   + cq;
+#pragma unroll
+      for (int pb = 0; pb < P / 8; ++pb)
+        *reinterpret_cast<float2*>(dxr + 8 * pb) = make_float2(
+            dxa[4 * pb + 2 * half], dxa[4 * pb + 2 * half + 1]);
+    }
+  }
+  __syncthreads();  // ddt_s and dcm_s are whole
+  finish_chunk_f32(dcum, dcm_s, ddt_s, dt_s, a_h, cqv, tsum, dot_h, g, bi,
+                   hh, ci, ddt, da_part, warp_tot, red);
+}
+
 struct Out {
   void *dx, *db, *dc;
   float *ddt, *da;
@@ -1337,29 +1601,29 @@ int launch_all(KR kr, KC kc, size_t smem_r, size_t smem_c, int threads,
     int batch, cudaStream_t stream
 #define BWD_ARGS x, dt, a, b, c, dy, states, dh_last, o, s, g, batch, stream
 
-template <typename T, int P, int NPT>
-int run(BWD_PARAMS) {
-  return launch_all<T>(ssd_bwd_rows_kernel<T, P, NPT>,
-                       ssd_bwd_cols_kernel<T, P, NPT>,
-                       sizeof(float) * rows_smem_floats<P, NPT>(),
-                       sizeof(float) * cols_smem_floats<P, NPT>(), kThreads,
-                       P, BWD_ARGS);
+template <int P, int NP>
+int run_f32(BWD_PARAMS) {
+  return launch_all<float>(ssd_bwd_rows_f32_kernel<P, NP>,
+                           ssd_bwd_cols_f32_kernel<P, NP>,
+                           f32_rows_bytes(P, NP), f32_cols_bytes(P, NP),
+                           kF32Threads, P, BWD_ARGS);
 }
 
-template <typename T, int P>
-int dispatch_n(BWD_PARAMS) {
-  if (g.n <= 16) return run<T, P, 4>(BWD_ARGS);
-  if (g.n <= 32) return run<T, P, 8>(BWD_ARGS);
-  if (g.n <= 64) return run<T, P, 16>(BWD_ARGS);
-  return run<T, P, 32>(BWD_ARGS);
+template <int P>
+int dispatch_f32_n(BWD_PARAMS) {
+  switch (ssd::padded_state(g.n)) {
+    case 16: return run_f32<P, 16>(BWD_ARGS);
+    case 32: return run_f32<P, 32>(BWD_ARGS);
+    case 64: return run_f32<P, 64>(BWD_ARGS);
+  }
+  return run_f32<P, 128>(BWD_ARGS);
 }
 
-template <typename T>
-int dispatch_p(int p, BWD_PARAMS) {
+int dispatch_f32(int p, BWD_PARAMS) {
   switch (p) {
-    case 16: return dispatch_n<T, 16>(BWD_ARGS);
-    case 32: return dispatch_n<T, 32>(BWD_ARGS);
-    case 64: return dispatch_n<T, 64>(BWD_ARGS);
+    case 16: return dispatch_f32_n<16>(BWD_ARGS);
+    case 32: return dispatch_f32_n<32>(BWD_ARGS);
+    case 64: return dispatch_f32_n<64>(BWD_ARGS);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1407,23 +1671,20 @@ extern "C" int64_t ssd_scan_bwd_smem_bytes(int head_dim, int state_dim,
   if (state_dim < 1 || state_dim > 128 || chunk < 1 || chunk > kMaxChunk)
     return -1;
   if (head_dim != 16 && head_dim != 32 && head_dim != 64) return -1;
+  const int np = ssd::padded_state(state_dim);
   if (is_bf16)
-    return (int64_t)tc_smem_bytes(head_dim, ssd::padded_state(state_dim),
-                                  ssd::tile_rows(chunk));
-  const int npt = state_dim <= 16 ? 4 : state_dim <= 32 ? 8
-                  : state_dim <= 64 ? 16 : 32;
-  const int64_t pad = 4 * npt + 1;
-  return (int64_t)sizeof(float) *
-         (head_dim * pad + 2 * kRows * pad + 2 * kRows * (head_dim + 1) +
-          4 * kMaxChunk + 2 * (kThreads / 32));
+    return (int64_t)tc_smem_bytes(head_dim, np, ssd::tile_rows(chunk));
+  const size_t r = f32_rows_bytes(head_dim, np),
+               c = f32_cols_bytes(head_dim, np);
+  return (int64_t)(r > c ? r : c);
 }
 
 // See the note at the top for the operands.  Scratch: dcum B*H*chunks*chunk,
 // du B*H*chunks*P*N, cum_q and da_part B*H*chunks, db_part and dc_part
-// B*H*S*N, all fp32.  bf16 (is_bf16 = 1) runs on the tensor cores and
-// needs N a multiple of 8 and 16-byte aligned x, B, C, dy with (b, s, h)
-// strides of x, B, C that are multiples of 8 (else
-// cudaErrorMisalignedAddress); fp32 on the CUDA cores.
+// B*H*S*N, all fp32.  Both routes run on the tensor cores and need
+// 16-byte aligned x, B, C, dy: bf16 with N a multiple of 8 and (b, s, h)
+// strides of x, B, C that are multiples of 8, fp32 with N a multiple of
+// 4 and strides that are multiples of 4 (else cudaErrorMisalignedAddress).
 extern "C" int ssd_scan_bwd(
     const void* x, const float* dt, const float* a, const void* b,
     const void* c, const void* dy, const float* states, const float* dh_last,
@@ -1435,20 +1696,20 @@ extern "C" int ssd_scan_bwd(
     int is_bf16, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk || state_dim < 1 || state_dim > 128)
     return (int)cudaErrorInvalidValue;
+  const int unit = is_bf16 ? 8 : 4;
+  if (state_dim % unit) return (int)cudaErrorInvalidValue;
+  if (!(aligned16(x) && aligned16(b) && aligned16(c) && aligned16(dy)) ||
+      (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % unit)
+    return (int)cudaErrorMisalignedAddress;
   const Args g{x_sb,  x_ss, x_sh,      dt_sb,     dt_ss, dt_sh,
                b_sb,  b_ss, c_sb,      c_ss,      seq,   heads,
                state_dim, chunk, (seq + chunk - 1) / chunk};
   const Out o{dx, db, dc, ddt, da};
   const Scratch s{dcum, du, cum_q, db_part, dc_part, da_part};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (state_dim < 8 || state_dim % 8) return (int)cudaErrorInvalidValue;
-    if (!(aligned16(x) && aligned16(b) && aligned16(c) && aligned16(dy)) ||
-        (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % 8)
-      return (int)cudaErrorMisalignedAddress;
+  if (is_bf16)
     return dispatch_tc(head_dim, x, dt, a, b, c, dy, states, dh_last, o, s,
                        g, batch, st);
-  }
-  return dispatch_p<float>(head_dim, x, dt, a, b, c, dy, states, dh_last, o,
-                           s, g, batch, st);
+  return dispatch_f32(head_dim, x, dt, a, b, c, dy, states, dh_last, o, s,
+                      g, batch, st);
 }

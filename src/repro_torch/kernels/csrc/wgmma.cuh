@@ -3,7 +3,7 @@
 // ssd_scan_bwd.cu): cp.async loads into shared memory, the swizzled tile
 // layouts and the shared-memory matrix descriptors that wgmma reads, and
 // the wgmma instructions themselves (sm_90a): bf16 products, and the TF32
-// products and split-TF32 staging of B5's fp32 routes.
+// products and split-TF32 staging of B5's and B6's fp32 routes.
 //
 // Layouts (bf16 tiles; "row" is the strided dim of the tile):
 //   * 128-byte swizzle: column atoms of 64 entries, [atom][row][128 B];
@@ -563,7 +563,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 
 
 // ---------------------------------------------------------------------------
-// fp32 operands as split TF32 pairs (B5's fp32 routes)
+// fp32 operands as split TF32 pairs (B5's and B6's fp32 routes)
 // ---------------------------------------------------------------------------
 // An fp32 value x is carried as hi = tf32(x) and lo = tf32(x - hi), each
 // rounded to nearest (ties away) with the low 13 mantissa bits zero, the
@@ -576,6 +576,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 // Tiles are fp32 under the 32-byte swizzle: [D / 8 blocks][rows][32 B],
 // one block a k8 slice (kmajor32_desc of block kk at + kk * rows * 32),
 // so no head dim needs padding (80 is ten blocks).
+
+// a shared-memory base aligned up to the 32-byte swizzle's 256-byte period
+__device__ __forceinline__ uint8_t* align256(uint8_t* p) {
+  return p + ((256u - (smem_addr(p) & 255u)) & 255u);
+}
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -614,6 +619,21 @@ __device__ __forceinline__ void chunk_of(int idx, int& r, int& c) {
   r = (idx & 7) + 8 * (idx / (8 * kChunks));
 }
 
+// Chunk (r, c) of 4 fp32 entries split into the hi and lo tiles [D / 8][RS]
+// [32 B] (rows [0, RS) of each k8 block): the K-major operand of a
+// product over the D entries.
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, int rs,
+                                            int r, int c, float4 x) {
+  uint4 h, l;
+  split_tf32(x.x, h.x, l.x);
+  split_tf32(x.y, h.y, l.y);
+  split_tf32(x.z, h.z, l.z);
+  split_tf32(x.w, h.w, l.w);
+  const uint32_t off = swz32(rs, r, c);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
 // ROWS rows of D fp32 entries, chunk (r, c) given by load(r, c), split
 // into hi and lo tiles [D / 8][RS][32 B] (rows [0, ROWS) of each k8
 // block): the K-major operand of a product over the D entries.  Loads B
@@ -639,14 +659,7 @@ __device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo,
       if (idx >= kTotal) break;
       int r, c;
       chunk_of<D, ROWS>(idx, r, c);
-      uint4 h, l;
-      split_tf32(x[i].x, h.x, l.x);
-      split_tf32(x[i].y, h.y, l.y);
-      split_tf32(x[i].z, h.z, l.z);
-      split_tf32(x[i].w, h.w, l.w);
-      const uint32_t off = swz32(RS, r, c);
-      *reinterpret_cast<uint4*>(hi + off) = h;
-      *reinterpret_cast<uint4*>(lo + off) = l;
+      store_split(hi, lo, RS, r, c, x[i]);
     }
   }
 }
@@ -712,56 +725,75 @@ __device__ __forceinline__ void split_raw(uint8_t* pair, const float* raw,
   }, tid);
 }
 
-// The same columns transposed: hi and lo tiles [ROWS / 8][D][32 B] whose
-// row d holds entry d of each raw row, the K-major B operand of a product
-// over the ROWS rows whose A operand is an accumulator (frag_tf32):
-// within each block of 8, position j holds raw row 2 j (j < 4) or
-// 2 (j - 4) + 1.  The 4 threads of a warp that hold one row's 4 chunks
-// store their entries in a rotated order, so that a warp's 32 stores fall
-// in distinct banks.
-template <int D, int ROWS, int STRIDE, int OFF>
-__device__ __forceinline__ void split_raw_t(uint8_t* hi, uint8_t* lo,
-                                            const float* raw, int tid) {
+// Chunk (r, c) of 4 fp32 entries of a tile of ROWS rows split and
+// transposed into hi and lo tiles [ROWS / 8][D][32 B] whose row d holds
+// entry d of each of the ROWS rows: the K-major operand of a product over
+// the ROWS rows.  With PERM, position j of each block of 8 holds row 2 j
+// (j < 4) or 2 (j - 4) + 1, the order in which frag_tf32 takes an
+// accumulator's columns, so that the product with an accumulator as the A
+// operand is unchanged; without it, row j (the order of a K-major tile
+// staged by split_rows).  The 4 threads of a warp that hold one row's 4
+// chunks store their entries in a rotated order, so that a warp's 32
+// stores fall in distinct banks.
+template <int D, bool PERM>
+__device__ __forceinline__ void store_split_t(uint8_t* hi, uint8_t* lo,
+                                              int r, int c, float4 x) {
+  const int a = r & 7;
+  const int key = PERM ? (r & ~7) | ((a & 1) << 2) | (a >> 1) : r;
+  const uint32_t base = (uint32_t)(key >> 3) * D * 32u
+                        + (uint32_t)(key & 3) * 4u;
+  const uint32_t half = (uint32_t)(key >> 2) & 1u;
+#pragma unroll
+  for (int e0 = 0; e0 < 4; ++e0) {
+    const int e = (e0 + c) & 3;
+    const float val = e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+    const int d = 4 * c + e;
+    const uint32_t off = base + (uint32_t)d * 32u
+                         + ((half ^ (((uint32_t)d >> 2) & 1u)) << 4);
+    uint32_t h, l;
+    split_tf32(val, h, l);
+    *reinterpret_cast<uint32_t*>(hi + off) = h;
+    *reinterpret_cast<uint32_t*>(lo + off) = l;
+  }
+}
+
+// ROWS rows of D fp32 entries, chunk (r, c) given by load(r, c), split
+// and transposed as store_split_t takes them.  Loads B chunks a thread
+// ahead of their stores.
+template <int D, int ROWS, int B, bool PERM, typename Load>
+__device__ __forceinline__ void split_rows_t(uint8_t* hi, uint8_t* lo,
+                                             Load load, int tid) {
   constexpr int kTotal = ROWS * D / 4;
   static_assert(D % 8 == 0 && ROWS % 8 == 0 && (D / 4) % 4 == 0, "tile");
 #pragma unroll
-  for (int i0 = 0; i0 < kTotal; i0 += 4 * 128) {
-    float4 x[4];
+  for (int i0 = 0; i0 < kTotal; i0 += B * 128) {
+    float4 x[B];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < B; ++i) {
       const int idx = i0 + i * 128 + tid;
       int r, c;
       chunk_of<D, ROWS>(idx, r, c);
-      if (idx < kTotal)
-        x[i] = *reinterpret_cast<const float4*>(raw + r * STRIDE + OFF
-                                                + 4 * c);
+      x[i] = idx < kTotal ? load(r, c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < B; ++i) {
       const int idx = i0 + i * 128 + tid;
       if (idx >= kTotal) break;
       int r, c;
       chunk_of<D, ROWS>(idx, r, c);
-      const int a = r & 7;
-      const int key = (r & ~7) | ((a & 1) << 2) | (a >> 1);
-      const uint32_t base = (uint32_t)(key >> 3) * D * 32u
-                            + (uint32_t)(key & 3) * 4u;
-      const uint32_t half = (uint32_t)(key >> 2) & 1u;
-#pragma unroll
-      for (int e0 = 0; e0 < 4; ++e0) {
-        const int e = (e0 + c) & 3;
-        const float val = e == 0 ? x[i].x : e == 1 ? x[i].y
-                          : e == 2 ? x[i].z : x[i].w;
-        const int d = 4 * c + e;
-        const uint32_t off = base + (uint32_t)d * 32u
-                             + ((half ^ (((uint32_t)d >> 2) & 1u)) << 4);
-        uint32_t h, l;
-        split_tf32(val, h, l);
-        *reinterpret_cast<uint32_t*>(hi + off) = h;
-        *reinterpret_cast<uint32_t*>(lo + off) = l;
-      }
+      store_split_t<D, PERM>(hi, lo, r, c, x[i]);
     }
   }
+}
+
+// Columns [OFF, OFF + D) of a raw stage transposed, as split_rows_t with
+// PERM: the B operand of a product whose A operand is an accumulator.
+template <int D, int ROWS, int STRIDE, int OFF>
+__device__ __forceinline__ void split_raw_t(uint8_t* hi, uint8_t* lo,
+                                            const float* raw, int tid) {
+  split_rows_t<D, ROWS, 4, true>(hi, lo, [&](int r, int c) {
+    return *reinterpret_cast<const float4*>(raw + r * STRIDE + OFF + 4 * c);
+  }, tid);
 }
 
 // D (64 x 16, fp32) (+)= A (64 x 8, tf32, shared, K-major) x
@@ -855,6 +887,22 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, fp32) += A (64 x 8, tf32, registers) x B (8 x 16, tf32,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D (64 x 32, fp32) += A (64 x 8, tf32, registers) x B (8 x 32, tf32,
@@ -997,5 +1045,51 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+
+// The three products of split TF32 into one accumulator over K / 8 k8
+// slices, the small terms first: lo_a hi_b and hi_a lo_b for every slice,
+// then hi_a hi_b.  A and B are K-major tiles [K / 8][rows][32 B]: A's
+// slices `sa` bytes apart, B's `sb`.
+template <int K, int NACC>
+__device__ __forceinline__ void mma3(float (&acc)[NACC], uint32_t ah,
+                                     uint32_t al, uint32_t sa, uint32_t bh,
+                                     uint32_t bl, uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    wgmma_tf32(acc, kmajor32_desc(al + kk * sa), kmajor32_desc(bh + kk * sb),
+               1);
+    wgmma_tf32(acc, kmajor32_desc(ah + kk * sa), kmajor32_desc(bl + kk * sb),
+               1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk)
+    wgmma_tf32(acc, kmajor32_desc(ah + kk * sa), kmajor32_desc(bh + kk * sb),
+               1);
+}
+
+// The same with A an accumulator's K / 2 values in registers, split and
+// taken as frag_tf32 takes them (B staged by split_rows_t with PERM)
+template <int K, int NACC>
+__device__ __forceinline__ void mma3_rs(float (&acc)[NACC], const float* w,
+                                        uint32_t bh, uint32_t bl,
+                                        uint32_t sb) {
+  uint32_t ph[K / 8][4], pl[K / 8][4];
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) frag_tf32(w + 4 * j, ph[j], pl[j]);
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    wgmma_tf32(acc, pl[j], kmajor32_desc(bh + j * sb));
+    wgmma_tf32(acc, ph[j], kmajor32_desc(bl + j * sb));
+  }
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+    wgmma_tf32(acc, ph[j], kmajor32_desc(bh + j * sb));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
 
 }  // namespace wg

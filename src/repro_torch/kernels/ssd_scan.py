@@ -9,16 +9,17 @@ kernel) -> :func:`ssd_scan_bwd_cuda` (``csrc/ssd_scan_bwd.cu``).  Model
 code calls ``ops.ssd_scan``, which routes a CUDA tensor here and a CPU
 tensor to the plain versions in ``ref.py``.
 
-Two routes in each direction, by dtype: bf16 runs on the tensor cores
-(``wgmma``), fp32 on the CUDA cores in IEEE fp32, which the card-vs-CPU
-agreement of fp32 models needs.  The forward takes three launches on
-bf16 (chunk states, the pass over the chunks, the chunk outputs), the
-backward four on either dtype (rows, the reverse pass over the chunks,
-columns, the sums over the heads).  A bf16 call the tensor-core kernels
-cannot take raises; it never goes to the fp32 kernels or to the plain
-version.  The backward recomputes nothing of the forward's state pass:
-the forward keeps the state entering each chunk (``keep_states``) and
-the backward reads it.
+Two routes in each direction, by dtype, both on the tensor cores
+(``wgmma``): bf16 products, or fp32 operands as split TF32 pairs (hi =
+tf32(x), lo = tf32(x - hi), three TF32 products an fp32 product), which
+holds the card-vs-CPU agreement of fp32 models.  The forward takes three
+launches (chunk states, the pass over the chunks, the chunk outputs), the
+backward four (rows, the reverse pass over the chunks, columns, the sums
+over the heads).  A call the kernels cannot take raises before any
+launch; it never goes to another route or to the plain version.  The
+backward recomputes nothing of the forward's state pass: the forward
+keeps the state entering each chunk (``keep_states``) and the backward
+reads it.
 """
 from __future__ import annotations
 
@@ -36,13 +37,10 @@ bwd_launches = 0
 
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
-# the tensor-core route pads N to 16, 32, 64 or 128
-MAX_STATE_TC = 128
-# dynamic shared memory one block may opt into on Hopper (227 KB)
-MAX_SMEM = 232_448
-
-# the backward's state dim (zero-padded to 16, 32, 64 or 128)
-MAX_STATE_BWD = 128
+# both routes pad N to 16, 32, 64 or 128; every (P, N, chunk) they take
+# fits a Hopper block's 227 KB of shared memory (the notes of
+# csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu hold the budgets)
+MAX_STATE = 128
 
 _fns = {}
 
@@ -54,10 +52,7 @@ def _kernels():
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        smem = lib.ssd_scan_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
-        smem.restype = ctypes.c_int64
-        _fns["fwd"] = (fn, smem)
+        _fns["fwd"] = fn
     return _fns["fwd"]
 
 
@@ -68,10 +63,7 @@ def _bwd_kernels():
         fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        smem = lib.ssd_scan_bwd_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
-        smem.restype = ctypes.c_int64
-        _fns["bwd"] = (fn, smem)
+        _fns["bwd"] = fn
     return _fns["bwd"]
 
 
@@ -116,19 +108,22 @@ def _check(fn: str, x, dt, a, b, c, chunk: int):
 
 
 def _check_tensor_core_operands(fn: str, x, b, c):
-    """What the bf16 routes read: N a multiple of 8 up to 128, and x, b,
-    c starting on 16 bytes with (b, s, h) strides that are multiples of 8
+    """What the kernels read: N a multiple of 8 (bf16) or 4 (fp32) up to
+    128, and x, b, c starting on 16 bytes with
+    (b, s, h) strides that are multiples of 8 (bf16) or 4 (fp32)
     elements."""
     n = b.shape[-1]
-    if n % 8 or not 8 <= n <= MAX_STATE_TC:
-        raise ValueError(f"{fn} on bf16 takes N a multiple of 8 up to "
-                         f"{MAX_STATE_TC}, got {n}")
+    unit = 8 if x.dtype == torch.bfloat16 else 4
+    what = "bf16" if unit == 8 else "fp32"
+    if n % unit or not unit <= n <= MAX_STATE:
+        raise ValueError(f"{fn} on {what} takes N a multiple of {unit} up "
+                         f"to {MAX_STATE}, got {n}")
     for name, t in (("x", x), ("b", b), ("c", c)):
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+        if t.data_ptr() % 16 or any(st % unit for st in t.stride()[:-1]):
             raise ValueError(
-                f"{fn} on bf16 takes 16-byte aligned operands with (b, s, "
-                f"h) strides that are multiples of 8: {name} starts at "
-                f"{t.data_ptr() % 16} mod 16 with strides "
+                f"{fn} on {what} takes 16-byte aligned operands with (b, "
+                f"s, h) strides that are multiples of {unit}: {name} starts "
+                f"at {t.data_ptr() % 16} mod 16 with strides "
                 f"{t.stride()[:-1]}")
 
 
@@ -148,14 +143,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bs, s, h, p, n = _check("ssd_scan_cuda", x, dt, a, b, c, chunk)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        _check_tensor_core_operands("ssd_scan_cuda", x, b, c)
-    fn, smem_fn = _kernels()
-    smem = smem_fn(p, n, chunk, int(bf16))
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan_cuda: P={p}, N={n}, chunk={chunk} needs "
-                         f"{smem} bytes of shared memory per block, more "
-                         f"than the {MAX_SMEM} a Hopper block may hold")
+    _check_tensor_core_operands("ssd_scan_cuda", x, b, c)
+    fn = _kernels()
     y = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev)
     nc = -(-s // chunk)
     if bs == 0 or s == 0 or h == 0:
@@ -164,13 +153,10 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                              device=dev)
         return (y, h_last, states) if keep_states else (y, h_last)
     h_last = torch.empty((bs, h, p, n), dtype=torch.float32, device=dev)
-    # the tensor-core route's scratch: each chunk's state (then the state
-    # entering it) and its cum_Q; the CUDA-core route writes the states
-    # entering the chunks only when they are kept
-    states = torch.empty((bs, h, nc if bf16 or keep_states else 0, p, n),
-                         dtype=torch.float32, device=dev)
-    tot = torch.empty((bs * h * nc if bf16 else 0,), dtype=torch.float32,
-                      device=dev)
+    # the scratch: each chunk's state (then the state entering it) and its
+    # cum_Q
+    states = torch.empty((bs, h, nc, p, n), dtype=torch.float32, device=dev)
+    tot = torch.empty((bs * h * nc,), dtype=torch.float32, device=dev)
     strides = [x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
                dt.stride(1), dt.stride(2), b.stride(0), b.stride(1),
                c.stride(0), c.stride(1)]
@@ -178,9 +164,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                  c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                 states.data_ptr() if states.numel() else None,
-                 tot.data_ptr() if tot.numel() else None, *strides, bs, s,
-                 h, p, n, chunk, int(bf16), stream)
+                 states.data_ptr(), tot.data_ptr(), *strides, bs, s, h, p,
+                 n, chunk, int(bf16), stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -195,19 +180,14 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     them, ``dy`` (B,S,H,P) of y, the ``states`` it kept and ``dh_last``
     (B,H,P,N) of h_last or None (zero) -> (dx (B,S,H,P) in x's dtype, ddt
     (B,S,H) fp32, da (H,) fp32, db, dc (B,S,N) in x's dtype).  Four
-    launches; no atomics, so repeated calls give the same bits.  N up to
-    128 in either dtype; bf16 (the tensor cores) takes what the forward's
-    bf16 route takes."""
+    launches; no atomics, so repeated calls give the same bits.  Takes
+    what the forward takes, and a dy that starts on 16 bytes."""
     global bwd_launches
     bs, s, h, p, n = _check("ssd_scan_bwd_cuda", x, dt, a, b, c, chunk)
     dev = x.device
     nc = -(-s // chunk)
     bf16 = x.dtype == torch.bfloat16
-    if n > MAX_STATE_BWD:
-        raise ValueError(f"ssd_scan_bwd_cuda takes N <= {MAX_STATE_BWD}, "
-                         f"got {n}")
-    if bf16:
-        _check_tensor_core_operands("ssd_scan_bwd_cuda", x, b, c)
+    _check_tensor_core_operands("ssd_scan_bwd_cuda", x, b, c)
     dy = dy.to(x.dtype).contiguous()
     if dy.data_ptr() % 16:  # a view into another tensor: the kernel
         dy = dy.clone()     # reads whole 16-byte chunks of its rows
@@ -227,12 +207,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             raise ValueError(f"ssd_scan_bwd_cuda: dh_last must be (B,H,P,N) "
                              f"{(bs, h, p, n)} on {dev}, got "
                              f"{tuple(dh_last.shape)}")
-    fn, smem_fn = _bwd_kernels()
-    smem = smem_fn(p, n, chunk, int(bf16))
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan_bwd_cuda: P={p}, N={n}, chunk={chunk} "
-                         f"needs {smem} bytes of shared memory per block, "
-                         f"more than the {MAX_SMEM} a Hopper block may hold")
+    fn = _bwd_kernels()
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((bs, s, h), **f32)

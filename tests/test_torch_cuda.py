@@ -608,9 +608,9 @@ def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, dtype,
     assert y.dtype == dtype and h_last.dtype == torch.float32
 
 
-# (b, s, h, p, n, chunk): the tensor-core route at chunk 256 with ragged
-# tails, N = 32, 64 and mamba2-1.3b's 128 (the fp32 kernel has not the
-# shared memory for N = 128 at chunk 256), and every head dim
+# (b, s, h, p, n, chunk): chunk 256 with ragged tails, N = 32, 64 and
+# mamba2-1.3b's 128, and every head dim, on either route (bf16 products
+# or fp32 in split TF32)
 SSD_TC_CASES = [(1, 300, 3, 64, 32, 256), (2, 600, 2, 32, 64, 256),
                 (1, 520, 2, 64, 128, 256), (2, 270, 3, 16, 128, 256)]
 
@@ -637,6 +637,60 @@ def test_ssd_kernel_bf16_tensor_cores_matches_plain(cuda_device, b, s, h, p,
         scale = max(float(want.float().abs().max()), 1.0)
         torch.testing.assert_close(got.float() / scale, want.float() / scale,
                                    rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_TC_CASES + [
+    (1, 300, 4, 64, 16, 256)])
+def test_ssd_kernel_fp32_split_tf32_matches_plain(cuda_device, b, s, h, p,
+                                                  n, chunk, rng):
+    """The fp32 route (split TF32 on the tensor cores) at chunk 256 with
+    N up to mamba2-1.3b's 128, x, B, C strided slices of one conv output:
+    y and h_last within 1e-4 of the output's scale; one launch a call.
+    The last case's heads have a rising cum (a > 0) beside decaying ones."""
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(cuda_device)
+    xs, bb, cc = conv.split([h * p, n, n], dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32)).to(cuda_device)
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, h).astype(np.float32)).to(
+        cuda_device)
+    if h == 4:
+        a = torch.tensor([-1.0, 0.1, -0.5, 0.02], device=cuda_device)
+    before = ssd_scan.launches
+    y, h_last = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    y_want, h_want = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    for got, want in ((y, y_want), (h_last, h_want)):
+        scale = max(float(want.abs().max()), 1.0)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_ssd_kernels_fp32_refuse_misaligned(cuda_device, fault, direction):
+    """The fp32 route reads 16-byte chunks: x, B, C must start on 16
+    bytes with (b, s, h) strides that are multiples of 4; anything else
+    raises, and nothing launches (no plain fallback)."""
+    if fault == "pointer":
+        x = torch.zeros(2 * 64 * 2 * 16 + 1,
+                        device=cuda_device)[1:].view(2, 64, 2, 16)
+    else:
+        x = torch.zeros(2, 64, 2, 18, device=cuda_device)[..., :16]
+    bc = torch.zeros(2, 64, 16, device=cuda_device)
+    dt = torch.full((2, 64, 2), 0.01, device=cuda_device)
+    a = -torch.ones(2, device=cuda_device)
+    before = (ssd_scan.launches, ssd_scan.bwd_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if direction == "forward":
+            ssd_scan_cuda(x, dt, a, bc, bc, chunk=32)
+        else:
+            ssd_scan_bwd_cuda(x, dt, a, bc, bc, torch.zeros_like(x),
+                              torch.zeros(2, 2, 2, 16, 16,
+                                          device=cuda_device), None,
+                              chunk=32)
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == before
 
 
 @pytest.mark.parametrize("fault", ["pointer", "stride"])
@@ -856,8 +910,7 @@ SSD_BWD_CASES = [(2, 64, 3, 16, 16, 32), (1, 100, 2, 32, 16, 48),
                  (1, 96, 2, 32, 8, 64),
                  (2, 513, 2, 64, 16, 256),    # a one-step tail, 3 chunks
                  (1, 300, 2, 16, 128, 128)]   # P=16 at N=128
-# bf16 only: chunk 256 at N=128 and 64 (the fp32 forward has not the
-# shared memory for N=128 at chunk 256)
+# chunk 256 at N=128 and 64, on either route
 SSD_BWD_TC_CASES = [(1, 300, 2, 16, 128, 256), (2, 270, 3, 32, 64, 256)]
 # the LM training path's shape (hymba-1.5b, sequence 4096)
 SSD_BWD_PATH = (1, 4096, 50, 64, 16, 256)
@@ -900,6 +953,63 @@ def test_ssd_bwd_kernel_bf16_tensor_cores_matches_plain(cuda_device, case,
     (P=16) and N=64 (P=32, batch 2, ragged): 2e-2 of each gradient's
     scale."""
     _ssd_bwd_check(case, torch.bfloat16, with_h_last, rng, cuda_device)
+
+
+@pytest.mark.parametrize("with_h_last", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_TC_CASES + [
+    (1, 520, 2, 64, 128, 256)])
+def test_ssd_bwd_kernel_fp32_split_tf32_matches_plain(cuda_device, case,
+                                                      with_h_last, rng):
+    """B6's backward on its fp32 route (split TF32 on the tensor cores)
+    at chunk 256 with N=128 (P=16 and mamba2-1.3b's P=64, ragged) and
+    N=64 (P=32, batch 2): 1e-4 of each gradient's scale."""
+    _ssd_bwd_check(case, torch.float32, with_h_last, rng, cuda_device)
+
+
+def test_ssd_bwd_kernel_fp32_rising_cum_matches_plain(cuda_device, rng):
+    """Heads whose cum rises (a > 0) beside decaying ones on the fp32
+    route: every gradient within 1e-4 of its scale."""
+    _ssd_bwd_check((1, 300, 4, 64, 16, 256), torch.float32, True, rng,
+                   cuda_device, a=[-1.0, 0.1, -0.5, 0.02])
+
+
+def test_ssd_bwd_kernel_fp32_repeats_bitwise(cuda_device, rng):
+    """No atomics on the fp32 route either: two backward calls on the same
+    inputs give the same bits, at one hymba client's width and at
+    mamba2-1.3b's N=128."""
+    for case in ((1, 1024, 50, 64, 16, 256), (1, 520, 4, 64, 128, 256)):
+        x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, torch.float32, rng,
+                                                   cuda_device)
+        _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=256,
+                                 keep_states=True)
+        first, second = (ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, dh,
+                                           chunk=256) for _ in range(2))
+        for g1, g2 in zip(first, second):
+            assert torch.equal(g1, g2)
+
+
+def test_ssd_bwd_kernel_fp32_on_the_cancelling_draw(cuda_device):
+    """The saved draw of (1, 100, 2, 32, 16, 48), read in fp32 (``da`` is
+    ~1/50 of its terms there): every gradient of the fp32 route within
+    1e-4 of a float64 plain backward's max."""
+    d = torch.load(os.path.join(os.path.dirname(__file__), "data",
+                                "ssd_scan_bwd_da_draw.pt"), weights_only=True)
+    b, s, h, p, n = d["shape"]
+    chunk = d["chunk"]
+    xs, bb, cc = d["conv"].float().to(cuda_device).split([h * p, n, n],
+                                                         dim=-1)
+    x = xs.reshape(b, s, h, p)
+    dt, dy, dh = (d[k].float().to(cuda_device) for k in ("dt", "dy", "dh"))
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda_device)
+    _, _, states = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk,
+                                 keep_states=True)
+    got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, states, dh, chunk=chunk)
+    exact = ref.ssd_scan_bwd_ref(*(t.double() for t in (x, dt, a, bb, cc,
+                                                        dy, dh)), chunk)
+    for g_, w in zip(got, exact):
+        assert g_.dtype == torch.float32
+        assert float((g_.double() - w).abs().max()) \
+            <= 1e-4 * float(w.abs().max())
 
 
 def test_ssd_bwd_kernel_bf16_rising_cum_matches_plain(cuda_device, rng):

@@ -33,6 +33,7 @@ from repro_torch.kernels.fed_aggregate import (fed_dp_secure_apply_cuda,
                                                fed_topk_ef_cuda,
                                                fed_weighted_sum_cuda)
 from repro_torch.kernels.topic_decoder import topic_decoder_cuda
+from torch_split_tf32 import mm3
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1)
                           // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT",
@@ -786,31 +787,6 @@ def _flash_bwd_emulation_check(case, rng):
     assert max(devs) <= 2e-2
 
 
-def _tf32(x):
-    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: 10 explicit mantissa
-    bits, to nearest with ties away from zero, by integer ops on the fp32
-    bits (the low 13 bits cleared)."""
-    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    mag = ((u & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    out = (u & 0x80000000) | mag
-    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
-        torch.int32).view(torch.float32)
-
-
-def _mm3(a, b, *, single=False):
-    """``a @ b`` as B5's fp32 routes take it on the tensor cores: each
-    operand split as hi = tf32(x), lo = tf32(x - hi) and the product
-    (lo_a hi_b + hi_a lo_b) + hi_a hi_b, the small terms first (the
-    kernels' S and dP sum the three as separate products; P V, dQ, dK
-    and dV in one accumulator); with ``single`` one TF32 product, hi_a
-    hi_b."""
-    ah, bh = _tf32(a), _tf32(b)
-    if single:
-        return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 # the tiles of B5's fp32 kernels at each (Dqk, Dv) pair: keys a forward
 # tile, keys a dq tile, queries a dk/dv tile (16 elsewhere)
 F32_TILES = {(32, 32): (64, 32, 32), (64, 64): (32, 16, 16),
@@ -843,14 +819,14 @@ def _flash_split_tf32_emulation(q, k, v, *, causal, window, scale,
             mask &= kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        t = _mm3(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2),
+        t = mm3(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2),
                  single=single) * c
         t = torch.where(mask, t, -1e30)
         m_new = torch.maximum(m, t.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.where(mask, torch.exp2(t - m_new), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + _mm3(p, vf[:, :, k0:k0 + tile], single=single)
+        acc = acc * alpha + mm3(p, vf[:, :, k0:k0 + tile], single=single)
         m = m_new
     return (acc / torch.where(l == 0.0, 1.0, l)).transpose(1, 2)
 
@@ -877,11 +853,11 @@ def _flash_bwd_split_tf32_emulation(q, k, v, out, lse, dout, *, causal,
         mask &= pos[None, :] <= pos[:, None]
     if window:
         mask &= pos[None, :] > pos[:, None] - window
-    t = _mm3(qf, kf.transpose(-1, -2)) * (scale * log2e)
+    t = mm3(qf, kf.transpose(-1, -2)) * (scale * log2e)
     p = torch.where(mask, torch.exp2(t - lse[..., None] * log2e), 0.0)
     delta = torch.sum(dof * of, dim=-1, keepdim=True)
-    ds = p * (_mm3(dof, vf.transpose(-1, -2)) - delta) * scale
-    dq = sum(_mm3(ds[..., k0:k0 + keys], kf[:, :, k0:k0 + keys])
+    ds = p * (mm3(dof, vf.transpose(-1, -2)) - delta) * scale
+    dq = sum(mm3(ds[..., k0:k0 + keys], kf[:, :, k0:k0 + keys])
              for k0 in range(0, s, keys))
     grads = []
     for a, x in ((ds, qf), (p, dof)):      # dK from dS^T Q, dV from P^T dO
@@ -891,7 +867,7 @@ def _flash_bwd_split_tf32_emulation(q, k, v, out, lse, dout, *, causal,
         part = torch.zeros_like(total)
         for g in range(h // hkv):
             for q0 in range(0, s, queries):
-                part = part + _mm3(a[:, :, g, q0:q0 + queries].transpose(
+                part = part + mm3(a[:, :, g, q0:q0 + queries].transpose(
                     -1, -2), x[:, :, g, q0:q0 + queries])
                 if (q0 + queries) % 256 == 0:
                     total, part = total + part, torch.zeros_like(part)

@@ -27,7 +27,10 @@ With ``--dtype float32`` B5 and B5-bwd default to the federated
 hymba-1.5b round's folded batch (4 clients x 4 documents), 16,2048,25,5,
 64,64 with the 1024-token window; the minicpm3-4b round's (4 clients x 2
 documents, MLA's pair, causal) is ``--shape 8,2048,40,40,96,64 --window
-0``.
+0``.  B6 and B6-bwd default to one client of that hymba round,
+4,2048,50,64,16,256 (the batched path calls them once a client); one
+client of a mamba2-1.3b round at its full width is ``--shape
+4,2048,64,64,128,256``.
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ SHAPES = {"flash_attention": "4,2048,25,5,64,64",
           "ssd_scan": "4,2048,50,64,16,256",
           "ssd_scan_bwd": "1,4096,50,64,16,256"}
 SHAPES_F32 = {"flash_attention": "16,2048,25,5,64,64",
-              "flash_attention_bwd": "16,2048,25,5,64,64"}
+              "flash_attention_bwd": "16,2048,25,5,64,64",
+              "ssd_scan": "4,2048,50,64,16,256",
+              "ssd_scan_bwd": "4,2048,50,64,16,256"}
 # the sources each kernel's call builds (the backward reads the states
 # the forward kept)
 SOURCES = {"flash_attention": ("flash_attention",),
