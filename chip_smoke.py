@@ -182,6 +182,19 @@ Phases, each fatal on failure (no phase catches and carries on):
    clients x 2 x 2048 tokens; B5-bwd's fp32 route at (96, 64) folded
    over the cohort); then the seven reduced zoo configs' ``train_loss``
    and every gradient leaf card against CPU within 2e-4;
+   LM positions (``phase_lm_positions``): phi3-mini-3.8b whole in bf16,
+   a 4 x 2048 prefill of left-padded prompts (pads 0, 1, 129, 1500,
+   ``positions = arange(S) - pad``; B5 once a layer through its position
+   instances) whose real tokens' logits hold within 2e-2 of the same
+   tokens prefilled left-aligned without positions, then 32 decode steps;
+   hymba-1.5b's left-padded prefill and a 1 x 4096 sgd step with a pad of
+   1000 (B5, B5-bwd, B6, B6-bwd once a layer); mamba2-1.3b's scan at its
+   width (4 x 4096, N=128, chunk 256) in two halves chained through
+   h_last (B6 from h0) against one call, its ``vjp`` through B6-bwd's
+   dh0 too, in bf16 and fp32; B5/B5-bwd with positions and B6/B6-bwd
+   from h0 against their plain versions at those shapes, timed; the
+   reduced configs left-padded and mamba2's layer from a carried state
+   card against CPU within 2e-4;
 10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
@@ -5111,6 +5124,506 @@ def phase_lm_zoo_train(records):
     log(f"LM zoo train phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# explicit positions and a carried state (phase_lm_positions): the left
+# pads of the 4 x 2048 prompts, and the 1 x 4096 training row's
+POS_PADS, POS_TRAIN_PAD = (0, 1, 129, 1500), 1000
+# mamba2-1.3b's split scan: (b, s, h, p, n, chunk) at its full width
+POS_SSD = (4, 4096, 64, 64, 128, 256)
+# the reduced configs run card against CPU with left pads (one row of two
+# unpadded); mamba2's layer from a carried state
+POS_REDUCED = ("phi3-mini-3.8b", "hymba-1.5b", "minicpm3-4b", "qwen2-vl-7b",
+               "qwen3-moe-235b-a22b", "hubert-xlarge")
+POS_REDUCED_PADS = (0, 37)
+
+
+def _left_padded_batch(cfg, seed, pads=POS_PADS, s=LM_PROMPT):
+    """Real tokens of each row (S - pad of them, drawn from ``seed``) as
+    (left-padded tokens with pad id 0 first, their positions arange(S) -
+    pad, the same real tokens left-aligned with the pads after them), all
+    (B, S) on the card."""
+    rng = torch.Generator().manual_seed(seed)
+    real = torch.randint(1, cfg.vocab_size, (len(pads), s), generator=rng)
+    padded, aligned = torch.zeros_like(real), torch.zeros_like(real)
+    for i, pad in enumerate(pads):
+        padded[i, pad:] = real[i, :s - pad]
+        aligned[i, :s - pad] = real[i, :s - pad]
+    pos = torch.arange(s)[None] - torch.tensor(pads)[:, None]
+    return padded.cuda(), pos.cuda(), aligned.cuda()
+
+
+def _time_row(row, label, kern, plain, lib):
+    """A positions or h0 row's times: the kernel's device time by the
+    profiler (one launch a call, or B6's three and B6-bwd's four), the
+    plain version's and the library call's by CUDA events (the plain
+    versions with positions launch a count of operations that varies by
+    a few from call to call, which a counted trace cannot hold)."""
+    row["ms"] = device_ms(kern)
+    row["plain_ms"] = event_ms(plain, iters=5, warmup=1)
+    row["library_ms"] = None if lib is None else event_ms(lib, iters=20)
+    lib_us = "none" if lib is None else f"{row['library_ms'] * 1e3:.2f} us"
+    log(f"  {label}: device {row['ms'] * 1e3:.2f} us/call, plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, library {lib_us} (both by CUDA "
+        f"events), bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+
+
+def _b5_positions_rows(g, dev, rec_fwd, rec_bwd, totals_launches):
+    """B5 at the left-padded prefills' shapes (phi3-mini-3.8b's 4 x 2048,
+    32 heads of 96, causal; hymba-1.5b's 4 x 2048, 25/5 heads of 64,
+    window 1024; pads 0, 1, 129, 1500) and B5-bwd at hymba's 1 x 4096
+    training row (pad 1000), bf16: kernel against plain (out, lse, dq,
+    dk, dv within 2e-2 of each one's scale), then timed beside the plain
+    version and the library call with the positions' boolean mask; the
+    bounds count the pairs the positions allow.  Launches on the path
+    from ``totals_launches`` (the phase's counts)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = (("phi3-mini-3.8b prefill", LM_BATCH, 32, 32, LM_PROMPT, 96,
+              True, 0, POS_PADS, "fwd"),
+             ("hymba-1.5b prefill", LM_BATCH, 25, 5, LM_PROMPT, 64, True,
+              1024, POS_PADS, "fwd"),
+             ("hymba-1.5b train step", TRAIN_LM_BATCH, 25, 5, TRAIN_LM_SEQ,
+              64, True, 1024, (POS_TRAIN_PAD,), "bwd"))
+    for label, b, hq, hkv, s, d, causal, window, pads, which in cases:
+        pos = (torch.arange(s)[None] - torch.tensor(pads)[:, None]).to(
+            dev, torch.int32)
+        q = torch.randn(b, s, hq, d, generator=g).to(dev, BF16)
+        k = torch.randn(b, s, hkv, d, generator=g).to(dev, BF16)
+        v = torch.randn(b, s, hkv, d, generator=g).to(dev, BF16)
+        kw = dict(causal=causal, window=window, scale=d ** -0.5, q_pos=pos,
+                  k_pos=pos)
+        # the library's boolean (B, 1, S, S) mask of the positions
+        mask = ref._attention_mask(pos, pos, causal, window)[:, None]
+        pairs = hq * int(mask.sum())
+        out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+        out_w, lse_w = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        live = lse_w > -5e29
+        err = {"out": _rel_err(out, out_w),
+               "lse": float((lse[live] - lse_w[live]).abs().max())}
+        dead_ok = bool((lse[~live] == -1e30).all()) and bool(
+            (out[(~live).any(dim=1)] == 0).all())
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = {"shape": [b, s, hq, hkv, d, d], "causal": causal,
+               "window": window, "pads": list(pads), "pairs": pairs,
+               "fully_masked_rows": int((~live).sum())}
+        if which == "fwd":
+            # q, k, v read once, out written once (bf16), positions read;
+            # QK^T and PV over the pairs the positions allow
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+                + 8 * b * s, 4 * d * pairs, H100_BF16_FLOPS)
+            _time_row(row, f"B5 with positions at {label}",
+                      lambda: flash_attention_cuda(q, k, v, **kw),
+                      lambda: ref.flash_attention_fwd_ref(q, k, v, **kw),
+                      lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                   enable_gqa=True))
+            row["launches"] = totals_launches.get(label, 0)
+            rec_fwd.setdefault("positions", {})[label] = row
+        else:
+            dout = torch.randn(b, s, hq, d, generator=g).to(dev, BF16)
+            grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            err.update({n_: _rel_err(u, w) for n_, u, w in
+                        zip(("dq", "dk", "dv"), grads, want)})
+            dead_ok = dead_ok and bool((grads[0][(~live).any(dim=1)]
+                                        == 0).all())
+            del grads, want
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                2 * (3 * b * s * hq * d + 2 * b * s * hkv * d)
+                + 4 * b * hq * s + 8 * b * s
+                + 2 * (b * s * hq * d + 2 * b * s * hkv * d),
+                10 * d * pairs, H100_BF16_FLOPS)
+            qg, kg, vg = (t.requires_grad_(True) for t in (qt, kt, vt))
+            lib_out = sdpa(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+            dout_t = dout.transpose(1, 2).contiguous()
+            _time_row(row, f"B5-bwd with positions at {label}",
+                      lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                       dout, **kw),
+                      lambda: ref.flash_attention_bwd_ref(
+                          q, k, v, out, lse, dout, **kw),
+                      lambda: torch.autograd.grad(
+                          lib_out, (qg, kg, vg), dout_t, retain_graph=True))
+            row["launches"] = totals_launches.get(label, 0)
+            rec_bwd.setdefault("positions", {})[label] = row
+            del lib_out, dout, dout_t
+        row["max_abs_err"] = err
+        log(f"  B5{'' if which == 'fwd' else '-bwd'} with positions at "
+            f"{label} {row['shape']} pads {list(pads)}: kernel vs plain "
+            f"(of max|plain|; lse abs) {json.dumps(err)}; "
+            f"{row['fully_masked_rows']} fully masked rows 0 and -1e30: "
+            f"{dead_ok}; {row['launches']} launches on the path")
+        if not (max(err.values()) <= 2e-2 and dead_ok):
+            raise AssertionError(f"B5 with positions at {label}: kernel vs "
+                                 f"plain {err} beyond 2e-2, or a fully "
+                                 f"masked row not 0 / -1e30")
+        del q, k, v, qt, kt, vt, out, lse, out_w, lse_w, mask
+        torch.cuda.empty_cache()
+
+
+def _b6_h0_rows(g, dev, rec_fwd, rec_bwd, launches):
+    """B6 and B6-bwd from a carried state at mamba2-1.3b's width (the
+    split scan's second call: (4, 2048, 64 heads, P=64, N=128, chunk
+    256), h0 drawn), bf16 and fp32: kernel against plain (y, h_last, dx,
+    ddt, da, db, dc, dh0 within 2e-2 / 1e-4 of each one's scale), timed
+    beside the plain version; no library call computes the scan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+    b, s, h, p, n, chunk = POS_SSD
+    s //= 2
+    nc = s // chunk
+    for dtype in (BF16, FP32):
+        key = str(dtype).replace("torch.", "")
+        x, dt, a, bb, cc = _ssd_inputs(g, dev, b, s, h, p, n, dtype)
+        h0 = torch.randn(b, h, p, n, generator=g).to(dev)
+        dy = torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+        y, hl, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, h0=h0,
+                                  keep_states=True)
+        got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None, chunk=chunk)
+        y_w, hl_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk, h0)
+        want = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None, chunk, h0)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == BF16 else 1e-4
+        err_f = {"y": _rel_err(y, y_w), "h_last": _rel_err(hl, hl_w)}
+        err_b = {n_: _rel_err(u, w) for n_, u, w in zip(
+            ("dx", "ddt", "da", "db", "dc", "dh0"), got, want)}
+        log(f"  B6 / B6-bwd from h0 at {[b, s, h, p, n, chunk]} {key}: "
+            f"kernel vs plain (of max|plain|) {json.dumps(err_f)}, "
+            f"{json.dumps(err_b)} (bound {tol})")
+        if not max(list(err_f.values()) + list(err_b.values())) <= tol:
+            raise AssertionError(f"B6 from h0 {key}: kernel vs plain beyond "
+                                 f"{tol}")
+        del got, want, y_w, hl_w
+        esz = 2 if dtype == BF16 else 4
+        tri = chunk * (chunk + 1) // 2
+        flops_f = b * h * nc * (tri * (2 * n + 2 * p + 2) + chunk * 4 * p * n)
+        bytes_f = esz * (2 * b * s * h * p + 2 * b * s * n) \
+            + 4 * (b * s * h + h) + 2 * 4 * b * h * p * n
+        flops_b = b * h * nc * (tri * (6 * n + 4 * p) + chunk * 8 * p * n)
+        bytes_b = esz * (3 * b * s * h * p + 4 * b * s * n) \
+            + 4 * (2 * b * s * h + 2 * h + b * h * nc * p * n
+                   + b * h * p * n)
+        for rec, flops, nbytes, kern, plain in (
+                (rec_fwd, flops_f, bytes_f,
+                 lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, h0=h0),
+                 lambda: ref.ssd_scan_ref(x, dt, a, bb, cc, chunk, h0)),
+                (rec_bwd, flops_b, bytes_b,
+                 lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
+                                           chunk=chunk),
+                 lambda: ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, None,
+                                              chunk, h0))):
+            row = {"shape": [b, s, h, p, n, chunk], "dtype": key}
+            if dtype == BF16:
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, flops, H100_BF16_FLOPS)
+            else:
+                split_tf32_bounds(row, nbytes, flops)
+            _time_row(row, f"{rec['name']} from h0 {key}", kern, plain,
+                      None)
+            row["max_abs_err"] = err_f if rec is rec_fwd else err_b
+            row["launches"] = launches[rec["name"]].get(key, 0)
+            rec.setdefault("h0", {})[key] = row
+        del x, dt, a, bb, cc, h0, dy, y, hl, st
+        torch.cuda.empty_cache()
+
+
+def _positions_phi3(totals, by_shape):
+    """phi3-mini-3.8b whole (32 layers, full causal) in bf16 from seed 0:
+    the 4 x 2048 left-padded prefill (pads 0, 1, 129, 1500, ``positions =
+    arange(S) - pad``) then 32 greedy decode steps; the real tokens'
+    logits against the same tokens prefilled left-aligned without
+    positions (so with the pad keys masked and rope at the same positions
+    the two differ only by B5's tiling: bound 2e-2 of the logits' max,
+    the serve phase's bf16 bound); B5 once per layer of the padded
+    prefill, nothing else, none in decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("phi3-mini-3.8b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg,
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    padded, pos, aligned = _left_padded_batch(cfg, 3)
+    max_len = LM_PROMPT + LM_NEW
+    # the left-aligned prefill first: it also warms cuBLAS at these shapes
+    t0 = time.perf_counter()
+    ref_logits, _ = tfm.prefill(params, cfg, {"tokens": aligned},
+                                max_len=max_len)
+    torch.cuda.synchronize()
+    t_aligned = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = tfm.prefill(params, cfg, {"tokens": padded,
+                                              "positions": pos},
+                                max_len=max_len)
+    torch.cuda.synchronize()
+    t_padded = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"phi3 left-padded prefill: launches {counts} "
+                             f"!= one B5 with positions a layer {want}")
+    by_shape["phi3-mini-3.8b prefill"] = counts["flash_attention"]
+    for k_ in totals:
+        totals[k_] += counts[k_]
+    devs, scale = [], 0.0
+    for i, pad in enumerate(POS_PADS):
+        real = LM_PROMPT - pad
+        a_, b_ = logits[i, pad:].float(), ref_logits[i, :real].float()
+        devs.append(float((a_ - b_).abs().max()))
+        scale = max(scale, float(b_.abs().max()))
+    row0 = torch.equal(logits[0], ref_logits[0])
+    rel = max(devs) / scale
+    del ref_logits
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    zero_counts()
+    steps = []
+    for _ in range(LM_NEW):
+        t0 = time.perf_counter()
+        step, cache = tfm.decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(step[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(step).all())
+    decode_counts = read_counts()
+    med = sorted(steps)[len(steps) // 2]
+    log(f"  phi3-mini-3.8b (32 layers, 32 heads of 96, full causal, bf16, "
+        f"init {t_init:.2f} s on the card): left-padded prefill {LM_BATCH} "
+        f"x {LM_PROMPT} pads {list(POS_PADS)} {t_padded:.4f} s, the "
+        f"left-aligned one without positions {t_aligned:.4f} s (cold, "
+        f"first); real tokens' logits max |padded - aligned| per row "
+        f"{['%.3e' % d for d in devs]}, over max|logit| {scale:.3f} = "
+        f"{rel:.3e} (bound 2e-2); the unpadded row bitwise equal: {row0}; "
+        f"{LM_NEW} decode steps median {med * 1e3:.2f} ms "
+        f"({LM_BATCH / med:.1f} tokens/s); logits finite {finite}; decode "
+        f"launches {json.dumps(decode_counts)}")
+    if not (rel <= 2e-2 and finite) or any(decode_counts.values()):
+        raise AssertionError(f"phi3 left-padded prefill: logits vs the "
+                             f"aligned run {rel} beyond 2e-2, not finite, "
+                             f"or a kernel launched in decode")
+    del params, cache, step
+    torch.cuda.empty_cache()
+
+
+def _positions_hymba(totals, by_shape):
+    """hymba-1.5b whole (32 layers, window 1024) from seed 0: the same
+    left-padded 4 x 2048 prefill in bf16 (B5 and B6 once a layer; the
+    SSM half scans the pad tokens too, as the reference's does, so there
+    is no unpadded twin), then one sgd step of ``launch.steps``'
+    train step over a 1 x 4096 row with a pad of 1000 (positions and a
+    loss mask on the pads): B5, B5-bwd, B6 and B6-bwd once a layer each,
+    a finite loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.optimizers import sgd
+    cfg = get_config("hymba-1.5b")
+    masters = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+    act = tfm.activation_copy(masters, cfg, torch.bfloat16)
+    padded, pos, _ = _left_padded_batch(cfg, 4)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, _ = tfm.prefill(act, cfg, {"tokens": padded, "positions": pos},
+                            max_len=LM_PROMPT + LM_NEW)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=cfg.num_layers, ssd_scan=cfg.num_layers)
+    finite = bool(torch.isfinite(logits).all())
+    del logits, act
+    if counts != want or not finite:
+        raise AssertionError(f"hymba left-padded prefill: launches {counts}"
+                             f" != {want}, or logits not finite")
+    by_shape["hymba-1.5b prefill"] = counts["flash_attention"]
+    for k_ in totals:
+        totals[k_] += counts[k_]
+    torch.cuda.empty_cache()
+    rng = torch.Generator().manual_seed(5)
+    toks = torch.randint(1, cfg.vocab_size, (1, TRAIN_LM_SEQ + 1),
+                         generator=rng)
+    toks[:, :POS_TRAIN_PAD] = 0
+    mask = torch.ones(1, TRAIN_LM_SEQ)
+    mask[:, :POS_TRAIN_PAD] = 0.0
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": mask,
+             "positions": torch.arange(TRAIN_LM_SEQ)[None] - POS_TRAIN_PAD}
+    batch = {k_: v.cuda() for k_, v in batch.items()}
+    opt = sgd(2e-3)
+    step = make_train_step(cfg, opt, dtype=torch.bfloat16)
+    state = opt.init(masters)
+    times, losses, step_counts = [], [], []
+    for i in range(2):          # the first also warms the backward's shapes
+        zero_counts()
+        t0 = time.perf_counter()
+        masters, state, loss = step(masters, state, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        step_counts.append(read_counts())
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=cfg.num_layers, ssd_scan=cfg.num_layers,
+                flash_attention_bwd=cfg.num_layers,
+                ssd_scan_bwd=cfg.num_layers)
+    log(f"  hymba-1.5b (32 layers, window 1024): left-padded bf16 prefill "
+        f"{LM_BATCH} x {LM_PROMPT} pads {list(POS_PADS)} {t_prefill:.4f} s "
+        f"(logits finite); sgd steps of 1 x {TRAIN_LM_SEQ} with pad "
+        f"{POS_TRAIN_PAD}: {', '.join('%.4f' % t for t in times)} s, losses "
+        f"{losses}; launches a step {json.dumps(step_counts[-1])}")
+    if any(c != want for c in step_counts) or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"hymba left-padded train step: launches "
+                             f"{step_counts} != {want} or a loss not finite")
+    by_shape["hymba-1.5b train step"] = sum(
+        c["flash_attention_bwd"] for c in step_counts)
+    for c in step_counts:
+        for k_ in totals:
+            totals[k_] += c[k_]
+    del masters, state, batch
+    torch.cuda.empty_cache()
+
+
+def _positions_mamba2(totals, b6_launches):
+    """mamba2-1.3b's scan at its full width (4 x 4096 steps, 64 heads of
+    P=64, N=128, chunk 256) in bf16 and fp32 through ``ops.ssd_scan``:
+    the first half, then the second from its h_last (B6 from h0), against
+    the whole sequence in one call: y and h_last, then the gradients of
+    the split chain (through B6-bwd's dh0) against the whole call's, each
+    within 2e-2 (bf16) / 1e-4 (fp32) of its scale; B6 and B6-bwd three
+    launches each (whole, first half, second half)."""
+    from repro_torch.kernels import ops
+    b, s, h, p, n, chunk = POS_SSD
+    half = s // 2
+    g = torch.Generator().manual_seed(41)
+    for dtype in (BF16, FP32):
+        key = str(dtype).replace("torch.", "")
+        x, dt, a, bb, cc = _ssd_inputs(g, "cuda", b, s, h, p, n, dtype)
+        x, bb, cc = (u.contiguous().requires_grad_(True) for u in (x, bb, cc))
+        dt = dt.requires_grad_(True)
+        wy = torch.randn(b, s, h, p, generator=g).to("cuda", dtype)
+        wh = torch.randn(b, h, p, n, generator=g).to("cuda")
+        zero_counts()
+        t0 = time.perf_counter()
+        y, hl = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+        gw = torch.autograd.grad(
+            torch.sum(y.float() * wy.float()) + torch.sum(hl * wh),
+            (x, dt, bb, cc))
+        y1, h1 = ops.ssd_scan(x[:, :half], dt[:, :half], a, bb[:, :half],
+                              cc[:, :half], chunk=chunk)
+        y2, h2 = ops.ssd_scan(x[:, half:], dt[:, half:], a, bb[:, half:],
+                              cc[:, half:], chunk=chunk, h0=h1)
+        ys = torch.cat([y1, y2], dim=1)
+        gs = torch.autograd.grad(
+            torch.sum(ys.float() * wy.float()) + torch.sum(h2 * wh),
+            (x, dt, bb, cc))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        tol = 2e-2 if dtype == BF16 else 1e-4
+        devs = {"y": _rel_err(ys.detach(), y.detach()),
+                "h_last": _rel_err(h2.detach(), hl.detach())}
+        devs.update({f"d{n_}": _rel_err(u, w) for n_, u, w in
+                     zip(("x", "dt", "b", "c"), gs, gw)})
+        log(f"  mamba2-1.3b split scan {key} {list(POS_SSD)}: halves "
+            f"chained through h_last against the whole call (of max|whole|) "
+            f"{json.dumps(devs)} (bound {tol}); launches "
+            f"{json.dumps(counts)}; {wall:.3f} s with the two backward "
+            f"passes")
+        want = {k_: 0 for k_ in counts}
+        want.update(ssd_scan=3, ssd_scan_bwd=3)
+        if counts != want or not max(devs.values()) <= tol:
+            raise AssertionError(f"mamba2 split scan {key}: {devs} beyond "
+                                 f"{tol} or launches {counts} != {want}")
+        for k_ in totals:
+            totals[k_] += counts[k_]
+        b6_launches["ssd_scan"][key] = counts["ssd_scan"]
+        b6_launches["ssd_scan_bwd"][key] = counts["ssd_scan_bwd"]
+        del x, dt, a, bb, cc, y, hl, y1, h1, y2, h2, ys, gw, gs, wy, wh
+        torch.cuda.empty_cache()
+
+
+def _positions_agreement():
+    """The reduced configs with left pads (0 and 37 of 96), fp32, card
+    against CPU (``agreement.card_vs_cpu`` and ``grads_card_vs_cpu`` with
+    ``pads``): the prefill and 4 decode steps (hubert: the forward) and
+    ``train_loss`` with every gradient leaf within 2e-4; reduced
+    mamba2-1.3b's layer from a carried ``ssm_state``
+    (``ssm_state_card_vs_cpu``), y, state and the gradient with respect
+    to the state within 2e-4.  A check's launches, not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import agreement
+    worst = {}
+    for arch in POS_REDUCED:
+        cfg = get_config(arch).reduced()
+        r = agreement.card_vs_cpu(cfg, pads=POS_REDUCED_PADS)
+        gr = agreement.grads_card_vs_cpu(cfg, pads=POS_REDUCED_PADS)
+        if r["strays"] or gr["strays"] or not r["devs"] \
+                or gr["loss_dev"] is None:
+            raise AssertionError(f"{arch} left-padded: expert sets differ "
+                                 f"without a near-tie, or no row left")
+        gdev = max(gr["grad_devs"].values())
+        worst[arch] = (max(r["devs"]), gr["loss_dev"], gdev)
+        if not (max(r["devs"]) <= 2e-4 and gr["loss_dev"] <= 2e-4
+                and gdev <= 2e-4):
+            raise AssertionError(f"{arch} left-padded card vs CPU "
+                                 f"{worst[arch]} beyond 2e-4")
+    m = agreement.ssm_state_card_vs_cpu(get_config("mamba2-1.3b").reduced())
+    log(f"  reduced configs left-padded {list(POS_REDUCED_PADS)}, fp32 card "
+        f"vs CPU (logits, train_loss, worst gradient leaf): "
+        + "; ".join(f"{a_} {v[0]:.2e}, {v[1]:.2e}, {v[2]:.2e}"
+                    for a_, v in worst.items())
+        + f" (bound 2e-4); reduced mamba2-1.3b from ssm_state (y, state, "
+        f"d ssm_state) {['%.2e' % d for d in m['devs']]}, B6/B6-bwd "
+        f"launches {m['launches']}")
+    if not max(m["devs"]) <= 2e-4 or m["launches"] != (1, 1):
+        raise AssertionError("mamba2 from ssm_state: card vs CPU beyond "
+                             "2e-4, or B6 not once each way")
+
+
+def phase_lm_positions(records):
+    """Explicit positions and a carried SSM state on the card: phi3-mini-
+    3.8b and hymba-1.5b left-padded at full width
+    (:func:`_positions_phi3`, :func:`_positions_hymba`), mamba2-1.3b's
+    scan split and continued (:func:`_positions_mamba2`), each kernel
+    with positions or h0 against its plain version and timed at those
+    shapes (:func:`_b5_positions_rows`, :func:`_b6_h0_rows`), and the
+    reduced configs card against CPU (:func:`_positions_agreement`).
+    Every run's launches are zeroed just before it and read just after."""
+    t_phase = time.perf_counter()
+    log("LM positions phase: left-padded prompts (positions = arange(S) - "
+        "pad) and a carried SSM state through B5, B5-bwd, B6 and B6-bwd")
+    by_name = {r["name"]: r for r in records}
+    totals = {name: 0 for name in read_counts()}
+    by_shape = {}
+    b6_launches = {"ssd_scan": {}, "ssd_scan_bwd": {}}
+    _positions_phi3(totals, by_shape)
+    _positions_hymba(totals, by_shape)
+    _positions_mamba2(totals, b6_launches)
+    g = torch.Generator().manual_seed(32)
+    _b5_positions_rows(g, torch.device("cuda"), by_name["flash_attention"],
+                       by_name["flash_attention_bwd"], by_shape)
+    _b6_h0_rows(g, torch.device("cuda"), by_name["ssd_scan"],
+                by_name["ssd_scan_bwd"], b6_launches)
+    _positions_agreement()
+    for r in records:
+        r["launches_by_path"]["lm_positions"] = totals[r["name"]]
+    log(f"  launches on the positions paths: {json.dumps(totals)}")
+    if not all(totals[k_] > 0 for k_ in ("flash_attention",
+                                         "flash_attention_bwd", "ssd_scan",
+                                         "ssd_scan_bwd")):
+        raise AssertionError(f"positions phase: a kernel of the path never "
+                             f"launched {totals}")
+    log(f"LM positions phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -5208,6 +5721,7 @@ def main() -> int:
     phase_lm_zoo(records)
     phase_lm_moe(records)
     phase_lm_zoo_train(records)
+    phase_lm_positions(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)
@@ -5224,7 +5738,8 @@ def main() -> int:
              "smem_bytes", "launch_us", "mamba2_ms", "device_ops_per_call",
              "replaces_note", "fwd_ms", "fwd_lse_ms", "fwd_states_ms",
              "routes", "fp32_case", "fp32_ms", "fed_lm", "fed_lm_mamba2",
-             "zoo", "saved_draw", "fp32_repeat", "mamba2_fp32_ms")
+             "zoo", "saved_draw", "fp32_repeat", "mamba2_fp32_ms",
+             "positions", "h0")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in records]}))

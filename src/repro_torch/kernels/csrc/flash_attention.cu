@@ -16,6 +16,31 @@
 // Mask: causal k <= q, sliding window k > q - window, both, or none; keys
 // and queries past the sequence end are masked (the ragged tail).
 //
+// Positions: k and q above are the rows' indices, or, where the caller
+// passes positions (q_pos, k_pos: (B, S) int32, a left-padded prompt's
+// arange(S) - pad), their positions, and a key at a negative position is
+// never attended (the reference's _chunk_mask).  Each kernel is built
+// twice, the bool template POS telling the two apart, so that the
+// index-masked instance is the code it was.  With positions a block finds
+// the key tiles it visits from the keys' positions (pos::reach, one pass
+// of the block over the sequence's positions), and each warp classifies
+// every tile from the least and greatest position of its keys and of its
+// own query rows (pos::classify): skipped (bf16, where a warpgroup may
+// skip), unmasked, or masked per element from the loaded positions.  A
+// row that may attend no key keeps p = 0 on every tile (the keep bits),
+// so it ends with l == 0: out 0 and lse NEG_INF, never NaN.  Measured on
+// an H100 at 700 W (tools/time_kernel.py): the index-masked instances
+// compile to the SASS of kernels with no position code at all,
+// instruction for instruction, and read their times; through the POS
+// instances arange positions cost the bf16 route +5% (205.5-206.7
+// against 195.4 us at hymba-1.5b's prefill) and the fp32 route +25%
+// (5900.3-5982.0 against 4710.2-4751.7 us at the federated hymba round's
+// shape), and a pad of 1000 at 1 x 4096 takes the bf16 route from 118.6
+// to 95.7 us (pad queries visit no tile).  The index path writes its mask
+// test as one condition: through a separate bool, ptxas kept the
+// predicates in registers and the bf16 route read 276-284 us against
+// 197-198.
+//
 // Bound on this card: operations.  At the hymba-1.5b prefill shape (B=4,
 // H=25, Hkv=5, S=2048, D=64, window 1024, bf16) the window reaches ~157M
 // (q, k) pairs, 4*D flops each: ~40 GFLOP against ~63 MB of q/k/v/out,
@@ -135,6 +160,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "positions.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -189,14 +215,15 @@ constexpr int f32_smem_bytes() {
   return f32_bytes<DQK, DV, f32_keys<DQK, DV>()>();
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, Strides qs, Strides ks,
                      Strides vs, Strides os, int seq, int heads,
                      int kv_heads, int causal, int window,
-                     float scale_log2) {
+                     float scale_log2, const int* __restrict__ qpos,
+                     const int* __restrict__ kpos) {
   constexpr int T = f32_keys<DQK, DV>();
   constexpr uint32_t kQ = kF32Rows * DQK * 4, kK = T * DQK * 4,
                      kV = DV * T * 4;
@@ -219,11 +246,27 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qa = q0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
   const int cq = 2 * (lane & 3);
 
-  // the key tiles the mask can reach from the block's rows
+  // the key tiles the mask can reach from the block's rows: from their
+  // indices, or with positions from the keys' positions (positions.cuh)
   int lo = 0, hi = seq - 1;
   if (window > 0) lo = max(0, q0 - window + 1);
   if (causal) hi = min(hi, q0 + kF32Rows - 1);
-  const int first = lo / T, last = hi / T;
+  int first = lo / T, last = hi / T;
+  [[maybe_unused]] pos::Span own;
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    own = pos::warp_span<kF32Rows, false>(qpos, q0, seq, lane);
+    own.bad = false;  // rows past the end are never stored
+    const int2 r = pos::reach<true, T>(kpos, seq, own, causal, window,
+                                       reach_s);
+    first = r.x;
+    last = r.y;
+    qv[0] = pos::at(qpos, qa, seq);
+    qv[1] = pos::at(qpos, qa + 8, seq);
+  }
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
   // K and V of tile t come by cp.async into raw stage (t - first) % 2,
@@ -288,17 +331,35 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // online softmax on the fragments: s[4j + e] is row qa + 8 (e >> 1),
     // key k0 + 8j + cq + (e & 1); the mask only on tiles that cross the
-    // diagonal, the window's edge or the sequence end
-    const bool edge = (causal && k0 + T - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + kF32Rows - 1 - window) ||
-                      k0 + T > seq;
+    // diagonal, the window's edge or the sequence end (with positions:
+    // that hold a pad key or a pair the mask refuses)
+    [[maybe_unused]] int cls = pos::kEdge;
+    if constexpr (POS)
+      cls = pos::classify(own, pos::warp_span<T, true>(kpos, k0, seq, lane),
+                          causal, window);
+    const bool edge = POS ? cls != pos::kClean
+                          : (causal && k0 + T - 1 > q0) ||
+                                (window > 0 &&
+                                 k0 <= q0 + kF32Rows - 1 - window) ||
+                                k0 + T > seq;
+    [[maybe_unused]] int kv[POS ? T / 4 : 1];
+    if constexpr (POS) {
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < T / 4; ++i)
+          kv[i] = pos::at(kpos, k0 + 8 * (i >> 1) + cq + (i & 1), seq);
+      }
+    }
     uint32_t keep = 0xffffffffu;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) {
       float x = s[i] * scale_log2;
-      if (edge && !allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
-                           qa + 8 * ((i >> 1) & 1), seq, causal, window)) {
+      if (edge && !(POS ? pos::allowed(kv[POS ? 2 * (i >> 2) + (i & 1) : 0],
+                                       qv[(i >> 1) & 1], causal, window)
+                        : allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
+                                  qa + 8 * ((i >> 1) & 1), seq, causal,
+                                  window))) {
         x = kNegInf;
         keep &= ~(1u << i);
       }
@@ -377,13 +438,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, Strides qs, Strides ks, Strides vs, Strides os,
                int batch, int seq, int heads, int kv_heads, int causal,
-               int window, float scale, cudaStream_t stream) {
+               int window, float scale, const int* qpos, const int* kpos,
+               cudaStream_t stream) {
   constexpr int smem = f32_smem_bytes<DQK, DV>();
-  auto kern = flash_fwd_f32_kernel<DQK, DV>;
+  auto kern = flash_fwd_f32_kernel<DQK, DV, POS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -395,7 +457,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
-      os, seq, heads, kv_heads, causal, window, scale * kLog2e);
+      os, seq, heads, kv_heads, causal, window, scale * kLog2e, qpos, kpos);
   return (int)cudaGetLastError();
 }
 
@@ -467,13 +529,15 @@ constexpr int tc_smem_bytes() {
          + 1024;
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(kTcThreads, DQK <= 64 && DV <= 64 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, Strides qs, Strides ks,
                     Strides vs, Strides os, int seq, int heads, int kv_heads,
-                    int causal, int window, float scale_log2) {
+                    int causal, int window, float scale_log2,
+                    const int* __restrict__ qpos,
+                    const int* __restrict__ kpos) {
   constexpr uint32_t kAtoms = (DQK + 63) / 64;
   constexpr uint32_t kQBytes = kAtoms * kTcRows * kSwRow;
   constexpr uint32_t kKTile = kAtoms * kTcKeys * kSwRow;
@@ -496,7 +560,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<DQK, kTcRows>(sq, q + b * qs.b + h * qs.h, qs.s, q0, seq, tid);
 
   // the key tiles the mask can reach from the block's rows, and from this
-  // warpgroup's
+  // warpgroup's: from their indices, or with positions from the keys'
+  // positions (positions.cuh)
   int lo = 0, hi = seq - 1, wlo = 0, whi = seq - 1;
   if (window > 0) {
     lo = max(0, q0 - window + 1);
@@ -506,10 +571,28 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hi = min(hi, q0 + kTcRows - 1);
     whi = min(whi, w0 + 63);
   }
-  const int first = lo / kTcKeys, last = hi / kTcKeys;
+  int first = lo / kTcKeys, last = hi / kTcKeys;
+  [[maybe_unused]] pos::Span wown;
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    pos::Span own = pos::warp_span<kTcRows, false>(qpos, q0, seq, lane);
+    own.bad = false;  // rows past the end are never stored
+    wown = pos::warp_span<64, false>(qpos, w0, seq, lane);
+    wown.bad = false;
+    const int2 r = pos::reach<true, kTcKeys>(kpos, seq, own, causal, window,
+                                             reach_s);
+    first = r.x;
+    last = r.y;
+    qv[0] = pos::at(qpos, qa, seq);
+    qv[1] = pos::at(qpos, qa + 8, seq);
+  }
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  load_kv<DQK, DV>(sk, sv, kb, vb, ks.s, vs.s, first * kTcKeys, seq, tid);
+  if (!POS || first <= last)
+    load_kv<DQK, DV>(sk, sv, kb, vb, ks.s, vs.s, first * kTcKeys, seq, tid);
   cp_async_commit();
 
   float acc[DV / 2];
@@ -537,7 +620,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
     }
     const int k0 = t * kTcKeys;
-    if (w0 >= seq || k0 > whi || k0 + kTcKeys - 1 < wlo) {
+    [[maybe_unused]] int cls = pos::kEdge;
+    if constexpr (POS)
+      cls = pos::classify(wown, pos::warp_span<kTcKeys, true>(kpos, k0, seq,
+                                                             lane),
+                          causal, window);
+    if (POS ? cls == pos::kSkip
+            : w0 >= seq || k0 > whi || k0 + kTcKeys - 1 < wlo) {
       wgmma_wait_all();  // a skipped tile still retires the last P V
       continue;
     }
@@ -563,16 +652,28 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // online softmax on the fragments: s[4j + e] is row qa + 8 (e >> 1),
     // key k0 + 8j + cq + (e & 1)
-    const bool edge = (causal && k0 + kTcKeys - 1 > w0) ||
-                      (window > 0 && k0 <= w0 + 63 - window) ||
-                      k0 + kTcKeys > seq;
+    const bool edge = POS ? cls == pos::kEdge
+                          : (causal && k0 + kTcKeys - 1 > w0) ||
+                                (window > 0 && k0 <= w0 + 63 - window) ||
+                                k0 + kTcKeys > seq;
+    [[maybe_unused]] int kv[POS ? kTcKeys / 4 : 1];
+    if constexpr (POS) {
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTcKeys / 4; ++i)
+          kv[i] = pos::at(kpos, k0 + 8 * (i >> 1) + cq + (i & 1), seq);
+      }
+    }
     uint32_t keep = 0xffffffffu;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * scale_log2;
-      if (edge && !allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
-                           qa + 8 * ((i >> 1) & 1), seq, causal, window)) {
+      if (edge && !(POS ? pos::allowed(kv[POS ? 2 * (i >> 2) + (i & 1) : 0],
+                                       qv[(i >> 1) & 1], causal, window)
+                        : allowed(k0 + 8 * (i >> 2) + cq + (i & 1),
+                                  qa + 8 * ((i >> 1) & 1), seq, causal,
+                                  window))) {
         x = kNegInf;
         keep &= ~(1u << i);
       }
@@ -619,6 +720,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   wgmma_wait_all();
   pin(acc);
+  if constexpr (POS) cp_async_wait_all();  // Q's copy, where no tile ran
 
   if (w0 >= seq) return;
 #pragma unroll
@@ -645,13 +747,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, Strides qs, Strides ks, Strides vs, Strides os,
               int batch, int seq, int heads, int kv_heads, int causal,
-              int window, float scale, cudaStream_t stream) {
+              int window, float scale, const int* qpos, const int* kpos,
+              cudaStream_t stream) {
   const int smem = tc_smem_bytes<DQK, DV>();
-  auto kern = flash_fwd_tc_kernel<DQK, DV>;
+  auto kern = flash_fwd_tc_kernel<DQK, DV, POS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -659,25 +762,28 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, qs, ks, vs,
-      os, seq, heads, kv_heads, causal, window, scale * kLog2e);
+      os, seq, heads, kv_heads, causal, window, scale * kLog2e, qpos, kpos);
   return (int)cudaGetLastError();
 }
 
 // the instantiated (DQK, DV) pairs, as one key
 constexpr int pair(int dqk, int dv) { return dqk * 1000 + dv; }
 
-// route by dtype, then head-dim pair
+// route by dtype, then head-dim pair, then explicit or implicit positions
 int dispatch(int is_bf16, int head_dim, int v_head_dim, const void* q,
              const void* k, const void* v, void* o, float* lse, Strides qs,
              Strides ks, Strides vs, Strides os, int batch, int seq,
              int heads, int kv_heads, int causal, int window, float scale,
-             cudaStream_t s) {
+             const int* qpos, const int* kpos, cudaStream_t s) {
 #define FLASH_ARGS q, k, v, o, lse, qs, ks, vs, os, batch, seq, heads, \
-                   kv_heads, causal, window, scale, s
-#define FLASH_PAIR(DQK, DV)                                       \
-  case pair(DQK, DV):                                             \
-    return is_bf16 ? launch_tc<DQK, DV>(FLASH_ARGS)               \
-                   : launch_f32<DQK, DV>(FLASH_ARGS);
+                   kv_heads, causal, window, scale, qpos, kpos, s
+#define FLASH_PAIR(DQK, DV)                                             \
+  case pair(DQK, DV):                                                   \
+    if (qpos != nullptr)                                                \
+      return is_bf16 ? launch_tc<DQK, DV, true>(FLASH_ARGS)             \
+                     : launch_f32<DQK, DV, true>(FLASH_ARGS);           \
+    return is_bf16 ? launch_tc<DQK, DV, false>(FLASH_ARGS)              \
+                   : launch_f32<DQK, DV, false>(FLASH_ARGS);
   switch (pair(head_dim, v_head_dim)) {
     FLASH_PAIR(32, 32)
     FLASH_PAIR(64, 64)
@@ -729,14 +835,17 @@ extern "C" int flash_attention_tc_smem_bytes(int head_dim, int v_head_dim,
 // and need 16-byte aligned q, k, v with (b, s, h) strides of whole 16-byte
 // chunks, multiples of 8 (bf16) or 4 (fp32) entries (else
 // cudaErrorMisalignedAddress).  lse: null, or (B, H, S) fp32 for the
-// backward.
+// backward.  q_pos, k_pos: both null (the implicit arange(S), the
+// index-masked instances), or both (B, S) int32 contiguous.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
     int64_t o_sh, int batch, int seq, int heads, int kv_heads, int head_dim,
     int v_head_dim, int causal, int window, float scale, int is_bf16,
-    float* lse, void* stream) {
+    float* lse, const int* q_pos, const int* k_pos, void* stream) {
+  if ((q_pos == nullptr) != (k_pos == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   const int per16 = is_bf16 ? 8 : 4;
@@ -745,5 +854,5 @@ extern "C" int flash_attention_fwd(
     return (int)cudaErrorMisalignedAddress;
   return dispatch(is_bf16, head_dim, v_head_dim, q, k, v, o, lse, qs, ks, vs,
                   os, batch, seq, heads, kv_heads, causal, window, scale,
-                  static_cast<cudaStream_t>(stream));
+                  q_pos, k_pos, static_cast<cudaStream_t>(stream));
 }

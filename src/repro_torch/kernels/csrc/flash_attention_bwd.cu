@@ -136,7 +136,24 @@
 // Both: no atomics, so every call gives the same bits.  Masks: causal
 // k <= q, sliding window k > q - window, both, or none; keys and queries
 // past the sequence end are masked (a ragged tail).  A fully masked row
-// has p = 0 and gets zero gradients.  Operands are read through their
+// has p = 0 and gets zero gradients.  Positions, as the forward's
+// (flash_attention.cu, positions.cuh): where the caller passes the
+// forward's (B, S) int32 q_pos and k_pos, k and q are positions, a key at
+// a negative position is never attended, and every kernel is the POS
+// instance of its template: the streamed tiles' range comes from the
+// streamed side's positions (pos::reach: the keys' in dQ, the queries' in
+// dK/dV), each tile is classified from its positions' range and the own
+// rows' (skipped on the bf16 route, unmasked, or masked per element), and
+// a block that sees no pair writes zero gradients.  A pad query's row has
+// lse = NEG_INF, so its p is 0 on every branch (lse_log2).  The
+// index-masked instances compile to the SASS of kernels with no position
+// code at all; through the POS
+// instances arange positions read 388.1-389.1 against 400.0 us (bf16,
+// hymba-1.5b's train step) and 17876.6 against 16878.3-16881.9 us (fp32,
+// the federated round's shape), and a pad of 1000 takes the bf16 route to
+// 315.2 us (H100 at 700 W, tools/time_kernel.py).  The POS instances
+// spill at (128, 128), off every path with positions (ptxas: dK/dV 168
+// bytes bf16 and 184 fp32, dQ fp32 40).  Operands are read through their
 // (b, s, h) strides (the head dim contiguous); dq, dk, dv are written
 // contiguous; lse and delta are (B, H, S) fp32.  The (DQK, DV) pairs
 // are the forward's: (32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
@@ -161,6 +178,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "positions.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -253,7 +271,7 @@ __device__ __forceinline__ void wg_sync(int wg) {
 }
 
 // 1. dq (and delta) per 64 query rows of one (batch, head)
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(dq_wgs<DQK, DV>() * 128)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -265,7 +283,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         Strides qs, Strides ks, Strides vs, Strides os,
                         Strides ds, int seq, int heads, int kv_heads,
                         int causal, int window, float scale,
-                        float scale_log2) {
+                        float scale_log2, const int* __restrict__ qpos,
+                        const int* __restrict__ kpos) {
   constexpr int W = dq_wgs<DQK, DV>(), T = dq_f32_keys<DQK, DV>();
   constexpr uint32_t kQ = kF32Rows * DQK * 4, kO = kF32Rows * DV * 4,
                      kK = T * DQK * 4, kV = T * DV * 4;
@@ -296,12 +315,28 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int qa = q0 + warp * 16 + (lane >> 2);   // this thread's: qa, qa+8
   const int cq = 2 * (lane & 3);
 
-  // the key tiles the mask can reach; warpgroup wg takes tiles first + wg,
-  // first + wg + W, ...
+  // the key tiles the mask can reach (with positions: from the keys'
+  // positions, positions.cuh); warpgroup wg takes tiles first + wg, first
+  // + wg + W, ...
   int lo = 0, hi = seq - 1;
   if (window > 0) lo = max(0, q0 - window + 1);
   if (causal) hi = min(hi, q0 + kF32Rows - 1);
-  const int first = lo / T, last = hi / T;
+  int first = lo / T, last = hi / T;
+  [[maybe_unused]] pos::Span own;
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    own = pos::warp_span<kF32Rows, false>(qpos, q0, seq, lane);
+    own.bad = false;  // rows past the end are never stored
+    const int2 r = pos::reach<true, T>(kpos, seq, own, causal, window,
+                                       reach_s);
+    first = r.x;
+    last = r.y;
+    qv[0] = pos::at(qpos, qa, seq);
+    qv[1] = pos::at(qpos, qa + 8, seq);
+  }
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
   // K and V of the warpgroup's i-th tile t come by cp.async into its raw
@@ -420,15 +455,31 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 
     // dS = P (dP - delta) scale on the fragments: s[j] is row qa + 8
     // ((j >> 1) & 1), key k0 + 8 (j >> 2) + cq + (j & 1)
-    const bool edge = (causal && k0 + T - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + kF32Rows - 1 - window) ||
-                      k0 + T > seq;
+    [[maybe_unused]] int cls = pos::kEdge;
+    if constexpr (POS)
+      cls = pos::classify(own, pos::warp_span<T, true>(kpos, k0, seq, lane),
+                          causal, window);
+    const bool edge = POS ? cls != pos::kClean
+                          : (causal && k0 + T - 1 > q0) ||
+                                (window > 0 &&
+                                 k0 <= q0 + kF32Rows - 1 - window) ||
+                                k0 + T > seq;
+    [[maybe_unused]] int kv[POS ? T / 4 : 1];
+    if constexpr (POS) {
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < T / 4; ++i)
+          kv[i] = pos::at(kpos, k0 + 8 * (i >> 1) + cq + (i & 1), seq);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < T / 2; ++j) {
       const int r = (j >> 1) & 1;
       float p = exp2f(fmaf(s[j], scale_log2, -l2[r]));
-      if (edge && !allowed(k0 + 8 * (j >> 2) + cq + (j & 1), qa + 8 * r, seq,
-                           causal, window))
+      if (edge && !(POS ? pos::allowed(kv[POS ? 2 * (j >> 2) + (j & 1) : 0],
+                                       qv[r], causal, window)
+                        : allowed(k0 + 8 * (j >> 2) + cq + (j & 1),
+                                  qa + 8 * r, seq, causal, window)))
         p = 0.0f;
       s[j] = p * (dp[j] - dl[r]) * scale;
     }
@@ -489,7 +540,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 }
 
 // 2. dk, dv per 64 keys of one kv head, summed over its query heads
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(dkdv_wgs<DQK, DV>() * 128)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -500,7 +551,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           Strides qs, Strides ks, Strides vs, Strides ds,
                           int seq, int heads, int kv_heads, int causal,
-                          int window, float scale, float scale_log2) {
+                          int window, float scale, float scale_log2,
+                          const int* __restrict__ qpos,
+                          const int* __restrict__ kpos) {
   constexpr int W = dkdv_wgs<DQK, DV>(), T = dkdv_f32_queries<DQK, DV>();
   constexpr uint32_t kK = kF32Rows * DQK * 4, kV = kF32Rows * DV * 4,
                      kQ = T * DQK * 4, kO = T * DV * 4;
@@ -535,13 +588,29 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   const int ka = k0 + warp * 16 + (lane >> 2);   // this thread's: ka, ka+8
   const int cq = 2 * (lane & 3);
 
-  // the query tiles whose rows see the block's keys, for each query head
-  // of the group in order: step it is head hk * group + it / nt, tile
-  // first + it % nt; warpgroup wg takes steps wg, wg + W, ...
+  // the query tiles whose rows see the block's keys (with positions: from
+  // the queries' positions, positions.cuh), for each query head of the
+  // group in order: step it is head hk * group + it / nt, tile first + it
+  // % nt; warpgroup wg takes steps wg, wg + W, ...
   int lo = 0, hi = seq - 1;
   if (causal) lo = k0;
   if (window > 0) hi = min(hi, k0 + kF32Rows - 1 + window - 1);
-  const int first = lo / T, nt = hi / T - first + 1, steps = group * nt;
+  int first = lo / T, nt = hi / T - first + 1;
+  [[maybe_unused]] pos::Span own;
+  [[maybe_unused]] int kv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    own = pos::warp_span<kF32Rows, true>(kpos, k0, seq, lane);
+    const int2 r = pos::reach<false, T>(qpos, seq, own, causal, window,
+                                        reach_s);
+    first = r.x;
+    nt = r.y - r.x + 1;
+    kv[0] = pos::at(kpos, ka, seq);
+    kv[1] = pos::at(kpos, ka + 8, seq);
+  }
+  const int steps = group * nt;
   // the warpgroup's i-th step's Q and dO rows, lse and delta by cp.async
   // into its raw stage i % 2, two steps ahead of their use (zeros past
   // the end, where the mask holds p at 0)
@@ -587,7 +656,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   // split, dK's and dV's while the next Q and dO are split and the step
   // after is fetched.  In round r the warpgroups take steps r W .. r W +
   // W - 1.
-  const int rounds = (steps + W - 1) / W;
+  // with positions a block may see no query: one round then writes its
+  // zero dK and dV
+  const int rounds = POS ? max((steps + W - 1) / W, 1) : (steps + W - 1) / W;
   constexpr int kFlushRounds = kFlushQueries / T;
   for (int r = 0; r < rounds; ++r) {
     const int it = r * W + wg;
@@ -640,9 +711,22 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
 
       // P^T and dS^T on the fragments: s[4 jb + 2 r + e] is key ka + 8 r,
       // query q0 + 8 jb + cq + e, whose lse and delta are in the stage
-      const bool edge = (causal && k0 + kF32Rows - 1 > q0) ||
-                        (window > 0 && k0 <= q0 + T - 1 - window) ||
-                        q0 + T > seq || k0 + kF32Rows > seq;
+      [[maybe_unused]] int cls = pos::kEdge;
+      if constexpr (POS)
+        cls = pos::classify(pos::warp_span<T, false>(qpos, q0, seq, lane),
+                            own, causal, window);
+      const bool edge = POS ? cls != pos::kClean
+                            : (causal && k0 + kF32Rows - 1 > q0) ||
+                                  (window > 0 && k0 <= q0 + T - 1 - window) ||
+                                  q0 + T > seq || k0 + kF32Rows > seq;
+      [[maybe_unused]] int qc[POS ? T / 4 : 1];
+      if constexpr (POS) {
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < T / 4; ++i)
+            qc[i] = pos::at(qpos, q0 + 8 * (i >> 1) + cq + (i & 1), seq);
+        }
+      }
       const float* ls = rst + T * kStride;
       const float* dls = ls + T;
 #pragma unroll
@@ -657,8 +741,11 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * jb + 2 * rr + e;
             float p = exp2f(fmaf(s[i], scale_log2, e ? -lc.y : -lc.x));
-            if (edge && !allowed(ka + 8 * rr, q0 + 8 * jb + cq + e, seq,
-                                 causal, window))
+            if (edge && !(POS ? pos::allowed(kv[rr],
+                                             qc[POS ? 2 * jb + e : 0],
+                                             causal, window)
+                              : allowed(ka + 8 * rr, q0 + 8 * jb + cq + e,
+                                        seq, causal, window)))
               p = 0.0f;
             dp[i] = p * (dp[i] - (e ? dc.y : dc.x)) * scale;
             s[i] = p;
@@ -776,18 +863,19 @@ cudaError_t allow_smem(K kern, int bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 int launch_f32(const float* q, const float* k, const float* v,
                const float* o, const float* dout, const float* lse,
                float* delta, float* dq, float* dk, float* dv, Strides qs,
                Strides ks, Strides vs, Strides os, Strides ds, int batch,
                int seq, int heads, int kv_heads, int causal, int window,
-               float scale, cudaStream_t stream) {
+               float scale, const int* qpos, const int* kpos,
+               cudaStream_t stream) {
   constexpr int smem_dq = f32_dq_smem<DQK, DV>();
   constexpr int smem_kv = f32_dkdv_smem<DQK, DV>();
   static_assert(smem_dq <= kSmemMax && smem_kv <= kSmemMax, "smem");
-  auto kdq = flash_bwd_dq_f32_kernel<DQK, DV>;
-  auto kkv = flash_bwd_dkdv_f32_kernel<DQK, DV>;
+  auto kdq = flash_bwd_dq_f32_kernel<DQK, DV, POS>;
+  auto kkv = flash_bwd_dkdv_f32_kernel<DQK, DV, POS>;
   cudaError_t e = allow_smem(kdq, smem_dq);
   if (e != cudaSuccess) return (int)e;
   e = allow_smem(kkv, smem_kv);
@@ -798,12 +886,12 @@ int launch_f32(const float* q, const float* k, const float* v,
   constexpr int threads_kv = dkdv_wgs<DQK, DV>() * 128;
   kdq<<<dim3(heads, batch, tiles), threads_dq, smem_dq, stream>>>(
       q, k, v, o, dout, lse, delta, dq, qs, ks, vs, os, ds, seq, heads,
-      kv_heads, causal, window, scale, scale_log2);
+      kv_heads, causal, window, scale, scale_log2, qpos, kpos);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   kkv<<<dim3(kv_heads, batch, tiles), threads_kv, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, ds, seq, heads,
-      kv_heads, causal, window, scale, scale_log2);
+      kv_heads, causal, window, scale, scale_log2, qpos, kpos);
   return (int)cudaGetLastError();
 }
 
@@ -896,7 +984,7 @@ __host__ __device__ constexpr int k_steps() {
 }
 
 // 1. dq (and delta) per 128 query rows of one (batch, head)
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -906,7 +994,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        Strides ds, int seq, int heads, int kv_heads,
                        int causal, int window, float scale,
-                       float scale_log2) {
+                       float scale_log2, const int* __restrict__ qpos,
+                       const int* __restrict__ kpos) {
   constexpr uint32_t kTileK = tile_bytes<DQK>(), kTileV = tile_bytes<DV>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -931,7 +1020,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   // the key tiles the mask can reach from the block's rows, and from this
-  // warpgroup's
+  // warpgroup's (with positions: from the keys' positions, positions.cuh)
   int lo = 0, hi = seq - 1, wlo = 0, whi = seq - 1;
   if (window > 0) {
     lo = max(0, q0 - window + 1);
@@ -941,11 +1030,29 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hi = min(hi, q0 + kTcRows - 1);
     whi = min(whi, w0 + 63);
   }
-  const int first = lo / kTcTile, last = hi / kTcTile;
+  int first = lo / kTcTile, last = hi / kTcTile;
+  [[maybe_unused]] pos::Span wown;
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    pos::Span own = pos::warp_span<kTcRows, false>(qpos, q0, seq, lane);
+    own.bad = false;  // rows past the end are never stored
+    wown = pos::warp_span<64, false>(qpos, w0, seq, lane);
+    wown.bad = false;
+    const int2 r = pos::reach<true, kTcTile>(kpos, seq, own, causal, window,
+                                             reach_s);
+    first = r.x;
+    last = r.y;
+    qv[0] = pos::at(qpos, qa, seq);
+    qv[1] = pos::at(qpos, qa + 8, seq);
+  }
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  load_pair<DQK, DV, kTcTile>(sk, sv, kb, vb, ks.s, vs.s, first * kTcTile,
-                              seq, tid);
+  if (!POS || first <= last)
+    load_pair<DQK, DV, kTcTile>(sk, sv, kb, vb, ks.s, vs.s, first * kTcTile,
+                                seq, tid);
   cp_async_commit();
 
   // delta = rowsum(dO o O) over DV in fp32 while the tiles load: two
@@ -1010,7 +1117,13 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
     }
     const int k0 = t * kTcTile;
-    if (w0 >= seq || k0 > whi || k0 + kTcTile - 1 < wlo) {
+    [[maybe_unused]] int cls = pos::kEdge;
+    if constexpr (POS)
+      cls = pos::classify(wown, pos::warp_span<kTcTile, true>(kpos, k0, seq,
+                                                             lane),
+                          causal, window);
+    if (POS ? cls == pos::kSkip
+            : w0 >= seq || k0 > whi || k0 + kTcTile - 1 < wlo) {
       wgmma_wait_all();  // a skipped tile still retires the last product
       continue;
     }
@@ -1043,9 +1156,18 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // dS = P (dP - delta) scale on the fragments, packed to bf16: s[i]
     // is row qa + 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) + cq + (i & 1)
-    const bool edge = (causal && k0 + kTcTile - 1 > w0) ||
-                      (window > 0 && k0 <= w0 + 63 - window) ||
-                      k0 + kTcTile > seq;
+    const bool edge = POS ? cls == pos::kEdge
+                          : (causal && k0 + kTcTile - 1 > w0) ||
+                                (window > 0 && k0 <= w0 + 63 - window) ||
+                                k0 + kTcTile > seq;
+    [[maybe_unused]] int kv[POS ? kTcTile / 4 : 1];
+    if constexpr (POS) {
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTcTile / 4; ++i)
+          kv[i] = pos::at(kpos, k0 + 8 * (i >> 1) + cq + (i & 1), seq);
+      }
+    }
     uint32_t da[16];
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
@@ -1054,8 +1176,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         const int r = (i >> 1) & 1;
         float p = fast_exp2(fmaf(s[i + e], scale_log2, -l2[r]));
-        if (edge && !allowed(k0 + 8 * (i >> 2) + cq + e, qa + 8 * r, seq,
-                             causal, window))
+        if (edge && !(POS ? pos::allowed(kv[POS ? 2 * (i >> 2) + e : 0],
+                                         qv[r], causal, window)
+                          : allowed(k0 + 8 * (i >> 2) + cq + e, qa + 8 * r,
+                                    seq, causal, window)))
           p = 0.0f;
         d[e] = p * (dp[i + e] - dl[r]) * scale;
       }
@@ -1078,6 +1202,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   wgmma_wait_all();
   pin(acc);
+  if constexpr (POS) cp_async_wait_all();  // Q's and dO's, where no tile ran
 
   if (w0 >= seq) return;
 #pragma unroll
@@ -1093,7 +1218,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // 2. dk, dv per 128 keys and one query head, as fp32 partials
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -1105,7 +1230,9 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
                          float* __restrict__ dv_part, Strides qs,
                          Strides ks, Strides vs, Strides ds, int seq,
                          int heads, int kv_heads, int causal, int window,
-                         float scale, float scale_log2) {
+                         float scale, float scale_log2,
+                         const int* __restrict__ qpos,
+                         const int* __restrict__ kpos) {
   constexpr uint32_t kTileQ = tile_bytes<DQK>(), kTileO = tile_bytes<DV>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -1132,7 +1259,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   cp_async_commit();
 
   // the query tiles whose rows see the block's keys, and this
-  // warpgroup's
+  // warpgroup's (with positions: from the queries' positions,
+  // positions.cuh)
   int lo = 0, hi = seq - 1, wlo = 0, whi = seq - 1;
   if (causal) {
     lo = k0;
@@ -1142,7 +1270,22 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
     hi = min(hi, k0 + kTcRows - 1 + window - 1);
     whi = min(whi, w0 + 63 + window - 1);
   }
-  const int first = lo / kTcTile, last = hi / kTcTile;
+  int first = lo / kTcTile, last = hi / kTcTile;
+  [[maybe_unused]] pos::Span wown;
+  [[maybe_unused]] int kv[2];
+  if constexpr (POS) {
+    __shared__ int reach_s[2];
+    qpos += (int64_t)b * seq;
+    kpos += (int64_t)b * seq;
+    const pos::Span own = pos::warp_span<kTcRows, true>(kpos, k0, seq, lane);
+    wown = pos::warp_span<64, true>(kpos, w0, seq, lane);
+    const int2 r = pos::reach<false, kTcTile>(qpos, seq, own, causal, window,
+                                              reach_s);
+    first = r.x;
+    last = r.y;
+    kv[0] = pos::at(kpos, ka, seq);
+    kv[1] = pos::at(kpos, ka + 8, seq);
+  }
   const int64_t rbase = ((int64_t)b * heads + h) * seq;
   // query tile t's Q and dO, and its 64 lse and delta values, into a ring
   // stage
@@ -1161,7 +1304,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
                             * 4u, src, ok);
     }
   };
-  load_tile(first, 0);
+  if (!POS || first <= last) load_tile(first, 0);
   cp_async_commit();
 
   float dka[DQK / 2], dva[DV / 2];
@@ -1184,7 +1327,13 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
       cp_async_commit();
     }
     const int q0 = t * kTcTile;
-    if (w0 >= seq || q0 > whi || q0 + kTcTile - 1 < wlo) {
+    [[maybe_unused]] int cls = pos::kEdge;
+    if constexpr (POS)
+      cls = pos::classify(pos::warp_span<kTcTile, false>(qpos, q0, seq,
+                                                         lane),
+                          wown, causal, window);
+    if (POS ? cls == pos::kSkip
+            : w0 >= seq || q0 > whi || q0 + kTcTile - 1 < wlo) {
       wgmma_wait_all();
       continue;
     }
@@ -1218,9 +1367,19 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
 
     // P^T and dS^T on the fragments, packed to bf16; the columns are
     // queries, their lse and delta from the stage
-    const bool edge = (causal && w0 + 63 > q0) ||
-                      (window > 0 && w0 <= q0 + kTcTile - 1 - window) ||
-                      q0 + kTcTile > seq || w0 + 64 > seq;
+    const bool edge = POS ? cls == pos::kEdge
+                          : (causal && w0 + 63 > q0) ||
+                                (window > 0 &&
+                                 w0 <= q0 + kTcTile - 1 - window) ||
+                                q0 + kTcTile > seq || w0 + 64 > seq;
+    [[maybe_unused]] int qc[POS ? kTcTile / 4 : 1];
+    if constexpr (POS) {
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < kTcTile / 4; ++i)
+          qc[i] = pos::at(qpos, q0 + 8 * (i >> 1) + cq + (i & 1), seq);
+      }
+    }
     const float* ls = side + stage * kTcTile;
     const float* dls = side + (kStages + stage) * kTcTile;
     uint32_t pa[16], da[16];
@@ -1237,8 +1396,10 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * jb + 2 * r + e;
           p[e] = fast_exp2(fmaf(s[i], scale_log2, -lc[e]));
-          if (edge && !allowed(ka + 8 * r, q0 + 8 * jb + cq + e, seq, causal,
-                               window))
+          if (edge && !(POS ? pos::allowed(kv[r], qc[POS ? 2 * jb + e : 0],
+                                           causal, window)
+                            : allowed(ka + 8 * r, q0 + 8 * jb + cq + e, seq,
+                                      causal, window)))
             p[e] = 0.0f;
           d[e] = p[e] * (dp[i] - dc[e]) * scale;
         }
@@ -1270,6 +1431,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
   wgmma_wait_all();
   pin(dka);
   pin(dva);
+  if constexpr (POS) cp_async_wait_all();  // K's and V's, where no tile ran
 
   if (w0 >= seq) return;
 #pragma unroll
@@ -1319,15 +1481,15 @@ flash_bwd_group_sum_kernel(const float4* __restrict__ dk_part,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool POS>
 int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
               const bf16* dout, const float* lse, float* delta, bf16* dq,
               bf16* dk, bf16* dv, float* part, Strides qs, Strides ks,
               Strides vs, Strides os, Strides ds, int batch, int seq,
               int heads, int kv_heads, int causal, int window, float scale,
-              cudaStream_t stream) {
-  auto kdq = flash_bwd_dq_tc_kernel<DQK, DV>;
-  auto kkv = flash_bwd_dkdv_tc_kernel<DQK, DV>;
+              const int* qpos, const int* kpos, cudaStream_t stream) {
+  auto kdq = flash_bwd_dq_tc_kernel<DQK, DV, POS>;
+  auto kkv = flash_bwd_dkdv_tc_kernel<DQK, DV, POS>;
   constexpr int smem_dq = dq_smem_bytes<DQK, DV>();
   constexpr int smem_kv = dkdv_smem_bytes<DQK, DV>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -1340,13 +1502,13 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   const float scale_log2 = scale * kLog2e;
   kdq<<<grid, kTcThreads, smem_dq, stream>>>(
       q, k, v, o, dout, lse, delta, dq, qs, ks, vs, os, ds, seq, heads,
-      kv_heads, causal, window, scale, scale_log2);
+      kv_heads, causal, window, scale, scale_log2, qpos, kpos);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int64_t rows = (int64_t)batch * seq * heads;
   kkv<<<grid, kTcThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, part, part + rows * DQK, qs, ks, vs, ds,
-      seq, heads, kv_heads, causal, window, scale, scale_log2);
+      seq, heads, kv_heads, causal, window, scale, scale_log2, qpos, kpos);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int64_t out_rows = (int64_t)batch * seq * kv_heads;
@@ -1401,6 +1563,8 @@ extern "C" int flash_attention_bwd_tc_smem_bytes(int head_dim,
 // contiguous head dim, all of one dtype; lse (B, H, S) fp32 from the
 // forward; delta a (B, H, S) fp32 scratch.  Writes dq (B, S, H, DQK), dk
 // (B, S, Hkv, DQK) and dv (B, S, Hkv, DV) contiguous in the inputs' dtype.
+// q_pos, k_pos: both null (the implicit arange(S), the index-masked
+// instances), or both (B, S) int32 contiguous, the forward's.
 // (head_dim, v_head_dim) = (DQK, DV) one of the forward's pairs; H a
 // multiple of Hkv.  Both dtypes run on the tensor cores and need 16-byte
 // aligned q, k, v, out, dout with (b, s, h) strides of whole 16-byte
@@ -1416,7 +1580,9 @@ extern "C" int flash_attention_bwd(
     int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t d_sb, int64_t d_ss,
     int64_t d_sh, int batch, int seq, int heads, int kv_heads, int head_dim,
     int v_head_dim, int causal, int window, float scale, int is_bf16,
-    float* part, void* stream) {
+    float* part, const int* q_pos, const int* k_pos, void* stream) {
+  if ((q_pos == nullptr) != (k_pos == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1430,16 +1596,19 @@ extern "C" int flash_attention_bwd(
     static_cast<const bf16*>(v), static_cast<const bf16*>(o),                \
     static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),      \
     static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, qs, ks, vs, os,    \
-    ds, batch, seq, heads, kv_heads, causal, window, scale, s
+    ds, batch, seq, heads, kv_heads, causal, window, scale, q_pos, k_pos, s
 #define F32_ARGS static_cast<const float*>(q), static_cast<const float*>(k), \
     static_cast<const float*>(v), static_cast<const float*>(o),              \
     static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),    \
     static_cast<float*>(dk), static_cast<float*>(dv), qs, ks, vs, os, ds,    \
-    batch, seq, heads, kv_heads, causal, window, scale, s
-#define BWD_PAIR(DQK, DV)                                         \
-  case pair(DQK, DV):                                             \
-    return is_bf16 ? launch_tc<DQK, DV>(TC_ARGS)                  \
-                   : launch_f32<DQK, DV>(F32_ARGS);
+    batch, seq, heads, kv_heads, causal, window, scale, q_pos, k_pos, s
+#define BWD_PAIR(DQK, DV)                                               \
+  case pair(DQK, DV):                                                   \
+    if (q_pos != nullptr)                                               \
+      return is_bf16 ? launch_tc<DQK, DV, true>(TC_ARGS)                \
+                     : launch_f32<DQK, DV, true>(F32_ARGS);             \
+    return is_bf16 ? launch_tc<DQK, DV, false>(TC_ARGS)                 \
+                   : launch_f32<DQK, DV, false>(F32_ARGS);
   switch (pair(head_dim, v_head_dim)) {
     BWD_PAIR(32, 32)
     BWD_PAIR(64, 64)

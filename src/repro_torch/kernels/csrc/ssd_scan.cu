@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan (ngroups = 1, zero initial state), for Hopper.
+// Mamba-2 SSD chunked scan (ngroups = 1, from a zero or a carried initial
+// state), for Hopper.
 //
 // Replaces the TPU kernel ssd_scan_pallas (src/repro/kernels/ssd_scan.py,
 // body _ssd_kernel), and on the port's model path the jnp scan ssd_chunked
@@ -11,7 +12,15 @@
 //   h      <- exp(cum_Q) h + sum_j x[j,:]^T B_j exp(cum_Q - cum_j) dt_j
 //
 // Steps past the sequence end are read as dt = 0, x = B = C = 0, which
-// leaves the state as it is (the padding property of the reference).
+// leaves the state as it is (the padding property of the reference).  h
+// starts at zero, or at a carried state h0 (B, H, P, N) fp32 where one is
+// given (the reference's ssd_chunked(..., h0=), a continued sequence):
+// only the state pass reads it, as the state entering chunk 0, and both
+// chunk-scan kernels take every chunk's carried-state term, chunk 0's
+// among them, from the states it leaves, so h_last carries h0's decay.
+// From h0 the launches read their time from zero (H100 at 700 W,
+// tools/time_kernel.py: 133.8 against 133.0-135.2 us bf16 at hymba-1.5b's
+// prefill, 484.1 against 485.3-489.7 us fp32 at one federated client's).
 //
 // Bound on this card: bytes.  At the hymba-1.5b prefill shape (B=4,
 // S=2048, H=50, P=64, N=16, Q=256; x, B, C bf16, dt fp32) one pass reads
@@ -38,9 +47,9 @@
 //      as an N-major B).  The fp32 state and cum_Q go to a scratch the
 //      wrapper allocates (B*H*chunks*P*N + B*H*chunks floats).
 //   2. ssd_state_pass_kernel, one thread per state entry of a (batch,
-//      head): h <- exp(cum_Q) h + state over the chunks in order (eight
-//      chunks' loads in flight at once), leaving in the scratch the state
-//      that enters each chunk, and h_last.
+//      head): from h0 (or 0), h <- exp(cum_Q) h + state over the chunks in
+//      order (eight chunks' loads in flight at once), leaving in the
+//      scratch the state that enters each chunk, and h_last.
 //   3. ssd_chunk_scan_kernel, two warpgroups per (batch, head, chunk), the
 //      flash-attention shape of B5 with the decay in place of the softmax:
 //      x, B, C of the chunk come once by 16-byte cp.async; for each
@@ -147,6 +156,7 @@ struct Args {
   int64_t b_sb, b_ss;          // B (B, S, N)
   int64_t c_sb, c_ss;          // C (B, S, N)
   int seq, heads, n, chunk;
+  const float* h0;             // (B, H, P, N) fp32 entering chunk 0, or null
 };
 
 constexpr int kMaxChunk = 256;
@@ -276,13 +286,14 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x,
 __global__ void __launch_bounds__(256)
 ssd_state_pass_kernel(float* __restrict__ states,
                       const float* __restrict__ tot,
+                      const float* __restrict__ h0,
                       float* __restrict__ h_last, int pn, int nc) {
   const int e = blockIdx.y * 256 + threadIdx.x;
   if (e >= pn) return;
   const int64_t bh = blockIdx.x;
   float* st = states + bh * nc * pn + e;
   const float* tb = tot + bh * nc;
-  float h = 0.0f;
+  float h = h0 != nullptr ? h0[bh * pn + e] : 0.0f;
   for (int c0 = 0; c0 < nc; c0 += 8) {
     float s[8], d[8];
 #pragma unroll
@@ -786,7 +797,7 @@ int run_tc(int p, const void* x, const float* dt, const float* a,
   if (err) return err;
   const int pn = p * g.n;
   ssd_state_pass_kernel<<<dim3(batch * g.heads, (pn + 255) / 256), 256, 0,
-                          stream>>>(states, tot, h_last, pn, nc);
+                          stream>>>(states, tot, g.h0, h_last, pn, nc);
   err = (int)cudaGetLastError();
   if (err) return err;
   switch (p) {
@@ -819,7 +830,7 @@ int run_f32_pn(const void* x, const float* dt, const float* a, const void* b,
   if (e != cudaSuccess) return (int)e;
   const int pn = P * g.n;
   ssd_state_pass_kernel<<<dim3(batch * g.heads, (pn + 255) / 256), 256, 0,
-                          stream>>>(states, tot, h_last, pn, nc);
+                          stream>>>(states, tot, g.h0, h_last, pn, nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   k3<<<dim3(g.heads, nc * nqt, batch), kF32Threads, sm3, stream>>>(
@@ -881,7 +892,8 @@ extern "C" int64_t ssd_scan_smem_bytes(int head_dim, int state_dim,
 // contiguous last dim; y (B, S, H, P) contiguous in x's dtype, h_last
 // (B, H, P, N) contiguous fp32.  P in {16, 32, 64}, 1 <= chunk <= 256,
 // and a scratch of B*H*chunks*P*N (states) and B*H*chunks (tot) fp32,
-// which leaves in states the state entering each chunk.  bf16 (is_bf16 =
+// which leaves in states the state entering each chunk; h0 the state
+// entering chunk 0, (B, H, P, N) contiguous fp32, or null for zero.  bf16 (is_bf16 =
 // 1) takes N a multiple of 8 up to 128 and 16-byte aligned x, B, C with
 // strides that are multiples of 8; fp32 N a multiple of 4 up to 128 and
 // 16-byte aligned x, B, C with strides that are multiples of 4 (else
@@ -889,7 +901,7 @@ extern "C" int64_t ssd_scan_smem_bytes(int head_dim, int state_dim,
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
                             const void* b, const void* c, void* y,
                             float* h_last, float* states, float* tot,
-                            int64_t x_sb, int64_t x_ss, int64_t x_sh,
+                            const float* h0, int64_t x_sb, int64_t x_ss, int64_t x_sh,
                             int64_t dt_sb, int64_t dt_ss, int64_t dt_sh,
                             int64_t b_sb, int64_t b_ss, int64_t c_sb,
                             int64_t c_ss, int batch, int seq, int heads,
@@ -905,7 +917,7 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a,
       (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % unit)
     return (int)cudaErrorMisalignedAddress;
   const Args g{x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss,
-               c_sb, c_ss, seq,  heads, state_dim, chunk};
+               c_sb, c_ss, seq,  heads, state_dim, chunk, h0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return run_f32(head_dim, x, dt, a, b, c, y, h_last, states, tot, g,

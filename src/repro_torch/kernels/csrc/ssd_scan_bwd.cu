@@ -1,5 +1,5 @@
-// Mamba-2 SSD chunked scan backward (ngroups = 1, zero initial state), for
-// Hopper.
+// Mamba-2 SSD chunked scan backward (ngroups = 1, from a zero or a carried
+// initial state), for Hopper.
 //
 // The gradient of B6 (ssd_scan.cu).  The reference has no Pallas backward:
 // it differentiates ssd_chunked (src/repro/models/layers/mamba2.py) by
@@ -40,7 +40,15 @@
 //      exp(cum_i) dy_i C_i^T, the chunk's own part of dh0;
 //   2. ssd_bwd_state_pass_kernel, one thread per state entry of a (batch,
 //      head): the reverse of the forward's state pass, over the chunks from
-//      the last: dh1 of each chunk, then dh0 = exp(cum_Q) dh1 + U;
+//      the last: dh1 of each chunk, then dh0 = exp(cum_Q) dh1 + U; chunk
+//      0's dh0 is the gradient of the state the scan started from (zero,
+//      or a carried h0), written out as dh0 (B, H, P, N).  A carried h0
+//      needs nothing else here: the forward kept it as chunk 0's entering
+//      state, so the rows and columns kernels read it in their
+//      carried-state terms (dC, dcum, <dh1, h0> in da) as any other
+//      chunk's (from h0 the backward reads its time from zero: 219.0
+//      against 219.0-220.9 us bf16, 1771.5 against 1774.3-1775.1 us fp32,
+//      H100 at 700 W, tools/time_kernel.py);
 //   3. a columns kernel, the same shape with the roles swapped: dx, the
 //      per-head dB, the direct ddt and the column part of dcum over the
 //      rows i >= j; then, over the whole chunk, the reverse cumulative sum
@@ -168,10 +176,11 @@
 // Inputs: x (B, S, H, P) and B, C (B, S, N) in one dtype (bf16 or fp32),
 // read in place through their strides (last dims contiguous); dt (B, S, H)
 // and a (H,) fp32; dy (B, S, H, P) contiguous in x's dtype; states (B, H,
-// chunks, P, N) fp32, the state entering each chunk, kept by the forward;
-// dh_last (B, H, P, N) fp32 or null (zero).  Outputs: dx (B, S, H, P) in
-// x's dtype, ddt (B, S, H) fp32, da (H,) fp32, dB, dC (B, S, N) in x's
-// dtype, all contiguous.  Steps past the sequence end (a ragged last chunk)
+// chunks, P, N) fp32, the state entering each chunk, kept by the forward
+// (chunk 0's the state it started from); dh_last (B, H, P, N) fp32 or null
+// (zero).  Outputs: dx (B, S, H, P) in x's dtype, ddt (B, S, H) fp32, da
+// (H,) fp32, dB, dC (B, S, N) in x's dtype, dh0 (B, H, P, N) fp32, all
+// contiguous.  Steps past the sequence end (a ragged last chunk)
 // read as dt = 0, x = B = C = dy = 0 and get no gradient.  P in {16, 32,
 // 64}, N <= 128 (zero-padded to 16, 32, 64 or 128), chunk <= 256.
 //
@@ -296,7 +305,8 @@ __device__ void finish_chunk(const float* __restrict__ dcum,
 __global__ void __launch_bounds__(256)
 ssd_bwd_state_pass_kernel(float* __restrict__ du,
                           const float* __restrict__ cum_q,
-                          const float* __restrict__ dh_last, int pn, int nc) {
+                          const float* __restrict__ dh_last,
+                          float* __restrict__ dh0, int pn, int nc) {
   const int e = blockIdx.y * 256 + threadIdx.x;
   if (e >= pn) return;
   const int64_t bh = blockIdx.x;
@@ -308,6 +318,7 @@ ssd_bwd_state_pass_kernel(float* __restrict__ du,
     d[(int64_t)c * pn] = carry;
     carry = fmaf(expf(cq[c]), carry, u);
   }
+  dh0[bh * pn + e] = carry;  // the gradient of the state entering chunk 0
 }
 
 // 4. dB, dC over the heads; da over batch and chunks
@@ -1545,7 +1556,7 @@ ssd_bwd_cols_f32_kernel(const float* __restrict__ x,
 
 struct Out {
   void *dx, *db, *dc;
-  float *ddt, *da;
+  float *ddt, *da, *dh0;
 };
 
 struct Scratch {
@@ -1578,7 +1589,8 @@ int launch_all(KR kr, KC kc, size_t smem_r, size_t smem_c, int threads,
   if (e != cudaSuccess) return (int)e;
   const int pn = p * g.n;
   ssd_bwd_state_pass_kernel<<<dim3(batch * g.heads, (pn + 255) / 256), 256,
-                              0, stream>>>(s.du, s.cum_q, dh_last, pn, g.nc);
+                              0, stream>>>(s.du, s.cum_q, dh_last, o.dh0, pn,
+                                           g.nc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   kc<<<grid, threads, smem_c, stream>>>(xt, dt, a, bt, ct, dyt, states,
@@ -1688,7 +1700,8 @@ extern "C" int64_t ssd_scan_bwd_smem_bytes(int head_dim, int state_dim,
 extern "C" int ssd_scan_bwd(
     const void* x, const float* dt, const float* a, const void* b,
     const void* c, const void* dy, const float* states, const float* dh_last,
-    void* dx, float* ddt, float* da, void* db, void* dc, float* dcum,
+    void* dx, float* ddt, float* da, void* db, void* dc, float* dh0,
+    float* dcum,
     float* du, float* cum_q, float* db_part, float* dc_part, float* da_part,
     int64_t x_sb, int64_t x_ss, int64_t x_sh, int64_t dt_sb, int64_t dt_ss,
     int64_t dt_sh, int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
@@ -1704,7 +1717,7 @@ extern "C" int ssd_scan_bwd(
   const Args g{x_sb,  x_ss, x_sh,      dt_sb,     dt_ss, dt_sh,
                b_sb,  b_ss, c_sb,      c_ss,      seq,   heads,
                state_dim, chunk, (seq + chunk - 1) / chunk};
-  const Out o{dx, db, dc, ddt, da};
+  const Out o{dx, db, dc, ddt, da, dh0};
   const Scratch s{dcum, du, cum_q, db_part, dc_part, da_part};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -23,6 +23,12 @@ kernels read 1.4e-6 to 5.7e-6 of each output's max|plain|.  Both read
 16-byte aligned operands; a call the kernels cannot take raises: it
 never goes to the other route or to the plain version.
 
+Both take explicit positions (B, S) int32 for the queries and the keys
+(left-padded prompts: ``arange(S) - pad``): the mask then compares them,
+the key tiles a block visits come from the positions' range, and a key
+at a negative position is never attended.  Without positions the kernels
+run their index-masked instances, compiled apart (a template flag).
+
 Both take a value head dim of its own (MLA's q and k carry the
 decoupled rope channels on top of v's): the (DQK, DV) pairs of
 :data:`HEAD_DIM_PAIRS`, the same set forward and backward; any other
@@ -56,13 +62,13 @@ def _kernel(name: str):
         if name == "fwd":
             fn = _build.load("flash_attention").flash_attention_fwd
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12 \
-                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_void_p, ctypes.c_void_p]
+                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int] \
+                + [ctypes.c_void_p] * 4
         else:
             fn = _build.load("flash_attention_bwd").flash_attention_bwd
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 15 \
-                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_void_p, ctypes.c_void_p]
+                + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int] \
+                + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -113,19 +119,52 @@ def _check_aligned(fn: str, **operands: torch.Tensor):
                 f"{t.data_ptr() % 16} mod 16 with strides {t.stride()[:3]}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _positions(fn: str, q: torch.Tensor, q_pos, k_pos):
+    """The query and key positions as the kernels read them: (B, S) int32
+    on q's device, contiguous, or (None, None) for the implicit
+    ``arange(S)``; one of the two given and the other None takes
+    ``arange(S)`` for the other.  Anything else raises before a launch:
+    another dtype, another shape (Sq != Sk among them), another device."""
+    if q_pos is None and k_pos is None:
+        return None, None
+    b, s = q.shape[0], q.shape[1]
+    out = []
+    for name, pos in (("q_pos", q_pos), ("k_pos", k_pos)):
+        if pos is None:
+            pos = torch.arange(s, dtype=torch.int32, device=q.device
+                               ).expand(b, s)
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (b, s) \
+                or pos.device != q.device:
+            raise ValueError(
+                f"{fn} takes {name} as (B, S) = {(b, s)} int32 on "
+                f"{q.device} (the queries' and keys' S are one), got "
+                f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
+        out.append(pos.contiguous())
+    return out[0], out[1]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int, scale: float,
-                         want_lse: bool = False):
+                         want_lse: bool = False, q_pos=None, k_pos=None):
     """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) CUDA tensors of one
     dtype (fp32 or bf16), (D, Dv) in :data:`HEAD_DIM_PAIRS`, read in place
     through their strides (the head dim must be contiguous) -> (B,S,H,Dv)
     contiguous in q's dtype, and with
     ``want_lse`` also each row's log-sum-exp (B,H,S) fp32 for the
-    backward.  ``window`` 0 means no sliding window.  Operands must start
-    on 16 bytes and have (b, s, h) strides that are whole 16-byte chunks
-    (multiples of 8 bf16 or 4 fp32 elements)."""
+    backward.  ``window`` 0 means no sliding window.  ``q_pos`` and
+    ``k_pos`` (B,S) int32, or None for ``arange(S)``: the mask compares
+    positions, a key at a negative one is never attended, and a row that
+    may attend no key gives 0 (lse ``-1e30``); without them the kernels
+    run their index-masked instances.  Operands must start on 16 bytes
+    and have (b, s, h) strides that are whole 16-byte chunks (multiples
+    of 8 bf16 or 4 fp32 elements)."""
     global launches
     _check("flash_attention_cuda", q, k, v)
+    q_pos, k_pos = _positions("flash_attention_cuda", q, q_pos, k_pos)
     dev = q.device
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[3]
@@ -144,7 +183,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out.data_ptr(), *strides, b, s, h, hkv, d, dv,
                              int(bool(causal)), int(window), float(scale),
                              int(q.dtype == torch.bfloat16),
-                             lse.data_ptr() if want_lse else None, stream)
+                             lse.data_ptr() if want_lse else None,
+                             _ptr(q_pos), _ptr(k_pos), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -155,7 +195,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
-                             causal: bool, window: int, scale: float):
+                             causal: bool, window: int, scale: float,
+                             q_pos=None, k_pos=None):
     """The gradient of :func:`flash_attention_cuda`: q, k, v as the
     forward took them, its ``out`` and ``lse``, and ``dout`` (B,S,H,Dv) ->
     (dq (B,S,H,D), dk (B,S,Hkv,D), dv (B,S,Hkv,Dv)) contiguous in q's
@@ -167,9 +208,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     registers).  Both take operands as the forward does.  No atomics, so repeated
     calls give the same bits.  Takes the forward's (D, Dv) pairs,
     :data:`HEAD_DIM_PAIRS`: any other raises ``ValueError`` before a
-    launch, with no plain fallback."""
+    launch, with no plain fallback; and the forward's positions (a row
+    with lse ``-1e30`` gets no gradient, a key at a negative position
+    none)."""
     global bwd_launches
     _check("flash_attention_bwd_cuda", q, k, v)
+    q_pos, k_pos = _positions("flash_attention_bwd_cuda", q, q_pos, k_pos)
     dev = q.device
     b, s, h, d = q.shape
     hkv, d_v = k.shape[2], v.shape[3]
@@ -213,7 +257,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              d_v, int(bool(causal)), int(window),
                              float(scale),
                              int(bf16), part.data_ptr() if bf16 else None,
-                             stream)
+                             _ptr(q_pos), _ptr(k_pos), stream)
     if err:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

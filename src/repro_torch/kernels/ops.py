@@ -217,27 +217,33 @@ def fed_topk_ef(msgs, err_state, ids, *, frac: float,
 # hand each operator the plain tensors under them.
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
-            "Tensor lse, Tensor dout, bool causal, int window, float scale) "
-            "-> (Tensor, Tensor, Tensor)")
+            "Tensor lse, Tensor dout, bool causal, int window, float scale, "
+            "Tensor? q_pos=None, Tensor? k_pos=None) -> (Tensor, Tensor, "
+            "Tensor)")
 _LIB.impl("flash_attention_bwd",
-          lambda q, k, v, out, lse, dout, causal, window, scale:
-          flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
-                                   window=window, scale=scale), "CUDA")
+          lambda q, k, v, out, lse, dout, causal, window, scale, q_pos=None,
+          k_pos=None: flash_attention_bwd_cuda(
+              q, k, v, out, lse, dout, causal=causal, window=window,
+              scale=scale, q_pos=q_pos, k_pos=k_pos), "CUDA")
 _LIB.impl("flash_attention_bwd",
-          lambda q, k, v, out, lse, dout, causal, window, scale:
-          ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
-                                      window=window, scale=scale), "CPU")
+          lambda q, k, v, out, lse, dout, causal, window, scale, q_pos=None,
+          k_pos=None: ref.flash_attention_bwd_ref(
+              q, k, v, out, lse, dout, causal=causal, window=window,
+              scale=scale, q_pos=q_pos, k_pos=k_pos), "CPU")
+# h0 is the plain backward's: the kernel reads the entering state from the
+# states the forward kept, chunk 0's being h0
 _LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
-            "Tensor dy, Tensor states, Tensor? dh_last, int chunk) -> "
-            "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+            "Tensor dy, Tensor states, Tensor? dh_last, int chunk, "
+            "Tensor? h0=None) -> (Tensor, Tensor, Tensor, Tensor, Tensor, "
+            "Tensor)")
 _LIB.impl("ssd_scan_bwd",
-          lambda x, dt, a, b, c, dy, states, dh_last, chunk:
+          lambda x, dt, a, b, c, dy, states, dh_last, chunk, h0=None:
           ssd_scan_bwd_cuda(x, dt, a, b, c, dy, states, dh_last,
                             chunk=chunk), "CUDA")
 _LIB.impl("ssd_scan_bwd",
-          lambda x, dt, a, b, c, dy, states, dh_last, chunk:
-          tuple(ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk)),
-          "CPU")
+          lambda x, dt, a, b, c, dy, states, dh_last, chunk, h0=None:
+          tuple(ref.ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk,
+                                     h0)), "CPU")
 
 
 def _batch_first(t: Optional[torch.Tensor], dim: Optional[int], size: int
@@ -256,26 +262,41 @@ def _fold(t: torch.Tensor) -> torch.Tensor:
     return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
 
 
+def _dims(in_dims, n: int):
+    """An operator's ``in_dims``, its trailing defaulted operands (None
+    where a call left them out) padded with None."""
+    return tuple(in_dims) + (None,) * (n - len(in_dims))
+
+
 def _flash_bwd_vmap(info, in_dims, q, k, v, out, lse, dout, causal, window,
-                    scale):
+                    scale, q_pos=None, k_pos=None):
     """Every operand of B5's backward is per sequence, so the vmap axis
-    folds into the batch axis: one call for the whole cohort."""
+    folds into the batch axis: one call for the whole cohort (batched
+    positions (K, B, S) fold to (K*B, S) as q, k and v do)."""
+    dims = _dims(in_dims, 11)
     ts = [_batch_first(t, d, info.batch_size)
-          for t, d in zip((q, k, v, out, lse, dout), in_dims)]
+          for t, d in zip((q, k, v, out, lse, dout, q_pos, k_pos),
+                          dims[:6] + dims[9:])]
+    folded = [None if t is None else _fold(t) for t in ts]
     grads = torch.ops.repro_torch.flash_attention_bwd(
-        *(_fold(t) for t in ts), causal, window, scale)
+        *folded[:6], causal, window, scale, *folded[6:])
     return tuple(g.unflatten(0, ts[0].shape[:2]) for g in grads), (0, 0, 0)
 
 
-def _ssd_bwd_vmap(info, in_dims, x, dt, a, b, c, dy, states, dh_last, chunk):
+def _ssd_bwd_vmap(info, in_dims, x, dt, a, b, c, dy, states, dh_last, chunk,
+                  h0=None):
     """B6's backward sums ``da`` over the batch, and each member of the
-    vmap axis (a client) has its own ``a``: one call per member."""
+    vmap axis (a client) has its own ``a`` and ``h0``: one call per
+    member."""
+    dims = _dims(in_dims, 10)
     ts = [_batch_first(t, d, info.batch_size)
-          for t, d in zip((x, dt, a, b, c, dy, states, dh_last), in_dims)]
-    grads = [torch.ops.repro_torch.ssd_scan_bwd(
-        *(None if t is None else t[i] for t in ts), chunk)
-        for i in range(info.batch_size)]
-    return tuple(torch.stack(g) for g in zip(*grads)), (0,) * 5
+          for t, d in zip((x, dt, a, b, c, dy, states, dh_last, h0),
+                          dims[:8] + dims[9:])]
+    members = [[None if t is None else t[i] for t in ts]
+               for i in range(info.batch_size)]
+    grads = [torch.ops.repro_torch.ssd_scan_bwd(*m[:8], chunk, m[8])
+             for m in members]
+    return tuple(torch.stack(g) for g in zip(*grads)), (0,) * 6
 
 
 torch.library.register_vmap("repro_torch::flash_attention_bwd",
@@ -284,128 +305,162 @@ torch.library.register_vmap("repro_torch::ssd_scan_bwd", _ssd_bwd_vmap,
                             lib=_LIB)
 
 
+def _card_positions(pos: Optional[torch.Tensor], q: torch.Tensor
+                    ) -> Optional[torch.Tensor]:
+    """A batch's positions as B5's kernels read them: int32 on q's card,
+    cast once from the batch's int64.  Any other dtype passes through, for
+    the kernel's wrapper to refuse."""
+    if pos is None or not _on_cuda(q):
+        return pos
+    if pos.dtype == torch.int64:
+        pos = pos.to(q.device, torch.int32)
+    return pos.contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
     """B5 with its gradient: the forward also keeps each row's
     log-sum-exp, and the backward recomputes the probabilities from
-    (q, k, v, out, lse), as the reference's ``_flash_vjp`` does.  Kernels
-    on a CUDA tensor, the plain versions on a CPU tensor."""
+    (q, k, v, out, lse) at the same positions, as the reference's
+    ``_flash_vjp`` does.  Kernels on a CUDA tensor, the plain versions on
+    a CPU tensor."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, scale):
+    def forward(q, k, v, q_pos, k_pos, causal, window, scale):
         if _on_cuda(q):
             return flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, scale=scale,
-                                        want_lse=True)
+                                        want_lse=True, q_pos=q_pos,
+                                        k_pos=k_pos)
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
-                                           window=window, scale=scale)
+                                           window=window, scale=scale,
+                                           q_pos=q_pos, k_pos=k_pos)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, scale = inputs
+        q, k, v, q_pos, k_pos, causal, window, scale = inputs
         out, lse = output
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
         ctx.mask = dict(causal=causal, window=window, scale=scale)
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
         dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-            q, k, v, out, lse, dout, **ctx.mask)
-        return dq, dk, dv, None, None, None
+            q, k, v, out, lse, dout, **ctx.mask, q_pos=q_pos, k_pos=k_pos)
+        return dq, dk, dv, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, scale):
+    def vmap(info, in_dims, q, k, v, q_pos, k_pos, causal, window, scale):
         """The vmap axis (the batched cohort's clients) folds into the
-        batch axis, ``(K, B, S, H, D) -> (K*B, S, H, D)``: every operand
-        is per sequence, so one launch serves the whole cohort."""
+        batch axis, ``(K, B, S, H, D) -> (K*B, S, H, D)`` and batched
+        positions ``(K, B, S) -> (K*B, S)``: every operand is per
+        sequence, so one launch serves the whole cohort."""
         ts = [_batch_first(t, d, info.batch_size)
-              for t, d in zip((q, k, v), in_dims)]
-        out, lse = _FlashAttention.apply(*(_fold(t) for t in ts), causal,
-                                         window, scale)
+              for t, d in zip((q, k, v, q_pos, k_pos), in_dims)]
+        out, lse = _FlashAttention.apply(
+            *(None if t is None else _fold(t) for t in ts), causal, window,
+            scale)
         kb = ts[0].shape[:2]
         return (out.unflatten(0, kb), lse.unflatten(0, kb)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,S,Hq,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (B,S,Hq,Dv) in q's
     dtype: softmax attention with a causal, sliding-window (``window`` >
     0) or full mask, GQA by index, fp32 accumulation; v's head dim may
-    differ from q's and k's (MLA's prefill).  Kernel B5 on a CUDA tensor
-    (read in place through its strides); a call that needs a gradient
-    also keeps the row log-sum-exp for B5's backward kernel."""
+    differ from q's and k's (MLA's prefill).  ``q_pos``, ``k_pos`` (B,S)
+    are the tokens' positions (``None``: ``arange(S)``): the mask compares
+    them, a key at a negative position (a left pad) is never attended,
+    and a query that may attend no key gives 0.  Kernel B5 on a CUDA
+    tensor (read in place through its strides, the positions as int32); a
+    call that needs a gradient also keeps the row log-sum-exp for B5's
+    backward kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    q_pos, k_pos = _card_positions(q_pos, q), _card_positions(k_pos, q)
     if _needs_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window, scale)[0]
+        return _FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window,
+                                     scale)[0]
     if not _on_cuda(q):
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
-                                           window=window, scale=scale)[0]
+                                           window=window, scale=scale,
+                                           q_pos=q_pos, k_pos=k_pos)[0]
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                scale=scale)
+                                scale=scale, q_pos=q_pos, k_pos=k_pos)
 
 
 class _SSDScan(torch.autograd.Function):
-    """B6 with its gradient: on a CUDA tensor the forward keeps the state
-    entering each chunk and the backward kernel reads it; on a CPU tensor
-    the backward is the plain one (autograd through ``ssd_scan_ref``, as
-    the reference differentiates ``ssd_chunked``)."""
+    """B6 with its gradient, from the state ``h0`` (or zero): on a CUDA
+    tensor the forward keeps the state entering each chunk (chunk 0's is
+    h0) and the backward kernel reads it; on a CPU tensor the backward is
+    the plain one (autograd through ``ssd_scan_ref``, as the reference
+    differentiates ``ssd_chunked``).  Both give ``dh0``, the gradient of
+    the state entering chunk 0."""
 
     @staticmethod
-    def forward(x, dt, a, b, c, chunk):
+    def forward(x, dt, a, b, c, h0, chunk):
         if _on_cuda(x):
-            return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk,
+            return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, h0=h0,
                                  keep_states=True)
-        y, h_last = ref.ssd_scan_ref(x, dt, a, b, c, chunk)
+        y, h_last = ref.ssd_scan_ref(x, dt, a, b, c, chunk, h0)
         return y, h_last, h_last.new_empty((0,))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, dt, a, b, c, chunk = inputs
-        ctx.save_for_backward(x, dt, a, b, c, output[2])
+        x, dt, a, b, c, h0, chunk = inputs
+        ctx.save_for_backward(x, dt, a, b, c, output[2], h0)
         ctx.chunk = chunk
         ctx.mark_non_differentiable(output[2])
         ctx.set_materialize_grads(False)
 
     @staticmethod
     def backward(ctx, dy, dh_last, _dstates):
-        x, dt, a, b, c, states = ctx.saved_tensors
+        x, dt, a, b, c, states, h0 = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        grads = torch.ops.repro_torch.ssd_scan_bwd(
-            x, dt, a, b, c, dy, states, dh_last, ctx.chunk)
-        return (*grads, None)
+        *grads, dh0 = torch.ops.repro_torch.ssd_scan_bwd(
+            x, dt, a, b, c, dy, states, dh_last, ctx.chunk, h0)
+        return (*grads, None if h0 is None else dh0, None)
 
     @staticmethod
-    def vmap(info, in_dims, x, dt, a, b, c, chunk):
+    def vmap(info, in_dims, x, dt, a, b, c, h0, chunk):
         """One call per member of the vmap axis (a client of the batched
-        cohort): ``a`` comes from each client's own ``A_log``, and the
-        kernel takes one ``(H,)`` decay and sums ``da`` over its batch,
-        so the clients cannot fold into the batch axis as B5's do."""
+        cohort, with its own ``h0``): ``a`` comes from each client's own
+        ``A_log``, and the kernel takes one ``(H,)`` decay and sums ``da``
+        over its batch, so the clients cannot fold into the batch axis as
+        B5's do."""
         ts = [_batch_first(t, d, info.batch_size)
-              for t, d in zip((x, dt, a, b, c), in_dims)]
-        outs = [_SSDScan.apply(*(t[i] for t in ts), chunk)
+              for t, d in zip((x, dt, a, b, c, h0), in_dims)]
+        outs = [_SSDScan.apply(*(None if t is None else t[i] for t in ts),
+                               chunk)
                 for i in range(info.batch_size)]
         return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba-2 SSD scan from a zero state: x (B,S,H,P), dt (B,S,H), a
-    (H,), b/c (B,S,N) -> (y (B,S,H,P) in x's dtype, h_last (B,H,P,N)
-    fp32), over chunks of ``min(chunk, S)`` steps (a ragged tail is
-    padded with dt = 0 steps, which leave the state unchanged).  Kernel
-    B6 on a CUDA tensor, with its backward kernel when a gradient is
-    needed (dt and a reach it through their cast to fp32)."""
+    """Mamba-2 SSD scan from the state ``h0`` (B,H,P,N) (``None``: zero):
+    x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,N) -> (y (B,S,H,P) in x's
+    dtype, h_last (B,H,P,N) fp32), over chunks of ``min(chunk, S)`` steps
+    (a ragged tail is padded with dt = 0 steps, which leave the state
+    unchanged).  Kernel B6 on a CUDA tensor, with its backward kernel
+    when a gradient is needed (dt, a and h0 reach it through their cast
+    to fp32; h0 gets ``dh0``)."""
     q = min(chunk, x.shape[1])
-    if _needs_grad(x, dt, a, b, c):
+    if h0 is not None and _on_cuda(x):
+        h0 = h0.to(torch.float32).contiguous()
+    if _needs_grad(x, dt, a, b, c, h0):
         y, h_last, _ = _SSDScan.apply(x, dt.to(torch.float32),
-                                      a.to(torch.float32), b, c, q)
+                                      a.to(torch.float32), b, c, h0, q)
         return y, h_last
     if not _on_cuda(x):
-        return ref.ssd_scan_ref(x, dt, a, b, c, q)
+        return ref.ssd_scan_ref(x, dt, a, b, c, q, h0)
     return ssd_scan_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
-                         chunk=q)
+                         chunk=q, h0=h0)

@@ -82,28 +82,43 @@ def fed_dp_secure_apply_ref(msgs: torch.Tensor, noise=None, masks=None,
 
 
 def _attention_mask(q_pos, k_pos, causal: bool, window: int):
-    """(Sq,) x (Sk,) positions -> (Sq, Sk) bool: True = may attend."""
-    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                      device=q_pos.device)
+    """(B, Sq) x (B, Sk) positions -> (B, Sq, Sk) bool: True = may
+    attend.  The reference's ``_chunk_mask``: a key at a negative position
+    (a pad) is never attended; causal ``k <= q``, sliding window ``k > q -
+    window``."""
+    kk = k_pos[:, None, :]
+    qq = q_pos[:, :, None]
+    mask = (kk >= 0).expand(q_pos.shape[0], q_pos.shape[1], k_pos.shape[1])
     if causal:
-        mask &= k_pos[None, :] <= q_pos[:, None]
+        mask = mask & (kk <= qq)
     if window:
-        mask &= k_pos[None, :] > q_pos[:, None] - window
+        mask = mask & (kk > qq - window)
     return mask
 
 
-def _softmax_attention(q, k, v, causal: bool, window: int, scale):
+def _positions(q, q_pos, k_pos):
+    """The (B, S) query and key positions; ``None`` is ``arange(S)``."""
+    b, s = q.shape[0], q.shape[1]
+    ar = torch.arange(s, device=q.device)[None].expand(b, s)
+    return (ar if q_pos is None else q_pos.to(q.device),
+            ar if k_pos is None else k_pos.to(q.device))
+
+
+def _softmax_attention(q, k, v, causal: bool, window: int, scale,
+                       q_pos=None, k_pos=None):
     """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (out (B,S,H,Dv) in
-    q's dtype, the masked fp32 scores (B,Hkv,H/Hkv,S,S)); v's head dim
-    may differ from q's and k's (MLA), as in the reference's
-    ``chunked_attention``.
+    q's dtype, the masked fp32 scores (B,Hkv,H/Hkv,S,S), the mask
+    (B,1,1,S,S)); v's head dim may differ from q's and k's (MLA), as in
+    the reference's ``chunked_attention``.
 
     Materialized fp32 softmax over the (S, S) scores; GQA by index (query
-    head h reads kv head ``h // (H/Hkv)``, no repeat); the mask is causal
-    ``k <= q``, sliding-window ``k > q - window``, or full.  Masked
-    scores are ``NEG_INF`` before the softmax, as in the reference's
-    ``ref.flash_attention_ref``.  Heads-major inside, so that both
-    products are batched GEMMs."""
+    head h reads kv head ``h // (H/Hkv)``, no repeat); the mask is
+    :func:`_attention_mask` at the positions ``q_pos``, ``k_pos`` (B, S)
+    (``None``: ``arange(S)``).  Masked scores are ``NEG_INF`` before the
+    softmax and their probabilities 0 after it, so a fully masked row (a
+    pad query under a causal mask) gives 0, as the reference's ``l_safe``
+    gives, not the mean of v.  Heads-major inside, so that both products
+    are batched GEMMs."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if scale is None:
@@ -111,13 +126,14 @@ def _softmax_attention(q, k, v, causal: bool, window: int, scale):
     qf = q.transpose(1, 2).to(torch.float32).reshape(b, hkv, h // hkv, s, d)
     scores = torch.einsum("bgrqd,bgkd->bgrqk", qf,
                           k.transpose(1, 2).to(torch.float32)) * scale
-    pos = torch.arange(s, device=q.device)
-    scores = torch.where(_attention_mask(pos, pos, causal, window), scores,
-                         NEG_INF)
-    out = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(scores, dim=-1),
+    qp, kp = _positions(q, q_pos, k_pos)
+    mask = _attention_mask(qp, kp, causal, window)[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", probs,
                        v.transpose(1, 2).to(torch.float32))
     return out.reshape(b, h, s, v.shape[3]).transpose(1, 2).to(q.dtype), \
-        scores
+        scores, mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,37 +141,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale=None) -> torch.Tensor:
     """q (B,H,S,D), k/v (B,Hkv,S,D) -> (B,H,S,D) in q's dtype: the
     attention of :func:`_softmax_attention` in the heads-major layout."""
-    out, _ = _softmax_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal, window, scale)
+    out, _, _ = _softmax_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal, window, scale)
     return out.transpose(1, 2)
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True,
-                            window: int = 0, scale=None):
-    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv) -> (out (B,S,H,Dv) in
-    q's dtype, lse (B,H,S) fp32): :func:`_softmax_attention` plus the row
-    log-sum-exp
-    the backward recomputes from, over the same scores.  The reference's
-    ``_flash_fwd_scan`` takes ``lse = m + log(l_safe)`` with ``l_safe =
-    1`` where a row is fully masked: a masked score adds exp(NEG_INF - m)
-    = 0, and a fully masked row gives NEG_INF + log(S), which is NEG_INF
-    in fp32."""
+                            window: int = 0, scale=None, q_pos=None,
+                            k_pos=None):
+    """q (B,S,H,D), k (B,S,Hkv,D), v (B,S,Hkv,Dv), positions ``q_pos``,
+    ``k_pos`` (B,S) or ``None`` (``arange(S)``) -> (out (B,S,H,Dv) in q's
+    dtype, lse (B,H,S) fp32): :func:`_softmax_attention` plus the row
+    log-sum-exp the backward recomputes from, over the same scores.  A
+    fully masked row has out 0 and lse ``NEG_INF``, the reference's
+    ``_flash_fwd_scan`` (``lse = m + log(l_safe)`` with ``m = NEG_INF``
+    and ``l_safe = 1``)."""
     b, s, h, _ = q.shape
-    out, scores = _softmax_attention(q, k, v, causal, window, scale)
-    return out, torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    out, scores, mask = _softmax_attention(q, k, v, causal, window, scale,
+                                           q_pos, k_pos)
+    lse = torch.where(mask.any(dim=-1), torch.logsumexp(scores, dim=-1),
+                      NEG_INF)
+    return out, lse.reshape(b, h, s)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
-                            window: int = 0, scale=None, chunk: int = 512):
+                            window: int = 0, scale=None, chunk: int = 512,
+                            q_pos=None, k_pos=None):
     """The reference's ``_flash_vjp_bwd`` (``models/layers/attention.py``)
     line for line, in the kernels' layout: q (B,S,H,D), k (B,S,Hkv,D), v
-    (B,S,Hkv,Dv), out and dout (B,S,H,Dv), lse (B,H,S) -> (dq, dk, dv) in
-    the inputs' dtypes (v's head dim may differ, as MLA's does).
+    (B,S,Hkv,Dv), out and dout (B,S,H,Dv), lse (B,H,S), positions
+    ``q_pos``, ``k_pos`` (B,S) or ``None`` (``arange(S)``) -> (dq, dk,
+    dv) in the inputs' dtypes (v's head dim may differ, as MLA's does).
 
     Recomputes ``p = exp(s - lse)`` chunk by chunk over the keys, with
     ``delta = rowsum(dout * out)``, ``ds = p (dp - delta) scale``; GQA by
     index, so dk and dv sum over the ``H/Hkv`` query heads that read each
-    kv head.  A fully masked row gives zero gradients."""
+    kv head.  A fully masked row gives zero gradients, and a key at a
+    negative position gets none."""
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     g = h // hkv
@@ -167,14 +189,15 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
     o = out.to(f32).reshape(b, s, hkv, g, dv).permute(0, 2, 3, 1, 4)
     delta = torch.sum(d_out * o, dim=-1)                 # (B,Hkv,g,Sq)
     lse_r = lse.to(f32).reshape(b, hkv, g, s)
-    pos = torch.arange(s, device=q.device)
+    qp, kp = _positions(q, q_pos, k_pos)
     ck = min(chunk, s)
     dq = torch.zeros((b, s, hkv, g, d), dtype=f32, device=q.device)
     dks, dvs = [], []
     for k0 in range(0, s, ck):
         kb = k[:, k0:k0 + ck].to(f32)
         vb = v[:, k0:k0 + ck].to(f32)
-        mask = _attention_mask(pos, pos[k0:k0 + ck], causal, window)
+        mask = _attention_mask(qp, kp[:, k0:k0 + ck], causal,
+                               window)[:, None, None]
         sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
         p = torch.where(mask, torch.exp(sc - lse_r[..., None]), 0.0)
         dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, d_out))
@@ -197,9 +220,10 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, float("-inf"))
 
 
-def ssd_scan_ref(x, dt, a, b, c, chunk: int):
-    """Mamba-2 SSD chunked scan from a zero state: the reference's
-    ``models/layers/mamba2.py:ssd_chunked`` in torch, chunk by chunk.
+def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None):
+    """Mamba-2 SSD chunked scan from the state ``h0`` (B,H,P,N), or from
+    zero for ``None``: the reference's ``models/layers/mamba2.py:
+    ssd_chunked`` in torch, chunk by chunk.
 
     x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,N) [ngroups=1] -> (y
     (B,S,H,P) in x's dtype, h_last (B,H,P,N) fp32, or fp64 for an fp64
@@ -226,7 +250,8 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int):
     bc = b.to(f32).reshape(bs, nc, chunk, n)
     cc = c.to(f32).reshape(bs, nc, chunk, n)
     af = a.to(f32)
-    hst = torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
+    hst = torch.zeros((bs, h, p, n), dtype=f32, device=x.device) \
+        if h0 is None else h0.to(f32)
     ys = []
     for i in range(nc):
         xb, dtb, bb, cb = xc[:, i], dtc[:, i], bc[:, i], cc[:, i]
@@ -247,15 +272,21 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int):
     return y.to(x.dtype), hst
 
 
-def ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk: int):
-    """Gradient of :func:`ssd_scan_ref` (the reference's ``ssd_chunked``
-    from a zero state, whose own backward is ``jax.grad`` through its
-    checkpointed chunk body) by ``torch.func.vjp`` through the plain
-    version, which also runs inside ``torch.func`` transforms:
-    cotangents ``dy`` (B,S,H,P) of y and ``dh_last`` (B,H,P,N) of h_last
-    (``None``: zero) -> (dx, ddt, da, db, dc) in the inputs' dtypes."""
+def ssd_scan_bwd_ref(x, dt, a, b, c, dy, dh_last, chunk: int, h0=None):
+    """Gradient of :func:`ssd_scan_ref` (the reference's ``ssd_chunked``,
+    whose own backward is ``jax.grad`` through its checkpointed chunk
+    body) by ``torch.func.vjp`` through the plain version, which also
+    runs inside ``torch.func`` transforms: cotangents ``dy`` (B,S,H,P) of
+    y and ``dh_last`` (B,H,P,N) of h_last (``None``: zero), from the
+    state ``h0`` (B,H,P,N) (``None``: zero) -> (dx, ddt, da, db, dc, dh0)
+    in the inputs' dtypes, dh0 fp32 (fp64 for an fp64 x)."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    start = torch.zeros((x.shape[0], x.shape[2], x.shape[3], b.shape[-1]),
+                        dtype=f32, device=x.device) if h0 is None \
+        else h0.to(f32)
     (y, h_last), vjp = torch.func.vjp(
-        lambda *ins: ssd_scan_ref(*ins, chunk), x, dt, a, b, c)
+        lambda x, dt, a, b, c, h: ssd_scan_ref(x, dt, a, b, c, chunk, h),
+        x, dt, a, b, c, start)
     dh = torch.zeros_like(h_last) if dh_last is None \
         else dh_last.to(h_last.dtype)
     return vjp((dy.to(y.dtype), dh))

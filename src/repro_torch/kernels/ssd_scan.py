@@ -15,8 +15,12 @@ tf32(x), lo = tf32(x - hi), three TF32 products an fp32 product), which
 holds the card-vs-CPU agreement of fp32 models.  The forward takes three
 launches (chunk states, the pass over the chunks, the chunk outputs), the
 backward four (rows, the reverse pass over the chunks, columns, the sums
-over the heads).  A call the kernels cannot take raises before any
-launch; it never goes to another route or to the plain version.  The
+over the heads).  The forward starts from a carried state ``h0`` where it
+is given (the pass over the chunks starts from it, so the chunk kernels
+read it as chunk 0's entering state), and the backward's reverse pass
+writes the gradient of that state, ``dh0``.  A call the kernels cannot
+take raises before any launch; it never goes to another route or to the
+plain version.  The
 backward recomputes nothing of the forward's state pass: the forward
 keeps the state entering each chunk (``keep_states``) and the backward
 reads it.
@@ -49,7 +53,7 @@ def _kernels():
     if not _fns:
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns["fwd"] = fn
@@ -60,7 +64,7 @@ def _bwd_kernels():
     if "bwd" not in _fns:
         lib = _build.load("ssd_scan_bwd")
         fn = lib.ssd_scan_bwd
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int64] * 10 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns["bwd"] = fn
@@ -127,14 +131,29 @@ def _check_tensor_core_operands(fn: str, x, b, c):
                 f"{t.stride()[:-1]}")
 
 
+def _check_h0(fn: str, h0, bs: int, h: int, p: int, n: int, dev):
+    """The carried state as the state pass reads it: (B,H,P,N) fp32,
+    contiguous, on the operands' device; anything else raises."""
+    if h0 is None:
+        return
+    if h0.dtype != torch.float32 or tuple(h0.shape) != (bs, h, p, n) \
+            or h0.device != dev or not h0.is_contiguous():
+        raise ValueError(f"{fn} takes h0 as a contiguous (B,H,P,N) = "
+                         f"{(bs, h, p, n)} fp32 tensor on {dev}, got "
+                         f"{tuple(h0.shape)} {h0.dtype} on {h0.device}"
+                         f"{'' if h0.is_contiguous() else ', strided'}")
+
+
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor, *, chunk: int,
-                  keep_states: bool = False):
+                  keep_states: bool = False, h0=None):
     """x (B,S,H,P), dt (B,S,H) fp32, a (H,) fp32, b/c (B,S,N) in x's
     dtype (fp32 or bf16), CUDA tensors read in place through their
     strides (last dims contiguous) -> (y (B,S,H,P) in x's dtype, h_last
-    (B,H,P,N) fp32), from a zero state; with ``keep_states`` also the
-    state entering each chunk, (B,H,chunks,P,N) fp32, for the backward.
+    (B,H,P,N) fp32), from the state ``h0`` (a contiguous (B,H,P,N) fp32
+    tensor) or from zero; with ``keep_states`` also the state entering
+    each chunk, (B,H,chunks,P,N) fp32 (chunk 0's is h0), for the
+    backward.
     A ragged last chunk is read as dt = 0 steps, which leave the state
     unchanged.  bf16 takes N a multiple of 8 up to 128 and x, b, c that
     start on 16 bytes with (b, s, h) strides that are multiples of 8
@@ -144,11 +163,14 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
     _check_tensor_core_operands("ssd_scan_cuda", x, b, c)
+    _check_h0("ssd_scan_cuda", h0, bs, h, p, n, dev)
     fn = _kernels()
     y = torch.empty((bs, s, h, p), dtype=x.dtype, device=dev)
     nc = -(-s // chunk)
     if bs == 0 or s == 0 or h == 0:
         h_last = torch.zeros((bs, h, p, n), dtype=torch.float32, device=dev)
+        if h0 is not None and s == 0:
+            h_last.copy_(h0)
         states = torch.zeros((bs, h, nc, p, n), dtype=torch.float32,
                              device=dev)
         return (y, h_last, states) if keep_states else (y, h_last)
@@ -164,8 +186,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                  c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                 states.data_ptr(), tot.data_ptr(), *strides, bs, s, h, p,
-                 n, chunk, int(bf16), stream)
+                 states.data_ptr(), tot.data_ptr(),
+                 None if h0 is None else h0.data_ptr(), *strides, bs, s, h,
+                 p, n, chunk, int(bf16), stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -177,11 +200,13 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
                       states: torch.Tensor, dh_last, *, chunk: int):
     """The gradient of :func:`ssd_scan_cuda`: its operands as it took
-    them, ``dy`` (B,S,H,P) of y, the ``states`` it kept and ``dh_last``
-    (B,H,P,N) of h_last or None (zero) -> (dx (B,S,H,P) in x's dtype, ddt
-    (B,S,H) fp32, da (H,) fp32, db, dc (B,S,N) in x's dtype).  Four
-    launches; no atomics, so repeated calls give the same bits.  Takes
-    what the forward takes, and a dy that starts on 16 bytes."""
+    them, ``dy`` (B,S,H,P) of y, the ``states`` it kept (chunk 0's the
+    h0 it started from) and ``dh_last`` (B,H,P,N) of h_last or None
+    (zero) -> (dx (B,S,H,P) in x's dtype, ddt (B,S,H) fp32, da (H,) fp32,
+    db, dc (B,S,N) in x's dtype, dh0 (B,H,P,N) fp32, the gradient of the
+    state entering chunk 0).  Four launches; no atomics, so repeated
+    calls give the same bits.  Takes what the forward takes, and a dy
+    that starts on 16 bytes."""
     global bwd_launches
     bs, s, h, p, n = _check("ssd_scan_bwd_cuda", x, dt, a, b, c, chunk)
     dev = x.device
@@ -214,8 +239,13 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     da = torch.empty((h,), **f32)
     db = torch.empty((bs, s, n), dtype=x.dtype, device=dev)
     dc = torch.empty((bs, s, n), dtype=x.dtype, device=dev)
+    dh0 = torch.empty((bs, h, p, n), **f32)
     if bs == 0 or s == 0 or h == 0:
-        return dx, ddt, da.zero_(), db.zero_(), dc.zero_()
+        if dh_last is not None and s == 0:
+            dh0.copy_(dh_last)
+        else:
+            dh0.zero_()
+        return dx, ddt, da.zero_(), db.zero_(), dc.zero_(), dh0
     dcum = torch.empty((bs * h * nc * chunk,), **f32)
     du = torch.empty((bs * h * nc * p * n,), **f32)
     cum_q = torch.empty((bs * h * nc,), **f32)
@@ -231,12 +261,12 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  c.data_ptr(), dy.data_ptr(), states.data_ptr(),
                  None if dh_last is None else dh_last.data_ptr(),
                  dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-                 dc.data_ptr(), dcum.data_ptr(), du.data_ptr(),
-                 cum_q.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-                 da_part.data_ptr(), *strides, bs, s, h, p, n, chunk,
-                 int(bf16), stream)
+                 dc.data_ptr(), dh0.data_ptr(), dcum.data_ptr(),
+                 du.data_ptr(), cum_q.data_ptr(), db_part.data_ptr(),
+                 dc_part.data_ptr(), da_part.data_ptr(), *strides, bs, s, h,
+                 p, n, chunk, int(bf16), stream)
     if err:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
                            f"error {err}")
     bwd_launches += 1
-    return dx, ddt, da, db, dc
+    return dx, ddt, da, db, dc, dh0

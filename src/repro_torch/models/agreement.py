@@ -19,13 +19,16 @@ carries the change along) is left out of the logits bound from then on;
 any other difference is reported.  :func:`grads_card_vs_cpu` holds the
 training objective the same way: ``train_loss`` and every gradient leaf
 over a 2 x 96 training batch, through B5's backward kernel on the card,
-the rows a flip reached left out of the batch on both devices.
+the rows a flip reached left out of the batch on both devices.  Both
+take ``pads``: a batch of left-padded rows with their ``positions``.
+:func:`ssm_state_card_vs_cpu` holds a Mamba-2 layer from a carried state
+(B6 from ``h0``, its backward's ``dh0``) card against CPU.
 :func:`dense_mixture` is the plain version of a MoE layer: every expert
 on every token, weighted by the renormalized top-k gates.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,21 +68,31 @@ def init_acting(cfg: ModelConfig, seed: int = 1) -> dict:
     return params
 
 
-def run(params: dict, cfg: ModelConfig, dev, seed: int = 1
+def left_pad_positions(pads: Sequence[int], s: int) -> np.ndarray:
+    """(len(pads), s) positions ``arange(s) - pad`` of left-padded rows."""
+    return np.stack([np.arange(s) - p for p in pads])
+
+
+def run(params: dict, cfg: ModelConfig, dev, seed: int = 1,
+        pads: Sequence[int] = ()
         ) -> Tuple[List[torch.Tensor], Tuple[int, int]]:
     """Logits (on the CPU) of the prefill and each decode step, or of the
-    encoder forward, and B5's launches (prefill or forward, decode)."""
+    encoder forward, and B5's launches (prefill or forward, decode).
+    With ``pads`` (one a row of the batch of 2) the batch carries the
+    left-padded rows' ``positions``."""
     c0 = flash_attention.launches
+    extra = {"positions": torch.from_numpy(left_pad_positions(
+        pads, PROMPT)).to(dev)} if pads else {}
     if cfg.encoder_only:
         frames = synthetic_lm_batch(cfg, 2, PROMPT, seed=seed)
         logits, _ = tfm.forward_train(params, cfg, {
-            k: torch.from_numpy(v).to(dev) for k, v in frames.items()},
-            dtype=torch.float32)
+            **{k: torch.from_numpy(v).to(dev) for k, v in frames.items()},
+            **extra}, dtype=torch.float32)
         return [logits.cpu()], (flash_attention.launches - c0, 0)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (2, PROMPT + STEPS)))
     logits, cache = tfm.prefill(params, cfg,
-                                {"tokens": toks[:, :PROMPT].to(dev)},
+                                {"tokens": toks[:, :PROMPT].to(dev), **extra},
                                 dtype=torch.float32, max_len=PROMPT + STEPS)
     outs, c1 = [logits.cpu()], flash_attention.launches
     for i in range(STEPS):
@@ -91,20 +104,22 @@ def run(params: dict, cfg: ModelConfig, dev, seed: int = 1
 
 
 def card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
-                gap_tol: float = 1e-5) -> Dict[str, object]:
+                gap_tol: float = 1e-5, pads: Sequence[int] = ()
+                ) -> Dict[str, object]:
     """``cfg`` on the CPU and on ``dev`` from the same weights, on tokens
     or frames drawn from ``seed``: each output's max |dev - cpu| /
     max(|cpu|, 1) (``devs``) over the rows no routing flip reached (all
     rows without MoE layers; empty if flips reached every row), the
     flips and the rows left out, ``strays`` (expert sets that differ
     without a near-tie: a fault), B5's launches on each (``launches``),
-    and the weights on ``dev`` (``params``)."""
+    and the weights on ``dev`` (``params``).  ``pads``: left-padded rows
+    (:func:`run`)."""
     cpu = init_acting(cfg)
     on_dev = tree_to(cpu, dev)
     with moe.record_routes() as routes_c:
-        out_c, n_c = run(cpu, cfg, "cpu", seed)
+        out_c, n_c = run(cpu, cfg, "cpu", seed, pads)
     with moe.record_routes() as routes_d:
-        out_d, n_d = run(on_dev, cfg, dev, seed)
+        out_d, n_d = run(on_dev, cfg, dev, seed, pads)
     flips, rows, strays = routing_flips(routes_c, routes_d, gap_tol)
     keep = [r for r in range(out_c[0].shape[0]) if r not in rows]
     devs = [float((d[keep] - c[keep]).abs().max())
@@ -122,7 +137,8 @@ def _rows(name: str, v: np.ndarray, keep: List[int]) -> np.ndarray:
 
 
 def grads_card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
-                      gap_tol: float = 1e-5) -> Dict[str, object]:
+                      gap_tol: float = 1e-5, pads: Sequence[int] = ()
+                      ) -> Dict[str, object]:
     """``train_loss`` and its gradient with respect to every leaf of
     ``cfg``'s fp32 weights (:func:`init_acting`) on the CPU and on
     ``dev``, over ``synthetic_lm_batch(cfg, 2, 96, seed=seed)``.  A
@@ -132,9 +148,12 @@ def grads_card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
     each leaf's max |dev - cpu| / max |cpu| (``grad_devs``, by the
     layer-stacked name of ``tfm.stack_layers``), the flips, the rows left
     out, the ``strays``, and B5's forward and backward launches on each
-    (``launches``: (forward, backward))."""
+    (``launches``: (forward, backward)).  With ``pads`` the batch carries
+    the left-padded rows' ``positions``."""
     cpu = init_acting(cfg)
     batch = synthetic_lm_batch(cfg, 2, PROMPT, seed=seed)
+    if pads:
+        batch["positions"] = left_pad_positions(pads, PROMPT)
     routes = []
     for where in ("cpu", dev):
         params = cpu if where == "cpu" else tree_to(cpu, dev)
@@ -173,6 +192,42 @@ def grads_card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1,
                         / max(float(g.abs().max()), 1e-30)
                         for k, g in gc.items()}
     return out
+
+
+def ssm_state_card_vs_cpu(cfg: ModelConfig, dev="cuda", seed: int = 1
+                          ) -> Dict[str, object]:
+    """The first layer's ``mamba2_apply`` of an SSM config from a carried
+    ``ssm_state`` (a continued sequence: B6 from ``h0``) over 2 x 96
+    steps, on the CPU and on ``dev`` from the same weights and draws:
+    max |dev - cpu| / max(|cpu|, 1) of y and the returned state, and of
+    the gradient with respect to ``ssm_state`` through B6's backward
+    (``dh0``), and B6's forward and backward launches on ``dev``."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.layers import mamba2
+    lp = init_acting(cfg)["layers"][0]["mixer"]
+    _, nh, _ = mamba2.mamba2_dims(cfg)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, PROMPT, cfg.d_model), generator=g)
+    state = 0.5 * torch.randn((2, nh, cfg.ssm.head_dim, cfg.ssm.state_dim),
+                              generator=g)
+    wy, wh = torch.randn(x.shape, generator=g), torch.randn(state.shape,
+                                                            generator=g)
+    got, launches = {}, (0, 0)
+    for where in ("cpu", dev):
+        c0 = (ssd_scan.launches, ssd_scan.bwd_launches)
+        st = state.to(where).requires_grad_(True)
+        with torch.enable_grad():
+            y, (_, h_last) = mamba2.mamba2_apply(
+                tree_to(lp, where), cfg, x.to(where), ssm_state=st)
+            loss = torch.sum(y * wy.to(where)) \
+                + torch.sum(h_last * wh.to(where))
+            (dst,) = torch.autograd.grad(loss, st)
+        got[where] = [t.detach().cpu() for t in (y, h_last, dst)]
+        launches = (ssd_scan.launches - c0[0], ssd_scan.bwd_launches - c0[1])
+    return {"devs": [float((d - c).abs().max()) / max(float(c.abs().max()),
+                                                      1.0)
+                     for c, d in zip(got["cpu"], got[dev])],
+            "launches": launches}
 
 
 def dense_mixture(params: dict, cfg: ModelConfig, x: torch.Tensor

@@ -104,17 +104,20 @@ def _project_qkv(params, cfg, x):
             v.reshape(b, s, cfg.num_kv_heads, hd))
 
 
-def gqa_full(params, cfg, x, angles, *, causal: bool = True):
-    """Prefill / forward attention over the full sequence at the
-    implicit positions ``arange(S)``.  Returns (out, (k, v)) — prefill
-    builds the cache from k, v."""
+def gqa_full(params, cfg, x, angles, *, positions=None, causal: bool = True):
+    """Prefill / forward attention over the full sequence at the tokens'
+    ``positions`` (B, S) (``None``: the implicit ``arange(S)``), which the
+    mask compares: a key at a negative position (a left pad) is never
+    attended.  The rotary ``angles`` come with the caller.  Returns (out,
+    (k, v)) — prefill builds the cache from k, v."""
     q, k, v = _project_qkv(params, cfg, x)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
     out = ops.flash_attention(q, k, v, causal=causal,
                               window=cfg.sliding_window,
-                              scale=cfg.resolved_head_dim ** -0.5)
+                              scale=cfg.resolved_head_dim ** -0.5,
+                              q_pos=positions, k_pos=positions)
     out = out.reshape(x.shape[0], x.shape[1], -1)
     return torch.matmul(out, params["wo"].to(x.dtype)), (k, v)
 
@@ -212,8 +215,10 @@ def _mla_attend(params, cfg, q_nope, q_rope, k_nope, k_rope, v, mask):
     return torch.matmul(out, params["wo"].to(q_nope.dtype))
 
 
-def mla_full(params, cfg, x, angles, *, causal: bool = True):
-    """Prefill / forward MLA over the full sequence.  The decoupled rope
+def mla_full(params, cfg, x, angles, *, positions=None, causal: bool = True):
+    """Prefill / forward MLA over the full sequence at the tokens'
+    ``positions`` (B, S) (``None``: ``arange(S)``), as
+    :func:`gqa_full`'s mask compares them.  The decoupled rope
     channels join the query/key head dim (q_cat = [q_nope, q_rope], k_cat
     = [k_nope, the shared rope key on every head]), so one B5 call scores
     q_nope.k_nope + q_rope.k_rope, with v at its own head dim.  Returns
@@ -228,7 +233,8 @@ def mla_full(params, cfg, x, angles, *, causal: bool = True):
     k_cat = torch.cat([k_nope, kr_b], dim=-1)
     scale = (cfg.resolved_head_dim + cfg.mla_rope_head_dim) ** -0.5
     out = ops.flash_attention(q_cat, k_cat, v, causal=causal,
-                              window=cfg.sliding_window, scale=scale)
+                              window=cfg.sliding_window, scale=scale,
+                              q_pos=positions, k_pos=positions)
     out = out.reshape(x.shape[0], x.shape[1], -1)
     out = torch.matmul(out, params["wo"].to(x.dtype))
     if cfg.mla_absorb:

@@ -40,8 +40,12 @@ def _fuse(params, cfg, a_out, m_out):
     return 0.5 * (a + m)
 
 
-def hymba_full(params, cfg, x, angles):
-    a_out, kv = attn.gqa_full(params["attn"], cfg, x, angles, causal=True)
+def hymba_full(params, cfg, x, angles, *, positions=None):
+    """Both branches over the full sequence: the attention at the tokens'
+    ``positions`` (``None``: ``arange(S)``), the SSM from a zero state (a
+    left pad's tokens enter its scan, as in the reference)."""
+    a_out, kv = attn.gqa_full(params["attn"], cfg, x, angles,
+                              positions=positions, causal=True)
     m_out, m_state = mamba2.mamba2_apply(params["ssm"], cfg, x)
     return _fuse(params, cfg, a_out, m_out), (kv, m_state)
 

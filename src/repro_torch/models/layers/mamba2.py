@@ -75,14 +75,12 @@ def _causal_conv(x, w, b):
 
 
 def mamba2_apply(params, cfg, x, *, conv_state=None, ssm_state=None):
-    """Full-sequence SSD from a zero state.  x (B,S,D) -> (y (B,S,D),
-    (conv_state, ssm_state)).  A given ``conv_state``/``ssm_state``
-    (continuing a sequence) raises: B6, like the TPU kernel, starts from
-    zero, and prefill never passes one (ROADMAP.md A16)."""
-    if conv_state is not None or ssm_state is not None:
-        raise NotImplementedError("mamba2_apply from a carried state (a "
-                                  "continued prefill) is not in the port "
-                                  "(ROADMAP.md A16)")
+    """Full-sequence SSD.  x (B,S,D) -> (y (B,S,D), (conv_state,
+    ssm_state)).  ``ssm_state`` (B,H,P,N), a continued sequence's carried
+    state, is B6's ``h0`` (``None``: zero), and the returned state carries
+    its decay.  ``conv_state`` is accepted and not read: the conv starts
+    from zeros, as in the reference's ``mamba2_apply``."""
+    del conv_state  # the reference accepts it and never reads it
     s_cfg = cfg.ssm
     d_in, nh, conv_ch = mamba2_dims(cfg)
     bsz, slen, _ = x.shape
@@ -106,7 +104,7 @@ def mamba2_apply(params, cfg, x, *, conv_state=None, ssm_state=None):
         dt = F.pad(dt, (0, 0, 0, pad))
         b = F.pad(b, (0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, pad))
-    y, h_last = ops.ssd_scan(xh, dt, a, b, c, chunk=chunk)
+    y, h_last = ops.ssd_scan(xh, dt, a, b, c, chunk=chunk, h0=ssm_state)
     y = y[:, :slen]
 
     y = y + params["D"][None, None, :, None] * xs.reshape(

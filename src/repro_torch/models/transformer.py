@@ -21,8 +21,12 @@ the pair ``{"dense_sub", "moe_sub"}``, so a llama4 tree holds
 ``num_layers // 2`` units (the reference's ``_unit_layout``).  There is
 no mesh, so the reference's ``constrain_batch`` is the identity here
 (ROADMAP.md A17).  Positions
-are the implicit ``arange(S)`` of the serve path (M-RoPE's streams may
-come with the batch): a ``positions`` entry in the batch raises.
+are the batch's ``positions`` (B, S) where it has them (left-padded
+prompts: ``arange(S) - pad``), which the rotary angles read and the
+attention mask compares (B5 skips the pad keys; a pad query attends
+nothing and gives 0), else the implicit ``arange(S)``; a VLM's M-RoPE
+streams may come with the batch as ``mrope_positions``, the mask still
+reading ``positions``.
 ``cfg.remat_layers`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per
 layer).  Training differentiates the fp32
@@ -268,48 +272,56 @@ def activation_copy(params: Params, cfg: ModelConfig, dtype) -> Params:
 # ---------------------------------------------------------------------------
 # full-sequence application (forward / prefill)
 # ---------------------------------------------------------------------------
-def _block_full(cfg, lp, x, angles, causal: bool):
-    """One layer over the full sequence.  Returns (x, cache entry, MoE
-    aux or None)."""
+def _block_full(cfg, lp, x, angles, positions, causal: bool):
+    """One layer over the full sequence; ``positions`` (B, S) the mask's,
+    or ``None`` for ``arange(S)``.  Returns (x, cache entry, MoE aux or
+    None)."""
     if cfg.kind == SSM:
         h = _apply_norm(cfg, lp["norm"], x)
         y, state = mamba_lib.mamba2_apply(lp["mixer"], cfg, h)
         return x + y.to(x.dtype), state, None
     h = _apply_norm(cfg, lp["attn_norm"], x)
     if cfg.kind == HYBRID:
-        y, ((k, v), (cs, ss)) = hymba_lib.hymba_full(lp["mixer"], cfg, h,
-                                                     angles)
+        y, ((k, v), (cs, ss)) = hymba_lib.hymba_full(
+            lp["mixer"], cfg, h, angles, positions=positions)
         cache = (k, v, cs, ss)
     elif cfg.use_mla:
         y, cache = attn_lib.mla_full(lp["mixer"], cfg, h, angles,
-                                     causal=causal)
+                                     positions=positions, causal=causal)
     else:
         y, cache = attn_lib.gqa_full(lp["mixer"], cfg, h, angles,
-                                     causal=causal)
+                                     positions=positions, causal=causal)
     x = x + y.to(x.dtype)
     h = _apply_norm(cfg, lp["ffn_norm"], x)
     y, aux = _ffn(cfg, lp["ffn"], h)
     return x + y.to(x.dtype), cache, aux
 
 
-def _unit_full(cfg, lp, x, angles, causal: bool):
+def _unit_full(cfg, lp, x, angles, positions, causal: bool):
     """One unit over the full sequence: (x, its layers' cache entries,
     the sum of their MoE aux terms or None)."""
     caches, aux = [], None
     for sub, _ in _sub_layers(cfg, lp):
-        x, cache, a = _block_full(cfg, sub, x, angles, causal)
+        x, cache, a = _block_full(cfg, sub, x, angles, positions, causal)
         caches.append(cache)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, caches, aux
 
 
-def _positions(cfg, batch, b: int, s: int, device) -> torch.Tensor:
-    if batch.get("positions") is not None:
-        raise NotImplementedError(
-            "explicit positions (left-padded prompts) are not in the port: "
-            "kernel B5 takes the implicit arange(S) (ROADMAP.md A16)")
-    return torch.arange(s, device=device)[None].expand(b, s)
+def _positions(batch, b: int, s: int, device):
+    """(the positions the rotary angles read, the mask's): the batch's
+    ``positions`` (B, S) for both where it has them, the mask's cast once
+    to the int32 B5 reads, else ``arange(S)`` and ``None``, which keeps B5
+    on its index-masked instances."""
+    positions = batch.get("positions")
+    if positions is None:
+        return torch.arange(s, device=device)[None].expand(b, s), None
+    if tuple(positions.shape) != (b, s):
+        raise ValueError(f"positions {tuple(positions.shape)} must be the "
+                         f"batch's (B, S) = {(b, s)}")
+    positions = positions.to(device)
+    return positions, positions.to(torch.int32).contiguous()
 
 
 def _seq_shape(cfg, batch):
@@ -349,20 +361,21 @@ def _angles_for(cfg, batch, positions):
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _run_layers_full(params, cfg, x, angles, *, causal: bool,
+def _run_layers_full(params, cfg, x, angles, positions, *, causal: bool,
                      want_cache: bool):
     """(x, each unit's cache entries, the summed MoE aux: fp32, zero
-    without MoE layers)."""
+    without MoE layers); ``positions`` the mask's, or ``None``."""
     caches: List[Any] = []
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat_layers and not want_cache and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:
             x, a = checkpoint(
-                lambda x, lp: _unit_full(cfg, lp, x, angles, causal)[::2],
+                lambda x, lp: _unit_full(cfg, lp, x, angles, positions,
+                                         causal)[::2],
                 x, lp, use_reentrant=False)
         else:
-            x, cache, a = _unit_full(cfg, lp, x, angles, causal)
+            x, cache, a = _unit_full(cfg, lp, x, angles, positions, causal)
             if want_cache:
                 caches.append(cache)
         if a is not None:
@@ -385,11 +398,11 @@ def forward_train(params, cfg: ModelConfig, batch, *, dtype=None):
     check_supported(cfg)
     dtype = _dtype(cfg, dtype)
     b, s, device = _seq_shape(cfg, batch)
-    positions = _positions(cfg, batch, b, s, device)
+    positions, mask_pos = _positions(batch, b, s, device)
     x = _embed_input(params, cfg, batch, dtype)
     x, _, aux = _run_layers_full(params, cfg, x,
                                  _angles_for(cfg, batch, positions),
-                                 causal=not cfg.encoder_only,
+                                 mask_pos, causal=not cfg.encoder_only,
                                  want_cache=False)
     x = _apply_norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x), aux
@@ -533,11 +546,11 @@ def prefill(params, cfg: ModelConfig, batch, *, dtype=None,
     _check_decoder(cfg)
     dtype = _dtype(cfg, dtype)
     b, s, device = _seq_shape(cfg, batch)
-    positions = _positions(cfg, batch, b, s, device)
+    positions, mask_pos = _positions(batch, b, s, device)
     x = _embed_input(params, cfg, batch, dtype)
     x, caches, _ = _run_layers_full(params, cfg, x,
                                     _angles_for(cfg, batch, positions),
-                                    causal=True, want_cache=True)
+                                    mask_pos, causal=True, want_cache=True)
     x = _apply_norm(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x)
     return logits, _cache_from_full(cfg, caches, s, dtype, max_len=max_len)

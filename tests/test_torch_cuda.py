@@ -1992,3 +1992,284 @@ def test_bf16_init_on_card_is_the_cast_of_the_fp32_init(cuda_device,
         for name in want:
             assert got[name].dtype == want[name].dtype, (arch, name)
             assert torch.equal(got[name], want[name]), (arch, name)
+
+
+# ---------------------------------------------------------------------------
+# explicit positions through B5 and B5-bwd, a carried state through B6 and
+# B6-bwd
+# ---------------------------------------------------------------------------
+POS_S = 200
+# one row each: no pad, one, a tile's edge and past it, all but one token,
+# the whole row (every query of it attends nothing under a causal mask)
+POS_PADS = (0, 1, 63, 64, 65, POS_S - 1, POS_S)
+POS_MASKS = [(True, 0), (True, 48), (False, 0)]
+
+
+def _positions(kind, b, s, rng):
+    if kind == "pads":
+        return np.stack([np.arange(s) - p for p in POS_PADS])
+    if kind == "permuted":
+        return np.stack([rng.permutation(s) - 5 for _ in range(b)])
+    if kind == "repeated":
+        return np.stack([np.repeat(np.arange(s // 2), 2) - 3 - i
+                         for i in range(b)])
+    return np.broadcast_to(np.arange(s) + 1000, (b, s)).copy()
+
+
+def _pos_inputs(kind, pair, dtype, rng, dev, h=4, hkv=2, s=POS_S):
+    pos = torch.from_numpy(_positions(kind, 3, s, rng)).to(dev, torch.int32)
+    b = pos.shape[0]
+    dqk, dv = pair
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    return (pos, draw(b, s, h, dqk), draw(b, s, hkv, dqk),
+            draw(b, s, hkv, dv), draw(b, s, h, dv))
+
+
+def _pos_check(kind, pair, causal, window, dtype, rng, dev):
+    """B5 and B5-bwd at explicit positions against their plain versions on
+    the same CUDA tensors: out and lse (a fully masked row exactly 0 and
+    -1e30), then dq, dk, dv; 2e-5 (fp32) and 2e-2 (bf16) of each output's
+    scale, the bounds of the implicit-position grid."""
+    pos, q, k, v, dout = _pos_inputs(kind, pair, dtype, rng, dev)
+    kw = dict(causal=causal, window=window, scale=pair[0] ** -0.5,
+              q_pos=pos, k_pos=pos)
+    c0 = (flash_attention.launches, flash_attention.bwd_launches)
+    out, lse = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+    grads = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert (flash_attention.launches - c0[0],
+            flash_attention.bwd_launches - c0[1]) == (1, 1)
+    out_w, lse_w = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    dead = lse_w <= -5e29
+    assert torch.equal(lse <= -5e29, dead)
+    assert bool((lse[dead] == -1e30).all())
+    rows = dead.any(dim=1)                       # (B, S) queries with no key
+    assert bool((out[rows] == 0).all()) and not bool(out.isnan().any())
+    torch.testing.assert_close(lse[~dead], lse_w[~dead], rtol=tol, atol=tol)
+    for g, w in zip((out,) + tuple(grads), (out_w,) + tuple(want)):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+    assert bool((grads[0][rows] == 0).all())
+    return out, lse, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", POS_MASKS)
+@pytest.mark.parametrize("pair", flash_attention.HEAD_DIM_PAIRS)
+def test_flash_kernels_with_left_pads_match_plain(cuda_device, pair, causal,
+                                                  window, dtype, rng):
+    """Left-padded rows (pads 0, 1, 63, 64, 65, S-1 and S over S = 200)
+    at every head-dim pair, causal, windowed and full, both routes."""
+    _pos_check("pads", pair, causal, window, dtype, rng, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", POS_MASKS)
+@pytest.mark.parametrize("kind", ["permuted", "repeated", "offset"])
+def test_flash_kernels_with_unsorted_positions_match_plain(cuda_device, kind,
+                                                           causal, window,
+                                                           dtype, rng):
+    """Permuted, repeated and offset (arange + 1000) positions: the key
+    tiles a block visits come from the positions, not the indices."""
+    _pos_check(kind, (64, 64), causal, window, dtype, rng, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_with_positions_repeat_bitwise(cuda_device, dtype,
+                                                     rng):
+    """Two calls of B5 and of B5-bwd with positions give the same bits."""
+    pos, q, k, v, dout = _pos_inputs("pads", (64, 64), dtype, rng,
+                                     cuda_device)
+    kw = dict(causal=True, window=48, scale=0.125, q_pos=pos, k_pos=pos)
+    first, second = (flash_attention_cuda(q, k, v, want_lse=True, **kw)
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    g1, g2 = (flash_attention_bwd_cuda(q, k, v, *first, dout, **kw)
+              for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 25, 5, 2048, 64, 64, True, 1024),
+                                  (2, 4, 4, 300, 96, 64, True, 0),
+                                  (1, 4, 2, 257, 80, 80, False, 0)])
+def test_flash_kernels_arange_positions_are_the_implicit_ones(cuda_device,
+                                                              case, dtype,
+                                                              rng):
+    """``positions = arange(S)`` through the POS instances gives the bits
+    of no positions through the index-masked ones, forward and backward:
+    the tile ranges and edge tests agree, and so does the arithmetic."""
+    b, hq, hkv, s, dqk, dv, causal, window = case
+    _, q, k, v, dout = _pos_inputs("offset", (dqk, dv), dtype, rng,
+                                   cuda_device, h=hq, hkv=hkv, s=s)
+    q, k, v, dout = q[:b], k[:b], v[:b], dout[:b]
+    ar = torch.arange(s, device=cuda_device, dtype=torch.int32).expand(b, s)
+    kw = dict(causal=causal, window=window, scale=dqk ** -0.5)
+    plain = flash_attention_cuda(q, k, v, want_lse=True, **kw)
+    with_pos = flash_attention_cuda(q, k, v, want_lse=True, q_pos=ar,
+                                    k_pos=ar, **kw)
+    equal = [torch.equal(a, b) for a, b in zip(plain, with_pos)]
+    g_plain = flash_attention_bwd_cuda(q, k, v, *plain, dout, **kw)
+    g_pos = flash_attention_bwd_cuda(q, k, v, *plain, dout, q_pos=ar,
+                                     k_pos=ar, **kw)
+    equal += [torch.equal(a, b) for a, b in zip(g_plain, g_pos)]
+    print(f"arange positions vs none {case} {dtype}: out, lse, dq, dk, dv "
+          f"bitwise equal {equal}")
+    assert all(equal)
+
+
+def test_flash_kernels_refuse_what_the_positions_cannot_be(cuda_device):
+    """Positions of another dtype, of another length than the keys' and
+    queries' S (Sq != Sk), or on another device raise before a launch;
+    so does the C entry point given one of the two pointers (the wrapper
+    never passes that)."""
+    q = torch.zeros(2, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    ar = torch.arange(64, device=cuda_device, dtype=torch.int32).expand(2, 64)
+    c0 = (flash_attention.launches, flash_attention.bwd_launches)
+    bad = {"dtype": ar.float(), "int16": ar.to(torch.int16),
+           "length": torch.arange(65, device=cuda_device,
+                                  dtype=torch.int32).expand(2, 65),
+           "device": ar.cpu()}
+    for name, pos in bad.items():
+        with pytest.raises(ValueError, match="int32"):
+            flash_attention_cuda(q, q, q, causal=True, window=0, scale=0.1,
+                                 q_pos=pos, k_pos=ar)
+        with pytest.raises(ValueError, match="int32"):
+            flash_attention_bwd_cuda(q, q, q, q, torch.zeros(
+                2, 2, 64, device=cuda_device), q, causal=True, window=0,
+                scale=0.1, q_pos=ar, k_pos=pos)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == c0
+
+
+def test_ops_flash_attention_casts_int64_positions_once(cuda_device):
+    """``ops.flash_attention`` takes a batch's int64 positions and hands
+    B5 int32 ones: the kernel's output equals the call with int32."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 96, 4, 64, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+    pos = torch.stack([torch.arange(96) - 7, torch.arange(96) - 40])
+    a = ops.flash_attention(q, q[:, :, :2], q[:, :, 2:], q_pos=pos.cuda(),
+                            k_pos=pos.cuda())
+    b = ops.flash_attention(q, q[:, :, :2], q[:, :, 2:],
+                            q_pos=pos.to(cuda_device, torch.int32),
+                            k_pos=pos.to(cuda_device, torch.int32))
+    assert torch.equal(a, b)
+
+
+# (b, s, h, p, n, chunk): N = 16, 64 and 128, several chunks, a ragged tail
+SSD_H0_CASES = [(2, 200, 3, 32, 16, 64), (1, 300, 2, 64, 64, 128),
+                (2, 270, 2, 64, 128, 256), (1, 513, 2, 16, 16, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_H0_CASES)
+def test_ssd_kernels_with_h0_match_plain(cuda_device, case, dtype, rng):
+    """B6 from a carried state and B6-bwd's gradients, ``da`` and ``dh0``
+    among them, against the plain versions on the same CUDA tensors:
+    1e-4 (fp32) and 2e-2 (bf16) of each output's scale; h_last carries
+    h0's decay."""
+    b, s, h, p, n, chunk = case
+    x, dt, a, bb, cc, dy, dh = _ssd_bwd_inputs(case, dtype, rng, cuda_device)
+    h0 = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(
+        np.float32)).to(cuda_device)
+    c0 = (ssd_scan.launches, ssd_scan.bwd_launches)
+    y, h_last, states = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, h0=h0,
+                                      keep_states=True)
+    assert torch.equal(states[:, :, 0], h0)
+    got = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, states, dh, chunk=chunk)
+    assert (ssd_scan.launches - c0[0], ssd_scan.bwd_launches - c0[1]) == \
+        (1, 1)
+    y_w, h_w = ref.ssd_scan_ref(x, dt, a, bb, cc, chunk, h0)
+    want = ref.ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, dh, chunk, h0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert len(got) == len(want) == 6
+    for g, w in zip((y, h_last) + tuple(got), (y_w, h_w) + tuple(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= tol
+    again = ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, states, dh, chunk=chunk)
+    assert all(torch.equal(u, e) for u, e in zip(got, again))
+
+
+def test_ssd_split_scan_continues_the_whole_one(cuda_device, rng):
+    """``ops.ssd_scan`` over the first half of a sequence, then the second
+    from its h_last, gives the whole call's y and h_last, and the split
+    chain's gradients (through ``dh0``) the whole call's, in fp32 within
+    1e-4 of each one's scale."""
+    b, s, h, p, n, chunk = 2, 512, 2, 64, 128, 256
+    x, dt, a, bb, cc, _, _ = _ssd_bwd_inputs((b, s, h, p, n, chunk),
+                                             torch.float32, rng, cuda_device)
+    x, bb, cc = (u.contiguous().requires_grad_(True) for u in (x, bb, cc))
+    y, h_last = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    half = s // 2
+    y1, h1 = ops.ssd_scan(x[:, :half], dt[:, :half], a, bb[:, :half],
+                          cc[:, :half], chunk=chunk)
+    y2, h2 = ops.ssd_scan(x[:, half:], dt[:, half:], a, bb[:, half:],
+                          cc[:, half:], chunk=chunk, h0=h1)
+    split = torch.cat([y1, y2], dim=1)
+    for got, want in ((split, y), (h2, h_last)):
+        assert float((got - want).detach().abs().max()) \
+            <= 1e-4 * float(want.abs().max())
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda_device)
+    g_whole = torch.autograd.grad(torch.sum(y * w) + h_last.sum(),
+                                  (x, bb, cc))
+    g_split = torch.autograd.grad(torch.sum(split * w) + h2.sum(),
+                                  (x, bb, cc))
+    for got, want in zip(g_split, g_whole):
+        assert float((got - want).detach().abs().max()) \
+            <= 1e-4 * float(want.abs().max())
+
+
+def test_ssd_kernels_refuse_a_bad_h0(cuda_device):
+    """An h0 of another shape, dtype or layout, or on another device,
+    raises before a launch."""
+    b, s, h, p, n = 1, 64, 2, 16, 16
+    x = torch.zeros(b, s, h, p, device=cuda_device)
+    dt = torch.full((b, s, h), 0.1, device=cuda_device)
+    a = -torch.ones(h, device=cuda_device)
+    bc = torch.zeros(b, s, n, device=cuda_device)
+    good = torch.zeros(b, h, p, n, device=cuda_device)
+    c0 = ssd_scan.launches
+    for bad in (good[..., :8], good.to(torch.bfloat16), good.cpu(),
+                torch.zeros(b, h, n, p, device=cuda_device).transpose(2, 3)):
+        with pytest.raises(ValueError, match="h0"):
+            ssd_scan_cuda(x, dt, a, bc, bc, chunk=32, h0=bad)
+    assert ssd_scan.launches == c0
+
+
+LM_POSITION_ARCHS = ["phi3-mini-3.8b", "hymba-1.5b", "minicpm3-4b",
+                     "qwen2-vl-7b", "qwen3-moe-235b-a22b", "hubert-xlarge"]
+
+
+@pytest.mark.parametrize("arch", LM_POSITION_ARCHS)
+def test_left_padded_configs_card_vs_cpu(cuda_device, arch):
+    """Reduced configs with left-padded rows (pads 0 and 37 of 96): the
+    prefill and 4 decode steps (hubert: the forward) and ``train_loss``
+    with every gradient leaf, card against CPU within 2e-4; B5 and B5-bwd
+    once a layer."""
+    from repro_torch.models import agreement
+    cfg = get_config(arch).reduced()
+    r = agreement.card_vs_cpu(cfg, pads=(0, 37))
+    assert not r["strays"] and r["devs"] and max(r["devs"]) <= 2e-4
+    assert r["launches"]["dev"][0] == cfg.num_layers
+    gr = agreement.grads_card_vs_cpu(cfg, pads=(0, 37))
+    assert not gr["strays"]
+    if gr["loss_dev"] is not None:
+        assert gr["loss_dev"] <= 2e-4 and max(gr["grad_devs"].values()) \
+            <= 2e-4
+        assert gr["launches"]["dev"][1] == cfg.num_layers
+
+
+def test_mamba2_from_a_carried_state_card_vs_cpu(cuda_device):
+    """Reduced mamba2-1.3b's layer from ``ssm_state``: y, the returned
+    state and the gradient with respect to ``ssm_state`` card against CPU
+    within 2e-4; B6 and B6-bwd once each."""
+    from repro_torch.models import agreement
+    r = agreement.ssm_state_card_vs_cpu(get_config("mamba2-1.3b").reduced())
+    assert max(r["devs"]) <= 2e-4 and r["launches"] == (1, 1)

@@ -545,15 +545,17 @@ def test_kernel_sources_and_build_key():
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
     # the key covers the shared headers: B5 and B6 include wgmma.cuh, both
-    # directions of B6 ssd_common.cuh
+    # directions of B5 positions.cuh, both directions of B6 ssd_common.cuh
     headers = sorted(_build.CSRC.glob("*.cuh"))
-    assert [h.name for h in headers] == ["ssd_common.cuh", "wgmma.cuh"]
-    for name in ("flash_attention", "ssd_scan", "ssd_scan_bwd"):
+    assert [h.name for h in headers] == ["positions.cuh", "ssd_common.cuh",
+                                         "wgmma.cuh"]
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "ssd_scan_bwd"):
         src, so = _build._target(name)
         text = src.read_text()
         assert '#include "wgmma.cuh"' in text
-        assert name == "flash_attention" \
-            or '#include "ssd_common.cuh"' in text
+        assert '#include "positions.cuh"' in text if "flash" in name \
+            else '#include "ssd_common.cuh"' in text
         key = hashlib.sha256(src.read_bytes()
                              + b"".join(h.read_bytes() for h in headers)
                              + " ".join(_build.NVCC_FLAGS).encode())

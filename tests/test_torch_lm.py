@@ -220,16 +220,6 @@ def test_mamba2_apply_matches_reference(arch, slen, rng):
     assert max(devs) <= 1e-5
 
 
-def test_mamba2_apply_refuses_a_carried_state(rng):
-    _, tc = _reduced("mamba2-1.3b")
-    jp = jmamba.mamba2_init(jax.random.PRNGKey(4), _reduced("mamba2-1.3b")[0])
-    _, nh, _ = tmamba.mamba2_dims(tc)
-    state = torch.zeros((1, nh, tc.ssm.head_dim, tc.ssm.state_dim))
-    with pytest.raises(NotImplementedError, match="A16"):
-        tmamba.mamba2_apply(_tree(jp), tc, torch.zeros(1, 8, tc.d_model),
-                            ssm_state=state)
-
-
 def test_hymba_full_matches_reference(rng):
     jc, tc = _reduced("hymba-1.5b")
     jp = jhymba.hymba_init(jax.random.PRNGKey(5), jc)
@@ -360,14 +350,6 @@ def test_bundle_matches_module_functions():
         == {k: tuple(v.shape) for k, v in cache.items() if k != "pos"}
     fresh = bundle.init(prng.PRNGKey(0))
     assert len(fresh["layers"]) == tc.num_layers
-
-
-def test_explicit_positions_raise():
-    _, tc, _, tp = _model("phi3-mini-3.8b")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttfm.prefill(tp, tc, {"tokens": toks,
-                              "positions": torch.arange(8)[None]})
 
 
 def test_activation_copy_gives_the_bits_of_per_use_casts():

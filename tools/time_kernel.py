@@ -31,6 +31,12 @@ documents, MLA's pair, causal) is ``--shape 8,2048,40,40,96,64 --window
 4,2048,50,64,16,256 (the batched path calls them once a client); one
 client of a mamba2-1.3b round at its full width is ``--shape
 4,2048,64,64,128,256``.
+
+``--pad N`` gives B5 and B5-bwd explicit positions ``arange(S) - N`` on
+every row (``--pad 0``: ``arange(S)`` through the kernels' position
+instances); ``--h0`` starts B6 and B6-bwd from a drawn carried state.
+Neither exists in a tree before explicit positions and carried states
+were ported: leave them out when timing such a parent.
 """
 from __future__ import annotations
 
@@ -71,6 +77,9 @@ def _call(kernel, shape, args, torch, dev):
             randn(b, s, hkv, dv)
         mask = dict(causal=bool(args.causal), window=args.window,
                     scale=dqk ** -0.5)
+        if args.pad is not None:
+            pos = (torch.arange(s) - args.pad).to(dev, torch.int32)
+            mask.update(q_pos=pos.expand(b, s), k_pos=pos.expand(b, s))
         if kernel == "flash_attention":
             return lambda: flash_attention_cuda(q, k, v, **mask)
         out, lse = flash_attention_cuda(q, k, v, want_lse=True, **mask)
@@ -84,10 +93,13 @@ def _call(kernel, shape, args, torch, dev):
     x = xs.reshape(b, s, h, p)
     dt = (0.001 + 0.099 * torch.rand(b, s, h, generator=g)).to(dev)
     a = -torch.arange(1, h + 1, dtype=torch.float32).to(dev)
+    start = {"h0": torch.randn(b, h, p, n, generator=g).to(dev)} \
+        if args.h0 else {}
     if kernel == "ssd_scan":
-        return lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk)
+        return lambda: ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, **start)
     dy = randn(b, s, h, p)
-    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True)
+    _, _, st = ssd_scan_cuda(x, dt, a, bb, cc, chunk=chunk, keep_states=True,
+                             **start)
     return lambda: ssd_scan_bwd_cuda(x, dt, a, bb, cc, dy, st, None,
                                      chunk=chunk)
 
@@ -103,6 +115,10 @@ def main(argv=None) -> int:
     ap.add_argument("--window", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=50)
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--pad", type=int, default=None,
+                    help="B5: positions arange(S) - PAD on every row")
+    ap.add_argument("--h0", action="store_true",
+                    help="B6: start from a drawn carried state")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     import torch
@@ -131,6 +147,7 @@ def main(argv=None) -> int:
     print(json.dumps({"root": args.root, "kernel": args.kernel,
                       "shape": shape, "dtype": args.dtype,
                       "causal": args.causal, "window": args.window,
+                      "pad": args.pad, "h0": args.h0,
                       "us_per_call": statistics.median(reps),
                       "reps_us": reps,
                       "device": torch.cuda.get_device_name(0)}))
