@@ -195,6 +195,16 @@ Phases, each fatal on failure (no phase catches and carries on):
    from h0 against their plain versions at those shapes, timed; the
    reduced configs left-padded and mamba2's layer from a carried state
    card against CPU within 2e-4;
+   launch sizing (``phase_launch_sizing``): hymba-1.5b at full width, a
+   1 x 4096 train step of ``launch.steps.make_train_step`` under remat
+   ``"none"``, ``"dots"`` and ``"full"``, each policy's loss and every
+   gradient leaf within 2e-4 of ``"none"``'s; step time, peak memory,
+   busy share and launches per policy (B5 and B6 twice a layer under
+   ``"dots"`` and ``"full"``, their backwards once); meanwhile on the
+   host the dry run (``repro_torch.launch.dryrun``) of hymba-1.5b
+   ``train_4k``, llama4-maverick-400b-a17b ``train_4k`` (fsdp) and
+   qwen3-moe-235b-a22b ``decode_32k`` on the fake 16 x 16 mesh, each
+   report's per-device memory against the card's and its roofline;
 10. profiles: a second service, and one round of each training spec,
    under ``torch.profiler`` — the device's busy share and its top
    kernels;
@@ -5624,6 +5634,285 @@ def phase_lm_positions(records):
     log(f"LM positions phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+LAUNCH_REMAT = ("none", "dots", "full")
+LAUNCH_REMAT_STEPS = 3          # a warm-up step, then two timed
+LAUNCH_DRYRUN = (("hymba-1.5b", "train_4k", "megatron"),
+                 ("llama4-maverick-400b-a17b", "train_4k", "fsdp"),
+                 ("qwen3-moe-235b-a22b", "decode_32k", "megatron"))
+LAUNCH_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                  "ssd_scan_bwd")
+# the dry run's memory tracker against the card's allocator, relative
+LAUNCH_MEMORY_BOUND = 0.10
+
+
+def _dryrun_procs(out_dir):
+    """The dry run of each pair in :data:`LAUNCH_DRYRUN`, one process
+    each (a process's fake process group is its own), started together
+    once the card's timed steps are done, so that they hold no step's
+    time or busy share back."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"),
+        OMP_NUM_THREADS="2")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for arch, shape, profile in LAUNCH_DRYRUN:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--profile", profile,
+               "--out", out_dir]
+        out = open(os.path.join(out_dir, f"{arch}__{shape}.log"), "w+")
+        procs.append(((arch, shape, profile), out, subprocess.Popen(
+            cmd, stdout=out, stderr=subprocess.STDOUT, text=True, env=env)))
+    return procs
+
+
+def _gradient_optimizer():
+    """An ``Optimizer`` whose update returns the gradient itself, so that
+    a train step hands back every leaf's exact gradient."""
+    from repro_torch.optim.optimizers import Optimizer
+    return Optimizer(lambda p: {}, lambda p, g, s, i=0: (g, s))
+
+
+def _remat_steps(cfg, params, batch, remat):
+    """``LAUNCH_REMAT_STEPS`` steps of ``make_train_step(remat=)``: the
+    gradients and loss of the last, the step times after the first, the
+    peak memory over them, every step's launches (each zeroed just before
+    it and read just after; all equal) and one traced step's device busy
+    share."""
+    from torch.autograd import DeviceType
+    from repro_torch.launch import steps as lm_steps
+    step = lm_steps.make_train_step(cfg, _gradient_optimizer(), remat=remat)
+    times, counts = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LAUNCH_REMAT_STEPS):
+        zero_counts()
+        t0 = time.perf_counter()
+        grads, _, loss = step(params, {}, batch, i)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+        if i < LAUNCH_REMAT_STEPS - 1:
+            del grads
+    peak = torch.cuda.max_memory_allocated()
+    # the profiler's first step is a warm-up (its set-up stalls the host);
+    # the second is traced and timed.  A trace with no device event (the
+    # profiler's known drop, ``_trace``) is taken again, at most twice
+    busy = 0.0
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1, repeat=1)) as prof:
+            for i in range(2):
+                zero_counts()
+                t0 = time.perf_counter()
+                step(params, {}, batch, LAUNCH_REMAT_STEPS + i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts.append(read_counts())
+                prof.step()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        if busy > 0:
+            break
+    if busy <= 0:
+        raise AssertionError(f"remat={remat}: torch.profiler recorded no "
+                             f"device time in 3 traces")
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"remat={remat}: launches differ between "
+                             f"steps {counts}")
+    return grads, float(loss), times, peak, counts, busy / wall
+
+
+def _report_line(rep: dict, card_bytes: int) -> str:
+    mem = rep["memory_per_device"]
+    total = mem["total_bytes"]
+    return (f"{rep['arch']} x {rep['shape']} on {rep['mesh']}: per device "
+            f"args {mem['argument_size_in_bytes'] / 2**30:.2f} GiB + temp "
+            f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB + out "
+            f"{mem['output_size_in_bytes'] / 2**30:.2f} GiB = "
+            f"{total / 2**30:.2f} GiB against the card's "
+            f"{card_bytes / 2**30:.2f} GiB ("
+            f"{'fits' if total <= card_bytes else 'does not fit'}); "
+            f"roofline compute {rep['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rep['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rep['collective_s'] * 1e3:.3f} ms -> {rep['bottleneck']}-bound"
+            f" (collective bytes/device {rep['collective_bytes_per_device']:.4e}"
+            f", flops/device {rep['hlo_flops_per_device']:.4e})")
+
+
+def _launch_inputs():
+    """hymba-1.5b at full width, its fp32 masters drawn on the card from
+    seed 0, and a 1 x 4096 batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.data import lm_data
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("hymba-1.5b")
+    params = tfm.init_params(prng.PRNGKey(0, device="cuda"), cfg)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             lm_data.synthetic_lm_batch(cfg, 1, 4096, seed=33).items()}
+    return cfg, params, batch
+
+
+def _launch_remat(records, cfg, params, batch):
+    """Part (a) of :func:`phase_launch_sizing`: the three policies'
+    steps on the card, each policy's loss and gradients bitwise
+    ``"none"``'s (the same kernels on the same inputs, recomputed)."""
+    from repro_torch.optim.optimizers import tree_leaves
+    layers = cfg.num_layers
+    totals = {name: 0 for name in read_counts()}
+    base = None
+    for remat in LAUNCH_REMAT:
+        grads, loss, times, peak, all_counts, share = _remat_steps(
+            cfg, params, batch, remat)
+        counts = all_counts[0]
+        fwd = layers if remat == "none" else 2 * layers
+        want = {k: 0 for k in counts}
+        want.update(flash_attention=fwd, ssd_scan=fwd,
+                    flash_attention_bwd=layers, ssd_scan_bwd=layers)
+        if counts != want:
+            raise AssertionError(f"remat={remat}: launches a step {counts} "
+                                 f"!= {want}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"remat={remat}: loss {loss}")
+        for k in totals:
+            totals[k] += sum(c[k] for c in all_counts)
+        log(f"  remat={remat}: loss {loss!r}; steps "
+            + ", ".join(f"{t:.4f}" for t in times) + f" s; peak device "
+            f"memory {peak / 2**30:.2f} GiB; device busy "
+            f"{100 * share:.1f}% of a traced step's wall; launches a step "
+            + json.dumps({k: counts[k] for k in LAUNCH_KERNELS}))
+        if base is None:
+            # "none"'s gradients wait on the host, so that no policy's
+            # peak holds another's
+            base = ([g.cpu() for g in tree_leaves(grads)], loss)
+        else:
+            leaves = tree_leaves(grads)
+            off = [i for i, (g, b) in enumerate(zip(leaves, base[0]))
+                   if not torch.equal(g, b.to(g.device))]
+            log(f"    against none: loss {loss!r} vs {base[1]!r}, "
+                f"{len(leaves)} gradient leaves, {len(off)} not bitwise "
+                f"equal")
+            if loss != base[1] or off or len(leaves) != len(base[0]):
+                raise AssertionError(f"remat={remat}: loss or gradient "
+                                     f"leaves {off[:8]} differ from none's")
+            del leaves      # no policy's gradients outlive its steps
+        del grads
+    for r in records:
+        r["launches_by_path"]["launch_sizing"] = totals[r["name"]]
+
+
+def _launch_memory(cfg, params, batch):
+    """The dry run's memory tracker held to the card's allocator: one sgd
+    step (remat ``"none"``) of the same 1 x 4096 hymba-1.5b on the card,
+    its arguments' bytes plus the peak the step adds over what the card
+    held before it (``max_memory_allocated``, after a warm-up step),
+    against ``dryrun.size_step``'s args + temp + out for the same step on
+    fake tensors, within :data:`LAUNCH_MEMORY_BOUND`."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.optim.optimizers import get_optimizer
+    opt = get_optimizer("sgd", 1e-3)
+    step = lm_steps.make_train_step(cfg, opt)
+    state = opt.init(params)
+    args = analysis.local_bytes((params, state, batch))
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = step(params, state, batch, i)
+        torch.cuda.synchronize()
+        card = args + torch.cuda.max_memory_allocated() - before
+        del out
+    b, s = batch["tokens"].shape
+    t0 = time.perf_counter()
+    fake = dryrun.size_step(cfg, dataclasses.replace(
+        get_shape("train_4k"), global_batch=b, seq_len=s))
+    rel = fake["total_bytes"] / card - 1.0
+    log(f"  memory of one sgd step ({b} x {s}, remat none): the card's "
+        f"args {args / 2**30:.4f} GiB + peak over its resident "
+        f"{(card - args) / 2**30:.4f} GiB = {card / 2**30:.4f} GiB; the "
+        f"dry run's tracker, unsharded on fake tensors "
+        f"({time.perf_counter() - t0:.1f} s on the host): args "
+        f"{fake['argument_size_in_bytes'] / 2**30:.4f} + temp "
+        f"{fake['temp_size_in_bytes'] / 2**30:.4f} + out "
+        f"{fake['output_size_in_bytes'] / 2**30:.4f} = "
+        f"{fake['total_bytes'] / 2**30:.4f} GiB ({100 * rel:+.2f}%, bound "
+        f"{100 * LAUNCH_MEMORY_BOUND:.0f}%)")
+    if abs(rel) > LAUNCH_MEMORY_BOUND:
+        raise AssertionError(f"the dry run's memory {fake['total_bytes']} "
+                             f"is {100 * rel:+.2f}% off the card's {card}")
+    # a reading: one data shard of train_4k on the 16 x 16 mesh (256 / 16
+    # sequences) on one device unsharded, beside the mesh's dry run
+    shard = dryrun.size_step(cfg, dataclasses.replace(
+        get_shape("train_4k"), global_batch=256 // 16))
+    log(f"  the same tracker, unsharded, 16 x 4096 (train_4k's sequences "
+        f"on one of the 16 data shards): {shard['total_bytes'] / 2**30:.2f}"
+        f" GiB")
+
+
+def phase_launch_sizing(records):
+    """The remat policies and the dry run.  (a) hymba-1.5b at full width
+    (bf16 activations over fp32 masters drawn on the card from seed 0), a
+    1 x 4096 step of ``launch.steps.make_train_step`` under ``"none"``,
+    ``"dots"`` and ``"full"``: loss and every gradient leaf of each
+    policy bitwise ``"none"``'s; per policy the step time (two steps
+    after a warm-up), peak memory, a traced step's device busy share and
+    one step's launches: B5-bwd and B6-bwd once a layer, B5 and B6 once a
+    layer under ``"none"`` and twice under ``"dots"`` and ``"full"`` (the
+    backward's recomputation: the policy keeps products, and the kernels
+    are not products).  (b) once the timed steps are done, the dry run
+    (``python -m repro_torch.launch.dryrun``) of hymba-1.5b ``train_4k``,
+    llama4-maverick-400b-a17b ``train_4k`` under ``fsdp`` and
+    qwen3-moe-235b-a22b ``decode_32k`` on the fake 16 x 16 mesh, in host
+    processes: each report's per-device memory against the card's and its
+    roofline terms.  Meanwhile the dry run's memory tracker is held to
+    the card's allocator on one sgd step (:func:`_launch_memory`)."""
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "experiments", "dryrun_torch")
+    log("launch sizing phase: hymba-1.5b at full width, a 1 x 4096 train "
+        "step under remat none / dots / full; then the dry run of "
+        + ", ".join(f"{a} {s} ({p})" for a, s, p in LAUNCH_DRYRUN)
+        + " on the fake 16 x 16 mesh on the host, and its memory tracker "
+        "against the card's on one sgd step")
+    cfg, params, batch = _launch_inputs()
+    _launch_remat(records, cfg, params, batch)
+    t_card = time.perf_counter() - t_phase
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    procs = _dryrun_procs(out_dir)
+    try:
+        _launch_memory(cfg, params, batch)
+        del params, batch
+        torch.cuda.empty_cache()
+        for (arch, shape, profile), out, proc in procs:
+            proc.wait(timeout=600)
+            out.seek(0)
+            text = out.read()
+            if proc.returncode:
+                raise AssertionError(f"dry run of {arch} {shape} "
+                                     f"({profile}) failed:\n{text[-3000:]}")
+            tag = f"{arch}__{shape}__16x16" + (
+                "" if profile == "megatron" else f"__sgd_none_{profile}")
+            with open(os.path.join(out_dir, tag + ".json")) as f:
+                rep = json.load(f)
+            refused = [ln.strip() for ln in text.splitlines()
+                       if "resharded where DTensor refused" in ln]
+            log(f"  dry run ({profile}) {_report_line(rep, card_bytes)}; "
+                + "; ".join(refused))
+    finally:
+        for _, out, proc in procs:       # no process outlives the script
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    log(f"launch sizing phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(the timed steps {t_card:.1f} s)")
+
+
 def phase_lm_agreement():
     """Reduced hymba-1.5b in fp32 from the same weights on the card
     (kernels B5 and B6) and on the CPU (their plain versions): prefill
@@ -5722,6 +6011,7 @@ def main() -> int:
     phase_lm_moe(records)
     phase_lm_zoo_train(records)
     phase_lm_positions(records)
+    phase_launch_sizing(records)
     for r in records:
         r["launches"] = sum(r["launches_by_path"].values())
     phase_profile(spec, corpus)

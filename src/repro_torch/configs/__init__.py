@@ -13,8 +13,9 @@ can refuse an unknown id or a modality kind with the reference's
 wording.
 """
 from repro_torch.configs.base import (  # noqa: F401
-    ARCH_KINDS, AUDIO, DENSE, HYBRID, MOE, NTM, SSM, VLM, FederatedConfig,
-    ModelConfig, MoEConfig, RoundConfig, SSMConfig)
+    ARCH_KINDS, AUDIO, DECODE_32K, DENSE, HYBRID, INPUT_SHAPES, LONG_500K,
+    MOE, NTM, PREFILL_32K, SSM, TRAIN_4K, VLM, FederatedConfig, ModelConfig,
+    MoEConfig, RoundConfig, RunConfig, ShapeConfig, SSMConfig)
 from repro_torch.configs.ctm_s2orc import CONFIG as _ctm
 from repro_torch.configs.granite_34b import CONFIG as _granite
 from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
@@ -28,7 +29,8 @@ from repro_torch.configs.qwen1_5_110b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_vl_7b import CONFIG as _qwen2vl
 from repro_torch.configs.qwen3_moe_235b import CONFIG as _qwen3moe
 
-ARCHS = {
+# The 10 assigned architectures (public-pool ids, exact).
+ASSIGNED_ARCHS = {
     "granite-34b": _granite,
     "qwen2-vl-7b": _qwen2vl,
     "hubert-xlarge": _hubert,
@@ -39,9 +41,15 @@ ARCHS = {
     "qwen3-moe-235b-a22b": _qwen3moe,
     "minicpm3-4b": _minicpm3,
     "mamba2-1.3b": _mamba2,
+}
+
+# The paper's own models, selectable through the same registry.
+PAPER_ARCHS = {
     "prodlda-synthetic": _prodlda,
     "ctm-s2orc": _ctm,
 }
+
+ARCHS = {**ASSIGNED_ARCHS, **PAPER_ARCHS}
 
 # every id of the reference's registry and its kind (the reference's
 # ``configs/*.py``), the ported ones included
@@ -68,3 +76,22 @@ def get_config(arch: str) -> ModelConfig:
     if arch in ARCHS:
         return ARCHS[arch]
     raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in INPUT_SHAPES:
+        raise KeyError(
+            f"unknown input shape {name!r}; available: {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Which of the four assigned shapes apply to this arch."""
+    shapes = ["train_4k", "prefill_32k"]
+    if cfg.encoder_only:
+        return shapes          # no autoregressive decode for encoder-only
+    shapes.append("decode_32k")
+    # long_500k needs a sub-quadratic path: SSM/hybrid natively; dense/moe/vlm
+    # only via the sliding-window variant (applied by the launcher).
+    shapes.append("long_500k")
+    return shapes

@@ -5,12 +5,16 @@ Same names and defaults as the reference dataclasses.  ``ModelConfig``
 carries the LM fields of the reference (every kind of its zoo) beside
 the ProdLDA/CTM ones (``contextual_dim``, ``ntm_dropout``);
 ``num_params()``, ``num_active_params()`` and ``reduced()`` are the
-reference's.  Fields no ported path reads (the lowering knobs
-``scan_layers`` / ``unroll_chunks``, the mesh) join with the slices
-that read them (ROADMAP.md §A).
+reference's.  The four assigned input shapes (``ShapeConfig``,
+``INPUT_SHAPES``) and the launcher's ``RunConfig`` are the reference's
+too.  The reference's lowering knobs ``scan_layers`` / ``unroll_chunks``
+choose how XLA lowers its layer and chunk loops; the port's loops are
+Python loops and its chunk loops live in the kernels, so it has no such
+knob.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Tuple
 
@@ -290,3 +294,45 @@ class RoundConfig:
     # ring over N shards (parallel/sharding.py fed_mesh).  K and L must
     # divide by N.  Inert under loop mode
     mesh_data: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+INPUT_SHAPES = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Launcher-level configuration."""
+
+    arch: str = "phi3-mini-3.8b"
+    shape: str = "train_4k"
+    multi_pod: bool = False
+    optimizer: str = "sgd"          # paper Eq. (3); "adam" available
+    learning_rate: float = 2e-3
+    remat: str = "none"             # "none" | "layer" | "full" | "dots"
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_dir: str = ""
+    federated: FederatedConfig = field(default_factory=FederatedConfig)
+    rounds: RoundConfig = field(default_factory=RoundConfig)
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

@@ -21,9 +21,10 @@ threefry schedule (``core/prng.py``, ``data/federated_split.py``), so a
 card run, a CPU run and the reference see the same documents and draws.
 
 :func:`make_federated_train_step` is the reference's in-graph
-``shard_map`` step over a ``("data",)`` mesh (``parallel/sharding.py``):
-each shard is one client, its gradient computed on its own device, and
-Eq. (2) is the per-shard partials plus the port's ``psum``.
+``shard_map`` step over a mesh of one or two client axes
+(``parallel/sharding.py``, ``launch/mesh.py``): each client is one
+shard, its gradient computed on its own device, and Eq. (2) is the
+per-shard partials plus the port's ``psum``.
 """
 from __future__ import annotations
 
@@ -53,37 +54,33 @@ def make_federated_train_step(loss_sum_fn, optimizer: Optimizer, mesh, *,
                                client_axes: Tuple[str, ...] = ("data",),
                                fed: Optional[FederatedConfig] = None):
     """The explicit federated step for replicated-parameter models over a
-    ``("data",)`` mesh (``parallel.sharding.fed_mesh``).
+    mesh (``parallel.sharding.fed_mesh``, or ``launch.mesh.make_host_mesh``
+    with axes ``("data", "model")``): each slice along ``client_axes`` is
+    one client.
 
     ``step(params, opt_state, batch, step_idx, rng) -> (params,
     opt_state, mean_loss)``: every batch leaf's leading axis is split over
-    the mesh's shards, and shard ``d`` is client ``d``.  On its device the
-    client folds its id into ``rng`` (the batch's ``"rng"``, if any,
-    becomes that key), takes ``value_and_grad`` of its local mean loss
-    ``loss_sum / max(count, 1)``, then, when ``fed`` asks, local DP
-    (``dp_privatize`` on ``fold_in(local_rng, 7)``) and the pairwise
-    secure mask (``secure_mask_grads`` on ``fold_in(rng, step_idx)``).
-    The server side is Eq. (2) (:func:`aggregate.aggregate_psum`), the
-    optimizer update and the sample-weighted mean loss, on the mesh's
-    first device, where params and optimizer state live."""
-    client_axes = tuple(client_axes)
-    if len(client_axes) > 1:
-        raise NotImplementedError(
-            f"make_federated_train_step over client_axes={client_axes} "
-            "needs the reference's 2-D host mesh (repro/launch/mesh.py), "
-            "which belongs to the launch-sizing half of ROADMAP.md A17 "
-            "and is not ported; the port's mesh has the one axis "
-            "('data',)")
-    if client_axes[0] not in mesh.axis_names:
-        raise ValueError(f"client axis {client_axes[0]!r} is not an axis of "
-                         f"the mesh {mesh.axis_names}")
+    the clients, numbered as the reference numbers them (row-major over
+    ``client_axes``: ``cid * axis_size(ax) + index`` along each further
+    axis), and client ``cid`` computes on the shard at its coordinates
+    (index 0 along any other axis).  On its device the client folds its
+    id into ``rng`` (the batch's ``"rng"``, if any, becomes that key),
+    takes ``value_and_grad`` of its local mean loss ``loss_sum /
+    max(count, 1)``, then, when ``fed`` asks, local DP (``dp_privatize``
+    on ``fold_in(local_rng, 7)``) and the pairwise secure mask
+    (``secure_mask_grads`` on ``fold_in(rng, step_idx)`` over all the
+    clients).  The server side is Eq. (2) (:func:`aggregate.
+    aggregate_psum`), the optimizer update and the sample-weighted mean
+    loss, on the mesh's first device, where params and optimizer state
+    live."""
+    clients = mesh.client_mesh(tuple(client_axes))
     fed = fed or FederatedConfig()
 
     def step(params, opt_state, batch, step_idx, rng):
-        blocks = {k: mesh.split(v) for k, v in batch.items()}
+        blocks = {k: clients.split(v) for k, v in batch.items()}
         grads, counts, losses = [], [], []
-        for cid, p in enumerate(mesh.replicate(params)):
-            dev = mesh.devices[cid]
+        for cid, p in enumerate(clients.replicate(params)):
+            dev = clients.devices[cid]
             local_rng = prng.fold_in(rng, cid)
             lbatch = {k: b[cid] for k, b in blocks.items()}
             if "rng" in lbatch:
@@ -94,7 +91,7 @@ def make_federated_train_step(loss_sum_fn, optimizer: Optimizer, mesh, *,
                 loss = s / torch.clamp(n, min=1.0)
                 return loss, (loss.detach(), n.detach())
 
-            with mesh.on(cid):
+            with clients.on(cid):
                 g, (loss, n) = torch.func.grad(local_mean_loss,
                                                has_aux=True)(p)
                 if fed.dp_noise_multiplier > 0:
@@ -105,15 +102,15 @@ def make_federated_train_step(loss_sum_fn, optimizer: Optimizer, mesh, *,
                 if fed.secure_aggregation:
                     g = agg.secure_mask_grads(
                         g, prng.fold_in(rng, int(step_idx)), cid,
-                        mesh.size, n)
+                        clients.size, n)
             grads.append(g)
             counts.append(n)
             losses.append(loss)
-        gbar = agg.aggregate_psum(grads, counts, mesh)
+        gbar = agg.aggregate_psum(grads, counts, clients)
         new_params, new_opt = optimizer.update(params, gbar, opt_state,
                                                step_idx)
-        mean_loss = mesh.psum([l * n for l, n in zip(losses, counts)]) \
-            / mesh.psum(counts)
+        mean_loss = clients.psum([l * n for l, n in zip(losses, counts)]) \
+            / clients.psum(counts)
         return new_params, new_opt, mean_loss
 
     return step

@@ -299,18 +299,150 @@ def _ssd_bwd_vmap(info, in_dims, x, dt, a, b, c, dy, states, dh_last, chunk,
     return tuple(torch.stack(g) for g in zip(*grads)), (0,) * 6
 
 
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, window, scale,
+                    q_pos=None, k_pos=None):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _ssd_bwd_fake(x, dt, a, b, c, dy, states, dh_last, chunk, h0=None):
+    bs, _, h, p = x.shape
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a),
+            torch.empty_like(b), torch.empty_like(c),
+            x.new_empty((bs, h, p, b.shape[-1]), dtype=f32))
+
+
+torch.library.register_fake("repro_torch::flash_attention_bwd",
+                            _flash_bwd_fake, lib=_LIB)
+torch.library.register_fake("repro_torch::ssd_scan_bwd", _ssd_bwd_fake,
+                            lib=_LIB)
 torch.library.register_vmap("repro_torch::flash_attention_bwd",
                             _flash_bwd_vmap, lib=_LIB)
 torch.library.register_vmap("repro_torch::ssd_scan_bwd", _ssd_bwd_vmap,
                             lib=_LIB)
 
 
+# The forwards as operators too: the kernel on a CUDA tensor, the plain
+# version on a CPU tensor, and a fake implementation that allocates the
+# kernel's outputs and computes nothing.  Through them the selective
+# checkpoint policy of ``launch/steps.py`` sees B5 and B6 as one
+# operator each (never the ``empty`` outputs a ctypes launch writes
+# into), ``FakeTensorMode`` sizes them at the kernel's O(S D) footprint
+# (the plain version's score matrix is O(S^2)), and DTensor shards them
+# by the rules below.  ``want_lse`` / ``keep_states`` off give an empty
+# (0,) tensor in that output's place.  Their gradient is the Functions'
+# further down (``torch.func`` cannot run an operator's generated
+# autograd Function), so the operators register none.
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float scale, Tensor? q_pos=None, "
+            "Tensor? k_pos=None, bool want_lse=True) -> (Tensor, Tensor)")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+            "int chunk, Tensor? h0=None, bool keep_states=False) -> "
+            "(Tensor, Tensor, Tensor)")
+
+
+def _flash_fwd_cuda(q, k, v, causal, window, scale, q_pos=None, k_pos=None,
+                    want_lse=True):
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=scale, want_lse=want_lse, q_pos=q_pos,
+                               k_pos=k_pos)
+    return got if want_lse else (got, q.new_empty((0,), dtype=torch.float32))
+
+
+def _flash_fwd_cpu(q, k, v, causal, window, scale, q_pos=None, k_pos=None,
+                   want_lse=True):
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale,
+                                           q_pos=q_pos, k_pos=k_pos)
+    return out, lse if want_lse else lse.new_empty((0,))
+
+
+def _flash_fwd_fake(q, k, v, causal, window, scale, q_pos=None, k_pos=None,
+                    want_lse=True):
+    b, s, h, _ = q.shape
+    lse = (b, h, s) if want_lse else (0,)
+    # the kernel writes out contiguous; the plain version heads-major
+    out = q.new_empty((b, s, h, v.shape[-1])) if q.device.type != "cpu" \
+        else q.new_empty((b, h, s, v.shape[-1])).transpose(1, 2)
+    return out, q.new_empty(lse, dtype=torch.float32)
+
+
+def _ssd_fwd_cuda(x, dt, a, b, c, chunk, h0=None, keep_states=False):
+    got = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, h0=h0,
+                        keep_states=keep_states)
+    return got if keep_states else \
+        (*got, x.new_empty((0,), dtype=torch.float32))
+
+
+def _ssd_fwd_cpu(x, dt, a, b, c, chunk, h0=None, keep_states=False):
+    y, *rest = ref.ssd_scan_ref(x, dt, a, b, c, chunk, h0,
+                                keep_states=keep_states)
+    # a ragged tail leaves y a slice of the padded scan: contiguous, as
+    # the kernel writes it
+    y = y.contiguous()
+    return (y, *rest) if keep_states else \
+        (y, rest[0], rest[0].new_empty((0,)))
+
+
+def _ssd_fwd_fake(x, dt, a, b, c, chunk, h0=None, keep_states=False):
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    states = (bs, h, -(-s // chunk), p, n) if keep_states else (0,)
+    return (x.new_empty(x.shape), x.new_empty((bs, h, p, n), dtype=f32),
+            x.new_empty(states, dtype=f32))
+
+
+_LIB.impl("flash_attention", _flash_fwd_cuda, "CUDA")
+_LIB.impl("flash_attention", _flash_fwd_cpu, "CPU")
+_LIB.impl("ssd_scan", _ssd_fwd_cuda, "CUDA")
+_LIB.impl("ssd_scan", _ssd_fwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_attention", _flash_fwd_fake,
+                            lib=_LIB)
+torch.library.register_fake("repro_torch::ssd_scan", _ssd_fwd_fake, lib=_LIB)
+
+
+def _flash_fwd_vmap(info, in_dims, q, k, v, causal, window, scale,
+                    q_pos=None, k_pos=None, want_lse=True):
+    """B5's forward folds the vmap axis into the batch axis, as its
+    backward does: one call for the cohort."""
+    dims = _dims(in_dims, 9)
+    ts = [_batch_first(t, d, info.batch_size)
+          for t, d in zip((q, k, v, q_pos, k_pos), dims[:3] + dims[6:8])]
+    out, lse = torch.ops.repro_torch.flash_attention(
+        *(_fold(t) for t in ts[:3]), causal, window, scale,
+        *(None if t is None else _fold(t) for t in ts[3:]), want_lse)
+    kb = ts[0].shape[:2]
+    return (out.unflatten(0, kb),
+            lse.unflatten(0, kb) if want_lse else
+            lse.expand((info.batch_size, 0))), (0, 0)
+
+
+def _ssd_fwd_vmap(info, in_dims, x, dt, a, b, c, chunk, h0=None,
+                  keep_states=False):
+    """One call per member of the vmap axis, as B6's backward."""
+    dims = _dims(in_dims, 8)
+    ts = [_batch_first(t, d, info.batch_size)
+          for t, d in zip((x, dt, a, b, c, h0), dims[:5] + dims[6:7])]
+    outs = [torch.ops.repro_torch.ssd_scan(
+        *(None if t is None else t[i] for t in ts[:5]), chunk,
+        None if ts[5] is None else ts[5][i], keep_states)
+        for i in range(info.batch_size)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0, 0)
+
+
+torch.library.register_vmap("repro_torch::flash_attention", _flash_fwd_vmap,
+                            lib=_LIB)
+torch.library.register_vmap("repro_torch::ssd_scan", _ssd_fwd_vmap, lib=_LIB)
+
+
 def _card_positions(pos: Optional[torch.Tensor], q: torch.Tensor
                     ) -> Optional[torch.Tensor]:
-    """A batch's positions as B5's kernels read them: int32 on q's card,
-    cast once from the batch's int64.  Any other dtype passes through, for
-    the kernel's wrapper to refuse."""
-    if pos is None or not _on_cuda(q):
+    """A batch's positions as B5's kernels read them: int32 on q's device,
+    cast once from the batch's int64 (the plain version compares them to
+    the same mask).  Any other dtype passes through, for the kernel's
+    wrapper to refuse."""
+    if pos is None:
         return pos
     if pos.dtype == torch.int64:
         pos = pos.to(q.device, torch.int32)
@@ -326,14 +458,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, q_pos, k_pos, causal, window, scale):
-        if _on_cuda(q):
-            return flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, scale=scale,
-                                        want_lse=True, q_pos=q_pos,
-                                        k_pos=k_pos)
-        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
-                                           window=window, scale=scale,
-                                           q_pos=q_pos, k_pos=k_pos)
+        return torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, scale, q_pos, k_pos, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -386,12 +512,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window,
                                      scale)[0]
-    if not _on_cuda(q):
-        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
-                                           window=window, scale=scale,
-                                           q_pos=q_pos, k_pos=k_pos)[0]
-    return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                scale=scale, q_pos=q_pos, k_pos=k_pos)
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, causal, window, scale, q_pos, k_pos, False)[0]
 
 
 class _SSDScan(torch.autograd.Function):
@@ -404,11 +526,10 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, a, b, c, h0, chunk):
-        if _on_cuda(x):
-            return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, h0=h0,
-                                 keep_states=True)
-        y, h_last = ref.ssd_scan_ref(x, dt, a, b, c, chunk, h0)
-        return y, h_last, h_last.new_empty((0,))
+        # the backward kernel reads the kept states; the plain backward
+        # differentiates the plain scan again and ignores them
+        return torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, chunk, h0,
+                                              True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -454,13 +575,188 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     when a gradient is needed (dt, a and h0 reach it through their cast
     to fp32; h0 gets ``dh0``)."""
     q = min(chunk, x.shape[1])
-    if h0 is not None and _on_cuda(x):
+    if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
+    dt, a = dt.to(torch.float32), a.to(torch.float32)
     if _needs_grad(x, dt, a, b, c, h0):
-        y, h_last, _ = _SSDScan.apply(x, dt.to(torch.float32),
-                                      a.to(torch.float32), b, c, h0, q)
+        y, h_last, _ = _SSDScan.apply(x, dt, a, b, c, h0, q)
         return y, h_last
-    if not _on_cuda(x):
-        return ref.ssd_scan_ref(x, dt, a, b, c, q, h0)
-    return ssd_scan_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
-                         chunk=q, h0=h0)
+    y, h_last, _ = torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, q, h0,
+                                                  False)
+    return y, h_last
+
+
+# ---------------------------------------------------------------------------
+# DTensor sharding rules of B5, B6 and their backwards
+# ---------------------------------------------------------------------------
+# Every operand of B5 and B6 is per sequence and, but for B6's (H,) decay
+# and its shared b/c, per head: a mesh dim may shard the batch (dim 0 of
+# every sequence operand) or the heads, and sequence and head dims stay
+# whole.  B5 shards query and kv heads on the same mesh dim only when
+# every mesh dim divides the kv heads, so that each shard's queries meet
+# their own group's keys (with one kv head, MQA, the keys stay whole and
+# the queries split).  B6-bwd's ``da`` sums over the batch and its
+# ``db``/``dc`` over the heads: those come out ``Partial``.
+def _divides(n: int, mesh) -> bool:
+    return all(n % s == 0 for s in mesh.shape)
+
+
+def _opt(spec, placement):
+    """The placement of an optional tensor operand (None where absent)."""
+    return None if spec is None else placement
+
+
+def _flash_head_split(q, k) -> str:
+    """"kv": q and kv heads split together; "q": q split, kv whole (MQA);
+    "": the heads stay whole."""
+    hq, hkv = q.tensor_meta.shape[2], k.tensor_meta.shape[2]
+    if _divides(hkv, q.mesh) and _divides(hq, q.mesh):
+        return "kv"
+    if hkv == 1 and _divides(hq, q.mesh):
+        return "q"
+    return ""
+
+
+def _flash_fwd_rules(q, k, v, causal, window, scale, q_pos=None,
+                     k_pos=None, want_lse=True):
+    from torch.distributed.tensor import Replicate, Shard
+    r, s0 = Replicate(), Shard(0)
+    lse_on = Shard(0) if want_lse else Replicate()
+    rules = [([r, r], [r, r, r, None, None, None, _opt(q_pos, r),
+                       _opt(k_pos, r), None]),
+             ([s0, lse_on], [s0, s0, s0, None, None, None, _opt(q_pos, s0),
+                             _opt(k_pos, s0), None])]
+    split = _flash_head_split(q, k)
+    if split:
+        kv = Shard(2) if split == "kv" else r
+        rules.append(([Shard(2), Shard(1) if want_lse else r],
+                      [Shard(2), kv, kv, None, None, None, _opt(q_pos, r),
+                       _opt(k_pos, r), None]))
+    return rules
+
+
+def _flash_bwd_rules(q, k, v, out, lse, dout, causal, window, scale,
+                     q_pos=None, k_pos=None):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, s0 = Replicate(), Shard(0)
+    rules = [([r, r, r], [r] * 6 + [None] * 3 + [_opt(q_pos, r),
+                                                 _opt(k_pos, r)]),
+             ([s0, s0, s0], [s0] * 6 + [None] * 3 + [_opt(q_pos, s0),
+                                                     _opt(k_pos, s0)])]
+    split = _flash_head_split(q, k)
+    if split == "kv":
+        s2 = Shard(2)
+        rules.append(([s2, s2, s2], [s2, s2, s2, s2, Shard(1), s2]
+                      + [None] * 3 + [_opt(q_pos, r), _opt(k_pos, r)]))
+    elif split == "q":
+        # each query shard's gradient of the one kv head is a partial sum
+        s2 = Shard(2)
+        rules.append(([s2, Partial(), Partial()],
+                      [s2, r, r, s2, Shard(1), s2] + [None] * 3
+                      + [_opt(q_pos, r), _opt(k_pos, r)]))
+    return rules
+
+
+def _ssd_fwd_rules(x, dt, a, b, c, chunk, h0=None, keep_states=False):
+    from torch.distributed.tensor import Replicate, Shard
+    r, s0 = Replicate(), Shard(0)
+    kept = s0 if keep_states else r
+    rules = [([r, r, r], [r] * 5 + [None, _opt(h0, r), None]),
+             ([s0, s0, kept], [s0, s0, r, s0, s0, None, _opt(h0, s0),
+                               None])]
+    if _divides(x.tensor_meta.shape[2], x.mesh):
+        rules.append(([Shard(2), Shard(1), Shard(1) if keep_states else r],
+                      [Shard(2), Shard(2), s0, r, r, None,
+                       _opt(h0, Shard(1)), None]))
+    return rules
+
+
+def _ssd_bwd_rules(x, dt, a, b, c, dy, states, dh_last, chunk, h0=None):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, s0, p = Replicate(), Shard(0), Partial()
+    kept = r if states.tensor_meta.shape[0] == 0 else s0
+    rules = [([r] * 6, [r] * 7 + [_opt(dh_last, r), None, _opt(h0, r)]),
+             ([s0, s0, p, s0, s0, s0],
+              [s0, s0, r, s0, s0, s0, kept, _opt(dh_last, s0), None,
+               _opt(h0, s0)])]
+    if _divides(x.tensor_meta.shape[2], x.mesh):
+        h1 = Shard(1)
+        rules.append(([Shard(2), Shard(2), s0, p, p, h1],
+                      [Shard(2), Shard(2), s0, r, r, Shard(2),
+                       r if kept == r else h1, _opt(dh_last, h1), None,
+                       _opt(h0, h1)]))
+    return rules
+
+
+_RULES_REGISTERED = []
+
+
+def register_dtensor_rules() -> None:
+    """Register the four rules with DTensor, once.  Called by whatever
+    builds DTensors (``parallel/sharding.py``); importing DTensor costs
+    ~0.7 s, which a process that never shards does not pay."""
+    if _RULES_REGISTERED:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    for op, rules in ((torch.ops.repro_torch.flash_attention.default,
+                       _flash_fwd_rules),
+                      (torch.ops.repro_torch.flash_attention_bwd.default,
+                       _flash_bwd_rules),
+                      (torch.ops.repro_torch.ssd_scan.default,
+                       _ssd_fwd_rules),
+                      (torch.ops.repro_torch.ssd_scan_bwd.default,
+                       _ssd_bwd_rules)):
+        register_sharding(op)(rules)
+    _RULES_REGISTERED.append(True)
+
+
+# ---------------------------------------------------------------------------
+# FLOP formulas of B5, B6 and their backwards, for FlopCounterMode
+# ---------------------------------------------------------------------------
+def _flash_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """Scores and ``p @ v`` over the full S x S square (the analytic
+    model's convention): ``2 B H S S (D + Dv)``."""
+    b, s, h, d = q_shape
+    return 2 * b * h * s * k_shape[1] * (d + v_shape[-1])
+
+
+def _flash_bwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """The recomputed scores, dV, dP, dQ and dK: ``2 B H S S (3D + 2Dv)``."""
+    b, s, h, d = q_shape
+    return 2 * b * h * s * k_shape[1] * (3 * d + 2 * v_shape[-1])
+
+
+def _ssd_fwd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+                   *args, out_shape=None, **kwargs) -> int:
+    """The SSD core per token (the analytic model's ``_ssd_flops``): the
+    chunk's C B^T row, its W @ x, and the state in and out."""
+    bs, s, h, p = x_shape
+    n = b_shape[-1]
+    q = min(chunk, s)
+    t = bs * s
+    return 2 * t * q * n + 2 * t * q * h * p + 4 * t * n * h * p
+
+
+def _ssd_bwd_flops(*args, out_shape=None, **kwargs) -> int:
+    return 2 * _ssd_fwd_flops(*args[:6])
+
+
+_FLOPS_REGISTERED = []
+
+
+def register_flop_formulas() -> None:
+    """Teach ``torch.utils.flop_counter.FlopCounterMode`` the four
+    operators' work, once (the module costs ~1.5 s to import, so only a
+    caller that counts pays it)."""
+    if _FLOPS_REGISTERED:
+        return
+    from torch.utils.flop_counter import register_flop_formula
+    for op, fn in ((torch.ops.repro_torch.flash_attention, _flash_fwd_flops),
+                   (torch.ops.repro_torch.flash_attention_bwd,
+                    _flash_bwd_flops),
+                   (torch.ops.repro_torch.ssd_scan, _ssd_fwd_flops),
+                   (torch.ops.repro_torch.ssd_scan_bwd, _ssd_bwd_flops)):
+        register_flop_formula(op)(fn)
+    _FLOPS_REGISTERED.append(True)

@@ -220,7 +220,8 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, float("-inf"))
 
 
-def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None):
+def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None,
+                 keep_states: bool = False):
     """Mamba-2 SSD chunked scan from the state ``h0`` (B,H,P,N), or from
     zero for ``None``: the reference's ``models/layers/mamba2.py:
     ssd_chunked`` in torch, chunk by chunk.
@@ -234,7 +235,9 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None):
         h_new  = exp(cum_Q) h + (B o dt exp(cum_Q - cum))^T X
 
     A ragged last chunk is padded with zero steps (dt = 0 leaves the
-    state as it is), as the reference's ``mamba2_apply`` pads.
+    state as it is), as the reference's ``mamba2_apply`` pads.  With
+    ``keep_states`` a third output holds the state entering each chunk,
+    (B,H,chunks,P,N), as B6's kernel keeps them for its backward.
     """
     s = x.shape[1]
     pad = -s % chunk
@@ -252,8 +255,9 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None):
     af = a.to(f32)
     hst = torch.zeros((bs, h, p, n), dtype=f32, device=x.device) \
         if h0 is None else h0.to(f32)
-    ys = []
+    ys, entering = [], []
     for i in range(nc):
+        entering.append(hst)
         xb, dtb, bb, cb = xc[:, i], dtc[:, i], bc[:, i], cc[:, i]
         da = dtb * af                                      # (B,Q,H)
         cum = torch.cumsum(da, dim=1)                      # (B,Q,H)
@@ -269,6 +273,10 @@ def ssd_scan_ref(x, dt, a, b, c, chunk: int, h0=None):
         hst = torch.exp(cum[:, -1, :])[:, :, None, None] * hst + new_state
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bs, sp, h, p)[:, :s]
+    if keep_states:
+        states = torch.stack(entering, dim=2) if entering else \
+            hst.new_zeros((bs, h, 0, p, n))
+        return y.to(x.dtype), hst, states
     return y.to(x.dtype), hst
 
 

@@ -27,6 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers.init import dense_init
 from repro_torch.models.layers.norms import rmsnorm, rmsnorm_init
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.parallel.sharding import constrain_batch, constrain_heads
 
 NEG_INF = -1e30
 
@@ -276,8 +277,9 @@ def mla_decode_absorbed(params, cfg, x, angles, *, cache_ckv, cache_kr,
     is never expanded.  The cache holds the latent normalized at write
     time (``mla_full`` under ``cfg.mla_absorb``, and the write here).
     The products accumulate in fp32 from the activation dtype's operands,
-    as the reference's ``preferred_element_type=float32``; its sharding
-    constraints are the identity here."""
+    as the reference's ``preferred_element_type=float32``, under its
+    sharding constraints (``parallel.sharding.constrain_batch`` /
+    ``constrain_heads``: the identity off-mesh)."""
     b = x.shape[0]
     nq, hd = cfg.num_heads, cfg.resolved_head_dim
     kr = cfg.mla_kv_lora_rank
@@ -285,24 +287,31 @@ def mla_decode_absorbed(params, cfg, x, angles, *, cache_ckv, cache_kr,
     q_nope, q_rope = _mla_q(params, cfg, x, angles)      # (B,1,H,hd)
     ckv_new, kr_new = _mla_kv_latent(params, cfg, x, angles)
     ckv_new = rmsnorm(params["kv_norm"], ckv_new, cfg.norm_eps)
+    # the per-step latent comes r-sharded from w_dkv's sharding: gather the
+    # new entry rather than reshard the cache at the write
+    ckv_new, kr_new = constrain_batch(ckv_new), constrain_batch(kr_new)
     valid = _mla_write(cfg, x, ckv_new, kr_new, cache_ckv, cache_kr, pos)
 
     w_ukv = params["w_ukv"].to(x.dtype).reshape(kr, nq, 2 * hd)
     w_k, w_v = w_ukv[..., :hd], w_ukv[..., hd:]          # (kr, H, hd)
     c_n = cache_ckv                                      # (B, C, kr)
-    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.to(f32), w_k.to(f32))
-    s_nope = torch.einsum("bqhr,bkr->bhqk", q_eff.to(x.dtype).to(f32),
-                          c_n.to(f32))
-    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32),
-                          cache_kr.to(f32))
+    q_eff = constrain_heads(
+        torch.einsum("bqhd,rhd->bqhr", q_nope.to(f32), w_k.to(f32)), 2)
+    s_nope = constrain_heads(
+        torch.einsum("bqhr,bkr->bhqk", q_eff.to(x.dtype).to(f32),
+                     c_n.to(f32)), 1)
+    s_rope = constrain_heads(
+        torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32), cache_kr.to(f32)), 1)
     scale = (hd + cfg.mla_rope_head_dim) ** -0.5
     scores = torch.where(valid[None, None, None, :],
                          (s_nope + s_rope) * scale, NEG_INF)
     probs = torch.softmax(scores, dim=-1)                # (B,H,1,C)
-    o_lat = torch.einsum("bhqk,bkr->bqhr", probs.to(x.dtype).to(f32),
-                         c_n.to(f32))
-    out = torch.einsum("bqhr,rhd->bqhd", o_lat.to(x.dtype).to(f32),
-                       w_v.to(f32))
+    o_lat = constrain_heads(
+        torch.einsum("bhqk,bkr->bqhr", probs.to(x.dtype).to(f32),
+                     c_n.to(f32)), 2)
+    out = constrain_heads(
+        torch.einsum("bqhr,rhd->bqhd", o_lat.to(x.dtype).to(f32),
+                     w_v.to(f32)), 2)
     out = out.reshape(b, 1, nq * hd).to(x.dtype)
     out = torch.matmul(out, params["wo"].to(x.dtype))
     return out, (cache_ckv, cache_kr)

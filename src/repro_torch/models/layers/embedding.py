@@ -55,7 +55,7 @@ def merge_patch_embeds(tok_embeds: torch.Tensor, patch_embeds: torch.Tensor,
         1, pos, torch.where(valid, 0.0, 1.0).to(tok_embeds.dtype), "amin")
     rows = (torch.arange(b, device=pos.device)[:, None] * s + pos).reshape(-1)
     added = torch.zeros((b * s, d), dtype=tok_embeds.dtype,
-                        device=tok_embeds.device).index_add_(
+                        device=tok_embeds.device).index_add(
         0, rows, updates.reshape(-1, d)).reshape(b, s, d)
     return tok_embeds * keep[..., None] + added
 

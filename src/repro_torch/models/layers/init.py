@@ -22,11 +22,13 @@ _DEFER = contextvars.ContextVar("defer_draws", default=False)
 
 
 class Draw:
-    """A weight not drawn yet: ``draw(dtype)`` draws it, float32 values
-    cast to ``dtype`` (None: float32) chunk by chunk."""
+    """A weight not drawn yet, of shape ``shape``: ``draw(dtype)`` draws
+    it, float32 values cast to ``dtype`` (None: float32) chunk by
+    chunk."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, shape):
         self._fn = fn
+        self.shape = tuple(shape)
 
     def __call__(self, dtype=None) -> torch.Tensor:
         return self._fn(dtype)
@@ -43,8 +45,8 @@ def deferred():
         _DEFER.reset(token)
 
 
-def _draw_or_defer(fn):
-    return Draw(fn) if _DEFER.get() else fn(None)
+def _draw_or_defer(fn, shape):
+    return Draw(fn, shape) if _DEFER.get() else fn(None)
 
 
 def dense_init(key: torch.Tensor, shape, scale: float = 1.0):
@@ -55,10 +57,10 @@ def dense_init(key: torch.Tensor, shape, scale: float = 1.0):
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale * (fan_in ** -0.5)
     return _draw_or_defer(lambda dtype: prng.truncated_normal(
-        key, -2.0, 2.0, shape, scale=std, dtype=dtype))
+        key, -2.0, 2.0, shape, scale=std, dtype=dtype), shape)
 
 
 def embed_init(key: torch.Tensor, shape, scale: float = 1.0):
     """``scale`` times a standard normal (the reference's ``embed_init``)."""
     return _draw_or_defer(lambda dtype: prng.normal(
-        key, shape, scale=scale, dtype=dtype))
+        key, shape, scale=scale, dtype=dtype), shape)

@@ -69,7 +69,10 @@ def _split_proj(cfg, proj):
 def _causal_conv(x, w, b):
     """Depthwise causal conv: x (B,S,C), w (W,C)."""
     width = w.shape[0]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    # zeros before the sequence: F.pad's values, by a concatenation,
+    # which DTensor places on a 2-D mesh in every torch the port runs on
+    xp = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x],
+                   dim=1)
     out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(width))
     return out + b
 

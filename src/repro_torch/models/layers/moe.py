@@ -18,9 +18,11 @@ tokens before drops.  A shared expert runs on every token.
 
 Every step is an out-of-place tensor op with shapes from the input's
 shape alone, so the block runs under ``torch.func.vmap(grad)`` (the
-batched federation path).  There is no mesh, so the reference's
-``constrain_batch`` / ``constrain_expert_rows`` are the identity here
-(ROADMAP.md A17).
+batched federation path).  The groups are pinned to the data axes
+(``parallel.sharding.constrain_batch``, the reference's site; the
+identity off-mesh), so under a mesh the routing math is shard-local; a
+batch sharded over more ways than there are groups is first gathered to
+the axes the groups fill (``constrain_groups``).
 
 :func:`record_routes` collects each call's routing (experts, the gap
 between the k-th and (k+1)-th probability, the slots kept), for
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.models.layers.init import dense_init
+from repro_torch.parallel.sharding import constrain_batch, constrain_groups
 
 # rows after the buffer's E*G*cg that dropped tokens are sent to
 _PAD_ROWS = 256
@@ -105,7 +108,8 @@ def moe_apply(params, cfg, x: torch.Tensor):
     tg = t // grp
     cg = max(int(tg * k * cfg.moe.capacity_factor / e), 1)
     dev = x.device
-    xt = x.reshape(grp, tg, d)
+    # the group dim on the data axes: groups == data shards
+    xt = constrain_batch(constrain_groups(x, grp).reshape(grp, tg, d))
 
     logits = torch.matmul(xt.to(torch.float32),
                           params["router"].to(torch.float32))

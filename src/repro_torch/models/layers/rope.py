@@ -43,9 +43,8 @@ def mrope_angles(positions_thw: torch.Tensor, head_dim: int, theta: float,
     dev = positions_thw.device
     idx = torch.arange(0, half, dtype=torch.float32, device=dev)
     freqs = 1.0 / (theta ** (idx / half))
-    section_id = torch.repeat_interleave(
-        torch.arange(3, device=dev),
-        torch.tensor(list(sections), device=dev))
+    section_id = torch.tensor([i for i, n in enumerate(sections)
+                               for _ in range(n)], device=dev)
     pos = positions_thw.to(torch.float32)[section_id]   # (half, B, S)
     return pos.permute(1, 2, 0) * freqs
 

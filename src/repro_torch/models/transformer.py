@@ -18,9 +18,12 @@ embedding and head), where the reference stacks the units on a leading
 axis for ``lax.scan`` and the port keeps a list of per-unit dicts and
 loops over it in Python.  A unit is a layer, or with ``moe_every == 2``
 the pair ``{"dense_sub", "moe_sub"}``, so a llama4 tree holds
-``num_layers // 2`` units (the reference's ``_unit_layout``).  There is
-no mesh, so the reference's ``constrain_batch`` is the identity here
-(ROADMAP.md A17).  Positions
+``num_layers // 2`` units (the reference's ``_unit_layout``).  Under a
+mesh (``parallel.sharding.use_abstract_mesh``, on DTensor activations)
+each unit's input and output and the head's input are pinned
+batch-sharded and the logits batch- and vocab-sharded, at the
+reference's sites (``constrain_batch``, ``constrain_batch_and_last``;
+the identity off-mesh).  Positions
 are the batch's ``positions`` (B, S) where it has them (left-padded
 prompts: ``arange(S) - pad``), which the rotary angles read and the
 attention mask compares (B5 skips the pad keys; a pad query attends
@@ -37,6 +40,7 @@ Public entry points:
   * ``init_params``      — parameter tree (fp32 masters, or the serving
                            dtype for the weights read through a cast)
                            from a threefry key, the reference's values
+  * ``init_param_shapes`` — the same tree as empty (meta) tensors, no draw
   * ``forward_train``    — full-sequence logits and the summed MoE aux
   * ``xent_loss``, ``train_loss``, ``train_loss_sum`` — the training
                            objective (next-token labels, or audio's
@@ -76,6 +80,9 @@ from repro_torch.models.layers.norms import (layernorm, layernorm_init,
                                              rmsnorm, rmsnorm_init)
 from repro_torch.models.layers.rope import (mrope_angles, rope_angles,
                                             text_mrope_positions)
+from repro_torch.parallel.sharding import (constrain_batch,
+                                           constrain_batch_and_last,
+                                           constrain_lookup)
 
 Params = Dict[str, Any]
 
@@ -84,9 +91,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for a kind of ``cfg`` that is no transformer (the NTMs run
     through ``repro_torch.api``)."""
     if cfg.kind not in (DENSE, MOE, SSM, HYBRID, VLM, AUDIO):
-        raise NotImplementedError(
-            f"{cfg.name}: kind {cfg.kind!r} not in the port yet "
-            f"(ROADMAP.md A16b)")
+        raise ValueError(
+            f"{cfg.name}: kind {cfg.kind!r} is no transformer; the NTMs "
+            f"run through repro_torch.api")
 
 
 def _check_decoder(cfg: ModelConfig) -> None:
@@ -235,6 +242,30 @@ def init_params(key: torch.Tensor, cfg: ModelConfig, dtype=None) -> Params:
     return _map_leaves(tree, draw)
 
 
+def init_param_shapes(cfg: ModelConfig, dtype=None, *,
+                      device="meta") -> Params:
+    """The tree :func:`init_params` gives, as empty tensors on ``device``
+    (``meta``: shapes and dtypes, no storage) and with no weight drawn:
+    the tree is built with every draw deferred, and each leaf is read off
+    its :class:`~repro_torch.models.layers.init.Draw` (the few leaves
+    computed in place, norm scales and the SSM's constants, are small).
+    What the dry run shards, where a fake-tensor threefry draw of a MoE
+    tree would take minutes on the host."""
+    check_supported(cfg)
+    with deferred():
+        tree = _init_tree(prng.PRNGKey(0), cfg)
+
+    def empty(path, leaf):
+        cast = dtype if dtype is not None and dtype != torch.float32 \
+            and _read_through_cast(cfg, path) else None
+        if isinstance(leaf, Draw):
+            return torch.empty(leaf.shape, dtype=cast or torch.float32,
+                               device=device)
+        return torch.empty(leaf.shape, dtype=cast or leaf.dtype,
+                           device=device)
+    return _map_leaves(tree, empty)
+
+
 # weights the layers read only through a cast to the activation dtype
 _CAST_ONLY = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "in_proj",
               "out_proj", "w_gate", "w_up", "w_down", "b_up", "b_down",
@@ -340,7 +371,7 @@ def _embed_input(params, cfg, batch, dtype):
         x = masked_prediction_embed({"mask_embed": params["mask_embed"]}, x,
                                     batch["frame_mask"])
         return x + params["pos_embed"][:x.shape[1]].to(dtype)
-    x = embed(params["embed"], batch["tokens"], dtype)
+    x = constrain_lookup(embed(params["embed"], batch["tokens"], dtype))
     if cfg.kind == VLM and "patch_embeds" in batch:
         x = merge_patch_embeds(x, batch["patch_embeds"],
                                batch["patch_positions"])
@@ -368,14 +399,19 @@ def _run_layers_full(params, cfg, x, angles, positions, *, causal: bool,
     caches: List[Any] = []
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat_layers and not want_cache and torch.is_grad_enabled()
+
+    def unit(x, lp):
+        x, cache, a = _unit_full(cfg, lp, constrain_batch(x), angles,
+                                 positions, causal)
+        return constrain_batch(x), cache, a
+
+    x = constrain_batch(x)
     for lp in params["layers"]:
         if remat:
-            x, a = checkpoint(
-                lambda x, lp: _unit_full(cfg, lp, x, angles, positions,
-                                         causal)[::2],
-                x, lp, use_reentrant=False)
+            x, a = checkpoint(lambda x, lp: unit(x, lp)[::2], x, lp,
+                              use_reentrant=False)
         else:
-            x, cache, a = _unit_full(cfg, lp, x, angles, positions, causal)
+            x, cache, a = unit(x, lp)
             if want_cache:
                 caches.append(cache)
         if a is not None:
@@ -384,11 +420,14 @@ def _run_layers_full(params, cfg, x, angles, positions, *, causal: bool,
 
 
 def _logits(params, cfg, x):
+    x = constrain_batch(x)
     if cfg.kind == AUDIO:
-        return lm_head(params["pred_head"], x)
-    if cfg.tie_embeddings:
-        return lm_head_tied(params["embed"], x)
-    return lm_head(params["lm_head"], x)
+        logits = lm_head(params["pred_head"], x)
+    elif cfg.tie_embeddings:
+        logits = lm_head_tied(params["embed"], x)
+    else:
+        logits = lm_head(params["lm_head"], x)
+    return constrain_batch_and_last(logits)
 
 
 def forward_train(params, cfg: ModelConfig, batch, *, dtype=None):
@@ -416,7 +455,12 @@ def xent_loss(logits, labels, mask=None):
     not the mean, is what lets the federated protocol weight clients by
     their token counts (Eq. 2)."""
     logp = F.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+    # the log-probability of each label: a pick, as a gather, whose
+    # backward DTensor shards with the batch (a gather's backward
+    # scatters into zeros of the whole global shape)
+    ll = -F.nll_loss(logp.reshape(-1, logp.shape[-1]),
+                     labels.reshape(-1).to(torch.int64),
+                     reduction="none").reshape(labels.shape)
     mask = torch.ones_like(ll) if mask is None else mask.to(torch.float32)
     return -torch.sum(ll * mask), torch.sum(mask)
 
@@ -603,7 +647,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, batch=None,
     b = tokens.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, device=tokens.device)
-    x = embed(params["embed"], tokens, dtype)
+    x = constrain_lookup(embed(params["embed"], tokens, dtype))
     angles = _angles_for(cfg, batch or {}, positions)
     for i, lp in enumerate(params["layers"]):
         for sub, kv in _sub_layers(cfg, lp):

@@ -2273,3 +2273,73 @@ def test_mamba2_from_a_carried_state_card_vs_cpu(cuda_device):
     from repro_torch.models import agreement
     r = agreement.ssm_state_card_vs_cpu(get_config("mamba2-1.3b").reduced())
     assert max(r["devs"]) <= 2e-4 and r["launches"] == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the remat policies and the forward operators on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_step_on_card_matches_none(cuda_device, remat):
+    """Reduced hymba-1.5b, one fp32 sgd step on the card: under ``"full"``
+    and ``"dots"`` the loss and new parameters within 1e-6 of
+    ``"none"``'s; B5 and B6 launch twice a layer (the backward's
+    recomputation runs the kernels, never the plain versions), their
+    backwards once."""
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_config("hymba-1.5b").reduced()
+    params = tfm.init_params(prng.PRNGKey(0, device=cuda_device), cfg)
+    toks = torch.from_numpy(rng_tokens(cfg.vocab_size, 2, 129)).to(
+        cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for policy in ("none", remat):
+        step = make_train_step(cfg, sgd(2e-3), dtype=torch.float32,
+                               remat=policy)
+        before = (flash_attention.launches, ssd_scan.launches,
+                  flash_attention.bwd_launches, ssd_scan.bwd_launches)
+        out[policy] = step(params, {}, batch, 0)
+        torch.cuda.synchronize()
+        after = (flash_attention.launches, ssd_scan.launches,
+                 flash_attention.bwd_launches, ssd_scan.bwd_launches)
+        fwd = cfg.num_layers * (1 if policy == "none" else 2)
+        assert [y - x for x, y in zip(before, after)] == \
+            [fwd, fwd, cfg.num_layers, cfg.num_layers], policy
+    (new, _, loss), (base, _, base_loss) = out[remat], out["none"]
+    assert abs(float(loss) - float(base_loss)) <= 1e-6 * abs(float(loss))
+    for a, b in zip(_leaves(new), _leaves(base)):
+        scale = max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) / scale <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_operators_launch_the_kernels_bitwise(cuda_device, dtype,
+                                                      rng):
+    """``repro_torch::flash_attention`` and ``repro_torch::ssd_scan`` on
+    CUDA tensors are the kernels: bitwise the direct kernel calls, one
+    launch each, with and without the outputs the backward reads."""
+    def t(*shape, lo=None, hi=None, dt=dtype):
+        x = rng.standard_normal(shape) if lo is None \
+            else rng.uniform(lo, hi, shape)
+        return torch.from_numpy(x.astype(np.float32)).to(cuda_device, dt)
+    q, k, v = t(2, 256, 8, 64), t(2, 256, 2, 64), t(2, 256, 2, 64)
+    for want_lse in (True, False):
+        c0 = flash_attention.launches
+        out, lse = torch.ops.repro_torch.flash_attention(
+            q, k, v, True, 64, 0.125, None, None, want_lse)
+        assert flash_attention.launches == c0 + 1
+        want = flash_attention_cuda(q, k, v, causal=True, window=64,
+                                    scale=0.125, want_lse=True)
+        assert torch.equal(out, want[0])
+        assert torch.equal(lse, want[1]) if want_lse else lse.numel() == 0
+    x = t(2, 300, 4, 64)
+    dt_, a = t(2, 300, 4, lo=0.01, hi=0.1, dt=torch.float32), \
+        t(4, lo=-2.0, hi=-0.5, dt=torch.float32)
+    b, c = t(2, 300, 16), t(2, 300, 16)
+    for keep in (True, False):
+        c0 = ssd_scan.launches
+        y, h_last, states = torch.ops.repro_torch.ssd_scan(
+            x, dt_, a, b, c, 128, None, keep)
+        assert ssd_scan.launches == c0 + 1
+        want = ssd_scan_cuda(x, dt_, a, b, c, chunk=128, keep_states=True)
+        assert torch.equal(y, want[0]) and torch.equal(h_last, want[1])
+        assert torch.equal(states, want[2]) if keep else states.numel() == 0

@@ -506,9 +506,23 @@ def test_forward_only_wrappers_refuse_grad_before_the_kernel(call,
     """The routing of a CUDA tensor, forced here on CPU tensors.  B1 is
     forward-only: a call that needs a gradient raises before any kernel
     is reached, naming the kernel and A3.  B5 and B6 have backward
-    kernels: a call that needs a gradient goes through their autograd
-    Function on to the kernel wrapper, as one that needs none does (the
-    wrapper then refuses the CPU tensors)."""
+    kernels and route by their operators' dispatch key: a call that
+    needs a gradient goes through their autograd Function on to the
+    operator, as one that needs none does (on CPU tensors the operator
+    is the plain version; the kernel wrapper it calls on CUDA tensors
+    refuses CPU tensors)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch":
+                self.ops.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     if call == "topic_decoder":
         args = [torch.ones(2, 3), torch.ones(3, 5), torch.ones(2, 5), None]
@@ -520,18 +534,26 @@ def test_forward_only_wrappers_refuse_grad_before_the_kernel(call,
         args = [torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
                 torch.zeros(2), torch.zeros(1, 8, 4), torch.zeros(1, 8, 4)]
         fn = ops.ssd_scan
-    with pytest.raises(ValueError, match="CUDA"):
-        fn(*args)
     grad = [a if a is None else a.clone().requires_grad_(i == 1)
             for i, a in enumerate(args)]
     if call == "topic_decoder":
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
         with pytest.raises(RuntimeError, match=f"{call}.*forward-only.*A3"):
             fn(*grad)
-    else:
-        with pytest.raises(ValueError, match="CUDA"):
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
             fn(*grad)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        return
+    with Seen() as seen:
         fn(*grad)
+        with torch.no_grad():
+            fn(*grad)
+    assert seen.ops == [f"{call}.default"] * 2
+    kernel = functools.partial(flash_attention_cuda, causal=True, window=0,
+                               scale=1.0) if call == "flash_attention" \
+        else functools.partial(ssd_scan_cuda, chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*args)
 
 
 def test_kernel_sources_and_build_key():

@@ -224,8 +224,9 @@ def test_aggregate_psum_matches_aggregate_host():
 
 
 def test_second_client_axis_refused():
+    # a second client axis the ("data",) mesh does not have
     mesh = fed_mesh(2, "cpu")
-    with pytest.raises(NotImplementedError, match="launch-sizing"):
+    with pytest.raises(ValueError, match="'model' is not an axis"):
         make_federated_train_step(None, sgd(LR), mesh,
                                   client_axes=("data", "model"))
     with pytest.raises(ValueError, match="not an axis"):
