@@ -52,6 +52,12 @@ upload (``_local_message``) and the transform stage on it as a ``(1, D)``
 slab.  :meth:`FederationEngine.state_dict` snapshots everything the next
 round depends on in the reference's tree form (``STATE_FORMAT`` 2), so a
 snapshot of either package resumes in the other.
+
+Each phase of a round runs inside a span of ``repro_torch.trace``: the
+round, its draws, each gradient and its forward, the local update and
+message, the transform stage, the Eq. (2) combine and the server step;
+every blocking device -> host read of a round goes through
+``trace.host_read``.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.checkpoint.checkpoint import host, to_tree, tree_get
 from repro_torch.configs.base import FederatedConfig, RoundConfig
 from repro_torch.core import aggregation as agg
@@ -111,12 +118,14 @@ def client_round_update(grad_fn, params: Mapping[str, torch.Tensor],
                                       round_rng, batch_size=batch_size,
                                       local_epochs=local_epochs):
         grads, loss = grad_fn(local, batch)
-        local = {k: p - learning_rate * grads[k].to(p.dtype)
-                 for k, p in local.items()}
-        tot_loss = tot_loss + loss.detach() * n
+        with trace.span(trace.UPDATE):
+            local = {k: p - learning_rate * grads[k].to(p.dtype)
+                     for k, p in local.items()}
+            tot_loss = tot_loss + loss.detach() * n
         tot_n += n
-    return param_delta(params, local), float(tot_n), \
-        tot_loss / max(tot_n, 1.0)
+    with trace.span(trace.UPDATE):
+        return param_delta(params, local), float(tot_n), \
+            tot_loss / max(tot_n, 1.0)
 
 
 def flat_layout(params: Mapping[str, torch.Tensor]
@@ -461,9 +470,11 @@ class FederationEngine:
             raise ValueError("message='grad' is the single-minibatch "
                              "Algorithm-1 protocol; local_epochs must be 1 "
                              "(use message='delta' for multi-epoch clients)")
-        self._grad_fn = torch.func.grad_and_value(loss_fn)
-        self._stacked_grad = torch.func.vmap(torch.func.grad_and_value(
-            masked_mean_loss(loss_fn, loss_sum_fn)))
+        self._grad_fn = trace.spanned(trace.GRAD, torch.func.grad_and_value(
+            trace.spanned(trace.FORWARD, loss_fn)))
+        self._stacked_grad = trace.spanned(trace.GRAD, torch.func.vmap(
+            torch.func.grad_and_value(trace.spanned(
+                trace.FORWARD, masked_mean_loss(loss_fn, loss_sum_fn)))))
 
         # -- sampler stage -----------------------------------------------
         self.scheduler = RoundScheduler(
@@ -613,12 +624,14 @@ class FederationEngine:
                 (max(len(self.clients), 1), self.layout[-1][2]
                  + self.layout[-1][3]), dtype=torch.float32,
                 device=next(iter(self.params.values())).device)
-        delta_bar = combine_arrivals(arrivals, self.rc.staleness_decay,
-                                     clients=clients, slab=self._slab)
+        with trace.span(trace.COMBINE):
+            delta_bar = combine_arrivals(arrivals, self.rc.staleness_decay,
+                                         clients=clients, slab=self._slab)
         old = self.params
-        self.params, self.server_state = self.server_opt.apply(
-            self.params, delta_bar, self.server_state, r)
-        return _rel_change(old, self.params), len(arrivals), superseded
+        with trace.span(trace.SERVER_STEP):
+            self.params, self.server_state = self.server_opt.apply(
+                self.params, delta_bar, self.server_state, r)
+            return _rel_change(old, self.params), len(arrivals), superseded
 
     def _local_message(self, l: int, round_seed: int):
         """One client's message against ``self.params``: ``(message, n,
@@ -647,9 +660,10 @@ class FederationEngine:
         slab = torch.empty((len(msgs), self.layout[-1][2]
                             + self.layout[-1][3]), dtype=torch.float32,
                            device=next(iter(self.params.values())).device)
-        for row, msg in zip(slab, msgs):
-            torch.cat([msg[name].reshape(-1).to(torch.float32)
-                       for name, _, _, _ in self.layout], out=row)
+        with trace.span(trace.UPDATE):
+            for row, msg in zip(slab, msgs):
+                torch.cat([msg[name].reshape(-1).to(torch.float32)
+                           for name, _, _, _ in self.layout], out=row)
         return slab
 
     def transform_messages(self, msgs: torch.Tensor, client_ids,
@@ -667,16 +681,17 @@ class FederationEngine:
         transform runs once per shard."""
         ids = np.asarray(client_ids, np.int64)
         sharded = isinstance(msgs, list)
-        ctx = StackedTransformCtx(
-            round_seed, ids,
-            np.ones(len(ids), bool) if valid is None else valid,
-            weights.to(self._mesh.first if sharded else msgs.device,
-                       torch.float32), self._nmask,
-            self.layout, self._mesh if sharded else None)
-        for name, t in self._transforms:
-            msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
-            if name in self._tstate:
-                self._tstate[name] = st
+        with trace.span(trace.TRANSFORMS):
+            ctx = StackedTransformCtx(
+                round_seed, ids,
+                np.ones(len(ids), bool) if valid is None else valid,
+                weights.to(self._mesh.first if sharded else msgs.device,
+                           torch.float32), self._nmask,
+                self.layout, self._mesh if sharded else None)
+            for name, t in self._transforms:
+                msgs, st = t.stacked(msgs, ctx, self._tstate.get(name))
+                if name in self._tstate:
+                    self._tstate[name] = st
         return msgs
 
     def transform_message(self, l: int, msg: Mapping[str, torch.Tensor],
@@ -722,7 +737,7 @@ class FederationEngine:
         rel, arrived, superseded = self._deliver_and_apply(
             r, fresh, fresh_clients)
         reads = losses + ([rel] if rel is not None else [])
-        host = torch.stack(reads).cpu().numpy() if reads else np.zeros(0)
+        host = trace.host_read(torch.stack(reads)) if reads else np.zeros(0)
         return {"round": r,
                 "loss": float(np.average(host[:len(losses)],
                                          weights=loss_w))
@@ -751,8 +766,9 @@ class FederationEngine:
                 {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
                  for n, p in params.items()},
                 {n: v[:, 0] for n, v in stacked.items()})
-            return torch.cat([grads[n].reshape(k, -1)
-                              for n in params], dim=1), loss[:, None]
+            with trace.span(trace.UPDATE):
+                return torch.cat([grads[n].reshape(k, -1)
+                                  for n in params], dim=1), loss[:, None]
         lr = self.fed.learning_rate
         local = {n: p.unsqueeze(0).expand((k,) + tuple(p.shape))
                  for n, p in params.items()}
@@ -760,19 +776,21 @@ class FederationEngine:
         for s in range(self._e_max):
             grads, loss = self._stacked_grad(
                 local, {n: v[:, s] for n, v in stacked.items()})
-            stepped = {n: p - lr * grads[n].to(p.dtype)
-                       for n, p in local.items()}
-            if self._hetero:
-                keep = torch.from_numpy(s < e_counts).to(loss.device)
-                stepped = {n: torch.where(
-                    keep.reshape((-1,) + (1,) * (v.dim() - 1)), v, local[n])
-                    for n, v in stepped.items()}
-                loss = torch.where(keep, loss, torch.zeros_like(loss))
+            with trace.span(trace.UPDATE):
+                stepped = {n: p - lr * grads[n].to(p.dtype)
+                           for n, p in local.items()}
+                if self._hetero:
+                    keep = torch.from_numpy(s < e_counts).to(loss.device)
+                    stepped = {n: torch.where(
+                        keep.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                        local[n]) for n, v in stepped.items()}
+                    loss = torch.where(keep, loss, torch.zeros_like(loss))
             local = stepped
             losses.append(loss)
-        msgs = torch.cat([(local[n] - p).reshape(k, -1)
-                          for n, p in params.items()], dim=1)
-        return msgs, torch.stack(losses, dim=1)
+        with trace.span(trace.UPDATE):
+            msgs = torch.cat([(local[n] - p).reshape(k, -1)
+                              for n, p in params.items()], dim=1)
+            return msgs, torch.stack(losses, dim=1)
 
     def _sharded_messages(self, stacked: Mapping[str, torch.Tensor],
                           e_counts: np.ndarray
@@ -847,22 +865,24 @@ class FederationEngine:
         due_w = np.where(due, wt, 0).astype(np.float32)
         total = due_w.sum(dtype=np.float32) + total
         acc = None
-        if due.any():
-            coef = due_w * np.power(np.float32(self.rc.staleness_decay),
-                                    age.astype(np.float32))
-            acc = ops.fed_weighted_sum(ring["delta"], torch.from_numpy(
-                coef.astype(np.float32)), mesh=self._mesh)
-        if fresh is not None and (fresh_w > 0).any():
-            part = ops.fed_weighted_sum(msgs, torch.from_numpy(fresh_w),
-                                        mesh=self._mesh)
-            acc = part if acc is None else acc + part
+        with trace.span(trace.COMBINE):
+            if due.any():
+                coef = due_w * np.power(np.float32(self.rc.staleness_decay),
+                                        age.astype(np.float32))
+                acc = ops.fed_weighted_sum(ring["delta"], torch.from_numpy(
+                    coef.astype(np.float32)), mesh=self._mesh)
+            if fresh is not None and (fresh_w > 0).any():
+                part = ops.fed_weighted_sum(msgs, torch.from_numpy(fresh_w),
+                                            mesh=self._mesh)
+                acc = part if acc is None else acc + part
+            bar = acc / float(total) if total > 0 else None
         rel = None
-        if total > 0:
+        if bar is not None:
             old = self.params
-            self.params, self.server_state = self.server_opt.apply(
-                self.params, self._unflatten(acc / float(total)),
-                self.server_state, r)
-            rel = _rel_change(old, self.params)
+            with trace.span(trace.SERVER_STEP):
+                self.params, self.server_state = self.server_opt.apply(
+                    self.params, self._unflatten(bar), self.server_state, r)
+                rel = _rel_change(old, self.params)
         gone = due | sup
         wt[gone] = 0.0
         ring["due"][gone] = -1
@@ -904,19 +924,21 @@ class FederationEngine:
                 rel, arrived, superseded = self._ring_deliver(r)
                 in_flight = int((self._ring["weight"] > 0).sum())
             return {"round": r, "loss": float("nan"),
-                    "rel_change": 0.0 if rel is None else float(rel),
+                    "rel_change": 0.0 if rel is None
+                    else float(trace.host_read(rel)),
                     "participants": 0, "arrived": arrived,
                     "superseded": superseded, "in_flight": in_flight}
         mesh = self._mesh
         k_fix = self.scheduler.clients_per_round if self._pad \
             else len(cohort)
-        stacked, counts = stacked_round_batches(
-            [self.clients[l].data for l in cohort],
-            [self.clients[l].num_docs for l in cohort],
-            prng.PRNGKey(round_seed), cohort,
-            batch_size=self.batch_size, local_epochs=self._e_max,
-            pad_to=k_fix,
-            shard_multiple=mesh.size if mesh is not None else None)
+        with trace.span(trace.BATCHES):
+            stacked, counts = stacked_round_batches(
+                [self.clients[l].data for l in cohort],
+                [self.clients[l].num_docs for l in cohort],
+                prng.PRNGKey(round_seed), cohort,
+                batch_size=self.batch_size, local_epochs=self._e_max,
+                pad_to=k_fix,
+                shard_multiple=mesh.size if mesh is not None else None)
         e_counts = np.zeros((k_fix,), np.int64)
         e_counts[:len(cohort)] = self._epochs[cohort]
         ids = np.zeros((k_fix,), np.int64)
@@ -935,10 +957,12 @@ class FederationEngine:
         if self._transforms:
             msgs = self.transform_messages(msgs, ids, w, round_seed, valid)
         # padded rows are absent: re-zeroed after the transform stage
-        if mesh is None:
-            msgs = _zero_rows(msgs, valid)
-        else:
-            msgs = [_zero_rows(m, v) for m, v in zip(msgs, mesh.split(valid))]
+        with trace.span(trace.COMBINE):
+            if mesh is None:
+                msgs = _zero_rows(msgs, valid)
+            else:
+                msgs = [_zero_rows(m, v)
+                        for m, v in zip(msgs, mesh.split(valid))]
         rel, arrived, superseded, in_flight = 0.0, len(cohort), 0, 0
         if self._stale_enabled:
             if self._ring is None:
@@ -949,17 +973,20 @@ class FederationEngine:
             rel_t, n_due, superseded = self._ring_deliver(
                 r, (msgs, weights, delays, ids))
             self._ring_insert(r, msgs, weights, delays, ids)
-            rel = 0.0 if rel_t is None else float(rel_t)
+            rel = 0.0 if rel_t is None else float(trace.host_read(rel_t))
             arrived = int(((delays == 0) & valid).sum()) + n_due
             in_flight = int((self._ring["weight"] > 0).sum())
         elif weights.sum() > 0:
-            bar = ops.fed_weighted_combine(msgs, w, mesh=mesh)
+            with trace.span(trace.COMBINE):
+                bar = ops.fed_weighted_combine(msgs, w, mesh=mesh)
             old = self.params
-            self.params, self.server_state = self.server_opt.apply(
-                self.params, self._unflatten(bar), self.server_state, r)
-            rel = float(_rel_change(old, self.params))
+            with trace.span(trace.SERVER_STEP):
+                self.params, self.server_state = self.server_opt.apply(
+                    self.params, self._unflatten(bar), self.server_state, r)
+                rel_t = _rel_change(old, self.params)
+            rel = float(trace.host_read(rel_t))
 
-        losses = np.where(counts > 0, losses.detach().cpu().numpy(), 0.0)
+        losses = np.where(counts > 0, trace.host_read(losses), 0.0)
         client_loss = (losses * counts).sum(axis=1) \
             / np.maximum(counts.sum(axis=1), 1.0)
         return {"round": r,
@@ -1163,16 +1190,17 @@ class FederationEngine:
         """Sample cohort -> local updates -> transforms -> staleness
         routing -> Eq. (2) combine -> server-optimizer update; ``seed`` is
         the round's draw seed (default: the round index)."""
-        r = self._round
-        round_seed = r if seed is None else int(seed)
-        cohort = self.scheduler.select(r)
-        if self.exec_mode == "vmap":
-            rec = self._round_vmap(r, round_seed, cohort)
-        else:
-            rec = self._round_loop(r, round_seed, cohort)
-        self.history.append(rec)
-        self._round += 1
-        return rec
+        with trace.span(trace.ROUND):
+            r = self._round
+            round_seed = r if seed is None else int(seed)
+            cohort = self.scheduler.select(r)
+            if self.exec_mode == "vmap":
+                rec = self._round_vmap(r, round_seed, cohort)
+            else:
+                rec = self._round_loop(r, round_seed, cohort)
+            self.history.append(rec)
+            self._round += 1
+            return rec
 
     def fit(self, *, seed: int = 0, verbose: bool = False,
             on_round=None) -> Params:

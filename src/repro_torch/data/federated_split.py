@@ -34,6 +34,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import prng
 
 
@@ -196,8 +197,9 @@ def sample_minibatch(data: Dict[str, torch.Tensor], num_docs: int,
     """One client draw from key ``rng``, gathered on the device the
     client corpus lives on, with ``batch["rng"] = fold_in(rng, 1)``."""
     dev = next(iter(data.values())).device
-    idx, model_rng, n = _draw_indices(rng, num_docs, batch_size, dev)
-    batch = {k: v[idx] for k, v in data.items()}
+    with trace.span(trace.BATCHES):
+        idx, model_rng, n = _draw_indices(rng, num_docs, batch_size, dev)
+        batch = {k: v[idx] for k, v in data.items()}
     batch["rng"] = model_rng
     return batch, n
 
